@@ -85,6 +85,20 @@ class EventSequence:
         stop = self.length if stop is None else min(stop, self.length)
         return np.stack([self.reader.frame(i) for i in range(start, stop)])
 
+    def flows(self, start: int = 0, stop: Optional[int] = None) -> Optional[np.ndarray]:
+        """(T, 2, H, W) f32 displacement flows of windows [start, stop): the
+        stored flow times the window's duration (reference
+        h5_dataset.py:239-241), or None when the file holds no flow for the
+        range (the MMP backend holds none)."""
+        stop = self.length if stop is None else min(stop, self.length)
+        if getattr(self.reader, "num_flow", 0) < stop:
+            return None
+        out = []
+        for i in range(start, stop):
+            tf, tl = self.reader.ts_bounds(*(int(v) for v in self.windows[i]))
+            out.append(self.reader.flow(i) * (tl - tf))
+        return np.stack(out).astype(np.float32)
+
     def frames_u8(self, start: int = 0, stop: Optional[int] = None) -> Optional[np.ndarray]:
         """(T, H, W) uint8 frames as stored, or None where the backend stores
         anything else; then ``frames() == frames_u8() / 255``."""

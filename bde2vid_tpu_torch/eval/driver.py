@@ -56,7 +56,8 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
     for s in range(0, T, chunk):
         v = seq.voxels(s, min(s + chunk, T), device=device, batch=cfg.voxel_batch)
         x = crop.pad(v[:, None]).to(dtype)  # (L, 1, B, H', W')
-        preds.append(spec.module(x)["image"].float())
+        with torch.no_grad():
+            preds.append(spec.module(x)["image"].float())
     preds = crop.crop(torch.cat(preds))[:, 0, 0]  # (T, H, W)
 
     u8 = seq.frames_u8(0, T)

@@ -148,6 +148,24 @@ class H5EventReader:
             return np.asarray(img)
         return None
 
+    def ts_bounds(self, idx0: int, idx1: int):
+        """Raw f64 (first, last) absolute timestamps of events [idx0, idx1):
+        the reference's window dt is their f64 difference
+        (h5_dataset.py:215-217,229)."""
+        if idx1 <= idx0:
+            return 0.0, 0.0
+        ts = self.f["events/ts"]
+        return float(ts[idx0]), float(ts[idx1 - 1])
+
+    @property
+    def num_flow(self) -> int:
+        return len(self.f["flow"]) if "flow" in self.f else 0
+
+    def flow(self, i: int) -> np.ndarray:
+        """Stored flow i, (2, H, W) f32 (per-second rates)."""
+        keys = sorted(self.f["flow"].keys())
+        return np.asarray(self.f["flow"][keys[i]], np.float32)
+
     def close(self):
         self.f.close()
 

@@ -19,15 +19,17 @@ def register_model(name: str):
     return deco
 
 
-def build_model(name: str, config: Dict[str, Any], device=None, dtype=torch.float32):
+def build_model(name: str, config: Dict[str, Any], device=None, dtype=torch.float32,
+                train: bool = False):
     """Instantiate a registered model family by name on ``device`` (CUDA
-    unless the CPU is asked for) in ``dtype``."""
+    unless the CPU is asked for) in ``dtype``, in training mode with
+    ``train`` (DropPath active) and evaluation mode otherwise."""
     from bde2vid_tpu_torch.utils.device import resolve_device
 
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {sorted(MODEL_REGISTRY)}")
     dev = resolve_device(device)
-    return MODEL_REGISTRY[name](config=config).to(device=dev, dtype=dtype).eval()
+    return MODEL_REGISTRY[name](config=config).to(device=dev, dtype=dtype).train(train)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,10 @@
 """BDE2VID — the flagship bidirectional sequence model (counterpart of
 ``bde2vid_tpu/models/bde2vid.py``; reference model/BDE2VID/bde2vid.py:12-50
-and bde2vid_cross_scale_propogation_V5.py:17-241). Inference only.
+and bde2vid_cross_scale_propogation_V5.py:17-241). Trains and evaluates: in
+training mode the attention blocks apply DropPath (``drop_path_rate``,
+per-block ``linspace(0, rate, depth)``) with masks from a ``torch.Generator``
+passed to ``forward``; evaluation runs the model under ``torch.no_grad`` in
+the eval driver.
 
 Per level L: a forward and a separate backward ConvLSTM encoder sweep the
 sequence and their outputs are summed; if depths[L] > 0, DFrameAttention
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -51,6 +56,7 @@ class RecurrentConv(nn.Module):
         state = recurrent_initial_state("convlstm", n, y.shape[3], y.shape[4], y.shape[2],
                                         dtype=y.dtype, device=y.device)
         out = torch.empty_like(y)
+        # writing out[i] in place is safe under autograd: no op saves ``out``
         for i in (reversed(range(t)) if reverse else range(t)):
             out[i], state = self.recurrent_block(y[i], state)
         return out
@@ -80,7 +86,8 @@ class BDE2VIDGenerator(nn.Module):
                  num_output_channels: int = 1, act_net: str = "default",
                  buffer_index: Sequence[int] = (-3, -2, -1, 0, 1, 2, 3), q_idx: Optional[int] = None,
                  window_size: Tuple[int, int] = (7, 7), depths: Sequence[int] = (4, 0, 6),
-                 num_heads: int = 16, act_attn: str = "default", use_kernel: bool = False):
+                 num_heads: int = 16, act_attn: str = "default", use_kernel: bool = False,
+                 drop_path_rate: float = 0.2):
         super().__init__()
         act = "relu" if act_net == "default" else act_net
         act_attn = "gelu" if act_attn == "default" else act_attn
@@ -103,8 +110,10 @@ class BDE2VIDGenerator(nn.Module):
         for lvl, ch in enumerate(outs):
             depth = depths[lvl] if lvl < len(depths) else 0
             if depth > 0:
+                dpr = tuple(np.linspace(0, drop_path_rate, depth).tolist())
                 attns.append(DFrameAttention(ch, depth, num_heads, wsz, q_ind=q_idx,
-                                             activation=act_attn, use_kernel=use_kernel))
+                                             activation=act_attn, use_kernel=use_kernel,
+                                             drop_path=dpr))
             elif lvl == num_encoders - 1:
                 attns.append(res_fallback(ch, num_res_blocks))
             else:
@@ -116,9 +125,9 @@ class BDE2VIDGenerator(nn.Module):
         )
         self.predI = nn.Sequential(nn.Identity(), nn.Conv2d(basechannels, num_output_channels, 1))
 
-    def _neighbours(self, merged: torch.Tensor, t: int) -> torch.Tensor:
+    def _neighbours(self, merged, t: int) -> torch.Tensor:
         """(D, ...) buffer of frames t + buffer_index, zeros out of range."""
-        T = merged.shape[0]
+        T = len(merged)
         zero = None
         frames = []
         for off in self.buffer_index:
@@ -130,23 +139,28 @@ class BDE2VIDGenerator(nn.Module):
                 frames.append(zero)
         return torch.stack(frames)
 
-    def _attend(self, attn: DFrameAttention, merged: torch.Tensor) -> torch.Tensor:
-        """Sequential in-place attention over t (reference V5:151-169)."""
-        seq = merged.permute(0, 1, 3, 4, 2).contiguous()  # (T, N, H, W, C) tokens
-        for t in range(seq.shape[0]):
-            seq[t] = attn(self._neighbours(seq, t)) + seq[t]
-        return seq.permute(0, 1, 4, 2, 3)
+    def _attend(self, attn: DFrameAttention, merged: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Sequential attention over t (reference V5:151-169): frame t
+        attends to already-updated past frames and original future frames.
+        The frames live in a list, not in one tensor written in place:
+        autograd refuses an in-place write to a tensor it saved."""
+        seq = list(merged.permute(0, 1, 3, 4, 2).unbind(0))  # T x (N, H, W, C) tokens
+        for t in range(len(seq)):
+            seq[t] = attn(self._neighbours(seq, t), generator) + seq[t]
+        return torch.stack(seq).permute(0, 1, 4, 2, 3)
 
     def _res_fallback(self, res: nn.Sequential, merged: torch.Tensor) -> torch.Tensor:
-        merged = merged.clone()
+        # a list of frames, as in _attend: the convs save the frames they read
+        seq = list(merged.unbind(0))
         off = self.buffer_index[0]
-        for t in range(merged.shape[0]):
+        for t in range(len(seq)):
             i = t + off
-            x = merged[i] if 0 <= i < merged.shape[0] else torch.zeros_like(merged[t])
-            merged[t] = res[1:](x) + merged[t]
-        return merged
+            x = seq[i] if 0 <= i < len(seq) else torch.zeros_like(seq[t])
+            seq[t] = res[1:](x) + seq[t]
+        return torch.stack(seq)
 
-    def forward(self, voxels: torch.Tensor) -> torch.Tensor:
+    def forward(self, voxels: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         T, N = voxels.shape[:2]
         head = self.head(voxels.reshape(T * N, *voxels.shape[2:]))
         target = head.reshape(T, N, *head.shape[1:])
@@ -156,7 +170,7 @@ class BDE2VIDGenerator(nn.Module):
                       + self.backward_encoder[lvl].sweep(target, reverse=True))
             block = self.feat_attns[lvl]
             if isinstance(block, DFrameAttention):
-                merged = self._attend(block, merged)
+                merged = self._attend(block, merged, generator)
             elif block is not None:
                 merged = self._res_fallback(block, merged)
             target = merged
@@ -180,7 +194,9 @@ class BDE2VID(nn.Module):
     """mmengine-registered wrapper (reference bde2vid.py:12-50): takes the
     checkpoint's model config, holds ``generator``, and maps voxels
     (T, N, B, H, W) to ``{"image": (T, N, 1, H, W)}``. Recurrent state lives
-    inside one call, as in the reference (state resets every forward)."""
+    inside one call, as in the reference (state resets every forward).
+    ``forward`` runs with whatever grad mode the caller set; in training
+    mode (``.train()``) a ``torch.Generator`` draws the DropPath masks."""
 
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
@@ -230,8 +246,9 @@ class BDE2VID(nn.Module):
             num_heads=gcfg.get("num_heads", 16),
             act_attn=gcfg.get("act_attn", "default"),
             use_kernel=flag("use_pallas_attention"),
+            drop_path_rate=float(gcfg.get("drop_path_rate", 0.2)),
         )
 
-    @torch.no_grad()
-    def forward(self, voxels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {"image": self.generator(voxels)}
+    def forward(self, voxels: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        return {"image": self.generator(voxels, generator)}

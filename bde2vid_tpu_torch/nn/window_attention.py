@@ -10,14 +10,20 @@ and windows ``(D, B*nW, Wh, Ww, C)``. Module parameter names follow the
 reference torch state dict (``attn.q.weight``, ``mlp.fc1.weight``, ...).
 
 With ``use_kernel`` a block runs whole in one call of
-``ops.window_attn_cuda.fused_swin_block`` (the CUDA kernel on CUDA tensors,
-its plain twin on CPU tensors); without it, the unfused PyTorch body runs.
+``ops.window_attn_cuda.fused_swin_block`` (the CUDA kernels on CUDA tensors,
+their plain twins on CPU tensors, differentiable either way); without it,
+the unfused PyTorch body runs.
+
+Stochastic depth (timm DropPath, JAX ``_drop_path``) acts per sample in
+training mode: the attention branch's mask is drawn first, the MLP branch's
+second, from a ``torch.Generator`` the caller passes in; both paths draw the
+same two masks, so with one generator seed they give the same result.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -276,27 +282,44 @@ class SwinTransformerBlock3D(nn.Module):
     (reference :210-306; norm1 is commented out in the reference too)."""
 
     def __init__(self, dim: int, num_heads: int, window_size=(3, 8, 8), dilate_win: bool = False,
-                 q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False):
+                 q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False,
+                 drop_path: float = 0.0):
         super().__init__()
         self.window_size = tuple(window_size)
         self.dilate_win = dilate_win
         self.q_ind = self.window_size[0] // 2 if q_ind is None else q_ind
         self.activation = activation
         self.use_kernel = use_kernel
+        self.drop_path = float(drop_path)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads, q_ind=self.q_ind)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, 4 * dim, activation)  # mlp_ratio 4 (reference default)
 
-    def forward(self, x: torch.Tensor, center: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def keep_masks(self, b: int, device, generator: Optional[torch.Generator]):
+        """The two per-sample stochastic-depth multipliers (attention branch,
+        then MLP branch), each (b,) f32 in {0, 1/keep}; None in eval mode or
+        at drop_path 0."""
+        if not self.training or self.drop_path == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("a training block with drop_path > 0 needs a torch.Generator")
+        keep = 1.0 - self.drop_path
+        probs = torch.full((b,), keep, device=device)
+        return tuple(torch.bernoulli(probs, generator=generator) / keep for _ in range(2))
+
+    def forward(self, x: torch.Tensor, center: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (D, B, H, W, C). With ``center`` (B, H, W, C) the buffer's q_ind
         row is stale and ``center`` is the live centre frame. Returns the new
-        centre (B, H, W, C)."""
+        centre (B, H, W, C). ``generator`` draws the DropPath masks in
+        training mode."""
         d, b, h, w, c = x.shape
         win = get_window_size((h, w), self.window_size[-2:])
+        masks = self.keep_masks(b, x.device, generator)
         if self.use_kernel:
             even_dilated = self.dilate_win and (win[0] % 2 == 0 or win[1] % 2 == 0)
             if not even_dilated:
-                return self._fused_full(x, x[self.q_ind] if center is None else center, win)
+                return self._fused_full(x, x[self.q_ind] if center is None else center, win, masks)
             if x.is_cuda:
                 # the kernel for this case (window_attn_pallas.py::_fused_block_kernel)
                 # is not ported yet; running the plain path here would hide that
@@ -315,8 +338,13 @@ class SwinTransformerBlock3D(nn.Module):
             y = window_reverse_dilated(attn, b, hp, wp)
         else:
             y = window_reverse(attn, b, hp, wp)
-        y = shortcut + y[:, pt : hp - pb, pl : wp - pr]
-        return y + self.mlp(self.norm2(y))
+        y = y[:, pt : hp - pb, pl : wp - pr]
+        if masks is None:
+            y = shortcut + y
+            return y + self.mlp(self.norm2(y))
+        m1, m2 = (mk.to(y.dtype).view(b, 1, 1, 1) for mk in masks)
+        y = shortcut + m1 * y
+        return y + m2 * self.mlp(self.norm2(y))
 
     def kernel_params(self, h: int, w: int, d: int) -> SwinBlockParams:
         a = self.attn
@@ -328,10 +356,12 @@ class SwinTransformerBlock3D(nn.Module):
             a.bias(h, w, d),
         )
 
-    def _fused_full(self, x: torch.Tensor, center: torch.Tensor, win) -> torch.Tensor:
+    def _fused_full(self, x: torch.Tensor, center: torch.Tensor, win, masks=None) -> torch.Tensor:
         """The whole block in one fused_swin_block call. Per-token ops commute
         with the window permutation, so the block's output tokens reverse
-        straight to the new centre frame."""
+        straight to the new centre frame. ``masks``: the per-sample DropPath
+        multipliers, repeated per window for the kernel (windows are
+        sample-major in partition order)."""
         d, b, h, w, c = x.shape
         pt, pb, pl, pr = _window_pads(h, w, win)
         pads = (0, 0, pl, pr, pt, pb)
@@ -342,9 +372,11 @@ class SwinTransformerBlock3D(nn.Module):
         xwin = part(xp, win)
         ctr_tok = part(cp, win)[0].reshape(-1, win[0] * win[1], c)
         x_tok = xwin.reshape(d, -1, win[0] * win[1], c)
+        n_w = x_tok.shape[1] // b
+        win_masks = None if masks is None else tuple(mk.repeat_interleave(n_w) for mk in masks)
         out = fused_swin_block(
             x_tok, ctr_tok, self.kernel_params(win[0], win[1], d),
-            self.attn.num_heads, self.q_ind, self.activation,
+            self.attn.num_heads, self.q_ind, self.activation, masks=win_masks,
         )
         if not self.dilate_win:
             y = window_reverse(out.reshape(-1, win[0], win[1], c), b, hp, wp)
@@ -364,6 +396,10 @@ class SwinTransformerBlock3D(nn.Module):
                 F.linear(z.to(dt), fc1.weight.to(dt)).float() + fc1.bias.float()
             )
             mlp_out = F.linear(hid.to(dt), fc2.weight.to(dt)).float() + fc2.bias.float()
+            if masks is not None:
+                # no attention reaches these pixels (the fold writes zeros),
+                # but their MLP branch still carries the DropPath mask
+                mlp_out = masks[1][:, None, None] * mlp_out
             src = torch.cat([src, (cf + mlp_out).to(src.dtype)], dim=1)
         return src[:, idx].reshape(b, h, w, c)
 
@@ -381,19 +417,21 @@ class DFrameAttention(nn.Module):
     dilation-2 windows. Input (D, B, H, W, C) -> output (B, H, W, C)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size=(1, 7, 7),
-                 q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False):
+                 q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
         self.q_ind = window_size[0] // 2 if q_ind is None else q_ind
         self.blocks = nn.ModuleList(
             SwinTransformerBlock3D(dim, num_heads, window_size, dilate_win=(i % 2 == 1),
-                                   q_ind=self.q_ind, activation=activation, use_kernel=use_kernel)
+                                   q_ind=self.q_ind, activation=activation, use_kernel=use_kernel,
+                                   drop_path=drop_path[i] if i < len(drop_path) else 0.0)
             for i in range(depth)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         center = x[self.q_ind]
         for blk in self.blocks:
-            center = blk(x, center=center)
+            center = blk(x, center=center, generator=generator)
         return center
 
 

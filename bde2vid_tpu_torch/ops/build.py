@@ -20,7 +20,7 @@ from typing import Dict, List
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"swin_block": _CSRC / "swin_block.cu"}
+SOURCES = {"swin_block": _CSRC / "swin_block.cu", "attn_core_bwd": _CSRC / "attn_core_bwd.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -2,15 +2,18 @@
 // Hopper (sm_90a), f32 or bf16 operands with f32 accumulation.
 //
 // Replaces: bde2vid_tpu/ops/window_attn_pallas.py::_fused_swin_kernel (the
-// TPU kernel behind fused_swin_block), unmasked and without the `acc`
-// training output.
+// TPU kernel behind fused_swin_block), with its two training variants: the
+// stochastic-depth masks and the saved `acc` output.
 //
 // What it computes, per window w of B_ and token m of M (N = D*M kv tokens):
 //   kv  = round(LN_kv(x with frame q_ind replaced by ctr) @ Wkv^T + bkv)
 //   q   = round(LN_q(ctr) @ Wq^T + bq)
 //   acc = per head h: round(softmax(q_h k_h^T * hd^-0.5 + bias_h)) @ v_h
-//   y   = ctr + (round(acc) @ Wp^T + bp)
-//   out = y + (round(act(round(LN2(y)) @ W1^T + b1)) @ W2^T + b2)
+//   y   = ctr + m1[w] * (round(acc) @ Wp^T + bp)
+//   out = y + m2[w] * (round(act(round(LN2(y)) @ W1^T + b1)) @ W2^T + b2)
+// where m1, m2 are the per-window stochastic-depth multipliers (null
+// pointers: no masks, and no multiply), and acc is written out, so the
+// training forward returns it for the backward.
 // where round() casts to the operand type exactly where the Pallas body
 // casts (identity for f32). GELU uses the Abramowitz & Stegun 7.1.26 erf
 // (|err| <= 1.5e-7), the same form as the Pallas body and the plain twin.
@@ -188,7 +191,8 @@ struct BlockArgs {
   const float* bias;                                          // (H, M, N) f32
   void* kv;                                                   // scratch (D, B_, M, 2C)
   void* q;                                                    // scratch (B_, M, C)
-  void* acc;                                                  // scratch (B_, M, C)
+  void* acc;                                                  // (B_, M, C)
+  const float *m1, *m2;                                       // (B_,) f32 masks, or null
   void* out;                                                  // (B_, M, C)
 };
 
@@ -353,13 +357,20 @@ __global__ void __launch_bounds__(kThreads) mlp_kernel(BlockArgs a) {
   float acc[1][CPT];
   const int r = r0 + ty;
   const bool row_ok = r < n_rows;
+  // stochastic-depth multipliers of the row's window (rows are window-major)
+  const bool masked = a.m1 != nullptr;
+  const float m1 = masked && row_ok ? a.m1[r / a.m] : 1.f;
+  const float m2 = masked && row_ok ? a.m2[r / a.m] : 1.f;
   for (int o0 = 0; o0 < c; o0 += kTileO) {
     tile_gemm<T, TX, 1>(As, lda, c, static_cast<const T*>(a.w_p), c, o0, Ws, acc);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int o = o0 + tx + TX * j;
-      if (o < c)
-        ys[ty * c + o] = (row_ok ? load(ctr, (size_t)r * c + o) : 0.f) + (acc[0][j] + a.b_p[o]);
+      if (o < c) {
+        float proj = acc[0][j] + a.b_p[o];
+        if (masked) proj *= m1;
+        ys[ty * c + o] = (row_ok ? load(ctr, (size_t)r * c + o) : 0.f) + proj;
+      }
     }
   }
   __syncthreads();
@@ -383,8 +394,11 @@ __global__ void __launch_bounds__(kThreads) mlp_kernel(BlockArgs a) {
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int o = o0 + tx + TX * j;
-      if (o < c && row_ok)
-        out[(size_t)r * c + o] = store_cast<T>(ys[ty * c + o] + (acc[0][j] + a.b_2[o]));
+      if (o < c && row_ok) {
+        float mlp = acc[0][j] + a.b_2[o];
+        if (masked) mlp *= m2;
+        out[(size_t)r * c + o] = store_cast<T>(ys[ty * c + o] + mlp);
+      }
     }
   }
 }
@@ -470,8 +484,9 @@ void swin_block_smem_bytes(int d, int m, int c, int heads, int hidden, long long
 }
 
 // Launches the three kernels on `stream`; returns the first CUDA error code
-// (0 on success). Pointers are device pointers; vectors and the bias are f32,
-// x/ctr/weights/scratch/out are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
+// (0 on success). Pointers are device pointers; vectors, the bias and the
+// masks are f32, x/ctr/weights/scratch/acc/out are f32 (is_bf16 = 0) or
+// bf16 (is_bf16 = 1). m1 and m2 are both null or both (B_,) arrays.
 int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int heads, int hidden,
                        int q_ind, float scale, const void* x, const void* ctr, const float* g_q,
                        const float* b_q_ln, const float* g_kv, const float* b_kv_ln,
@@ -479,7 +494,7 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
                        const void* w_p, const float* b_p, const float* g_2, const float* b_2_ln,
                        const void* w_1, const float* b_1, const void* w_2, const float* b_2,
                        const float* bias, void* kv, void* q, void* acc, void* out,
-                       void* stream) {
+                       const float* m1, const float* m2, void* stream) {
   BlockArgs a;
   a.d = d;
   a.b = b;
@@ -512,6 +527,8 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
   a.q = q;
   a.acc = acc;
   a.out = out;
+  a.m1 = m1;
+  a.m2 = m2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_all<__nv_bfloat16>(a, scale, s) : launch_all<float>(a, scale, s);

@@ -1,0 +1,122 @@
+"""Sequence loss, the train step and checkpoints (counterpart of
+``bde2vid_tpu/train/trainer.py``).
+
+Loss semantics follow the reference BDE2VID in-loop computation
+(bde2vid_cross_scale_propogation_V5.py:210-241):
+
+- losses are evaluated per step, optionally only at ``loss_inds`` (an int n
+  means steps {0, n, 2n, ...} within the first 40, reference :40-43);
+- L1Loss takes (pred, gt); TemporalConsistencyLoss takes (prev_gt, cur_gt,
+  prev_pred, cur_pred, flow) and applies only for t > L0;
+- total = mean over the evaluated steps per loss, summed over losses; the
+  same loss type may appear twice and counts twice.
+
+Images are (T, N, 1, H, W) and flows (T, N, 2, H, W), the port's layout. A
+Python loop over T is the whole computation: the JAX package's ``lax.scan``
+form exists only to bound its trace size.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from bde2vid_tpu_torch.losses import build_loss
+
+
+class SequenceLossComputer:
+    """Builds losses from a config list and evaluates them over an image
+    sequence."""
+
+    def __init__(self, losses_cfg: Sequence[Dict], loss_inds: Optional[Any] = None):
+        # a list of (type, fn) pairs, not a dict keyed by type: two entries of
+        # one type (two L1 terms at different weights) both count
+        self.losses = [(cfg["type"], build_loss(cfg)) for cfg in losses_cfg]
+        if loss_inds is not None and not isinstance(loss_inds, (list, tuple)):
+            loss_inds = [t for t in range(40) if t % int(loss_inds) == 0]
+        self.loss_inds = loss_inds
+
+    def _gate(self, T: int) -> np.ndarray:
+        if self.loss_inds is None:
+            return np.ones(T, bool)
+        g = np.zeros(T, bool)
+        for t in self.loss_inds:
+            if t < T:
+                g[t] = True
+        return g
+
+    def _short_names(self):
+        """Keys of the loss dict; a repeated type gets an index suffix."""
+        seen: Dict[str, int] = {}
+        out = []
+        for name, _ in self.losses:
+            short = "L_" + "".join(c for c in name if c.isupper())
+            k = seen.get(short, 0)
+            seen[short] = k + 1
+            out.append(short if k == 0 else f"{short}{k + 1}")
+        return out
+
+    def __call__(self, preds: torch.Tensor, gts: torch.Tensor,
+                 flows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        T = preds.shape[0]
+        gate = self._gate(T)
+        if flows is None and any(n == "TemporalConsistencyLoss" for n, _ in self.losses):
+            raise ValueError("TemporalConsistencyLoss requires flows")
+        sums = [preds.new_zeros(()) for _ in self.losses]
+        counts = [0] * len(self.losses)
+        prev_gt = prev_pd = None
+        for t in range(T):
+            cur_pd, cur_gt = preds[t], gts[t]
+            if gate[t]:
+                for j, (name, fn) in enumerate(self.losses):
+                    if name == "L1Loss":
+                        v = fn(cur_pd, cur_gt)
+                    elif name == "TemporalConsistencyLoss":
+                        if t <= fn.L0 or prev_gt is None:
+                            continue
+                        v = fn(prev_gt, cur_gt, prev_pd, cur_pd, flows[t])
+                    else:
+                        raise ValueError(f"unknown loss {name}")
+                    sums[j] = sums[j] + v
+                    counts[j] += 1
+            prev_gt, prev_pd = cur_gt, cur_pd
+        loss_dict = {}
+        total = preds.new_zeros(())
+        for j, short in enumerate(self._short_names()):
+            mean = sums[j] / max(counts[j], 1)
+            loss_dict[short] = mean
+            total = total + mean
+        loss_dict["loss"] = total
+        return total, loss_dict
+
+
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               loss_computer: SequenceLossComputer, voxels: torch.Tensor, frames: torch.Tensor,
+               flows: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+               grad_clip: Optional[float] = None, scheduler=None) -> Dict[str, torch.Tensor]:
+    """One step (counterpart of ``make_train_step``): forward in training
+    mode, sequence loss, backward, global-norm clip, optimizer and scheduler
+    step. voxels (T, N, B, H, W), frames (T, N, 1, H, W), flows (T, N, 2, H,
+    W) or None. Returns the detached loss dict."""
+    optimizer.zero_grad(set_to_none=True)
+    preds = model(voxels, generator=generator)["image"]
+    total, loss_dict = loss_computer(preds, frames, flows)
+    total.backward()
+    if grad_clip is not None:
+        torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+    return {k: v.detach() for k, v in loss_dict.items()}
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, model_name: str, config: Dict) -> None:
+    """``{"meta": {"cfg": <python config source>}, "state_dict": ...}``: the
+    mmengine layout the port's ``eval/checkpoint.py`` and the JAX package's
+    ``load_model_from_torch`` both read (the torch-native counterpart of the
+    JAX package's msgpack + json sidecar)."""
+    cfg_text = "model = " + repr({"type": model_name, **config}) + "\n"
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"meta": {"cfg": cfg_text}, "state_dict": state}, path)

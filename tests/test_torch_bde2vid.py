@@ -63,7 +63,8 @@ def _voxels(t, h=56, w=56, seed=0):
 
 
 def _port_images(spec, voxels):
-    out = spec.module(torch.from_numpy(np.ascontiguousarray(voxels.transpose(0, 1, 4, 2, 3))))
+    with torch.no_grad():  # the eval driver's grad mode
+        out = spec.module(torch.from_numpy(np.ascontiguousarray(voxels.transpose(0, 1, 4, 2, 3))))
     return out["image"][:, 0, 0].numpy()
 
 
@@ -107,7 +108,8 @@ def test_flax_params_carried_over_match_jax(depths):
     model = build_model("BDE2VID", cfg, device="cpu")
     load_state_dict_checked(model, state_dict_from_jax(params))
     want = np.asarray(jmod.apply(params, jnp.asarray(v))[0]["image"])[:, 0, :, :, 0]
-    out = model(torch.from_numpy(np.ascontiguousarray(v.transpose(0, 1, 4, 2, 3))))["image"]
+    with torch.no_grad():
+        out = model(torch.from_numpy(np.ascontiguousarray(v.transpose(0, 1, 4, 2, 3))))["image"]
     np.testing.assert_allclose(out[:, 0, 0].numpy(), want, atol=2e-4, rtol=0)
 
 
