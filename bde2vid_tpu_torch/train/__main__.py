@@ -46,13 +46,17 @@ from collections import OrderedDict
 
 import numpy as np
 
+# most sequences a SequenceCache keeps open
+MAX_OPEN_SEQUENCES = 64
+
+
 class SequenceCache:
     """Open sequences kept across windows (re-opening and re-parsing a file
     per window would serialize data assembly with the device step), at most
-    ``max_open`` of them, least recently used first out."""
+    ``MAX_OPEN_SEQUENCES`` of them, least recently used first out."""
 
-    def __init__(self, num_bins: int, ltype: str = "H5", max_open: int = 64):
-        self.num_bins, self.ltype, self.max_open = num_bins, ltype, max_open
+    def __init__(self, num_bins: int, ltype: str = "H5"):
+        self.num_bins, self.ltype = num_bins, ltype
         self._open: "OrderedDict" = OrderedDict()
 
     def __call__(self, path: str):
@@ -62,7 +66,7 @@ class SequenceCache:
             self._open.move_to_end(path)
             return self._open[path]
         seq = self._open[path] = load_sequence(path, num_bins=self.num_bins, ltype=self.ltype)
-        while len(self._open) > self.max_open:
+        while len(self._open) > MAX_OPEN_SEQUENCES:
             self._open.popitem(last=False)[1].reader.close()
         return seq
 
@@ -95,8 +99,8 @@ def _rotate_voxels(v, fwd):
     return out.reshape(L, B, H, W)
 
 
-def _one_window(files, rng, seq_len, open_sequence, pause_cfg, multiple=1, crop_size=None,
-                want_flows=False, rot_cfg=None, device=None):
+def _one_window(files, rng, seq_len, open_sequence, pause_cfg, crop_size=None, want_flows=False,
+                rot_cfg=None, device=None):
     """One training window from ``files``, opened through ``open_sequence``
     (a SequenceCache): voxels (L, B, ch, cw) on ``device``, frames
     (L, 1, ch, cw) on the host (uint8 where stored so, else f32 in [0, 1]),
@@ -132,7 +136,7 @@ def _one_window(files, rng, seq_len, open_sequence, pause_cfg, multiple=1, crop_
             frames = seq.frames(start, start + seq_len)
         frames = frames[idx]
         h, w = int(vox.shape[2]), int(vox.shape[3])
-        ch, cw = _crop_shape((h, w), crop_size, multiple)
+        ch, cw = _crop_shape((h, w), crop_size, 1)
         y0 = int(rng.integers(0, h - ch + 1))
         x0 = int(rng.integers(0, w - cw + 1))
         # pause: paused steps repeat the previous item with zeroed events
@@ -170,8 +174,8 @@ def _discover(data_dir: str, ltype: str):
 
 
 def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, seed=0, multiple=1,
-                             crop_size=None, want_flows=False, rot_cfg=None, start_step=0,
-                             ltype="H5", device=None):
+                             crop_size=None, want_flows=False, rot_cfg=None, ltype="H5",
+                             device=None):
     """Yield (voxels (L, N, B, H, W), frames (L, N, 1, H, W), flows
     (L, N, 2, H, W) or None) batches of ``batch`` independent windows on
     ``device``, one run-wide crop shape (from the smallest sensor, rounded
@@ -188,13 +192,13 @@ def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, se
     sensors = [open_sequence(p).sensor_size for p in files]
     min_hw = (min(s[0] for s in sensors), min(s[1] for s in sensors))
     crop_hw = _crop_shape(min_hw, crop_size, multiple)
-    step = int(start_step)
+    step = 0
     while True:
         rng = np.random.default_rng([int(seed), step])
         step += 1
         vs, fs, fls = zip(*(
-            _one_window(files, rng, seq_len, open_sequence, pause_cfg, 1, crop_hw, want_flows,
-                        rot_cfg, device)
+            _one_window(files, rng, seq_len, open_sequence, pause_cfg, crop_hw, want_flows, rot_cfg,
+                        device)
             for _ in range(batch)
         ))
         # a batch mixing uint8- and float-stored files scales before stacking

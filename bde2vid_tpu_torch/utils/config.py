@@ -1,42 +1,31 @@
-"""Json training config with path overrides and an optional run directory
-(counterpart of ``bde2vid_tpu/utils/config.py``; reference parse_config.py)."""
+"""Json training config with an optional run directory (counterpart of
+``bde2vid_tpu/utils/config.py``; reference parse_config.py)."""
 
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Any, Dict, Mapping, Optional
-
-
-def _set_by_path(tree: Dict, path: str, value) -> None:
-    keys = path.replace(";", "/").replace(".", "/").split("/")
-    node = tree
-    for k in keys[:-1]:
-        node = node.setdefault(k, {})
-    node[keys[-1]] = value
+from typing import Dict, Optional
 
 
 class Config:
-    """A dict wrapper: ``from_json`` with dotted/semicolon path overrides,
-    and with ``make_run_dir`` a ``runs/<name>/<stamp>`` directory holding a
-    copy of the config (reference save_dir, parse_config.py:29-52)."""
+    """A dict wrapper: ``from_json``, and with ``make_run_dir`` a
+    ``runs/<name>/<stamp>`` directory holding a copy of the config (reference
+    save_dir, parse_config.py:29-52)."""
 
     def __init__(self, cfg: Dict, run_dir: Optional[str] = None):
         self.cfg = cfg
         self.run_dir = run_dir
 
     @classmethod
-    def from_json(cls, path: str, overrides: Optional[Mapping[str, Any]] = None,
-                  make_run_dir: bool = False, save_root: str = "runs") -> "Config":
+    def from_json(cls, path: str, make_run_dir: bool = False) -> "Config":
         with open(path) as fp:
             cfg = json.load(fp)
-        for k, v in (overrides or {}).items():
-            _set_by_path(cfg, k, v)
         run_dir = None
         if make_run_dir:
             name = cfg.get("name", os.path.splitext(os.path.basename(path))[0])
-            run_dir = os.path.join(save_root, name, time.strftime("%m%d_%H%M%S"))
+            run_dir = os.path.join("runs", name, time.strftime("%m%d_%H%M%S"))
             os.makedirs(run_dir, exist_ok=True)
             with open(os.path.join(run_dir, "config.json"), "w") as fp:
                 json.dump(cfg, fp, indent=4)

@@ -334,7 +334,7 @@ def attn_bwd_cost(b, m, n, c, heads, elem_bytes):
     read and dq, dk, dv written once in the operand type, bias read and dbias
     written once in f32."""
     flops = 10 * b * m * n * c
-    nbytes = elem_bytes * 2 * (2 * b * m * c + 2 * b * n * c) + 4 * 2 * heads * m * n
+    nbytes = elem_bytes * (3 * b * m * c + 4 * b * n * c) + 4 * 2 * heads * m * n
     return flops, nbytes
 
 

@@ -301,10 +301,22 @@ def test_mmp_windows_match_jax(h5_tree, tmp_path, monkeypatch):
     for seed in range(3):
         args = (3, 5, _PAUSE, 1, (12, 16))
         jv, jf, _ = jtm._one_window(files, np.random.default_rng(seed), *args)
-        pargs = (3, ttm.SequenceCache(5, "MMP"), _PAUSE, 1, (12, 16))
+        pargs = (3, ttm.SequenceCache(5, "MMP"), _PAUSE, (12, 16))
         pv, pf, _ = ttm._one_window(files, np.random.default_rng(seed), *pargs, device="cpu")
         np.testing.assert_allclose(nhwc(pv), np.asarray(jv), atol=1e-5)
         np.testing.assert_allclose(pf[:, 0], np.asarray(jf)[..., 0], atol=1e-6)
+
+
+def test_sequence_cache_closes_the_least_recently_used(h5_tree, monkeypatch):
+    monkeypatch.setattr(ttm, "MAX_OPEN_SEQUENCES", 1)
+    a, b = (str(h5_tree / "h5" / "SYN" / f"{name}.h5") for name in "ab")
+    cache = ttm.SequenceCache(5)
+    sa = cache(a)
+    assert cache(a) is sa
+    sb = cache(b)
+    assert not sa.reader.f and sb.reader.f  # a was closed when b came in
+    assert cache(b) is sb
+    assert cache(a) is not sa and not sb.reader.f
 
 
 def test_rotation_flip_matches_jax_host_twin(rng):

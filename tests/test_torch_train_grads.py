@@ -35,8 +35,14 @@ CONFIGS = {
 }
 
 
-@pytest.mark.parametrize("kernel", [False, True])
-@pytest.mark.parametrize("config", sorted(CONFIGS))
+# both attention paths on the small config; the flagship on the kernel path
+# only (its unfused parity adds half a minute of JAX work and no coverage
+# that the small config lacks)
+@pytest.mark.parametrize("config,kernel", [
+    pytest.param("small", False, id="small-False"),
+    pytest.param("small", True, id="small-True"),
+    pytest.param("flagship", True, id="flagship-True"),
+])
 def test_loss_and_gradients_match_jax_make_loss_fn(config, kernel):
     gcfg, (t, n, h, w) = CONFIGS[config]
     rng = np.random.default_rng(5)
