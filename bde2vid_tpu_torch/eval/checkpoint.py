@@ -22,7 +22,7 @@ from bde2vid_tpu_torch.models.api import ModelSpec, build_model
 
 # tensors the port makes itself: reference-layout extras that a flax tree
 # does not carry (the never-called fusion convs, the relative-position index buffer)
-_DERIVED = (re.compile(r"(^|\.)fusion_layers\."), re.compile(r"\.relative_position_index$"))
+_DERIVED = (re.compile(r"(^|\.)fusion_layers\."), re.compile(r"(^|\.)relative_position_index$"))
 
 
 def load_state_dict_checked(model: torch.nn.Module, state_dict: Mapping[str, Any]) -> None:

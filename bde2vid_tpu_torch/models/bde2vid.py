@@ -10,7 +10,10 @@ Per level L: a forward and a separate backward ConvLSTM encoder sweep the
 sequence and their outputs are summed; if depths[L] > 0, DFrameAttention
 over a buffer of ``t + buffer_index`` neighbour frames (zeros out of range)
 is residual-added frame by frame, in place, so frame t attends to
-already-updated past frames and original future frames. A last level with
+already-updated past frames and original future frames; with
+``parallel_attention`` every frame's buffer reads the original features
+instead and all T frames go through the blocks as one batch (the JAX
+package's ``_AttnParallel``, not the reference's semantics). A last level with
 depth 0 uses norm-free residual blocks instead. The decoder runs with T
 folded into the batch; the last level's skip is the post-attention feature
 twice (the reference's aliased-list quirk, V5:149-150).
@@ -87,12 +90,14 @@ class BDE2VIDGenerator(nn.Module):
                  buffer_index: Sequence[int] = (-3, -2, -1, 0, 1, 2, 3), q_idx: Optional[int] = None,
                  window_size: Tuple[int, int] = (7, 7), depths: Sequence[int] = (4, 0, 6),
                  num_heads: int = 16, act_attn: str = "default", use_kernel: bool = False,
-                 drop_path_rate: float = 0.2):
+                 drop_path_rate: float = 0.2, parallel_attention: bool = False,
+                 nwindow_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         act = "relu" if act_net == "default" else act_net
         act_attn = "gelu" if act_attn == "default" else act_attn
         self.num_encoders = num_encoders
         self.buffer_index = tuple(int(i) for i in buffer_index)
+        self.parallel_attention = parallel_attention
         self.out_activation = get_activation(out_activation)
         ins = [basechannels * 2**i for i in range(num_encoders)]
         outs = [basechannels * 2 ** (i + 1) for i in range(num_encoders)]
@@ -113,7 +118,7 @@ class BDE2VIDGenerator(nn.Module):
                 dpr = tuple(np.linspace(0, drop_path_rate, depth).tolist())
                 attns.append(DFrameAttention(ch, depth, num_heads, wsz, q_ind=q_idx,
                                              activation=act_attn, use_kernel=use_kernel,
-                                             drop_path=dpr))
+                                             drop_path=dpr, nwindow_size=nwindow_size))
             elif lvl == num_encoders - 1:
                 attns.append(res_fallback(ch, num_res_blocks))
             else:
@@ -150,6 +155,26 @@ class BDE2VIDGenerator(nn.Module):
             seq[t] = attn(self._neighbours(seq, t), generator) + seq[t]
         return torch.stack(seq).permute(0, 1, 4, 2, 3)
 
+    def _attend_parallel(self, attn: DFrameAttention, merged: torch.Tensor,
+                         generator: Optional[torch.Generator], slab: int = 128) -> torch.Tensor:
+        """Every frame's buffer reads the original features, so up to
+        ``slab`` frames go through the blocks as one batch, sample-major
+        (JAX ``_AttnParallel``); DropPath draws one mask per (sample, frame)
+        row. Residual-added to ``merged``."""
+        T, N, C, H, W = merged.shape
+        tok = merged.permute(0, 1, 3, 4, 2)
+        # row 0 is the zero frame out-of-range neighbours read
+        padded = torch.cat([torch.zeros_like(tok[:1]), tok])
+        outs = []
+        for s0 in range(0, T, slab):
+            s1 = min(s0 + slab, T)
+            offs = np.arange(s0, s1)[:, None] + np.asarray(self.buffer_index)[None]  # (S, D)
+            rows = np.where((offs >= 0) & (offs < T), offs + 1, 0)
+            buf = padded[torch.as_tensor(rows, device=merged.device)]  # (S, D, N, H, W, C)
+            x = buf.permute(1, 2, 0, 3, 4, 5).reshape(len(self.buffer_index), N * (s1 - s0), H, W, C)
+            outs.append(attn(x, generator).reshape(N, s1 - s0, H, W, C).transpose(0, 1))
+        return merged + torch.cat(outs).permute(0, 1, 4, 2, 3)
+
     def _res_fallback(self, res: nn.Sequential, merged: torch.Tensor) -> torch.Tensor:
         # a list of frames, as in _attend: the convs save the frames they read
         seq = list(merged.unbind(0))
@@ -169,7 +194,9 @@ class BDE2VIDGenerator(nn.Module):
             merged = (self.forward_encoder[lvl].sweep(target)
                       + self.backward_encoder[lvl].sweep(target, reverse=True))
             block = self.feat_attns[lvl]
-            if isinstance(block, DFrameAttention):
+            if isinstance(block, DFrameAttention) and self.parallel_attention:
+                merged = self._attend_parallel(block, merged, generator)
+            elif isinstance(block, DFrameAttention):
                 merged = self._attend(block, merged, generator)
             elif block is not None:
                 merged = self._res_fallback(block, merged)
@@ -186,7 +213,7 @@ class BDE2VIDGenerator(nn.Module):
         return img.reshape(T, N, *img.shape[1:])
 
 
-_UNPORTED_TRUE = ("parallel_attention", "remat")
+_UNPORTED_TRUE = ("remat",)
 
 
 @register_model("BDE2VID")
@@ -223,8 +250,6 @@ class BDE2VID(nn.Module):
                 raise NotImplementedError(f"{key}=True is not ported yet")
         if gcfg.get("norm") is not None:
             raise NotImplementedError(f"norm={gcfg['norm']!r} is not ported yet (norm=None only)")
-        if gcfg.get("nwindow_size"):
-            raise NotImplementedError("nwindow_size (KV token reduction) is not ported yet")
         if gcfg.get("recurrent_block_type", "convlstm") != "convlstm":
             raise NotImplementedError("only recurrent_block_type='convlstm' is ported")
         # scan_unroll and pallas_f32_exact tune the TPU program only: the
@@ -247,6 +272,8 @@ class BDE2VID(nn.Module):
             act_attn=gcfg.get("act_attn", "default"),
             use_kernel=flag("use_pallas_attention"),
             drop_path_rate=float(gcfg.get("drop_path_rate", 0.2)),
+            parallel_attention=flag("parallel_attention"),
+            nwindow_size=tuple(gcfg["nwindow_size"]) if gcfg.get("nwindow_size") else None,
         )
 
     def forward(self, voxels: torch.Tensor,

@@ -11,8 +11,18 @@ reference torch state dict (``attn.q.weight``, ``mlp.fc1.weight``, ...).
 
 With ``use_kernel`` a block runs whole in one call of
 ``ops.window_attn_cuda.fused_swin_block`` (the CUDA kernels on CUDA tensors,
-their plain twins on CPU tensors, differentiable either way); without it,
-the unfused PyTorch body runs.
+their plain twins on CPU tensors, differentiable either way). A dilated
+block whose window has an even side cannot: its windows overlap, and the
+fold sums their attention outputs before the residual. It runs the unfused
+body around ``ops.window_attention_cuda.fused_window_block`` (the
+WindowAttention3D body) instead. Without ``use_kernel``, or with the
+``nwindow_size`` KV token reduction, the unfused PyTorch body runs.
+
+The dilated partition and its reverse (the reference's F.unfold / F.fold)
+are gathers over static index maps in both directions, forward and
+backward: where even windows make taps collide, the sum runs over a fixed
+list of at most four taps per pixel, so the result does not depend on the
+order of atomic adds.
 
 Stochastic depth (timm DropPath, JAX ``_drop_path``) acts per sample in
 training mode: the attention branch's mask is drawn first, the MLP branch's
@@ -31,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bde2vid_tpu_torch.nn.layers import get_activation
+from bde2vid_tpu_torch.ops.window_attention_cuda import WindowBlockParams, fused_window_block
 from bde2vid_tpu_torch.ops.window_attn_cuda import SwinBlockParams, fused_swin_block
 
 # ---------------------------------------------------------------------------
@@ -119,17 +130,70 @@ def _partition_index(h: int, w: int, wh: int, ww: int, device: torch.device) -> 
     return _index(_dilated_flat_index(h, w, wh, ww)[0], device)
 
 
-@functools.lru_cache(maxsize=128)
-def _reverse_index(h: int, w: int, wh: int, ww: int, device: torch.device) -> torch.Tensor:
-    inv, _, collisions = _dilated_reverse_map(h, w, wh, ww)
-    return None if collisions else _index(inv.reshape(-1), device)
+@functools.lru_cache(maxsize=64)
+def _dilated_taps(h: int, w: int, wh: int, ww: int) -> np.ndarray:
+    """(hp*wp, K) window-token indices that sample each padded position, in
+    ascending order, filled with n_el (a zero row): the fold's taps. K is 1
+    for odd windows; even windows overlap, up to 2 x 2 of them per pixel."""
+    flat, hp, wp, _, _ = _dilated_flat_index(h, w, wh, ww)
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=hp * wp)
+    taps = np.full((hp * wp, counts.max()), flat.size, np.int64)
+    rank = np.arange(flat.size) - (np.cumsum(counts) - counts)[flat[order]]
+    taps[flat[order], rank] = order
+    return taps
 
 
 @functools.lru_cache(maxsize=128)
-def _bias_rows(wd: int, wh: int, ww: int, h: int, w: int, q_ind: int, d: int,
+def _taps_index(h: int, w: int, wh: int, ww: int, device: torch.device) -> torch.Tensor:
+    return _index(_dilated_taps(h, w, wh, ww), device)
+
+
+def _fold(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """(..., n_el, C) window tokens -> (..., P, C): each position sums its
+    taps in the fixed order of ``taps`` (P, K)."""
+    x = torch.cat([x, x.new_zeros(*x.shape[:-2], 1, x.shape[-1])], dim=-2)
+    out = x.index_select(-2, taps[:, 0])
+    for t in range(1, taps.shape[1]):
+        out = out + x.index_select(-2, taps[:, t])
+    return out
+
+
+class _DilatedGather(torch.autograd.Function):
+    """Partition: (..., P, C) padded map -> (..., n_el, C) window tokens by
+    the flat map; the backward folds the cotangent over the taps."""
+
+    @staticmethod
+    def forward(ctx, xf, flat, taps):
+        ctx.save_for_backward(taps)
+        return xf.index_select(-2, flat)
+
+    @staticmethod
+    def backward(ctx, g):
+        (taps,) = ctx.saved_tensors
+        return _fold(g, taps), None, None
+
+
+class _DilatedFold(torch.autograd.Function):
+    """Reverse: (..., n_el, C) window tokens -> (..., P, C) summed over each
+    position's taps; the backward gathers each token's position."""
+
+    @staticmethod
+    def forward(ctx, x, flat, taps):
+        ctx.save_for_backward(flat)
+        return _fold(x, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        return g.index_select(-2, flat), None, None
+
+
+@functools.lru_cache(maxsize=128)
+def _bias_rows(wd: int, wh: int, ww: int, h: int, w: int, q_ind: int, n: int,
                device: torch.device) -> torch.Tensor:
     m = h * w
-    rows = relative_position_index(wd, wh, ww, h, w)[q_ind * m : (q_ind + 1) * m, : d * m]
+    rows = relative_position_index(wd, wh, ww, h, w)[q_ind * m : (q_ind + 1) * m, :n]
     return _index(rows.reshape(-1), device)
 
 
@@ -159,21 +223,20 @@ def window_partition_dilated(x: torch.Tensor, window: Tuple[int, int]) -> torch.
     wh, ww = window
     hp, wp = h + wh, w + ww
     xf = F.pad(x, (0, 0, 0, ww, 0, wh)).reshape(d, b, hp * wp, c)
-    return xf[:, :, _partition_index(h, w, wh, ww, x.device)].reshape(d, -1, wh, ww, c)
+    flat = _partition_index(h, w, wh, ww, x.device)
+    taps = _taps_index(h, w, wh, ww, x.device)
+    return _DilatedGather.apply(xf, flat, taps).reshape(d, -1, wh, ww, c)
 
 
 def window_reverse_dilated(windows: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
     """Inverse of window_partition_dilated (torch F.fold then crop :80-85):
-    a gather with zero fill for odd windows, a scatter-add for even windows
-    (where F.fold sums colliding taps)."""
+    each pixel sums the window tokens that sampled it (one for odd windows,
+    up to four for even ones), zero where none did."""
     _, wh, ww, c = windows.shape
-    inv = _reverse_index(h, w, wh, ww, windows.device)
-    x = windows.reshape(b, -1, c)
-    if inv is not None:
-        x = torch.cat([x, x.new_zeros(b, 1, c)], dim=1)
-        return x[:, inv].reshape(b, h, w, c)
     hp, wp = h + wh, w + ww
-    out = x.new_zeros(b, hp * wp, c).index_add_(1, _partition_index(h, w, wh, ww, x.device), x)
+    flat = _partition_index(h, w, wh, ww, windows.device)
+    taps = _taps_index(h, w, wh, ww, windows.device)
+    out = _DilatedFold.apply(windows.reshape(b, -1, c), flat, taps)
     return out.reshape(b, hp, wp, c)[:, :h, :w]
 
 
@@ -213,16 +276,20 @@ def relative_position_index(
 
 class WindowAttention3D(nn.Module):
     """Cross-frame window attention: q from the centre frame's window
-    tokens, k/v from all D frames' (the plain path, no KV token reduction)."""
+    tokens, k/v from all D frames', or with ``nwin_size`` from the
+    ``reduction_conv`` KV tokens of each frame's window (reference
+    :129,172-176)."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int, int], num_heads: int,
-                 q_ind: Optional[int] = None):
+                 q_ind: Optional[int] = None, qkv_bias: bool = True,
+                 nwin_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.dim = dim
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         wd, wh, ww = self.window_size
         self.q_ind = wd // 2 if q_ind is None else q_ind
+        self.nwin_size = None if nwin_size is None else tuple(nwin_size)
         self.norm_q = nn.LayerNorm(dim)
         self.norm_kv = nn.LayerNorm(dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -234,24 +301,58 @@ class WindowAttention3D(nn.Module):
         self.register_buffer(
             "relative_position_index", torch.as_tensor(relative_position_index(wd, wh, ww))
         )
-        self.q = nn.Linear(dim, dim)
-        self.kv = nn.Linear(dim, 2 * dim)
+        if self.nwin_size is not None:
+            # one grouped conv over the whole window gives ntok tokens per channel
+            ntok = self.nwin_size[0] * self.nwin_size[1]
+            self.reduction_conv = nn.Conv2d(dim, ntok * dim, (wh, ww), groups=dim)
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def bias(self, h: int, w: int, d: int) -> torch.Tensor:
-        """(H, M, N) f32 relative-position bias for an (h, w) window over d
-        frames: index rows of the query frame, the first N columns
+    def bias(self, h: int, w: int, n: int) -> torch.Tensor:
+        """(H, M, N) f32 relative-position bias for an (h, w) window and N kv
+        tokens: index rows of the query frame, the first N columns
         (reference :195-199)."""
         table = self.relative_position_bias_table.float()
-        rows = _bias_rows(*self.window_size, h, w, self.q_ind, d, table.device)
-        return table[rows].reshape(h * w, d * h * w, self.num_heads).permute(2, 0, 1)
+        rows = _bias_rows(*self.window_size, h, w, self.q_ind, n, table.device)
+        return table[rows].reshape(h * w, n, self.num_heads).permute(2, 0, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(D, B_, Wh, Ww, C) window stacks -> (B_, Wh, Ww, C)."""
+    def kernel_params(self, h: int, w: int, d: int) -> WindowBlockParams:
+        """The kernels' weights for an (h, w) window over d frames; without
+        qkv biases the q and k|v biases are zeros, which the kernels add as
+        no bias."""
+        c = self.dim
+        zeros = functools.partial(torch.zeros, device=self.q.weight.device, dtype=self.q.weight.dtype)
+        q_b = zeros(c) if self.q.bias is None else self.q.bias
+        kv_b = zeros(2 * c) if self.kv.bias is None else self.kv.bias
+        return WindowBlockParams(
+            self.norm_q.weight, self.norm_q.bias, self.norm_kv.weight, self.norm_kv.bias,
+            self.q.weight, q_b, self.kv.weight, kv_b, self.proj.weight, self.proj.bias,
+            self.bias(h, w, d * h * w),
+        )
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        """(D, B_, Wh, Ww, C) window stacks -> (B_, Wh, Ww, C). ``use_kernel``
+        runs the body in one ``fused_window_block`` call (not with the KV
+        token reduction, as in the JAX package)."""
         d, b_, h, w, c = x.shape
+        if use_kernel and self.nwin_size is None:
+            out = fused_window_block(x.reshape(d, b_, h * w, c), self.kernel_params(h, w, d),
+                                     self.num_heads, self.q_ind)
+            return out.reshape(b_, h, w, c)
         hd = c // self.num_heads
+        if self.nwin_size is not None:
+            if (h, w) != self.window_size[1:]:
+                raise ValueError(f"the KV token reduction needs the full {self.window_size[1:]} "
+                                 f"window (its conv kernel), got {(h, w)}")
+            # the reference reshapes the group-major conv output (C groups of
+            # ntok) as (ntok, C), mixing channel and token axes; kept for parity
+            red = self.reduction_conv(x.reshape(-1, h, w, c).permute(0, 3, 1, 2))
+            kv_tok = red.reshape(d, b_, -1, c)
+        else:
+            kv_tok = x.reshape(d, b_, h * w, c)
         q_tok = self.norm_q(x[self.q_ind].reshape(b_, h * w, c))
-        kv_tok = self.norm_kv(x.reshape(d, b_, h * w, c).permute(1, 0, 2, 3).reshape(b_, -1, c))
+        kv_tok = self.norm_kv(kv_tok.permute(1, 0, 2, 3).reshape(b_, -1, c))
         m, n = q_tok.shape[1], kv_tok.shape[1]
         k, v = self.kv(kv_tok).chunk(2, dim=-1)
 
@@ -259,7 +360,7 @@ class WindowAttention3D(nn.Module):
             return t.reshape(b_, -1, self.num_heads, hd).transpose(1, 2)
 
         attn = (heads(self.q(q_tok)) * hd**-0.5) @ heads(k).transpose(-2, -1)
-        attn = torch.softmax(attn + self.bias(h, w, d)[None].to(attn.dtype), dim=-1)
+        attn = torch.softmax(attn + self.bias(h, w, n)[None].to(attn.dtype), dim=-1)
         out = (attn @ heads(v)).transpose(1, 2).reshape(b_, m, c)
         return self.proj(out).reshape(b_, h, w, c)
 
@@ -283,7 +384,8 @@ class SwinTransformerBlock3D(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size=(3, 8, 8), dilate_win: bool = False,
                  q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, qkv_bias: bool = True,
+                 nwindow_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.window_size = tuple(window_size)
         self.dilate_win = dilate_win
@@ -291,7 +393,8 @@ class SwinTransformerBlock3D(nn.Module):
         self.activation = activation
         self.use_kernel = use_kernel
         self.drop_path = float(drop_path)
-        self.attn = WindowAttention3D(dim, self.window_size, num_heads, q_ind=self.q_ind)
+        self.attn = WindowAttention3D(dim, self.window_size, num_heads, q_ind=self.q_ind,
+                                      qkv_bias=qkv_bias, nwin_size=nwindow_size)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, 4 * dim, activation)  # mlp_ratio 4 (reference default)
 
@@ -316,16 +419,12 @@ class SwinTransformerBlock3D(nn.Module):
         d, b, h, w, c = x.shape
         win = get_window_size((h, w), self.window_size[-2:])
         masks = self.keep_masks(b, x.device, generator)
-        if self.use_kernel:
-            even_dilated = self.dilate_win and (win[0] % 2 == 0 or win[1] % 2 == 0)
-            if not even_dilated:
-                return self._fused_full(x, x[self.q_ind] if center is None else center, win, masks)
-            if x.is_cuda:
-                # the kernel for this case (window_attn_pallas.py::_fused_block_kernel)
-                # is not ported yet; running the plain path here would hide that
-                raise NotImplementedError(
-                    "even-size dilated windows need the WindowAttention3D kernel, not ported yet"
-                )
+        kernel = self.use_kernel and self.attn.nwin_size is None
+        # even dilated windows overlap: the fold sums their attention outputs
+        # before the residual, so the whole block cannot run per window
+        even_dilated = self.dilate_win and (win[0] % 2 == 0 or win[1] % 2 == 0)
+        if kernel and not even_dilated:
+            return self._fused_full(x, x[self.q_ind] if center is None else center, win, masks)
         if center is not None:
             x = torch.cat([x[: self.q_ind], center[None], x[self.q_ind + 1 :]])
         shortcut = x[self.q_ind]
@@ -333,7 +432,7 @@ class SwinTransformerBlock3D(nn.Module):
         xp = F.pad(x, (0, 0, pl, pr, pt, pb))
         hp, wp = h + pt + pb, w + pl + pr
         part = window_partition_dilated if self.dilate_win else window_partition
-        attn = self.attn(part(xp, win))
+        attn = self.attn(part(xp, win), use_kernel=kernel)
         if self.dilate_win:
             y = window_reverse_dilated(attn, b, hp, wp)
         else:
@@ -347,13 +446,10 @@ class SwinTransformerBlock3D(nn.Module):
         return y + m2 * self.mlp(self.norm2(y))
 
     def kernel_params(self, h: int, w: int, d: int) -> SwinBlockParams:
-        a = self.attn
+        p = self.attn.kernel_params(h, w, d)
         return SwinBlockParams(
-            a.norm_q.weight, a.norm_q.bias, a.norm_kv.weight, a.norm_kv.bias,
-            a.q.weight, a.q.bias, a.kv.weight, a.kv.bias, a.proj.weight, a.proj.bias,
-            self.norm2.weight, self.norm2.bias,
-            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-            a.bias(h, w, d),
+            *p[:10], self.norm2.weight, self.norm2.bias,
+            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias, p.bias,
         )
 
     def _fused_full(self, x: torch.Tensor, center: torch.Tensor, win, masks=None) -> torch.Tensor:
@@ -418,13 +514,15 @@ class DFrameAttention(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size=(1, 7, 7),
                  q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False,
-                 drop_path: Sequence[float] = ()):
+                 drop_path: Sequence[float] = (), qkv_bias: bool = True,
+                 nwindow_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.q_ind = window_size[0] // 2 if q_ind is None else q_ind
         self.blocks = nn.ModuleList(
             SwinTransformerBlock3D(dim, num_heads, window_size, dilate_win=(i % 2 == 1),
                                    q_ind=self.q_ind, activation=activation, use_kernel=use_kernel,
-                                   drop_path=drop_path[i] if i < len(drop_path) else 0.0)
+                                   drop_path=drop_path[i] if i < len(drop_path) else 0.0,
+                                   qkv_bias=qkv_bias, nwindow_size=nwindow_size)
             for i in range(depth)
         )
 
@@ -436,8 +534,9 @@ class DFrameAttention(nn.Module):
 
 
 def set_attention_kernel(module: nn.Module, enabled: bool) -> None:
-    """Switch every Swin block under ``module`` between the fused kernel path
-    and the unfused PyTorch body. Parameters are untouched."""
+    """Switch every Swin block under ``module`` between the kernel path
+    (``fused_swin_block``, or ``fused_window_block`` for even dilated
+    windows) and the unfused PyTorch body. Parameters are untouched."""
     for m in module.modules():
         if isinstance(m, SwinTransformerBlock3D):
             m.use_kernel = bool(enabled)

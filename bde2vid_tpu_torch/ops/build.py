@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source under ``ops/csrc/`` compiles with ``nvcc`` into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds) and
-is loaded with ``ctypes``. Libraries go to ``<repo>/build/kernels/``, named
-by a hash of their source, and are built at first use. Nothing here runs at
+Each ``.cu`` source under ``ops/csrc/`` (with the shared ``.cuh`` headers)
+compiles with ``nvcc`` into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds) and is loaded with ``ctypes``.
+Libraries go to ``<repo>/build/kernels/``, named by a hash of their source
+and the headers, and are built at first use. Nothing here runs at
 import time: machines without the CUDA toolkit have no ``nvcc``.
 """
 
@@ -20,7 +21,8 @@ from typing import Dict, List
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"swin_block": _CSRC / "swin_block.cu", "attn_core_bwd": _CSRC / "attn_core_bwd.cu"}
+SOURCES = {name: _CSRC / f"{name}.cu"
+           for name in ("swin_block", "window_block", "window_attention", "attn_core_bwd")}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -42,7 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()).hexdigest()[:12]
+    """Where kernel ``name`` is built, named by a hash of its source and of
+    the shared headers it may include."""
+    digest = hashlib.sha1(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

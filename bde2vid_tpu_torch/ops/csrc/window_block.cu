@@ -1,0 +1,145 @@
+// The WindowAttention3D body for a group of windows, hand-written for Hopper
+// (sm_90a), f32 or bf16 operands with f32 accumulation.
+//
+// Replaces: bde2vid_tpu/ops/window_attn_pallas.py::_fused_block_kernel (the
+// TPU kernel behind fused_window_block), with its optional `acc` output.
+//
+// What it computes, per window w of B_ and token m of M (N = D*M kv tokens):
+//   kv  = round(LN_kv(x) @ Wkv^T + bkv)           all D frames
+//   q   = round(LN_q(x[q_ind]) @ Wq^T + bq)
+//   acc = per head h: round(softmax(q_h k_h^T * hd^-0.5 + bias_h)) @ v_h
+//   out = round(acc) @ Wp^T + bp
+// where round() casts to the operand type where the Pallas body casts
+// (identity for f32). No residual, LN2 or MLP: the caller folds the window
+// outputs back onto the map and adds those (even-size dilated windows
+// overlap, so the fold sums them before the residual).
+//
+// What bounds it on the H100: at the 8x8 BDE2VID shapes (level 0: 180
+// windows, C = 64, N = 448; level 2: 12 windows, C = 256) the attention's
+// 4*B_*M*N*C operations dominate; in f32 (67 TFLOP/s without tensor cores,
+// no TF32 so that f32 stays exact) the kernel is bound by operations, in
+// bf16 by the bytes of x.
+//
+// What the design does about it: the B1 kernels' LayerNorm + projection
+// tile loop and per-(window, head) attention (window_common.cuh), fed the
+// query frame x[q_ind] as the centre, then proj_kernel: the out projection
+// for 64-row tiles through the same 64x32 weight tile. Tensor-core MMAs and
+// fusing the three launches are later work.
+
+#include "window_common.cuh"
+
+namespace {
+
+struct ProjArgs {
+  int rows, c;
+  const void* acc;  // (rows, C) attention output
+  const void* w_p;  // (C, C), (out, in)
+  const float* b_p;
+  void* out;  // (rows, C)
+};
+
+// out = round(acc) @ Wp^T + bp for 64-row tiles; grid.y: 64-column tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm) proj_kernel(ProjArgs a) {
+  extern __shared__ float smem[];
+  const int c = a.c;
+  const int lda = c + 1;
+  float* As = smem;
+  float* Ws = smem + 64 * lda;
+  const int r0 = blockIdx.x * 64;
+  const int o0 = blockIdx.y * kTileO;
+  const T* accg = static_cast<const T*>(a.acc);
+  for (int e = threadIdx.x; e < 64 * c; e += kThreads) {
+    const int lr = e / c, k = e % c;
+    const int r = r0 + lr;
+    As[lr * lda + k] = r < a.rows ? load(accg, (size_t)r * c + k) : 0.f;
+  }
+  // tile_gemm synchronises the block before its first product
+  float acc[4][4];
+  tile_gemm<T, 16, 4>(As, lda, c, static_cast<const T*>(a.w_p), c, o0, Ws, acc);
+  T* out = static_cast<T*>(a.out);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= a.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + tx + 16 * j;
+      if (o < c) out[(size_t)r * c + o] = store_cast<T>(acc[i][j] + a.b_p[o]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_all(const LnProjArgs& p, const ProjArgs& a, const float* bias, int heads,
+                       float scale, cudaStream_t stream) {
+  cudaError_t err = launch_ln_proj<T>(p, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_block_attn<T>(p, heads, bias, const_cast<void*>(a.acc), scale, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = ln_proj_smem_bytes(a.c);
+  err = cudaFuncSetAttribute(proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  proj_kernel<T><<<dim3((a.rows + 63) / 64, (a.c + kTileO - 1) / kTileO), kThreads, smem,
+                   stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory (bytes) each of the three kernels asks for; the wrapper
+// checks these against the card's per-block limit before launching.
+void window_block_smem_bytes(int d, int m, int c, int heads, long long* out3) {
+  out3[0] = (long long)ln_proj_smem_bytes(c);
+  out3[1] = (long long)attn_smem_bytes(m, d * m, c / heads);
+  out3[2] = (long long)ln_proj_smem_bytes(c);
+}
+
+// Launches the three kernels on `stream`; returns the first CUDA error code
+// (0 on success). Pointers are device pointers; the LN affines, biases and
+// the attention bias are f32, x/weights/scratch/acc/out are f32 (is_bf16 =
+// 0) or bf16 (is_bf16 = 1).
+int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int q_ind,
+                         float scale, const void* x, const float* g_q, const float* b_q_ln,
+                         const float* g_kv, const float* b_kv_ln, const void* w_q,
+                         const float* b_q, const void* w_kv, const float* b_kv, const void* w_p,
+                         const float* b_p, const float* bias, void* kv, void* q, void* acc,
+                         void* out, void* stream) {
+  const size_t elem = is_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  LnProjArgs p;
+  p.d = d;
+  p.b = b;
+  p.m = m;
+  p.c = c;
+  p.q_ind = q_ind;
+  p.x = x;
+  // the query frame is the centre: its kv rows read the same tokens
+  p.ctr = static_cast<const char*>(x) + elem * (size_t)q_ind * b * m * c;
+  p.g_q = g_q;
+  p.b_q_ln = b_q_ln;
+  p.g_kv = g_kv;
+  p.b_kv_ln = b_kv_ln;
+  p.w_q = w_q;
+  p.w_kv = w_kv;
+  p.b_q = b_q;
+  p.b_kv = b_kv;
+  p.kv = kv;
+  p.q = q;
+  ProjArgs a;
+  a.rows = b * m;
+  a.c = c;
+  a.acc = acc;
+  a.w_p = w_p;
+  a.b_p = b_p;
+  a.out = out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, scale, s)
+                                  : launch_all<float>(p, a, bias, heads, scale, s);
+  return (int)err;
+}
+
+}  // extern "C"

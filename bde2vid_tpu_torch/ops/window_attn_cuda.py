@@ -206,25 +206,42 @@ def swin_block_reference(
 # ---------------------------------------------------------------------------
 
 
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL, _LLP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+# (argtypes, restype) of each library's C functions
+_SIGNATURES = {
+    "swin_block": {
+        # 9 ints, the score scale, 23 tensor pointers, 2 mask pointers and the stream
+        "swin_block_forward": ([_CI] * 9 + [_CF] + [_VP] * 26, _CI),
+        "swin_block_smem_bytes": ([_CI] * 5 + [_LLP], None),
+    },
+    "window_block": {
+        # 7 ints, the score scale, 16 tensor pointers and the stream
+        "window_block_forward": ([_CI] * 7 + [_CF] + [_VP] * 17, _CI),
+        "window_block_smem_bytes": ([_CI] * 4 + [_LLP], None),
+    },
+    "window_attention": {
+        # 6 ints, the score scale, 5 tensor pointers and the stream
+        "window_attention_forward": ([_CI] * 6 + [_CF] + [_VP] * 6, _CI),
+        "window_attention_smem_bytes": ([_CI] * 4, _LL),
+    },
+    "attn_core_bwd": {
+        # 7 ints, the score scale, 10 tensor pointers and the stream
+        "attn_core_backward": ([_CI] * 7 + [_CF] + [_VP] * 11, _CI),
+        "attn_core_bwd_smem_bytes": ([_CI] * 4, _LL),
+    },
+}
+
+
 def _lib(name: str):
     from bde2vid_tpu_torch.ops import build
 
     lib = build.load(name)
     if getattr(lib, "_argtypes_set", False):
         return lib
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "swin_block":
-        # 9 ints, the score scale, 23 tensor pointers, 2 mask pointers and the stream
-        lib.swin_block_forward.argtypes = [ci] * 9 + [cf] + [vp] * 26
-        lib.swin_block_forward.restype = ci
-        lib.swin_block_smem_bytes.argtypes = [ci] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-        lib.swin_block_smem_bytes.restype = None
-    else:
-        # 7 ints, the score scale, 10 tensor pointers and the stream
-        lib.attn_core_backward.argtypes = [ci] * 7 + [cf] + [vp] * 11
-        lib.attn_core_backward.restype = ci
-        lib.attn_core_bwd_smem_bytes.argtypes = [ci] * 4
-        lib.attn_core_bwd_smem_bytes.restype = ctypes.c_longlong
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     lib._argtypes_set = True
     return lib
 
@@ -241,13 +258,26 @@ def _refuse_grad(name: str, tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: a kernel launch is invisible to autograd; inputs that require grad "
-            "must go through fused_swin_block, which wraps the launch in SwinBlockFunction"
+            f"must go through the public {name}, which wraps the launch in its autograd Function"
         )
 
 
 def _check_head_dim(c: int, num_heads: int) -> None:
     if c % num_heads or c // num_heads not in _HEAD_DIMS:
         raise NotImplementedError(f"head_dim {c}/{num_heads} not in {_HEAD_DIMS}")
+
+
+def _prepare_params(params, shapes: dict, dt: torch.dtype, device) -> dict:
+    """Check each named parameter's shape and device; weight matrices in the
+    operand type ``dt``, vectors and the bias in f32, all contiguous."""
+    prepared = {}
+    for name, shape in shapes.items():
+        t = getattr(params, name)
+        if tuple(t.shape) != shape or t.device != device:
+            raise ValueError(f"{name} must be {shape} on {device}, got {tuple(t.shape)} on {t.device}")
+        is_matrix = name.endswith("_w") and len(shape) == 2
+        prepared[name] = (t.to(dt) if is_matrix else t.float()).contiguous()
+    return prepared
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -280,13 +310,7 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
         "fc1_w": (hidden, c), "fc1_b": (hidden,), "fc2_w": (c, hidden), "fc2_b": (c,),
         "bias": (num_heads, m, n),
     }
-    prepared = {}
-    for name, shape in shapes.items():
-        t = getattr(params, name)
-        if tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"{name} must be {shape} on {x.device}, got {tuple(t.shape)} on {t.device}")
-        is_matrix = name.endswith("_w") and len(shape) == 2
-        prepared[name] = (t.to(dt) if is_matrix else t.float()).contiguous()
+    prepared = _prepare_params(params, shapes, dt, x.device)
     mask_ptrs = [None, None]
     if masks is not None:
         mk = [t.float().contiguous() for t in masks]

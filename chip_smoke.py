@@ -4,27 +4,44 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; a failure in any phase raises and the script
-exits non-zero without a result line:
+exits non-zero without a result line. Two configurations run at full
+width with seeded random weights: the flagship BDE2VID (7x7 windows) and
+the same model with 8x8 windows, whose even dilated blocks take the
+WindowAttention3D kernel.
 
-  build    nvcc-builds every CUDA kernel from the sources in this checkout
-  kernels  each kernel vs its plain PyTorch twin on the card at the flagship
-           shapes (f32 within 1e-4, bf16 within 2e-2 * max|twin|), with times:
-           the Swin block (plain; masked with acc), the attention-core
-           backward (with torch's SDPA backward as the library yardstick)
-  model    flagship BDE2VID at full width on 184x240, T=8, seeded random
-           weights: the kernel path vs the unfused path (f32, within 2e-4),
-           and exactly 10 kernel launches per frame
-  eval     the eval path: the eval CLI on a synthetic 180x240 MMP sequence
-           with a flagship checkpoint, f32 and --bf16; result files finite
-  grads    flagship at full width, 184x240, T=3, training mode: the kernel
-           path's loss and gradients vs the unfused path's (relative 1e-3),
-           10 launches of each kernel per frame, then 5 Adam steps (lr 1e-4)
-           that lower the loss
-  train    the training path: the train CLI for 6 steps on the MMP sequence
-           (flagship, DropPath 0.2, pause, noise, hot pixels, Adam with
-           gradient clipping); finite losses, 480 launches of each kernel, a
-           checkpoint the eval CLI scores; ms per step, peak memory, and one
-           profiled step's device-idle share
+  build    nvcc-builds every CUDA kernel from the sources in this checkout,
+           one process per source, all at once
+  kernels  each kernel vs its plain PyTorch twin on the card (f32 within
+           1e-4 x max(1, max|twin|), bf16 within 2e-2 * max|twin|), with
+           times: the Swin block at the flagship and the 8x8 plain shapes
+           (plain; masked with acc), the attention-core backward (torch's
+           SDPA backward as the library yardstick), the WindowAttention3D
+           body at the 8x8 dilated shapes (with and without acc), the bare
+           attention core at the flagship and 8x8 shapes (SDPA forward as
+           the yardstick), and both new Functions' gradients vs the twins'
+           autograd
+  attention  the ops.fused_window_attention entry point forward and backward
+           at the 8x8 shapes (2 + 3 calls: one 8x8 frame's dilated blocks)
+  model    flagship at 184x240, T=8: kernel path vs unfused path (f32,
+           within 2e-4), exactly 10 kernel launches per frame; the 8x8
+           config the same with 5 Swin block and 5 WindowAttention3D
+           launches per frame, and an even dilated block's forward and
+           backward run twice for bit equality
+  parallel the flagship with parallel_attention: kernel vs unfused path
+           (2e-4), 10 launches per forward, timed beside the sequential one
+  eval     the eval CLI on a synthetic 180x240 MMP sequence with a flagship
+           checkpoint (f32 and --bf16, cold and warm, one profiled run) and
+           an 8x8 checkpoint (f32 and --bf16); result files finite, launch
+           counts exact
+  grads    training mode, 184x240, T=3: the kernel path's loss and gradients
+           vs the unfused path's (relative 1e-3; the key half of attn.kv.bias
+           absolute 1e-5), exact launch counts, for the flagship (then 5
+           Adam steps that lower the loss) and the 8x8 config
+  train    the train CLI on the MMP sequence: the flagship for 6 steps
+           (DropPath 0.2, pause, noise, hot pixels, Adam with gradient
+           clipping; ms per step, peak memory, one profiled step's
+           device-idle share) and the 8x8 config for 3 steps; finite
+           losses, exact launch counts, checkpoints the eval CLI scores
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -64,7 +81,16 @@ model = dict(
     ),
 )
 """
+# the flagship with 8x8 windows: its dilated blocks (1 and 3 at level 0; 1, 3
+# and 5 at level 2) have even windows and take the WindowAttention3D kernel
+EIGHT_CFG = json.loads(json.dumps(FLAGSHIP_CFG))
+EIGHT_CFG["generator"]["window_size"] = [8, 8]
+EIGHT_CFG_TEXT = FLAGSHIP_CFG_TEXT.replace("window_size=(7, 7)", "window_size=(8, 8)")
+# launches per frame of each kernel on the two configurations' forward
+PER_FRAME = {"flagship": {"fused_swin_block": 10},
+             "8x8": {"fused_swin_block": 5, "fused_window_block": 5}}
 TRAIN_STEPS, TRAIN_SEQ_LEN = 6, 8
+TRAIN_STEPS_8X8 = 3
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
@@ -72,6 +98,11 @@ PEAK_BYTES = 3.35e12
 # both give 252 / 20 windows of 7x7 for plain and dilation-2 partitions
 LEVELS = {"level0": ((98, 126), 64), "level2": ((28, 35), 256)}
 BLOCKS_PER_FRAME = {"level0": 4, "level2": 6}  # depths [4, 0, 6]
+# the 8x8 config's levels: 92x120 pads to 96x120 (180 plain windows; the
+# dilated partition pads to 104x128, 12 x 15 windows again), 23x30 to 24x32
+# (12 and 12); per frame 2 + 3 blocks of each kind
+LEVELS_8 = {"level0": ((96, 120), 64), "level2": ((24, 32), 256)}
+BLOCKS_PER_FRAME_8 = {"level0": 2, "level2": 3}
 
 
 def emit(obj):
@@ -147,10 +178,27 @@ def phase_build():
           "ptxas": ptxas[:8]})
 
 
+def block_params(rnd, c, heads, m, n):
+    """Random Swin block weights at width c (bias (heads, m, n))."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import SwinBlockParams
+
+    hidden = 4 * c
+    return SwinBlockParams(
+        1 + rnd(c, scale=0.1), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+        rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1), rnd(2 * c, c, scale=c**-0.5),
+        rnd(2 * c, scale=0.1), rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1),
+        1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(hidden, c, scale=c**-0.5),
+        rnd(hidden, scale=0.1), rnd(c, hidden, scale=hidden**-0.5), rnd(c, scale=0.1),
+        rnd(heads, m, n, scale=0.5),
+    )
+
+
 def phase_kernels(torch):
+    """The Swin block kernel vs its twin: the flagship's plain and dilated
+    shapes, and the 8x8 config's plain shapes (its dilated blocks take the
+    WindowAttention3D kernel, phase_kernels_window)."""
     from bde2vid_tpu_torch.nn.window_attention import window_partition, window_partition_dilated
-    from bde2vid_tpu_torch.ops.window_attn_cuda import (
-        SwinBlockParams, fused_swin_block, swin_block_reference)
+    from bde2vid_tpu_torch.ops.window_attn_cuda import fused_swin_block, swin_block_reference
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
@@ -158,96 +206,175 @@ def phase_kernels(torch):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    d, heads, q_ind, win = 7, 16, 3, (7, 7)
-    m = win[0] * win[1]
+    d, heads, q_ind = 7, 16, 3
     cases = []
     split = {}
-    for level, ((hp, wp), c) in LEVELS.items():
-        hidden = 4 * c
-        p = SwinBlockParams(
-            1 + rnd(c, scale=0.1), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
-            rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1), rnd(2 * c, c, scale=c**-0.5),
-            rnd(2 * c, scale=0.1), rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1),
-            1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(hidden, c, scale=c**-0.5),
-            rnd(hidden, scale=0.1), rnd(c, hidden, scale=hidden**-0.5), rnd(c, scale=0.1),
-            rnd(heads, m, d * m, scale=0.5),
-        )
-        feats = rnd(d + 1, 1, hp, wp, c)
-        for layout, part in (("plain", window_partition), ("dilated", window_partition_dilated)):
-            x32 = part(feats[:d], win).reshape(d, -1, m, c).contiguous()
-            c32 = part(feats[d:], win)[0].reshape(-1, m, c).contiguous()
-            b = x32.shape[1]
-            for dt in (torch.float32, torch.bfloat16):
-                x, ctr = x32.to(dt), c32.to(dt)
-                out = fused_swin_block(x, ctr, p, heads, q_ind)
-                ref = swin_block_reference(x, ctr, p, heads, q_ind)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                ref_max = ref.float().abs().max().item()
-                tol = 1e-4 if dt == torch.float32 else 2e-2 * ref_max
-                if not math.isfinite(err) or err > tol:
-                    raise AssertionError(f"{level} {layout} {dt}: kernel vs twin {err} > {tol}")
-                name = str(dt).split(".")[-1]
-                flops, nbytes = swin_block_cost(d, b, m, c, heads, hidden, x.element_size())
-                t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
-                cases.append({
-                    "level": level, "layout": layout, "dtype": name, "windows": b, "channels": c,
-                    "max_abs_err": err, "tolerance": tol, "max_abs_ref": ref_max,
-                    "kernel_ms": cuda_ms(torch, lambda: fused_swin_block(x, ctr, p, heads, q_ind), 20),
-                    "plain_ms": cuda_ms(torch, lambda: swin_block_reference(x, ctr, p, heads, q_ind), 5, 1),
-                    "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
-                    "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-                })
-            if layout == "plain":
-                # device time of each of the three kernels behind one f32 launch
-                x, ctr = x32, c32
-                prof = device_profile(torch, lambda: [fused_swin_block(x, ctr, p, heads, q_ind)
-                                                      for _ in range(5)], top=3)
-                prof["top"] = [(k, ms / 5) for k, ms in prof["top"]]
-                split[level] = prof["top"]
+    for config, levels, win, layouts in (("flagship", LEVELS, (7, 7), ("plain", "dilated")),
+                                         ("8x8", LEVELS_8, (8, 8), ("plain",))):
+        m = win[0] * win[1]
+        for level, ((hp, wp), c) in levels.items():
+            hidden = 4 * c
+            p = block_params(rnd, c, heads, m, d * m)
+            feats = rnd(d + 1, 1, hp, wp, c)
+            for layout in layouts:
+                part = window_partition if layout == "plain" else window_partition_dilated
+                x32 = part(feats[:d], win).reshape(d, -1, m, c).contiguous()
+                c32 = part(feats[d:], win)[0].reshape(-1, m, c).contiguous()
+                b = x32.shape[1]
+                for dt in (torch.float32, torch.bfloat16):
+                    x, ctr = x32.to(dt), c32.to(dt)
+                    out = fused_swin_block(x, ctr, p, heads, q_ind)
+                    ref = swin_block_reference(x, ctr, p, heads, q_ind)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    ref_max = ref.float().abs().max().item()
+                    tol = 1e-4 * max(1.0, ref_max) if dt == torch.float32 else 2e-2 * ref_max
+                    if not math.isfinite(err) or err > tol:
+                        raise AssertionError(f"{config} {level} {layout} {dt}: kernel vs twin {err} > {tol}")
+                    name = str(dt).split(".")[-1]
+                    flops, nbytes = swin_block_cost(d, b, m, c, heads, hidden, x.element_size())
+                    t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+                    cases.append({
+                        "config": config, "level": level, "layout": layout, "dtype": name,
+                        "windows": b, "channels": c,
+                        "max_abs_err": err, "tolerance": tol, "max_abs_ref": ref_max,
+                        "kernel_ms": cuda_ms(torch, lambda: fused_swin_block(x, ctr, p, heads, q_ind), 20),
+                        "plain_ms": cuda_ms(torch, lambda: swin_block_reference(x, ctr, p, heads, q_ind), 5, 1),
+                        "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
+                        "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+                    })
+                if config == "flagship" and layout == "plain":
+                    # device time of each of the three kernels behind one f32 launch
+                    x, ctr = x32, c32
+                    prof = device_profile(torch, lambda: [fused_swin_block(x, ctr, p, heads, q_ind)
+                                                          for _ in range(5)], top=3)
+                    prof["top"] = [(k, ms / 5) for k, ms in prof["top"]]
+                    split[level] = prof["top"]
     emit({"phase": "kernels", "kernel": "fused_swin_block", "timing": "CUDA events, inputs L2-warm",
           "cases": cases, "f32_device_ms_per_launch_by_kernel": split})
-    return cases
+    return [c for c in cases if c["config"] == "flagship"]
 
 
-def phase_model(torch, launch_counts):
-    from bde2vid_tpu_torch.models import build_model
-    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+def expect_launches(what, launches, want):
+    """Raise unless the kernels launched exactly ``want`` (kernel -> count)
+    and no other kernel."""
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
 
-    torch.manual_seed(0)
-    cfg = json.loads(json.dumps(FLAGSHIP_CFG))
+
+def model_config(cfg, **extra):
+    cfg = json.loads(json.dumps(cfg))
     cfg["use_pallas_attention"] = True
-    model = build_model("BDE2VID", cfg)
-    T = 8
-    rng = np.random.default_rng(0)
-    vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
+    cfg.update(extra)
+    return cfg
 
-    def run():
+
+def timed_forward(torch, model, vox, runs=1):
+    """(images, mean host ms) of ``runs`` no-grad forwards, each synchronised."""
+    ms = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with torch.no_grad():
             out = model(vox)["image"]
         torch.cuda.synchronize()
-        return out
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, float(np.mean(ms))
 
-    run()  # warm-up (cuDNN algorithm choice, index uploads)
+
+def phase_model(torch, launch_counts):
+    """Both configurations at 184x240, T=8: kernel path vs unfused path and
+    exact launch counts; then an even dilated block of the 8x8 config, run
+    twice forward and backward, for bit equality."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.nn.window_attention import SwinTransformerBlock3D, set_attention_kernel
+
+    T = 8
+    rng = np.random.default_rng(0)
+    vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
+    rows = {}
+    for name, cfg in (("flagship", FLAGSHIP_CFG), ("8x8", EIGHT_CFG)):
+        torch.manual_seed(0)
+        model = build_model("BDE2VID", model_config(cfg))
+        timed_forward(torch, model, vox)  # warm-up (cuDNN algorithm choice, index uploads)
+        launch_counts.clear()
+        img_kernel, kernel_ms = timed_forward(torch, model, vox)
+        launches = dict(launch_counts)
+        expect_launches(f"model {name}", launches, {k: n * T for k, n in PER_FRAME[name].items()})
+        again, _ = timed_forward(torch, model, vox)
+        set_attention_kernel(model, False)
+        timed_forward(torch, model, vox)
+        img_plain, plain_ms = timed_forward(torch, model, vox)
+        diff = (img_kernel - img_plain).abs().max().item()
+        if not (img_kernel.shape == (T, 1, 1, 184, 240) and torch.isfinite(img_kernel).all()
+                and diff <= 2e-4):
+            raise AssertionError(f"model {name}: kernel vs unfused path max diff {diff} (bound 2e-4)")
+        rows[name] = {"launches": launches, "max_abs_diff_vs_unfused": diff,
+                      "forward_ms_kernel_path": kernel_ms, "forward_ms_unfused_path": plain_ms,
+                      "kernel_path_repeats_bitwise": bool(torch.equal(img_kernel, again))}
+        del model
+
+    # an even dilated block at the 8x8 config's level-0 shape, forward and
+    # backward twice: the dilated fold and partition sum their colliding
+    # taps in a fixed order, B3 and B2 use no atomics
+    torch.manual_seed(1)
+    blk = SwinTransformerBlock3D(64, 16, (7, 8, 8), dilate_win=True, use_kernel=True).cuda()
+    x = torch.randn(7, 1, 92, 120, 64, device="cuda")
+    g = torch.randn(1, 92, 120, 64, device="cuda")
+    runs = []
+    for _ in range(2):
+        blk.zero_grad(set_to_none=True)
+        xl = x.clone().requires_grad_()
+        launch_counts.clear()
+        out = blk(xl)
+        out.backward(g)
+        torch.cuda.synchronize()
+        expect_launches("even dilated block", launch_counts,
+                        {"fused_window_block": 1, "attn_core_backward": 1})
+        runs.append({"out": out.detach(), "x.grad": xl.grad,
+                     **{k: p.grad for k, p in blk.named_parameters()}})
+    same = {k: bool(torch.equal(runs[0][k], runs[1][k])) for k in runs[0]}
+    if not (same["out"] and same["x.grad"]):
+        raise AssertionError(f"even dilated block: two runs differ: {same}")
+    emit({"phase": "model", "T": T, "hw": [184, 240], "configs": rows,
+          "even_dilated_block_bitwise_repeat": same})
+
+
+def phase_parallel(torch, launch_counts):
+    """The flagship with parallel_attention (all T frames through the blocks
+    as one batch): kernel vs unfused path, 10 launches per forward (one slab
+    of up to 128 frames), timed beside the sequential forward on the same
+    weights."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+
+    T = 8
+    rng = np.random.default_rng(0)
+    vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
+    torch.manual_seed(0)
+    par = build_model("BDE2VID", model_config(FLAGSHIP_CFG, parallel_attention=True))
+    seq = build_model("BDE2VID", model_config(FLAGSHIP_CFG))
+    seq.load_state_dict(par.state_dict())
+    timed_forward(torch, par, vox)
     launch_counts.clear()
-    t0 = time.perf_counter()
-    img_kernel = run()
-    kernel_s = time.perf_counter() - t0
-    launches = launch_counts["fused_swin_block"]
-    if launches != 10 * T:
-        raise AssertionError(f"kernel launches {launches} != 10 x T = {10 * T}")
-    set_attention_kernel(model, False)
-    run()
-    t0 = time.perf_counter()
-    img_plain = run()
-    plain_s = time.perf_counter() - t0
-    diff = (img_kernel - img_plain).abs().max().item()
-    if not (img_kernel.shape == (T, 1, 1, 184, 240) and torch.isfinite(img_kernel).all()
-            and diff <= 2e-4):
-        raise AssertionError(f"model: kernel vs unfused path max diff {diff} (bound 2e-4)")
-    emit({"phase": "model", "T": T, "hw": [184, 240], "launches": launches,
-          "max_abs_diff_vs_unfused": diff, "forward_ms_kernel_path": 1e3 * kernel_s,
-          "forward_ms_unfused_path": 1e3 * plain_s})
+    img_par, _ = timed_forward(torch, par, vox)
+    launches = dict(launch_counts)
+    expect_launches("parallel", launches, {"fused_swin_block": 10})
+    timed_forward(torch, seq, vox)
+    # in turns: parallel, sequential, sequential, parallel
+    ms = {"parallel": [], "sequential": []}
+    for which in ("parallel", "sequential", "sequential", "parallel"):
+        ms[which].append(timed_forward(torch, par if which == "parallel" else seq, vox)[1])
+    set_attention_kernel(par, False)
+    timed_forward(torch, par, vox)
+    img_plain, plain_ms = timed_forward(torch, par, vox)
+    diff = (img_par - img_plain).abs().max().item()
+    if not (torch.isfinite(img_par).all() and diff <= 2e-4):
+        raise AssertionError(f"parallel: kernel vs unfused path max diff {diff} (bound 2e-4)")
+    emit({"phase": "parallel", "T": T, "hw": [184, 240], "launches": launches,
+          "max_abs_diff_vs_unfused": diff, "forward_ms_parallel": ms["parallel"],
+          "forward_ms_sequential": ms["sequential"], "forward_ms_parallel_unfused": plain_ms})
 
 
 def write_mmp_sequence(path, rng, num_frames=24, events_per_frame=40000, hw=(180, 240), fps=25.0):
@@ -272,59 +399,67 @@ def write_mmp_sequence(path, rng, num_frames=24, events_per_frame=40000, hw=(180
 
 
 def phase_eval(torch, launch_counts, card):
+    """The eval CLI on one synthetic sequence: a flagship checkpoint (f32 and
+    --bf16, cold and warm, and one profiled f32 run) and an 8x8 checkpoint
+    (f32 and --bf16). Returns the launches of the f32 runs (the main path)."""
     from bde2vid_tpu_torch.eval.__main__ import main as eval_main
     from bde2vid_tpu_torch.models import build_model
 
     rows = {}
-    main_path_launches = None
+    main_path_launches = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         rng = np.random.default_rng(1)
         items = write_mmp_sequence(os.path.join(tmp, "data", "mmp", "SYN", "seq0"), rng)
-        torch.manual_seed(1)
-        model = build_model("BDE2VID", FLAGSHIP_CFG)
-        os.makedirs(os.path.join(tmp, "weights"))
-        torch.save({"meta": {"cfg": FLAGSHIP_CFG_TEXT},
-                    "state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
-                   os.path.join(tmp, "weights", "epoch_1.pth"))
-        del model
-        for run in ("f32", "f32_warm", "bf16", "bf16_warm", "f32_profiled"):
-            out_dir = os.path.join(tmp, "out_" + run)
-            args = ["--weights_dir", os.path.join(tmp, "weights"),
-                    "--data_dir", os.path.join(tmp, "data"), "--datasets", "SYN",
-                    "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", "8",
-                    "--output_dir", out_dir]
-            if run.startswith("bf16"):
-                args.append("--bf16")
-            launch_counts.clear()
-            if run == "f32_profiled":
-                # a separate traced run: where the device time goes, and its idle share
-                prof = device_profile(torch, lambda: eval_main(args))
-                continue
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rc = eval_main(args)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            if rc != 0:
-                raise AssertionError(f"eval CLI ({run}) returned {rc}")
-            launches = launch_counts["fused_swin_block"]
-            if run == "f32":
-                main_path_launches = launches
-            base = os.path.join(out_dir, "epoch_1_L8_org")
-            with open(base + ".txt") as fp:
-                result = json.load(fp)["SYN"]["seq0"]
-            with open(base + "_detail.txt") as fp:
-                detail = json.load(fp)["SYN"]["seq0"]
-            if not (os.path.exists(base + "_table.txt") and set(result) == {"mse", "ssim"}
-                    and all(math.isfinite(v) for v in result.values())
-                    and all(len(detail[k]) == items for k in result)):
-                raise AssertionError(f"eval CLI ({run}) wrote bad results: {result}")
-            if launches != 10 * items:
-                raise AssertionError(f"eval CLI ({run}): {launches} kernel launches, want {10 * items}")
-            rows[run] = {"seconds": seconds, "frames_per_s": items / seconds,
-                         "launches": launches, **result}
+        plan = (("flagship", FLAGSHIP_CFG, FLAGSHIP_CFG_TEXT,
+                 ("f32", "f32_warm", "bf16", "bf16_warm", "f32_profiled")),
+                ("8x8", EIGHT_CFG, EIGHT_CFG_TEXT, ("f32", "bf16")))
+        for name, cfg, cfg_text, runs in plan:
+            torch.manual_seed(1)
+            model = build_model("BDE2VID", cfg)
+            weights = os.path.join(tmp, "weights_" + name)
+            os.makedirs(weights)
+            torch.save({"meta": {"cfg": cfg_text},
+                        "state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
+                       os.path.join(weights, "epoch_1.pth"))
+            del model
+            for run in runs:
+                out_dir = os.path.join(tmp, f"out_{name}_{run}")
+                args = ["--weights_dir", weights,
+                        "--data_dir", os.path.join(tmp, "data"), "--datasets", "SYN",
+                        "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", "8",
+                        "--output_dir", out_dir]
+                if run.startswith("bf16"):
+                    args.append("--bf16")
+                if run == "f32_profiled":
+                    # a separate traced run: where the device time goes, and its idle share
+                    prof = device_profile(torch, lambda: eval_main(args))
+                    continue
+                torch.cuda.synchronize()
+                launch_counts.clear()
+                t0 = time.perf_counter()
+                rc = eval_main(args)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = dict(launch_counts)
+                if rc != 0:
+                    raise AssertionError(f"eval CLI ({name} {run}) returned {rc}")
+                if run == "f32":
+                    main_path_launches[name] = launches
+                base = os.path.join(out_dir, "epoch_1_L8_org")
+                with open(base + ".txt") as fp:
+                    result = json.load(fp)["SYN"]["seq0"]
+                with open(base + "_detail.txt") as fp:
+                    detail = json.load(fp)["SYN"]["seq0"]
+                if not (os.path.exists(base + "_table.txt") and set(result) == {"mse", "ssim"}
+                        and all(math.isfinite(v) for v in result.values())
+                        and all(len(detail[k]) == items for k in result)):
+                    raise AssertionError(f"eval CLI ({name} {run}) wrote bad results: {result}")
+                expect_launches(f"eval CLI ({name} {run})", launches,
+                                {k: n * items for k, n in PER_FRAME[name].items()})
+                rows[f"{name}_{run}"] = {"seconds": seconds, "frames_per_s": items / seconds,
+                                         "launches": launches, **result}
     emit({"phase": "eval", "items": items, "hw": [180, 240], "subseq_L": 8, "card": card,
-          "runs": rows, "f32_profile": prof})
+          "runs": rows, "flagship_f32_profile": prof})
     return main_path_launches
 
 
@@ -379,8 +514,8 @@ def phase_kernels_training(torch):
     attention-core backward, each vs its twin at the flagship shapes."""
     from bde2vid_tpu_torch.nn.window_attention import window_partition, window_partition_dilated
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
-        SwinBlockParams, _pre_stage, attn_core_backward, attn_core_backward_reference,
-        fused_swin_block, swin_block_reference)
+        _pre_stage, attn_core_backward, attn_core_backward_reference, fused_swin_block,
+        swin_block_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = torch.device("cuda")
@@ -388,30 +523,12 @@ def phase_kernels_training(torch):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    def check(what, got, ref, dt):
-        errs = []
-        for a, r in zip(got, ref):
-            err = (a.float() - r.float()).abs().max().item()
-            ref_max = r.float().abs().max().item()
-            tol = 1e-4 * max(1.0, ref_max) if dt == torch.float32 else 2e-2 * ref_max
-            if not math.isfinite(err) or err > tol:
-                raise AssertionError(f"{what}: kernel vs twin {err} > {tol}")
-            errs.append(err)
-        return errs
-
     d, heads, q_ind, win = 7, 16, 3, (7, 7)
     m = win[0] * win[1]
     block_cases, bwd_cases = [], []
     for level, ((hp, wp), c) in LEVELS.items():
         hidden = 4 * c
-        p = SwinBlockParams(
-            1 + rnd(c, scale=0.1), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
-            rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1), rnd(2 * c, c, scale=c**-0.5),
-            rnd(2 * c, scale=0.1), rnd(c, c, scale=c**-0.5), rnd(c, scale=0.1),
-            1 + rnd(c, scale=0.1), rnd(c, scale=0.1), rnd(hidden, c, scale=c**-0.5),
-            rnd(hidden, scale=0.1), rnd(c, hidden, scale=hidden**-0.5), rnd(c, scale=0.1),
-            rnd(heads, m, d * m, scale=0.5),
-        )
+        p = block_params(rnd, c, heads, m, d * m)
         feats = rnd(d + 1, 1, hp, wp, c)
         for layout, part in (("plain", window_partition), ("dilated", window_partition_dilated)):
             x32 = part(feats[:d], win).reshape(d, -1, m, c).contiguous()
@@ -426,7 +543,7 @@ def phase_kernels_training(torch):
                 got = fused_swin_block(x, ctr, p, heads, q_ind, masks=masks, with_acc=True)
                 ref = swin_block_reference(x, ctr, p, heads, q_ind, masks=masks, with_acc=True)
                 torch.cuda.synchronize()
-                err_out, err_acc = check(f"block {level} {layout} {name} masked+acc", got, ref, dt)
+                err_out, err_acc = check_close(f"block {level} {layout} {name} masked+acc", got, ref, dt)
                 flops, nbytes = swin_block_cost(d, b, m, c, heads, hidden, x.element_size())
                 nbytes += x.element_size() * b * m * c + 4 * 2 * b  # the acc output, the masks
                 t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
@@ -449,7 +566,7 @@ def phase_kernels_training(torch):
                 again = attn_core_backward(q, k, v, bias, g, heads)
                 ref = attn_core_backward_reference(q, k, v, bias, g, heads)
                 torch.cuda.synchronize()
-                errs = check(f"attn_core_backward {level} {layout} {name}", got, ref, dt)
+                errs = check_close(f"attn_core_backward {level} {layout} {name}", got, ref, dt)
                 if not all(torch.equal(a, r) for a, r in zip(got, again)):
                     raise AssertionError("attn_core_backward: two runs differ")
                 flops, nbytes = attn_bwd_cost(b, m, d * m, c, heads, x.element_size())
@@ -473,130 +590,342 @@ def phase_kernels_training(torch):
     return bwd_cases
 
 
+def window_block_cost(d, b, m, c, heads, elem_bytes, with_acc):
+    """(FLOPs, bytes) one fused_window_block call needs: 2 per multiply-add
+    of the k|v, q and out projections and 4 B_ M N C for the attention; x
+    read and the output (and acc) written once in the operand type, the
+    weights once in the operand type, vectors and the bias in f32."""
+    n = d * m
+    flops = 2 * d * b * m * c * 2 * c + 2 * b * m * c * c + 4 * b * m * n * c + 2 * b * m * c * c
+    nbytes = (elem_bytes * (d * b * m * c + (2 if with_acc else 1) * b * m * c + 4 * c * c)
+              + 4 * (heads * m * n + 8 * c))
+    return flops, nbytes
+
+
+def window_attention_cost(b, m, n, c, heads, elem_bytes):
+    """(FLOPs, bytes) one fused_window_attention call needs: 4 B_ M N C (the
+    scores and the weighted sum, each 2 per multiply-add over head_dim for
+    H heads); q, k, v read and the output written once in the operand type,
+    the bias once in f32."""
+    return 4 * b * m * n * c, elem_bytes * (2 * b * m * c + 2 * b * n * c) + 4 * heads * m * n
+
+
+def sdpa_forward_ms(torch, q, k, v, bias, heads, iters=20):
+    """Time of torch's scaled_dot_product_attention forward on the same
+    function (the bias as a float attn_mask broadcast over windows) and the
+    backend PyTorch takes first; (None, reason) when none takes the shapes."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b_, m, c = q.shape
+    hd = c // heads
+
+    def heads_of(t):
+        return t.reshape(b_, -1, heads, hd).transpose(1, 2)
+
+    qh, kh, vh = heads_of(q), heads_of(k), heads_of(v)
+    mask = bias[None].to(q.dtype)
+    errors = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings(), torch.no_grad():
+                warnings.simplefilter("ignore")  # each refusing backend warns why
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+                return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask), iters), backend.name
+        except RuntimeError as exc:
+            errors[backend.name] = str(exc).splitlines()[0][:80]
+    return None, f"no SDPA backend takes these shapes: {errors}"
+
+
+def check_close(what, got, ref, dt):
+    """Max abs error of each pair; raises past f32 1e-4 x max(1, max|ref|)
+    or bf16 2e-2 x max|ref|."""
+    errs = []
+    for a, r in zip(got, ref):
+        err = (a.float() - r.float()).abs().max().item()
+        ref_max = r.float().abs().max().item()
+        tol = 1e-4 * max(1.0, ref_max) if str(dt) == "torch.float32" else 2e-2 * ref_max
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{what}: kernel vs twin {err} > {tol}")
+        errs.append(err)
+    return errs
+
+
+def phase_kernels_window(torch):
+    """The WindowAttention3D body at the 8x8 config's dilated shapes (with
+    and without acc) and the bare attention core at the flagship's and the
+    8x8 config's shapes, each vs its twin, with times; then both Functions'
+    gradients on the card vs autograd through the twins."""
+    from bde2vid_tpu_torch.nn.window_attention import window_partition, window_partition_dilated
+    from bde2vid_tpu_torch.ops.window_attention_cuda import (
+        WindowBlockParams, fused_window_attention, fused_window_block, window_attention_reference,
+        window_block_reference)
+    from bde2vid_tpu_torch.ops.window_attn_cuda import _pre_stage
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    d, heads, q_ind = 7, 16, 3
+    block_cases, attn_cases, grads = [], [], {}
+    for config, levels, win, part in (("flagship", LEVELS, (7, 7), window_partition),
+                                      ("8x8", LEVELS_8, (8, 8), window_partition_dilated)):
+        m = win[0] * win[1]
+        for level, ((hp, wp), c) in levels.items():
+            sp = block_params(rnd, c, heads, m, d * m)
+            p = WindowBlockParams(*sp[:10], sp.bias)
+            x32 = part(rnd(d, 1, hp, wp, c), win).reshape(d, -1, m, c).contiguous()
+            b = x32.shape[1]
+            for dt in (torch.float32, torch.bfloat16):
+                name = str(dt).split(".")[-1]
+                x = x32.to(dt)
+                if config == "8x8":
+                    for with_acc in (False, True):
+                        got = fused_window_block(x, p, heads, q_ind, with_acc=with_acc)
+                        ref = window_block_reference(x, p, heads, q_ind, with_acc=with_acc)
+                        torch.cuda.synchronize()
+                        got, ref = (got, ref) if with_acc else ((got,), (ref,))
+                        errs = check_close(f"window block {level} {name} acc={with_acc}", got, ref, dt)
+                        flops, nbytes = window_block_cost(d, b, m, c, heads, x.element_size(), with_acc)
+                        t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+                        block_cases.append({
+                            "config": config, "level": level, "layout": "dilated", "dtype": name,
+                            "with_acc": with_acc, "windows": b, "channels": c,
+                            "max_abs_err": max(errs),
+                            "kernel_ms": cuda_ms(torch, lambda: fused_window_block(
+                                x, p, heads, q_ind, with_acc=with_acc), 20),
+                            "plain_ms": cuda_ms(torch, lambda: window_block_reference(
+                                x, p, heads, q_ind, with_acc=with_acc), 5, 1),
+                            "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
+                            "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+                            "library_ms": None,
+                        })
+                # the attention core at the shapes the block gives it
+                q, k, v = _pre_stage(x, x[q_ind], p, heads, q_ind)
+                got = fused_window_attention(q, k, v, p.bias, heads)
+                ref = window_attention_reference(q, k, v, p.bias, heads)
+                torch.cuda.synchronize()
+                (err,) = check_close(f"window attention {config} {level} {name}", (got,), (ref,), dt)
+                flops, nbytes = window_attention_cost(b, m, d * m, c, heads, x.element_size())
+                t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+                lib_ms, backend = sdpa_forward_ms(torch, q, k, v, p.bias, heads)
+                attn_cases.append({
+                    "config": config, "level": level, "dtype": name, "windows": b, "channels": c,
+                    "kv_tokens": d * m, "max_abs_err": err,
+                    "kernel_ms": cuda_ms(torch, lambda: fused_window_attention(q, k, v, p.bias, heads), 20),
+                    "plain_ms": cuda_ms(torch, lambda: window_attention_reference(q, k, v, p.bias, heads), 5, 1),
+                    "library_ms": lib_ms, "library": backend,
+                    "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
+                    "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+                })
+            if config == "8x8" and level == "level0":
+                # both Functions' gradients (f32) vs autograd through the twins
+                g = rnd(b, m, c)
+                qkv = _pre_stage(x32, x32[q_ind], p, heads, q_ind)
+                for fname, ins, kernel_fn, twin_fn in (
+                        ("WindowBlockFunction", (x32, *p),
+                         lambda t: fused_window_block(t[0], WindowBlockParams(*t[1:]), heads, q_ind),
+                         lambda t: window_block_reference(t[0], WindowBlockParams(*t[1:]), heads, q_ind)),
+                        ("WindowAttentionFunction", (*qkv, p.bias),
+                         lambda t: fused_window_attention(*t, heads),
+                         lambda t: window_attention_reference(*t, heads))):
+                    res = []
+                    for fn in (kernel_fn, twin_fn):
+                        leaves = [t.detach().clone().requires_grad_() for t in ins]
+                        res.append(torch.autograd.grad(fn(leaves), leaves, g))
+                    torch.cuda.synchronize()
+                    grads[fname] = max(check_close(f"{fname} gradients", *res, torch.float32))
+    emit({"phase": "kernels", "kernel": "fused_window_block", "timing": "CUDA events, inputs L2-warm",
+          "cases": block_cases})
+    emit({"phase": "kernels", "kernel": "fused_window_attention",
+          "timing": "CUDA events, inputs L2-warm; library = torch SDPA forward, bias as attn_mask",
+          "cases": attn_cases, "gradients_max_abs_err_vs_twin_autograd": grads})
+    return block_cases, attn_cases
+
+
+def phase_attention(torch, launch_counts):
+    """The ops.fused_window_attention entry point, forward and backward, at
+    one 8x8 frame's dilated attention shapes (2 calls at level 0, 3 at
+    level 2): B4 forward and B2 backward, each launched once per call."""
+    from bde2vid_tpu_torch.ops import fused_window_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    d, heads, m = 7, 16, 64
+    calls = []
+    for level, ((hp, wp), c) in LEVELS_8.items():
+        b = ((hp + 8 - 15) // 8 + 1) * ((wp + 8 - 15) // 8 + 1)  # dilated 8x8 windows
+        f = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+        ins = (f(b, m, c), f(b, d * m, c), f(b, d * m, c), f(heads, m, d * m) * 0.5)
+        calls += [(ins, f(b, m, c))] * BLOCKS_PER_FRAME_8[level]
+    launch_counts.clear()
+    norms = []
+    for ins, g in calls:
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = fused_window_attention(*leaves, heads)
+        out.backward(g)
+        norms.append(max(t.grad.abs().max().item() for t in leaves))
+    torch.cuda.synchronize()
+    launches = dict(launch_counts)
+    want = {"fused_window_attention": len(calls), "attn_core_backward": len(calls)}
+    if launches != want or not all(math.isfinite(v) for v in norms):
+        raise AssertionError(f"attention entry point: launches {launches}, want {want}; grads {norms}")
+    emit({"phase": "attention", "calls": len(calls), "launches": launches,
+          "max_abs_grad": max(norms)})
+    return launches["fused_window_attention"]
+
+
 def phase_grads(torch, launch_counts):
-    """Kernel path vs unfused path: loss and every gradient, flagship width."""
+    """Kernel path vs unfused path, loss and every gradient, for both
+    configurations at full width; the flagship then takes 5 Adam steps."""
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
     from bde2vid_tpu_torch.train import SequenceLossComputer, build_optimizer, train_step
 
     T = 3
-    cfg = json.loads(json.dumps(FLAGSHIP_CFG))
-    cfg["generator"]["drop_path_rate"] = 0.0
-    cfg["use_pallas_attention"] = True
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(3)
-        model = build_model("BDE2VID", cfg, train=True)
     rng = np.random.default_rng(3)
     vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
     tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
     comp = SequenceLossComputer([{"type": "L1Loss"}])
+    rows = {}
+    for name, cfg in (("flagship", FLAGSHIP_CFG), ("8x8", EIGHT_CFG)):
+        cfg = model_config(cfg)
+        cfg["generator"]["drop_path_rate"] = 0.0
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(3)
+            model = build_model("BDE2VID", cfg, train=True)
 
-    def loss_and_grads(kernel):
-        set_attention_kernel(model, kernel)
-        model.zero_grad(set_to_none=True)
-        launch_counts.clear()
-        loss, _ = comp(model(vox)["image"], tgt)
-        loss.backward()
-        torch.cuda.synchronize()
-        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()
-                             if p.grad is not None}, dict(launch_counts)
+        def loss_and_grads(kernel):
+            set_attention_kernel(model, kernel)
+            model.zero_grad(set_to_none=True)
+            launch_counts.clear()
+            loss, _ = comp(model(vox)["image"], tgt)
+            loss.backward()
+            torch.cuda.synchronize()
+            return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()
+                                 if p.grad is not None}, dict(launch_counts)
 
-    loss_k, grads_k, launches = loss_and_grads(True)
-    loss_u, grads_u, _ = loss_and_grads(False)
-    if any(launches.get(k, 0) != 10 * T for k in ("fused_swin_block", "attn_core_backward")):
-        raise AssertionError(f"grads: launches {launches}, want {10 * T} of each kernel")
-    if set(grads_k) != set(grads_u):
-        raise AssertionError("grads: the two paths give gradients to different parameters")
-    loss_rel = abs(loss_k - loss_u) / abs(loss_u)
-    worst, worst_key, zero_half = 0.0, None, 0.0
-    for key, gu in grads_u.items():
-        gk = grads_k[key]
-        rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
-        if key.endswith("attn.kv.bias"):
-            # the key half's gradient is analytically zero (softmax is shift
-            # invariant per row): an absolute bound there
-            c = gu.shape[0] // 2
-            zero_half = max(zero_half, gk[:c].abs().max().item(), gu[:c].abs().max().item())
-        if rel > worst:
-            worst, worst_key = rel, key
-    if not (loss_rel <= 1e-3 and worst <= 1e-3 and zero_half <= 1e-5):
-        raise AssertionError(f"grads: loss rel {loss_rel}, worst gradient rel {worst} ({worst_key}), "
-                             f"key-bias gradient {zero_half}")
-    set_attention_kernel(model, True)
-    # lr 1e-4, the train phase's rate: at 1e-3 the first Adam step from this
-    # random init overshoots (0.255 -> 0.428 on the H100) and 5 steps do not
-    # bring the loss back below where it started
-    optimizer, _, _, _ = build_optimizer(model.parameters(), {"type": "Adam", "args": {"lr": 1e-4}})
-    losses = [train_step(model, optimizer, comp, vox, tgt)["loss"].item() for _ in range(5)]
-    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
-        raise AssertionError(f"grads: Adam steps did not lower the loss: {losses}")
-    emit({"phase": "grads", "T": T, "hw": [184, 240], "launches": launches, "loss_kernel": loss_k,
-          "loss_unfused": loss_u, "loss_rel_diff": loss_rel, "worst_grad_rel_diff": worst,
-          "worst_grad_key": worst_key, "kv_key_bias_grad_max_abs": zero_half,
-          "leaves": len(grads_u), "adam_losses": losses})
+        loss_k, grads_k, launches = loss_and_grads(True)
+        loss_u, grads_u, _ = loss_and_grads(False)
+        want = {k: n * T for k, n in PER_FRAME[name].items()}
+        want["attn_core_backward"] = 10 * T  # one per attention block, whichever kernel ran it
+        expect_launches(f"grads {name}", launches, want)
+        if set(grads_k) != set(grads_u):
+            raise AssertionError(f"grads {name}: the two paths give gradients to different parameters")
+        loss_rel = abs(loss_k - loss_u) / abs(loss_u)
+        worst, worst_key, zero_half = 0.0, None, 0.0
+        for key, gu in grads_u.items():
+            gk = grads_k[key]
+            rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
+            if key.endswith("attn.kv.bias"):
+                # the key half's gradient is analytically zero (softmax is shift
+                # invariant per row): an absolute bound there
+                c = gu.shape[0] // 2
+                zero_half = max(zero_half, gk[:c].abs().max().item(), gu[:c].abs().max().item())
+            if rel > worst:
+                worst, worst_key = rel, key
+        if not (loss_rel <= 1e-3 and worst <= 1e-3 and zero_half <= 1e-5):
+            raise AssertionError(f"grads {name}: loss rel {loss_rel}, worst gradient rel {worst} "
+                                 f"({worst_key}), key-bias gradient {zero_half}")
+        rows[name] = {"launches": launches, "loss_kernel": loss_k, "loss_unfused": loss_u,
+                      "loss_rel_diff": loss_rel, "worst_grad_rel_diff": worst,
+                      "worst_grad_key": worst_key, "kv_key_bias_grad_max_abs": zero_half,
+                      "leaves": len(grads_u)}
+        if name == "flagship":
+            set_attention_kernel(model, True)
+            # lr 1e-4, the train phase's rate: at 1e-3 the first Adam step from
+            # this random init overshoots (0.255 -> 0.428 on the H100) and 5
+            # steps do not bring the loss back below where it started
+            optimizer, _, _, _ = build_optimizer(model.parameters(), {"type": "Adam", "args": {"lr": 1e-4}})
+            losses = [train_step(model, optimizer, comp, vox, tgt)["loss"].item() for _ in range(5)]
+            if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+                raise AssertionError(f"grads: Adam steps did not lower the loss: {losses}")
+            rows[name]["adam_losses"] = losses
+        del model
+    emit({"phase": "grads", "T": T, "hw": [184, 240], "configs": rows})
 
 
 def phase_train(torch, launch_counts, card):
-    """The training path: the train CLI on the MMP sequence, its checkpoint
-    scored by the eval CLI, and one profiled train step."""
+    """The training path: the train CLI on the MMP sequence for the flagship
+    (6 steps) and the 8x8 config (3 steps), each checkpoint scored by the
+    eval CLI, and one profiled flagship train step. Returns the flagship
+    run's launches of the attention-core backward."""
     from bde2vid_tpu_torch.eval.__main__ import main as eval_main
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.train import SequenceLossComputer, build_optimizer, train_step
     from bde2vid_tpu_torch.train.__main__ import iterate_training_windows
     from bde2vid_tpu_torch.train.__main__ import main as train_main
 
-    model_args = json.loads(json.dumps(FLAGSHIP_CFG))
-    model_args["generator"]["drop_path_rate"] = 0.2
-    model_args["use_pallas_attention"] = True
     data_cfg = {"sequence_length": TRAIN_SEQ_LEN, "num_bins": 5,
                 "proba_pause_when_running": 0.05, "proba_pause_when_paused": 0.9,
                 "noise_std": 0.1, "noise_fraction": 0.05,
                 "hot_pixel_std": 2.0, "max_hot_pixel_fraction": 0.001}
-    cfg = {"name": "flagship", "model": {"type": "BDE2VID", "args": model_args},
-           "losses": [{"type": "L1Loss"}],
-           "optimizer": {"type": "Adam", "args": {"lr": 1e-4, "grad_clip": 1.0}},
-           "data": data_cfg, "train": {"steps": TRAIN_STEPS, "ckpt_every": 1000}}
+    optimizer_cfg = {"type": "Adam", "args": {"lr": 1e-4, "grad_clip": 1.0}}
+    rows = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         data = os.path.join(tmp, "data")
         items = write_mmp_sequence(os.path.join(data, "mmp", "SYN", "seq0"), np.random.default_rng(4))
-        with open(os.path.join(tmp, "cfg.json"), "w") as fp:
-            json.dump(cfg, fp)
-        out_dir = os.path.join(tmp, "run")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        launch_counts.clear()
-        t0 = time.perf_counter()
-        rc = train_main(["--config", os.path.join(tmp, "cfg.json"), "--data_dir", data,
-                         "--out_dir", out_dir, "--loader_type", "MMP"])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(launch_counts)
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        with open(os.path.join(out_dir, "train_log.jsonl")) as fp:
-            log = [json.loads(line) for line in fp]
-        want = TRAIN_STEPS * 10 * TRAIN_SEQ_LEN
-        if rc != 0 or len(log) != TRAIN_STEPS or not all(math.isfinite(r["loss"]) for r in log):
-            raise AssertionError(f"train CLI: rc {rc}, log {log}")
-        if any(launches.get(k, 0) != want for k in ("fused_swin_block", "attn_core_backward")):
-            raise AssertionError(f"train CLI: launches {launches}, want {want} of each kernel")
-        ckpt = os.path.join(out_dir, f"epoch_{TRAIN_STEPS}.pth")
-        if not os.path.exists(ckpt):
-            raise AssertionError(f"train CLI wrote no {ckpt}")
-        eval_out = os.path.join(tmp, "eval")
-        rc = eval_main(["--weights_dir", out_dir, "--data_dir", data, "--datasets", "SYN",
-                        "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", "8",
-                        "--output_dir", eval_out])
-        with open(os.path.join(eval_out, f"epoch_{TRAIN_STEPS}_L8_org.txt")) as fp:
-            scored = json.load(fp)["SYN"]["seq0"]
-        if rc != 0 or not all(math.isfinite(v) for v in scored.values()):
-            raise AssertionError(f"eval CLI on the trained checkpoint: rc {rc}, {scored}")
+        for name, base, steps in (("flagship", FLAGSHIP_CFG, TRAIN_STEPS),
+                                  ("8x8", EIGHT_CFG, TRAIN_STEPS_8X8)):
+            model_args = model_config(base)
+            model_args["generator"]["drop_path_rate"] = 0.2
+            cfg = {"name": name, "model": {"type": "BDE2VID", "args": model_args},
+                   "losses": [{"type": "L1Loss"}], "optimizer": optimizer_cfg,
+                   "data": data_cfg, "train": {"steps": steps, "ckpt_every": 1000}}
+            cfg_path = os.path.join(tmp, f"cfg_{name}.json")
+            with open(cfg_path, "w") as fp:
+                json.dump(cfg, fp)
+            out_dir = os.path.join(tmp, "run_" + name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launch_counts.clear()
+            t0 = time.perf_counter()
+            rc = train_main(["--config", cfg_path, "--data_dir", data, "--out_dir", out_dir,
+                             "--loader_type", "MMP"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(launch_counts)
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            with open(os.path.join(out_dir, "train_log.jsonl")) as fp:
+                log = [json.loads(line) for line in fp]
+            if rc != 0 or len(log) != steps or not all(math.isfinite(r["loss"]) for r in log):
+                raise AssertionError(f"train CLI ({name}): rc {rc}, log {log}")
+            want = {k: n * steps * TRAIN_SEQ_LEN for k, n in PER_FRAME[name].items()}
+            want["attn_core_backward"] = 10 * steps * TRAIN_SEQ_LEN
+            expect_launches(f"train CLI ({name})", launches, want)
+            ckpt = os.path.join(out_dir, f"epoch_{steps}.pth")
+            if not os.path.exists(ckpt):
+                raise AssertionError(f"train CLI ({name}) wrote no {ckpt}")
+            eval_out = os.path.join(tmp, "eval_" + name)
+            rc = eval_main(["--weights_dir", out_dir, "--data_dir", data, "--datasets", "SYN",
+                            "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", "8",
+                            "--output_dir", eval_out])
+            with open(os.path.join(eval_out, f"epoch_{steps}_L8_org.txt")) as fp:
+                scored = json.load(fp)["SYN"]["seq0"]
+            if rc != 0 or not all(math.isfinite(v) for v in scored.values()):
+                raise AssertionError(f"eval CLI on the trained {name} checkpoint: rc {rc}, {scored}")
+            rows[name] = {
+                "steps": steps, "losses": [r["loss"] for r in log],
+                "ms_per_step_after_first": 1e3 * float(np.mean([r["seconds"] for r in log[1:]])),
+                "ms_per_step": [1e3 * r["seconds"] for r in log],
+                "data_ms_per_step_after_first": 1e3 * float(np.mean([r["data_seconds"] for r in log[1:]])),
+                "cli_seconds": seconds, "max_memory_allocated_gib": peak_gb, "launches": launches,
+                "eval_of_checkpoint": scored,
+            }
+            if name == "flagship":
+                flagship_args = model_args
 
-        # one profiled step (warm) of the same configuration
+        # one profiled step (warm) of the flagship configuration
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            model = build_model("BDE2VID", model_args, train=True)
-        optimizer, _, clip, _ = build_optimizer(model.parameters(), cfg["optimizer"])
-        comp = SequenceLossComputer(cfg["losses"])
+            model = build_model("BDE2VID", flagship_args, train=True)
+        optimizer, _, clip, _ = build_optimizer(model.parameters(), optimizer_cfg)
+        comp = SequenceLossComputer([{"type": "L1Loss"}])
         batch = next(iterate_training_windows(data, TRAIN_SEQ_LEN, 5, data_cfg, multiple=8,
                                               ltype="MMP"))
         drop = torch.Generator(device="cuda").manual_seed(1)
@@ -606,15 +935,9 @@ def phase_train(torch, launch_counts, card):
 
         step()
         prof = device_profile(torch, step)
-    emit({"phase": "train", "card": card, "steps": TRAIN_STEPS, "sequence_length": TRAIN_SEQ_LEN,
-          "items": items, "crop_hw": list(batch[0].shape[-2:]), "losses": [r["loss"] for r in log],
-          "ms_per_step_after_first": 1e3 * float(np.mean([r["seconds"] for r in log[1:]])),
-          "ms_per_step": [1e3 * r["seconds"] for r in log],
-          "data_ms_per_step_after_first": 1e3 * float(np.mean([r["data_seconds"] for r in log[1:]])),
-          "cli_seconds": seconds,
-          "max_memory_allocated_gib": peak_gb, "launches": launches, "eval_of_checkpoint": scored,
-          "profiled_step": prof})
-    return launches["attn_core_backward"]
+    emit({"phase": "train", "card": card, "sequence_length": TRAIN_SEQ_LEN, "items": items,
+          "crop_hw": list(batch[0].shape[-2:]), "configs": rows, "flagship_profiled_step": prof})
+    return rows["flagship"]["launches"]["attn_core_backward"]
 
 
 def main() -> int:
@@ -634,19 +957,24 @@ def main() -> int:
     phase_build()
     cases = phase_kernels(torch)
     bwd_cases = phase_kernels_training(torch)
+    block_cases, attn_cases = phase_kernels_window(torch)
+    attn_launches = phase_attention(torch, launch_counts)
     phase_model(torch, launch_counts)
-    launches = phase_eval(torch, launch_counts, card)
+    phase_parallel(torch, launch_counts)
+    eval_launches = phase_eval(torch, launch_counts, card)
     phase_grads(torch, launch_counts)
     bwd_launches = phase_train(torch, launch_counts, card)
 
-    def per_frame(cases, key):
-        # per flagship frame in f32: 2 plain + 2 dilated blocks at level 0, 3 + 3 at level 2
+    def per_frame(cases, key, blocks):
+        # f32, per frame of the configuration: ``blocks`` launches per level,
+        # shared evenly among the cases (layouts) listed for that level
         vals = [c[key] for c in cases]
         if any(v is None for v in vals):
             return None
-        return sum(c[key] * BLOCKS_PER_FRAME[c["level"]] / 2 for c in cases)
+        per_level = {lvl: sum(c["level"] == lvl for c in cases) for lvl in blocks}
+        return sum(c[key] * blocks[c["level"]] / per_level[c["level"]] for c in cases)
 
-    def summary(name, source, line, cases, n_launches, library):
+    def summary(name, source, line, cases, n_launches, blocks, library):
         f32 = [c for c in cases if c["dtype"] == "float32"]
         return {
             "name": name,
@@ -655,18 +983,27 @@ def main() -> int:
             "replaces": f"bde2vid_tpu/ops/window_attn_pallas.py:{line}",
             "launches": n_launches,
             "max_abs_err": max(c["max_abs_err"] for c in f32),
-            "ms": per_frame(f32, "kernel_ms"),
-            "plain_ms": per_frame(f32, "plain_ms"),
-            "bound_ms": per_frame(f32, "bound_ms"),
+            "ms": per_frame(f32, "kernel_ms", blocks),
+            "plain_ms": per_frame(f32, "plain_ms", blocks),
+            "bound_ms": per_frame(f32, "bound_ms", blocks),
             "bound_by": "operations" if all(c["bound_by"] == "operations" for c in f32) else "bytes",
-            "library_ms": per_frame(f32, "library_ms") if library else None,
+            "library_ms": per_frame(f32, "library_ms", blocks) if library else None,
         }
 
+    # times per frame in f32: B1 and B2 per flagship frame (4 + 6 launches),
+    # B3 per 8x8 frame (its 2 + 3 even dilated blocks, without acc), B4 at
+    # the same 8x8 shapes
+    no_acc = [c for c in block_cases if not c["with_acc"]]
+    attn_8 = [c for c in attn_cases if c["config"] == "8x8"]
     emit({"kernels": [
         summary("fused_swin_block", "bde2vid_tpu_torch/ops/csrc/swin_block.cu", 654, cases,
-                launches, False),
+                eval_launches["flagship"]["fused_swin_block"], BLOCKS_PER_FRAME, False),
         summary("attn_core_backward", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
-                bwd_cases, bwd_launches, True),
+                bwd_cases, bwd_launches, BLOCKS_PER_FRAME, True),
+        summary("fused_window_block", "bde2vid_tpu_torch/ops/csrc/window_block.cu", 377, no_acc,
+                eval_launches["8x8"]["fused_window_block"], BLOCKS_PER_FRAME_8, False),
+        summary("fused_window_attention", "bde2vid_tpu_torch/ops/csrc/window_attention.cu", 89,
+                attn_8, attn_launches, BLOCKS_PER_FRAME_8, True),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

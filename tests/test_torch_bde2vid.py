@@ -113,12 +113,11 @@ def test_flax_params_carried_over_match_jax(depths):
     np.testing.assert_allclose(out[:, 0, 0].numpy(), want, atol=2e-4, rtol=0)
 
 
+# parallel_attention and nwindow_size are ported: tests/test_torch_parallel_nwindow.py
 @pytest.mark.parametrize("extra,exc", [
-    ({"parallel_attention": True}, NotImplementedError),
     ({"remat": True}, NotImplementedError),
     ({"norm": "BN"}, NotImplementedError),
     ({"skip_type": "concat"}, NotImplementedError),
-    ({"nwindow_size": [2, 2]}, NotImplementedError),
     ({"recurrent_block_type": "convgru"}, NotImplementedError),
     ({"skip_type": "no_skip"}, ValueError),
 ])

@@ -10,7 +10,15 @@ import pytest
 import torch
 
 from bde2vid_tpu_torch.nn import window_attention as twa
+from bde2vid_tpu_torch.ops import window_attention_cuda as wbc
 from bde2vid_tpu_torch.ops import window_attn_cuda as wac
+from bde2vid_tpu_torch.ops.window_attention_cuda import (
+    WindowBlockParams,
+    fused_window_attention,
+    fused_window_block,
+    window_attention_reference,
+    window_block_reference,
+)
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
     SwinBlockParams,
     attn_core_backward,
@@ -67,12 +75,26 @@ def test_cuda_kernel_matches_twin(cuda_device, dilated, heads):
 
 
 @pytest.mark.cuda
-def test_cuda_even_dilated_window_with_kernel_raises(cuda_device):
-    blk = twa.SwinTransformerBlock3D(16, 4, window_size=(3, 4, 4), dilate_win=True,
-                                     use_kernel=True).to(cuda_device)
-    x = torch.randn(3, 1, 8, 8, 16, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        blk(x)
+@pytest.mark.parametrize("win", [(4, 4), (8, 8)])
+def test_cuda_even_dilated_window_launches_window_block(cuda_device, win):
+    """An even dilated block on the kernel path launches the WindowAttention3D
+    kernel once (and no Swin block kernel) and matches the same block on the
+    CPU, where the kernel's twin runs; the output repeats bit for bit (the
+    fold sums its taps in a fixed order)."""
+    torch.manual_seed(0)
+    blk = twa.SwinTransformerBlock3D(16, 4, window_size=(3, *win), dilate_win=True, use_kernel=True)
+    x = torch.randn(3, 2, 2 * win[0] + 3, 2 * win[1] + 1, 16)
+    with torch.no_grad():
+        want = blk(x)
+        blk.to(cuda_device)
+        before = dict(launch_counts)
+        got = blk(x.to(cuda_device))
+        again = blk(x.to(cuda_device))
+        torch.cuda.synchronize()
+    assert launch_counts["fused_window_block"] == before.get("fused_window_block", 0) + 2
+    assert launch_counts["fused_swin_block"] == before.get("fused_swin_block", 0)
+    assert torch.equal(got, again)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -174,3 +196,89 @@ def test_cuda_old_launch_dropped_gradients_and_the_function_repairs_it(cuda_devi
     assert launch_counts["attn_core_backward"] == before.get("attn_core_backward", 0) + 1
     for name, prm in blk.named_parameters():
         assert prm.grad is not None and prm.grad.abs().max() > 0, name
+
+
+def _block_params(p: SwinBlockParams) -> WindowBlockParams:
+    return WindowBlockParams(*p[:10], p.bias)
+
+
+def _bound(ref, dt):
+    r = ref.float().abs().max().item()
+    return 1e-4 * max(1.0, r) if dt == torch.float32 else 2e-2 * r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win,heads,c", [((7, 7), 16, 64), ((8, 8), 16, 256), ((8, 8), 4, 16)])
+def test_cuda_window_block_and_attention_match_twins(cuda_device, win, heads, c):
+    """The WindowAttention3D kernel (with and without acc) and the bare
+    attention kernel vs their twins, f32 and bf16, on dilated windows."""
+    x, _, p = _inputs(6, True, d=3, h=2 * win[0] + 2, w=3 * win[1], c=c, heads=heads, win=win)
+    pb = _block_params(SwinBlockParams(*[t.to(cuda_device) for t in p]))
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(cuda_device, dt)
+        before = dict(launch_counts)
+        out, acc = fused_window_block(xd, pb, heads, 1, with_acc=True)
+        out2 = fused_window_block(xd, pb, heads, 1)
+        ref_out, ref_acc = window_block_reference(xd, pb, heads, 1, with_acc=True)
+        q, k, v = xd[1], xd[0], xd[2]
+        bias = pb.bias[:, :, : q.shape[1]].contiguous()
+        att = fused_window_attention(q, k, v, bias, heads)
+        ref_att = window_attention_reference(q, k, v, bias, heads)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_window_block"] == before.get("fused_window_block", 0) + 2
+        assert launch_counts["fused_window_attention"] == before.get("fused_window_attention", 0) + 1
+        assert torch.equal(out, out2)
+        for got, ref in ((out, ref_out), (acc, ref_acc), (att, ref_att)):
+            assert got.dtype == dt
+            assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_window_functions_gradients_match_twin_autograd(cuda_device):
+    """WindowBlockFunction and WindowAttentionFunction on the card (forward
+    kernel, backward kernel around autograd of the pre/post stages) vs
+    autograd through the twins: every input's gradient."""
+    x, _, p = _inputs(7, False, c=32, heads=4)
+    grads = []
+    for fn in (fused_window_block, window_block_reference):
+        xl = x.to(cuda_device).requires_grad_()
+        pl = _block_params(SwinBlockParams(*[t.to(cuda_device).requires_grad_() for t in p]))
+        out = fn(xl, pl, 4, 1)
+        grads.append(torch.autograd.grad(out, [xl, *pl], torch.ones_like(out).mul_(0.01).add_(out.detach())))
+    for a, r in zip(*grads):
+        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    f = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
+    ins = (f(5, 49, 32), f(5, 147, 32), f(5, 147, 32), f(4, 49, 147) * 0.5)
+    gout = f(5, 49, 32)
+    grads = []
+    for fn in (fused_window_attention, window_attention_reference):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        before = dict(launch_counts)
+        out = fn(*leaves, 4)
+        grads.append(torch.autograd.grad(out, leaves, gout))
+        if fn is fused_window_attention:
+            assert launch_counts["fused_window_attention"] == before.get("fused_window_attention", 0) + 1
+            assert launch_counts["attn_core_backward"] == before.get("attn_core_backward", 0) + 1
+    for a, r in zip(*grads):
+        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_raw_launchers_refuse_inputs_that_require_grad(cuda_device):
+    x, _, p = _inputs(9, False)
+    xd = x.to(cuda_device)
+    pd = SwinBlockParams(*[t.to(cuda_device).requires_grad_() for t in p])
+    pb = _block_params(pd)
+    k, v, bias = xd[0], xd[2], pd.bias.detach()[:, :, :49].contiguous()
+    q = xd[1].clone().requires_grad_()
+    for launch in (lambda: wac._launch_swin_block(xd, xd[1], pd, 4, 1, "gelu", None),
+                   lambda: wbc._launch_window_block(xd, pb, 4, 1),
+                   lambda: wbc._launch_window_attention(q, k, v, bias, 4),
+                   lambda: wac._launch_attn_core_backward(q, k, v, bias, q.detach(), 4)):
+        with pytest.raises(RuntimeError, match="invisible to autograd"):
+            launch()
+    with torch.no_grad():
+        out, acc = wbc._launch_window_block(xd, pb, 4, 1)
+    assert out.grad_fn is None and acc.shape == out.shape
