@@ -34,6 +34,9 @@ from bde2vid_tpu_torch.nn.layers import ConvLayer, ResidualBlockNoBN, UpsampleCo
 from bde2vid_tpu_torch.nn.recurrent import ConvLSTMCell, recurrent_initial_state
 from bde2vid_tpu_torch.nn.window_attention import DFrameAttention
 
+# frames per batch of the parallel attention (JAX ``_AttnParallel``'s slab)
+_PARALLEL_SLAB = 128
+
 
 class RecurrentConv(nn.Module):
     """Strided ConvLayer + ConvLSTM cell (reference RecurrentConv,
@@ -156,9 +159,9 @@ class BDE2VIDGenerator(nn.Module):
         return torch.stack(seq).permute(0, 1, 4, 2, 3)
 
     def _attend_parallel(self, attn: DFrameAttention, merged: torch.Tensor,
-                         generator: Optional[torch.Generator], slab: int = 128) -> torch.Tensor:
+                         generator: Optional[torch.Generator]) -> torch.Tensor:
         """Every frame's buffer reads the original features, so up to
-        ``slab`` frames go through the blocks as one batch, sample-major
+        ``_PARALLEL_SLAB`` frames go through the blocks as one batch, sample-major
         (JAX ``_AttnParallel``); DropPath draws one mask per (sample, frame)
         row. Residual-added to ``merged``."""
         T, N, C, H, W = merged.shape
@@ -166,8 +169,8 @@ class BDE2VIDGenerator(nn.Module):
         # row 0 is the zero frame out-of-range neighbours read
         padded = torch.cat([torch.zeros_like(tok[:1]), tok])
         outs = []
-        for s0 in range(0, T, slab):
-            s1 = min(s0 + slab, T)
+        for s0 in range(0, T, _PARALLEL_SLAB):
+            s1 = min(s0 + _PARALLEL_SLAB, T)
             offs = np.arange(s0, s1)[:, None] + np.asarray(self.buffer_index)[None]  # (S, D)
             rows = np.where((offs >= 0) & (offs < T), offs + 1, 0)
             buf = padded[torch.as_tensor(rows, device=merged.device)]  # (S, D, N, H, W, C)

@@ -14,7 +14,7 @@ With ``use_kernel`` a block runs whole in one call of
 their plain twins on CPU tensors, differentiable either way). A dilated
 block whose window has an even side cannot: its windows overlap, and the
 fold sums their attention outputs before the residual. It runs the unfused
-body around ``ops.window_attention_cuda.fused_window_block`` (the
+body around ``ops.window_attn_cuda.fused_window_block`` (the
 WindowAttention3D body) instead. Without ``use_kernel``, or with the
 ``nwindow_size`` KV token reduction, the unfused PyTorch body runs.
 
@@ -41,8 +41,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bde2vid_tpu_torch.nn.layers import get_activation
-from bde2vid_tpu_torch.ops.window_attention_cuda import WindowBlockParams, fused_window_block
-from bde2vid_tpu_torch.ops.window_attn_cuda import SwinBlockParams, fused_swin_block
+from bde2vid_tpu_torch.ops.window_attn_cuda import (
+    SwinBlockParams,
+    WindowBlockParams,
+    fused_swin_block,
+    fused_window_block,
+)
 
 # ---------------------------------------------------------------------------
 # window partition / reverse
@@ -384,8 +388,7 @@ class SwinTransformerBlock3D(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size=(3, 8, 8), dilate_win: bool = False,
                  q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False,
-                 drop_path: float = 0.0, qkv_bias: bool = True,
-                 nwindow_size: Optional[Tuple[int, int]] = None):
+                 drop_path: float = 0.0, nwindow_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.window_size = tuple(window_size)
         self.dilate_win = dilate_win
@@ -394,7 +397,7 @@ class SwinTransformerBlock3D(nn.Module):
         self.use_kernel = use_kernel
         self.drop_path = float(drop_path)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads, q_ind=self.q_ind,
-                                      qkv_bias=qkv_bias, nwin_size=nwindow_size)
+                                      nwin_size=nwindow_size)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, 4 * dim, activation)  # mlp_ratio 4 (reference default)
 
@@ -514,15 +517,14 @@ class DFrameAttention(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size=(1, 7, 7),
                  q_ind: Optional[int] = None, activation: str = "gelu", use_kernel: bool = False,
-                 drop_path: Sequence[float] = (), qkv_bias: bool = True,
-                 nwindow_size: Optional[Tuple[int, int]] = None):
+                 drop_path: Sequence[float] = (), nwindow_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.q_ind = window_size[0] // 2 if q_ind is None else q_ind
         self.blocks = nn.ModuleList(
             SwinTransformerBlock3D(dim, num_heads, window_size, dilate_win=(i % 2 == 1),
                                    q_ind=self.q_ind, activation=activation, use_kernel=use_kernel,
                                    drop_path=drop_path[i] if i < len(drop_path) else 0.0,
-                                   qkv_bias=qkv_bias, nwindow_size=nwindow_size)
+                                   nwindow_size=nwindow_size)
             for i in range(depth)
         )
 

@@ -1,26 +1,33 @@
-"""Whole Swin transformer block over a group of windows and the backward of
-its attention core: the CUDA kernels (``csrc/swin_block.cu``,
+"""The window-attention CUDA kernels (``csrc/swin_block.cu``,
+``csrc/window_block.cu``, ``csrc/window_attention.cu``,
 ``csrc/attn_core_bwd.cu``), their plain PyTorch twins, and the autograd
-Function that joins them.
+Functions around them.
 
 Counterparts in ``bde2vid_tpu/ops/window_attn_pallas.py``:
 
 - ``fused_swin_block``: kernel ``_fused_swin_kernel``, twin
   ``_ref_swin_block``, with the stochastic-depth masks and the saved ``acc``;
+- ``fused_window_block``: kernel ``_fused_block_kernel``, twin
+  ``_ref_window_block``, with the optional ``acc`` output (the
+  WindowAttention3D body: no residual, no MLP);
+- ``fused_window_attention``: kernel ``_kernel`` (math ``_attn_core``),
+  twin ``_ref_window_attention``;
 - ``attn_core_backward``: kernel ``_bwd_kernel``, math
   ``_attn_core_bwd_body``, launcher ``_attn_core_bwd_call``;
-- ``SwinBlockFunction``: the custom_vjp pairs ``_swin_block_fwd`` /
-  ``_swin_block_bwd`` and their masked twins. The forward runs the block
-  and keeps ``acc``; the backward runs the cheap ``pre`` stage (centre
-  substitution, LNs, q and k|v projections) and ``post`` stage (out
-  projection, m1, residual, LN2, MLP, m2) under torch autograd, and the
-  attention-core backward between them.
+- ``SwinBlockFunction`` and ``WindowBlockFunction``: the custom_vjp pairs
+  ``_swin_block_fwd`` / ``_swin_block_bwd`` and ``_window_block_bwd``. The
+  forward runs the block and keeps ``acc``; the backward runs the cheap
+  ``pre`` stage (centre substitution, LNs, q and k|v projections) and
+  ``post`` stage (out projection, and for the Swin block m1, residual, LN2,
+  MLP, m2) under torch autograd, and the attention-core backward between
+  them. ``WindowAttentionFunction`` (``_window_attention_fwd`` /
+  ``_window_attention_bwd``) is the attention core with that backward.
 
 Each public function launches its kernel for CUDA tensors and runs its twin
 for CPU tensors; any other device raises. There is no fallback from a kernel
 to a twin. A kernel launch is invisible to autograd, so the launchers refuse
-inputs that require grad: those go through ``SwinBlockFunction``, which
-``fused_swin_block`` picks whenever a gradient is wanted.
+inputs that require grad: the public functions route those through their
+Function whenever a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -63,6 +70,24 @@ class SwinBlockParams(NamedTuple):
     fc1_b: torch.Tensor
     fc2_w: torch.Tensor  # (C, Hd)
     fc2_b: torch.Tensor
+    bias: torch.Tensor  # (H, M, N)
+
+
+class WindowBlockParams(NamedTuple):
+    """The WindowAttention3D weights in torch layout: matrices are (out, in)
+    like ``nn.Linear.weight``; ``bias`` is the sliced relative-position bias
+    (H, M, N)."""
+
+    norm_q_w: torch.Tensor
+    norm_q_b: torch.Tensor
+    norm_kv_w: torch.Tensor
+    norm_kv_b: torch.Tensor
+    q_w: torch.Tensor  # (C, C)
+    q_b: torch.Tensor
+    kv_w: torch.Tensor  # (2C, C)
+    kv_b: torch.Tensor
+    proj_w: torch.Tensor  # (C, C)
+    proj_b: torch.Tensor
     bias: torch.Tensor  # (H, M, N)
 
 
@@ -198,6 +223,26 @@ def swin_block_reference(
     q, k, v = _pre_stage(x, ctr, params, num_heads, q_ind)
     acc = attn_core_reference(q, k, v, params.bias, num_heads)
     out = _post_stage(acc, ctr, params, masks, activation)
+    return (out, acc) if with_acc else out
+
+
+# the twin of ``_ref_window_attention``: the attention core of the block
+# kernels is the same function
+window_attention_reference = attn_core_reference
+
+
+def _post(acc, p: WindowBlockParams, dt):
+    return _rowdot(acc, p.proj_w, p.proj_b, dt).to(dt)
+
+
+def window_block_reference(x: torch.Tensor, params: WindowBlockParams, num_heads: int,
+                           q_ind: int, with_acc: bool = False):
+    """Plain PyTorch twin of the WindowAttention3D body kernel. x:
+    (D, B_, M, C) window token stacks, queries from frame ``q_ind``. Returns (B_, M, C) in x.dtype, and
+    with ``with_acc`` also the pre-projection attention output ``acc``."""
+    q, k, v = _pre_stage(x, x[q_ind], params, num_heads, q_ind)
+    acc = attn_core_reference(q, k, v, params.bias, num_heads)
+    out = _post(acc, params, x.dtype)
     return (out, acc) if with_acc else out
 
 
@@ -386,9 +431,89 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     return dq, dk, dv, dbias.to(bias.dtype)
 
 
+def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
+    _refuse_grad("fused_window_attention", (q, k, v, bias))
+    if q.device.type != "cuda":
+        raise ValueError(f"the window attention kernel runs on cuda tensors, got {q.device}")
+    b_, m, c = q.shape
+    n = k.shape[1]
+    dt = q.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_window_attention takes float32 or bfloat16, got {dt}")
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (b_, n, c) or t.dtype != dt or t.device != q.device:
+            raise ValueError(f"{name} must be {(b_, n, c)} {dt} on {q.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if tuple(bias.shape) != (num_heads, m, n) or bias.device != q.device:
+        raise ValueError(f"bias must be {(num_heads, m, n)} on {q.device}, got {tuple(bias.shape)}")
+    _check_head_dim(c, num_heads)
+    lib = _lib("window_attention")
+    smem = lib.window_attention_smem_bytes(m, n, c, num_heads)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"shapes need {smem} B of shared memory per block (limit {_MAX_SMEM})")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    bias32 = bias.float().contiguous()
+    out = torch.empty_like(q)
+    rc = lib.window_attention_forward(
+        int(dt == torch.bfloat16), b_, m, n, c, num_heads, float((c // num_heads) ** -0.5),
+        *[t.data_ptr() for t in (q, k, v, bias32, out)], _stream(q),
+    )
+    if rc != 0:
+        raise RuntimeError(f"window_attention kernel launch failed: CUDA error {rc}")
+    launch_counts["fused_window_attention"] += 1
+    return out
+
+
+def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: int):
+    """Launch the block kernel: returns (out, acc), each (B_, M, C)."""
+    _refuse_grad("fused_window_block", (x, *params))
+    if x.device.type != "cuda":
+        raise ValueError(f"the window block kernel runs on cuda tensors, got {x.device}")
+    d, b_, m, c = x.shape
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_window_block takes float32 or bfloat16, got {dt}")
+    _check_head_dim(c, num_heads)
+    if not 0 <= q_ind < d:
+        raise ValueError(f"q_ind {q_ind} outside 0..{d - 1}")
+    shapes = {
+        "norm_q_w": (c,), "norm_q_b": (c,), "norm_kv_w": (c,), "norm_kv_b": (c,),
+        "q_w": (c, c), "q_b": (c,), "kv_w": (2 * c, c), "kv_b": (2 * c,),
+        "proj_w": (c, c), "proj_b": (c,), "bias": (num_heads, m, d * m),
+    }
+    p = _prepare_params(params, shapes, dt, x.device)
+    lib = _lib("window_block")
+    smem = (ctypes.c_longlong * 3)()
+    lib.window_block_smem_bytes(d, m, c, num_heads, smem)
+    if max(smem) > _MAX_SMEM:
+        raise ValueError(f"shapes need {max(smem)} B of shared memory per block (limit {_MAX_SMEM})")
+
+    x = x.contiguous()
+    kv = torch.empty((d, b_, m, 2 * c), dtype=dt, device=x.device)
+    q = torch.empty((b_, m, c), dtype=dt, device=x.device)
+    acc = torch.empty((b_, m, c), dtype=dt, device=x.device)
+    out = torch.empty((b_, m, c), dtype=dt, device=x.device)
+    ptrs = [
+        x, p["norm_q_w"], p["norm_q_b"], p["norm_kv_w"], p["norm_kv_b"], p["q_w"], p["q_b"],
+        p["kv_w"], p["kv_b"], p["proj_w"], p["proj_b"], p["bias"], kv, q, acc, out,
+    ]
+    rc = lib.window_block_forward(
+        int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind,
+        float((c // num_heads) ** -0.5), *[t.data_ptr() for t in ptrs], _stream(x),
+    )
+    if rc != 0:
+        raise RuntimeError(f"window_block kernel launch failed: CUDA error {rc}")
+    launch_counts["fused_window_block"] += 1
+    return out, acc
+
+
 # ---------------------------------------------------------------------------
-# public entry points
+# autograd Functions and public entry points
 # ---------------------------------------------------------------------------
+
+
+def _wants_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def attn_core_backward(q, k, v, bias, g, num_heads: int):
@@ -468,7 +593,7 @@ def fused_swin_block(
     _check_device(x, "fused_swin_block")
     if masks is not None and any(t.requires_grad for t in masks):
         raise ValueError("stochastic-depth masks are constants; they must not require grad")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, ctr, *params)):
+    if _wants_grad((x, ctr, *params)):
         if with_acc:
             raise ValueError("with_acc is an output of no-grad calls; the Function keeps acc itself")
         m1, m2 = (None, None) if masks is None else masks
@@ -476,4 +601,103 @@ def fused_swin_block(
     if x.device.type == "cpu":
         return swin_block_reference(x, ctr, params, num_heads, q_ind, activation, masks, with_acc)
     out, acc = _launch_swin_block(x, ctr, params, num_heads, q_ind, activation, masks)
+    return (out, acc) if with_acc else out
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """The attention core with a gradient: the forward runs the kernel (twin
+    on the CPU) and keeps q, k, v and bias; the backward is
+    :func:`attn_core_backward` (the backward kernel on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, num_heads, q, k, v, bias):
+        if q.device.type == "cpu":
+            out = window_attention_reference(q, k, v, bias, num_heads)
+        else:
+            out = _launch_window_attention(q, k, v, bias, num_heads)
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = attn_core_backward(q, k, v, bias, g.contiguous(), ctx.num_heads)
+        return None, dq, dk, dv, dbias
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """softmax(q k^T hd^-0.5 + bias) v with the heads split over channels,
+    per window: q (B_, M, C), k, v (B_, N, C), bias (H, M, N) f32 ->
+    (B_, M, C) in q.dtype. CUDA tensors launch the hand-written kernel, CPU
+    tensors run :func:`window_attention_reference`; when grad mode is on and
+    an input requires grad, the call goes through
+    :class:`WindowAttentionFunction`."""
+    _check_device(q, "fused_window_attention")
+    if _wants_grad((q, k, v, bias)):
+        return WindowAttentionFunction.apply(num_heads, q, k, v, bias)
+    if q.device.type == "cpu":
+        return window_attention_reference(q, k, v, bias, num_heads)
+    return _launch_window_attention(q, k, v, bias, num_heads)
+
+
+class WindowBlockFunction(torch.autograd.Function):
+    """The WindowAttention3D body with a gradient: the forward runs the block
+    (kernel on CUDA, twin on the CPU) and keeps ``acc``; the backward is the
+    hybrid of ``_window_block_bwd``: autograd of the ``pre`` stage and of the
+    out projection around :func:`attn_core_backward`. ``bias`` gets the
+    summed dbias, so the gradient reaches the relative-position table
+    through the caller's gather."""
+
+    @staticmethod
+    def forward(ctx, num_heads, q_ind, x, *params):
+        p = WindowBlockParams(*params)
+        if x.device.type == "cpu":
+            out, acc = window_block_reference(x, p, num_heads, q_ind, with_acc=True)
+        else:
+            out, acc = _launch_window_block(x, p, num_heads, q_ind)
+        ctx.save_for_backward(x, acc, *params)
+        ctx.cfg = (num_heads, q_ind)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, q_ind = ctx.cfg
+        x, acc, *params = ctx.saved_tensors
+        p = WindowBlockParams(*params)
+
+        def leaf(t):
+            return t.detach().requires_grad_()
+
+        with torch.enable_grad():
+            x_l = leaf(x)
+            pre = {n: leaf(getattr(p, n)) for n in _PRE}
+            q, k, v = _pre_stage(x_l, x_l[q_ind], p._replace(**pre), num_heads, q_ind)
+            acc_l, pw, pb = leaf(acc), leaf(p.proj_w), leaf(p.proj_b)
+            out = _post(acc_l, p._replace(proj_w=pw, proj_b=pb), x.dtype)
+        dacc, dpw, dpb = torch.autograd.grad(out, [acc_l, pw, pb], g)
+        dq, dk, dv, dbias = attn_core_backward(
+            q.detach(), k.detach(), v.detach(), p.bias.detach(), dacc, num_heads)
+        dx, *dpre = torch.autograd.grad((q, k, v), [x_l, *pre.values()], (dq, dk, dv))
+        grads = {**dict(zip(_PRE, dpre)), "proj_w": dpw, "proj_b": dpb, "bias": dbias}
+        return (None, None, dx, *[grads[n] for n in WindowBlockParams._fields])
+
+
+def fused_window_block(x: torch.Tensor, params: WindowBlockParams, num_heads: int, q_ind: int,
+                       with_acc: bool = False):
+    """The WindowAttention3D body per window: x (D, B_, M, C) -> (B_, M, C)
+    (LN_q on ``x[q_ind]``, LN_kv on all D frames, q and k|v projections,
+    attention, out projection), and with ``with_acc`` also ``acc``. CUDA
+    tensors launch the hand-written kernel, CPU tensors run
+    :func:`window_block_reference`; when grad mode is on and an input
+    requires grad, the call goes through :class:`WindowBlockFunction`."""
+    _check_device(x, "fused_window_block")
+    if _wants_grad((x, *params)):
+        if with_acc:
+            raise ValueError("with_acc is an output of no-grad calls; the Function keeps acc itself")
+        return WindowBlockFunction.apply(num_heads, q_ind, x, *params)
+    if x.device.type == "cpu":
+        return window_block_reference(x, params, num_heads, q_ind, with_acc)
+    out, acc = _launch_window_block(x, params, num_heads, q_ind)
     return (out, acc) if with_acc else out

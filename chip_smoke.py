@@ -661,10 +661,9 @@ def phase_kernels_window(torch):
     8x8 config's shapes, each vs its twin, with times; then both Functions'
     gradients on the card vs autograd through the twins."""
     from bde2vid_tpu_torch.nn.window_attention import window_partition, window_partition_dilated
-    from bde2vid_tpu_torch.ops.window_attention_cuda import (
-        WindowBlockParams, fused_window_attention, fused_window_block, window_attention_reference,
-        window_block_reference)
-    from bde2vid_tpu_torch.ops.window_attn_cuda import _pre_stage
+    from bde2vid_tpu_torch.ops.window_attn_cuda import (
+        WindowBlockParams, _pre_stage, fused_window_attention, fused_window_block,
+        window_attention_reference, window_block_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     dev = torch.device("cuda")

@@ -10,22 +10,19 @@ import pytest
 import torch
 
 from bde2vid_tpu_torch.nn import window_attention as twa
-from bde2vid_tpu_torch.ops import window_attention_cuda as wbc
 from bde2vid_tpu_torch.ops import window_attn_cuda as wac
-from bde2vid_tpu_torch.ops.window_attention_cuda import (
-    WindowBlockParams,
-    fused_window_attention,
-    fused_window_block,
-    window_attention_reference,
-    window_block_reference,
-)
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
     SwinBlockParams,
+    WindowBlockParams,
     attn_core_backward,
     attn_core_backward_reference,
     fused_swin_block,
+    fused_window_attention,
+    fused_window_block,
     launch_counts,
     swin_block_reference,
+    window_attention_reference,
+    window_block_reference,
 )
 
 
@@ -274,11 +271,11 @@ def test_cuda_raw_launchers_refuse_inputs_that_require_grad(cuda_device):
     k, v, bias = xd[0], xd[2], pd.bias.detach()[:, :, :49].contiguous()
     q = xd[1].clone().requires_grad_()
     for launch in (lambda: wac._launch_swin_block(xd, xd[1], pd, 4, 1, "gelu", None),
-                   lambda: wbc._launch_window_block(xd, pb, 4, 1),
-                   lambda: wbc._launch_window_attention(q, k, v, bias, 4),
+                   lambda: wac._launch_window_block(xd, pb, 4, 1),
+                   lambda: wac._launch_window_attention(q, k, v, bias, 4),
                    lambda: wac._launch_attn_core_backward(q, k, v, bias, q.detach(), 4)):
         with pytest.raises(RuntimeError, match="invisible to autograd"):
             launch()
     with torch.no_grad():
-        out, acc = wbc._launch_window_block(xd, pb, 4, 1)
+        out, acc = wac._launch_window_block(xd, pb, 4, 1)
     assert out.grad_fn is None and acc.shape == out.shape

@@ -3,8 +3,8 @@ with even (4, 6) windows, whose dilated blocks take the WindowAttention3D
 kernel route (forward and ``make_loss_fn`` gradients), ``parallel_attention``
 (the JAX package's ``_AttnParallel``) on the plain and the kernel path and
 with DropPath, and the ``nwindow_size`` KV token reduction (vs flax and a
-torch oracle written from the reference). Weights: flax init params carried
-over with ``state_dict_from_jax``; JAX runs on the CPU."""
+torch oracle written from the reference). Weights: seeded values in the flax
+tree, carried over with ``state_dict_from_jax``; JAX runs on the CPU."""
 
 import functools
 import json
@@ -26,6 +26,7 @@ from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, state_dic
 from bde2vid_tpu_torch.models import build_model
 from bde2vid_tpu_torch.nn.window_attention import SwinTransformerBlock3D, set_attention_kernel
 from bde2vid_tpu_torch.train import SequenceLossComputer
+from tests.test_torch_window_block import seeded_params
 
 T = torch.from_numpy
 
@@ -52,8 +53,8 @@ def _nchw(a):
     return T(np.ascontiguousarray(a.transpose(0, 1, 4, 2, 3)))
 
 
-@pytest.fixture(autouse=True)
-def concrete_gathers(monkeypatch):
+@pytest.fixture(scope="module", autouse=True)
+def concrete_gathers():
     """The JAX package caches its static gathers with their index arrays;
     one first built while tracing would hold a tracer that a later trace
     cannot use. Build them as concrete arrays, so that the tests can jit."""
@@ -64,31 +65,42 @@ def concrete_gathers(monkeypatch):
         with jax.ensure_compile_time_eval():
             return build(*args)
 
-    monkeypatch.setattr(jwa, "_inj_take_cached", cached)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jwa, "_inj_take_cached", cached)
+        yield
 
 
 @pytest.fixture(scope="module")
 def init_cache():
-    """flax params by architecture: the tree does not depend on the kernel
-    switch, training mode or the DropPath rate, so cases share one init."""
+    """Params by architecture: the tree does not depend on the kernel
+    switch, training mode or the DropPath rate, so cases share one tree."""
     return {}
 
 
-def _pair(cache, gcfg, vox, kernel, train=False):
-    """The JAX model (Pallas path with ``kernel``) with flax init params and
-    the port with the same params carried over."""
-    cfg = {"generator": dict(gcfg, use_pallas_attention=kernel)}
-    jmodel = jax_build("BDE2VID", cfg, train=train)
+def _params(cache, gcfg, vox):
     arch = json.dumps({k: v for k, v in gcfg.items() if k != "drop_path_rate"}, sort_keys=True)
     if arch not in cache:
-        init_model = jax_build("BDE2VID", {"generator": gcfg})
-        # flax's eager init of a BDE2VID is slow; jitted it compiles once
-        cache[arch] = jax.jit(init_model.init)(jax.random.PRNGKey(0), jnp.asarray(vox[:2]))
-    params = cache[arch]
-    model = build_model("BDE2VID", cfg, device="cpu", train=train)
+        init = jax_build("BDE2VID", {"generator": gcfg}).init
+        cache[arch] = seeded_params(init, jax.random.PRNGKey(0), jnp.asarray(vox[:2]))
+    return cache[arch]
+
+
+def _port(gcfg, params, kernel, train=False):
+    """The port's model with ``params`` carried over, on the kernel route
+    with ``kernel``."""
+    model = build_model("BDE2VID", {"generator": dict(gcfg, use_pallas_attention=kernel)},
+                        device="cpu", train=train)
     load_state_dict_checked(model, state_dict_from_jax(params))
     set_attention_kernel(model, kernel)
-    return jmodel, params, model
+    return model
+
+
+def _pair(cache, gcfg, vox, kernel, train=False):
+    """The JAX model (Pallas path with ``kernel``) and the port, on shared
+    params."""
+    jmodel = jax_build("BDE2VID", {"generator": dict(gcfg, use_pallas_attention=kernel)}, train=train)
+    params = _params(cache, gcfg, vox)
+    return jmodel, params, _port(gcfg, params, kernel, train)
 
 
 def _count_calls(monkeypatch, name):
@@ -98,15 +110,39 @@ def _count_calls(monkeypatch, name):
     return calls
 
 
-def test_even_window_bde2vid_matches_jax(init_cache, monkeypatch):
+@pytest.fixture(scope="module")
+def even_case(init_cache):
+    """The even-window model's JAX side on one input, in one jit: the
+    Pallas-path image (eval) and the loss and gradients of make_loss_fn
+    (training, DropPath 0)."""
+    t, h, w = 3, 32, 32
+    rng = np.random.default_rng(7)
+    vox = rng.normal(size=(t, 1, h, w, 5)).astype(np.float32)
+    tgt = rng.uniform(size=(t, 1, h, w, 1)).astype(np.float32)
+    params = _params(init_cache, EVEN, vox)
+    jeval = jax_build("BDE2VID", {"generator": dict(EVEN, use_pallas_attention=True)})
+    jtrain = jax_build("BDE2VID", {"generator": dict(EVEN, use_pallas_attention=True, drop_path_rate=0.0)},
+                       train=True)
+    loss_fn = make_loss_fn(jtrain, JaxLoss([{"type": "L1Loss"}]), is_sequence_model=True)
+
+    def image_loss_grads(p, v, g):
+        image = jeval.apply(p, v)[0]["image"]
+        return image, jax.value_and_grad(loss_fn, has_aux=True)(
+            p, v, g, None, {"droppath": jax.random.PRNGKey(2)})
+
+    image, ((loss, _), grads) = jax.jit(image_loss_grads)(params, jnp.asarray(vox), jnp.asarray(tgt))
+    return dict(vox=vox, tgt=tgt, params=params, image=np.asarray(image)[:, 0, :, :, 0],
+                loss=float(loss), grads=state_dict_from_jax(grads))
+
+
+def test_even_window_bde2vid_matches_jax(even_case, monkeypatch):
     """The kernel route (B1's twin for plain blocks, B3's for the even
     dilated ones) vs the JAX package's Pallas path; the port's unfused path
     agrees with both."""
-    t = 4
-    vox = _voxels(t, 32, 32, seed=2)
-    jmodel, params, model = _pair(init_cache, EVEN, vox, True)
+    vox, want = even_case["vox"], even_case["image"]
+    t = len(vox)
+    model = _port(EVEN, even_case["params"], True)
     b3 = _count_calls(monkeypatch, "fused_window_block")
-    want = np.asarray(jax.jit(jmodel.apply)(params, jnp.asarray(vox))[0]["image"])[:, 0, :, :, 0]
     with torch.no_grad():
         got = model(_nchw(vox))["image"][:, 0, 0].numpy()
         assert len(b3) == 2 * t  # one even dilated block at each of levels 1 and 2, per frame
@@ -117,24 +153,17 @@ def test_even_window_bde2vid_matches_jax(init_cache, monkeypatch):
     np.testing.assert_allclose(unfused, want, atol=2e-4, rtol=0)
 
 
-def test_even_window_bde2vid_gradients_match_jax_make_loss_fn(init_cache):
+def test_even_window_bde2vid_gradients_match_jax_make_loss_fn(even_case):
     """Loss and every gradient of the even-window model on the kernel path
     (WindowBlockFunction and SwinBlockFunction over their twins) vs the JAX
     package's make_loss_fn through its interpret-mode Pallas kernels, at the
     bound of tests/test_torch_train_grads.py."""
-    t, h, w = 3, 32, 32
-    rng = np.random.default_rng(7)
-    vox = rng.normal(size=(t, 1, h, w, 5)).astype(np.float32)
-    tgt = rng.uniform(size=(t, 1, h, w, 1)).astype(np.float32)
-    gcfg = dict(EVEN, drop_path_rate=0.0)
-    jmodel, params, model = _pair(init_cache, gcfg, vox, True, train=True)
-    loss_fn = make_loss_fn(jmodel, JaxLoss([{"type": "L1Loss"}]), is_sequence_model=True)
-    (want_loss, _), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        params, jnp.asarray(vox), jnp.asarray(tgt), None, {"droppath": jax.random.PRNGKey(2)})
+    vox, tgt = even_case["vox"], even_case["tgt"]
+    model = _port(dict(EVEN, drop_path_rate=0.0), even_case["params"], True, train=True)
     loss, _ = SequenceLossComputer([{"type": "L1Loss"}])(model(_nchw(vox))["image"], _nchw(tgt))
     loss.backward()
-    np.testing.assert_allclose(loss.item(), float(want_loss), atol=2e-5, rtol=1e-4)
-    want = state_dict_from_jax(jgrads)
+    np.testing.assert_allclose(loss.item(), even_case["loss"], atol=2e-5, rtol=1e-4)
+    want = even_case["grads"]
     got = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
     assert set(got) == set(want)
     for key, g in got.items():
@@ -221,7 +250,7 @@ def test_nwindow_attention_matches_flax_and_reference_oracle(rng):
     d, b_, wh, ww, c, heads = 3, 2, 5, 5, 8, 2
     x = rng.normal(size=(d, b_, wh, ww, c)).astype(np.float32)
     jmod = jwa.WindowAttention3D(c, (d, wh, ww), heads, nwin_size=(2, 2))
-    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = seeded_params(jmod.init, jax.random.PRNGKey(0), jnp.asarray(x))
     tmod = twa_mod.WindowAttention3D(c, (d, wh, ww), heads, nwin_size=(2, 2))
     load_state_dict_checked(tmod, state_dict_from_jax(params))
     assert tuple(tmod.reduction_conv.weight.shape) == (4 * c, 1, wh, ww)

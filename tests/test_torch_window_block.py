@@ -23,18 +23,36 @@ from bde2vid_tpu.ops.window_attn_pallas import (
 from bde2vid_tpu.ops.window_attn_pallas import fused_window_attention as jax_fused_window_attention
 from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, state_dict_from_jax
 from bde2vid_tpu_torch.nn import window_attention as twa
-from bde2vid_tpu_torch.ops import window_attention_cuda as wbc
-from bde2vid_tpu_torch.ops.window_attention_cuda import (
+from bde2vid_tpu_torch.ops import window_attn_cuda as wac
+from bde2vid_tpu_torch.ops.window_attn_cuda import (
     WindowBlockParams,
     fused_window_attention,
     fused_window_block,
+    launch_counts,
     window_attention_reference,
     window_block_reference,
 )
-from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
 
 T = torch.from_numpy
 TOLS = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def seeded_params(init, *args, seed=0):
+    """The variables of a flax ``init`` with values from a numpy seed in
+    place of flax's initialisers. The tree comes from ``jax.eval_shape``,
+    which traces once and compiles nothing (a jitted flax init of a small
+    BDE2VID costs ~10 s on the CPU). Matrices and conv kernels get a
+    fan-in-scaled normal, vectors a small normal around 1 (LayerNorm
+    scales) or 0."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        if len(s.shape) >= 2:
+            return jnp.asarray(rng.normal(size=s.shape) / np.sqrt(np.prod(s.shape[:-1])), s.dtype)
+        base = 1.0 if jax.tree_util.keystr(path).endswith("['scale']") else 0.0
+        return jnp.asarray(base + 0.1 * rng.normal(size=s.shape), s.dtype)
+
+    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init, *args))
 
 
 def _to_torch(a, dtype):
@@ -179,13 +197,13 @@ def test_window_block_launcher_refuses_inputs_that_require_grad(rng):
     x, _, params = _block_case(rng)
     p = WindowBlockParams(*[t.requires_grad_() for t in _torch_params(params)])
     with pytest.raises(RuntimeError, match="invisible to autograd"):
-        wbc._launch_window_block(T(x), p, 4, 1)
+        wac._launch_window_block(T(x), p, 4, 1)
     q = T(x[1]).requires_grad_()
     with pytest.raises(RuntimeError, match="invisible to autograd"):
-        wbc._launch_window_attention(q, T(x[0]), T(x[2]), p.bias.detach()[:, :, :16], 4)
+        wac._launch_window_attention(q, T(x[0]), T(x[2]), p.bias.detach()[:, :, :16], 4)
     with torch.no_grad():  # no gradient wanted: the launcher goes on to its device check
         with pytest.raises(ValueError, match="cuda"):
-            wbc._launch_window_block(T(x), p, 4, 1)
+            wac._launch_window_block(T(x), p, 4, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +212,7 @@ def test_window_block_launcher_refuses_inputs_that_require_grad(rng):
 
 
 def _flax_and_port(jmod, tmod, x):
-    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = seeded_params(jmod.init, jax.random.PRNGKey(0), jnp.asarray(x))
     load_state_dict_checked(tmod, state_dict_from_jax(params))
     return params
 
@@ -237,8 +255,8 @@ def test_even_dilated_block_with_droppath_matches_jax(rng, monkeypatch):
                                       use_pallas=True, drop_path=1 - keep, deterministic=False)
     tmod = twa.SwinTransformerBlock3D(c, heads, window_size=(d, *win), dilate_win=True,
                                       use_kernel=True, drop_path=1 - keep).train()
-    params = jmod.init({"params": jax.random.PRNGKey(0), "droppath": jax.random.PRNGKey(1)},
-                       jnp.asarray(x))
+    params = seeded_params(jmod.init, {"params": jax.random.PRNGKey(0), "droppath": jax.random.PRNGKey(1)},
+                           jnp.asarray(x))
     load_state_dict_checked(tmod, state_dict_from_jax(params))
 
     it = iter(draws)
