@@ -19,7 +19,9 @@ _ACTIVATIONS = {
     "tanh": torch.tanh,
     "lrelu": lambda x: F.leaky_relu(x, 0.01),
     "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+    "elu": F.elu,
     "gelu": lambda x: F.gelu(x, approximate="none"),  # exact erf, nn.GELU's default
+    "softplus": F.softplus,
     "identity": lambda x: x,
     "none": lambda x: x,
 }

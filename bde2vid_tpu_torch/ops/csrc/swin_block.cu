@@ -12,32 +12,34 @@
 //   y   = ctr + m1[w] * (round(acc) @ Wp^T + bp)
 //   out = y + m2[w] * (round(act(round(LN2(y)) @ W1^T + b1)) @ W2^T + b2)
 // where m1, m2 are the per-window stochastic-depth multipliers (null
-// pointers: no masks, and no multiply), and acc is written out, so the
-// training forward returns it for the backward.
-// where round() casts to the operand type exactly where the Pallas body
-// casts (identity for f32). GELU uses the Abramowitz & Stegun 7.1.26 erf
-// (|err| <= 1.5e-7), the same form as the Pallas body and the plain twin.
+// pointers: no masks, and no multiply), acc is written out, so the training
+// forward returns it for the backward, and act is any activation of the
+// registry (window_common.cuh, Act). round() casts to the operand type
+// exactly where the Pallas body casts (identity for f32); y stays f32, as in
+// the Pallas body.
 //
 // What bounds it on the H100: per flagship launch ~3.5 GFLOP against
 // ~22 MB (level 0, f32) or ~10 MB (level 2) of input, so f32 is bound by
 // operations (67 TFLOP/s without tensor cores, no TF32 so that f32 stays
 // exact) and bf16 sits near the memory line.
 //
-// What the design does about it: three launches, each a plain FMA kernel.
-//   (a) ln_proj_kernel (window_common.cuh): LayerNorm + k|v and q
-//       projections for 64-row tiles, the centre frame substituted by
-//       choosing the row's source pointer; weights stream through a 64x32
-//       shared tile (the next tile prefetched into registers), each thread
-//       owns a 4x4 register tile of outputs.
+// What the design does about it: five launches, four of them GEMMs on the
+// core of window_common.cuh (register-blocked FMA tiles in f32, mma.sync
+// tensor-core tiles in bf16, cp.async operand stages, a tile shape chosen
+// per launch so that the grid covers the SMs without split-K):
+//   (a) LN + k|v and q projections: the LayerNorm prologue keeps the block's
+//       rows resident, the centre frame substituted by choosing the row's
+//       source pointer; a bias epilogue;
 //   (b) attn_kernel (window_common.cuh): one block per (window, head); a
 //       warp per query row keeps its 1 x N score row in shared memory (the
 //       TPU kept all 16 heads' (H*M, N) plane resident, which does not fit in
-//       227 KB), so head_dim 4 (below an MMA's K) runs as FMA dot products.
-//   (c) mlp_kernel: out projection + residual + LN2 + fc1 + act + fc2 +
-//       residual for 16-row tiles (8-row tiles when there are too few rows
-//       to give every SM two blocks); the 4C-wide hidden rows stay in shared
-//       memory, weights stream through the same 64x32 tile.
-// Tensor-core MMAs, TMA and fusing (a)-(c) into one kernel are later work.
+//       227 KB), so head_dim 4 (below an MMA's K) runs as FMA dot products;
+//   (c1) y = ctr + m1 (acc @ Wp^T + bp), y into an f32 scratch;
+//   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y and the
+//        activation in the epilogue, h into a scratch in the operand type;
+//   (c3) out = y + m2 (h @ W2^T + b2).
+// y and h stay in L2 between the launches at these sizes (h: 12.6 MB at
+// the flagship's level 0 in f32).
 
 #include "window_common.cuh"
 
@@ -51,113 +53,45 @@ struct BlockArgs {
   const void *w_p, *w_1, *w_2;         // (out, in) weights
   const float *b_p, *b_1, *b_2;        // biases
   const float *m1, *m2;                // (B_,) f32 masks, or null
+  float* y;                            // scratch (B_, M, C) f32: the residual stream
+  void* h;                             // scratch (B_, M, hidden): the MLP's hidden rows
   void* out;                           // (B_, M, C)
 };
 
-__device__ __forceinline__ float erf_as(float x) {
-  const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      ((((1.061405429f * t - 1.453152027f) * t + 1.421413741f) * t - 0.284496736f) * t +
-       0.254829592f) *
-      t;
-  return s * (1.0f - poly * expf(-a * a));
-}
-
-// act: 0 = exact-erf GELU (A&S erf), 1 = ReLU
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return fmaxf(v, 0.f);
-  return 0.5f * v * (1.0f + erf_as(v * 0.7071067811865476f));
-}
-
-// (c) out projection + residual + LN2 + MLP + residual for ROWS-row tiles
-// (16, or 8 when 16-row tiles would leave SMs idle).
-template <typename T, int ROWS>
-__global__ void __launch_bounds__(kThreads) mlp_kernel(BlockArgs a) {
-  constexpr int TX = kThreads / ROWS;  // threads across the 64 output columns
-  constexpr int CPT = kTileO / TX;
-  extern __shared__ float smem[];
-  const int c = a.c, hid = a.hidden;
-  const int lda = c + 1, ldh = hid + 1;
-  float* As = smem;               // (ROWS, C+1): acc rows, then LN2 output
-  float* ys = As + ROWS * lda;    // (ROWS, C): residual stream y
-  float* hs = ys + ROWS * c;      // (ROWS, Hd+1): hidden rows
-  float* Ws = hs + ROWS * ldh;    // weight tile
-  const int n_rows = a.b * a.m;
-  const int r0 = blockIdx.x * ROWS;
-  const T* accg = static_cast<const T*>(a.acc);
-  const T* ctr = static_cast<const T*>(a.ctr);
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-
-  for (int e = threadIdx.x; e < ROWS * c; e += kThreads) {
-    const int lr = e / c, k = e % c;
-    const int r = r0 + lr;
-    As[lr * lda + k] = r < n_rows ? load(accg, (size_t)r * c + k) : 0.f;
-  }
-
-  float acc[1][CPT];
-  const int r = r0 + ty;
-  const bool row_ok = r < n_rows;
-  // stochastic-depth multipliers of the row's window (rows are window-major)
-  const bool masked = a.m1 != nullptr;
-  const float m1 = masked && row_ok ? a.m1[r / a.m] : 1.f;
-  const float m2 = masked && row_ok ? a.m2[r / a.m] : 1.f;
-  for (int o0 = 0; o0 < c; o0 += kTileO) {
-    tile_gemm<T, TX, 1>(As, lda, c, static_cast<const T*>(a.w_p), c, o0, Ws, acc);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int o = o0 + tx + TX * j;
-      if (o < c) {
-        float proj = acc[0][j] + a.b_p[o];
-        if (masked) proj *= m1;
-        ys[ty * c + o] = (row_ok ? load(ctr, (size_t)r * c + o) : 0.f) + proj;
-      }
-    }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int lr = warp; lr < ROWS; lr += kThreads / 32)
-    warp_layernorm<T>(ys + lr * c, As + lr * lda, c, a.g_2, a.b_2_ln, lane);
-
-  for (int o0 = 0; o0 < hid; o0 += kTileO) {
-    tile_gemm<T, TX, 1>(As, lda, c, static_cast<const T*>(a.w_1), hid, o0, Ws, acc);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int o = o0 + tx + TX * j;
-      if (o < hid) hs[ty * ldh + o] = round_to<T>(activate(acc[0][j] + a.b_1[o], a.act));
-    }
-  }
-
-  T* out = static_cast<T*>(a.out);
-  for (int o0 = 0; o0 < c; o0 += kTileO) {
-    tile_gemm<T, TX, 1>(hs, ldh, hid, static_cast<const T*>(a.w_2), c, o0, Ws, acc);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int o = o0 + tx + TX * j;
-      if (o < c && row_ok) {
-        float mlp = acc[0][j] + a.b_2[o];
-        if (masked) mlp *= m2;
-        out[(size_t)r * c + o] = store_cast<T>(ys[ty * c + o] + mlp);
-      }
-    }
-  }
-}
-
-size_t mlp_smem_bytes(int rows, int c, int hidden) {
-  return sizeof(float) * ((size_t)rows * (c + 1) + (size_t)rows * c + (size_t)rows * (hidden + 1)) +
-         ws_bytes();
-}
-
-template <typename T, int ROWS>
+template <typename T>
 cudaError_t launch_mlp(const BlockArgs& a, cudaStream_t stream) {
-  const size_t smem = mlp_smem_bytes(ROWS, a.c, a.hidden);
-  cudaError_t err = cudaFuncSetAttribute(mlp_kernel<T, ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int rows = a.b * a.m;
+  // (c1) y = ctr + m1 * (acc @ Wp^T + bp)
+  GemmArgs g{};
+  g.rows = rows;
+  g.k = a.c;
+  g.o_total = a.c;
+  g.a = a.acc;
+  g.w = a.w_p;
+  g.vec = vec_ok(a.c, {a.acc, a.w_p});
+  g.epi = Epilogue{a.b_p, kActIdentity, a.m1, a.m, a.ctr, false, a.y, true, a.c};
+  cudaError_t err = launch_gemm<T>(g, stream);
   if (err != cudaSuccess) return err;
-  mlp_kernel<T, ROWS><<<(a.b * a.m + ROWS - 1) / ROWS, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+
+  // (c2) h = round(act(round(LN2(y)) @ W1^T + b1))
+  LnGemmArgs l{};
+  l.c = a.c;
+  l.rows_per_frame = rows;
+  l.q_ind = -1;
+  l.x = a.y;
+  l.vec = vec_ok(a.c, {a.y, a.w_1});
+  l.part[0] = LnPart{rows, a.hidden, a.g_2, a.b_2_ln, a.w_1,
+                     Epilogue{a.b_1, a.act, nullptr, 1, nullptr, false, a.h, false, a.hidden}};
+  err = launch_ln_gemm<T, float>(l, stream);
+  if (err != cudaSuccess) return err;
+
+  // (c3) out = y + m2 * (h @ W2^T + b2)
+  g.k = a.hidden;
+  g.a = a.h;
+  g.w = a.w_2;
+  g.vec = vec_ok(a.hidden, {a.h, a.w_2});
+  g.epi = Epilogue{a.b_2, kActIdentity, a.m2, a.m, a.y, true, a.out, false, a.c};
+  return launch_gemm<T>(g, stream);
 }
 
 template <typename T>
@@ -167,43 +101,45 @@ cudaError_t launch_all(const LnProjArgs& p, const BlockArgs& a, const float* bia
   if (err != cudaSuccess) return err;
   err = launch_block_attn<T>(p, heads, bias, const_cast<void*>(a.acc), scale, stream);
   if (err != cudaSuccess) return err;
+  return launch_mlp<T>(a, stream);
+}
 
-  // 16-row tiles unless that gives fewer than two blocks per SM (the 20
-  // windows of the flagship's level 2: 62 tiles of 16 rows for 132 SMs)
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int rows = a.b * a.m;
-  return (rows + 15) / 16 >= 2 * sms ? launch_mlp<T, 16>(a, stream)
-                                     : launch_mlp<T, 8>(a, stream);
+// c3 streams its hidden rows, so no tile grows with the hidden width
+template <typename T>
+void smem_bytes(int d, int m, int c, int heads, long long* out3) {
+  out3[0] = (long long)ln_proj_smem_bytes<T>(c);
+  out3[1] = (long long)attn_smem_bytes(m, d * m, c / heads);
+  out3[2] = (long long)std::max(gemm_smem<T, TileS>(), ln_gemm_smem<T, float, TileS>(c));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) each of the three kernels asks for; the wrapper
-// checks these against the card's per-block limit before launching.
-void swin_block_smem_bytes(int d, int m, int c, int heads, int hidden, long long* out3) {
-  out3[0] = (long long)ln_proj_smem_bytes(c);
-  out3[1] = (long long)attn_smem_bytes(m, d * m, c / heads);
-  out3[2] = (long long)mlp_smem_bytes(16, c, hidden);
+// Shared memory (bytes) the LN + projection GEMM, the attention and the
+// largest MLP GEMM ask for at most; the wrapper checks these against the
+// card's per-block limit before launching.
+void swin_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, long long* out3) {
+  if (is_bf16) {
+    smem_bytes<__nv_bfloat16>(d, m, c, heads, out3);
+  } else {
+    smem_bytes<float>(d, m, c, heads, out3);
+  }
 }
 
-// Launches the three kernels on `stream`; returns the first CUDA error code
-// (0 on success). Pointers are device pointers; vectors, the bias and the
-// masks are f32, x/ctr/weights/scratch/acc/out are f32 (is_bf16 = 0) or
-// bf16 (is_bf16 = 1). m1 and m2 are both null or both (B_,) arrays.
+// Launches the five kernels on `stream`; returns the first CUDA error code
+// (0 on success). Pointers are device pointers; vectors, the bias, the masks
+// and the y scratch are f32, x/ctr/weights/kv/q/acc/h/out are f32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1). m1 and m2 are both null or both (B_,)
+// arrays. act: an Act code.
 int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int heads, int hidden,
                        int q_ind, float scale, const void* x, const void* ctr, const float* g_q,
                        const float* b_q_ln, const float* g_kv, const float* b_kv_ln,
                        const void* w_q, const float* b_q, const void* w_kv, const float* b_kv,
                        const void* w_p, const float* b_p, const float* g_2, const float* b_2_ln,
                        const void* w_1, const float* b_1, const void* w_2, const float* b_2,
-                       const float* bias, void* kv, void* q, void* acc, void* out,
-                       const float* m1, const float* m2, void* stream) {
+                       const float* bias, void* kv, void* q, void* acc, void* out, float* y,
+                       void* h, const float* m1, const float* m2, void* stream) {
   LnProjArgs p;
   p.d = d;
   p.b = b;
@@ -240,6 +176,8 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
   a.b_2 = b_2;
   a.m1 = m1;
   a.m2 = m2;
+  a.y = y;
+  a.h = h;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, scale, s)

@@ -20,83 +20,50 @@
 // no TF32 so that f32 stays exact) the kernel is bound by operations, in
 // bf16 by the bytes of x.
 //
-// What the design does about it: the B1 kernels' LayerNorm + projection
-// tile loop and per-(window, head) attention (window_common.cuh), fed the
-// query frame x[q_ind] as the centre, then proj_kernel: the out projection
-// for 64-row tiles through the same 64x32 weight tile. Tensor-core MMAs and
-// fusing the three launches are later work.
+// What the design does about it: B1's launches without the tail
+// (window_common.cuh): the LN + q and k|v projection GEMM, fed the query
+// frame x[q_ind] as the centre, the per-(window, head) attention, then the
+// out projection on the same GEMM core with a plain prologue and a bias
+// epilogue (register-blocked FMA tiles in f32, mma.sync tensor-core tiles in
+// bf16). Fusing the three launches is later work.
 
 #include "window_common.cuh"
 
 namespace {
 
-struct ProjArgs {
-  int rows, c;
-  const void* acc;  // (rows, C) attention output
-  const void* w_p;  // (C, C), (out, in)
-  const float* b_p;
-  void* out;  // (rows, C)
-};
-
-// out = round(acc) @ Wp^T + bp for 64-row tiles; grid.y: 64-column tiles.
+// out = round(acc) @ Wp^T + bp, on the GEMM core
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm) proj_kernel(ProjArgs a) {
-  extern __shared__ float smem[];
-  const int c = a.c;
-  const int lda = c + 1;
-  float* As = smem;
-  float* Ws = smem + 64 * lda;
-  const int r0 = blockIdx.x * 64;
-  const int o0 = blockIdx.y * kTileO;
-  const T* accg = static_cast<const T*>(a.acc);
-  for (int e = threadIdx.x; e < 64 * c; e += kThreads) {
-    const int lr = e / c, k = e % c;
-    const int r = r0 + lr;
-    As[lr * lda + k] = r < a.rows ? load(accg, (size_t)r * c + k) : 0.f;
-  }
-  // tile_gemm synchronises the block before its first product
-  float acc[4][4];
-  tile_gemm<T, 16, 4>(As, lda, c, static_cast<const T*>(a.w_p), c, o0, Ws, acc);
-  T* out = static_cast<T*>(a.out);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= a.rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tx + 16 * j;
-      if (o < c) out[(size_t)r * c + o] = store_cast<T>(acc[i][j] + a.b_p[o]);
-    }
-  }
+cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, void* acc,
+                       void* out, const float* bias, int heads, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = launch_ln_proj<T>(p, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_block_attn<T>(p, heads, bias, acc, scale, stream);
+  if (err != cudaSuccess) return err;
+  const int rows = p.b * p.m;
+  const GemmArgs g{rows, p.c, p.c, acc, w_p, vec_ok(p.c, {acc, w_p}), bias_epilogue(b_p, out, p.c)};
+  return launch_gemm<T>(g, stream);
 }
 
 template <typename T>
-cudaError_t launch_all(const LnProjArgs& p, const ProjArgs& a, const float* bias, int heads,
-                       float scale, cudaStream_t stream) {
-  cudaError_t err = launch_ln_proj<T>(p, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, bias, const_cast<void*>(a.acc), scale, stream);
-  if (err != cudaSuccess) return err;
-  const size_t smem = ln_proj_smem_bytes(a.c);
-  err = cudaFuncSetAttribute(proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  proj_kernel<T><<<dim3((a.rows + 63) / 64, (a.c + kTileO - 1) / kTileO), kThreads, smem,
-                   stream>>>(a);
-  return cudaGetLastError();
+void smem_bytes(int d, int m, int c, int heads, long long* out3) {
+  out3[0] = (long long)ln_proj_smem_bytes<T>(c);
+  out3[1] = (long long)attn_smem_bytes(m, d * m, c / heads);
+  out3[2] = (long long)gemm_smem<T, TileS>();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) each of the three kernels asks for; the wrapper
-// checks these against the card's per-block limit before launching.
-void window_block_smem_bytes(int d, int m, int c, int heads, long long* out3) {
-  out3[0] = (long long)ln_proj_smem_bytes(c);
-  out3[1] = (long long)attn_smem_bytes(m, d * m, c / heads);
-  out3[2] = (long long)ln_proj_smem_bytes(c);
+// Shared memory (bytes) of the three launches at their smallest tile; the
+// wrapper checks these against the card's per-block limit before launching.
+void window_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, long long* out3) {
+  if (is_bf16) {
+    smem_bytes<__nv_bfloat16>(d, m, c, heads, out3);
+  } else {
+    smem_bytes<float>(d, m, c, heads, out3);
+  }
 }
 
 // Launches the three kernels on `stream`; returns the first CUDA error code
@@ -129,16 +96,10 @@ int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int
   p.b_kv = b_kv;
   p.kv = kv;
   p.q = q;
-  ProjArgs a;
-  a.rows = b * m;
-  a.c = c;
-  a.acc = acc;
-  a.w_p = w_p;
-  a.b_p = b_p;
-  a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, scale, s)
-                                  : launch_all<float>(p, a, bias, heads, scale, s);
+  const cudaError_t err =
+      is_bf16 ? launch_all<__nv_bfloat16>(p, w_p, b_p, acc, out, bias, heads, scale, s)
+              : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, scale, s);
   return (int)err;
 }
 

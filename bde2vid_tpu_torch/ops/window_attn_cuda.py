@@ -43,7 +43,13 @@ from bde2vid_tpu_torch.nn.layers import get_activation
 # launches of each hand-written kernel wrapper in this process
 launch_counts: collections.Counter = collections.Counter()
 
-_ACT_CODES = {"gelu": 0, "relu": 1}
+# the kernels' activation codes (``Act`` in csrc/window_common.cuh): every
+# name of the registry (``nn.layers.get_activation``), with "default" the
+# A&S GELU as in ``_kernel_activation``
+_ACT_CODES = {
+    "gelu": 0, "default": 0, "relu": 1, "relu6": 2, "sigmoid": 3, "tanh": 4, "lrelu": 5,
+    "leaky_relu": 5, "elu": 6, "softplus": 7, "identity": 8, "none": 8,
+}
 _HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 _DBIAS_GROUPS = 16  # window groups of the backward; 16 heads x 16 groups fill 132 SMs
@@ -256,14 +262,14 @@ _LL, _LLP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
 # (argtypes, restype) of each library's C functions
 _SIGNATURES = {
     "swin_block": {
-        # 9 ints, the score scale, 23 tensor pointers, 2 mask pointers and the stream
-        "swin_block_forward": ([_CI] * 9 + [_CF] + [_VP] * 26, _CI),
+        # 9 ints, the score scale, 25 tensor pointers, 2 mask pointers and the stream
+        "swin_block_forward": ([_CI] * 9 + [_CF] + [_VP] * 28, _CI),
         "swin_block_smem_bytes": ([_CI] * 5 + [_LLP], None),
     },
     "window_block": {
         # 7 ints, the score scale, 16 tensor pointers and the stream
         "window_block_forward": ([_CI] * 7 + [_CF] + [_VP] * 17, _CI),
-        "window_block_smem_bytes": ([_CI] * 4 + [_LLP], None),
+        "window_block_smem_bytes": ([_CI] * 5 + [_LLP], None),
     },
     "window_attention": {
         # 6 ints, the score scale, 5 tensor pointers and the stream
@@ -341,7 +347,8 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
         raise TypeError(f"fused_swin_block takes float32 or bfloat16, got {dt}")
     if ctr.dtype != dt or ctr.shape != (b_, m, c) or ctr.device != x.device:
         raise ValueError(f"ctr must be {(b_, m, c)} {dt} on {x.device}, got {tuple(ctr.shape)} {ctr.dtype} on {ctr.device}")
-    if activation not in _ACT_CODES:
+    act = _ACT_CODES.get("none" if activation is None else activation.lower())
+    if act is None:
         raise NotImplementedError(f"the CUDA swin block supports {sorted(_ACT_CODES)}, got {activation!r}")
     _check_head_dim(c, num_heads)
     if not 0 <= q_ind < d:
@@ -365,7 +372,7 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
 
     lib = _lib("swin_block")
     smem = (ctypes.c_longlong * 3)()
-    lib.swin_block_smem_bytes(d, m, c, num_heads, hidden, smem)
+    lib.swin_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, smem)
     if max(smem) > _MAX_SMEM:
         raise ValueError(f"shapes need {max(smem)} B of shared memory per block (limit {_MAX_SMEM})")
 
@@ -375,15 +382,19 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
     q = torch.empty((b_, m, c), dtype=dt, device=x.device)
     acc = torch.empty((b_, m, c), dtype=dt, device=x.device)
     out = torch.empty((b_, m, c), dtype=dt, device=x.device)
+    # the MLP's scratch: the residual stream y (f32, as in the Pallas body)
+    # and the hidden rows h (rounded to the operand type)
+    y = torch.empty((b_, m, c), dtype=torch.float32, device=x.device)
+    h = torch.empty((b_, m, hidden), dtype=dt, device=x.device)
     p = prepared
     ptrs = [
         x, ctr, p["norm_q_w"], p["norm_q_b"], p["norm_kv_w"], p["norm_kv_b"],
         p["q_w"], p["q_b"], p["kv_w"], p["kv_b"], p["proj_w"], p["proj_b"],
         p["norm2_w"], p["norm2_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"],
-        p["bias"], kv, q, acc, out,
+        p["bias"], kv, q, acc, out, y, h,
     ]
     rc = lib.swin_block_forward(
-        int(dt == torch.bfloat16), _ACT_CODES[activation], d, b_, m, c, num_heads,
+        int(dt == torch.bfloat16), act, d, b_, m, c, num_heads,
         hidden, q_ind, float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in ptrs], *mask_ptrs, _stream(x),
     )
@@ -484,7 +495,7 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
     p = _prepare_params(params, shapes, dt, x.device)
     lib = _lib("window_block")
     smem = (ctypes.c_longlong * 3)()
-    lib.window_block_smem_bytes(d, m, c, num_heads, smem)
+    lib.window_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, smem)
     if max(smem) > _MAX_SMEM:
         raise ValueError(f"shapes need {max(smem)} B of shared memory per block (limit {_MAX_SMEM})")
 

@@ -14,7 +14,10 @@ WindowAttention3D kernel.
   kernels  each kernel vs its plain PyTorch twin on the card (f32 within
            1e-4 x max(1, max|twin|), bf16 within 2e-2 * max|twin|), with
            times: the Swin block at the flagship and the 8x8 plain shapes
-           (plain; masked with acc), the attention-core backward (torch's
+           (plain; masked with acc) and its five launches one by one at the
+           flagship's plain shapes, f32 and bf16 (profiler device ms, each
+           stage's bound and, for the GEMM stages, F.linear(F.layer_norm)
+           or F.linear as yardstick), the attention-core backward (torch's
            SDPA backward as the library yardstick), the WindowAttention3D
            body at the 8x8 dilated shapes (with and without acc), the bare
            attention core at the flagship and 8x8 shapes (SDPA forward as
@@ -166,6 +169,89 @@ def swin_block_cost(d, b, m, c, heads, hidden, elem_bytes):
     return flops, nbytes
 
 
+# B1's launches in order: (stage, kernel name) of its five kernels
+B1_STAGES = (("ln_proj", "ln_gemm_kernel"), ("attn", "attn_kernel"), ("mlp_proj", "gemm_kernel"),
+             ("mlp_fc1", "ln_gemm_kernel"), ("mlp_fc2", "gemm_kernel"))
+
+
+def kernel_sequence(torch, fn, calls):
+    """(name, device ms) of every CUDA kernel that ``calls`` runs of ``fn``
+    launch, in launch order, from one torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evts]
+
+
+def b1_stage_ms(torch, fn, calls=5):
+    """Device ms per launch of each of B1's five kernels (B1_STAGES), and
+    the kernel each stage ran (its tile shows in the name)."""
+    seq = [(n, ms) for n, ms in kernel_sequence(torch, fn, calls)
+           if "gemm_kernel" in n or "attn_kernel" in n]
+    if len(seq) != calls * len(B1_STAGES):
+        raise AssertionError(f"B1 stage split: {len(seq)} kernels for {calls} calls: {seq[:8]}")
+    times, names = {}, {}
+    for i, (name, ms) in enumerate(seq):
+        stage, kernel = B1_STAGES[i % len(B1_STAGES)]
+        short = name.replace("(anonymous namespace)::", "").split("(")[0]
+        if kernel not in short or (kernel == "gemm_kernel" and "ln_gemm_kernel" in short):
+            raise AssertionError(f"B1 stage split: launch {i} is {name}, want {kernel}")
+        times.setdefault(stage, []).append(ms)
+        names[stage] = short[:100]
+    return {k: float(np.mean(v)) for k, v in times.items()}, names
+
+
+def b1_stage_costs(d, b, m, c, heads, hidden, elem):
+    """(FLOPs, bytes) of each B1 stage, each input read and each output
+    written once: (a) x (D-1 frames) and ctr, the q and k|v weights, LN
+    affines and biases in, kv and q out; (b) as window_attention_cost; (c1)
+    acc, ctr and Wp in, y (f32) out; (c2) y, W1, LN2 and b1 in, h out; (c3)
+    h, W2, y and b2 in, the block output out."""
+    rows, kv_rows = b * m, d * b * m
+    return {
+        "ln_proj": (2 * kv_rows * c * 2 * c + 2 * rows * c * c,
+                    elem * (d * rows * c + 3 * c * c + 2 * kv_rows * c + rows * c) + 4 * 7 * c),
+        "attn": window_attention_cost(b, m, d * m, c, heads, elem),
+        "mlp_proj": (2 * rows * c * c, elem * (2 * rows * c + c * c) + 4 * (rows * c + c)),
+        "mlp_fc1": (2 * rows * c * hidden,
+                    4 * (rows * c + 2 * c + hidden) + elem * (c * hidden + rows * hidden)),
+        "mlp_fc2": (2 * rows * hidden * c,
+                    elem * (rows * hidden + hidden * c + rows * c) + 4 * (rows * c + c)),
+    }
+
+
+def b1_stage_library_ms(torch, x, ctr, p, acc, y, h):
+    """Yardsticks for B1's GEMM stages, timed and never called by the port:
+    F.linear(F.layer_norm(.)) for (a) (k|v and q) and (c2), F.linear for
+    (c1) and (c3), all in the operand type."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    c = x.shape[-1]
+    w = {k: getattr(p, k).to(dt) for k in p._fields if k != "bias"}
+
+    def ln_proj():
+        F.linear(F.layer_norm(x, (c,), w["norm_kv_w"], w["norm_kv_b"]), w["kv_w"], w["kv_b"])
+        F.linear(F.layer_norm(ctr, (c,), w["norm_q_w"], w["norm_q_b"]), w["q_w"], w["q_b"])
+
+    with torch.no_grad():
+        return {
+            "ln_proj": cuda_ms(torch, ln_proj, 20),
+            "attn": None,
+            "mlp_proj": cuda_ms(torch, lambda: F.linear(acc, w["proj_w"], w["proj_b"]), 20),
+            "mlp_fc1": cuda_ms(torch, lambda: F.linear(
+                F.layer_norm(y, (c,), w["norm2_w"], w["norm2_b"]), w["fc1_w"], w["fc1_b"]), 20),
+            "mlp_fc2": cuda_ms(torch, lambda: F.linear(h, w["fc2_w"], w["fc2_b"]), 20),
+        }
+
+
 def phase_build():
     from bde2vid_tpu_torch.ops import build
 
@@ -193,6 +279,13 @@ def block_params(rnd, c, heads, m, n):
     )
 
 
+def operand_weights(p, dt):
+    """The block's weight matrices in the operand type, as a model cast to
+    that type holds them (the wrapper would otherwise convert them on every
+    call); vectors and the bias stay f32."""
+    return p._replace(**{k: getattr(p, k).to(dt) for k in ("q_w", "kv_w", "proj_w", "fc1_w", "fc2_w")})
+
+
 def phase_kernels(torch):
     """The Swin block kernel vs its twin: the flagship's plain and dilated
     shapes, and the 8x8 config's plain shapes (its dilated blocks take the
@@ -214,7 +307,7 @@ def phase_kernels(torch):
         m = win[0] * win[1]
         for level, ((hp, wp), c) in levels.items():
             hidden = 4 * c
-            p = block_params(rnd, c, heads, m, d * m)
+            p32 = block_params(rnd, c, heads, m, d * m)
             feats = rnd(d + 1, 1, hp, wp, c)
             for layout in layouts:
                 part = window_partition if layout == "plain" else window_partition_dilated
@@ -223,6 +316,7 @@ def phase_kernels(torch):
                 b = x32.shape[1]
                 for dt in (torch.float32, torch.bfloat16):
                     x, ctr = x32.to(dt), c32.to(dt)
+                    p = operand_weights(p32, dt)
                     out = fused_swin_block(x, ctr, p, heads, q_ind)
                     ref = swin_block_reference(x, ctr, p, heads, q_ind)
                     torch.cuda.synchronize()
@@ -243,15 +337,27 @@ def phase_kernels(torch):
                         "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
                         "bound_by": "operations" if t_flops >= t_bytes else "bytes",
                     })
-                if config == "flagship" and layout == "plain":
-                    # device time of each of the three kernels behind one f32 launch
-                    x, ctr = x32, c32
-                    prof = device_profile(torch, lambda: [fused_swin_block(x, ctr, p, heads, q_ind)
-                                                          for _ in range(5)], top=3)
-                    prof["top"] = [(k, ms / 5) for k, ms in prof["top"]]
-                    split[level] = prof["top"]
+                    if config == "flagship" and layout == "plain":
+                        # B1's five launches one by one (profiler device time),
+                        # each with its bound and its PyTorch yardstick
+                        ms, kernels = b1_stage_ms(torch, lambda: fused_swin_block(x, ctr, p, heads, q_ind))
+                        _, acc = fused_swin_block(x, ctr, p, heads, q_ind, with_acc=True)
+                        y = rnd(b, m, c).to(dt)
+                        h = rnd(b, m, hidden).to(dt)
+                        lib = b1_stage_library_ms(torch, x, ctr, p, acc, y, h)
+                        stages = {}
+                        costs = b1_stage_costs(d, b, m, c, heads, hidden, x.element_size())
+                        for stage, (s_flops, s_bytes) in costs.items():
+                            sf, sb = s_flops / PEAK_FLOPS[name], s_bytes / PEAK_BYTES
+                            stages[stage] = {"ms": ms[stage], "kernel": kernels[stage],
+                                             "bound_ms": 1e3 * max(sf, sb),
+                                             "bound_by": "operations" if sf >= sb else "bytes",
+                                             "library_ms": lib[stage]}
+                        split.setdefault(level, {})[name] = stages
     emit({"phase": "kernels", "kernel": "fused_swin_block", "timing": "CUDA events, inputs L2-warm",
-          "cases": cases, "f32_device_ms_per_launch_by_kernel": split})
+          "cases": cases,
+          "stages": split, "stages_timing": "profiler device ms per launch, mean of 5 calls; "
+                    "library = F.linear(F.layer_norm(.)) or F.linear in the operand type"})
     return [c for c in cases if c["config"] == "flagship"]
 
 

@@ -104,7 +104,7 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         fused_swin_block(xd, cd[:1], p, 4, 1)
     with pytest.raises(NotImplementedError):
-        fused_swin_block(xd, cd, p, 4, 1, activation="tanh")
+        fused_swin_block(xd, cd, p, 4, 1, activation="swish")
 
 
 def _masks(b_, device, keep=0.75, seed=3):
@@ -279,3 +279,72 @@ def test_cuda_raw_launchers_refuse_inputs_that_require_grad(cuda_device):
     with torch.no_grad():
         out, acc = wac._launch_window_block(xd, pb, 4, 1)
     assert out.grad_fn is None and acc.shape == out.shape
+
+
+def _flat_inputs(seed, d, b_, m, c, heads, device):
+    """x (D, B_, M, C), ctr (B_, M, C) and block weights drawn on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    hid = 4 * c
+    p = SwinBlockParams(
+        1 + f(c, scale=0.1), f(c, scale=0.1), 1 + f(c, scale=0.1), f(c, scale=0.1),
+        f(c, c, scale=c**-0.5), f(c, scale=0.1), f(2 * c, c, scale=c**-0.5), f(2 * c, scale=0.1),
+        f(c, c, scale=c**-0.5), f(c, scale=0.1), 1 + f(c, scale=0.1), f(c, scale=0.1),
+        f(hid, c, scale=c**-0.5), f(hid, scale=0.1), f(c, hid, scale=hid**-0.5), f(c, scale=0.1),
+        f(heads, m, d * m, scale=0.5),
+    )
+    return f(d, b_, m, c), f(b_, m, c), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", sorted(wac._ACT_CODES))
+def test_cuda_kernel_matches_twin_for_each_activation(cuda_device, activation):
+    """Every registry activation runs in the MLP's fc1 epilogue, f32 and bf16."""
+    x, ctr, p = _flat_inputs(11, 3, 6, 49, 32, 4, cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, cd = x.to(dt), ctr.to(dt)
+        before = launch_counts["fused_swin_block"]
+        got = fused_swin_block(xd, cd, p, 4, 1, activation=activation)
+        ref = swin_block_reference(xd, cd, p, 4, 1, activation=activation)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_swin_block"] == before + 1
+        assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_,c,heads", [(37, 32, 4), (37, 96, 6), (3, 96, 24), (5, 12, 3)])
+def test_cuda_gemm_core_edges_match_twins(cuda_device, b_, c, heads):
+    """The GEMM core at its edges: 37 windows of 49 tokens (1813 rows, a
+    multiple of no tile), widths 32 and 96 (no multiple of 64) with hidden
+    4C, and C 12, whose rows are no multiple of 16 bytes (plain loads instead
+    of cp.async); the Swin block masked with acc and the WindowAttention3D
+    body, f32 and bf16."""
+    x, ctr, p = _flat_inputs(b_ + c, 3, b_, 49, c, heads, cuda_device)
+    masks = _masks(b_, cuda_device)
+    pb = _block_params(p)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, cd = x.to(dt), ctr.to(dt)
+        got = fused_swin_block(xd, cd, p, heads, 1, masks=masks, with_acc=True)
+        ref = swin_block_reference(xd, cd, p, heads, 1, masks=masks, with_acc=True)
+        got_w = fused_window_block(xd, pb, heads, 1)
+        ref_w = window_block_reference(xd, pb, heads, 1)
+        torch.cuda.synchronize()
+        for a, r in (*zip(got, ref), (got_w, ref_w)):
+            assert a.dtype == dt
+            assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b_,c", [(252, 64), (20, 256)])
+def test_cuda_swin_block_repeats_bitwise(cuda_device, b_, c, masked):
+    """Two launches on the flagship's level-0 and level-2 shapes give the
+    same bits, f32 and bf16: no split-K, no atomics."""
+    x, ctr, p = _flat_inputs(13, 7, b_, 49, c, 16, cuda_device)
+    masks = _masks(b_, cuda_device) if masked else None
+    for dt in (torch.float32, torch.bfloat16):
+        xd, cd = x.to(dt), ctr.to(dt)
+        first = fused_swin_block(xd, cd, p, 16, 3, masks=masks, with_acc=True)
+        second = fused_swin_block(xd, cd, p, 16, 3, masks=masks, with_acc=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
