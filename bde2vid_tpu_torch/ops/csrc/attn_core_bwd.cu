@@ -22,20 +22,28 @@
 // 100 MB of inputs and outputs, so f32 is bound by operations (67 TFLOP/s
 // without tensor cores) and bf16 near the memory line.
 //
-// What the design does about it (a simple first version; speed is later
-// work): one block per (group of windows, head), 16 groups by default.
+// What the design does about it: one block of 512 threads per (group of
+// windows, head); the wrapper picks the groups.
 //   - The TPU kernel summed dbias into one output block that every grid
 //     step revisits, which is safe only because the TPU grid runs in order.
 //     Here a block loops over its group's windows and sums its (M, N) ds
 //     plane in shared memory (49 x 343 f32 = 67 KB), writes one partial per
 //     group, and dbias_reduce_kernel sums the partials in a fixed order:
 //     two runs give bit-identical gradients, with no float atomics.
-//   - Pass 1, a warp per query row: scores, softmax, dp, ds, dq for the row;
-//     the row's max, sum and rowsum(dp * p32) go to shared memory.
-//   - Pass 2, a thread per key token: recompute p32 and ds for its column
-//     from those row statistics (the same float operations in the same
-//     order, so the values are the bits of pass 1) and accumulate dk and dv
-//     in registers. Nothing of size (M, N) leaves the SM.
+//   - Pass 1, a warp per query row: a lane keeps its share of the row's
+//     scores and dp (at most J = 8..32 keys, J chosen at launch from N) in
+//     registers through softmax, dp, ds and dq; the row's max, sum and
+//     rowsum(dp * p32) go to shared memory.
+//   - Pass 2, S lanes per key token (S = 1..8, chosen at launch so that the
+//     key rounds leave few lanes idle), each over every S-th query row:
+//     recompute p32 and ds for its column from those row statistics (the
+//     same float operations in the same order, so the values are the bits
+//     of pass 1), accumulate dk and dv in registers, and add the S partial
+//     sums with a fixed butterfly of warp shuffles. Nothing of size (M, N)
+//     leaves the SM.
+//   - Occupancy: 16 warps a block, and two blocks per SM where shared
+//     memory allows (head_dim <= 8 at N <= 384: `__launch_bounds__` caps
+//     registers at 64 there).
 //   - head_dim 4 (level 0) is below an MMA's K, so every product is an FMA
 //     dot product templated on head_dim 1-32.
 
@@ -45,8 +53,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxKeys = 1024;  // 32 lanes x the largest J
 
 __device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
@@ -94,6 +103,7 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 
 struct BwdArgs {
   int b, m, n, c, heads, groups;
+  int slices;  // pass 2: lanes per key token
   float scale;
   const void *q, *k, *v, *g;  // (B_, M, C), (B_, N, C), (B_, N, C), (B_, M, C)
   const float* bias;          // (H, M, N) f32
@@ -102,12 +112,40 @@ struct BwdArgs {
 };
 
 size_t bwd_smem_floats(int m, int n, int hd) {
-  return 2 * (size_t)n * (hd + 1) + 2 * (size_t)m * hd + 3 * (size_t)m +
-         2 * (size_t)kWarps * n + (size_t)m * n;
+  return 2 * (size_t)n * (hd + 1) + 2 * (size_t)m * hd + 3 * (size_t)m + (size_t)m * n;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
+// Keys a lane keeps of its row in pass 1: ceil(N / 32) rounded up to an
+// instantiated J; 0 when N is above kMaxKeys.
+int row_share(int n) {
+  const int shares[] = {8, 12, 16, 32};
+  for (int j : shares)
+    if (n <= 32 * j) return j;
+  return 0;
+}
+
+// Lanes per key in pass 2 (1, 2, 4 or 8): the fewest that minimise one
+// warp's share, (rounds of key groups) x (rows per lane).
+int pass2_slices(int m, int n) {
+  int best = 1;
+  long long best_t = -1;
+  for (int s = 1; s <= 8; s <<= 1) {
+    const int keys = 32 / s;
+    const long long rounds = ((n + keys - 1) / keys + kWarps - 1) / kWarps;
+    const long long t = rounds * ((m + s - 1) / s);
+    if (best_t < 0 || t < best_t) {
+      best_t = t;
+      best = s;
+    }
+  }
+  return best;
+}
+
+// Two blocks per SM where a lane's row share and head_dim leave room in 64
+// registers, else one.
+template <typename T, int HD, int J>
+__global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
+    attn_bwd_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const int grp = blockIdx.x, h = blockIdx.y;
   const int m_tok = a.m, n_tok = a.n, c = a.c;
@@ -119,9 +157,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
   float* row_max = gs + m_tok * HD;        // (M)
   float* row_sum = row_max + m_tok;        // (M)
   float* row_dot = row_sum + m_tok;        // (M): rowsum(dp * p32)
-  float* pbuf = row_dot + m_tok;           // (warps, N): the warp's p32 row
-  float* dpbuf = pbuf + kWarps * n_tok;    // (warps, N): the warp's dp row
-  float* dbias = dpbuf + kWarps * n_tok;   // (M, N): ds summed over this block's windows
+  float* dbias = row_dot + m_tok;          // (M, N): ds summed over this block's windows
 
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -135,6 +171,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int w_begin = (int)((long long)grp * a.b / a.groups);
   const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
+  // pass 2: lane = key slot * S + slice; a warp covers 32 / S keys
+  const int S = a.slices, keys_per_warp = 32 / S;
+  const int slot = lane / S, slice = lane % S;
 
   for (int e = tid; e < m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
 
@@ -154,9 +193,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
     }
     __syncthreads();
 
-    // pass 1: a warp per query row
-    float* prow = pbuf + warp * n_tok;
-    float* dprow = dpbuf + warp * n_tok;
+    // pass 1: a warp per query row, the lane's keys lane + 32 j in registers
     for (int i = warp; i < m_tok; i += kWarps) {
       float qv[HD], gv[HD];
 #pragma unroll
@@ -165,39 +202,52 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
         gv[dd] = gs[i * HD + dd];
       }
       const float* brow = bias_h + (size_t)i * n_tok;
+      float sv[J], dpv[J];
       float mx = __int_as_float(0xff800000);  // -inf
-      for (int nn = lane; nn < n_tok; nn += 32) {
-        const float s = fmaf(dot<HD>(qv, ks + nn * KS), scale, brow[nn]);
-        prow[nn] = s;
-        mx = fmaxf(mx, s);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int nn = lane + 32 * j;
+        sv[j] = 0.f;
+        dpv[j] = 0.f;
+        if (nn < n_tok) {
+          sv[j] = fmaf(dot<HD>(qv, ks + nn * KS), scale, brow[nn]);
+          dpv[j] = dot<HD>(gv, vs + nn * KS);
+          mx = fmaxf(mx, sv[j]);
+        }
       }
       mx = warp_max(mx);
       float sum = 0.f;
-      for (int nn = lane; nn < n_tok; nn += 32) {
-        const float e = expf(prow[nn] - mx);
-        prow[nn] = e;
-        sum += e;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (lane + 32 * j < n_tok) {
+          sv[j] = expf(sv[j] - mx);
+          sum += sv[j];
+        }
       }
       sum = warp_sum(sum);
       float rdot = 0.f;
-      for (int nn = lane; nn < n_tok; nn += 32) {
-        const float p32 = prow[nn] / sum;
-        const float dp = dot<HD>(gv, vs + nn * KS);
-        prow[nn] = p32;
-        dprow[nn] = dp;
-        rdot = fmaf(dp, p32, rdot);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (lane + 32 * j < n_tok) {
+          sv[j] = sv[j] / sum;  // p32
+          rdot = fmaf(dpv[j], sv[j], rdot);
+        }
       }
       rdot = warp_sum(rdot);
       float dqa[HD];
 #pragma unroll
       for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
       float* drow = dbias + (size_t)i * n_tok;
-      for (int nn = lane; nn < n_tok; nn += 32) {
-        const float ds = prow[nn] * (dprow[nn] - rdot);
-        drow[nn] += ds;
-        const float dsc = round_to<T>(ds * scale);
 #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, ks[nn * KS + dd], dqa[dd]);
+      for (int j = 0; j < J; ++j) {
+        const int nn = lane + 32 * j;
+        if (nn < n_tok) {
+          const float ds = sv[j] * (dpv[j] - rdot);
+          drow[nn] += ds;
+          const float dsc = round_to<T>(ds * scale);
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, ks[nn * KS + dd], dqa[dd]);
+        }
       }
 #pragma unroll
       for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
@@ -212,20 +262,24 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
     }
     __syncthreads();
 
-    // pass 2: a thread per key token; dk and dv accumulate in registers
-    for (int nn = tid; nn < n_tok; nn += kThreads) {
+    // pass 2: S lanes per key token, each over rows slice, slice + S, ...;
+    // dk and dv accumulate in registers and the S partial sums meet in a
+    // fixed butterfly
+    for (int base = warp * keys_per_warp; base < n_tok; base += kWarps * keys_per_warp) {
+      const int nn = base + slot;
+      const int nc = nn < n_tok ? nn : n_tok - 1;  // idle lanes still join the shuffles
       float kv_[HD], vv[HD], dka[HD], dva[HD];
 #pragma unroll
       for (int dd = 0; dd < HD; ++dd) {
-        kv_[dd] = ks[nn * KS + dd];
-        vv[dd] = vs[nn * KS + dd];
+        kv_[dd] = ks[nc * KS + dd];
+        vv[dd] = vs[nc * KS + dd];
         dka[dd] = 0.f;
         dva[dd] = 0.f;
       }
-      for (int i = 0; i < m_tok; ++i) {
+      for (int i = slice; i < m_tok; i += S) {
         const float* qi = qs + i * HD;
         const float* gi = gs + i * HD;
-        const float s = fmaf(dot<HD>(qi, kv_), scale, bias_h[(size_t)i * n_tok + nn]);
+        const float s = fmaf(dot<HD>(qi, kv_), scale, bias_h[(size_t)i * n_tok + nc]);
         const float p32 = expf(s - row_max[i]) / row_sum[i];
         const float dp = dot<HD>(gi, vv);
         const float ds = p32 * (dp - row_dot[i]);
@@ -237,11 +291,20 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
           dka[dd] = fmaf(dsc, qi[dd], dka[dd]);
         }
       }
-      const size_t dst = ((size_t)w * n_tok + nn) * c + h * HD;
+      for (int o = 1; o < S; o <<= 1) {
 #pragma unroll
-      for (int dd = 0; dd < HD; ++dd) {
-        dk[dst + dd] = store_cast<T>(dka[dd]);
-        dv[dst + dd] = store_cast<T>(dva[dd]);
+        for (int dd = 0; dd < HD; ++dd) {
+          dka[dd] += __shfl_xor_sync(0xffffffffu, dka[dd], o);
+          dva[dd] += __shfl_xor_sync(0xffffffffu, dva[dd], o);
+        }
+      }
+      if (nn < n_tok && slice == 0) {
+        const size_t dst = ((size_t)w * n_tok + nn) * c + h * HD;
+#pragma unroll
+        for (int dd = 0; dd < HD; ++dd) {
+          dk[dst + dd] = store_cast<T>(dka[dd]);
+          dv[dst + dd] = store_cast<T>(dva[dd]);
+        }
       }
     }
   }
@@ -260,33 +323,66 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
   dbias[e] = s;
 }
 
-template <typename T, int HD>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * bwd_smem_floats(a.m, a.n, HD);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Launches the instantiation for (T, HD, J) when `a` is given; otherwise
+// writes its occupancy at `smem` bytes to info: registers, local (spill)
+// bytes per thread, dynamic shared memory per block, threads per block,
+// resident blocks per SM.
+template <typename T, int HD, int J>
+cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
+  auto kernel = attn_bwd_kernel<T, HD, J>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_kernel<T, HD><<<dim3(a.groups, a.heads), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (a != nullptr) {
+    kernel<<<dim3(a->groups, a->heads), kThreads, smem, stream>>>(*a);
+    return cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (long long)attr.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = kThreads;
+  info[4] = blocks;
+  return cudaSuccess;
+}
+
+template <typename T, int HD>
+cudaError_t run_j(int j, const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
+  switch (j) {
+    case 8: return run<T, HD, 8>(a, smem, info, stream);
+    case 12: return run<T, HD, 12>(a, smem, info, stream);
+    case 16: return run<T, HD, 16>(a, smem, info, stream);
+    case 32: return run<T, HD, 32>(a, smem, info, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t launch_all(const BwdArgs& a, float* dbias, cudaStream_t stream) {
-  cudaError_t err;
-  switch (a.c / a.heads) {
-    case 1: err = launch_bwd<T, 1>(a, stream); break;
-    case 2: err = launch_bwd<T, 2>(a, stream); break;
-    case 4: err = launch_bwd<T, 4>(a, stream); break;
-    case 8: err = launch_bwd<T, 8>(a, stream); break;
-    case 16: err = launch_bwd<T, 16>(a, stream); break;
-    case 32: err = launch_bwd<T, 32>(a, stream); break;
+cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info,
+                   cudaStream_t stream) {
+  switch (hd) {
+    case 1: return run_j<T, 1>(j, a, smem, info, stream);
+    case 2: return run_j<T, 2>(j, a, smem, info, stream);
+    case 4: return run_j<T, 4>(j, a, smem, info, stream);
+    case 8: return run_j<T, 8>(j, a, smem, info, stream);
+    case 16: return run_j<T, 16>(j, a, smem, info, stream);
+    case 32: return run_j<T, 32>(j, a, smem, info, stream);
     default: return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return err;
-  const long long plane = (long long)a.heads * a.m * a.n;
-  dbias_reduce_kernel<<<(unsigned)((plane + 255) / 256), 256, 0, stream>>>(a.partial, dbias,
-                                                                           a.groups, plane);
-  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, const BwdArgs* a,
+                     long long* info, cudaStream_t stream) {
+  if (heads < 1 || c % heads) return cudaErrorInvalidValue;
+  const int hd = c / heads, j = row_share(n);
+  const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd);
+  return is_bf16 ? run_hd<__nv_bfloat16>(hd, j, a, smem, info, stream)
+                 : run_hd<float>(hd, j, a, smem, info, stream);
 }
 
 }  // namespace
@@ -299,14 +395,26 @@ long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads) {
   return (long long)(sizeof(float) * bwd_smem_floats(m, n, c / heads));
 }
 
+// The instantiation a launch at these shapes takes: info[0..6] = registers,
+// local (spill) bytes per thread, dynamic shared memory per block, threads
+// per block, resident blocks per SM, J (keys a lane keeps of a row) and S
+// (lanes per key in pass 2). Returns the CUDA error code (0 on success).
+int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
+  const cudaError_t err = dispatch(is_bf16, m, n, c, heads, nullptr, info, nullptr);
+  info[5] = row_share(n);
+  info[6] = pass2_slices(m, n);
+  return (int)err;
+}
+
 // Launches the backward and the dbias reduction on `stream`; returns the
 // first CUDA error code (0 on success). q/k/v/g/dq/dk/dv are f32 (is_bf16 =
-// 0) or bf16 (is_bf16 = 1); bias, partial and dbias are f32.
+// 0) or bf16 (is_bf16 = 1); bias, partial and dbias are f32. N may be at
+// most 1024 keys.
 int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, float scale,
                        const void* q, const void* k, const void* v, const float* bias,
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
                        void* stream) {
-  if (groups < 1 || groups > b) return (int)cudaErrorInvalidValue;
+  if (groups < 1 || groups > b || n > kMaxKeys) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.b = b;
   a.m = m;
@@ -314,6 +422,7 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.c = c;
   a.heads = heads;
   a.groups = groups;
+  a.slices = pass2_slices(m, n);
   a.scale = scale;
   a.q = q;
   a.k = k;
@@ -325,9 +434,12 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.dv = dv;
   a.partial = partial;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(a, dbias, s) : launch_all<float>(a, dbias, s);
-  return (int)err;
+  cudaError_t err = dispatch(is_bf16, m, n, c, heads, &a, nullptr, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long plane = (long long)heads * m * n;
+  dbias_reduce_kernel<<<(unsigned)((plane + 255) / 256), 256, 0, s>>>(partial, dbias, groups,
+                                                                      plane);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

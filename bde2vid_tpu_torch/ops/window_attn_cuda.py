@@ -53,6 +53,7 @@ _ACT_CODES = {
 _HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 _DBIAS_GROUPS = 16  # window groups of the backward; 16 heads x 16 groups fill 132 SMs
+_BWD_MAX_KEYS = 1024  # the backward keeps a lane's share of a score row in registers
 
 
 class SwinBlockParams(NamedTuple):
@@ -280,6 +281,7 @@ _SIGNATURES = {
         # 7 ints, the score scale, 10 tensor pointers and the stream
         "attn_core_backward": ([_CI] * 7 + [_CF] + [_VP] * 11, _CI),
         "attn_core_bwd_smem_bytes": ([_CI] * 4, _LL),
+        "attn_core_bwd_occupancy": ([_CI] * 5 + [_LLP], _CI),
     },
 }
 
@@ -420,6 +422,8 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     if tuple(bias.shape) != (num_heads, m, n) or bias.device != q.device:
         raise ValueError(f"bias must be {(num_heads, m, n)} on {q.device}, got {tuple(bias.shape)}")
     _check_head_dim(c, num_heads)
+    if n > _BWD_MAX_KEYS:
+        raise ValueError(f"the attention backward kernel takes at most {_BWD_MAX_KEYS} keys, got {n}")
     lib = _lib("attn_core_bwd")
     smem = lib.attn_core_bwd_smem_bytes(m, n, c, num_heads)
     if smem > _MAX_SMEM:
@@ -440,6 +444,20 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
         raise RuntimeError(f"attn_core_backward kernel launch failed: CUDA error {rc}")
     launch_counts["attn_core_backward"] += 1
     return dq, dk, dv, dbias.to(bias.dtype)
+
+
+def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype) -> dict:
+    """What the backward kernel's instantiation for these shapes gets on the
+    current card: registers and spill bytes per thread (ptxas), dynamic
+    shared memory per block, threads per block, resident blocks per SM, J
+    (keys a lane keeps of a score row) and S (lanes per key in pass 2)."""
+    info = (ctypes.c_longlong * 7)()
+    rc = _lib("attn_core_bwd").attn_core_bwd_occupancy(
+        int(dtype == torch.bfloat16), m, n, c, num_heads, info)
+    if rc != 0:
+        raise RuntimeError(f"attn_core_bwd_occupancy failed: CUDA error {rc}")
+    keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "slices")
+    return dict(zip(keys, info))
 
 
 def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
