@@ -41,6 +41,10 @@
 //     of pass 1), accumulate dk and dv in registers, and add the S partial
 //     sums with a fixed butterfly of warp shuffles. Nothing of size (M, N)
 //     leaves the SM.
+//   - Per element, both passes take exp as exp2f((s - max) * log2 e) and
+//     multiply by one reciprocal of the row's sum, kept per row; q, g, k
+//     and v rows load as float4 from shared memory where head_dim is a
+//     multiple of 4 (k and v rows padded against bank conflicts).
 //   - Occupancy: 16 warps a block, and two blocks per SM where shared
 //     memory allows (head_dim <= 8 at N <= 384: `__launch_bounds__` caps
 //     registers at 64 there).
@@ -93,6 +97,34 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Row stride (floats) of k and v in shared memory: 16-byte rows for float4
+// loads, padded so that 8 lanes on consecutive rows (one phase of a 128-bit
+// load) hit distinct banks; an odd stride below head_dim 4.
+__host__ __device__ constexpr int key_stride(int hd) {
+  return hd < 4 ? hd + 1 : (hd / 4) % 2 ? hd : hd + 4;
+}
+
+// r = p[0 .. HD), as float4 loads where HD is a multiple of 4 (p is then
+// 16-byte aligned).
+template <int HD>
+__device__ __forceinline__ void load_row(float (&r)[HD], const float* p) {
+  if constexpr (HD % 4 == 0) {
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + d);
+      r[d] = t.x;
+      r[d + 1] = t.y;
+      r[d + 2] = t.z;
+      r[d + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) r[d] = p[d];
+  }
+}
+
 template <int HD>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
@@ -112,7 +144,7 @@ struct BwdArgs {
 };
 
 size_t bwd_smem_floats(int m, int n, int hd) {
-  return 2 * (size_t)n * (hd + 1) + 2 * (size_t)m * hd + 3 * (size_t)m + (size_t)m * n;
+  return 2 * (size_t)n * key_stride(hd) + 2 * (size_t)m * hd + 3 * (size_t)m + (size_t)m * n;
 }
 
 // Keys a lane keeps of its row in pass 1: ceil(N / 32) rounded up to an
@@ -149,14 +181,14 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   extern __shared__ float smem[];
   const int grp = blockIdx.x, h = blockIdx.y;
   const int m_tok = a.m, n_tok = a.n, c = a.c;
-  constexpr int KS = HD + 1;  // odd row stride: lanes on consecutive rows hit distinct banks
+  constexpr int KS = key_stride(HD);
   float* ks = smem;                        // (N, KS)
   float* vs = ks + n_tok * KS;             // (N, KS)
   float* qs = vs + n_tok * KS;             // (M, HD)
   float* gs = qs + m_tok * HD;             // (M, HD)
   float* row_max = gs + m_tok * HD;        // (M)
-  float* row_sum = row_max + m_tok;        // (M)
-  float* row_dot = row_sum + m_tok;        // (M): rowsum(dp * p32)
+  float* row_inv = row_max + m_tok;        // (M): 1 / the row's sum of exponentials
+  float* row_dot = row_inv + m_tok;        // (M): rowsum(dp * p32)
   float* dbias = row_dot + m_tok;          // (M, N): ds summed over this block's windows
 
   const T* q = static_cast<const T*>(a.q);
@@ -196,11 +228,8 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     // pass 1: a warp per query row, the lane's keys lane + 32 j in registers
     for (int i = warp; i < m_tok; i += kWarps) {
       float qv[HD], gv[HD];
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd) {
-        qv[dd] = qs[i * HD + dd];
-        gv[dd] = gs[i * HD + dd];
-      }
+      load_row<HD>(qv, qs + i * HD);
+      load_row<HD>(gv, gs + i * HD);
       const float* brow = bias_h + (size_t)i * n_tok;
       float sv[J], dpv[J];
       float mx = __int_as_float(0xff800000);  // -inf
@@ -210,8 +239,11 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
         sv[j] = 0.f;
         dpv[j] = 0.f;
         if (nn < n_tok) {
-          sv[j] = fmaf(dot<HD>(qv, ks + nn * KS), scale, brow[nn]);
-          dpv[j] = dot<HD>(gv, vs + nn * KS);
+          float kr[HD], vr[HD];
+          load_row<HD>(kr, ks + nn * KS);
+          load_row<HD>(vr, vs + nn * KS);
+          sv[j] = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
+          dpv[j] = dot<HD>(gv, vr);
           mx = fmaxf(mx, sv[j]);
         }
       }
@@ -220,16 +252,16 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (lane + 32 * j < n_tok) {
-          sv[j] = expf(sv[j] - mx);
+          sv[j] = exp2f((sv[j] - mx) * kLog2e);
           sum += sv[j];
         }
       }
-      sum = warp_sum(sum);
+      const float inv = 1.f / warp_sum(sum);
       float rdot = 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (lane + 32 * j < n_tok) {
-          sv[j] = sv[j] / sum;  // p32
+          sv[j] *= inv;  // p32
           rdot = fmaf(dpv[j], sv[j], rdot);
         }
       }
@@ -245,15 +277,17 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
           const float ds = sv[j] * (dpv[j] - rdot);
           drow[nn] += ds;
           const float dsc = round_to<T>(ds * scale);
+          float kr[HD];
+          load_row<HD>(kr, ks + nn * KS);
 #pragma unroll
-          for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, ks[nn * KS + dd], dqa[dd]);
+          for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, kr[dd], dqa[dd]);
         }
       }
 #pragma unroll
       for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
       if (lane == 0) {
         row_max[i] = mx;
-        row_sum[i] = sum;
+        row_inv[i] = inv;
         row_dot[i] = rdot;
         const size_t dst = ((size_t)w * m_tok + i) * c + h * HD;
 #pragma unroll
@@ -269,18 +303,19 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
       const int nn = base + slot;
       const int nc = nn < n_tok ? nn : n_tok - 1;  // idle lanes still join the shuffles
       float kv_[HD], vv[HD], dka[HD], dva[HD];
+      load_row<HD>(kv_, ks + nc * KS);
+      load_row<HD>(vv, vs + nc * KS);
 #pragma unroll
       for (int dd = 0; dd < HD; ++dd) {
-        kv_[dd] = ks[nc * KS + dd];
-        vv[dd] = vs[nc * KS + dd];
         dka[dd] = 0.f;
         dva[dd] = 0.f;
       }
       for (int i = slice; i < m_tok; i += S) {
-        const float* qi = qs + i * HD;
-        const float* gi = gs + i * HD;
+        float qi[HD], gi[HD];
+        load_row<HD>(qi, qs + i * HD);
+        load_row<HD>(gi, gs + i * HD);
         const float s = fmaf(dot<HD>(qi, kv_), scale, bias_h[(size_t)i * n_tok + nc]);
-        const float p32 = expf(s - row_max[i]) / row_sum[i];
+        const float p32 = exp2f((s - row_max[i]) * kLog2e) * row_inv[i];
         const float dp = dot<HD>(gi, vv);
         const float ds = p32 * (dp - row_dot[i]);
         const float p = round_to<T>(p32);
