@@ -44,7 +44,8 @@
 //   - Per element, both passes take exp as exp2f((s - max) * log2 e) and
 //     multiply by one reciprocal of the row's sum, kept per row; q, g, k
 //     and v rows load as float4 from shared memory where head_dim is a
-//     multiple of 4 (k and v rows padded against bank conflicts).
+//     multiple of 4 (rows padded against bank conflicts), and pass 2 loads
+//     each bias element one row ahead of its use.
 //   - Occupancy: 16 warps a block, and two blocks per SM where shared
 //     memory allows (head_dim <= 8 at N <= 384: `__launch_bounds__` caps
 //     registers at 64 there).
@@ -144,7 +145,7 @@ struct BwdArgs {
 };
 
 size_t bwd_smem_floats(int m, int n, int hd) {
-  return 2 * (size_t)n * key_stride(hd) + 2 * (size_t)m * hd + 3 * (size_t)m + (size_t)m * n;
+  return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (size_t)m * n;
 }
 
 // Keys a lane keeps of its row in pass 1: ceil(N / 32) rounded up to an
@@ -184,9 +185,9 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   constexpr int KS = key_stride(HD);
   float* ks = smem;                        // (N, KS)
   float* vs = ks + n_tok * KS;             // (N, KS)
-  float* qs = vs + n_tok * KS;             // (M, HD)
-  float* gs = qs + m_tok * HD;             // (M, HD)
-  float* row_max = gs + m_tok * HD;        // (M)
+  float* qs = vs + n_tok * KS;             // (M, KS)
+  float* gs = qs + m_tok * KS;             // (M, KS)
+  float* row_max = gs + m_tok * KS;        // (M)
   float* row_inv = row_max + m_tok;        // (M): 1 / the row's sum of exponentials
   float* row_dot = row_inv + m_tok;        // (M): rowsum(dp * p32)
   float* dbias = row_dot + m_tok;          // (M, N): ds summed over this block's windows
@@ -220,16 +221,16 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     for (int e = tid; e < m_tok * HD; e += kThreads) {
       const int i = e / HD, dd = e % HD;
       const size_t src = ((size_t)w * m_tok + i) * c + h * HD + dd;
-      qs[e] = load(q, src);
-      gs[e] = load(g, src);
+      qs[i * KS + dd] = load(q, src);
+      gs[i * KS + dd] = load(g, src);
     }
     __syncthreads();
 
     // pass 1: a warp per query row, the lane's keys lane + 32 j in registers
     for (int i = warp; i < m_tok; i += kWarps) {
       float qv[HD], gv[HD];
-      load_row<HD>(qv, qs + i * HD);
-      load_row<HD>(gv, gs + i * HD);
+      load_row<HD>(qv, qs + i * KS);
+      load_row<HD>(gv, gs + i * KS);
       const float* brow = bias_h + (size_t)i * n_tok;
       float sv[J], dpv[J];
       float mx = __int_as_float(0xff800000);  // -inf
@@ -310,11 +311,16 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
         dka[dd] = 0.f;
         dva[dd] = 0.f;
       }
+      // the bias column streams from L2: its next element loads one row ahead
+      const float* bcol = bias_h + nc;
+      float b_next = slice < m_tok ? __ldg(bcol + (size_t)slice * n_tok) : 0.f;
       for (int i = slice; i < m_tok; i += S) {
+        const float b_i = b_next;
+        if (i + S < m_tok) b_next = __ldg(bcol + (size_t)(i + S) * n_tok);
         float qi[HD], gi[HD];
-        load_row<HD>(qi, qs + i * HD);
-        load_row<HD>(gi, gs + i * HD);
-        const float s = fmaf(dot<HD>(qi, kv_), scale, bias_h[(size_t)i * n_tok + nc]);
+        load_row<HD>(qi, qs + i * KS);
+        load_row<HD>(gi, gs + i * KS);
+        const float s = fmaf(dot<HD>(qi, kv_), scale, b_i);
         const float p32 = exp2f((s - row_max[i]) * kLog2e) * row_inv[i];
         const float dp = dot<HD>(gi, vv);
         const float ds = p32 * (dp - row_dot[i]);
