@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -52,7 +53,6 @@ _ACT_CODES = {
 }
 _HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
-_DBIAS_GROUPS = 16  # window groups of the backward; 16 heads x 16 groups fill 132 SMs
 _BWD_MAX_KEYS = 1024  # the backward keeps a lane's share of a score row in registers
 
 
@@ -431,7 +431,9 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
 
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     bias32 = bias.float().contiguous()
-    groups = min(_DBIAS_GROUPS, b_)
+    occ = attn_core_backward_occupancy(m, n, c, num_heads, dt)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], sms)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
@@ -446,6 +448,20 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     return dq, dk, dv, dbias.to(bias.dtype)
 
 
+def bwd_window_groups(b_: int, heads: int, blocks_per_sm: int, sms: int) -> int:
+    """Window groups of one backward launch. Block (group, head) takes
+    windows ``[group * b_ // groups, (group + 1) * b_ // groups)``. All
+    blocks fit in one wave of ``sms * blocks_per_sm`` resident slots, the
+    fullest group holds as few windows as that allows, and the groups are
+    the fewest that give it, which keeps the dbias partial buffer (groups,
+    H, M, N) small. A function of its arguments alone, so two runs take the
+    same groups and sum dbias in the same order."""
+    most = max(1, min(b_, sms * blocks_per_sm // heads))
+    per_group = -(-b_ // most)
+    return -(-b_ // per_group)
+
+
+@functools.lru_cache(maxsize=None)
 def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype) -> dict:
     """What the backward kernel's instantiation for these shapes gets on the
     current card: registers and spill bytes per thread (ptxas), dynamic
