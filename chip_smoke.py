@@ -17,8 +17,10 @@ WindowAttention3D kernel.
            (plain; masked with acc) and its five launches one by one at the
            flagship's plain shapes, f32 and bf16 (profiler device ms, each
            stage's bound and, for the GEMM stages, F.linear(F.layer_norm)
-           or F.linear as yardstick), the attention-core backward (torch's
-           SDPA backward as the library yardstick), the WindowAttention3D
+           or F.linear as yardstick), the attention-core backward at the
+           flagship and the 8x8 shapes (torch's SDPA backward as the library
+           yardstick; a bitwise repeat; each instantiation's registers,
+           shared memory and resident blocks per SM), the WindowAttention3D
            body at the 8x8 dilated shapes (with and without acc), the bare
            attention core at the flagship and 8x8 shapes (SDPA forward as
            the yardstick), and both new Functions' gradients vs the twins'
@@ -617,11 +619,12 @@ def sdpa_backward_ms(torch, q, k, v, bias, g, heads, iters=10):
 
 def phase_kernels_training(torch):
     """The training variants of the Swin block kernel (masks, acc) and the
-    attention-core backward, each vs its twin at the flagship shapes."""
+    attention-core backward, each vs its twin at the flagship shapes; the
+    backward also at the 8x8 config's shapes, with its occupancy. Returns
+    the flagship's backward cases."""
     from bde2vid_tpu_torch.nn.window_attention import window_partition, window_partition_dilated
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
-        _pre_stage, attn_core_backward, attn_core_backward_reference, fused_swin_block,
-        swin_block_reference)
+        _pre_stage, fused_swin_block, swin_block_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = torch.device("cuda")
@@ -667,33 +670,72 @@ def phase_kernels_training(torch):
                 # q, k, v from the block's pre stage, a random cotangent
                 q, k, v = _pre_stage(x, ctr, p, heads, q_ind)
                 g = rnd(b, m, c).to(dt)
-                bias = p.bias
-                got = attn_core_backward(q, k, v, bias, g, heads)
-                again = attn_core_backward(q, k, v, bias, g, heads)
-                ref = attn_core_backward_reference(q, k, v, bias, g, heads)
-                torch.cuda.synchronize()
-                errs = check_close(f"attn_core_backward {level} {layout} {name}", got, ref, dt)
-                if not all(torch.equal(a, r) for a, r in zip(got, again)):
-                    raise AssertionError("attn_core_backward: two runs differ")
-                flops, nbytes = attn_bwd_cost(b, m, d * m, c, heads, x.element_size())
-                t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
-                lib_ms, backend = sdpa_backward_ms(torch, q, k, v, bias, g, heads)
-                bwd_cases.append({
-                    "level": level, "layout": layout, "dtype": name, "windows": b, "channels": c,
-                    "max_abs_err": max(errs), "errs_dq_dk_dv_dbias": errs, "deterministic": True,
-                    "kernel_ms": cuda_ms(torch, lambda: attn_core_backward(q, k, v, bias, g, heads), 20),
-                    "plain_ms": cuda_ms(torch, lambda: attn_core_backward_reference(
-                        q, k, v, bias, g, heads), 5, 1),
-                    "library_ms": lib_ms, "library": backend,
-                    "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
-                    "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-                })
+                bwd_cases.append(bwd_case(torch, q, k, v, p.bias, g, heads, config="flagship",
+                                          level=level, layout=layout))
+    # the 8x8 config's shapes (M 64, N 448; plain and dilated levels have the
+    # same windows), random q, k, v and cotangent
+    m8, n8 = 64, d * 64
+    for level, ((hp, wp), c) in LEVELS_8.items():
+        b = (hp // 8) * (wp // 8)
+        q32, k32, v32, g32 = rnd(b, m8, c), rnd(b, n8, c), rnd(b, n8, c), rnd(b, m8, c)
+        bias = rnd(heads, m8, n8, scale=0.5)
+        for dt in (torch.float32, torch.bfloat16):
+            bwd_cases.append(bwd_case(torch, *(t.to(dt) for t in (q32, k32, v32)), bias, g32.to(dt),
+                                      heads, config="8x8", level=level, layout="plain"))
     emit({"phase": "kernels", "kernel": "fused_swin_block, masked with acc",
           "timing": "CUDA events, inputs L2-warm", "cases": block_cases})
     emit({"phase": "kernels", "kernel": "attn_core_backward",
           "timing": "CUDA events, inputs L2-warm; library = torch SDPA backward alone",
           "cases": bwd_cases})
-    return bwd_cases
+    emit({"phase": "kernels", "kernel": "attn_core_backward occupancy",
+          "instantiations": bwd_occupancy(torch, heads)})
+    return [c for c in bwd_cases if c["config"] == "flagship"]
+
+
+def bwd_case(torch, q, k, v, bias, g, heads, **labels):
+    """One attn_core_backward case: the kernel vs its twin (gate and bitwise
+    repeat), its time, the twin's, torch's SDPA backward and the bound."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import (
+        attn_core_backward, attn_core_backward_reference)
+
+    name = str(q.dtype).split(".")[-1]
+    b, m, c = q.shape
+    n = k.shape[1]
+    what = f"attn_core_backward {' '.join(labels.values())} {name}"
+    got = attn_core_backward(q, k, v, bias, g, heads)
+    again = attn_core_backward(q, k, v, bias, g, heads)
+    ref = attn_core_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    errs = check_close(what, got, ref, q.dtype)
+    if not all(torch.equal(a, r) for a, r in zip(got, again)):
+        raise AssertionError(f"{what}: two runs differ")
+    flops, nbytes = attn_bwd_cost(b, m, n, c, heads, q.element_size())
+    t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+    lib_ms, backend = sdpa_backward_ms(torch, q, k, v, bias, g, heads)
+    return {
+        **labels, "dtype": name, "windows": b, "queries": m, "keys": n, "channels": c,
+        "max_abs_err": max(errs), "errs_dq_dk_dv_dbias": errs, "deterministic": True,
+        "kernel_ms": cuda_ms(torch, lambda: attn_core_backward(q, k, v, bias, g, heads), 20),
+        "plain_ms": cuda_ms(torch, lambda: attn_core_backward_reference(q, k, v, bias, g, heads), 5, 1),
+        "library_ms": lib_ms, "library": backend,
+        "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
+        "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+    }
+
+
+def bwd_occupancy(torch, heads):
+    """Registers, spill bytes, shared memory per block and resident blocks
+    per SM of each attn_core_backward instantiation the four level shapes
+    take, with its row share J and pass-2 lanes per key S."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import attn_core_backward_occupancy
+
+    rows = []
+    for config, m, n, levels in (("flagship", 49, 343, LEVELS), ("8x8", 64, 448, LEVELS_8)):
+        for level, (_, c) in levels.items():
+            for dt in (torch.float32, torch.bfloat16):
+                rows.append({"config": config, "level": level, "dtype": str(dt).split(".")[-1],
+                             **attn_core_backward_occupancy(m, n, c, heads, dt)})
+    return rows
 
 
 def window_block_cost(d, b, m, c, heads, elem_bytes, with_acc):

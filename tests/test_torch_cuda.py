@@ -132,9 +132,15 @@ def test_cuda_masked_kernel_and_acc_match_twin(cuda_device, dilated, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b_,n,heads,c", [(20, 343, 16, 256), (37, 147, 16, 64), (5, 98, 2, 16)])
-def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, n, heads, c):
-    m = 49
+@pytest.mark.parametrize("b_,m,n,heads,c", [
+    (20, 49, 343, 16, 256), (37, 49, 147, 16, 64), (5, 49, 98, 2, 16),
+    (252, 49, 343, 16, 64),  # the flagship's level 0 (level 2 is the first case)
+    (180, 64, 448, 16, 64), (12, 64, 448, 16, 256),  # the 8x8 config's levels 0 and 2
+    (23, 49, 343, 16, 256),  # a B_ that no group count divides
+    (6, 49, 196, 2, 64), (4, 16, 48, 16, 16), (4, 16, 48, 8, 16),  # head_dim 32, 1, 2
+    (3, 49, 686, 4, 32),  # N above 512 keys: a lane keeps 32 of a row
+])
+def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, m, n, heads, c):
     g = torch.Generator(device=cuda_device).manual_seed(b_)
     f = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
     q, k, v, gr, bias = f(b_, m, c), f(b_, n, c), f(b_, n, c), f(b_, m, c), f(heads, m, n) * 0.5
@@ -151,6 +157,26 @@ def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, 
             r = r.float()
             bound = tol * max(1.0, r.abs().max().item()) if dt == torch.float32 else tol * r.abs().max().item()
             assert (a.float() - r).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_backward_refuses_rows_above_its_register_share(cuda_device):
+    """A lane of the backward keeps at most 32 keys of a score row in
+    registers: 1024 keys run, 1025 raise before any launch."""
+    f = lambda *s: torch.randn(*s, device=cuda_device)
+    for n, ok in ((1024, True), (1025, False)):
+        q, k, v, bias = f(1, 4, 4), f(1, n, 4), f(1, n, 4), f(1, 4, n)
+        before = launch_counts["attn_core_backward"]
+        if ok:
+            got = attn_core_backward(q, k, v, bias, q, 1)
+            ref = attn_core_backward_reference(q, k, v, bias, q, 1)
+            torch.cuda.synchronize()
+            for a, r in zip(got, ref):
+                assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+        else:
+            with pytest.raises(ValueError):
+                attn_core_backward(q, k, v, bias, q, 1)
+        assert launch_counts["attn_core_backward"] == before + ok
 
 
 @pytest.mark.cuda
