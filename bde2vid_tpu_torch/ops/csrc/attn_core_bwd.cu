@@ -32,10 +32,13 @@
 //     two runs give bit-identical gradients, with no float atomics.
 //   - Pass 1, a warp per query row: a lane keeps its share of the row's
 //     scores and dp (at most J = 8..32 keys, J chosen at launch from N) in
-//     registers through softmax, dp, ds and dq; the row's max, sum and
+//     registers through softmax, dp, ds and dq (dq's head_dim sums in one
+//     butterfly per component); the row's max, 1 / sum and
 //     rowsum(dp * p32) go to shared memory.
 //   - Pass 2, S lanes per key token (S = 1..8, chosen at launch so that the
-//     key rounds leave few lanes idle), each over every S-th query row:
+//     key rounds leave few lanes idle; two tokens a lane at head_dim <= 4
+//     where one block fills an SM, so that each q and g row read feeds
+//     both), each over every S-th query row:
 //     recompute p32 and ds for its column from those row statistics (the
 //     same float operations in the same order, so the values are the bits
 //     of pass 1), accumulate dk and dv in registers, and add the S partial
@@ -157,13 +160,19 @@ int row_share(int n) {
   return 0;
 }
 
+// Keys a pass-2 lane takes: two at head_dim <= 4 where one block fills an
+// SM (J > 12: 128 registers), so that each q and g row loaded from shared
+// memory feeds both; else one, as registers run out.
+__host__ __device__ constexpr int keys_per_lane(int hd, int j) { return hd <= 4 && j > 12 ? 2 : 1; }
+
 // Lanes per key in pass 2 (1, 2, 4 or 8): the fewest that minimise one
 // warp's share, (rounds of key groups) x (rows per lane).
-int pass2_slices(int m, int n) {
+int pass2_slices(int m, int n, int hd) {
+  const int kpt = keys_per_lane(hd, row_share(n));
   int best = 1;
   long long best_t = -1;
   for (int s = 1; s <= 8; s <<= 1) {
-    const int keys = 32 / s;
+    const int keys = kpt * 32 / s;
     const long long rounds = ((n + keys - 1) / keys + kWarps - 1) / kWarps;
     const long long t = rounds * ((m + s - 1) / s);
     if (best_t < 0 || t < best_t) {
@@ -204,8 +213,9 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int w_begin = (int)((long long)grp * a.b / a.groups);
   const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
-  // pass 2: lane = key slot * S + slice; a warp covers 32 / S keys
-  const int S = a.slices, keys_per_warp = 32 / S;
+  // pass 2: lane = key slot * S + slice; a warp covers KPT * 32 / S keys
+  constexpr int KPT = keys_per_lane(HD, J);
+  const int S = a.slices, keys_per_warp = KPT * 32 / S;
   const int slot = lane / S, slice = lane % S;
 
   for (int e = tid; e < m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
@@ -297,54 +307,71 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     }
     __syncthreads();
 
-    // pass 2: S lanes per key token, each over rows slice, slice + S, ...;
-    // dk and dv accumulate in registers and the S partial sums meet in a
-    // fixed butterfly
+    // pass 2: S lanes per KPT key tokens, each over rows slice, slice + S,
+    // ...; dk and dv accumulate in registers and the S partial sums meet
+    // in a fixed butterfly
     for (int base = warp * keys_per_warp; base < n_tok; base += kWarps * keys_per_warp) {
-      const int nn = base + slot;
-      const int nc = nn < n_tok ? nn : n_tok - 1;  // idle lanes still join the shuffles
-      float kv_[HD], vv[HD], dka[HD], dva[HD];
-      load_row<HD>(kv_, ks + nc * KS);
-      load_row<HD>(vv, vs + nc * KS);
+      int nn[KPT], nc[KPT];
+      float kv_[KPT][HD], vv[KPT][HD], dka[KPT][HD], dva[KPT][HD], b_next[KPT];
 #pragma unroll
-      for (int dd = 0; dd < HD; ++dd) {
-        dka[dd] = 0.f;
-        dva[dd] = 0.f;
+      for (int t = 0; t < KPT; ++t) {
+        nn[t] = base + slot + t * (32 / S);
+        nc[t] = nn[t] < n_tok ? nn[t] : n_tok - 1;  // idle lanes still join the shuffles
+        load_row<HD>(kv_[t], ks + nc[t] * KS);
+        load_row<HD>(vv[t], vs + nc[t] * KS);
+#pragma unroll
+        for (int dd = 0; dd < HD; ++dd) {
+          dka[t][dd] = 0.f;
+          dva[t][dd] = 0.f;
+        }
+        // the bias column streams from L2: its next element loads one row ahead
+        b_next[t] = slice < m_tok ? __ldg(bias_h + (size_t)slice * n_tok + nc[t]) : 0.f;
       }
-      // the bias column streams from L2: its next element loads one row ahead
-      const float* bcol = bias_h + nc;
-      float b_next = slice < m_tok ? __ldg(bcol + (size_t)slice * n_tok) : 0.f;
       for (int i = slice; i < m_tok; i += S) {
-        const float b_i = b_next;
-        if (i + S < m_tok) b_next = __ldg(bcol + (size_t)(i + S) * n_tok);
+        float b_i[KPT];
+#pragma unroll
+        for (int t = 0; t < KPT; ++t) {
+          b_i[t] = b_next[t];
+          if (i + S < m_tok) b_next[t] = __ldg(bias_h + (size_t)(i + S) * n_tok + nc[t]);
+        }
         float qi[HD], gi[HD];
         load_row<HD>(qi, qs + i * KS);
         load_row<HD>(gi, gs + i * KS);
-        const float s = fmaf(dot<HD>(qi, kv_), scale, b_i);
-        const float p32 = exp2f((s - row_max[i]) * kLog2e) * row_inv[i];
-        const float dp = dot<HD>(gi, vv);
-        const float ds = p32 * (dp - row_dot[i]);
-        const float p = round_to<T>(p32);
-        const float dsc = round_to<T>(ds * scale);
+        const float mx = row_max[i], inv = row_inv[i], rdot = row_dot[i];
 #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) {
-          dva[dd] = fmaf(p, gi[dd], dva[dd]);
-          dka[dd] = fmaf(dsc, qi[dd], dka[dd]);
+        for (int t = 0; t < KPT; ++t) {
+          const float s = fmaf(dot<HD>(qi, kv_[t]), scale, b_i[t]);
+          const float p32 = exp2f((s - mx) * kLog2e) * inv;
+          const float dp = dot<HD>(gi, vv[t]);
+          const float ds = p32 * (dp - rdot);
+          const float p = round_to<T>(p32);
+          const float dsc = round_to<T>(ds * scale);
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) {
+            dva[t][dd] = fmaf(p, gi[dd], dva[t][dd]);
+            dka[t][dd] = fmaf(dsc, qi[dd], dka[t][dd]);
+          }
         }
       }
       for (int o = 1; o < S; o <<= 1) {
 #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) {
-          dka[dd] += __shfl_xor_sync(0xffffffffu, dka[dd], o);
-          dva[dd] += __shfl_xor_sync(0xffffffffu, dva[dd], o);
+        for (int t = 0; t < KPT; ++t) {
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) {
+            dka[t][dd] += __shfl_xor_sync(0xffffffffu, dka[t][dd], o);
+            dva[t][dd] += __shfl_xor_sync(0xffffffffu, dva[t][dd], o);
+          }
         }
       }
-      if (nn < n_tok && slice == 0) {
-        const size_t dst = ((size_t)w * n_tok + nn) * c + h * HD;
 #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) {
-          dk[dst + dd] = store_cast<T>(dka[dd]);
-          dv[dst + dd] = store_cast<T>(dva[dd]);
+      for (int t = 0; t < KPT; ++t) {
+        if (nn[t] < n_tok && slice == 0) {
+          const size_t dst = ((size_t)w * n_tok + nn[t]) * c + h * HD;
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) {
+            dk[dst + dd] = store_cast<T>(dka[t][dd]);
+            dv[dst + dd] = store_cast<T>(dva[t][dd]);
+          }
         }
       }
     }
@@ -443,7 +470,7 @@ long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads) {
 int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
   const cudaError_t err = dispatch(is_bf16, m, n, c, heads, nullptr, info, nullptr);
   info[5] = row_share(n);
-  info[6] = pass2_slices(m, n);
+  info[6] = heads > 0 ? pass2_slices(m, n, c / heads) : 0;
   return (int)err;
 }
 
@@ -463,7 +490,8 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.c = c;
   a.heads = heads;
   a.groups = groups;
-  a.slices = pass2_slices(m, n);
+  if (heads < 1) return (int)cudaErrorInvalidValue;
+  a.slices = pass2_slices(m, n, c / heads);
   a.scale = scale;
   a.q = q;
   a.k = k;
