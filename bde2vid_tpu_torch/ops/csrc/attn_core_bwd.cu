@@ -44,8 +44,9 @@
 //     of pass 1), accumulate dk and dv in registers, and add the S partial
 //     sums with a fixed butterfly of warp shuffles. Nothing of size (M, N)
 //     leaves the SM.
-//   - Per element, both passes take exp as exp2f((s - max) * log2 e) and
-//     multiply by one reciprocal of the row's sum, kept per row; q, g, k
+//   - Per element, both passes take exp as one ex2.approx of
+//     fmaf(s, log2 e, -max log2 e) and multiply by one reciprocal of the
+//     row's sum, kept per row; q, g, k
 //     and v rows load as float4 from shared memory where head_dim is a
 //     multiple of 4 (rows padded against bank conflicts), and pass 2 loads
 //     each bias element one row ahead of its use.
@@ -102,6 +103,14 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x in one MUFU instruction (relative error ~2^-22; results below 2^-126
+// flush to 0, which a softmax of at most 1024 keys cannot feel).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Row stride (floats) of k and v in shared memory: 16-byte rows for float4
 // loads, padded so that 8 lanes on consecutive rows (one phase of a 128-bit
@@ -196,8 +205,8 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   float* vs = ks + n_tok * KS;             // (N, KS)
   float* qs = vs + n_tok * KS;             // (M, KS)
   float* gs = qs + m_tok * KS;             // (M, KS)
-  float* row_max = gs + m_tok * KS;        // (M)
-  float* row_inv = row_max + m_tok;        // (M): 1 / the row's sum of exponentials
+  float* row_mxl = gs + m_tok * KS;        // (M): the row's max score * log2 e
+  float* row_inv = row_mxl + m_tok;        // (M): 1 / the row's sum of exponentials
   float* row_dot = row_inv + m_tok;        // (M): rowsum(dp * p32)
   float* dbias = row_dot + m_tok;          // (M, N): ds summed over this block's windows
 
@@ -258,12 +267,12 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
           mx = fmaxf(mx, sv[j]);
         }
       }
-      mx = warp_max(mx);
+      const float mxl = warp_max(mx) * kLog2e;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (lane + 32 * j < n_tok) {
-          sv[j] = exp2f((sv[j] - mx) * kLog2e);
+          sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl));
           sum += sv[j];
         }
       }
@@ -297,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
 #pragma unroll
       for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
       if (lane == 0) {
-        row_max[i] = mx;
+        row_mxl[i] = mxl;
         row_inv[i] = inv;
         row_dot[i] = rdot;
         const size_t dst = ((size_t)w * m_tok + i) * c + h * HD;
@@ -337,11 +346,11 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
         float qi[HD], gi[HD];
         load_row<HD>(qi, qs + i * KS);
         load_row<HD>(gi, gs + i * KS);
-        const float mx = row_max[i], inv = row_inv[i], rdot = row_dot[i];
+        const float mxl = row_mxl[i], inv = row_inv[i], rdot = row_dot[i];
 #pragma unroll
         for (int t = 0; t < KPT; ++t) {
           const float s = fmaf(dot<HD>(qi, kv_[t]), scale, b_i[t]);
-          const float p32 = exp2f((s - mx) * kLog2e) * inv;
+          const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
           const float dp = dot<HD>(gi, vv[t]);
           const float ds = p32 * (dp - rdot);
           const float p = round_to<T>(p32);
