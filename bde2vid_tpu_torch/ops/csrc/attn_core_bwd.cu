@@ -31,10 +31,10 @@
 //     group, and dbias_reduce_kernel sums the partials in a fixed order:
 //     two runs give bit-identical gradients, with no float atomics.
 //   - Pass 1, a warp per query row: a lane keeps its share of the row's
-//     scores and dp (at most J = 8..32 keys, J chosen at launch from N) in
-//     registers through softmax, dp, ds and dq (dq's head_dim sums in one
-//     butterfly per component); the row's max, 1 / sum and
-//     rowsum(dp * p32) go to shared memory.
+//     scores and dp (J = 12, 16 or 32 keys, chosen at launch from N, so
+//     at most 1024 keys a row) in registers through softmax, dp, ds and dq
+//     (dq's head_dim sums in one butterfly per component); the row's max,
+//     1 / sum and rowsum(dp * p32) go to shared memory.
 //   - Pass 2, S lanes per key token (S = 1..8, chosen at launch so that the
 //     key rounds leave few lanes idle; two tokens a lane at head_dim <= 4
 //     where one block fills an SM, so that each q and g row read feeds
@@ -64,7 +64,9 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxKeys = 1024;  // 32 lanes x the largest J
+// The instantiated J (keys a lane keeps of its row in pass 1); a row holds
+// at most 32 lanes x the last.
+constexpr int kRowShares[] = {12, 16, 32};
 
 __device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
@@ -161,10 +163,9 @@ size_t bwd_smem_floats(int m, int n, int hd) {
 }
 
 // Keys a lane keeps of its row in pass 1: ceil(N / 32) rounded up to an
-// instantiated J; 0 when N is above kMaxKeys.
+// instantiated J; 0 when a row holds too many keys.
 int row_share(int n) {
-  const int shares[] = {8, 12, 16, 32};
-  for (int j : shares)
+  for (int j : kRowShares)
     if (n <= 32 * j) return j;
   return 0;
 }
@@ -431,7 +432,6 @@ cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t str
 template <typename T, int HD>
 cudaError_t run_j(int j, const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
   switch (j) {
-    case 8: return run<T, HD, 8>(a, smem, info, stream);
     case 12: return run<T, HD, 12>(a, smem, info, stream);
     case 16: return run<T, HD, 16>(a, smem, info, stream);
     case 32: return run<T, HD, 32>(a, smem, info, stream);
@@ -453,10 +453,18 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
   }
 }
 
-cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, const BwdArgs* a,
-                     long long* info, cudaStream_t stream) {
+// Launches with `a` (setting its pass-2 slices), or writes the occupancy
+// and J, S to info[0..6] when `a` is null.
+cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, BwdArgs* a, long long* info,
+                     cudaStream_t stream) {
   if (heads < 1 || c % heads) return cudaErrorInvalidValue;
-  const int hd = c / heads, j = row_share(n);
+  const int hd = c / heads, j = row_share(n), slices = pass2_slices(m, n, hd);
+  if (a != nullptr) {
+    a->slices = slices;
+  } else {
+    info[5] = j;
+    info[6] = slices;
+  }
   const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd);
   return is_bf16 ? run_hd<__nv_bfloat16>(hd, j, a, smem, info, stream)
                  : run_hd<float>(hd, j, a, smem, info, stream);
@@ -465,6 +473,10 @@ cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, const BwdArgs*
 }  // namespace
 
 extern "C" {
+
+// Keys of a score row the backward takes at most (N); the wrapper refuses
+// more before any launch.
+int attn_core_bwd_max_keys() { return 32 * kRowShares[sizeof(kRowShares) / sizeof(int) - 1]; }
 
 // Shared memory (bytes) the backward kernel asks for; the wrapper checks it
 // against the card's per-block limit before launching.
@@ -477,21 +489,18 @@ long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads) {
 // per block, resident blocks per SM, J (keys a lane keeps of a row) and S
 // (lanes per key in pass 2). Returns the CUDA error code (0 on success).
 int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
-  const cudaError_t err = dispatch(is_bf16, m, n, c, heads, nullptr, info, nullptr);
-  info[5] = row_share(n);
-  info[6] = heads > 0 ? pass2_slices(m, n, c / heads) : 0;
-  return (int)err;
+  return (int)dispatch(is_bf16, m, n, c, heads, nullptr, info, nullptr);
 }
 
 // Launches the backward and the dbias reduction on `stream`; returns the
 // first CUDA error code (0 on success). q/k/v/g/dq/dk/dv are f32 (is_bf16 =
 // 0) or bf16 (is_bf16 = 1); bias, partial and dbias are f32. N may be at
-// most 1024 keys.
+// most attn_core_bwd_max_keys().
 int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, float scale,
                        const void* q, const void* k, const void* v, const float* bias,
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
                        void* stream) {
-  if (groups < 1 || groups > b || n > kMaxKeys) return (int)cudaErrorInvalidValue;
+  if (groups < 1 || groups > b) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.b = b;
   a.m = m;
@@ -499,8 +508,6 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.c = c;
   a.heads = heads;
   a.groups = groups;
-  if (heads < 1) return (int)cudaErrorInvalidValue;
-  a.slices = pass2_slices(m, n, c / heads);
   a.scale = scale;
   a.q = q;
   a.k = k;

@@ -53,7 +53,6 @@ _ACT_CODES = {
 }
 _HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
-_BWD_MAX_KEYS = 1024  # the backward keeps a lane's share of a score row in registers
 
 
 class SwinBlockParams(NamedTuple):
@@ -282,6 +281,7 @@ _SIGNATURES = {
         "attn_core_backward": ([_CI] * 7 + [_CF] + [_VP] * 11, _CI),
         "attn_core_bwd_smem_bytes": ([_CI] * 4, _LL),
         "attn_core_bwd_occupancy": ([_CI] * 5 + [_LLP], _CI),
+        "attn_core_bwd_max_keys": ([], _CI),
     },
 }
 
@@ -422,8 +422,7 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     if tuple(bias.shape) != (num_heads, m, n) or bias.device != q.device:
         raise ValueError(f"bias must be {(num_heads, m, n)} on {q.device}, got {tuple(bias.shape)}")
     _check_head_dim(c, num_heads)
-    if n > _BWD_MAX_KEYS:
-        raise ValueError(f"the attention backward kernel takes at most {_BWD_MAX_KEYS} keys, got {n}")
+    _check_backward_keys(n)
     lib = _lib("attn_core_bwd")
     smem = lib.attn_core_bwd_smem_bytes(m, n, c, num_heads)
     if smem > _MAX_SMEM:
@@ -431,9 +430,8 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
 
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     bias32 = bias.float().contiguous()
-    occ = attn_core_backward_occupancy(m, n, c, num_heads, dt)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], sms)
+    occ = attn_core_backward_occupancy(m, n, c, num_heads, dt, q.device.index)
+    groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], occ["sms"])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
@@ -446,6 +444,14 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
         raise RuntimeError(f"attn_core_backward kernel launch failed: CUDA error {rc}")
     launch_counts["attn_core_backward"] += 1
     return dq, dk, dv, dbias.to(bias.dtype)
+
+
+def _check_backward_keys(n: int) -> None:
+    """A lane of the backward keeps its share of a score row in registers,
+    so a row holds at most the library's ``attn_core_bwd_max_keys`` keys."""
+    most = _lib("attn_core_bwd").attn_core_bwd_max_keys()
+    if n > most:
+        raise ValueError(f"the attention backward kernel takes at most {most} keys, got {n}")
 
 
 def bwd_window_groups(b_: int, heads: int, blocks_per_sm: int, sms: int) -> int:
@@ -462,18 +468,22 @@ def bwd_window_groups(b_: int, heads: int, blocks_per_sm: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype) -> dict:
-    """What the backward kernel's instantiation for these shapes gets on the
-    current card: registers and spill bytes per thread (ptxas), dynamic
-    shared memory per block, threads per block, resident blocks per SM, J
-    (keys a lane keeps of a score row) and S (lanes per key in pass 2)."""
+def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype,
+                                 device_index: int) -> dict:
+    """What the backward kernel's instantiation for these shapes gets on
+    CUDA card ``device_index``: registers and spill bytes per thread
+    (ptxas), dynamic shared memory per block, threads per block, resident
+    blocks per SM, J (keys a lane keeps of a score row), S (lanes per key in
+    pass 2) and the card's SMs."""
     info = (ctypes.c_longlong * 7)()
-    rc = _lib("attn_core_bwd").attn_core_bwd_occupancy(
-        int(dtype == torch.bfloat16), m, n, c, num_heads, info)
+    with torch.cuda.device(device_index):
+        rc = _lib("attn_core_bwd").attn_core_bwd_occupancy(
+            int(dtype == torch.bfloat16), m, n, c, num_heads, info)
     if rc != 0:
         raise RuntimeError(f"attn_core_bwd_occupancy failed: CUDA error {rc}")
     keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "slices")
-    return dict(zip(keys, info))
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return {**dict(zip(keys, info)), "sms": sms}
 
 
 def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
@@ -659,6 +669,7 @@ class WindowAttentionFunction(torch.autograd.Function):
         if q.device.type == "cpu":
             out = window_attention_reference(q, k, v, bias, num_heads)
         else:
+            _check_backward_keys(k.shape[1])  # refuse before the forward, not in the backward
             out = _launch_window_attention(q, k, v, bias, num_heads)
         ctx.save_for_backward(q, k, v, bias)
         ctx.num_heads = num_heads

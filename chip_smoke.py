@@ -51,10 +51,6 @@ WindowAttention3D kernel.
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
 convolutions, so f32 comparisons are exact-f32 on both sides.
-
-``python3 chip_smoke.py bwd [TREE]`` runs only the attention backward's
-cases at both configurations' levels on random inputs, from the package in
-TREE (default: this checkout), so that commits can be timed in one call.
 """
 
 from __future__ import annotations
@@ -676,7 +672,7 @@ def phase_kernels_training(torch):
                 g = rnd(b, m, c).to(dt)
                 bwd_cases.append(bwd_case(torch, q, k, v, p.bias, g, heads, config="flagship",
                                           level=level, layout=layout))
-    bwd_cases += bwd_random_cases(torch, rnd, ("8x8",))
+    bwd_cases += bwd_random_cases(torch, rnd)
     emit({"phase": "kernels", "kernel": "fused_swin_block, masked with acc",
           "timing": "CUDA events, inputs L2-warm", "cases": block_cases})
     emit({"phase": "kernels", "kernel": "attn_core_backward",
@@ -718,46 +714,27 @@ def bwd_case(torch, q, k, v, bias, g, heads, **labels):
     }
 
 
-def bwd_random_cases(torch, rnd, configs, heads=16):
+def bwd_random_cases(torch, rnd, heads=16):
     """attn_core_backward cases on random q, k, v, cotangent and bias at the
-    levels of the named configurations ("flagship": M 49, N 343; "8x8": M
-    64, N 448; a level's plain and dilated partitions have the same
-    windows), f32 and bf16."""
-    cases = []
-    for config in configs:
-        win, levels = (7, LEVELS) if config == "flagship" else (8, LEVELS_8)
-        m, n = win * win, 7 * win * win
-        for level, ((hp, wp), c) in levels.items():
-            b = (hp // win) * (wp // win)
-            q32, k32, v32, g32 = rnd(b, m, c), rnd(b, n, c), rnd(b, n, c), rnd(b, m, c)
-            bias = rnd(heads, m, n, scale=0.5)
-            for dt in (torch.float32, torch.bfloat16):
-                cases.append(bwd_case(torch, *(t.to(dt) for t in (q32, k32, v32)), bias, g32.to(dt),
-                                      heads, config=config, level=level, layout="plain"))
+    8x8 configuration's levels (M 64, N 448; a level's plain and dilated
+    partitions have the same windows), f32 and bf16."""
+    win, cases = 8, []
+    m, n = win * win, 7 * win * win
+    for level, ((hp, wp), c) in LEVELS_8.items():
+        b = (hp // win) * (wp // win)
+        q32, k32, v32, g32 = rnd(b, m, c), rnd(b, n, c), rnd(b, n, c), rnd(b, m, c)
+        bias = rnd(heads, m, n, scale=0.5)
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append(bwd_case(torch, *(t.to(dt) for t in (q32, k32, v32)), bias, g32.to(dt),
+                                  heads, config="8x8", level=level, layout="plain"))
     return cases
-
-
-def bwd_only(torch, tree):
-    """``python3 chip_smoke.py bwd [TREE]``: only the attention backward's
-    random-input cases at both configurations' levels, from the package in
-    TREE (default: this checkout), to compare commits on one card; one JSON
-    line."""
-    sys.path.insert(0, os.path.abspath(tree))
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    rnd = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale
-    cases = bwd_random_cases(torch, rnd, ("flagship", "8x8"))
-    try:
-        occupancy = bwd_occupancy(torch, 16)
-    except ImportError:  # a commit before the occupancy query
-        occupancy = None
-    emit({"phase": "bwd", "tree": tree, "cases": cases, "occupancy": occupancy})
-    return 0
 
 
 def bwd_occupancy(torch, heads):
     """Registers, spill bytes, shared memory per block and resident blocks
     per SM of each attn_core_backward instantiation the four level shapes
-    take, with its row share J and pass-2 lanes per key S."""
+    take on card 0, with its row share J, pass-2 lanes per key S and the
+    card's SMs."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import attn_core_backward_occupancy
 
     rows = []
@@ -765,7 +742,7 @@ def bwd_occupancy(torch, heads):
         for level, (_, c) in levels.items():
             for dt in (torch.float32, torch.bfloat16):
                 rows.append({"config": config, "level": level, "dtype": str(dt).split(".")[-1],
-                             **attn_core_backward_occupancy(m, n, c, heads, dt)})
+                             **attn_core_backward_occupancy(m, n, c, heads, dt, 0)})
     return rows
 
 
@@ -1128,8 +1105,6 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ["bwd"]:
-        return bwd_only(torch, sys.argv[2] if len(sys.argv) > 2 else ROOT)
     from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -180,6 +180,33 @@ def test_cuda_backward_refuses_rows_above_its_register_share(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_window_attention_with_grad_refuses_keys_its_backward_cannot_take(cuda_device):
+    """With a gradient wanted, fused_window_attention refuses more keys than
+    the backward takes before its forward launches; without one the forward
+    kernel runs them."""
+    f = lambda *s: torch.randn(*s, device=cuda_device)
+    q, k, v, bias = f(1, 4, 4), f(1, 1025, 4), f(1, 1025, 4), f(1, 4, 1025)
+    before = launch_counts["fused_window_attention"]
+    with pytest.raises(ValueError):
+        fused_window_attention(q.clone().requires_grad_(), k, v, bias, 1)
+    assert launch_counts["fused_window_attention"] == before
+    got = fused_window_attention(q, k, v, bias, 1)
+    ref = window_attention_reference(q, k, v, bias, 1)
+    torch.cuda.synchronize()
+    assert launch_counts["fused_window_attention"] == before + 1
+    assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_backward_occupancy_is_that_of_the_named_card(cuda_device):
+    """The backward's groups come from the launch device's SMs and slots."""
+    index = torch.cuda.current_device()
+    occ = wac.attn_core_backward_occupancy(49, 343, 64, 16, torch.float32, index)
+    assert occ["sms"] == torch.cuda.get_device_properties(index).multi_processor_count
+    assert occ["blocks_per_sm"] >= 1 and occ["row_share"] == 12
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
 def test_cuda_function_gradients_match_twin_autograd(cuda_device, masked):
     x, ctr, p = _inputs(4, False, c=32, heads=4)
