@@ -108,7 +108,7 @@ cudaError_t launch_all(const LnProjArgs& p, const BlockArgs& a, const float* bia
 template <typename T>
 void smem_bytes(int d, int m, int c, int heads, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
-  out3[1] = (long long)attn_smem_bytes(m, d * m, c / heads);
+  out3[1] = (long long)attn_smem_bytes(1, d * m, c / heads);
   out3[2] = (long long)std::max(gemm_smem<T, TileS>(), ln_gemm_smem<T, float, TileS>(c));
 }
 

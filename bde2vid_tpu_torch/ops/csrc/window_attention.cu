@@ -30,7 +30,7 @@ extern "C" {
 // Shared memory (bytes) the kernel asks for; the wrapper checks it against
 // the card's per-block limit before launching.
 long long window_attention_smem_bytes(int m, int n, int c, int heads) {
-  return (long long)attn_smem_bytes(m, n, c / heads);
+  return (long long)attn_smem_bytes(1, n, c / heads);
 }
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 on
@@ -39,7 +39,7 @@ long long window_attention_smem_bytes(int m, int n, int c, int heads) {
 int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads, float scale,
                              const void* q, const void* k, const void* v, const float* bias,
                              void* out, void* stream) {
-  AttnArgs a;
+  AttnArgs a{};
   a.b = b;
   a.m = m;
   a.n = n;

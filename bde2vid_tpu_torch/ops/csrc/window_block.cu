@@ -48,7 +48,7 @@ cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, v
 template <typename T>
 void smem_bytes(int d, int m, int c, int heads, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
-  out3[1] = (long long)attn_smem_bytes(m, d * m, c / heads);
+  out3[1] = (long long)attn_smem_bytes(1, d * m, c / heads);
   out3[2] = (long long)gemm_smem<T, TileS>();
 }
 

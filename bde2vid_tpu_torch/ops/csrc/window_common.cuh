@@ -1,68 +1,23 @@
 // Device code shared by the window-attention kernels (swin_block.cu,
-// window_block.cu, window_attention.cu): operand loads and casts, warp
-// reductions, the GEMM core behind every projection and MLP stage, and the
-// per-(window, head) attention with a warp per query row. f32 or bf16
-// operands, f32 accumulation; round() below means a cast to the operand type
-// and back, placed where the Pallas bodies in
-// bde2vid_tpu/ops/window_attn_pallas.py cast.
+// window_block.cu, window_attention.cu): the GEMM core behind every
+// projection and MLP stage, and the attention core with a warp per query
+// row. f32 or bf16 operands, f32 accumulation; round() below means a cast to
+// the operand type and back (device_common.cuh), placed where the Pallas
+// bodies in bde2vid_tpu/ops/window_attn_pallas.py cast.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <string.h>
 
 #include <algorithm>
 #include <initializer_list>
 #include <type_traits>
 
+#include "device_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // attention kernels
 constexpr float kLnEps = 1e-5f;
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory one Hopper block may use
-
-__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-template <typename T>
-__device__ __forceinline__ T store_cast(float v);
-template <>
-__device__ __forceinline__ float store_cast<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The value v takes after a cast to the operand type T and back to f32.
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Read-only loads through the non-coherent path: the compiler may move them
-// past the kernel's stores, which might otherwise alias them.
-__device__ __forceinline__ float ldg(const float* p, size_t i) { return __ldg(p + i); }
-__device__ __forceinline__ float ldg(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(__ldg(p + i));
-}
 
 // ---------------------------------------------------------------------------
 // epilogue: out = cast(res + mask * act(acc + bias)), each of act, mask and
@@ -749,7 +704,18 @@ size_t ln_proj_smem_bytes(int c) {
 // ---------------------------------------------------------------------------
 // attention core: per window w and head h,
 //   out_h = round(softmax(q_h k_h^T * scale + bias_h)) @ v_h
+// A block stages its window's k and v columns of head h in shared memory
+// (f32, rows padded by key_stride); a warp per query row keeps its lane's J
+// keys of the score row in registers (lane + 32 j), takes exp as one
+// ex2.approx of fmaf(s, log2 e, -max log2 e) and multiplies by one
+// reciprocal of the row's sum, and sums p v over its keys in registers; the
+// warp's partial outputs meet in one reduce-scatter of shuffles. Rows longer
+// than 32 J keys run the same code over chunks of 32 J keys: one sweep for
+// the running max and sum, a second for p v. head_dim 4 is below an MMA's K,
+// so every product is an FMA.
 // ---------------------------------------------------------------------------
+
+constexpr int kAttnThreads = 256;
 
 // The kv tokens of window w come in one of two layouts. The block kernels
 // read the (D, B_, M, 2C) k|v scratch that the LN + projection GEMM writes
@@ -762,99 +728,292 @@ struct AttnArgs {
   const void* v;  // (B_, N, C) (unused with kKvScratch)
   const float* bias;  // (H, M, N) f32
   void* out;          // (B_, M, C)
+  bool vec;           // q, k and v are aligned for kChunk-element loads
 };
 
-// One block per (window, head); a warp per query row keeps its 1 x N score
-// row in shared memory, so head_dim 4 (below an MMA's K) runs as FMA dot
-// products.
-template <typename T, int HD, bool kKvScratch>
-__global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs a, float scale) {
-  extern __shared__ float smem[];
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int m_tok = a.m, n_tok = a.n, c = a.c;
-  constexpr int KS = HD + 1;  // odd row stride: lanes on consecutive rows hit distinct banks
-  float* qs = smem;                       // (M, HD)
-  float* ks = qs + m_tok * HD;            // (N, KS)
-  float* vs = ks + n_tok * KS;            // (N, KS)
-  float* prow = vs + n_tok * KS;          // (warps, N)
-  const T* kg = static_cast<const T*>(a.k);
-  const T* vg = kKvScratch ? kg + c : static_cast<const T*>(a.v);
-  const T* q = static_cast<const T*>(a.q);
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-  for (int e = threadIdx.x; e < n_tok * HD; e += kThreads) {
-    const int n = e / HD, dd = e % HD;
-    size_t off;
-    if (kKvScratch) {
-      const int frame = n / m_tok, tok = n % m_tok;
-      off = (((size_t)frame * a.b + w) * m_tok + tok) * 2 * c + h * HD + dd;
-    } else {
-      off = ((size_t)w * n_tok + n) * c + h * HD + dd;
+// Elements of T in one load of a head's row: 16 bytes where head_dim
+// allows, else the whole row.
+template <typename T, int HD>
+constexpr int kChunk = HD * (int)sizeof(T) < 16 ? HD : 16 / (int)sizeof(T);
+
+// r = p[0 .. CH) in f32 from one load of CH * sizeof(T) bytes (p aligned to
+// that many bytes).
+template <typename T, int CH>
+__device__ __forceinline__ void load_chunk(float (&r)[CH], const T* p) {
+  constexpr int kBytes = CH * (int)sizeof(T);
+  using V = typename std::conditional<
+      kBytes == 16, uint4,
+      typename std::conditional<
+          kBytes == 8, uint2,
+          typename std::conditional<kBytes == 4, unsigned, unsigned short>::type>::type>::type;
+  const V u = *reinterpret_cast<const V*>(p);
+  T t[CH];
+  memcpy(t, &u, kBytes);
+#pragma unroll
+  for (int i = 0; i < CH; ++i) r[i] = to_f32(t[i]);
+}
+
+// r = p[0 .. HD) in f32: kChunk-element loads when vec, else one by one.
+template <typename T, int HD>
+__device__ __forceinline__ void load_head_row(float (&r)[HD], const T* p, bool vec) {
+  constexpr int CH = kChunk<T, HD>;
+  if (vec) {
+#pragma unroll
+    for (int d = 0; d < HD; d += CH) {
+      float t[CH];
+      load_chunk<T, CH>(t, p + d);
+#pragma unroll
+      for (int i = 0; i < CH; ++i) r[d + i] = t[i];
     }
-    ks[n * KS + dd] = load(kg, off);
-    vs[n * KS + dd] = load(vg, off);
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) r[d] = load(p, d);
   }
-  for (int e = threadIdx.x; e < m_tok * HD; e += kThreads) {
-    const int mm = e / HD, dd = e % HD;
-    qs[e] = load(q, ((size_t)w * m_tok + mm) * c + h * HD + dd);
+}
+
+// Offset of kv token nn of window w (head 0, k half) in the layout.
+template <bool kKvScratch>
+__device__ __forceinline__ size_t kv_offset(const AttnArgs& a, int w, int nn) {
+  if (kKvScratch) {
+    const int frame = nn / a.m, tok = nn - frame * a.m;
+    return (((size_t)frame * a.b + w) * a.m + tok) * 2 * a.c;
   }
+  return ((size_t)w * a.n + nn) * a.c;
+}
+
+// Window w's k and v columns of head h into ks and vs, (N, KS) f32 each.
+template <typename T, int HD, bool kKvScratch>
+__device__ __forceinline__ void stage_window(float* ks, float* vs, const AttnArgs& a, int w,
+                                             int h) {
+  constexpr int CH = kChunk<T, HD>, KS = key_stride(HD), PER = HD / CH;
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < a.n * PER; e += blockDim.x) {
+    const int nn = e / PER, d0 = (e - nn * PER) * CH;
+    const size_t off = kv_offset<kKvScratch>(a, w, nn) + h * HD + d0;
+    float kr[CH], vr[CH];
+    if (a.vec) {
+      load_chunk<T, CH>(kr, kg + off);
+      load_chunk<T, CH>(vr, vg + off);
+    } else {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        kr[i] = load(kg, off + i);
+        vr[i] = load(vg, off + i);
+      }
+    }
+    float* kd = ks + nn * KS + d0;
+    float* vd = vs + nn * KS + d0;
+    if constexpr (CH % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < CH; i += 4) {
+        *reinterpret_cast<float4*>(kd + i) = make_float4(kr[i], kr[i + 1], kr[i + 2], kr[i + 3]);
+        *reinterpret_cast<float4*>(vd + i) = make_float4(vr[i], vr[i + 1], vr[i + 2], vr[i + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        kd[i] = kr[i];
+        vd[i] = vr[i];
+      }
+    }
+  }
+}
+
+// b[j] = brow[base + lane + 32 j] for the keys below n (0 past them).
+template <int J>
+__device__ __forceinline__ void load_bias_share(float (&b)[J], const float* brow, int base, int n,
+                                                int lane) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int nn = base + lane + 32 * j;
+    b[j] = nn < n ? __ldg(brow + nn) : 0.f;
+  }
+}
+
+// sv[j] = q . k[base + lane + 32 j] * scale + b[j] for the keys below n;
+// returns the lane's largest score (-inf if it has none).
+template <int HD, int J>
+__device__ __forceinline__ float chunk_scores(float (&sv)[J], const float (&qv)[HD],
+                                              const float (&b)[J], const float* ks, int base,
+                                              int n, int lane, float scale) {
+  constexpr int KS = key_stride(HD);
+  float mx = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int nn = base + lane + 32 * j;
+    sv[j] = 0.f;
+    if (nn < n) {
+      float kr[HD];
+      load_row<HD>(kr, ks + nn * KS);
+      sv[j] = fmaf(dot<HD>(qv, kr), scale, b[j]);
+      mx = fmaxf(mx, sv[j]);
+    }
+  }
+  return mx;
+}
+
+// o += round(p[j]) v[base + lane + 32 j] over the keys below n.
+template <typename T, int HD, int J>
+__device__ __forceinline__ void accumulate_pv(float (&o)[HD], const float (&p)[J],
+                                              const float* vs, int base, int n, int lane) {
+  constexpr int KS = key_stride(HD);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int nn = base + lane + 32 * j;
+    if (nn < n) {
+      const float pj = round_to<T>(p[j]);
+      float vr[HD];
+      load_row<HD>(vr, vs + nn * KS);
+#pragma unroll
+      for (int d = 0; d < HD; ++d) o[d] = fmaf(pj, vr[d], o[d]);
+    }
+  }
+}
+
+// Sums v[0 .. HD) over the warp's lanes in a fixed order: each step hands
+// half of the components to the lane `o` apart, so a lane ends with the
+// sum of component lane / (32 / HD), in HD - 1 + 5 - log2(HD) shuffles.
+template <int HD>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[HD], int lane) {
+  int o = 16;
+#pragma unroll
+  for (int half = HD / 2; half >= 1; half >>= 1, o >>= 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// Query row i of window w, head h: scores, softmax and p v, written to out.
+// b holds the lane's share of the row's bias when the row fits in 32 J
+// keys; longer rows read it from brow one chunk at a time.
+template <typename T, int HD, int J>
+__device__ __forceinline__ void attend_row(const AttnArgs& a, int w, int h, int i,
+                                           const float (&b)[J], const float* brow,
+                                           const float* ks, const float* vs, float scale,
+                                           int lane) {
+  const int n = a.n;
+  const size_t row = ((size_t)w * a.m + i) * a.c + h * HD;
+  float qv[HD];
+  load_head_row<T, HD>(qv, static_cast<const T*>(a.q) + row, a.vec);
+  float o[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) o[d] = 0.f;
+  float sv[J];
+  if (n <= 32 * J) {
+    const float mxl = warp_max(chunk_scores<HD, J>(sv, qv, b, ks, 0, n, lane, scale)) * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (lane + 32 * j < n) {
+        sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl));
+        sum += sv[j];
+      }
+    }
+    const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+    for (int j = 0; j < J; ++j) sv[j] *= inv;
+    accumulate_pv<T, HD, J>(o, sv, vs, 0, n, lane);
+  } else {
+    // sweep 1: the running max (times log2 e) and the lane's sum under it
+    float bc[J];
+    float mxl = __int_as_float(0xff800000), sum = 0.f;
+    for (int base = 0; base < n; base += 32 * J) {
+      load_bias_share<J>(bc, brow, base, n, lane);
+      const float cm = warp_max(chunk_scores<HD, J>(sv, qv, bc, ks, base, n, lane, scale)) * kLog2e;
+      const float nm = fmaxf(mxl, cm);
+      sum *= fast_exp2(mxl - nm);
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (base + lane + 32 * j < n) sum += fast_exp2(fmaf(sv[j], kLog2e, -nm));
+      mxl = nm;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    // sweep 2: the scores again, p and p v
+    for (int base = 0; base < n; base += 32 * J) {
+      load_bias_share<J>(bc, brow, base, n, lane);
+      chunk_scores<HD, J>(sv, qv, bc, ks, base, n, lane, scale);
+#pragma unroll
+      for (int j = 0; j < J; ++j) sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl)) * inv;
+      accumulate_pv<T, HD, J>(o, sv, vs, base, n, lane);
+    }
+  }
+  const float s = warp_reduce_scatter<HD>(o, lane);
+  constexpr int kLanesPerComponent = 32 / HD;
+  if (lane % kLanesPerComponent == 0)
+    static_cast<T*>(a.out)[row + lane / kLanesPerComponent] = store_cast<T>(s);
+}
+
+// One block per (window, head); a warp per query row.
+template <typename T, int HD, int J, bool kKvScratch>
+__global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a, float scale) {
+  extern __shared__ float smem[];
+  constexpr int KS = key_stride(HD);
+  const int w = blockIdx.x, h = blockIdx.y;
+  float* ks = smem;                // (N, KS)
+  float* vs = ks + a.n * KS;       // (N, KS)
+  stage_window<T, HD, kKvScratch>(ks, vs, a, w, h);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* srow = prow + warp * n_tok;
-  const float* bias_h = a.bias + (size_t)h * m_tok * n_tok;
-  T* out = static_cast<T*>(a.out);
-  for (int mm = warp; mm < m_tok; mm += kThreads / 32) {
-    float qv[HD];
-#pragma unroll
-    for (int dd = 0; dd < HD; ++dd) qv[dd] = qs[mm * HD + dd];
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int n = lane; n < n_tok; n += 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd) s = fmaf(qv[dd], ks[n * KS + dd], s);
-      s = s * scale + bias_h[(size_t)mm * n_tok + n];
-      srow[n] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int n = lane; n < n_tok; n += 32) {
-      const float e = expf(srow[n] - mx);
-      srow[n] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float o[HD];
-#pragma unroll
-    for (int dd = 0; dd < HD; ++dd) o[dd] = 0.f;
-    for (int n = lane; n < n_tok; n += 32) {
-      const float p = round_to<T>(srow[n] / sum);
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd) o[dd] = fmaf(p, vs[n * KS + dd], o[dd]);
-    }
-#pragma unroll
-    for (int dd = 0; dd < HD; ++dd) o[dd] = warp_sum(o[dd]);
-    if (lane == 0) {
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd)
-        out[((size_t)w * m_tok + mm) * c + h * HD + dd] = store_cast<T>(o[dd]);
-    }
+  const float* bias_h = a.bias + (size_t)h * a.m * a.n;
+  for (int i = warp; i < a.m; i += kAttnThreads / 32) {
+    const float* brow = bias_h + (size_t)i * a.n;
+    float b[J];
+    load_bias_share<J>(b, brow, 0, a.n, lane);
+    attend_row<T, HD, J>(a, w, h, i, b, brow, ks, vs, scale, lane);
   }
 }
 
-size_t attn_smem_bytes(int m, int n, int hd) {
-  return sizeof(float) *
-         ((size_t)m * hd + 2 * (size_t)n * (hd + 1) + (kThreads / 32) * (size_t)n);
+// Shared memory of a block that stages `windows` windows of n keys.
+size_t attn_smem_bytes(int windows, int n, int hd) {
+  return sizeof(float) * 2 * (size_t)windows * n * key_stride(hd);
+}
+
+template <typename T, int HD, int J, bool kKvScratch>
+cudaError_t launch_attn_j(const AttnArgs& a, float scale, cudaStream_t stream) {
+  auto kernel = attn_kernel<T, HD, J, kKvScratch>;
+  const size_t smem = attn_smem_bytes(1, a.n, HD);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.b, a.heads), kAttnThreads, smem, stream>>>(a, scale);
+  return cudaGetLastError();
+}
+
+// q, k and v start on kChunk-element boundaries (the head offsets and row
+// strides are multiples of head_dim, so every row does too).
+template <typename T, int HD>
+bool attn_vec_ok(const AttnArgs& a, bool kv_scratch) {
+  const uintptr_t align = kChunk<T, HD> * sizeof(T);
+  for (const void* p : {a.q, a.k, kv_scratch ? a.k : a.v})
+    if (reinterpret_cast<uintptr_t>(p) % align) return false;
+  return true;
 }
 
 template <typename T, int HD, bool kKvScratch>
-cudaError_t launch_attn_hd(const AttnArgs& a, float scale, cudaStream_t stream) {
-  const size_t smem = attn_smem_bytes(a.m, a.n, HD);
-  cudaError_t err = cudaFuncSetAttribute(attn_kernel<T, HD, kKvScratch>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attn_kernel<T, HD, kKvScratch><<<dim3(a.b, a.heads), kThreads, smem, stream>>>(a, scale);
-  return cudaGetLastError();
+cudaError_t launch_attn_hd(AttnArgs a, float scale, cudaStream_t stream) {
+  a.vec = attn_vec_ok<T, HD>(a, kKvScratch);
+  const int j = row_share(a.n);
+  switch (j ? j : kMaxRowShare) {
+    case 12: return launch_attn_j<T, HD, 12, kKvScratch>(a, scale, stream);
+    case 16: return launch_attn_j<T, HD, 16, kKvScratch>(a, scale, stream);
+    case 32: return launch_attn_j<T, HD, 32, kKvScratch>(a, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool kKvScratch>
@@ -874,7 +1033,7 @@ cudaError_t launch_attn(const AttnArgs& a, float scale, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch_block_attn(const LnProjArgs& p, int heads, const float* bias, void* out,
                               float scale, cudaStream_t stream) {
-  AttnArgs a;
+  AttnArgs a{};
   a.b = p.b;
   a.m = p.m;
   a.n = p.d * p.m;

@@ -904,6 +904,52 @@ def phase_kernels_window(torch):
     return block_cases, attn_cases
 
 
+def attn_forward_times(torch, calls=5):
+    """Device ms of the attention core's forward in the package on sys.path:
+    B4 (fused_window_attention, CUDA events) at the flagship's and the 8x8
+    config's level shapes, f32 and bf16, beside torch's SDPA forward on the
+    same inputs; and B1's attention stage (profiler device ms of its
+    attn_kernel launch, mean of ``calls`` calls) at the flagship's plain
+    level shapes. Seeded random inputs, so two checkouts see the same ones:
+    to compare trees, call it from each tree's root in turn."""
+    from bde2vid_tpu_torch.nn.window_attention import window_partition
+    from bde2vid_tpu_torch.ops.window_attn_cuda import fused_swin_block, fused_window_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    d, heads, q_ind = 7, 16, 3
+    b4, b1 = [], []
+    for config, levels, win in (("flagship", LEVELS, 7), ("8x8", LEVELS_8, 8)):
+        m = win * win
+        for level, ((hp, wp), c) in levels.items():
+            b = (hp // win) * (wp // win)
+            q32, k32, v32 = rnd(b, m, c), rnd(b, d * m, c), rnd(b, d * m, c)
+            bias = rnd(heads, m, d * m, scale=0.5)
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dt) for t in (q32, k32, v32))
+                with torch.no_grad():
+                    ms = cuda_ms(torch, lambda: fused_window_attention(q, k, v, bias, heads), 50, 5)
+                lib_ms, backend = sdpa_forward_ms(torch, q, k, v, bias, heads, iters=50)
+                b4.append({"config": config, "level": level, "dtype": str(dt).split(".")[-1],
+                           "ms": ms, "sdpa_ms": lib_ms, "sdpa": backend})
+            if config == "flagship":
+                p32 = block_params(rnd, c, heads, m, d * m)
+                feats = rnd(d + 1, 1, hp, wp, c)
+                x32 = window_partition(feats[:d], (win, win)).reshape(d, -1, m, c).contiguous()
+                c32 = window_partition(feats[d:], (win, win))[0].reshape(-1, m, c).contiguous()
+                for dt in (torch.float32, torch.bfloat16):
+                    x, ctr, p = x32.to(dt), c32.to(dt), operand_weights(p32, dt)
+                    with torch.no_grad():
+                        fused_swin_block(x, ctr, p, heads, q_ind)
+                        ms, _ = b1_stage_ms(torch, lambda: fused_swin_block(x, ctr, p, heads, q_ind), calls)
+                    b1.append({"level": level, "dtype": str(dt).split(".")[-1], "attn_ms": ms["attn"]})
+    return {"b4": b4, "b1_attn_stage": b1}
+
+
 def phase_attention(torch, launch_counts):
     """The ops.fused_window_attention entry point, forward and backward, at
     one 8x8 frame's dilated attention shapes (2 calls at level 0, 3 at
