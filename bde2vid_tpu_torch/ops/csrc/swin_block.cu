@@ -30,10 +30,11 @@
 //   (a) LN + k|v and q projections: the LayerNorm prologue keeps the block's
 //       rows resident, the centre frame substituted by choosing the row's
 //       source pointer; a bias epilogue;
-//   (b) attn_kernel (window_common.cuh): one block per (window, head); a
-//       warp per query row keeps its 1 x N score row in shared memory (the
-//       TPU kept all 16 heads' (H*M, N) plane resident, which does not fit in
-//       227 KB), so head_dim 4 (below an MMA's K) runs as FMA dot products;
+//   (b) attn_kernel (window_common.cuh): a block per (window group, head,
+//       row tile); a warp per query row keeps its lane's share of the score
+//       row in registers (the TPU kept all 16 heads' (H*M, N) plane
+//       resident, which does not fit in 227 KB), so head_dim 4 (below an
+//       MMA's K) runs as FMA dot products;
 //   (c1) y = ctr + m1 (acc @ Wp^T + bp), y into an f32 scratch;
 //   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y and the
 //        activation in the epilogue, h into a scratch in the operand type;
@@ -96,10 +97,10 @@ cudaError_t launch_mlp(const BlockArgs& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const BlockArgs& a, const float* bias, int heads,
-                       float scale, cudaStream_t stream) {
+                       int attn_tiles, float scale, cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, bias, const_cast<void*>(a.acc), scale, stream);
+  err = launch_block_attn<T>(p, heads, attn_tiles, bias, const_cast<void*>(a.acc), scale, stream);
   if (err != cudaSuccess) return err;
   return launch_mlp<T>(a, stream);
 }
@@ -108,7 +109,7 @@ cudaError_t launch_all(const LnProjArgs& p, const BlockArgs& a, const float* bia
 template <typename T>
 void smem_bytes(int d, int m, int c, int heads, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
-  out3[1] = (long long)attn_smem_bytes(1, d * m, c / heads);
+  out3[1] = (long long)attn_smem_bytes(d * m, c / heads);
   out3[2] = (long long)std::max(gemm_smem<T, TileS>(), ln_gemm_smem<T, float, TileS>(c));
 }
 
@@ -127,13 +128,22 @@ void swin_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, long lon
   }
 }
 
-// Launches the five kernels on `stream`; returns the first CUDA error code
-// (0 on success). Pointers are device pointers; vectors, the bias, the masks
+// The occupancy of the attention stage's instantiation at these shapes
+// (window_attention_occupancy's info).
+int swin_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads,
+                              long long* info) {
+  return attn_occupancy<true>(is_bf16, m, n, c, heads, info);
+}
+
+// Launches the five kernels on `stream`, the attention with each window's
+// rows in attn_tiles tiles; returns the first CUDA error code (0 on
+// success). Pointers are device pointers; vectors, the bias, the masks
 // and the y scratch are f32, x/ctr/weights/kv/q/acc/h/out are f32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1). m1 and m2 are both null or both (B_,)
 // arrays. act: an Act code.
 int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int heads, int hidden,
-                       int q_ind, float scale, const void* x, const void* ctr, const float* g_q,
+                       int q_ind, int attn_tiles, float scale, const void* x,
+                       const void* ctr, const float* g_q,
                        const float* b_q_ln, const float* g_kv, const float* b_kv_ln,
                        const void* w_q, const float* b_q, const void* w_kv, const float* b_kv,
                        const void* w_p, const float* b_p, const float* g_2, const float* b_2_ln,
@@ -180,8 +190,9 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
   a.h = h;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, scale, s)
-                                  : launch_all<float>(p, a, bias, heads, scale, s);
+  const cudaError_t err =
+      is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, attn_tiles, scale, s)
+              : launch_all<float>(p, a, bias, heads, attn_tiles, scale, s);
   return (int)err;
 }
 

@@ -30,30 +30,36 @@ extern "C" {
 // Shared memory (bytes) the kernel asks for; the wrapper checks it against
 // the card's per-block limit before launching.
 long long window_attention_smem_bytes(int m, int n, int c, int heads) {
-  return (long long)attn_smem_bytes(1, n, c / heads);
+  return (long long)attn_smem_bytes(n, c / heads);
 }
 
-// Launches the kernel on `stream`; returns the CUDA error code (0 on
-// success). q, k, v, out are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1) device
-// arrays, bias is f32.
-int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads, float scale,
-                             const void* q, const void* k, const void* v, const float* bias,
-                             void* out, void* stream) {
+// The occupancy of the instantiation these shapes take: info[0..5] =
+// registers, local (spill) bytes per thread, dynamic shared memory per
+// block, threads per block, resident blocks per SM, J (keys a lane keeps of
+// a score row). Returns the CUDA error code (0 on success).
+int window_attention_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
+  return attn_occupancy<false>(is_bf16, m, n, c, heads, info);
+}
+
+// Launches the kernel on `stream`, each window's rows in `tiles` tiles;
+// returns the CUDA error code (0 on success). q, k, v, out are f32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1) device arrays, bias is f32.
+int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads, int tiles,
+                             float scale, const void* q, const void* k, const void* v,
+                             const float* bias, void* out, void* stream) {
   AttnArgs a{};
   a.b = b;
   a.m = m;
   a.n = n;
   a.c = c;
   a.heads = heads;
+  a.tiles = tiles;
   a.q = q;
   a.k = k;
   a.v = v;
   a.bias = bias;
   a.out = out;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_attn<__nv_bfloat16, false>(a, scale, s) : launch_attn<float, false>(a, scale, s);
-  return (int)err;
+  return (int)launch_attn<false>(is_bf16, a, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -34,11 +34,11 @@ namespace {
 // out = round(acc) @ Wp^T + bp, on the GEMM core
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, void* acc,
-                       void* out, const float* bias, int heads, float scale,
-                       cudaStream_t stream) {
+                       void* out, const float* bias, int heads, int attn_tiles,
+                       float scale, cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, bias, acc, scale, stream);
+  err = launch_block_attn<T>(p, heads, attn_tiles, bias, acc, scale, stream);
   if (err != cudaSuccess) return err;
   const int rows = p.b * p.m;
   const GemmArgs g{rows, p.c, p.c, acc, w_p, vec_ok(p.c, {acc, w_p}), bias_epilogue(b_p, out, p.c)};
@@ -48,7 +48,7 @@ cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, v
 template <typename T>
 void smem_bytes(int d, int m, int c, int heads, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
-  out3[1] = (long long)attn_smem_bytes(1, d * m, c / heads);
+  out3[1] = (long long)attn_smem_bytes(d * m, c / heads);
   out3[2] = (long long)gemm_smem<T, TileS>();
 }
 
@@ -66,12 +66,21 @@ void window_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, long l
   }
 }
 
-// Launches the three kernels on `stream`; returns the first CUDA error code
-// (0 on success). Pointers are device pointers; the LN affines, biases and
+// The occupancy of the attention stage's instantiation at these shapes
+// (window_attention_occupancy's info).
+int window_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads,
+                                long long* info) {
+  return attn_occupancy<true>(is_bf16, m, n, c, heads, info);
+}
+
+// Launches the three kernels on `stream`, the attention with each window's
+// rows in attn_tiles tiles; returns the first CUDA error code (0 on
+// success). Pointers are device pointers; the LN affines, biases and
 // the attention bias are f32, x/weights/scratch/acc/out are f32 (is_bf16 =
 // 0) or bf16 (is_bf16 = 1).
 int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int q_ind,
-                         float scale, const void* x, const float* g_q, const float* b_q_ln,
+                         int attn_tiles, float scale, const void* x,
+                         const float* g_q, const float* b_q_ln,
                          const float* g_kv, const float* b_kv_ln, const void* w_q,
                          const float* b_q, const void* w_kv, const float* b_kv, const void* w_p,
                          const float* b_p, const float* bias, void* kv, void* q, void* acc,
@@ -98,8 +107,8 @@ int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int
   p.q = q;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(p, w_p, b_p, acc, out, bias, heads, scale, s)
-              : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, scale, s);
+      is_bf16 ? launch_all<__nv_bfloat16>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, scale, s)
+              : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, scale, s);
   return (int)err;
 }
 

@@ -704,18 +704,24 @@ size_t ln_proj_smem_bytes(int c) {
 // ---------------------------------------------------------------------------
 // attention core: per window w and head h,
 //   out_h = round(softmax(q_h k_h^T * scale + bias_h)) @ v_h
-// A block stages its window's k and v columns of head h in shared memory
-// (f32, rows padded by key_stride); a warp per query row keeps its lane's J
+// Block (window, head, tile) stages the window's k and v columns of head h
+// in shared memory (f32, rows padded by key_stride) and takes every tiles-th
+// group of 8 query rows, a warp per row. The warp keeps its lane's J
 // keys of the score row in registers (lane + 32 j), takes exp as one
-// ex2.approx of fmaf(s, log2 e, -max log2 e) and multiplies by one
-// reciprocal of the row's sum, and sums p v over its keys in registers; the
-// warp's partial outputs meet in one reduce-scatter of shuffles. Rows longer
-// than 32 J keys run the same code over chunks of 32 J keys: one sweep for
-// the running max and sum, a second for p v. head_dim 4 is below an MMA's K,
-// so every product is an FMA.
+// ex2.approx of fmaf(s, log2 e, -max log2 e), multiplies by one reciprocal
+// of the row's sum, and sums p v over its keys in registers; the warp's
+// partial outputs meet in one reduce-scatter of shuffles. Rows longer than
+// 32 J keys run the same code over chunks of 32 J keys: one sweep for the
+// running max and sum, a second for p v. head_dim 4 is below an MMA's K,
+// so every product is an FMA. The wrapper picks the tiles
+// (attn_forward_plan in ops/window_attn_cuda.py).
 // ---------------------------------------------------------------------------
 
+// 8 warps a block, a warp per query row at a time. A thread keeps to 64
+// registers at head_dim <= 4 (four blocks an SM) and to 128 (two) below
+// head_dim 32.
 constexpr int kAttnThreads = 256;
+__host__ __device__ constexpr int attn_min_blocks(int hd) { return hd <= 4 ? 4 : hd <= 16 ? 2 : 1; }
 
 // The kv tokens of window w come in one of two layouts. The block kernels
 // read the (D, B_, M, 2C) k|v scratch that the LN + projection GEMM writes
@@ -723,6 +729,7 @@ constexpr int kAttnThreads = 256;
 // k); the bare attention reads separate (B_, N, C) k and v.
 struct AttnArgs {
   int b, m, n, c, heads;
+  int tiles;  // block (w, h, tile) takes rows 8 (tile + tiles k) + warp, k = 0, 1, ...
   const void* q;  // (B_, M, C)
   const void* k;  // k|v scratch (kKvScratch), else (B_, N, C)
   const void* v;  // (B_, N, C) (unused with kKvScratch)
@@ -875,26 +882,38 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[HD], const float (&p)[J
   }
 }
 
+// One step of warp_reduce_scatter: lanes with bit O set keep the upper
+// HALF of v[0 .. 2 HALF) and take the partner's upper half; the others keep
+// and take the lower half. Recursion, not a loop, so that every index
+// stays a constant and v stays in registers.
+template <int HALF, int O, int HD>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[HD], int lane) {
+  if constexpr (HALF >= 1) {
+    const bool upper = lane & O;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float send = upper ? v[i] : v[i + HALF];
+      const float keep = upper ? v[i + HALF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    reduce_scatter_step<HALF / 2, O / 2, HD>(v, lane);
+  }
+}
+
+// s plus its copies in the lanes O, O / 2, ..., 1 apart.
+template <int O>
+__device__ __forceinline__ float butterfly_sum(float s) {
+  if constexpr (O >= 1) return butterfly_sum<O / 2>(s + __shfl_xor_sync(0xffffffffu, s, O));
+  return s;
+}
+
 // Sums v[0 .. HD) over the warp's lanes in a fixed order: each step hands
 // half of the components to the lane `o` apart, so a lane ends with the
 // sum of component lane / (32 / HD), in HD - 1 + 5 - log2(HD) shuffles.
 template <int HD>
 __device__ __forceinline__ float warp_reduce_scatter(float (&v)[HD], int lane) {
-  int o = 16;
-#pragma unroll
-  for (int half = HD / 2; half >= 1; half >>= 1, o >>= 1) {
-    const bool upper = lane & o;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = upper ? v[i] : v[i + half];
-      const float keep = upper ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-  float s = v[0];
-#pragma unroll
-  for (; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
+  reduce_scatter_step<HD / 2, 16, HD>(v, lane);
+  return butterfly_sum<16 / HD>(v[0]);
 }
 
 // Query row i of window w, head h: scores, softmax and p v, written to out.
@@ -957,20 +976,22 @@ __device__ __forceinline__ void attend_row(const AttnArgs& a, int w, int h, int 
     static_cast<T*>(a.out)[row + lane / kLanesPerComponent] = store_cast<T>(s);
 }
 
-// One block per (window, head); a warp per query row.
 template <typename T, int HD, int J, bool kKvScratch>
-__global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a, float scale) {
+__global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(HD))
+    attn_kernel(AttnArgs a, float scale) {
   extern __shared__ float smem[];
   constexpr int KS = key_stride(HD);
   const int w = blockIdx.x, h = blockIdx.y;
-  float* ks = smem;                // (N, KS)
-  float* vs = ks + a.n * KS;       // (N, KS)
+  float* ks = smem;           // (N, KS)
+  float* vs = ks + a.n * KS;  // (N, KS)
   stage_window<T, HD, kKvScratch>(ks, vs, a, w, h);
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // tile t's warp w takes rows t 8 + w, then every 8 tiles-th row on
+  const int lane = threadIdx.x & 31;
   const float* bias_h = a.bias + (size_t)h * a.m * a.n;
-  for (int i = warp; i < a.m; i += kAttnThreads / 32) {
+  for (int i = blockIdx.z * (kAttnThreads / 32) + (threadIdx.x >> 5); i < a.m;
+       i += a.tiles * (kAttnThreads / 32)) {
     const float* brow = bias_h + (size_t)i * a.n;
     float b[J];
     load_bias_share<J>(b, brow, 0, a.n, lane);
@@ -978,20 +999,38 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a, float sc
   }
 }
 
-// Shared memory of a block that stages `windows` windows of n keys.
-size_t attn_smem_bytes(int windows, int n, int hd) {
-  return sizeof(float) * 2 * (size_t)windows * n * key_stride(hd);
-}
+// Shared memory of a block that stages a window of n keys.
+size_t attn_smem_bytes(int n, int hd) { return sizeof(float) * 2 * (size_t)n * key_stride(hd); }
 
+// Launches the instantiation for (T, HD, J) with a's plan when info is
+// null; otherwise writes its occupancy at a's plan to info: registers,
+// local (spill) bytes per thread, dynamic shared memory per block, threads
+// per block, resident blocks per SM.
 template <typename T, int HD, int J, bool kKvScratch>
-cudaError_t launch_attn_j(const AttnArgs& a, float scale, cudaStream_t stream) {
+cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
   auto kernel = attn_kernel<T, HD, J, kKvScratch>;
-  const size_t smem = attn_smem_bytes(1, a.n, HD);
+  const size_t smem = attn_smem_bytes(a.n, HD);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.b, a.heads), kAttnThreads, smem, stream>>>(a, scale);
-  return cudaGetLastError();
+  if (info == nullptr) {
+    kernel<<<dim3(a.b, a.heads, a.tiles), kAttnThreads, smem, stream>>>(a, scale);
+    return cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kAttnThreads, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (long long)attr.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = kAttnThreads;
+  info[4] = blocks;
+  info[5] = J;
+  return cudaSuccess;
 }
 
 // q, k and v start on kChunk-element boundaries (the head offsets and row
@@ -1005,46 +1044,71 @@ bool attn_vec_ok(const AttnArgs& a, bool kv_scratch) {
 }
 
 template <typename T, int HD, bool kKvScratch>
-cudaError_t launch_attn_hd(AttnArgs a, float scale, cudaStream_t stream) {
-  a.vec = attn_vec_ok<T, HD>(a, kKvScratch);
+cudaError_t attn_run_hd(AttnArgs a, float scale, long long* info, cudaStream_t stream) {
+  if (info == nullptr) a.vec = attn_vec_ok<T, HD>(a, kKvScratch);
   const int j = row_share(a.n);
   switch (j ? j : kMaxRowShare) {
-    case 12: return launch_attn_j<T, HD, 12, kKvScratch>(a, scale, stream);
-    case 16: return launch_attn_j<T, HD, 16, kKvScratch>(a, scale, stream);
-    case 32: return launch_attn_j<T, HD, 32, kKvScratch>(a, scale, stream);
+    case 12: return attn_run<T, HD, 12, kKvScratch>(a, scale, info, stream);
+    case 16: return attn_run<T, HD, 16, kKvScratch>(a, scale, info, stream);
+    case 32: return attn_run<T, HD, 32, kKvScratch>(a, scale, info, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T, bool kKvScratch>
-cudaError_t launch_attn(const AttnArgs& a, float scale, cudaStream_t stream) {
+cudaError_t attn_run_t(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
+  if (a.heads < 1 || a.c % a.heads || a.tiles < 1 || a.tiles > 65535)
+    return cudaErrorInvalidValue;
   switch (a.c / a.heads) {
-    case 1: return launch_attn_hd<T, 1, kKvScratch>(a, scale, stream);
-    case 2: return launch_attn_hd<T, 2, kKvScratch>(a, scale, stream);
-    case 4: return launch_attn_hd<T, 4, kKvScratch>(a, scale, stream);
-    case 8: return launch_attn_hd<T, 8, kKvScratch>(a, scale, stream);
-    case 16: return launch_attn_hd<T, 16, kKvScratch>(a, scale, stream);
-    case 32: return launch_attn_hd<T, 32, kKvScratch>(a, scale, stream);
+    case 1: return attn_run_hd<T, 1, kKvScratch>(a, scale, info, stream);
+    case 2: return attn_run_hd<T, 2, kKvScratch>(a, scale, info, stream);
+    case 4: return attn_run_hd<T, 4, kKvScratch>(a, scale, info, stream);
+    case 8: return attn_run_hd<T, 8, kKvScratch>(a, scale, info, stream);
+    case 16: return attn_run_hd<T, 16, kKvScratch>(a, scale, info, stream);
+    case 32: return attn_run_hd<T, 32, kKvScratch>(a, scale, info, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The attention over the k|v scratch that the LN + projection GEMM writes.
+template <bool kKvScratch>
+cudaError_t launch_attn(int is_bf16, const AttnArgs& a, float scale, cudaStream_t stream) {
+  return is_bf16 ? attn_run_t<__nv_bfloat16, kKvScratch>(a, scale, nullptr, stream)
+                 : attn_run_t<float, kKvScratch>(a, scale, nullptr, stream);
+}
+
+// The occupancy of the instantiation that a launch at these shapes takes
+// (attn_run's info, then J).
+template <bool kKvScratch>
+int attn_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
+  AttnArgs a{};
+  a.b = 1;
+  a.m = m;
+  a.n = n;
+  a.c = c;
+  a.heads = heads;
+  a.tiles = 1;
+  return (int)(is_bf16 ? attn_run_t<__nv_bfloat16, kKvScratch>(a, 0.f, info, nullptr)
+                       : attn_run_t<float, kKvScratch>(a, 0.f, info, nullptr));
+}
+
+// The attention over the k|v scratch that the LN + projection GEMM
+// writes, each window's rows in `tiles` tiles.
 template <typename T>
-cudaError_t launch_block_attn(const LnProjArgs& p, int heads, const float* bias, void* out,
-                              float scale, cudaStream_t stream) {
+cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles,
+                              const float* bias, void* out, float scale, cudaStream_t stream) {
   AttnArgs a{};
   a.b = p.b;
   a.m = p.m;
   a.n = p.d * p.m;
   a.c = p.c;
   a.heads = heads;
+  a.tiles = tiles;
   a.q = p.q;
   a.k = p.kv;
   a.v = nullptr;
   a.bias = bias;
   a.out = out;
-  return launch_attn<T, true>(a, scale, stream);
+  return attn_run_t<T, true>(a, scale, nullptr, stream);
 }
 
 }  // namespace

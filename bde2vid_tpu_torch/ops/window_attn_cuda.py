@@ -262,19 +262,22 @@ _LL, _LLP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
 # (argtypes, restype) of each library's C functions
 _SIGNATURES = {
     "swin_block": {
-        # 9 ints, the score scale, 25 tensor pointers, 2 mask pointers and the stream
-        "swin_block_forward": ([_CI] * 9 + [_CF] + [_VP] * 28, _CI),
+        # 10 ints, the score scale, 25 tensor pointers, 2 mask pointers and the stream
+        "swin_block_forward": ([_CI] * 10 + [_CF] + [_VP] * 28, _CI),
         "swin_block_smem_bytes": ([_CI] * 5 + [_LLP], None),
+        "swin_block_attn_occupancy": ([_CI] * 5 + [_LLP], _CI),
     },
     "window_block": {
-        # 7 ints, the score scale, 16 tensor pointers and the stream
-        "window_block_forward": ([_CI] * 7 + [_CF] + [_VP] * 17, _CI),
+        # 8 ints, the score scale, 16 tensor pointers and the stream
+        "window_block_forward": ([_CI] * 8 + [_CF] + [_VP] * 17, _CI),
         "window_block_smem_bytes": ([_CI] * 5 + [_LLP], None),
+        "window_block_attn_occupancy": ([_CI] * 5 + [_LLP], _CI),
     },
     "window_attention": {
-        # 6 ints, the score scale, 5 tensor pointers and the stream
-        "window_attention_forward": ([_CI] * 6 + [_CF] + [_VP] * 6, _CI),
+        # 7 ints, the score scale, 5 tensor pointers and the stream
+        "window_attention_forward": ([_CI] * 7 + [_CF] + [_VP] * 6, _CI),
         "window_attention_smem_bytes": ([_CI] * 4, _LL),
+        "window_attention_occupancy": ([_CI] * 5 + [_LLP], _CI),
     },
     "attn_core_bwd": {
         # 7 ints, the score scale, 10 tensor pointers and the stream
@@ -395,9 +398,10 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
         p["norm2_w"], p["norm2_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"],
         p["bias"], kv, q, acc, out, y, h,
     ]
+    plan = attn_plan_for("swin_block", b_, m, n, c, num_heads, dt, x.device.index)
     rc = lib.swin_block_forward(
         int(dt == torch.bfloat16), act, d, b_, m, c, num_heads,
-        hidden, q_ind, float((c // num_heads) ** -0.5),
+        hidden, q_ind, plan.tiles, float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in ptrs], *mask_ptrs, _stream(x),
     )
     if rc != 0:
@@ -486,6 +490,85 @@ def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype,
     return {**dict(zip(keys, info)), "sms": sms}
 
 
+def _key_stride(head_dim: int) -> int:
+    """Row stride (floats) of a staged k or v row (``key_stride`` in
+    csrc/device_common.cuh)."""
+    if head_dim < 4:
+        return head_dim + 1
+    return head_dim if (head_dim // 4) % 2 else head_dim + 4
+
+
+def attn_threads(head_dim: int) -> int:
+    """Threads of a forward attention block (``kAttnThreads`` in
+    csrc/window_common.cuh)."""
+    return 256
+
+
+def attn_smem_bytes(n: int, head_dim: int) -> int:
+    """Shared memory of a forward attention block, which stages one
+    window's k and v rows (``attn_smem_bytes`` in csrc/window_common.cuh)."""
+    return 4 * 2 * n * _key_stride(head_dim)
+
+
+class AttnPlan(NamedTuple):
+    """How one forward attention launch splits its work: block (window,
+    head, tile) has warp w take the window's query rows tile * warps + w +
+    k * warps * tiles, k = 0, 1, ..."""
+
+    tiles: int
+    threads: int  # threads per block
+
+
+def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: int,
+                      blocks_per_sm: int) -> AttnPlan:
+    """The launch plan of the forward attention core for B_ windows of M
+    query rows and N keys, ``heads`` heads of ``head_dim``, on a card with
+    ``sms`` SMs of which each holds ``blocks_per_sm`` of its blocks: the
+    fewest tiles a window for which the blocks fill two waves of the card,
+    and no more than leave each warp a row. A function of its arguments
+    alone."""
+    smem = attn_smem_bytes(n, head_dim)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{n} keys at head_dim {head_dim} need {smem} B of shared memory "
+                         f"per block (limit {_MAX_SMEM})")
+    warps = attn_threads(head_dim) // 32
+    most = max(1, m // warps)
+    want = -(-2 * sms * max(1, blocks_per_sm) // (b_ * heads))
+    return AttnPlan(max(1, min(most, want)), warps * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def attn_forward_occupancy(lib_name: str, m: int, n: int, c: int, num_heads: int, dtype,
+                           device_index: int) -> dict:
+    """What the forward attention's instantiation in library ``lib_name``
+    (``window_attention``, or the attention stage of ``swin_block`` or
+    ``window_block``) gets at these shapes on CUDA card ``device_index``:
+    registers and spill bytes per thread (ptxas), dynamic shared memory per
+    block, threads per block, resident blocks per SM, J (keys a lane keeps
+    of a score row) and the card's SMs."""
+    info = (ctypes.c_longlong * 6)()
+    fn = {"window_attention": "window_attention_occupancy",
+          "swin_block": "swin_block_attn_occupancy",
+          "window_block": "window_block_attn_occupancy"}[lib_name]
+    with torch.cuda.device(device_index):
+        rc = getattr(_lib(lib_name), fn)(int(dtype == torch.bfloat16), m, n, c, num_heads, info)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {rc}")
+    keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return {**dict(zip(keys, info)), "sms": sms}
+
+
+@functools.lru_cache(maxsize=None)
+def attn_plan_for(lib_name: str, b_: int, m: int, n: int, c: int, num_heads: int, dtype,
+                  device_index: int) -> AttnPlan:
+    """The plan a launch of library ``lib_name``'s forward attention takes on
+    card ``device_index``: ``attn_forward_plan`` over the instantiation's
+    resident blocks per SM."""
+    occ = attn_forward_occupancy(lib_name, m, n, c, num_heads, dtype, device_index)
+    return attn_forward_plan(b_, num_heads, m, n, c // num_heads, occ["sms"], occ["blocks_per_sm"])
+
+
 def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
     _refuse_grad("fused_window_attention", (q, k, v, bias))
     if q.device.type != "cuda":
@@ -509,8 +592,10 @@ def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
     q, k, v = (t.contiguous() for t in (q, k, v))
     bias32 = bias.float().contiguous()
     out = torch.empty_like(q)
+    plan = attn_plan_for("window_attention", b_, m, n, c, num_heads, dt, q.device.index)
     rc = lib.window_attention_forward(
-        int(dt == torch.bfloat16), b_, m, n, c, num_heads, float((c // num_heads) ** -0.5),
+        int(dt == torch.bfloat16), b_, m, n, c, num_heads, plan.tiles,
+        float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in (q, k, v, bias32, out)], _stream(q),
     )
     if rc != 0:
@@ -552,8 +637,9 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
         x, p["norm_q_w"], p["norm_q_b"], p["norm_kv_w"], p["norm_kv_b"], p["q_w"], p["q_b"],
         p["kv_w"], p["kv_b"], p["proj_w"], p["proj_b"], p["bias"], kv, q, acc, out,
     ]
+    plan = attn_plan_for("window_block", b_, m, d * m, c, num_heads, dt, x.device.index)
     rc = lib.window_block_forward(
-        int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind,
+        int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind, plan.tiles,
         float((c // num_heads) ** -0.5), *[t.data_ptr() for t in ptrs], _stream(x),
     )
     if rc != 0:

@@ -16,15 +16,16 @@ WindowAttention3D kernel.
            times: the Swin block at the flagship and the 8x8 plain shapes
            (plain; masked with acc) and its five launches one by one at the
            flagship's plain shapes, f32 and bf16 (profiler device ms, each
-           stage's bound and, for the GEMM stages, F.linear(F.layer_norm)
-           or F.linear as yardstick), the attention-core backward at the
+           stage's bound and yardstick: F.linear(F.layer_norm) or F.linear
+           for the GEMM stages, SDPA forward for the attention stage), the attention-core backward at the
            flagship and the 8x8 shapes (torch's SDPA backward as the library
            yardstick; a bitwise repeat; each instantiation's registers,
            shared memory and resident blocks per SM), the WindowAttention3D
            body at the 8x8 dilated shapes (with and without acc), the bare
            attention core at the flagship and 8x8 shapes (SDPA forward as
-           the yardstick), and both new Functions' gradients vs the twins'
-           autograd
+           the yardstick; the registers, shared memory, resident blocks per
+           SM and launch plan of its instantiations and of B1's attention
+           stage), and both new Functions' gradients vs the twins' autograd
   attention  the ops.fused_window_attention entry point forward and backward
            at the 8x8 shapes (2 + 3 calls: one 8x8 frame's dilated blocks)
   model    flagship at 184x240, T=8: kernel path vs unfused path (f32,
@@ -229,11 +230,14 @@ def b1_stage_costs(d, b, m, c, heads, hidden, elem):
     }
 
 
-def b1_stage_library_ms(torch, x, ctr, p, acc, y, h):
-    """Yardsticks for B1's GEMM stages, timed and never called by the port:
-    F.linear(F.layer_norm(.)) for (a) (k|v and q) and (c2), F.linear for
-    (c1) and (c3), all in the operand type."""
+def b1_stage_library_ms(torch, x, ctr, p, acc, y, h, heads, q_ind):
+    """Yardsticks for B1's stages, timed and never called by the port:
+    F.linear(F.layer_norm(.)) for (a) (k|v and q) and (c2), torch's SDPA
+    forward for (b) (the bias as a float attn_mask, on the stage's own q, k
+    and v, split into heads outside the timed region), F.linear for (c1)
+    and (c3), all in the operand type."""
     import torch.nn.functional as F
+    from bde2vid_tpu_torch.ops.window_attn_cuda import _pre_stage
 
     dt = x.dtype
     c = x.shape[-1]
@@ -244,9 +248,10 @@ def b1_stage_library_ms(torch, x, ctr, p, acc, y, h):
         F.linear(F.layer_norm(ctr, (c,), w["norm_q_w"], w["norm_q_b"]), w["q_w"], w["q_b"])
 
     with torch.no_grad():
+        q, k, v = _pre_stage(x, ctr, p, heads, q_ind)
         return {
             "ln_proj": cuda_ms(torch, ln_proj, 20),
-            "attn": None,
+            "attn": sdpa_forward_ms(torch, q, k, v, p.bias, heads)[0],
             "mlp_proj": cuda_ms(torch, lambda: F.linear(acc, w["proj_w"], w["proj_b"]), 20),
             "mlp_fc1": cuda_ms(torch, lambda: F.linear(
                 F.layer_norm(y, (c,), w["norm2_w"], w["norm2_b"]), w["fc1_w"], w["fc1_b"]), 20),
@@ -346,7 +351,7 @@ def phase_kernels(torch):
                         _, acc = fused_swin_block(x, ctr, p, heads, q_ind, with_acc=True)
                         y = rnd(b, m, c).to(dt)
                         h = rnd(b, m, hidden).to(dt)
-                        lib = b1_stage_library_ms(torch, x, ctr, p, acc, y, h)
+                        lib = b1_stage_library_ms(torch, x, ctr, p, acc, y, h, heads, q_ind)
                         stages = {}
                         costs = b1_stage_costs(d, b, m, c, heads, hidden, x.element_size())
                         for stage, (s_flops, s_bytes) in costs.items():
@@ -359,7 +364,8 @@ def phase_kernels(torch):
     emit({"phase": "kernels", "kernel": "fused_swin_block", "timing": "CUDA events, inputs L2-warm",
           "cases": cases,
           "stages": split, "stages_timing": "profiler device ms per launch, mean of 5 calls; "
-                    "library = F.linear(F.layer_norm(.)) or F.linear in the operand type"})
+                    "library = F.linear(F.layer_norm(.)) or F.linear in the operand type, "
+                    "SDPA forward (bias as attn_mask) for attn"})
     return [c for c in cases if c["config"] == "flagship"]
 
 
@@ -746,6 +752,29 @@ def bwd_occupancy(torch, heads):
     return rows
 
 
+def fwd_occupancy(torch, heads):
+    """Registers, spill bytes, shared memory per block and resident blocks
+    per SM of the forward attention's instantiation at each level shape of
+    both configurations on card 0, with J (0 on the tensor cores) and the
+    launch plan it takes there (tiles a window): for B4 (the
+    window_attention library) and for B1's attention stage (swin_block)."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import attn_forward_occupancy, attn_plan_for
+
+    rows = []
+    for lib in ("window_attention", "swin_block"):
+        for config, win, levels in (("flagship", 7, LEVELS), ("8x8", 8, LEVELS_8)):
+            m = win * win
+            for level, ((hp, wp), c) in levels.items():
+                b = (hp // win) * (wp // win)
+                for dt in (torch.float32, torch.bfloat16):
+                    plan = attn_plan_for(lib, b, m, 7 * m, c, heads, dt, 0)
+                    rows.append({"library": lib, "config": config, "level": level,
+                                 "dtype": str(dt).split(".")[-1], "windows": b,
+                                 **attn_forward_occupancy(lib, m, 7 * m, c, heads, dt, 0),
+                                 "plan": plan._asdict()})
+    return rows
+
+
 def window_block_cost(d, b, m, c, heads, elem_bytes, with_acc):
     """(FLOPs, bytes) one fused_window_block call needs: 2 per multiply-add
     of the k|v, q and out projections and 4 B_ M N C for the attention; x
@@ -901,6 +930,8 @@ def phase_kernels_window(torch):
     emit({"phase": "kernels", "kernel": "fused_window_attention",
           "timing": "CUDA events, inputs L2-warm; library = torch SDPA forward, bias as attn_mask",
           "cases": attn_cases, "gradients_max_abs_err_vs_twin_autograd": grads})
+    emit({"phase": "kernels", "kernel": "attention forward occupancy",
+          "instantiations": fwd_occupancy(torch, heads)})
     return block_cases, attn_cases
 
 

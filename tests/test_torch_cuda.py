@@ -401,3 +401,80 @@ def test_cuda_swin_block_repeats_bitwise(cuda_device, b_, c, masked):
         second = fused_swin_block(xd, cd, p, 16, 3, masks=masks, with_acc=True)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _attn_inputs(seed, b_, m, n, c, heads, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=device)
+    return f(b_, m, c), f(b_, n, c), f(b_, n, c), f(heads, m, n) * 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [1, 2, 4, 8, 16, 32])
+def test_cuda_window_attention_matches_twin_at_each_head_dim(cuda_device, hd):
+    """The bare attention kernel vs its twin at every head_dim it takes,
+    f32 and bf16, with a window count no group size divides and M not a
+    multiple of a warp's rows."""
+    heads = 4
+    q, k, v, bias = _attn_inputs(20 + hd, 23, 49, 147, heads * hd, heads, cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in (q, k, v)]
+        before = launch_counts["fused_window_attention"]
+        got = fused_window_attention(*ins, bias, heads)
+        ref = window_attention_reference(*ins, bias, heads)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_window_attention"] == before + 1
+        assert got.dtype == dt
+        assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [384, 385, 512, 513, 1024, 1025, 2048])
+def test_cuda_window_attention_at_row_share_boundaries(cuda_device, n):
+    """N at each boundary of a lane's register share (32 x 12, 16, 32 keys)
+    and past the last, where rows run in chunks: no gradient, so no key
+    limit of the backward applies."""
+    q, k, v, bias = _attn_inputs(n, 3, 7, n, 16, 4, cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in (q, k, v)]
+        got = fused_window_attention(*ins, bias, 4)
+        ref = window_attention_reference(*ins, bias, 4)
+        torch.cuda.synchronize()
+        assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_,c", [(252, 64), (20, 256)])
+def test_cuda_window_attention_and_swin_block_repeat_bitwise(cuda_device, b_, c):
+    """B4 and B1 at the flagship's level shapes give the same bits on two
+    runs, f32 and bf16: each output sums in a fixed order in one warp."""
+    q, k, v, bias = _attn_inputs(30, b_, 49, 343, c, 16, cuda_device)
+    x, ctr, p = _flat_inputs(31, 7, b_, 49, c, 16, cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in (q, k, v)]
+        first = fused_window_attention(*ins, bias, 16)
+        second = fused_window_attention(*ins, bias, 16)
+        xd, cd = x.to(dt), ctr.to(dt)
+        block = fused_swin_block(xd, cd, p, 16, 3)
+        block2 = fused_swin_block(xd, cd, p, 16, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second) and torch.equal(block, block2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib", ["window_attention", "swin_block", "window_block"])
+@pytest.mark.parametrize("b_,m,n,c", [(252, 49, 343, 64), (20, 49, 343, 256), (180, 64, 448, 64),
+                                     (12, 64, 448, 256)])
+def test_cuda_forward_occupancy_is_that_of_the_named_card(cuda_device, lib, b_, m, n, c):
+    """The forward attention's occupancy comes from the launch device, and
+    the library agrees with the host plan: its threads, its shared memory
+    and its resident blocks, from which the plan's tiles follow."""
+    index = torch.cuda.current_device()
+    for dt in (torch.float32, torch.bfloat16):
+        occ = wac.attn_forward_occupancy(lib, m, n, c, 16, dt, index)
+        assert occ["sms"] == torch.cuda.get_device_properties(index).multi_processor_count
+        assert occ["blocks_per_sm"] >= 1 and occ["row_share"] == (12 if n <= 384 else 16)
+        assert occ["smem_bytes"] == wac.attn_smem_bytes(n, c // 16)
+        plan = wac.attn_plan_for(lib, b_, m, n, c, 16, dt, index)
+        assert occ["threads"] == plan.threads == wac.attn_threads(c // 16)
+        assert plan == wac.attn_forward_plan(b_, 16, m, n, c // 16, occ["sms"], occ["blocks_per_sm"])
