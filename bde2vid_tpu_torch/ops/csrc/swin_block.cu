@@ -30,11 +30,12 @@
 //   (a) LN + k|v and q projections: the LayerNorm prologue keeps the block's
 //       rows resident, the centre frame substituted by choosing the row's
 //       source pointer; a bias epilogue;
-//   (b) attn_kernel (window_common.cuh): a block per (window group, head,
-//       row tile); a warp per query row keeps its lane's share of the score
-//       row in registers (the TPU kept all 16 heads' (H*M, N) plane
-//       resident, which does not fit in 227 KB), so head_dim 4 (below an
-//       MMA's K) runs as FMA dot products;
+//   (b) attn_kernel (window_common.cuh): a block per (window, head, row
+//       tile); a warp per query row keeps its lane's share of the score row
+//       in registers (the TPU kept all 16 heads' (H*M, N) plane resident,
+//       which does not fit in 227 KB), so head_dim 4 (below an MMA's K)
+//       runs as FMA dot products; bf16 at head_dim 16 takes 16-row tiles on
+//       the tensor cores (attn_kernel_mma);
 //   (c1) y = ctr + m1 (acc @ Wp^T + bp), y into an f32 scratch;
 //   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y and the
 //        activation in the epilogue, h into a scratch in the operand type;

@@ -15,13 +15,16 @@
 // N = 7M, head_dim 4 or 16) f32 is bound by operations (67 TFLOP/s without
 // tensor cores; no TF32 so that f32 stays exact), bf16 by bytes.
 //
-// What the design does about it: the per-(window, head) attention of the
-// Swin block kernels (window_common.cuh), reading k and v in their own
-// (B_, N, C) layout: one block per (window, head) stages the head's q, k and
-// v columns in shared memory once, and a warp per query row keeps its 1 x N
-// score row there, so no score plane reaches device memory. head_dim 4 is
-// below an MMA's K and runs as FMA dot products; tensor-core MMAs for the
-// wider heads are later work.
+// What the design does about it: the attention core of the Swin block
+// kernels (window_common.cuh), reading k and v in their own (B_, N, C)
+// layout. A block per (window, head, row tile) stages the head's k and v
+// columns in shared memory once; in f32, and below head_dim 16, a warp per
+// query row keeps its lane's share of the 1 x N score row in registers (FMA
+// dot products: head_dim 4 is below an MMA's K), with one ex2.approx an
+// element and one reciprocal a row; bf16 at head_dim >= 16 runs 16-row
+// tiles on the tensor cores (mma.sync m16n8k16). No score plane reaches
+// device memory. The wrapper's plan (attn_forward_plan) splits a window's
+// rows into tiles where there are too few windows to fill the card.
 
 #include "window_common.cuh"
 
@@ -36,7 +39,8 @@ long long window_attention_smem_bytes(int m, int n, int c, int heads) {
 // The occupancy of the instantiation these shapes take: info[0..5] =
 // registers, local (spill) bytes per thread, dynamic shared memory per
 // block, threads per block, resident blocks per SM, J (keys a lane keeps of
-// a score row). Returns the CUDA error code (0 on success).
+// a score row; 0 on the tensor cores). Returns the CUDA error code (0 on
+// success).
 int window_attention_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
   return attn_occupancy<false>(is_bf16, m, n, c, heads, info);
 }

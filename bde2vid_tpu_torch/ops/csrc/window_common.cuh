@@ -713,11 +713,13 @@ size_t ln_proj_smem_bytes(int c) {
 // partial outputs meet in one reduce-scatter of shuffles. Rows longer than
 // 32 J keys run the same code over chunks of 32 J keys: one sweep for the
 // running max and sum, a second for p v. head_dim 4 is below an MMA's K,
-// so every product is an FMA. The wrapper picks the tiles
-// (attn_forward_plan in ops/window_attn_cuda.py).
+// so every product is an FMA; bf16 at head_dim >= 16 takes the tensor
+// cores (attn_kernel_mma). The wrapper picks the tiles (attn_forward_plan
+// in ops/window_attn_cuda.py).
 // ---------------------------------------------------------------------------
 
-// 8 warps a block, a warp per query row at a time. A thread keeps to 64
+// 8 warps a block. A warp takes one query row at a time (attn_kernel) or,
+// on the tensor cores, 16 rows (attn_kernel_mma). A thread keeps to 64
 // registers at head_dim <= 4 (four blocks an SM) and to 128 (two) below
 // head_dim 32.
 constexpr int kAttnThreads = 256;
@@ -999,6 +1001,244 @@ __global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(HD))
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at head_dim >= 16: the same function on the tensor cores. A warp
+// takes 16 query rows of one window, the A operand of mma.sync m16n8k16
+// (f32 accumulators), with q's fragments loaded once. Sweep 1 runs q k^T
+// over the keys 8 at a time and keeps each row's running max and sum of
+// exp (a lane holds two rows; the four lanes of a row then combine theirs
+// in a fixed order); sweep 2 recomputes q k^T 16 keys at a time, forms
+// p = round(exp(s - max) / sum) in the A layout of the next product and
+// adds p v. Shared memory holds k as rows of head_dim (q k^T's B operand
+// as it is) and v transposed (p v's B operand), both bf16. The bias comes
+// from L2 once a sweep.
+// ---------------------------------------------------------------------------
+
+// Row strides (bf16) of the staged k rows and v^T rows: eight lanes on
+// consecutive rows reading 4 bytes at one column hit distinct banks.
+__host__ __device__ constexpr int mma_k_stride(int hd) { return hd + 8; }
+__host__ __device__ inline int mma_keys(int n) { return cdiv(n, 16) * 16; }
+__host__ __device__ inline int mma_v_stride(int n) { return mma_keys(n) + 8; }
+
+size_t attn_mma_smem_bytes(int n, int hd) {
+  return sizeof(__nv_bfloat16) *
+         ((size_t)mma_keys(n) * mma_k_stride(hd) + (size_t)hd * mma_v_stride(n));
+}
+
+// Window w's k rows and v^T columns of head h, zero past N.
+template <int HD, bool kKvScratch>
+__device__ __forceinline__ void stage_window_mma(__nv_bfloat16* ks, __nv_bfloat16* vt,
+                                                 const AttnArgs& a, int w, int h) {
+  constexpr int KST = mma_k_stride(HD), PER = HD / 8;
+  const int npad = mma_keys(a.n), vst = mma_v_stride(a.n);
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* vg = kKvScratch ? kg + a.c : static_cast<const __nv_bfloat16*>(a.v);
+  for (int e = threadIdx.x; e < npad * PER; e += blockDim.x) {
+    const int nn = e / PER, d0 = (e - nn * PER) * 8;
+    __nv_bfloat16 kr[8], vr[8];
+    if (nn < a.n) {
+      const size_t off = kv_offset<kKvScratch>(a, w, nn) + h * HD + d0;
+      if (a.vec) {
+        const uint4 ku = *reinterpret_cast<const uint4*>(kg + off);
+        const uint4 vu = *reinterpret_cast<const uint4*>(vg + off);
+        memcpy(kr, &ku, 16);
+        memcpy(vr, &vu, 16);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          kr[i] = kg[off + i];
+          vr[i] = vg[off + i];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) kr[i] = vr[i] = __float2bfloat16_rn(0.f);
+    }
+    uint4 ku;
+    memcpy(&ku, kr, 16);
+    *reinterpret_cast<uint4*>(ks + nn * KST + d0) = ku;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) vt[(d0 + i) * vst + nn] = vr[i];
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &t, 4);
+  return u;
+}
+
+// Two bf16 at p (4-byte aligned when vec).
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool vec) {
+  if (vec) return *reinterpret_cast<const uint32_t*>(p);
+  const __nv_bfloat16 t[2] = {p[0], p[1]};
+  uint32_t u;
+  memcpy(&u, t, 4);
+  return u;
+}
+
+// The 16-row tile's scores against keys n0 .. n0 + 7: s[e] for the lane's
+// row e / 2 (lane / 4, then 8 below it; its bias row brow[e / 2], null past
+// M) and key n0 + 2 (lane % 4) + e % 2, q k^T scale + bias, -inf past N.
+template <int HD>
+__device__ __forceinline__ void mma_scores(float (&s)[4], const uint32_t (&qa)[HD / 16][4],
+                                           const __nv_bfloat16* ks, int n0,
+                                           const float* const (&brow)[2], int n, float scale,
+                                           int lane) {
+  constexpr int KST = mma_k_stride(HD);
+  const int g = lane >> 2, t4 = lane & 3;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const __nv_bfloat16* kr = ks + (n0 + g) * KST + 16 * kk + 2 * t4;
+    const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
+                           *reinterpret_cast<const uint32_t*>(kr + 8)};
+    mma_bf16(c, qa[kk], b);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int col = n0 + 2 * t4 + (e & 1);
+    const float* br = brow[e >> 1];
+    const float bias = (col < n && br != nullptr) ? __ldg(br + col) : 0.f;
+    s[e] = col < n ? fmaf(c[e], scale, bias) : __int_as_float(0xff800000);
+  }
+}
+
+// Query rows r0 .. r0 + 15 (those below M) of window w, head h.
+template <int HD>
+__device__ __forceinline__ void attend_tile_mma(const AttnArgs& a, int w, int h, int r0,
+                                                const __nv_bfloat16* ks,
+                                                const __nv_bfloat16* vt, float scale, int lane) {
+  const int g = lane >> 2, t4 = lane & 3, n = a.n, vst = mma_v_stride(a.n);
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const float* bias_h = a.bias + (size_t)h * a.m * n;
+  const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * n : nullptr,
+                                rows[1] < a.m ? bias_h + (size_t)rows[1] * n : nullptr};
+  // q's A fragments: registers (row g, cols 2 t4 ..), (row g + 8, ..),
+  // (row g, cols 2 t4 + 8 ..), (row g + 8, ..) of each 16 columns
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rows[r & 1], col = 16 * kk + 2 * t4 + 8 * (r >> 1);
+      qa[kk][r] = row < a.m
+                      ? load_pair(q + ((size_t)w * a.m + row) * a.c + h * HD + col, a.vec)
+                      : 0u;
+    }
+  }
+
+  // sweep 1: each row's running max and sum of exp over the lane's keys,
+  // then over the row's four lanes
+  float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
+  for (int n0 = 0; n0 < n; n0 += 8) {
+    float s[4];
+    mma_scores<HD>(s, qa, ks, n0, brow, n, scale, lane);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float nm = fmaxf(mx[hr], fmaxf(s[2 * hr], s[2 * hr + 1]));
+      const float nml = nm * kLog2e;
+      sum[hr] = sum[hr] * fast_exp2(fmaf(mx[hr], kLog2e, -nml)) +
+                fast_exp2(fmaf(s[2 * hr], kLog2e, -nml)) +
+                fast_exp2(fmaf(s[2 * hr + 1], kLog2e, -nml));
+      mx[hr] = nm;
+    }
+  }
+  float mxl[2], inv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, mx[hr], o);
+      const float os = __shfl_xor_sync(0xffffffffu, sum[hr], o);
+      const float nm = fmaxf(mx[hr], om), nml = nm * kLog2e;
+      sum[hr] = sum[hr] * fast_exp2(fmaf(mx[hr], kLog2e, -nml)) +
+                os * fast_exp2(fmaf(om, kLog2e, -nml));
+      mx[hr] = nm;
+    }
+    mxl[hr] = mx[hr] * kLog2e;
+    inv[hr] = 1.f / sum[hr];
+  }
+
+  // sweep 2: p = round(exp(s - max) / sum), 16 keys at a time, and p v
+  float o[HD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int n0 = 0; n0 < n; n0 += 16) {
+    float s0[4], s1[4];
+    mma_scores<HD>(s0, qa, ks, n0, brow, n, scale, lane);
+    mma_scores<HD>(s1, qa, ks, n0 + 8, brow, n, scale, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s0[e] = fast_exp2(fmaf(s0[e], kLog2e, -mxl[e >> 1])) * inv[e >> 1];
+      s1[e] = fast_exp2(fmaf(s1[e], kLog2e, -mxl[e >> 1])) * inv[e >> 1];
+    }
+    const uint32_t pa[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                            pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      const __nv_bfloat16* vr = vt + (8 * dt + g) * vst + n0 + 2 * t4;
+      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(vr),
+                             *reinterpret_cast<const uint32_t*>(vr + 8)};
+      mma_bf16(o[dt], pa, b);
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (rows[hr] >= a.m) continue;
+    __nv_bfloat16* out =
+        static_cast<__nv_bfloat16*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * HD + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(out + 8 * dt) = pack_bf16(o[dt][2 * hr], o[dt][2 * hr + 1]);
+  }
+}
+
+template <int HD, bool kKvScratch>
+__global__ void __launch_bounds__(kAttnThreads, 2) attn_kernel_mma(AttnArgs a, float scale) {
+  extern __shared__ __align__(16) unsigned char attn_smem_raw[];
+  const int w = blockIdx.x, h = blockIdx.y;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(attn_smem_raw);
+  __nv_bfloat16* vt = ks + mma_keys(a.n) * mma_k_stride(HD);
+  stage_window_mma<HD, kKvScratch>(ks, vt, a, w, h);
+  __syncthreads();
+
+  // the window's 16-row tiles, a warp per tile, dealt as attn_kernel deals rows
+  const int tiles16 = cdiv(a.m, 16);
+  for (int t = blockIdx.z * (kAttnThreads / 32) + (threadIdx.x >> 5); t < tiles16;
+       t += a.tiles * (kAttnThreads / 32))
+    attend_tile_mma<HD>(a, w, h, 16 * t, ks, vt, scale, threadIdx.x & 31);
+}
+
+template <int HD, bool kKvScratch>
+cudaError_t attn_mma_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
+  auto kernel = attn_kernel_mma<HD, kKvScratch>;
+  const size_t smem = attn_mma_smem_bytes(a.n, HD);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (info == nullptr) {
+    kernel<<<dim3(a.b, a.heads, a.tiles), kAttnThreads, smem, stream>>>(a, scale);
+    return cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kAttnThreads, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (long long)attr.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = kAttnThreads;
+  info[4] = blocks;
+  info[5] = 0;  // no row share: the tensor cores hold the scores
+  return cudaSuccess;
+}
+
 // Shared memory of a block that stages a window of n keys.
 size_t attn_smem_bytes(int n, int hd) { return sizeof(float) * 2 * (size_t)n * key_stride(hd); }
 
@@ -1046,12 +1286,16 @@ bool attn_vec_ok(const AttnArgs& a, bool kv_scratch) {
 template <typename T, int HD, bool kKvScratch>
 cudaError_t attn_run_hd(AttnArgs a, float scale, long long* info, cudaStream_t stream) {
   if (info == nullptr) a.vec = attn_vec_ok<T, HD>(a, kKvScratch);
-  const int j = row_share(a.n);
-  switch (j ? j : kMaxRowShare) {
-    case 12: return attn_run<T, HD, 12, kKvScratch>(a, scale, info, stream);
-    case 16: return attn_run<T, HD, 16, kKvScratch>(a, scale, info, stream);
-    case 32: return attn_run<T, HD, 32, kKvScratch>(a, scale, info, stream);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 16) {
+    return attn_mma_run<HD, kKvScratch>(a, scale, info, stream);
+  } else {
+    const int j = row_share(a.n);
+    switch (j ? j : kMaxRowShare) {
+      case 12: return attn_run<T, HD, 12, kKvScratch>(a, scale, info, stream);
+      case 16: return attn_run<T, HD, 16, kKvScratch>(a, scale, info, stream);
+      case 32: return attn_run<T, HD, 32, kKvScratch>(a, scale, info, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -504,35 +504,47 @@ def attn_threads(head_dim: int) -> int:
     return 256
 
 
-def attn_smem_bytes(n: int, head_dim: int) -> int:
+def attn_rows(head_dim: int, bf16: bool = False) -> int:
+    """Query rows a warp of the forward attention takes at once: one, or 16
+    (an mma tile) for bf16 at head_dim >= 16, which runs on the tensor
+    cores (``attn_kernel_mma`` in csrc/window_common.cuh)."""
+    return 16 if bf16 and head_dim >= 16 else 1
+
+
+def attn_smem_bytes(n: int, head_dim: int, bf16: bool = False) -> int:
     """Shared memory of a forward attention block, which stages one
-    window's k and v rows (``attn_smem_bytes`` in csrc/window_common.cuh)."""
+    window's k and v rows (``attn_smem_bytes`` and, for the tensor-core
+    kernel, ``attn_mma_smem_bytes`` in csrc/window_common.cuh)."""
+    if bf16 and head_dim >= 16:
+        keys = -(-n // 16) * 16
+        return 2 * (keys * (head_dim + 8) + head_dim * (keys + 8))
     return 4 * 2 * n * _key_stride(head_dim)
 
 
 class AttnPlan(NamedTuple):
     """How one forward attention launch splits its work: block (window,
-    head, tile) has warp w take the window's query rows tile * warps + w +
-    k * warps * tiles, k = 0, 1, ..."""
+    head, tile) has warp w take the window's row items (of ``attn_rows``
+    query rows each) tile * warps + w + k * warps * tiles, k = 0, 1, ..."""
 
     tiles: int
     threads: int  # threads per block
 
 
 def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: int,
-                      blocks_per_sm: int) -> AttnPlan:
+                      blocks_per_sm: int, bf16: bool = False) -> AttnPlan:
     """The launch plan of the forward attention core for B_ windows of M
-    query rows and N keys, ``heads`` heads of ``head_dim``, on a card with
-    ``sms`` SMs of which each holds ``blocks_per_sm`` of its blocks: the
-    fewest tiles a window for which the blocks fill two waves of the card,
-    and no more than leave each warp a row. A function of its arguments
-    alone."""
-    smem = attn_smem_bytes(n, head_dim)
+    query rows and N keys, ``heads`` heads of ``head_dim`` (``bf16``: the
+    operand type, which at head_dim >= 16 takes the tensor-core kernel), on
+    a card with ``sms`` SMs of which each holds ``blocks_per_sm`` of its
+    blocks: the fewest tiles a window for which the blocks fill two waves
+    of the card, and no more than leave each warp an item. A function of
+    its arguments alone."""
+    smem = attn_smem_bytes(n, head_dim, bf16)
     if smem > _MAX_SMEM:
         raise ValueError(f"{n} keys at head_dim {head_dim} need {smem} B of shared memory "
                          f"per block (limit {_MAX_SMEM})")
     warps = attn_threads(head_dim) // 32
-    most = max(1, m // warps)
+    most = max(1, -(-m // attn_rows(head_dim, bf16)) // warps)
     want = -(-2 * sms * max(1, blocks_per_sm) // (b_ * heads))
     return AttnPlan(max(1, min(most, want)), warps * 32)
 
@@ -545,7 +557,7 @@ def attn_forward_occupancy(lib_name: str, m: int, n: int, c: int, num_heads: int
     ``window_block``) gets at these shapes on CUDA card ``device_index``:
     registers and spill bytes per thread (ptxas), dynamic shared memory per
     block, threads per block, resident blocks per SM, J (keys a lane keeps
-    of a score row) and the card's SMs."""
+    of a score row; 0 on the tensor cores) and the card's SMs."""
     info = (ctypes.c_longlong * 6)()
     fn = {"window_attention": "window_attention_occupancy",
           "swin_block": "swin_block_attn_occupancy",
@@ -566,7 +578,8 @@ def attn_plan_for(lib_name: str, b_: int, m: int, n: int, c: int, num_heads: int
     card ``device_index``: ``attn_forward_plan`` over the instantiation's
     resident blocks per SM."""
     occ = attn_forward_occupancy(lib_name, m, n, c, num_heads, dtype, device_index)
-    return attn_forward_plan(b_, num_heads, m, n, c // num_heads, occ["sms"], occ["blocks_per_sm"])
+    return attn_forward_plan(b_, num_heads, m, n, c // num_heads, occ["sms"], occ["blocks_per_sm"],
+                             dtype == torch.bfloat16)
 
 
 def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:

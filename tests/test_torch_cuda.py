@@ -471,10 +471,14 @@ def test_cuda_forward_occupancy_is_that_of_the_named_card(cuda_device, lib, b_, 
     and its resident blocks, from which the plan's tiles follow."""
     index = torch.cuda.current_device()
     for dt in (torch.float32, torch.bfloat16):
+        bf16 = dt == torch.bfloat16
+        mma = bf16 and c // 16 >= 16  # the tensor-core kernel: no row share
         occ = wac.attn_forward_occupancy(lib, m, n, c, 16, dt, index)
         assert occ["sms"] == torch.cuda.get_device_properties(index).multi_processor_count
-        assert occ["blocks_per_sm"] >= 1 and occ["row_share"] == (12 if n <= 384 else 16)
-        assert occ["smem_bytes"] == wac.attn_smem_bytes(n, c // 16)
+        assert occ["blocks_per_sm"] >= 1
+        assert occ["row_share"] == (0 if mma else 12 if n <= 384 else 16)
+        assert occ["smem_bytes"] == wac.attn_smem_bytes(n, c // 16, bf16)
         plan = wac.attn_plan_for(lib, b_, m, n, c, 16, dt, index)
         assert occ["threads"] == plan.threads == wac.attn_threads(c // 16)
-        assert plan == wac.attn_forward_plan(b_, 16, m, n, c // 16, occ["sms"], occ["blocks_per_sm"])
+        assert plan == wac.attn_forward_plan(b_, 16, m, n, c // 16, occ["sms"],
+                                             occ["blocks_per_sm"], bf16)
