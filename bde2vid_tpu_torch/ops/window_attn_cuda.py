@@ -53,6 +53,7 @@ _ACT_CODES = {
 }
 _HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+ATTN_THREADS = 256  # threads of a forward attention block (kAttnThreads in csrc/window_common.cuh)
 
 
 class SwinBlockParams(NamedTuple):
@@ -498,12 +499,6 @@ def _key_stride(head_dim: int) -> int:
     return head_dim if (head_dim // 4) % 2 else head_dim + 4
 
 
-def attn_threads(head_dim: int) -> int:
-    """Threads of a forward attention block (``kAttnThreads`` in
-    csrc/window_common.cuh)."""
-    return 256
-
-
 def attn_rows(head_dim: int, bf16: bool = False) -> int:
     """Query rows a warp of the forward attention takes at once: one, or 16
     (an mma tile) for bf16 at head_dim >= 16, which runs on the tensor
@@ -543,7 +538,7 @@ def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: i
     if smem > _MAX_SMEM:
         raise ValueError(f"{n} keys at head_dim {head_dim} need {smem} B of shared memory "
                          f"per block (limit {_MAX_SMEM})")
-    warps = attn_threads(head_dim) // 32
+    warps = ATTN_THREADS // 32
     most = max(1, -(-m // attn_rows(head_dim, bf16)) // warps)
     want = -(-2 * sms * max(1, blocks_per_sm) // (b_ * heads))
     return AttnPlan(max(1, min(most, want)), warps * 32)

@@ -797,8 +797,10 @@ def window_attention_cost(b, m, n, c, heads, elem_bytes):
 
 def sdpa_forward_ms(torch, q, k, v, bias, heads, iters=20):
     """Time of torch's scaled_dot_product_attention forward on the same
-    function (the bias as a float attn_mask broadcast over windows) and the
-    backend PyTorch takes first; (None, reason) when none takes the shapes."""
+    function (the bias as a float attn_mask broadcast over windows): CUDA
+    events over calls, the backend PyTorch takes first, and the device ms
+    of its kernels (profiler); (None, reason, None) when none takes the
+    shapes."""
     import warnings
 
     import torch.nn.functional as F
@@ -819,11 +821,18 @@ def sdpa_forward_ms(torch, q, k, v, bias, heads, iters=20):
             with sdpa_kernel([backend]), warnings.catch_warnings(), torch.no_grad():
                 warnings.simplefilter("ignore")  # each refusing backend warns why
                 F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-                return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask), iters), backend.name
+                call = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+                return cuda_ms(torch, call, iters), backend.name, device_ms(torch, call)
         except RuntimeError as exc:
             errors[backend.name] = str(exc).splitlines()[0][:80]
-    return None, f"no SDPA backend takes these shapes: {errors}"
+    return None, f"no SDPA backend takes these shapes: {errors}", None
+
+
+def device_ms(torch, fn, calls=5):
+    """Device ms per call of the CUDA kernels that ``calls`` calls of ``fn``
+    launch, from one profiler trace: the kernels' own time, without the
+    host's."""
+    return sum(ms for _, ms in kernel_sequence(torch, fn, calls)) / calls
 
 
 def check_close(what, got, ref, dt):
@@ -898,11 +907,13 @@ def phase_kernels_window(torch):
                 (err,) = check_close(f"window attention {config} {level} {name}", (got,), (ref,), dt)
                 flops, nbytes = window_attention_cost(b, m, d * m, c, heads, x.element_size())
                 t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
-                lib_ms, backend = sdpa_forward_ms(torch, q, k, v, p.bias, heads)
+                lib_ms, backend, lib_dev = sdpa_forward_ms(torch, q, k, v, p.bias, heads)
                 attn_cases.append({
                     "config": config, "level": level, "dtype": name, "windows": b, "channels": c,
                     "kv_tokens": d * m, "max_abs_err": err,
                     "kernel_ms": cuda_ms(torch, lambda: fused_window_attention(q, k, v, p.bias, heads), 20),
+                    "kernel_device_ms": device_ms(torch, lambda: fused_window_attention(q, k, v, p.bias, heads)),
+                    "library_device_ms": lib_dev,
                     "plain_ms": cuda_ms(torch, lambda: window_attention_reference(q, k, v, p.bias, heads), 5, 1),
                     "library_ms": lib_ms, "library": backend,
                     "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
@@ -928,7 +939,8 @@ def phase_kernels_window(torch):
     emit({"phase": "kernels", "kernel": "fused_window_block", "timing": "CUDA events, inputs L2-warm",
           "cases": block_cases})
     emit({"phase": "kernels", "kernel": "fused_window_attention",
-          "timing": "CUDA events, inputs L2-warm; library = torch SDPA forward, bias as attn_mask",
+          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms of the "
+                    "kernels alone; library = torch SDPA forward, bias as attn_mask",
           "cases": attn_cases, "gradients_max_abs_err_vs_twin_autograd": grads})
     emit({"phase": "kernels", "kernel": "attention forward occupancy",
           "instantiations": fwd_occupancy(torch, heads)})
@@ -964,7 +976,7 @@ def attn_forward_times(torch, calls=5):
                 q, k, v = (t.to(dt) for t in (q32, k32, v32))
                 with torch.no_grad():
                     ms = cuda_ms(torch, lambda: fused_window_attention(q, k, v, bias, heads), 50, 5)
-                lib_ms, backend = sdpa_forward_ms(torch, q, k, v, bias, heads, iters=50)
+                lib_ms, backend, _ = sdpa_forward_ms(torch, q, k, v, bias, heads, iters=50)
                 b4.append({"config": config, "level": level, "dtype": str(dt).split(".")[-1],
                            "ms": ms, "sdpa_ms": lib_ms, "sdpa": backend})
             if config == "flagship":

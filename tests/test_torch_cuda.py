@@ -479,6 +479,6 @@ def test_cuda_forward_occupancy_is_that_of_the_named_card(cuda_device, lib, b_, 
         assert occ["row_share"] == (0 if mma else 12 if n <= 384 else 16)
         assert occ["smem_bytes"] == wac.attn_smem_bytes(n, c // 16, bf16)
         plan = wac.attn_plan_for(lib, b_, m, n, c, 16, dt, index)
-        assert occ["threads"] == plan.threads == wac.attn_threads(c // 16)
+        assert occ["threads"] == plan.threads == wac.ATTN_THREADS
         assert plan == wac.attn_forward_plan(b_, 16, m, n, c // 16, occ["sms"],
                                              occ["blocks_per_sm"], bf16)
