@@ -31,10 +31,11 @@
 //     group, and dbias_reduce_kernel sums the partials in a fixed order:
 //     two runs give bit-identical gradients, with no float atomics.
 //   - Pass 1, a warp per query row: a lane keeps its share of the row's
-//     scores and dp (J = 12, 16 or 32 keys, chosen at launch from N, so
-//     at most 1024 keys a row) in registers through softmax, dp, ds and dq
-//     (dq's head_dim sums in one butterfly per component); the row's max,
-//     1 / sum and rowsum(dp * p32) go to shared memory.
+//     scores and dp (J = 12, 16 or 32 keys, which the wrapper's plan
+//     chooses from N, so at most 1024 keys a row) in registers through
+//     softmax, dp, ds and dq (dq's head_dim sums in one butterfly per
+//     component); the row's max, 1 / sum and rowsum(dp * p32) go to shared
+//     memory.
 //   - Pass 2, S lanes per key token (S = 1..8, chosen at launch so that the
 //     key rounds leave few lanes idle; two tokens a lane at head_dim <= 4
 //     where one block fills an SM, so that each q and g row read feeds
@@ -53,6 +54,18 @@
 //   - Occupancy: 16 warps a block, and two blocks per SM where shared
 //     memory allows (head_dim <= 8 at N <= 384: `__launch_bounds__` caps
 //     registers at 64 there).
+//   - Long rows (J = 0, the variant the wrapper's attn_core_bwd_plan picks
+//     where a row has more than 32 x 32 keys or the (M, N) plane does not
+//     fit in shared memory beside the k/v rows): pass 1 keeps nothing of
+//     the row in registers and sweeps its keys three times, recomputing
+//     the scores each time: the row's max; its sum of exponentials and of
+//     dp times them; then ds, dq and the dbias sums. The ds sums go to the
+//     block's own (M, N) slice of the global partial buffer instead of
+//     shared memory: one block owns the slice and walks its windows in
+//     order, so a plain read-modify-write needs no atomics and two runs
+//     stay bit-identical. Pass 2 is the one above with a key a lane. Only
+//     the k/v and q/g rows stay in shared memory, so the row length is
+//     bounded by those alone. It is right first and not tuned.
 //   - head_dim 4 (level 0) is below an MMA's K, so every product is an FMA
 //     dot product templated on head_dim 1-32.
 
@@ -73,19 +86,21 @@ struct BwdArgs {
   float* partial;             // (groups, H, M, N) f32 scratch
 };
 
-size_t bwd_smem_floats(int m, int n, int hd) {
-  return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (size_t)m * n;
+// The k, v, q and g rows, three row statistics, and with J > 0 the
+// block's (M, N) dbias plane.
+size_t bwd_smem_floats(int m, int n, int hd, int j) {
+  return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (j ? (size_t)m * n : 0);
 }
 
 // Keys a pass-2 lane takes: two at head_dim <= 4 where one block fills an
 // SM (J > 12: 128 registers), so that each q and g row loaded from shared
-// memory feeds both; else one, as registers run out.
+// memory feeds both; else one, as registers run out (and for long rows, J = 0).
 __host__ __device__ constexpr int keys_per_lane(int hd, int j) { return hd <= 4 && j > 12 ? 2 : 1; }
 
 // Lanes per key in pass 2 (1, 2, 4 or 8): the fewest that minimise one
 // warp's share, (rounds of key groups) x (rows per lane).
-int pass2_slices(int m, int n, int hd) {
-  const int kpt = keys_per_lane(hd, row_share(n));
+int pass2_slices(int m, int n, int hd, int j) {
+  const int kpt = keys_per_lane(hd, j);
   int best = 1;
   long long best_t = -1;
   for (int s = 1; s <= 8; s <<= 1) {
@@ -101,7 +116,7 @@ int pass2_slices(int m, int n, int hd) {
 }
 
 // Two blocks per SM where a lane's row share and head_dim leave room in 64
-// registers, else one.
+// registers, else one. J = 0 is the long-row variant.
 template <typename T, int HD, int J>
 __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     attn_bwd_kernel(BwdArgs a) {
@@ -116,7 +131,9 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   float* row_mxl = gs + m_tok * KS;        // (M): the row's max score * log2 e
   float* row_inv = row_mxl + m_tok;        // (M): 1 / the row's sum of exponentials
   float* row_dot = row_inv + m_tok;        // (M): rowsum(dp * p32)
-  float* dbias = row_dot + m_tok;          // (M, N): ds summed over this block's windows
+  // (M, N): ds summed over this block's windows, in shared memory, or for
+  // long rows in the block's slice of the global partial buffer
+  float* dbias = J ? row_dot + m_tok : a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
 
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -153,73 +170,129 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     }
     __syncthreads();
 
-    // pass 1: a warp per query row, the lane's keys lane + 32 j in registers
-    for (int i = warp; i < m_tok; i += kWarps) {
-      float qv[HD], gv[HD];
-      load_row<HD>(qv, qs + i * KS);
-      load_row<HD>(gv, gs + i * KS);
-      const float* brow = bias_h + (size_t)i * n_tok;
-      float sv[J], dpv[J];
-      float mx = __int_as_float(0xff800000);  // -inf
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int nn = lane + 32 * j;
-        sv[j] = 0.f;
-        dpv[j] = 0.f;
-        if (nn < n_tok) {
+    if constexpr (J > 0) {
+      // pass 1: a warp per query row, the lane's keys lane + 32 j in registers
+      for (int i = warp; i < m_tok; i += kWarps) {
+        float qv[HD], gv[HD];
+        load_row<HD>(qv, qs + i * KS);
+        load_row<HD>(gv, gs + i * KS);
+        const float* brow = bias_h + (size_t)i * n_tok;
+        float sv[J], dpv[J];
+        float mx = __int_as_float(0xff800000);  // -inf
+  #pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int nn = lane + 32 * j;
+          sv[j] = 0.f;
+          dpv[j] = 0.f;
+          if (nn < n_tok) {
+            float kr[HD], vr[HD];
+            load_row<HD>(kr, ks + nn * KS);
+            load_row<HD>(vr, vs + nn * KS);
+            sv[j] = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
+            dpv[j] = dot<HD>(gv, vr);
+            mx = fmaxf(mx, sv[j]);
+          }
+        }
+        const float mxl = warp_max(mx) * kLog2e;
+        float sum = 0.f;
+  #pragma unroll
+        for (int j = 0; j < J; ++j) {
+          if (lane + 32 * j < n_tok) {
+            sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl));
+            sum += sv[j];
+          }
+        }
+        const float inv = 1.f / warp_sum(sum);
+        float rdot = 0.f;
+  #pragma unroll
+        for (int j = 0; j < J; ++j) {
+          if (lane + 32 * j < n_tok) {
+            sv[j] *= inv;  // p32
+            rdot = fmaf(dpv[j], sv[j], rdot);
+          }
+        }
+        rdot = warp_sum(rdot);
+        float dqa[HD];
+  #pragma unroll
+        for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
+        float* drow = dbias + (size_t)i * n_tok;
+  #pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int nn = lane + 32 * j;
+          if (nn < n_tok) {
+            const float ds = sv[j] * (dpv[j] - rdot);
+            drow[nn] += ds;
+            const float dsc = round_to<T>(ds * scale);
+            float kr[HD];
+            load_row<HD>(kr, ks + nn * KS);
+  #pragma unroll
+            for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, kr[dd], dqa[dd]);
+          }
+        }
+  #pragma unroll
+        for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
+        if (lane == 0) {
+          row_mxl[i] = mxl;
+          row_inv[i] = inv;
+          row_dot[i] = rdot;
+          const size_t dst = ((size_t)w * m_tok + i) * c + h * HD;
+  #pragma unroll
+          for (int dd = 0; dd < HD; ++dd) dq[dst + dd] = store_cast<T>(dqa[dd]);
+        }
+      }
+    } else {
+      // pass 1, long rows: a warp per query row sweeps the lane's keys
+      // lane + 32 t three times, recomputing the scores
+      for (int i = warp; i < m_tok; i += kWarps) {
+        float qv[HD], gv[HD];
+        load_row<HD>(qv, qs + i * KS);
+        load_row<HD>(gv, gs + i * KS);
+        const float* brow = bias_h + (size_t)i * n_tok;
+        float mx = __int_as_float(0xff800000);  // -inf
+        for (int nn = lane; nn < n_tok; nn += 32) {
+          float kr[HD];
+          load_row<HD>(kr, ks + nn * KS);
+          mx = fmaxf(mx, fmaf(dot<HD>(qv, kr), scale, brow[nn]));
+        }
+        const float mxl = warp_max(mx) * kLog2e;
+        float sum = 0.f, dpe = 0.f;
+        for (int nn = lane; nn < n_tok; nn += 32) {
           float kr[HD], vr[HD];
           load_row<HD>(kr, ks + nn * KS);
           load_row<HD>(vr, vs + nn * KS);
-          sv[j] = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
-          dpv[j] = dot<HD>(gv, vr);
-          mx = fmaxf(mx, sv[j]);
+          const float e = fast_exp2(fmaf(fmaf(dot<HD>(qv, kr), scale, brow[nn]), kLog2e, -mxl));
+          sum += e;
+          dpe = fmaf(dot<HD>(gv, vr), e, dpe);
         }
-      }
-      const float mxl = warp_max(mx) * kLog2e;
-      float sum = 0.f;
+        const float inv = 1.f / warp_sum(sum);
+        const float rdot = warp_sum(dpe) * inv;  // rowsum(dp * p32)
+        float dqa[HD];
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        if (lane + 32 * j < n_tok) {
-          sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl));
-          sum += sv[j];
-        }
-      }
-      const float inv = 1.f / warp_sum(sum);
-      float rdot = 0.f;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        if (lane + 32 * j < n_tok) {
-          sv[j] *= inv;  // p32
-          rdot = fmaf(dpv[j], sv[j], rdot);
-        }
-      }
-      rdot = warp_sum(rdot);
-      float dqa[HD];
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
-      float* drow = dbias + (size_t)i * n_tok;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int nn = lane + 32 * j;
-        if (nn < n_tok) {
-          const float ds = sv[j] * (dpv[j] - rdot);
+        for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
+        float* drow = dbias + (size_t)i * n_tok;
+        for (int nn = lane; nn < n_tok; nn += 32) {
+          float kr[HD], vr[HD];
+          load_row<HD>(kr, ks + nn * KS);
+          load_row<HD>(vr, vs + nn * KS);
+          // the float operations of pass 2, so both passes see the same p32 and ds
+          const float s = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
+          const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
+          const float ds = p32 * (dot<HD>(gv, vr) - rdot);
           drow[nn] += ds;
           const float dsc = round_to<T>(ds * scale);
-          float kr[HD];
-          load_row<HD>(kr, ks + nn * KS);
 #pragma unroll
           for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, kr[dd], dqa[dd]);
         }
-      }
 #pragma unroll
-      for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
-      if (lane == 0) {
-        row_mxl[i] = mxl;
-        row_inv[i] = inv;
-        row_dot[i] = rdot;
-        const size_t dst = ((size_t)w * m_tok + i) * c + h * HD;
+        for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
+        if (lane == 0) {
+          row_mxl[i] = mxl;
+          row_inv[i] = inv;
+          row_dot[i] = rdot;
+          const size_t dst = ((size_t)w * m_tok + i) * c + h * HD;
 #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) dq[dst + dd] = store_cast<T>(dqa[dd]);
+          for (int dd = 0; dd < HD; ++dd) dq[dst + dd] = store_cast<T>(dqa[dd]);
+        }
       }
     }
     __syncthreads();
@@ -293,9 +366,11 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
       }
     }
   }
-  __syncthreads();
-  float* part = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
-  for (int e = tid; e < m_tok * n_tok; e += kThreads) part[e] = dbias[e];
+  if constexpr (J > 0) {
+    __syncthreads();
+    float* part = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
+    for (int e = tid; e < m_tok * n_tok; e += kThreads) part[e] = dbias[e];
+  }
 }
 
 // dbias[e] = sum over groups of partial[group][e], in group order.
@@ -339,6 +414,7 @@ cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t str
 template <typename T, int HD>
 cudaError_t run_j(int j, const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
   switch (j) {
+    case 0: return run<T, HD, 0>(a, smem, info, stream);
     case 12: return run<T, HD, 12>(a, smem, info, stream);
     case 16: return run<T, HD, 16>(a, smem, info, stream);
     case 32: return run<T, HD, 32>(a, smem, info, stream);
@@ -360,19 +436,20 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
   }
 }
 
-// Launches with `a` (setting its pass-2 slices), or writes the occupancy
-// and J, S to info[0..6] when `a` is null.
-cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, BwdArgs* a, long long* info,
-                     cudaStream_t stream) {
-  if (heads < 1 || c % heads) return cudaErrorInvalidValue;
-  const int hd = c / heads, j = row_share(n), slices = pass2_slices(m, n, hd);
+// Launches the variant with row share j (0: long rows; the wrapper's
+// attn_core_bwd_plan picks it from the shapes) with `a` (setting its pass-2
+// slices), or writes the occupancy and J, S to info[0..6] when `a` is null.
+cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, BwdArgs* a,
+                     long long* info, cudaStream_t stream) {
+  if (heads < 1 || c % heads || (j && n > 32 * j)) return cudaErrorInvalidValue;
+  const int hd = c / heads, slices = pass2_slices(m, n, hd, j);
   if (a != nullptr) {
     a->slices = slices;
   } else {
     info[5] = j;
     info[6] = slices;
   }
-  const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd);
+  const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd, j);
   return is_bf16 ? run_hd<__nv_bfloat16>(hd, j, a, smem, info, stream)
                  : run_hd<float>(hd, j, a, smem, info, stream);
 }
@@ -381,29 +458,27 @@ cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, BwdArgs* a, lo
 
 extern "C" {
 
-// Keys of a score row the backward takes at most (N); the wrapper refuses
-// more before any launch.
-int attn_core_bwd_max_keys() { return 32 * kMaxRowShare; }
-
-// Shared memory (bytes) the backward kernel asks for; the wrapper checks it
-// against the card's per-block limit before launching.
-long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads) {
-  return (long long)(sizeof(float) * bwd_smem_floats(m, n, c / heads));
+// Shared memory (bytes) the backward kernel with row share j asks for (the
+// wrapper's attn_core_bwd_smem_bytes computes the same).
+long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j) {
+  return (long long)(sizeof(float) * bwd_smem_floats(m, n, c / heads, j));
 }
 
-// The instantiation a launch at these shapes takes: info[0..6] = registers,
-// local (spill) bytes per thread, dynamic shared memory per block, threads
-// per block, resident blocks per SM, J (keys a lane keeps of a row) and S
-// (lanes per key in pass 2). Returns the CUDA error code (0 on success).
-int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
-  return (int)dispatch(is_bf16, m, n, c, heads, nullptr, info, nullptr);
+// The instantiation a launch at these shapes with row share j takes:
+// info[0..6] = registers, local (spill) bytes per thread, dynamic shared
+// memory per block, threads per block, resident blocks per SM, J (keys a
+// lane keeps of a row; 0 for long rows) and S (lanes per key in pass 2).
+// Returns the CUDA error code (0 on success).
+int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, long long* info) {
+  return (int)dispatch(is_bf16, m, n, c, heads, j, nullptr, info, nullptr);
 }
 
-// Launches the backward and the dbias reduction on `stream`; returns the
+// Launches the backward with row share j (12, 16 or 32 keys a lane, N <=
+// 32 j; or 0, long rows) and the dbias reduction on `stream`; returns the
 // first CUDA error code (0 on success). q/k/v/g/dq/dk/dv are f32 (is_bf16 =
-// 0) or bf16 (is_bf16 = 1); bias, partial and dbias are f32. N may be at
-// most attn_core_bwd_max_keys().
-int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, float scale,
+// 0) or bf16 (is_bf16 = 1); bias, partial and dbias are f32.
+int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, int j,
+                       float scale,
                        const void* q, const void* k, const void* v, const float* bias,
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
                        void* stream) {
@@ -426,7 +501,7 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.dv = dv;
   a.partial = partial;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch(is_bf16, m, n, c, heads, &a, nullptr, s);
+  cudaError_t err = dispatch(is_bf16, m, n, c, heads, j, &a, nullptr, s);
   if (err != cudaSuccess) return (int)err;
   const long long plane = (long long)heads * m * n;
   dbias_reduce_kernel<<<(unsigned)((plane + 255) / 256), 256, 0, s>>>(partial, dbias, groups,

@@ -281,11 +281,10 @@ _SIGNATURES = {
         "window_attention_occupancy": ([_CI] * 5 + [_LLP], _CI),
     },
     "attn_core_bwd": {
-        # 7 ints, the score scale, 10 tensor pointers and the stream
-        "attn_core_backward": ([_CI] * 7 + [_CF] + [_VP] * 11, _CI),
-        "attn_core_bwd_smem_bytes": ([_CI] * 4, _LL),
-        "attn_core_bwd_occupancy": ([_CI] * 5 + [_LLP], _CI),
-        "attn_core_bwd_max_keys": ([], _CI),
+        # 8 ints, the score scale, 10 tensor pointers and the stream
+        "attn_core_backward": ([_CI] * 8 + [_CF] + [_VP] * 11, _CI),
+        "attn_core_bwd_smem_bytes": ([_CI] * 5, _LL),
+        "attn_core_bwd_occupancy": ([_CI] * 6 + [_LLP], _CI),
     },
 }
 
@@ -412,7 +411,7 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
 
 
 def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
-    """Launch the backward kernel and its dbias reduction."""
+    """Launch the backward kernel the plan picks and its dbias reduction."""
     _refuse_grad("attn_core_backward", (q, k, v, bias, g))
     if q.device.type != "cuda":
         raise ValueError(f"the attention backward kernel runs on cuda tensors, got {q.device}")
@@ -427,11 +426,8 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     if tuple(bias.shape) != (num_heads, m, n) or bias.device != q.device:
         raise ValueError(f"bias must be {(num_heads, m, n)} on {q.device}, got {tuple(bias.shape)}")
     _check_head_dim(c, num_heads)
-    _check_backward_keys(n)
+    plan = attn_core_bwd_plan(m, n, c, num_heads)
     lib = _lib("attn_core_bwd")
-    smem = lib.attn_core_bwd_smem_bytes(m, n, c, num_heads)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"shapes need {smem} B of shared memory per block (limit {_MAX_SMEM})")
 
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     bias32 = bias.float().contiguous()
@@ -441,22 +437,61 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
     rc = lib.attn_core_backward(
-        int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups,
+        int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share,
         float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in (q, k, v, bias32, g, dq, dk, dv, partial, dbias)], _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"attn_core_backward kernel launch failed: CUDA error {rc}")
-    launch_counts["attn_core_backward"] += 1
+    launch_counts["attn_core_backward" if plan.row_share else "attn_core_backward_long_rows"] += 1
     return dq, dk, dv, dbias.to(bias.dtype)
 
 
-def _check_backward_keys(n: int) -> None:
-    """A lane of the backward keeps its share of a score row in registers,
-    so a row holds at most the library's ``attn_core_bwd_max_keys`` keys."""
-    most = _lib("attn_core_bwd").attn_core_bwd_max_keys()
-    if n > most:
-        raise ValueError(f"the attention backward kernel takes at most {most} keys, got {n}")
+# keys a lane of the backward's pass 1 may keep of a score row in registers
+# (kRowShares in csrc/device_common.cuh)
+_BWD_ROW_SHARES = (12, 16, 32)
+
+
+class BwdPlan(NamedTuple):
+    """Which backward kernel a launch takes: ``row_share`` J is the keys a
+    lane keeps of a score row in registers (12, 16 or 32), or 0 for the
+    long-row variant, which sweeps each row three times and keeps the dbias
+    sums in global memory; ``smem_bytes`` is its shared memory per block."""
+
+    row_share: int
+    smem_bytes: int
+
+
+def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int) -> int:
+    """Shared memory of a backward block (``bwd_smem_floats`` in
+    csrc/attn_core_bwd.cu): the padded k, v, q and g rows, three row
+    statistics, and with a row share the (M, N) dbias plane."""
+    ks = _key_stride(head_dim)
+    return 4 * (2 * (n + m) * ks + 3 * m + (m * n if row_share else 0))
+
+
+def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
+    """The backward kernel for windows of M query rows and N keys at width C
+    over ``num_heads`` heads: rows of at most 32 x 32 keys whose (M, N)
+    plane fits in shared memory beside the k/v rows keep their row share in
+    registers (the fewest J with N <= 32 J); any other row takes the
+    long-row variant. Raises ``ValueError`` when even that needs more shared
+    memory than a block has: the autograd Functions call it before their
+    forward, so no backward refuses a shape whose forward ran. A function of
+    its arguments alone."""
+    hd = c // num_heads
+    for j in _BWD_ROW_SHARES:
+        if n <= 32 * j:
+            smem = attn_core_bwd_smem_bytes(m, n, hd, j)
+            if smem <= _MAX_SMEM:
+                return BwdPlan(j, smem)
+            break
+    smem = attn_core_bwd_smem_bytes(m, n, hd, 0)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"the attention backward kernel cannot take {n} keys at head_dim {hd}: "
+                         f"its k and v rows need {smem} B of shared memory per block "
+                         f"(limit {_MAX_SMEM})")
+    return BwdPlan(0, smem)
 
 
 def bwd_window_groups(b_: int, heads: int, blocks_per_sm: int, sms: int) -> int:
@@ -478,12 +513,14 @@ def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype,
     """What the backward kernel's instantiation for these shapes gets on
     CUDA card ``device_index``: registers and spill bytes per thread
     (ptxas), dynamic shared memory per block, threads per block, resident
-    blocks per SM, J (keys a lane keeps of a score row), S (lanes per key in
-    pass 2) and the card's SMs."""
+    blocks per SM, J (keys a lane keeps of a score row; 0 for the long-row
+    variant), S (lanes per key in pass 2) and the card's SMs, for the kernel
+    :func:`attn_core_bwd_plan` picks."""
+    plan = attn_core_bwd_plan(m, n, c, num_heads)
     info = (ctypes.c_longlong * 7)()
     with torch.cuda.device(device_index):
         rc = _lib("attn_core_bwd").attn_core_bwd_occupancy(
-            int(dtype == torch.bfloat16), m, n, c, num_heads, info)
+            int(dtype == torch.bfloat16), m, n, c, num_heads, plan.row_share, info)
     if rc != 0:
         raise RuntimeError(f"attn_core_bwd_occupancy failed: CUDA error {rc}")
     keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "slices")
@@ -691,6 +728,8 @@ class SwinBlockFunction(torch.autograd.Function):
         if x.device.type == "cpu":
             out, acc = swin_block_reference(x, ctr, p, num_heads, q_ind, activation, masks, True)
         else:
+            d, _, m, c = x.shape
+            attn_core_bwd_plan(m, d * m, c, num_heads)  # refuse before the forward, not in the backward
             out, acc = _launch_swin_block(x, ctr, p, num_heads, q_ind, activation, masks)
         ctx.save_for_backward(x, ctr, acc, m1, m2, *params)
         ctx.cfg = (num_heads, q_ind, activation)
@@ -763,7 +802,7 @@ class WindowAttentionFunction(torch.autograd.Function):
         if q.device.type == "cpu":
             out = window_attention_reference(q, k, v, bias, num_heads)
         else:
-            _check_backward_keys(k.shape[1])  # refuse before the forward, not in the backward
+            attn_core_bwd_plan(q.shape[1], k.shape[1], q.shape[2], num_heads)  # refuse before the forward
             out = _launch_window_attention(q, k, v, bias, num_heads)
         ctx.save_for_backward(q, k, v, bias)
         ctx.num_heads = num_heads
@@ -806,6 +845,8 @@ class WindowBlockFunction(torch.autograd.Function):
         if x.device.type == "cpu":
             out, acc = window_block_reference(x, p, num_heads, q_ind, with_acc=True)
         else:
+            d, _, m, c = x.shape
+            attn_core_bwd_plan(m, d * m, c, num_heads)  # refuse before the forward
             out, acc = _launch_window_block(x, p, num_heads, q_ind)
         ctx.save_for_backward(x, acc, *params)
         ctx.cfg = (num_heads, q_ind)

@@ -139,18 +139,25 @@ def test_cuda_masked_kernel_and_acc_match_twin(cuda_device, dilated, heads):
     (23, 49, 343, 16, 256),  # a B_ that no group count divides
     (6, 49, 196, 2, 64), (4, 16, 48, 16, 16), (4, 16, 48, 8, 16),  # head_dim 32, 1, 2
     (3, 49, 686, 4, 32),  # N above 512 keys: a lane keeps 32 of a row
+    # long rows: 21 buffer frames of 7x7 windows at the flagship's levels,
+    # 17 of 8x8 at the 8x8 config's, 1025 keys at head_dim 1, and 1024 keys
+    # whose (M, N) plane does not fit in shared memory
+    (252, 49, 1029, 16, 64), (20, 49, 1029, 16, 256), (180, 64, 1088, 16, 64),
+    (12, 64, 1088, 16, 256), (5, 16, 1025, 16, 16), (3, 64, 1024, 16, 256),
 ])
 def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, m, n, heads, c):
     g = torch.Generator(device=cuda_device).manual_seed(b_)
     f = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
     q, k, v, gr, bias = f(b_, m, c), f(b_, n, c), f(b_, n, c), f(b_, m, c), f(heads, m, n) * 0.5
+    key = "attn_core_backward" if wac.attn_core_bwd_plan(m, n, c, heads).row_share else \
+        "attn_core_backward_long_rows"
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         ins = [t.to(dt) for t in (q, k, v)]
-        before = launch_counts["attn_core_backward"]
+        before = launch_counts[key]
         got = attn_core_backward(*ins, bias, gr.to(dt), heads)
         again = attn_core_backward(*ins, bias, gr.to(dt), heads)
         torch.cuda.synchronize()
-        assert launch_counts["attn_core_backward"] == before + 2
+        assert launch_counts[key] == before + 2
         ref = attn_core_backward_reference(*ins, bias, gr.to(dt), heads)
         for a, b, r in zip(got, again, ref):
             assert torch.equal(a, b)  # dbias sums in a fixed order: no atomics
@@ -162,32 +169,48 @@ def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, 
 @pytest.mark.cuda
 def test_cuda_backward_refuses_rows_above_its_register_share(cuda_device):
     """A lane of the backward keeps at most 32 keys of a score row in
-    registers: 1024 keys run, 1025 raise before any launch."""
+    registers: 1024 keys run that kernel, 1025 the long-row variant, and
+    rows whose k and v exceed a block's shared memory raise before any
+    launch."""
     f = lambda *s: torch.randn(*s, device=cuda_device)
-    for n, ok in ((1024, True), (1025, False)):
-        q, k, v, bias = f(1, 4, 4), f(1, n, 4), f(1, n, 4), f(1, 4, n)
-        before = launch_counts["attn_core_backward"]
-        if ok:
-            got = attn_core_backward(q, k, v, bias, q, 1)
-            ref = attn_core_backward_reference(q, k, v, bias, q, 1)
+    for n, heads, c, key in ((1024, 1, 4, "attn_core_backward"),
+                             (1025, 1, 4, "attn_core_backward_long_rows"),
+                             (1800, 1, 32, None)):
+        q, k, v, bias = f(1, 4, c), f(1, n, c), f(1, n, c), f(heads, 4, n)
+        before = dict(launch_counts)
+        if key is not None:
+            got = attn_core_backward(q, k, v, bias, q, heads)
+            ref = attn_core_backward_reference(q, k, v, bias, q, heads)
             torch.cuda.synchronize()
             for a, r in zip(got, ref):
                 assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
         else:
-            with pytest.raises(ValueError):
-                attn_core_backward(q, k, v, bias, q, 1)
-        assert launch_counts["attn_core_backward"] == before + ok
+            with pytest.raises(ValueError, match="shared memory"):
+                attn_core_backward(q, k, v, bias, q, heads)
+        assert dict(launch_counts) == {**before, **({key: before.get(key, 0) + 1} if key else {})}
 
 
 @pytest.mark.cuda
 def test_cuda_window_attention_with_grad_refuses_keys_its_backward_cannot_take(cuda_device):
-    """With a gradient wanted, fused_window_attention refuses more keys than
-    the backward takes before its forward launches; without one the forward
-    kernel runs them."""
+    """With a gradient wanted, fused_window_attention trains rows of 1025
+    keys (the backward's long-row variant) like its twin's autograd, and
+    refuses rows whose k and v exceed a block's shared memory before its
+    forward launches; without a gradient the forward kernel runs them."""
     f = lambda *s: torch.randn(*s, device=cuda_device)
-    q, k, v, bias = f(1, 4, 4), f(1, 1025, 4), f(1, 1025, 4), f(1, 4, 1025)
+    q, k, v, bias = f(2, 4, 4), f(2, 1025, 4), f(2, 1025, 4), f(1, 4, 1025)
+    grads = []
+    for fn in (fused_window_attention, window_attention_reference):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        out = fn(*leaves, 1)
+        grads.append(torch.autograd.grad(out, leaves, torch.ones_like(out) + out.detach()))
+    for a, r in zip(*grads):
+        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+
+    # 1450 keys at head_dim 16: the forward's k and v rows fit in a block's
+    # shared memory, the backward's k, v, q and g rows do not
+    q, k, v, bias = f(1, 4, 16), f(1, 1450, 16), f(1, 1450, 16), f(1, 4, 1450)
     before = launch_counts["fused_window_attention"]
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="shared memory"):
         fused_window_attention(q.clone().requires_grad_(), k, v, bias, 1)
     assert launch_counts["fused_window_attention"] == before
     got = fused_window_attention(q, k, v, bias, 1)
@@ -195,6 +218,59 @@ def test_cuda_window_attention_with_grad_refuses_keys_its_backward_cannot_take(c
     torch.cuda.synchronize()
     assert launch_counts["fused_window_attention"] == before + 1
     assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,c,heads", [(49, 343, 64, 16), (64, 448, 256, 16), (49, 1029, 64, 16),
+                                         (64, 1088, 256, 16), (64, 1024, 256, 16)])
+def test_cuda_backward_plan_is_the_librarys(cuda_device, m, n, c, heads):
+    """The planner's shared memory is the library's for the kernel it picks,
+    and the occupancy query reports that kernel's row share."""
+    plan = wac.attn_core_bwd_plan(m, n, c, heads)
+    lib = wac._lib("attn_core_bwd")
+    assert lib.attn_core_bwd_smem_bytes(m, n, c, heads, plan.row_share) == plan.smem_bytes
+    occ = wac.attn_core_backward_occupancy(m, n, c, heads, torch.float32, torch.cuda.current_device())
+    assert occ["row_share"] == plan.row_share and occ["smem_bytes"] == plan.smem_bytes
+    assert occ["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win,frames,c", [((7, 7), 21, 64), ((7, 7), 21, 256), ((8, 8), 17, 64),
+                                          ((8, 8), 17, 256)])
+def test_cuda_long_buffer_blocks_train_on_the_kernel_path(cuda_device, win, frames, c):
+    """Fault C3: a Swin block and an even dilated block (8x8: the
+    WindowAttention3D kernel) over long buffers (N = 1029 or 1088 keys)
+    train on the kernel path, the backward taking its long-row variant; the
+    gradients are within 1e-3 relative of the unfused path's."""
+    torch.manual_seed(7)
+    h, w = 2 * win[0], 2 * win[1]
+    x = torch.randn(frames, 1, h, w, c, device=cuda_device)
+    for dilate in (False, True):
+        blk = twa.SwinTransformerBlock3D(c, 16, (frames, *win), dilate_win=dilate,
+                                         use_kernel=True).to(cuda_device)
+        even_dilated = dilate and win[0] % 2 == 0
+        grads = []
+        for kernel in (True, False):
+            twa.set_attention_kernel(blk, kernel)
+            blk.zero_grad(set_to_none=True)
+            xl = x.clone().requires_grad_()
+            before = dict(launch_counts)
+            out = blk(xl)
+            out.square().mean().backward()
+            torch.cuda.synchronize()
+            launched = {k: v - before.get(k, 0) for k, v in launch_counts.items() if v != before.get(k, 0)}
+            if kernel:
+                fwd = "fused_window_block" if even_dilated else "fused_swin_block"
+                assert launched == {fwd: 1, "attn_core_backward_long_rows": 1}
+            else:
+                assert launched == {}
+            grads.append({"x": xl.grad, **{k: p.grad for k, p in blk.named_parameters()}})
+        for key, gu in grads[1].items():
+            gk = grads[0][key]
+            if key == "attn.kv.bias":
+                gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
+            rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
+            assert rel <= 1e-3, (key, dilate, rel)
 
 
 @pytest.mark.cuda
