@@ -55,6 +55,9 @@ def _torch_module_path(path: Tuple[str, ...], leaf: str) -> list:
         last = i == len(path) - 1
         if p == "decode":
             continue
+        if m := re.fullmatch(r"decoder(\d+)1_norm", p):
+            out += ["decoders", m[1], "1", "norm_layer"]  # the decoder conv's sibling norm
+            continue
         if m := re.fullmatch(r"decoder(\d+)([01])", p):
             out += ["decoders", m[1], m[2]]
             if m[2] == "1":
@@ -77,11 +80,15 @@ def _torch_module_path(path: Tuple[str, ...], leaf: str) -> list:
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax BDE2VID params (``{"params": ...}`` or the bare tree; numpy or
-    JAX arrays) -> the port's state dict: HWIO -> OIHW, (in, out) ->
-    (out, in), LayerNorm ``scale`` -> ``weight``, module paths renamed
-    (``decode/decoderN1`` -> ``decoders.N.1.conv2d``, ``feat_attnsL/resJ`` ->
-    ``feat_attns.L.J``, ...). Load it with :func:`load_state_dict_checked`."""
+    """flax BDE2VID variables (``{"params": ..., "batch_stats": ...}`` or the
+    bare param tree; numpy or JAX arrays) -> the port's state dict: HWIO ->
+    OIHW, (in, out) -> (out, in), LayerNorm/BatchNorm ``scale`` ->
+    ``weight``, ``batch_stats`` mean/var -> ``running_mean``/``running_var``
+    with a ``num_batches_tracked`` of 0 (flax keeps no count), module paths
+    renamed (``decode/decoderN1`` -> ``decoders.N.1.conv2d``,
+    ``decode/decoderN1_norm`` -> ``decoders.N.1.norm_layer``,
+    ``feat_attnsL/resJ`` -> ``feat_attns.L.J``, ...). Load it with
+    :func:`load_state_dict_checked`."""
     tree = params.get("params", params)
     sd = {}
     for path, val in _flax_paths(tree):
@@ -95,6 +102,11 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             name = leaf
         sd[".".join(mod + [name])] = torch.from_numpy(np.ascontiguousarray(val))
+    for path, val in _flax_paths(params.get("batch_stats", {})):
+        mod = ".".join(_torch_module_path(path[:-1], path[-1]))
+        name = {"mean": "running_mean", "var": "running_var"}[path[-1]]
+        sd[f"{mod}.{name}"] = torch.from_numpy(np.array(val, dtype=np.float32))
+        sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
     return sd
 
 

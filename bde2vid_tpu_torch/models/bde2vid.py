@@ -6,6 +6,18 @@ per-block ``linspace(0, rate, depth)``) with masks from a ``torch.Generator``
 passed to ``forward``; evaluation runs the model under ``torch.no_grad`` in
 the eval driver.
 
+The config surface is the JAX package's: ``skip_type`` sum or concat (a 1x1
+conv after each concatenation), ``norm`` None, BN or IN in every ConvLayer
+and after each decoder conv, ``recurrent_block_type`` convlstm or convgru,
+and ``remat``: in training, each time step of the encoder sweeps, of the
+sequential attention and of the depth-0 fallback is rematerialised
+(``nn.remat.checkpoint_step``); at eval it is ignored, as in JAX. A
+train-mode norm moves its running statistics once per call: the encoder
+convs then run step by step in each sweep's order (as the JAX scans carry
+them), the head and the decoder once over all T frames folded into the
+batch. The compute type is the input's: bf16 voxels run the model in bf16
+over f32 weights (bf16 training).
+
 Per level L: a forward and a separate backward ConvLSTM encoder sweep the
 sequence and their outputs are summed; if depths[L] > 0, DFrameAttention
 over a buffer of ``t + buffer_index`` neighbour frames (zeros out of range)
@@ -30,8 +42,15 @@ import torch
 import torch.nn as nn
 
 from bde2vid_tpu_torch.models.api import register_model
-from bde2vid_tpu_torch.nn.layers import ConvLayer, ResidualBlockNoBN, UpsampleConvLayer, get_activation
-from bde2vid_tpu_torch.nn.recurrent import ConvLSTMCell, recurrent_initial_state
+from bde2vid_tpu_torch.nn.layers import (
+    Conv2d,
+    ConvLayer,
+    ResidualBlockNoBN,
+    UpsampleConvLayer,
+    get_activation,
+)
+from bde2vid_tpu_torch.nn.recurrent import make_recurrent_cell, recurrent_initial_state
+from bde2vid_tpu_torch.nn.remat import checkpoint_step
 from bde2vid_tpu_torch.nn.window_attention import DFrameAttention
 
 # frames per batch of the parallel attention (JAX ``_AttnParallel``'s slab)
@@ -39,33 +58,63 @@ _PARALLEL_SLAB = 128
 
 
 class RecurrentConv(nn.Module):
-    """Strided ConvLayer + ConvLSTM cell (reference RecurrentConv,
-    model/BDE2VID/submodules.py:173-195): keys ``conv.conv2d.*`` and
-    ``recurrent_block.Gates.*``."""
+    """Strided ConvLayer + ConvLSTM or ConvGRU cell (reference RecurrentConv,
+    model/BDE2VID/submodules.py:173-195): keys ``conv.conv2d.*``,
+    ``conv.norm_layer.*`` and ``recurrent_block.Gates.*`` (LSTM) or
+    ``recurrent_block.{update,reset,out}_gate.*`` (GRU)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 activation: str, use_recurrent: bool = True):
+                 activation: str, use_recurrent: bool = True, norm: Optional[str] = None,
+                 recurrent_block_type: str = "convlstm"):
         super().__init__()
         self.conv = ConvLayer(in_channels, out_channels, kernel_size, stride=2,
-                              padding=kernel_size // 2, activation=activation)
-        self.recurrent_block = ConvLSTMCell(out_channels, out_channels, 3) if use_recurrent else None
+                              padding=kernel_size // 2, activation=activation, norm=norm)
+        self.block_type = recurrent_block_type
+        self.recurrent_block = (make_recurrent_cell(recurrent_block_type, out_channels, out_channels, 3)
+                                if use_recurrent else None)
 
-    def sweep(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-        """(T, N, C, H, W) -> (T, N, C', H', W'). The strided conv has no
-        state, so it runs on all T frames at once; the cell then steps
-        through time (backwards when ``reverse``)."""
+    def _cell(self, y: torch.Tensor, *state: torch.Tensor):
+        """One step of the cell: (output, *new state), the state flat ((h, c)
+        for the LSTM, (h,) for the GRU)."""
+        out, new = self.recurrent_block(y, state if len(state) == 2 else state[0])
+        return (out, *new) if isinstance(new, tuple) else (out, new)
+
+    def _step(self, x: torch.Tensor, *state: torch.Tensor):
+        return self._cell(self.conv(x), *state)
+
+    def sweep(self, x: torch.Tensor, reverse: bool = False, remat: bool = False) -> torch.Tensor:
+        """(T, N, C, H, W) -> (T, N, C', H', W'), the cell stepping through
+        time (backwards when ``reverse``). Without a norm the strided conv has
+        no state and runs on all T frames at once, before the cell's steps;
+        with one it runs in each step, so a train-mode norm moves its
+        statistics once per step in the sweep's order. ``remat``: each step
+        (the cell, with the conv where it runs per step) is rematerialised
+        in the backward."""
         t, n = x.shape[:2]
-        y = self.conv(x.reshape(t * n, *x.shape[2:]))
-        y = y.reshape(t, n, *y.shape[1:])
-        if self.recurrent_block is None:
-            return y
-        state = recurrent_initial_state("convlstm", n, y.shape[3], y.shape[4], y.shape[2],
-                                        dtype=y.dtype, device=y.device)
-        out = torch.empty_like(y)
-        # writing out[i] in place is safe under autograd: no op saves ``out``
-        for i in (reversed(range(t)) if reverse else range(t)):
-            out[i], state = self.recurrent_block(y[i], state)
-        return out
+        order = reversed(range(t)) if reverse else range(t)
+        if self.conv.norm_layer is None:
+            y = self.conv(x.reshape(t * n, *x.shape[2:]))
+            y = y.reshape(t, n, *y.shape[1:])
+            if self.recurrent_block is None:
+                return y
+            step, inputs, (c, h, w) = self._cell, y, y.shape[2:]
+        elif self.recurrent_block is None:
+            outs = [None] * t
+            for i in order:
+                outs[i] = checkpoint_step(self.conv, x[i]) if remat else self.conv(x[i])
+            return torch.stack(outs)
+        else:
+            conv = self.conv.conv2d
+            h, w = ((size + 2 * pad - k) // stride + 1 for size, pad, k, stride in
+                    zip(x.shape[3:], conv.padding, conv.kernel_size, conv.stride))
+            step, inputs, c = self._step, x, conv.out_channels
+        state = recurrent_initial_state(self.block_type, n, h, w, c, dtype=x.dtype, device=x.device)
+        state = state if isinstance(state, tuple) else (state,)
+        outs = [None] * t
+        for i in order:
+            res = checkpoint_step(step, inputs[i], *state) if remat else step(inputs[i], *state)
+            outs[i], state = res[0], res[1:]
+        return torch.stack(outs)
 
 
 class _TakeFirst(nn.Module):
@@ -88,28 +137,32 @@ class BDE2VIDGenerator(nn.Module):
     images (T, N, num_output_channels, H, W)."""
 
     def __init__(self, num_bins: int = 5, basechannels: int = 32, num_encoders: int = 3, ks: int = 5,
-                 num_res_blocks: int = 2, useRC: bool = True, out_activation: str = "sigmoid",
+                 num_res_blocks: int = 2, norm: Optional[str] = None,
+                 recurrent_block_type: str = "convlstm", useRC: bool = True,
+                 skip_type: str = "sum", out_activation: str = "sigmoid",
                  num_output_channels: int = 1, act_net: str = "default",
                  buffer_index: Sequence[int] = (-3, -2, -1, 0, 1, 2, 3), q_idx: Optional[int] = None,
                  window_size: Tuple[int, int] = (7, 7), depths: Sequence[int] = (4, 0, 6),
                  num_heads: int = 16, act_attn: str = "default", use_kernel: bool = False,
                  drop_path_rate: float = 0.2, parallel_attention: bool = False,
-                 nwindow_size: Optional[Tuple[int, int]] = None):
+                 nwindow_size: Optional[Tuple[int, int]] = None, remat: bool = False):
         super().__init__()
         act = "relu" if act_net == "default" else act_net
         act_attn = "gelu" if act_attn == "default" else act_attn
         self.num_encoders = num_encoders
         self.buffer_index = tuple(int(i) for i in buffer_index)
         self.parallel_attention = parallel_attention
+        self.concat = skip_type == "concat"
+        self.remat = remat
         self.out_activation = get_activation(out_activation)
         ins = [basechannels * 2**i for i in range(num_encoders)]
         outs = [basechannels * 2 ** (i + 1) for i in range(num_encoders)]
 
-        self.head = ConvLayer(num_bins, basechannels, ks, 1, ks // 2, activation=act)
+        self.head = ConvLayer(num_bins, basechannels, ks, 1, ks // 2, activation=act, norm=norm)
         self.forward_encoder = nn.ModuleList(
-            RecurrentConv(i, o, ks, act, useRC) for i, o in zip(ins, outs))
+            RecurrentConv(i, o, ks, act, useRC, norm, recurrent_block_type) for i, o in zip(ins, outs))
         self.backward_encoder = nn.ModuleList(
-            RecurrentConv(i, o, ks, act, useRC) for i, o in zip(ins, outs))
+            RecurrentConv(i, o, ks, act, useRC, norm, recurrent_block_type) for i, o in zip(ins, outs))
         # constructed but never called by the reference forward (V5:55-60);
         # kept so reference checkpoints load without a converter
         self.fusion_layers = nn.ModuleList(nn.Conv2d(2 * o, o, 1) for o in outs)
@@ -127,14 +180,19 @@ class BDE2VIDGenerator(nn.Module):
             else:
                 attns.append(None)
         self.feat_attns = nn.ModuleList(attns)
+        # with concat skips, slot 0 of each decoder and of predI is a 1x1 conv
+        # over the concatenation (JAX decoder{i}0, predI0); with sums it is empty
         self.decoders = nn.ModuleList(
-            nn.Sequential(nn.Identity(), UpsampleConvLayer(ci, co, ks, ks // 2, activation="relu6"))
+            nn.Sequential(Conv2d(2 * ci, ci, 1) if self.concat else nn.Identity(),
+                          UpsampleConvLayer(ci, co, ks, ks // 2, activation="relu6", norm=norm))
             for ci, co in zip(outs[::-1], ins[::-1])
         )
-        self.predI = nn.Sequential(nn.Identity(), nn.Conv2d(basechannels, num_output_channels, 1))
+        self.predI = nn.Sequential(
+            Conv2d(2 * basechannels, basechannels, 1) if self.concat else nn.Identity(),
+            Conv2d(basechannels, num_output_channels, 1))
 
-    def _neighbours(self, merged, t: int) -> torch.Tensor:
-        """(D, ...) buffer of frames t + buffer_index, zeros out of range."""
+    def _neighbours(self, merged, t: int) -> list:
+        """The D frames t + buffer_index, zeros out of range."""
         T = len(merged)
         zero = None
         frames = []
@@ -145,17 +203,27 @@ class BDE2VIDGenerator(nn.Module):
             else:
                 zero = torch.zeros_like(merged[0]) if zero is None else zero
                 frames.append(zero)
-        return torch.stack(frames)
+        return frames
+
+    def _remat(self) -> bool:
+        return self.remat and self.training and torch.is_grad_enabled()
 
     def _attend(self, attn: DFrameAttention, merged: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
         """Sequential attention over t (reference V5:151-169): frame t
         attends to already-updated past frames and original future frames.
         The frames live in a list, not in one tensor written in place:
-        autograd refuses an in-place write to a tensor it saved."""
+        autograd refuses an in-place write to a tensor it saved. With remat
+        each step is rematerialised, its DropPath masks drawn again from
+        ``generator``'s state at the step."""
+
+        def step(*frames):
+            return attn(torch.stack(frames[:-1]), generator) + frames[-1]
+
         seq = list(merged.permute(0, 1, 3, 4, 2).unbind(0))  # T x (N, H, W, C) tokens
         for t in range(len(seq)):
-            seq[t] = attn(self._neighbours(seq, t), generator) + seq[t]
+            args = (*self._neighbours(seq, t), seq[t])
+            seq[t] = checkpoint_step(step, *args, generator=generator) if self._remat() else step(*args)
         return torch.stack(seq).permute(0, 1, 4, 2, 3)
 
     def _attend_parallel(self, attn: DFrameAttention, merged: torch.Tensor,
@@ -180,12 +248,16 @@ class BDE2VIDGenerator(nn.Module):
 
     def _res_fallback(self, res: nn.Sequential, merged: torch.Tensor) -> torch.Tensor:
         # a list of frames, as in _attend: the convs save the frames they read
+
+        def step(x, cur):
+            return res[1:](x) + cur
+
         seq = list(merged.unbind(0))
         off = self.buffer_index[0]
         for t in range(len(seq)):
             i = t + off
             x = seq[i] if 0 <= i < len(seq) else torch.zeros_like(seq[t])
-            seq[t] = res[1:](x) + seq[t]
+            seq[t] = checkpoint_step(step, x, seq[t]) if self._remat() else step(x, seq[t])
         return torch.stack(seq)
 
     def forward(self, voxels: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -193,9 +265,10 @@ class BDE2VIDGenerator(nn.Module):
         head = self.head(voxels.reshape(T * N, *voxels.shape[2:]))
         target = head.reshape(T, N, *head.shape[1:])
         feats = []
+        remat = self._remat()
         for lvl in range(self.num_encoders):
-            merged = (self.forward_encoder[lvl].sweep(target)
-                      + self.backward_encoder[lvl].sweep(target, reverse=True))
+            merged = (self.forward_encoder[lvl].sweep(target, remat=remat)
+                      + self.backward_encoder[lvl].sweep(target, reverse=True, remat=remat))
             block = self.feat_attns[lvl]
             if isinstance(block, DFrameAttention) and self.parallel_attention:
                 merged = self._attend_parallel(block, merged, generator)
@@ -210,13 +283,12 @@ class BDE2VIDGenerator(nn.Module):
 
         fold = [f.reshape(T * N, *f.shape[2:]) for f in feats]
         x = fold[-1]
-        for i, dec in enumerate(self.decoders):
-            x = dec(fold[-2 - i] + x)
-        img = self.out_activation(self.predI(x + head))
+        for i, (fuse, up) in enumerate(self.decoders):
+            prev = fold[-2 - i]
+            x = up(fuse(torch.cat([prev, x], 1)) if self.concat else prev + x)
+        fuse, pred = self.predI
+        img = self.out_activation(pred(fuse(torch.cat([x, head], 1)) if self.concat else x + head))
         return img.reshape(T, N, *img.shape[1:])
-
-
-_UNPORTED_TRUE = ("remat",)
 
 
 @register_model("BDE2VID")
@@ -226,7 +298,8 @@ class BDE2VID(nn.Module):
     (T, N, B, H, W) to ``{"image": (T, N, 1, H, W)}``. Recurrent state lives
     inside one call, as in the reference (state resets every forward).
     ``forward`` runs with whatever grad mode the caller set; in training
-    mode (``.train()``) a ``torch.Generator`` draws the DropPath masks."""
+    mode (``.train()``) a ``torch.Generator`` draws the DropPath masks. The
+    output is in the voxels' type."""
 
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
@@ -245,16 +318,9 @@ class BDE2VID(nn.Module):
 
         skip_type = gcfg.get("skip_type", "sum")
         if skip_type not in ("sum", "concat"):
+            # the reference's no_skip calls its Identity with two arguments
+            # (a TypeError upstream), so no checkpoint uses it; JAX refuses it too
             raise ValueError(f"unsupported skip_type {skip_type!r}")
-        if skip_type == "concat":
-            raise NotImplementedError("skip_type='concat' is not ported yet")
-        for key in _UNPORTED_TRUE:
-            if flag(key):
-                raise NotImplementedError(f"{key}=True is not ported yet")
-        if gcfg.get("norm") is not None:
-            raise NotImplementedError(f"norm={gcfg['norm']!r} is not ported yet (norm=None only)")
-        if gcfg.get("recurrent_block_type", "convlstm") != "convlstm":
-            raise NotImplementedError("only recurrent_block_type='convlstm' is ported")
         # scan_unroll and pallas_f32_exact tune the TPU program only: the
         # port's f32 kernel always computes exact f32 products
         self.generator = BDE2VIDGenerator(
@@ -263,7 +329,10 @@ class BDE2VID(nn.Module):
             num_encoders=gcfg.get("num_encoders", 3),
             ks=gcfg.get("ks", 5),
             num_res_blocks=gcfg.get("num_res_blocks", 2),
+            norm=gcfg.get("norm", None),
+            recurrent_block_type=gcfg.get("recurrent_block_type", "convlstm"),
             useRC=gcfg.get("useRC", True),
+            skip_type=skip_type,
             out_activation=out_act,
             num_output_channels=gcfg.get("num_output_channels", 1),
             act_net=gcfg.get("act_net", "default"),
@@ -277,6 +346,7 @@ class BDE2VID(nn.Module):
             drop_path_rate=float(gcfg.get("drop_path_rate", 0.2)),
             parallel_attention=flag("parallel_attention"),
             nwindow_size=tuple(gcfg["nwindow_size"]) if gcfg.get("nwindow_size") else None,
+            remat=flag("remat"),
         )
 
     def forward(self, voxels: torch.Tensor,

@@ -1,7 +1,15 @@
 """Convolutional building blocks (counterpart of ``bde2vid_tpu/nn/layers.py``).
 
 NCHW tensors and torch padding (``padding=k//2``), so the reference
-checkpoint layout (``conv2d.weight`` in OIHW) loads as is.
+checkpoint layout (``conv2d.weight`` in OIHW, ``norm_layer.running_mean``)
+loads as is.
+
+The layers take their weights to the input's type at use, as flax's
+``dtype`` does: a bf16 input computes in bf16 while f32 master weights get
+their gradients in f32 (bf16 training). With weights already in the input's
+type (f32, or a model cast to bf16 for eval) the cast is a no-op. Norms take
+their statistics and affine in f32 and return the input's type, as flax's
+do.
 """
 
 from __future__ import annotations
@@ -11,6 +19,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from bde2vid_tpu_torch.nn.remat import recomputing
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -39,31 +49,146 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
         raise ValueError(f"unknown activation {name!r}") from None
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with its weight and bias cast to the input's type at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class Linear(nn.Linear):
+    """nn.Linear with its weight and bias cast to the input's type at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm taken in f32 and returned in the input's type (flax
+    LayerNorm at ``dtype``: f32 statistics and affine, one cast at the end)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, _cast(self.weight, torch.float32),
+                            _cast(self.bias, torch.float32), self.eps).to(x.dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm as flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
+    (JAX ``nn/layers.py::_make_norm``): in training mode it normalises with
+    the batch's mean and biased variance over (N, H, W) and moves the
+    running statistics 0.1 of the way to them, the variance biased too (torch's
+    own update takes the unbiased one); in eval mode it normalises with the
+    running statistics. Statistics and affine in f32; the result in the
+    input's type. A recompute for the backward (``nn.remat``) leaves the
+    running statistics alone."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean((0, 2, 3))
+            var = x32.var((0, 2, 3), unbiased=False)
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+                    self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """InstanceNorm without affine (JAX ``nn/layers.py::InstanceNorm``), in
+    two flavours. ``track_stats=True`` is torch's
+    ``InstanceNorm2d(track_running_stats=True)`` of the reference ConvLayer:
+    training normalises each instance with its own mean and biased variance
+    over (H, W) and moves the running statistics 0.1 of the way to the
+    batch mean of those means and of the unbiased variances; eval
+    normalises with the running statistics. ``track_stats=False`` (the
+    reference ResidualBlock's) normalises per instance always and keeps no
+    statistics. f32 inside, the input's type out; a recompute for the
+    backward leaves the running statistics alone."""
+
+    def __init__(self, features: int, track_stats: bool = True):
+        super().__init__(features, eps=1e-5, momentum=0.1, affine=False,
+                         track_running_stats=track_stats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.track_running_stats and not self.training:
+            mean = self.running_mean.float()[:, None, None]
+            var = self.running_var.float()[:, None, None]
+        else:
+            mean = x32.mean((2, 3), keepdim=True)
+            var = x32.var((2, 3), unbiased=False, keepdim=True)
+            if self.track_running_stats and not recomputing():
+                n = x.shape[2] * x.shape[3]
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.mean((0, 2, 3)).to(self.running_mean.dtype),
+                                            self.momentum)
+                    unbiased = var.mean((0, 2, 3)) * (n / max(n - 1, 1))
+                    self.running_var.lerp_(unbiased.to(self.running_var.dtype), self.momentum)
+                    self.num_batches_tracked += 1
+        return ((x32 - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+def make_norm(norm: Optional[str], features: int, in_track_stats: bool = True) -> Optional[nn.Module]:
+    """"BN", "IN" or None (JAX ``_make_norm``); ``in_track_stats=False``
+    selects the reference ResidualBlock's stat-less InstanceNorm."""
+    if norm is None:
+        return None
+    if norm == "BN":
+        return BatchNorm2d(features)
+    if norm == "IN":
+        return InstanceNorm2d(features, track_stats=in_track_stats)
+    raise ValueError(f"unknown norm {norm!r} (BN, IN or None)")
+
+
 class ConvLayer(nn.Module):
-    """conv -> activation (reference ConvLayer without a norm; the port
-    supports ``norm=None`` only)."""
+    """conv -> optional BN/IN -> activation (reference ConvLayer); the conv
+    has no bias under BN."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, activation: Optional[str] = "relu"):
+                 stride: int = 1, padding: int = 0, activation: Optional[str] = "relu",
+                 norm: Optional[str] = None):
         super().__init__()
-        self.conv2d = nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding)
+        self.conv2d = Conv2d(in_channels, out_channels, kernel_size, stride, padding,
+                             bias=norm != "BN")
+        self.norm_layer = make_norm(norm, out_channels)
         self.activation = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.activation(self.conv2d(x))
+        y = self.conv2d(x)
+        if self.norm_layer is not None:
+            y = self.norm_layer(y)
+        return self.activation(y)
 
 
 class UpsampleConvLayer(nn.Module):
-    """Bilinear x2 -> conv -> activation (reference UpsampleConvLayer)."""
+    """Bilinear x2 -> conv -> optional BN/IN -> activation (reference
+    UpsampleConvLayer); the conv has no bias under BN."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 padding: int = 0, activation: Optional[str] = "relu"):
+                 padding: int = 0, activation: Optional[str] = "relu", norm: Optional[str] = None):
         super().__init__()
-        self.conv2d = nn.Conv2d(in_channels, out_channels, kernel_size, 1, padding)
+        self.conv2d = Conv2d(in_channels, out_channels, kernel_size, 1, padding, bias=norm != "BN")
+        self.norm_layer = make_norm(norm, out_channels)
         self.activation = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.activation(self.conv2d(resize_bilinear_2x(x)))
+        y = self.conv2d(resize_bilinear_2x(x))
+        if self.norm_layer is not None:
+            y = self.norm_layer(y)
+        return self.activation(y)
 
 
 def resize_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
@@ -77,8 +202,8 @@ class ResidualBlockNoBN(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(features, features, 3, 1, 1)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
+        self.conv1 = Conv2d(features, features, 3, 1, 1)
+        self.conv2 = Conv2d(features, features, 3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.conv2(torch.relu(self.conv1(x)))

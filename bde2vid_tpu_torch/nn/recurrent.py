@@ -1,17 +1,23 @@
-"""Convolutional LSTM cell (counterpart of ``bde2vid_tpu/nn/recurrent.py``).
+"""Convolutional LSTM and GRU cells (counterpart of
+``bde2vid_tpu/nn/recurrent.py``; reference model/e2vid/submodules.py
+ConvLSTM :250-307, ConvGRU :309-348).
 
 State is explicit: ``recurrent_initial_state`` makes it and the caller
-threads it through time. Only ``convlstm`` is ported.
+threads it through time; ``make_recurrent_cell`` picks the cell by the
+config's ``recurrent_block_type``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.nn as nn
 
-State = Tuple[torch.Tensor, torch.Tensor]
+from bde2vid_tpu_torch.nn.layers import Conv2d
+
+LstmState = Tuple[torch.Tensor, torch.Tensor]
+State = Union[LstmState, torch.Tensor]
 
 
 class ConvLSTMCell(nn.Module):
@@ -22,10 +28,10 @@ class ConvLSTMCell(nn.Module):
     def __init__(self, input_size: int, hidden_size: int, kernel_size: int = 3):
         super().__init__()
         self.hidden_size = hidden_size
-        self.Gates = nn.Conv2d(input_size + hidden_size, 4 * hidden_size, kernel_size,
-                               padding=kernel_size // 2)
+        self.Gates = Conv2d(input_size + hidden_size, 4 * hidden_size, kernel_size,
+                            padding=kernel_size // 2)
 
-    def forward(self, x: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
+    def forward(self, x: torch.Tensor, state: LstmState) -> Tuple[torch.Tensor, LstmState]:
         prev_h, prev_c = state
         gates = self.Gates(torch.cat([x, prev_h.to(x.dtype)], dim=1))
         i, f, o, g = gates.chunk(4, dim=1)
@@ -34,10 +40,49 @@ class ConvLSTMCell(nn.Module):
         return h, (h, c)
 
 
+class ConvGRUCell(nn.Module):
+    """Three convs ``update_gate``, ``reset_gate`` and ``out_gate``
+    (orthogonal weights, zero biases, as the reference initialises them):
+    new = prev (1 - z) + tanh(out_gate([x, prev r])) z, with z and r the
+    sigmoids of the update and reset gates over [x, prev]. The state is the
+    hidden map itself."""
+
+    def __init__(self, input_size: int, hidden_size: int, kernel_size: int = 3):
+        super().__init__()
+        self.hidden_size = hidden_size
+        for name in ("update_gate", "reset_gate", "out_gate"):
+            conv = Conv2d(input_size + hidden_size, hidden_size, kernel_size,
+                          padding=kernel_size // 2)
+            nn.init.orthogonal_(conv.weight)
+            nn.init.zeros_(conv.bias)
+            setattr(self, name, conv)
+
+    def forward(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        prev = state.to(x.dtype)
+        xin = torch.cat([x, prev], dim=1)
+        update = torch.sigmoid(self.update_gate(xin))
+        reset = torch.sigmoid(self.reset_gate(xin))
+        cand = torch.tanh(self.out_gate(torch.cat([x, prev * reset], dim=1)))
+        new = prev * (1.0 - update) + cand * update
+        return new, new
+
+
+def make_recurrent_cell(block_type: str, input_size: int, hidden_size: int,
+                        kernel_size: int = 3) -> nn.Module:
+    if block_type == "convlstm":
+        return ConvLSTMCell(input_size, hidden_size, kernel_size)
+    if block_type == "convgru":
+        return ConvGRUCell(input_size, hidden_size, kernel_size)
+    raise ValueError(f"unknown recurrent_block_type {block_type!r} (convlstm|convgru)")
+
+
 def recurrent_initial_state(block_type: str, batch: int, h: int, w: int, hidden: int,
                             dtype=torch.float32, device=None) -> State:
-    """Zero (h, c) state of shape (batch, hidden, h, w)."""
-    if block_type != "convlstm":
-        raise NotImplementedError(f"recurrent_block_type {block_type!r}: only convlstm is ported")
+    """Zero state of shape (batch, hidden, h, w): (h, c) for convlstm, the
+    hidden map for convgru."""
     z = torch.zeros((batch, hidden, h, w), dtype=dtype, device=device)
-    return z, z
+    if block_type == "convlstm":
+        return z, z
+    if block_type == "convgru":
+        return z
+    raise ValueError(f"unknown recurrent_block_type {block_type!r} (convlstm|convgru)")

@@ -40,7 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bde2vid_tpu_torch.nn.layers import get_activation
+from bde2vid_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, get_activation
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
     SwinBlockParams,
     WindowBlockParams,
@@ -294,8 +294,8 @@ class WindowAttention3D(nn.Module):
         wd, wh, ww = self.window_size
         self.q_ind = wd // 2 if q_ind is None else q_ind
         self.nwin_size = None if nwin_size is None else tuple(nwin_size)
-        self.norm_q = nn.LayerNorm(dim)
-        self.norm_kv = nn.LayerNorm(dim)
+        self.norm_q = LayerNorm(dim)
+        self.norm_kv = LayerNorm(dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads)
         )
@@ -308,10 +308,10 @@ class WindowAttention3D(nn.Module):
         if self.nwin_size is not None:
             # one grouped conv over the whole window gives ntok tokens per channel
             ntok = self.nwin_size[0] * self.nwin_size[1]
-            self.reduction_conv = nn.Conv2d(dim, ntok * dim, (wh, ww), groups=dim)
-        self.q = nn.Linear(dim, dim, bias=qkv_bias)
-        self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+            self.reduction_conv = Conv2d(dim, ntok * dim, (wh, ww), groups=dim)
+        self.q = Linear(dim, dim, bias=qkv_bias)
+        self.kv = Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
 
     def bias(self, h: int, w: int, n: int) -> torch.Tensor:
         """(H, M, N) f32 relative-position bias for an (h, w) window and N kv
@@ -374,8 +374,8 @@ class Mlp(nn.Module):
 
     def __init__(self, in_features: int, hidden: int, activation: str = "gelu"):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden)
-        self.fc2 = nn.Linear(hidden, in_features)
+        self.fc1 = Linear(in_features, hidden)
+        self.fc2 = Linear(hidden, in_features)
         self.act = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -398,7 +398,7 @@ class SwinTransformerBlock3D(nn.Module):
         self.drop_path = float(drop_path)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads, q_ind=self.q_ind,
                                       nwin_size=nwindow_size)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, 4 * dim, activation)  # mlp_ratio 4 (reference default)
 
     def keep_masks(self, b: int, device, generator: Optional[torch.Generator]):

@@ -113,14 +113,24 @@ def test_flax_params_carried_over_match_jax(depths):
     np.testing.assert_allclose(out[:, 0, 0].numpy(), want, atol=2e-4, rtol=0)
 
 
-# parallel_attention and nwindow_size are ported: tests/test_torch_parallel_nwindow.py
+# parallel_attention and nwindow_size are ported: tests/test_torch_parallel_nwindow.py;
+# concat skips, BN/IN, ConvGRU and remat build and run here and match JAX in
+# tests/test_torch_config_surface.py; no_skip is refused as JAX refuses it
 @pytest.mark.parametrize("extra,exc", [
-    ({"remat": True}, NotImplementedError),
-    ({"norm": "BN"}, NotImplementedError),
-    ({"skip_type": "concat"}, NotImplementedError),
-    ({"recurrent_block_type": "convgru"}, NotImplementedError),
-    ({"skip_type": "no_skip"}, ValueError),
+    pytest.param({"remat": True}, None, id="remat"),
+    pytest.param({"norm": "BN"}, None, id="BN"),
+    pytest.param({"skip_type": "concat"}, None, id="concat"),
+    pytest.param({"recurrent_block_type": "convgru"}, None, id="convgru"),
+    pytest.param({"skip_type": "no_skip"}, ValueError, id="no_skip"),
 ])
 def test_unsupported_config_keys_raise(extra, exc):
-    with pytest.raises(exc):
-        build_model("BDE2VID", {"generator": dict(_SMALL, depths=[1, 1], **extra)}, device="cpu")
+    cfg = {"generator": dict(_SMALL, depths=[1, 1], **extra)}
+    if exc is not None:
+        with pytest.raises(exc):
+            build_model("BDE2VID", cfg, device="cpu")
+        return
+    model = build_model("BDE2VID", cfg, device="cpu")
+    v = torch.from_numpy(np.ascontiguousarray(_voxels(3, 16, 16, seed=2).transpose(0, 1, 4, 2, 3)))
+    with torch.no_grad():
+        out = model(v)["image"]
+    assert out.shape == (3, 1, 1, 16, 16) and torch.isfinite(out).all()
