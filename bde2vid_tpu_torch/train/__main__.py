@@ -14,7 +14,7 @@ The json config has the JAX CLI's schema:
               "noise_std": 0.1, "noise_fraction": 0.05,
               "hot_pixel_std": 2.0, "max_hot_pixel_fraction": 0.001,
               "transforms": {"RandomRotationFlip": {...}, "RandomCrop": {"size": 112}}},
-     "train": {"steps": 1000, "ckpt_every": 200}}
+     "train": {"steps": 1000, "ckpt_every": 200, "bf16": false, "remat": false}}
 
 Training windows come from every sequence under ``--data_dir``: ``**/*.h5``
 files (``--loader_type H5``, the default and the JAX CLI's only discovery)
@@ -24,14 +24,18 @@ function of (seed, k): each step draws from a fresh numpy
 and pauses. Voxels stay on the device from voxelization to the model.
 Noise, hot pixels and DropPath draw from seeded ``torch.Generator``s.
 
+``"train": {"bf16": true}`` computes the model in bf16 over f32 weights and
+f32 Adam state; ``"train": {"remat": true}`` sets the model's ``remat``, which
+rematerialises each time step of its sweeps in the backward.
+
 Each checkpoint is ``epoch_N.pth`` in the mmengine layout that the port's and
 the JAX package's eval CLIs load; ``train_log.jsonl`` in the output
 directory gets one line per step: the losses, the step's host seconds and
 the part of them spent assembling and augmenting the batch.
 
 Not ported yet, and refused: ``--resume``, ``--save_state``, ``--val_dir``,
-``--prefetch``, ``--lpips_lin``/``--lpips_backbone``, ``"train": {"bf16":
-true}`` and ``remat`` (ROADMAP A8); one card per run.
+``--prefetch``, ``--lpips_lin``/``--lpips_backbone`` (ROADMAP A8); one card
+per run.
 """
 
 from __future__ import annotations
@@ -256,9 +260,12 @@ def main(argv=None) -> int:
     if model_name != "BDE2VID":
         raise NotImplementedError(f"training {model_name!r} is not ported yet (BDE2VID only)")
     train_cfg = cfg.get("train", {})
-    for key in ("remat", "bf16"):
-        if train_cfg.get(key):
-            raise NotImplementedError(f'"train": {{"{key}": true}} is not ported yet (ROADMAP A8)')
+    if train_cfg.get("remat"):
+        # per-step remat inside the model (JAX train/__main__.py: a checkpoint
+        # of the whole forward would lower no peak)
+        model_cfg["remat"] = True
+    # bf16 compute over f32 weights and optimizer state
+    dtype = torch.bfloat16 if train_cfg.get("bf16") else torch.float32
 
     data_cfg = cfg.get("data", {})
     seq_len = int(data_cfg.get("sequence_length", 8))
@@ -319,7 +326,7 @@ def main(argv=None) -> int:
                 ], dim=1)
             t_data = time.perf_counter() - t0
             loss_dict = train_step(model, optimizer, comp, voxels, gts, flows, generator=drop_gen,
-                                   grad_clip=grad_clip, scheduler=scheduler)
+                                   grad_clip=grad_clip, scheduler=scheduler, dtype=dtype)
             losses = dict(zip(loss_dict, torch.stack(list(loss_dict.values())).tolist()))
             log.write(json.dumps({"step": i, **losses, "seconds": time.perf_counter() - t0,
                                   "data_seconds": t_data}) + "\n")

@@ -95,13 +95,17 @@ class SequenceLossComputer:
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                loss_computer: SequenceLossComputer, voxels: torch.Tensor, frames: torch.Tensor,
                flows: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-               grad_clip: Optional[float] = None, scheduler=None) -> Dict[str, torch.Tensor]:
+               grad_clip: Optional[float] = None, scheduler=None,
+               dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """One step (counterpart of ``make_train_step``): forward in training
     mode, sequence loss, backward, global-norm clip, optimizer and scheduler
     step. voxels (T, N, B, H, W), frames (T, N, 1, H, W), flows (T, N, 2, H,
-    W) or None. Returns the detached loss dict."""
+    W) or None. ``dtype`` bfloat16 computes the model in bf16 over its f32
+    weights (the JAX CLI's ``"train": {"bf16": true}``): the gradients and
+    the optimizer stay f32, and the loss is taken in f32. Returns the
+    detached loss dict."""
     optimizer.zero_grad(set_to_none=True)
-    preds = model(voxels, generator=generator)["image"]
+    preds = model(voxels.to(dtype), generator=generator)["image"].float()
     total, loss_dict = loss_computer(preds, frames, flows)
     total.backward()
     if grad_clip is not None:

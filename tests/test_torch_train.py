@@ -423,16 +423,26 @@ def test_train_cli_checkpoint_is_scored_and_loads_in_jax(h5_tree, tmp_path):
     np.testing.assert_allclose(nhwc(got), want, atol=2e-4, rtol=0)
 
 
+# --resume and --val_dir are still refused; bf16 and remat training run a step
 @pytest.mark.parametrize("flag,config", [
     (["--resume", "x.pth"], {}),
     (["--val_dir", "v"], {}),
     ([], {"train": {"bf16": True}}),
     ([], {"train": {"remat": True}}),
+    ([], {"train": {"bf16": True, "remat": True}}),
 ])
-def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, config):
+def test_train_cli_refuses_what_is_not_ported(h5_tree, tmp_path, flag, config):
     cfg = {**_train_config(), **config}
     cfg_path = tmp_path / "cfg.json"
     cfg_path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError):
-        ttm.main(["--config", str(cfg_path), "--data_dir", str(tmp_path), "--out_dir",
-                  str(tmp_path / "o"), "--device", "cpu", *flag])
+    args = ["--config", str(cfg_path), "--data_dir", str(h5_tree), "--out_dir",
+            str(tmp_path / "o"), "--device", "cpu", "--steps", "1", *flag]
+    if flag:
+        with pytest.raises(NotImplementedError):
+            ttm.main(args)
+        return
+    assert ttm.main(args) == 0
+    log = [json.loads(line) for line in (tmp_path / "o" / "train_log.jsonl").read_text().splitlines()]
+    assert len(log) == 1 and np.isfinite(log[0]["loss"])
+    state = torch.load(tmp_path / "o" / "epoch_1.pth", weights_only=False)["state_dict"]
+    assert all(v.dtype in (torch.float32, torch.int64) for v in state.values())  # f32 master weights
