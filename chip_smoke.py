@@ -25,7 +25,10 @@ WindowAttention3D kernel.
            attention core at the flagship and 8x8 shapes (SDPA forward as
            the yardstick; the registers, shared memory, resident blocks per
            SM and launch plan of its instantiations and of B1's attention
-           stage), and both new Functions' gradients vs the twins' autograd
+           stage), and both new Functions' gradients vs the twins' autograd;
+           and the backward's long-row variant at long-buffer shapes (21
+           frames of 7x7 windows, N 1029; 17 of 8x8, N 1088), f32 and bf16,
+           with its plan, occupancy, bound and a bitwise repeat
   attention  the ops.fused_window_attention entry point forward and backward
            at the 8x8 shapes (2 + 3 calls: one 8x8 frame's dilated blocks)
   model    flagship at 184x240, T=8: kernel path vs unfused path (f32,
@@ -43,11 +46,19 @@ WindowAttention3D kernel.
            vs the unfused path's (relative 1e-3; the key half of attn.kv.bias
            absolute 1e-5), exact launch counts, for the flagship (then 5
            Adam steps that lower the loss) and the 8x8 config
+  variants the flagship width with concat skips, BN, IN and ConvGRU at
+           184x240, T=3: forward kernel vs unfused path (2e-4), one train
+           step's loss (1e-3) and gradients (2e-2 by relative L2 distance,
+           VARIANT_GRAD_L2) on both paths
   train    the train CLI on the MMP sequence: the flagship for 6 steps
            (DropPath 0.2, pause, noise, hot pixels, Adam with gradient
            clipping; ms per step, peak memory, one profiled step's
-           device-idle share) and the 8x8 config for 3 steps; finite
-           losses, exact launch counts, checkpoints the eval CLI scores
+           device-idle share), the 8x8 config for 3 steps, and the flagship
+           with "train" bf16, remat and both for 6 steps each; finite
+           losses, exact launch counts, checkpoints the eval CLI scores;
+           then a remat train step of the flagship with 21 buffer frames and
+           of the 8x8 config with 17, kernel path (B2's long rows) vs
+           unfused path
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -109,6 +120,21 @@ BLOCKS_PER_FRAME = {"level0": 4, "level2": 6}  # depths [4, 0, 6]
 # (12 and 12); per frame 2 + 3 blocks of each kind
 LEVELS_8 = {"level0": ((96, 120), 64), "level2": ((24, 32), 256)}
 BLOCKS_PER_FRAME_8 = {"level0": 2, "level2": 3}
+# the config variants the variants phase runs at the flagship's width
+VARIANTS = {"concat": {"skip_type": "concat"}, "BN": {"norm": "BN"}, "IN": {"norm": "IN"},
+            "convgru": {"recurrent_block_type": "convgru"}}
+# The variants' gradient bound, kernel path vs unfused path, by relative L2
+# distance per parameter. Through BN and IN a gradient is ill-conditioned: a
+# ReLU input within rounding of 0 takes either side in two forwards that
+# agree to 1e-7, and the norm spreads that over its channel. On the CPU at
+# flagship width (112x112, T=2) the unfused path alone moved by up to 1.5e-3
+# (BN) and 4.6e-3 (IN) for inputs nudged by 1e-7 relative, and on the H100
+# the BN config's two paths differed by 3.8e-3 (max |diff| over max |grad|)
+# at a decoder conv. A fault of the kernel path moves a gradient by O(1).
+VARIANT_GRAD_L2 = 2e-2
+# buffer frames of the long-buffer runs: N = 21 x 49 = 1029 and 17 x 64 = 1088
+# keys a row, above the 1024 a backward lane keeps in registers
+LONG_FRAMES = {"flagship": 21, "8x8": 17}
 
 
 def emit(obj):
@@ -752,6 +778,46 @@ def bwd_occupancy(torch, heads):
     return rows
 
 
+def phase_kernels_long_rows(torch):
+    """The attention backward at the shapes of long buffers, where it takes
+    its long-row variant: 21 frames of 7x7 windows at the flagship's levels
+    (M 49, N 1029) and 17 of 8x8 at the 8x8 config's (M 64, N 1088), f32
+    and bf16, each vs its twin, repeated for bit equality, timed beside its
+    bound and SDPA's backward, with the plan and the instantiation's
+    occupancy. Returns the flagship's cases."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import (
+        attn_core_backward_occupancy, attn_core_bwd_plan)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    heads, cases = 16, []
+    for config, levels, win in (("flagship", LEVELS, 7), ("8x8", LEVELS_8, 8)):
+        m = win * win
+        n = LONG_FRAMES[config] * m
+        for level, ((hp, wp), c) in levels.items():
+            b = (hp // win) * (wp // win)
+            plan = attn_core_bwd_plan(m, n, c, heads)
+            if plan.row_share:
+                raise AssertionError(f"long rows {config} {level}: the plan took row share {plan.row_share}")
+            q32, k32, v32, g32 = rnd(b, m, c), rnd(b, n, c), rnd(b, n, c), rnd(b, m, c)
+            bias = rnd(heads, m, n, scale=0.5)
+            for dt in (torch.float32, torch.bfloat16):
+                case = bwd_case(torch, *(t.to(dt) for t in (q32, k32, v32)), bias, g32.to(dt), heads,
+                                config=config, level=level, layout="plain")
+                occ = attn_core_backward_occupancy(m, n, c, heads, dt, 0)
+                cases.append({**case, "frames": LONG_FRAMES[config], "plan": plan._asdict(),
+                              "occupancy": {k: occ[k] for k in ("registers", "spill_bytes",
+                                                                "blocks_per_sm", "slices")}})
+    emit({"phase": "kernels", "kernel": "attn_core_backward, long rows",
+          "timing": "CUDA events, inputs L2-warm; library = torch SDPA backward alone",
+          "cases": cases})
+    return [c for c in cases if c["config"] == "flagship"]
+
+
 def fwd_occupancy(torch, heads):
     """Registers, spill bytes, shared memory per block and resident blocks
     per SM of the forward attention's instantiation at each level shape of
@@ -1024,6 +1090,43 @@ def phase_attention(torch, launch_counts):
     return launches["fused_window_attention"]
 
 
+def compare_grads(what, loss_k, grads_k, loss_u, grads_u, zero_keys=(), l2_bound=None):
+    """Gate the kernel path's loss and gradients against the unfused
+    path's: the loss and every gradient within 1e-3 relative (max |diff| over
+    max |unfused|). Gradients that are analytically zero get an absolute
+    bound of 1e-5 instead: the key half of ``attn.kv.bias`` (softmax is shift
+    invariant per row) and ``zero_keys`` (the conv biases an affine-free
+    InstanceNorm cancels). With ``l2_bound`` each gradient is held to that
+    bound on its relative L2 distance (|diff| over |unfused|) instead."""
+    if set(grads_k) != set(grads_u):
+        raise AssertionError(f"{what}: the two paths give gradients to different parameters")
+    loss_rel = abs(loss_k - loss_u) / abs(loss_u)
+    bound = 1e-3 if l2_bound is None else l2_bound
+    worst, worst_key, zero = 0.0, None, 0.0
+    for key, gu in grads_u.items():
+        gk = grads_k[key]
+        if key in zero_keys:
+            zero = max(zero, gk.abs().max().item(), gu.abs().max().item())
+            continue
+        if key.endswith("attn.kv.bias"):
+            c = gu.shape[0] // 2
+            zero = max(zero, gk[:c].abs().max().item(), gu[:c].abs().max().item())
+            gk, gu = gk[c:], gu[c:]
+        if l2_bound is None:
+            rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
+        else:
+            rel = (gk - gu).norm().item() / max(gu.norm().item(), 1e-30)
+        if rel > worst:
+            worst, worst_key = rel, key
+    if not (loss_rel <= 1e-3 and worst <= bound and zero <= 1e-5):
+        raise AssertionError(f"{what}: loss rel {loss_rel}, worst gradient rel {worst} ({worst_key}, "
+                             f"bound {bound}), analytically zero gradients {zero}")
+    return {"loss_kernel": loss_k, "loss_unfused": loss_u, "loss_rel_diff": loss_rel,
+            "worst_grad_rel_diff": worst, "worst_grad_key": worst_key,
+            "grad_metric": "max" if l2_bound is None else "l2", "grad_bound": bound,
+            "zero_grads_max_abs": zero, "leaves": len(grads_u)}
+
+
 def phase_grads(torch, launch_counts):
     """Kernel path vs unfused path, loss and every gradient, for both
     configurations at full width; the flagship then takes 5 Adam steps."""
@@ -1059,27 +1162,8 @@ def phase_grads(torch, launch_counts):
         want = {k: n * T for k, n in PER_FRAME[name].items()}
         want["attn_core_backward"] = 10 * T  # one per attention block, whichever kernel ran it
         expect_launches(f"grads {name}", launches, want)
-        if set(grads_k) != set(grads_u):
-            raise AssertionError(f"grads {name}: the two paths give gradients to different parameters")
-        loss_rel = abs(loss_k - loss_u) / abs(loss_u)
-        worst, worst_key, zero_half = 0.0, None, 0.0
-        for key, gu in grads_u.items():
-            gk = grads_k[key]
-            rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
-            if key.endswith("attn.kv.bias"):
-                # the key half's gradient is analytically zero (softmax is shift
-                # invariant per row): an absolute bound there
-                c = gu.shape[0] // 2
-                zero_half = max(zero_half, gk[:c].abs().max().item(), gu[:c].abs().max().item())
-            if rel > worst:
-                worst, worst_key = rel, key
-        if not (loss_rel <= 1e-3 and worst <= 1e-3 and zero_half <= 1e-5):
-            raise AssertionError(f"grads {name}: loss rel {loss_rel}, worst gradient rel {worst} "
-                                 f"({worst_key}), key-bias gradient {zero_half}")
-        rows[name] = {"launches": launches, "loss_kernel": loss_k, "loss_unfused": loss_u,
-                      "loss_rel_diff": loss_rel, "worst_grad_rel_diff": worst,
-                      "worst_grad_key": worst_key, "kv_key_bias_grad_max_abs": zero_half,
-                      "leaves": len(grads_u)}
+        rows[name] = {"launches": launches,
+                      **compare_grads(f"grads {name}", loss_k, grads_k, loss_u, grads_u)}
         if name == "flagship":
             set_attention_kernel(model, True)
             # lr 1e-4, the train phase's rate: at 1e-3 the first Adam step from
@@ -1092,6 +1176,75 @@ def phase_grads(torch, launch_counts):
             rows[name]["adam_losses"] = losses
         del model
     emit({"phase": "grads", "T": T, "hw": [184, 240], "configs": rows})
+
+
+def _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, kernel):
+    """Loss, gradients and launches of one train-mode step of ``model`` on
+    the kernel or the unfused path (no optimizer step)."""
+    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+
+    set_attention_kernel(model, kernel)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    loss, _ = comp(model(vox)["image"], tgt)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()
+                         if p.grad is not None}, dict(launch_counts)
+
+
+def phase_variants(torch, launch_counts):
+    """The flagship width (base 32, depths [4, 0, 6], 16 heads, 7x7) with each
+    config variant the JAX package trains: concat skips, BN, IN, ConvGRU.
+    At 184x240, T=3: the eval forward on the kernel path vs the unfused path
+    (2e-4) with 10 launches a frame, then one train-mode step's loss (1e-3)
+    and gradients on both paths, each gradient within VARIANT_GRAD_L2 of
+    the unfused path's by relative L2 distance."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    T = 3
+    rng = np.random.default_rng(6)
+    vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
+    tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
+    comp = SequenceLossComputer([{"type": "L1Loss"}])
+    rows = {}
+    for name, extra in VARIANTS.items():
+        cfg = model_config(FLAGSHIP_CFG)
+        cfg["generator"].update(extra, drop_path_rate=0.0)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(6)
+            model = build_model("BDE2VID", cfg, train=True)
+        model.eval()
+        images = []
+        for kernel in (True, False):
+            set_attention_kernel(model, kernel)
+            launch_counts.clear()
+            with torch.no_grad():
+                images.append(model(vox)["image"])
+            torch.cuda.synchronize()
+            if kernel:
+                expect_launches(f"variant {name} forward", launch_counts,
+                                {k: n * T for k, n in PER_FRAME["flagship"].items()})
+        diff = (images[0] - images[1]).abs().max().item()
+        if not (torch.isfinite(images[0]).all() and diff <= 2e-4):
+            raise AssertionError(f"variant {name}: kernel vs unfused forward max diff {diff} (bound 2e-4)")
+        model.train()
+        loss_k, grads_k, launches = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, True)
+        expect_launches(f"variant {name} step", launches,
+                        {"fused_swin_block": PER_FRAME["flagship"]["fused_swin_block"] * T,
+                         "attn_core_backward": PER_FRAME["flagship"]["fused_swin_block"] * T})
+        loss_u, grads_u, _ = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, False)
+        state = model.state_dict()
+        zero = {k for k in grads_u if k.endswith("conv2d.bias")
+                and k[:-11] + "norm_layer.running_mean" in state}
+        rows[name] = {"config": extra, "forward_max_abs_diff": diff, "launches": launches,
+                      **compare_grads(f"variant {name}", loss_k, grads_k, loss_u, grads_u, zero,
+                                      l2_bound=VARIANT_GRAD_L2)}
+        del model
+    emit({"phase": "variants", "T": T, "hw": [184, 240], "configs": rows})
 
 
 def phase_train(torch, launch_counts, card):
@@ -1114,13 +1267,17 @@ def phase_train(torch, launch_counts, card):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         data = os.path.join(tmp, "data")
         items = write_mmp_sequence(os.path.join(data, "mmp", "SYN", "seq0"), np.random.default_rng(4))
-        for name, base, steps in (("flagship", FLAGSHIP_CFG, TRAIN_STEPS),
-                                  ("8x8", EIGHT_CFG, TRAIN_STEPS_8X8)):
+        for name, base, steps, flags in (
+                ("flagship", FLAGSHIP_CFG, TRAIN_STEPS, {}),
+                ("8x8", EIGHT_CFG, TRAIN_STEPS_8X8, {}),
+                ("flagship_bf16", FLAGSHIP_CFG, TRAIN_STEPS, {"bf16": True}),
+                ("flagship_remat", FLAGSHIP_CFG, TRAIN_STEPS, {"remat": True}),
+                ("flagship_bf16_remat", FLAGSHIP_CFG, TRAIN_STEPS, {"bf16": True, "remat": True})):
             model_args = model_config(base)
             model_args["generator"]["drop_path_rate"] = 0.2
             cfg = {"name": name, "model": {"type": "BDE2VID", "args": model_args},
                    "losses": [{"type": "L1Loss"}], "optimizer": optimizer_cfg,
-                   "data": data_cfg, "train": {"steps": steps, "ckpt_every": 1000}}
+                   "data": data_cfg, "train": {"steps": steps, "ckpt_every": 1000, **flags}}
             cfg_path = os.path.join(tmp, f"cfg_{name}.json")
             with open(cfg_path, "w") as fp:
                 json.dump(cfg, fp)
@@ -1139,7 +1296,10 @@ def phase_train(torch, launch_counts, card):
                 log = [json.loads(line) for line in fp]
             if rc != 0 or len(log) != steps or not all(math.isfinite(r["loss"]) for r in log):
                 raise AssertionError(f"train CLI ({name}): rc {rc}, log {log}")
-            want = {k: n * steps * TRAIN_SEQ_LEN for k, n in PER_FRAME[name].items()}
+            # remat runs each block's forward twice: in the step and in its recompute
+            forwards = 2 if flags.get("remat") else 1
+            want = {k: forwards * n * steps * TRAIN_SEQ_LEN
+                    for k, n in PER_FRAME[name.split("_")[0]].items()}
             want["attn_core_backward"] = 10 * steps * TRAIN_SEQ_LEN
             expect_launches(f"train CLI ({name})", launches, want)
             ckpt = os.path.join(out_dir, f"epoch_{steps}.pth")
@@ -1154,7 +1314,7 @@ def phase_train(torch, launch_counts, card):
             if rc != 0 or not all(math.isfinite(v) for v in scored.values()):
                 raise AssertionError(f"eval CLI on the trained {name} checkpoint: rc {rc}, {scored}")
             rows[name] = {
-                "steps": steps, "losses": [r["loss"] for r in log],
+                "train_flags": flags, "steps": steps, "losses": [r["loss"] for r in log],
                 "ms_per_step_after_first": 1e3 * float(np.mean([r["seconds"] for r in log[1:]])),
                 "ms_per_step": [1e3 * r["seconds"] for r in log],
                 "data_ms_per_step_after_first": 1e3 * float(np.mean([r["data_seconds"] for r in log[1:]])),
@@ -1179,9 +1339,61 @@ def phase_train(torch, launch_counts, card):
 
         step()
         prof = device_profile(torch, step)
+        del model, optimizer
+    long_rows = long_buffer_steps(torch, launch_counts)
     emit({"phase": "train", "card": card, "sequence_length": TRAIN_SEQ_LEN, "items": items,
-          "crop_hw": list(batch[0].shape[-2:]), "configs": rows, "flagship_profiled_step": prof})
-    return rows["flagship"]["launches"]["attn_core_backward"]
+          "crop_hw": list(batch[0].shape[-2:]), "configs": rows, "flagship_profiled_step": prof,
+          "long_buffers": long_rows})
+    return (rows["flagship"]["launches"]["attn_core_backward"],
+            long_rows["flagship"]["launches"]["attn_core_backward_long_rows"])
+
+
+def long_buffer_steps(torch, launch_counts):
+    """A train-mode step with remat of the flagship with 21 buffer frames
+    (buffer_index -10..10, N 1029) and of the 8x8 config with 17 (N 1088), at
+    184x240, T=3: the kernel path (B2 in its long-row variant; each block's
+    forward twice, in the step and in its recompute) vs the unfused path
+    (compare_grads), with the kernel path's step ms and peak memory, and
+    both without remat beside them. Returns a row per configuration."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    T = 3
+    rng = np.random.default_rng(7)
+    vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
+    tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
+    comp = SequenceLossComputer([{"type": "L1Loss"}])
+    rows = {}
+    for name, base in (("flagship", FLAGSHIP_CFG), ("8x8", EIGHT_CFG)):
+        frames = LONG_FRAMES[name]
+        cfg = model_config(base, remat=True)
+        cfg["generator"].update(buffer_index=list(range(-(frames // 2), frames // 2 + 1)),
+                                drop_path_rate=0.0)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(7)
+            model = build_model("BDE2VID", cfg, train=True)
+        _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, True)  # warm-up
+        ms, peak_gb = {}, {}
+        for remat in (False, True):  # the step's time and peak memory without remat, then with
+            model.generator.remat = remat
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss_k, grads_k, launches = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts,
+                                                        True)
+            ms[remat] = 1e3 * (time.perf_counter() - t0)
+            peak_gb[remat] = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: 2 * n * T for k, n in PER_FRAME[name].items()}
+        want["attn_core_backward_long_rows"] = sum(PER_FRAME[name].values()) * T  # one per block
+        expect_launches(f"long buffer {name}", launches, want)
+        loss_u, grads_u, _ = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, False)
+        win = base["generator"]["window_size"][0]
+        rows[name] = {"frames": frames, "keys": frames * win * win, "T": T, "hw": [184, 240],
+                      "kernel_path_step_ms": ms[True], "max_memory_allocated_gib": peak_gb[True],
+                      "no_remat_step_ms": ms[False], "no_remat_max_memory_allocated_gib": peak_gb[False],
+                      "launches": launches,
+                      **compare_grads(f"long buffer {name}", loss_k, grads_k, loss_u, grads_u)}
+        del model
+    return rows
 
 
 def main() -> int:
@@ -1201,13 +1413,15 @@ def main() -> int:
     phase_build()
     cases = phase_kernels(torch)
     bwd_cases = phase_kernels_training(torch)
+    long_cases = phase_kernels_long_rows(torch)
     block_cases, attn_cases = phase_kernels_window(torch)
     attn_launches = phase_attention(torch, launch_counts)
     phase_model(torch, launch_counts)
     phase_parallel(torch, launch_counts)
     eval_launches = phase_eval(torch, launch_counts, card)
     phase_grads(torch, launch_counts)
-    bwd_launches = phase_train(torch, launch_counts, card)
+    phase_variants(torch, launch_counts)
+    bwd_launches, long_launches = phase_train(torch, launch_counts, card)
 
     def per_frame(cases, key, blocks):
         # f32, per frame of the configuration: ``blocks`` launches per level,
@@ -1235,8 +1449,9 @@ def main() -> int:
         }
 
     # times per frame in f32: B1 and B2 per flagship frame (4 + 6 launches),
-    # B3 per 8x8 frame (its 2 + 3 even dilated blocks, without acc), B4 at
-    # the same 8x8 shapes
+    # B2's long rows per frame of the flagship with 21 buffer frames, B3 per
+    # 8x8 frame (its 2 + 3 even dilated blocks, without acc), B4 at the same
+    # 8x8 shapes
     no_acc = [c for c in block_cases if not c["with_acc"]]
     attn_8 = [c for c in attn_cases if c["config"] == "8x8"]
     emit({"kernels": [
@@ -1244,6 +1459,8 @@ def main() -> int:
                 eval_launches["flagship"]["fused_swin_block"], BLOCKS_PER_FRAME, False),
         summary("attn_core_backward", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
                 bwd_cases, bwd_launches, BLOCKS_PER_FRAME, True),
+        summary("attn_core_backward_long_rows", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
+                long_cases, long_launches, BLOCKS_PER_FRAME, True),
         summary("fused_window_block", "bde2vid_tpu_torch/ops/csrc/window_block.cu", 377, no_acc,
                 eval_launches["8x8"]["fused_window_block"], BLOCKS_PER_FRAME_8, False),
         summary("fused_window_attention", "bde2vid_tpu_torch/ops/csrc/window_attention.cu", 89,
