@@ -5,7 +5,8 @@ and ``load_sequence``, H5 and MMP backends).
 Reference item semantics (h5_dataset.py:204-259) kept: window timestamps are
 shifted to the window's first event (f64 difference, then f32), windows with
 fewer than 3 events give a zero voxel, and a between-frames sequence has
-num_frames - 1 items.
+num_frames - 1 items. With ``normalize`` each window's voxel grid is then
+LegacyNorm'd on its own (``utils/norm.py::legacy_norm``).
 """
 
 from __future__ import annotations
@@ -18,14 +19,16 @@ import torch
 from bde2vid_tpu_torch.data.windowing import between_frames_windows
 from bde2vid_tpu_torch.events.voxel import events_to_voxel_batch
 from bde2vid_tpu_torch.utils.device import resolve_device
+from bde2vid_tpu_torch.utils.norm import legacy_norm
 
 
 class EventSequence:
     """An indexed event sequence whose windows voxelize on ``device``."""
 
-    def __init__(self, reader, windows: np.ndarray, num_bins: int = 5):
+    def __init__(self, reader, windows: np.ndarray, num_bins: int = 5, normalize: bool = False):
         self.reader = reader
         self.num_bins = num_bins
+        self.normalize = normalize
         self.sensor_size = tuple(reader.sensor_size)
         windows = np.asarray(windows, np.int64)
         length = min(len(windows), reader.num_frames - 1) if reader.num_frames else 0
@@ -77,7 +80,8 @@ class EventSequence:
             xs, ys, ts, ps, ns = (torch.from_numpy(a).to(device) for a in packed)
             v = events_to_voxel_batch(xs, ys, ts, ps, ns, num_bins=self.num_bins,
                                       sensor_size=self.sensor_size)
-            out.append(torch.where((ns < 3)[:, None, None, None], torch.zeros_like(v), v))
+            v = torch.where((ns < 3)[:, None, None, None], torch.zeros_like(v), v)
+            out.append(legacy_norm(v, batched=True) if self.normalize else v)
         return torch.cat(out)
 
     def frames(self, start: int = 0, stop: Optional[int] = None) -> np.ndarray:
@@ -112,9 +116,11 @@ class EventSequence:
         return np.stack(out)
 
 
-def load_sequence(path: str, num_bins: int = 5, ltype: str = "H5") -> EventSequence:
+def load_sequence(path: str, num_bins: int = 5, ltype: str = "H5",
+                  normalize: bool = False) -> EventSequence:
     """Open a sequence with between-frames windows: ``ltype`` "H5" (an event
-    h5 file) or "MMP" (a memmap directory)."""
+    h5 file) or "MMP" (a memmap directory); ``normalize`` LegacyNorms each
+    window's voxels."""
     if ltype == "H5":
         from bde2vid_tpu_torch.events.h5_io import H5EventReader
 
@@ -126,4 +132,4 @@ def load_sequence(path: str, num_bins: int = 5, ltype: str = "H5") -> EventSeque
     else:
         raise NotImplementedError(f"loader type {ltype!r} is not ported yet (H5, MMP)")
     windows = between_frames_windows(reader.frame_event_indices)
-    return EventSequence(reader, windows, num_bins=num_bins)
+    return EventSequence(reader, windows, num_bins=num_bins, normalize=normalize)

@@ -1,12 +1,17 @@
 """Evaluation CLI of the port (counterpart of ``bde2vid_tpu/eval/__main__.py``,
-the subset the BDE2VID eval path needs).
+the subset the BDE2VID and E2VID-family eval paths need).
 
     python -m bde2vid_tpu_torch.eval --weights_dir W --data_dir D \\
         --datasets HQF --loader_type MMP --metrics mse ssim --subseq_L 8
 
-Runs on CUDA unless ``--device cpu``; ``--pallas`` (default on CUDA) runs
-the attention blocks through the hand-written kernel, ``--no-pallas``
-through the unfused PyTorch body.
+Scores every ``*.pth`` under ``--weights_dir``: BDE2VID, E2VID,
+E2VIDRecurrent, FireNet, FireNetOrg and FlowNet checkpoints in the mmengine,
+pytorch-template and ``firenet_1000.pth`` dialects. Runs on CUDA unless
+``--device cpu``; ``--pallas`` (default on CUDA) runs BDE2VID's attention
+blocks through the hand-written kernel, ``--no-pallas`` through the unfused
+PyTorch body (the E2VID family has no attention, and ignores both).
+``--normalize`` LegacyNorms the voxels; a template checkpoint whose model
+arguments stand under ``model`` asks for it too.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from glob import glob
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="evaluate BDE2VID checkpoints on event datasets")
+    p = argparse.ArgumentParser(description="evaluate reconstruction checkpoints on event datasets")
     p.add_argument("--weights_dir", default="weights/", type=str)
     p.add_argument("--data_dir", default="data/eval/", type=str)
     p.add_argument("--st", default=0, type=int)
@@ -30,11 +35,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--subseq_L", default=1000, type=int)
     p.add_argument("--max_length", default=111200, type=int)
     p.add_argument("--loader_type", default="H5", choices=["H5", "MMP"])
+    p.add_argument("--normalize", action="store_true",
+                   help="LegacyNorm each window's voxels (zero mean, unit std over nonzeros)")
     p.add_argument("--output_dir", default=None, type=str,
                    help="where result files go (default: weights_dir)")
     p.add_argument("--bf16", action="store_true", help="run the model in bfloat16")
     p.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
-                   help="attention blocks through the hand-written CUDA kernel "
+                   help="BDE2VID's attention blocks through the hand-written CUDA kernel "
                    "(default: on for CUDA, off for the CPU)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
@@ -120,6 +127,7 @@ def main(argv=None) -> int:
             num_bins=spec.num_bins,
             subseq_L=args.subseq_L or None,
             max_length=args.max_length,
+            normalize=args.normalize or spec.normalize,
             metrics=tuple(args.metrics),
         )
         evaluate_all(spec, datafiles, data_root, result_file, cfg)

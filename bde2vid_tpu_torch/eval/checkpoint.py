@@ -1,18 +1,26 @@
-"""Checkpoints for the port (counterpart of ``bde2vid_tpu/eval/checkpoint.py``,
-BDE2VID only).
+"""Checkpoints for the port (counterpart of ``bde2vid_tpu/eval/checkpoint.py``).
 
 The port's modules keep the reference torch state-dict layout, so a
-reference mmengine ``.pth`` (``{"meta": {"cfg": <python config source>},
-"state_dict": {...}}``) loads with ``load_state_dict`` and no converter.
-``state_dict_from_jax`` turns a flax BDE2VID param tree into that layout —
-the inverse of the JAX package's ``convert_state_dict`` +
-``_bde2vid_path_fixup``.
+reference ``.pth`` loads with ``load_state_dict`` and no converter. The
+dialects read (the JAX package's ``load_model_from_torch`` dispatch):
+
+- ``firenet_1000.pth``: FireNetOrg from ``ckpt["config"]["model"]``;
+- mmengine, ``{"meta": {"cfg": <python config source>}, "state_dict": ...}``:
+  BDE2VID, or any other family by its ``type``;
+- pytorch-template, ``{"arch": <family>, "state_dict": ...}`` with the
+  model arguments under ``config.arch.args[.unet_kwargs]`` or ``model``
+  (the latter asks for LegacyNorm'd voxels).
+
+Bare SPADE and SNN state dicts are refused until those families are ported.
+``state_dict_from_jax`` turns a flax param tree of a ported family into the
+port's layout: the inverse of the JAX package's ``convert_state_dict`` +
+``_map_module_path`` (+ ``_bde2vid_path_fixup`` for BDE2VID).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,18 +55,20 @@ def _flax_paths(tree, prefix=()):
 
 
 _INDEXED = re.compile(r"(forward_encoder|backward_encoder|feat_attns|blocks|fusion_layers)(\d+)")
+_LISTS = re.compile(r"(encoder|decoder|resblock)(\d+)")  # the UNets' encoders.N, ...
 
 
 def _torch_module_path(path: Tuple[str, ...], leaf: str) -> list:
     out = []
     for i, p in enumerate(path):
         last = i == len(path) - 1
+        in_decode = i > 0 and path[i - 1] == "decode"  # BDE2VID's decoder
         if p == "decode":
             continue
-        if m := re.fullmatch(r"decoder(\d+)1_norm", p):
+        if in_decode and (m := re.fullmatch(r"decoder(\d+)1_norm", p)):
             out += ["decoders", m[1], "1", "norm_layer"]  # the decoder conv's sibling norm
             continue
-        if m := re.fullmatch(r"decoder(\d+)([01])", p):
+        if in_decode and (m := re.fullmatch(r"decoder(\d+)([01])", p)):
             out += ["decoders", m[1], m[2]]
             if m[2] == "1":
                 out.append("conv2d")  # the flax decoder conv is bare; torch wraps it
@@ -72,6 +82,11 @@ def _torch_module_path(path: Tuple[str, ...], leaf: str) -> list:
         if m := _INDEXED.fullmatch(p):
             out += [m[1], m[2]]
             continue
+        if m := _LISTS.fullmatch(p):
+            out += [m[1] + "s", m[2]]
+            if last and m[1] == "decoder" and leaf in ("kernel", "bias"):
+                out.append("transposed_conv2d")  # TransposedConvLayer's params sit on the layer
+            continue
         if p == "gates":
             out.append("Gates")
             continue
@@ -80,22 +95,29 @@ def _torch_module_path(path: Tuple[str, ...], leaf: str) -> list:
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax BDE2VID variables (``{"params": ..., "batch_stats": ...}`` or the
-    bare param tree; numpy or JAX arrays) -> the port's state dict: HWIO ->
-    OIHW, (in, out) -> (out, in), LayerNorm/BatchNorm ``scale`` ->
-    ``weight``, ``batch_stats`` mean/var -> ``running_mean``/``running_var``
-    with a ``num_batches_tracked`` of 0 (flax keeps no count), module paths
-    renamed (``decode/decoderN1`` -> ``decoders.N.1.conv2d``,
-    ``decode/decoderN1_norm`` -> ``decoders.N.1.norm_layer``,
-    ``feat_attnsL/resJ`` -> ``feat_attns.L.J``, ...). Load it with
-    :func:`load_state_dict_checked`."""
+    """flax variables of a ported family (``{"params": ..., "batch_stats":
+    ...}`` or the bare param tree; numpy or JAX arrays) -> the port's state
+    dict: HWIO -> OIHW, (in, out) -> (out, in), LayerNorm/BatchNorm
+    ``scale`` -> ``weight``, ``batch_stats`` mean/var ->
+    ``running_mean``/``running_var`` with a ``num_batches_tracked`` of 0
+    (flax keeps no count), module paths renamed (``encoderN`` ->
+    ``encoders.N``, ``decoderN``/``resblockN`` likewise, a leaf ``conv`` ->
+    ``conv2d``, ``gates`` -> ``Gates``, ``decode/decoderN1`` ->
+    ``decoders.N.1.conv2d``, ``decode/decoderN1_norm`` ->
+    ``decoders.N.1.norm_layer``, ``feat_attnsL/resJ`` -> ``feat_attns.L.J``,
+    ...). A 4-D kernel directly on ``decoderN`` is a TransposedConvLayer's,
+    kept flipped in correlation form (kh, kw, in, out): it goes to
+    ``decoders.N.transposed_conv2d.weight`` as torch's (in, out, kh, kw),
+    un-flipped. Load the result with :func:`load_state_dict_checked`."""
     tree = params.get("params", params)
     sd = {}
     for path, val in _flax_paths(tree):
         val = np.array(val, dtype=np.float32)
         leaf = path[-1]
         mod = _torch_module_path(path[:-1], leaf)
-        if leaf == "kernel":
+        if leaf == "kernel" and mod[-1] == "transposed_conv2d":
+            name, val = "weight", val[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif leaf == "kernel":
             name, val = "weight", (val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T)
         elif leaf == "scale":
             name = "weight"
@@ -116,21 +138,69 @@ def load_torch_file(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
+def _template_model_args(ckpt: Mapping) -> Tuple[Optional[dict], bool]:
+    """(model arguments, normalize) of a pytorch-template checkpoint: a
+    ``config`` key wins and never sets normalize (without ``arch`` in it the
+    arguments stay None); ``model`` is read only when ``config`` is absent,
+    and then sets normalize. ``config`` may be a dict or an object holding
+    one as ``.config``."""
+    if "config" in ckpt:
+        cp = ckpt["config"]
+        if not isinstance(cp, Mapping):
+            cp = cp.config
+        margs = None
+        if "arch" in cp:
+            margs = cp["arch"]["args"]
+            if "unet_kwargs" in margs:
+                margs = margs["unet_kwargs"]
+            elif "eitr_kwargs" in margs:
+                margs = margs["eitr_kwargs"]
+            margs = dict(margs)
+        return margs, False
+    if "model" in ckpt:
+        return dict(ckpt["model"]), True
+    return None, False
+
+
 def load_model_from_torch(path: str, device=None, dtype=torch.float32) -> ModelSpec:
-    """A reference mmengine BDE2VID ``.pth`` -> ModelSpec on ``device``."""
+    """A reference ``.pth`` of a ported family -> ModelSpec on ``device``,
+    loaded strictly."""
     ckpt = load_torch_file(path)
-    if not (isinstance(ckpt, dict) and "state_dict" in ckpt and "meta" in ckpt):
-        raise NotImplementedError(f"{path}: only the mmengine BDE2VID checkpoint dialect is ported")
-    config = parse_embedded_cfg(ckpt["meta"]["cfg"])
-    name = config.pop("type")
-    if not name.startswith("BDE2VID"):
-        raise NotImplementedError(f"{path}: model family {name!r} is not ported yet")
-    model = build_model("BDE2VID", config, device=device, dtype=dtype)
-    load_state_dict_checked(model, ckpt["state_dict"])
+    if path.endswith("firenet_1000.pth"):
+        return _build_spec("FireNetOrg", dict(ckpt["config"]["model"]), ckpt["state_dict"],
+                           device, dtype)
+    if isinstance(ckpt, Mapping) and "state_dict" in ckpt:
+        if "meta" in ckpt:
+            config = parse_embedded_cfg(ckpt["meta"]["cfg"])
+            name = config.pop("type")
+            if name.startswith("BDE2VID"):
+                name = "BDE2VID"
+            return _build_spec(name, config, ckpt["state_dict"], device, dtype,
+                               is_sequence_model=name == "BDE2VID")
+        if "arch" in ckpt:
+            config, normalize = _template_model_args(ckpt)
+            return _build_spec(ckpt["arch"], config or {}, ckpt["state_dict"], device, dtype,
+                               normalize=normalize)
+    for family in ("SPADE", "SNN"):
+        if family in path:
+            raise NotImplementedError(
+                f"{path}: a bare {family} state dict; the {family} family is still to be ported")
+    raise ValueError(f"unrecognized checkpoint dialect: {path}")
+
+
+def _build_spec(name: str, config: dict, state_dict: Mapping[str, Any], device, dtype,
+                is_sequence_model: bool = False, normalize: bool = False) -> ModelSpec:
+    config = dict(config)
     gen_cfg = config.get("generator", config)
-    return ModelSpec(
-        name="BDE2VID",
-        module=model,
-        num_bins=int(gen_cfg.get("num_bins", 5)),
-        num_encoders=int(gen_cfg.get("num_encoders", 3)),
-    )
+    config.setdefault("num_bins", int(gen_cfg.get("num_bins", 5)))
+    model = build_model(name, config, device=device, dtype=dtype)
+    load_state_dict_checked(model, state_dict)
+    # the JAX package's rule: 4 encoders by default for names with "E2VID",
+    # else 3; FireNet and FireNetOrg do not downsample
+    num_encoders = int(config.get("num_encoders",
+                                  gen_cfg.get("num_encoders", 4 if "E2VID" in name else 3)))
+    if name in ("FireNet", "FireNetOrg"):
+        num_encoders = 0
+    return ModelSpec(name=name, module=model, num_bins=int(config["num_bins"]),
+                     num_encoders=num_encoders, is_sequence_model=is_sequence_model,
+                     normalize=normalize)

@@ -1,11 +1,15 @@
 """Sequence evaluation driver (counterpart of ``bde2vid_tpu/eval/driver.py``;
 reference eval_models_seq.py:99-290).
 
-Per sequence: between-frames windows -> voxels on the device, ``subseq_L``
-chunks each run as one forward with fresh recurrent state (the reference
-resets state on every call of a sequence model, bde2vid.py:31), crop back to
-the sensor size, then per-step metrics. Results keep the reference JSON
-schema: ``{dataset: {sequence: {metric: sum over steps / T}}}`` plus a
+Per sequence: between-frames windows -> voxels on the device (LegacyNorm'd
+with ``normalize``), the model over ``subseq_L`` chunks, crop back to the
+sensor size, then per-step metrics. A sequence model (BDE2VID) runs each
+chunk as one forward with fresh recurrent state (the reference resets state
+on every call of a sequence model, bde2vid.py:31). A step model (the E2VID
+family) starts from one ``initial_state`` per sequence and carries its state
+across chunks, as the reference's per-step loop does: ``subseq_L`` only
+bounds the steps of one dispatch, and the result does not depend on it.
+Results keep the reference JSON schema: ``{dataset: {sequence: {metric: sum over steps / T}}}`` plus a
 per-step detail file and a table.
 """
 
@@ -22,7 +26,7 @@ import torch
 
 from bde2vid_tpu_torch.data.pipeline import EventSequence, load_sequence
 from bde2vid_tpu_torch.metrics.basic import mse, psnr, ssim
-from bde2vid_tpu_torch.models.api import ModelSpec
+from bde2vid_tpu_torch.models.api import ModelSpec, run_sequence
 from bde2vid_tpu_torch.utils.padding import CropParameters
 
 _METRICS = {"mse": mse, "psnr": psnr, "ssim": ssim}
@@ -35,6 +39,7 @@ class EvalConfig:
     subseq_L: Optional[int] = 1000
     max_length: Optional[int] = 111200
     voxel_batch: int = 64
+    normalize: bool = False
     metrics: Tuple[str, ...] = ("mse", "ssim")
 
 
@@ -53,11 +58,17 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
 
     preds = []
     chunk = cfg.subseq_L or T
+    if not spec.is_sequence_model:
+        state = spec.initial_state(1, crop.height_crop_size, crop.width_crop_size)
     for s in range(0, T, chunk):
         v = seq.voxels(s, min(s + chunk, T), device=device, batch=cfg.voxel_batch)
         x = crop.pad(v[:, None]).to(dtype)  # (L, 1, B, H', W')
         with torch.no_grad():
-            preds.append(spec.module(x)["image"].float())
+            if spec.is_sequence_model:
+                images = spec.module(x)["image"]
+            else:
+                images, state = run_sequence(spec.module, x, state)
+        preds.append(images.float())
     preds = crop.crop(torch.cat(preds))[:, 0, 0]  # (T, H, W)
 
     u8 = seq.frames_u8(0, T)
@@ -87,7 +98,8 @@ def evaluate_all(spec: ModelSpec, datafiles: Sequence[str], data_dir: str, resul
         dataset_name, filename = os.path.split(datafile)
         dataset_name = os.path.basename(dataset_name) or "unknown"
         filename = filename.split(".h5")[0]
-        seq = load_sequence(os.path.join(data_dir, datafile), num_bins=cfg.num_bins, ltype=cfg.ltype)
+        seq = load_sequence(os.path.join(data_dir, datafile), num_bins=cfg.num_bins,
+                            ltype=cfg.ltype, normalize=cfg.normalize)
         try:
             result, detail = evaluate_sequence(spec, seq, cfg)
         finally:

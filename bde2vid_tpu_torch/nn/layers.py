@@ -207,3 +207,70 @@ class ResidualBlockNoBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.conv2(torch.relu(self.conv1(x)))
+
+
+def skip_sum(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    return x1 + x2
+
+
+def skip_concat(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x1, x2], dim=1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d with its weight and bias cast to the input's type at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+                                  self.stride, self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class TransposedConvLayer(nn.Module):
+    """Stride-2 transposed conv -> optional BN/IN -> activation (reference
+    TransposedConvLayer): ``transposed_conv2d`` is
+    ``ConvTranspose2d(k, stride=2, padding=p, output_padding=1)``, exactly
+    twice the input size for p = k // 2, with no bias under BN. Its weight is
+    torch's (in, out, kh, kw); the JAX package keeps the same kernel flipped
+    in correlation form (kh, kw, in, out)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int = 0, activation: Optional[str] = "relu", norm: Optional[str] = None):
+        super().__init__()
+        self.transposed_conv2d = ConvTranspose2d(in_channels, out_channels, kernel_size, stride=2,
+                                                 padding=padding, output_padding=1,
+                                                 bias=norm != "BN")
+        self.norm_layer = make_norm(norm, out_channels)
+        self.activation = get_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.transposed_conv2d(x)
+        if self.norm_layer is not None:
+            y = self.norm_layer(y)
+        return self.activation(y)
+
+
+class ResidualBlock(nn.Module):
+    """conv1 -> bn1 -> relu -> conv2 -> bn2, plus the input (or its 1x1
+    ``downsample`` conv), then relu (reference ResidualBlock). The 3x3
+    convs have no bias under BN; its IN is the stat-less one."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 norm: Optional[str] = None, downsample: bool = False):
+        super().__init__()
+        bias = norm != "BN"
+        self.conv1 = Conv2d(in_channels, out_channels, 3, stride, 1, bias=bias)
+        self.bn1 = make_norm(norm, out_channels, in_track_stats=False)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, 1, 1, bias=bias)
+        self.bn2 = make_norm(norm, out_channels, in_track_stats=False)
+        self.downsample = Conv2d(in_channels, out_channels, 1, stride) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(x)
+        if self.bn1 is not None:
+            y = self.bn1(y)
+        y = self.conv2(torch.relu(y))
+        if self.bn2 is not None:
+            y = self.bn2(y)
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)

@@ -1,20 +1,22 @@
-"""Convolutional LSTM and GRU cells (counterpart of
-``bde2vid_tpu/nn/recurrent.py``; reference model/e2vid/submodules.py
-ConvLSTM :250-307, ConvGRU :309-348).
+"""Convolutional LSTM and GRU cells and the recurrent layers built on them
+(counterpart of ``bde2vid_tpu/nn/recurrent.py``; reference
+model/e2vid/submodules.py ConvLSTM :250-307, ConvGRU :309-348,
+RecurrentConvLayer :110-129, RecurrentResidualLayer :350-373).
 
-State is explicit: ``recurrent_initial_state`` makes it and the caller
-threads it through time; ``make_recurrent_cell`` picks the cell by the
-config's ``recurrent_block_type``.
+State is explicit: ``recurrent_initial_state`` (or a layer's
+``initial_state``) makes it and the caller threads it through time;
+``make_recurrent_cell`` picks the cell by the config's
+``recurrent_block_type``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
-from bde2vid_tpu_torch.nn.layers import Conv2d
+from bde2vid_tpu_torch.nn.layers import Conv2d, ConvLayer, ResidualBlock
 
 LstmState = Tuple[torch.Tensor, torch.Tensor]
 State = Union[LstmState, torch.Tensor]
@@ -86,3 +88,53 @@ def recurrent_initial_state(block_type: str, batch: int, h: int, w: int, hidden:
     if block_type == "convgru":
         return z
     raise ValueError(f"unknown recurrent_block_type {block_type!r} (convlstm|convgru)")
+
+
+class RecurrentConvLayer(nn.Module):
+    """``conv`` (a ConvLayer, strided) then a ``recurrent_block`` cell whose
+    kernel is 3 whatever the conv's (reference RecurrentConvLayer)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, recurrent_block_type: str = "convlstm",
+                 activation: Optional[str] = "relu", norm: Optional[str] = None):
+        super().__init__()
+        self.conv = ConvLayer(in_channels, out_channels, kernel_size, stride, padding,
+                              activation=activation, norm=norm)
+        self.recurrent_block = make_recurrent_cell(recurrent_block_type, out_channels,
+                                                   out_channels, 3)
+        self.block_type = recurrent_block_type
+        self.geometry = (kernel_size, stride, padding)
+
+    def forward(self, x: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
+        return self.recurrent_block(self.conv(x), state)
+
+    def out_size(self, height: int, width: int) -> Tuple[int, int]:
+        """The conv's output size, (h + 2p - k) // stride + 1."""
+        k, stride, p = self.geometry
+        return (height + 2 * p - k) // stride + 1, (width + 2 * p - k) // stride + 1
+
+    def initial_state(self, batch: int, height: int, width: int, dtype=torch.float32,
+                      device=None) -> State:
+        """Zero state at the conv's output size."""
+        return recurrent_initial_state(self.block_type, batch, *self.out_size(height, width),
+                                       self.recurrent_block.hidden_size, dtype, device)
+
+
+class RecurrentResidualLayer(nn.Module):
+    """``conv`` (a ResidualBlock) then a ``recurrent_block`` cell of kernel 3
+    (reference RecurrentResidualLayer, FireNetOrg's recurrent resblocks)."""
+
+    def __init__(self, channels: int, recurrent_block_type: str = "convgru",
+                 norm: Optional[str] = None):
+        super().__init__()
+        self.conv = ResidualBlock(channels, channels, norm=norm)
+        self.recurrent_block = make_recurrent_cell(recurrent_block_type, channels, channels, 3)
+        self.block_type = recurrent_block_type
+
+    def forward(self, x: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
+        return self.recurrent_block(self.conv(x), state)
+
+    def initial_state(self, batch: int, height: int, width: int, dtype=torch.float32,
+                      device=None) -> State:
+        return recurrent_initial_state(self.block_type, batch, height, width,
+                                       self.recurrent_block.hidden_size, dtype, device)

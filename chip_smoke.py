@@ -7,7 +7,7 @@ Phases, one JSON line each; a failure in any phase raises and the script
 exits non-zero without a result line. Two configurations run at full
 width with seeded random weights: the flagship BDE2VID (7x7 windows) and
 the same model with 8x8 windows, whose even dilated blocks take the
-WindowAttention3D kernel.
+WindowAttention3D kernel; then the E2VID family at its published widths.
 
   build    nvcc-builds every CUDA kernel from the sources in this checkout,
            one process per source, all at once
@@ -42,6 +42,14 @@ WindowAttention3D kernel.
            checkpoint (f32 and --bf16, cold and warm, one profiled run) and
            an 8x8 checkpoint (f32 and --bf16); result files finite, launch
            counts exact
+  step_models  E2VIDRecurrent (the released E2VID: base 32, 3 encoders, BN,
+           transposed-conv decoders), E2VID and FlowNet at 184x240, FireNet
+           and FireNetOrg (base 16, kernel 3) at 180x240, T=8: card vs CPU
+           (images and final state within 2e-4), forward ms, bf16 drift of
+           E2VIDRecurrent and FireNet (< 0.08); the eval CLI on template
+           checkpoints (E2VIDRecurrent f32 and --bf16, FireNet f32) at
+           subseq_L 8 and 0 (detail numbers within 1e-6: the state carries
+           across chunks); no hand-written kernel launches on this path
   grads    training mode, 184x240, T=3: the kernel path's loss and gradients
            vs the unfused path's (relative 1e-3; the key half of attn.kv.bias
            absolute 1e-5), exact launch counts, for the flagship (then 5
@@ -135,6 +143,26 @@ VARIANT_GRAD_L2 = 2e-2
 # buffer frames of the long-buffer runs: N = 21 x 49 = 1029 and 17 x 64 = 1088
 # keys a row, above the 1024 a backward lane keeps in registers
 LONG_FRAMES = {"flagship": 21, "8x8": 17}
+# the E2VID family at published widths: E2VIDRecurrent as the released
+# E2VID (rpg_e2vid E2VID_lightweight: base 32, 3 encoders of 64/128/256, 2
+# residual blocks, ConvLSTM, sum skips, transposed-conv decoders, BN), E2VID
+# and FlowNet at its widths, FireNet and FireNetOrg at event_cnn_minimal's
+# (base 16, kernel 3); (config, padded frame size)
+E2VID_WIDTHS = {"num_bins": 5, "base_num_channels": 32, "num_encoders": 3,
+                "num_residual_blocks": 2, "skip_type": "sum", "recurrent_block_type": "convlstm",
+                "use_upsample_conv": False, "norm": "BN"}
+FIRENET_WIDTHS = {"num_bins": 5, "base_num_channels": 16, "kernel_size": 3}
+STEP_MODELS = {
+    "E2VIDRecurrent": (E2VID_WIDTHS, (184, 240)),
+    "E2VID": (E2VID_WIDTHS, (184, 240)),
+    "FlowNet": (E2VID_WIDTHS, (184, 240)),
+    "FireNet": (FIRENET_WIDTHS, (180, 240)),
+    "FireNetOrg": (dict(FIRENET_WIDTHS, recurrent_blocks={"resblock": [0]}), (180, 240)),
+}
+STEP_T = 8
+# bf16 against f32 on the same weights: the JAX package's own drift bound for
+# its bf16 switch (tests/test_models_e2vid.py::test_bf16_drift_within_tolerance)
+BF16_DRIFT = 0.08
 
 
 def emit(obj):
@@ -219,12 +247,17 @@ def kernel_sequence(torch, fn, calls):
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evts]
 
 
-def b1_stage_ms(torch, fn, calls=5):
+def b1_stage_ms(torch, fn, calls=5, traces=3):
     """Device ms per launch of each of B1's five kernels (B1_STAGES), and
-    the kernel each stage ran (its tile shows in the name)."""
-    seq = [(n, ms) for n, ms in kernel_sequence(torch, fn, calls)
-           if "gemm_kernel" in n or "attn_kernel" in n]
-    if len(seq) != calls * len(B1_STAGES):
+    the kernel each stage ran (its tile shows in the name). A trace that
+    lost kernel records (the profiler drops some at times: 15 of 25 in one
+    H100 run) is taken again, up to ``traces`` times."""
+    for _ in range(traces):
+        seq = [(n, ms) for n, ms in kernel_sequence(torch, fn, calls)
+               if "gemm_kernel" in n or "attn_kernel" in n]
+        if len(seq) == calls * len(B1_STAGES):
+            break
+    else:
         raise AssertionError(f"B1 stage split: {len(seq)} kernels for {calls} calls: {seq[:8]}")
     times, names = {}, {}
     for i, (name, ms) in enumerate(seq):
@@ -601,6 +634,132 @@ def phase_eval(torch, launch_counts, card):
     emit({"phase": "eval", "items": items, "hw": [180, 240], "subseq_L": 8, "card": card,
           "runs": rows, "flagship_f32_profile": prof})
     return main_path_launches
+
+
+def seeded_step_model(torch, name, cfg, seed):
+    """A step model on the CPU with seeded weights and BN running statistics
+    (means around 0, variances in [0.5, 1.5])."""
+    from bde2vid_tpu_torch.models import build_model
+
+    torch.manual_seed(seed)
+    model = build_model(name, cfg, device="cpu")
+    with torch.no_grad():
+        for key, buf in model.named_buffers():
+            if key.endswith("running_var"):
+                buf.uniform_(0.5, 1.5)
+            elif key.endswith("running_mean"):
+                buf.normal_(0.0, 0.1)
+    return model
+
+
+def phase_step_models(torch, launch_counts, card):
+    """The E2VID family: each model over T=8 frames on the card and on the
+    CPU (images and final state within 2e-4; forward ms on the card; bf16
+    against f32 for E2VIDRecurrent and FireNet within the JAX package's drift
+    bound), then the eval CLI on the synthetic MMP sequence with template
+    checkpoints of E2VIDRecurrent (f32 and --bf16) and FireNet (f32), at
+    --subseq_L 8 and 0, the two within 1e-6. No hand-written kernel may
+    launch on this path."""
+    import copy
+
+    from bde2vid_tpu_torch.eval.__main__ import main as eval_main
+    from bde2vid_tpu_torch.models import run_sequence
+
+    rows, models = {}, {}
+    launch_counts.clear()
+    for i, (name, (cfg, (h, w))) in enumerate(STEP_MODELS.items()):
+        model = seeded_step_model(torch, name, cfg, seed=20 + i)
+        models[name] = model
+        vox = torch.from_numpy(np.random.default_rng(30 + i).normal(
+            size=(STEP_T, 1, 5, h, w)).astype(np.float32))
+        card_model = copy.deepcopy(model).cuda()
+        vox_d = vox.cuda()
+
+        def forward(m=card_model, x=vox_d):
+            with torch.no_grad():
+                return run_sequence(m, x, m.initial_state(1, h, w))
+
+        got, got_state = forward()
+        fwd_ms = cuda_ms(torch, forward, iters=3, warmup=1)
+        with torch.no_grad():
+            want, want_state = run_sequence(model, vox, model.initial_state(1, h, w))
+        flat = lambda st: [t for s in st for t in (s if isinstance(s, tuple) else (s,))]
+        img_diff = (got.cpu() - want).abs().max().item()
+        state_diff = max([(a.cpu() - b).abs().max().item()
+                          for a, b in zip(flat(got_state), flat(want_state))], default=0.0)
+        if not (got.device.type == "cuda" and want.device.type == "cpu"
+                and got.shape == (STEP_T, 1, 1, h, w) and torch.isfinite(got).all()
+                and img_diff <= 2e-4 and state_diff <= 2e-4):
+            raise AssertionError(f"step model {name}: card vs CPU images {img_diff}, "
+                                 f"state {state_diff}, shape {tuple(got.shape)}")
+        row = {"hw": [h, w], "T": STEP_T, "params": sum(p.numel() for p in model.parameters()),
+               "forward_ms": fwd_ms, "ms_per_frame": fwd_ms / STEP_T,
+               "image_mean": want.mean().item(), "image_std": want.std().item(),
+               "max_abs_diff_images": img_diff, "max_abs_diff_state": state_diff}
+        if name in ("E2VIDRecurrent", "FireNet"):
+            bf16, vox_b = copy.deepcopy(card_model).to(torch.bfloat16), vox_d.to(torch.bfloat16)
+            low, _ = forward(bf16, vox_b)
+            drift = (low.float() - got).abs().max().item()
+            if not drift < BF16_DRIFT:
+                raise AssertionError(f"step model {name}: bf16 drift {drift} >= {BF16_DRIFT}")
+            row["bf16_max_abs_drift"] = drift
+            row["forward_ms_bf16"] = cuda_ms(torch, lambda: forward(bf16, vox_b), iters=3, warmup=1)
+        rows[name] = row
+        del card_model
+    torch.cuda.synchronize()
+    forward_launches = {k: v for k, v in launch_counts.items() if v}
+
+    cli = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        items = write_mmp_sequence(os.path.join(tmp, "data", "mmp", "SYN", "seq0"),
+                                   np.random.default_rng(2))
+        for name in ("E2VIDRecurrent", "FireNet"):
+            weights = os.path.join(tmp, "weights_" + name)
+            os.makedirs(weights)
+            torch.save({"arch": name, "config": {"arch": {"args": {"unet_kwargs": STEP_MODELS[name][0]}}},
+                        "state_dict": models[name].state_dict()}, os.path.join(weights, "model.pth"))
+            runs = [("f32", 8), ("f32_whole", 0)] + ([("bf16", 8)] if name == "E2VIDRecurrent" else [])
+            for run, subseq in runs:
+                out_dir = os.path.join(tmp, f"out_{name}_{run}")
+                args = ["--weights_dir", weights, "--data_dir", os.path.join(tmp, "data"),
+                        "--datasets", "SYN", "--loader_type", "MMP", "--metrics", "mse", "ssim",
+                        "--subseq_L", str(subseq), "--output_dir", out_dir]
+                if run == "bf16":
+                    args.append("--bf16")
+                torch.cuda.synchronize()
+                launch_counts.clear()
+                t0 = time.perf_counter()
+                rc = eval_main(args)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = {k: v for k, v in launch_counts.items() if v}
+                base = os.path.join(out_dir, "model_L8_org" if subseq else "model_org")
+                if rc != 0:
+                    raise AssertionError(f"eval CLI ({name} {run}) returned {rc}")
+                with open(base + ".txt") as fp:
+                    result = json.load(fp)["SYN"]["seq0"]
+                with open(base + "_detail.txt") as fp:
+                    detail = json.load(fp)["SYN"]["seq0"]
+                if not (os.path.exists(base + "_table.txt") and set(result) == {"mse", "ssim"}
+                        and all(math.isfinite(v) for v in result.values())
+                        and all(len(detail[k]) == items and all(map(math.isfinite, detail[k]))
+                                for k in result)):
+                    raise AssertionError(f"eval CLI ({name} {run}) wrote bad results: {result}")
+                if launches:
+                    raise AssertionError(f"eval CLI ({name} {run}) launched kernels: {launches}")
+                cli[f"{name}_{run}"] = {"seconds": seconds, "frames_per_s": items / seconds,
+                                        "subseq_L": subseq, "detail": detail, **result}
+            whole, chunked = cli[f"{name}_f32_whole"]["detail"], cli[f"{name}_f32"]["detail"]
+            diff = max(abs(a - b) for k in whole for a, b in zip(whole[k], chunked[k]))
+            if diff > 1e-6:
+                raise AssertionError(f"eval CLI ({name}): subseq_L 8 vs 0 differ by {diff}")
+            cli[f"{name}_f32"]["max_abs_diff_vs_whole"] = diff
+    for row in cli.values():
+        row.pop("detail")
+    if forward_launches:
+        raise AssertionError(f"step models launched kernels: {forward_launches}")
+    emit({"phase": "step_models", "card": card, "models": rows, "eval": cli, "items": items,
+          "hw": [180, 240], "launches": forward_launches})
 
 
 def attn_bwd_cost(b, m, n, c, heads, elem_bytes):
@@ -1419,6 +1578,7 @@ def main() -> int:
     phase_model(torch, launch_counts)
     phase_parallel(torch, launch_counts)
     eval_launches = phase_eval(torch, launch_counts, card)
+    phase_step_models(torch, launch_counts, card)
     phase_grads(torch, launch_counts)
     phase_variants(torch, launch_counts)
     bwd_launches, long_launches = phase_train(torch, launch_counts, card)

@@ -558,3 +558,62 @@ def test_cuda_forward_occupancy_is_that_of_the_named_card(cuda_device, lib, b_, 
         assert occ["threads"] == plan.threads == wac.ATTN_THREADS
         assert plan == wac.attn_forward_plan(b_, 16, m, n, c // 16, occ["sms"],
                                              occ["blocks_per_sm"], bf16)
+
+
+@pytest.mark.cuda
+def test_cuda_e2vid_recurrent_full_width_matches_cpu_and_threads_state(cuda_device):
+    """E2VIDRecurrent at the released E2VID widths (base 32, 3 encoders, 2
+    residual blocks, BN, transposed-conv decoders) over T=4 frames of
+    184x240: images and final state on the card within 2e-4 of the CPU's,
+    no hand-written kernel launched. Then the eval driver on a synthetic
+    sequence: chunks of 3 steps give the numbers of one dispatch (the state
+    carries across chunks)."""
+    from bde2vid_tpu_torch.data.pipeline import EventSequence
+    from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_sequence
+    from bde2vid_tpu_torch.models import ModelSpec, build_model, run_sequence
+
+    cfg = {"num_bins": 5, "base_num_channels": 32, "num_encoders": 3, "num_residual_blocks": 2,
+           "norm": "BN", "use_upsample_conv": False}
+    torch.manual_seed(0)
+    cpu = build_model("E2VIDRecurrent", cfg, device="cpu")
+    for name, buf in cpu.named_buffers():
+        if name.endswith("running_var"):
+            buf.uniform_(0.5, 1.5)
+        elif name.endswith("running_mean"):
+            buf.normal_(0.0, 0.1)
+    card = build_model("E2VIDRecurrent", cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    vox = torch.randn(4, 1, 5, 184, 240)
+    launch_counts.clear()
+    with torch.no_grad():
+        want, want_state = run_sequence(cpu, vox, cpu.initial_state(1, 184, 240))
+        got, got_state = run_sequence(card, vox.to(cuda_device), card.initial_state(1, 184, 240))
+    torch.cuda.synchronize()
+    assert not any(launch_counts.values())
+    assert (got.cpu() - want).abs().max().item() <= 2e-4
+    for g, w in zip([t for s in got_state for t in s], [t for s in want_state for t in s]):
+        assert (g.cpu() - w).abs().max().item() <= 2e-4
+
+    class Reader:  # 7 frames of 180x240, 3000 events a window
+        sensor_size, num_frames = (180, 240), 7
+
+        def __init__(self):
+            rng = np.random.default_rng(3)
+            n = 6 * 3000
+            self.ev = (rng.integers(0, 240, n), rng.integers(0, 180, n),
+                       np.sort(rng.uniform(0, 1, n)), rng.integers(0, 2, n))
+            self.imgs = rng.uniform(0, 1, (7, 180, 240)).astype(np.float32)
+
+        def raw_events(self, i0, i1):
+            return tuple(a[i0:i1] for a in self.ev)
+
+        def frame(self, i):
+            return self.imgs[i]
+
+    seq = EventSequence(Reader(), np.stack([np.arange(6) * 3000, np.arange(1, 7) * 3000], 1))
+    spec = ModelSpec("E2VIDRecurrent", card, num_encoders=3)
+    chunked = evaluate_sequence(spec, seq, EvalConfig(subseq_L=3))[1]
+    whole = evaluate_sequence(spec, seq, EvalConfig(subseq_L=None))[1]
+    for metric in ("mse", "ssim"):
+        assert len(chunked[metric]) == 6
+        np.testing.assert_allclose(chunked[metric], whole[metric], atol=1e-6, rtol=0)
