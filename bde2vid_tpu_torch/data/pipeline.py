@@ -1,12 +1,20 @@
 """Sequence assembly: event file -> between-frames windows -> voxel grids on
 the device (counterpart of ``bde2vid_tpu/data/pipeline.py`` ``EventSequence``
-and ``load_sequence``, H5 and MMP backends).
+and ``load_sequence``, H5, SpadeH5 and MMP backends).
 
 Reference item semantics (h5_dataset.py:204-259) kept: window timestamps are
 shifted to the window's first event (f64 difference, then f32), windows with
 fewer than 3 events give a zero voxel, and a between-frames sequence has
 num_frames - 1 items. With ``normalize`` each window's voxel grid is then
 LegacyNorm'd on its own (``utils/norm.py::legacy_norm``).
+
+With ``ev_rate`` (SPADE's event-rate splitting, reference SpadeE2VDataset,
+h5_dataset.py:486-565) each item's window splits into
+``n // (H W ev_rate)`` sub-windows (float floor division over the sensor's
+pixels, at least one) of ``np.array_split`` sizes: the first ``n % k`` get
+one event more. ``windows`` then holds the flat sub-windows, which
+``voxels()`` indexes, and ``item_last[i]`` the last sub-window of item i;
+``len()`` and ``frames()`` stay per item.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from bde2vid_tpu_torch.utils.norm import legacy_norm
 class EventSequence:
     """An indexed event sequence whose windows voxelize on ``device``."""
 
-    def __init__(self, reader, windows: np.ndarray, num_bins: int = 5, normalize: bool = False):
+    def __init__(self, reader, windows: np.ndarray, num_bins: int = 5, normalize: bool = False,
+                 ev_rate: Optional[float] = None):
         self.reader = reader
         self.num_bins = num_bins
         self.normalize = normalize
@@ -36,6 +45,10 @@ class EventSequence:
             raise ValueError("sequence has zero usable steps")
         self.length = length
         self.windows = windows[:length]
+        self.item_last: Optional[np.ndarray] = None
+        if ev_rate is not None:
+            self.windows, self.item_last = split_by_event_rate(
+                self.windows, self.sensor_size[0] * self.sensor_size[1], ev_rate)
 
     def __len__(self) -> int:
         return self.length
@@ -70,10 +83,11 @@ class EventSequence:
 
     def voxels(self, start: int = 0, stop: Optional[int] = None, device=None,
                batch: int = 64) -> torch.Tensor:
-        """(stop-start, B, H, W) f32 voxel grids of windows [start, stop) on
-        ``device`` (CUDA unless the CPU is asked for)."""
+        """(stop-start, B, H, W) f32 voxel grids of (flat) windows [start,
+        stop) on ``device`` (CUDA unless the CPU is asked for)."""
         device = resolve_device(device)
-        stop = self.length if stop is None else min(stop, self.length)
+        n_windows = len(self.windows)
+        stop = n_windows if stop is None else min(stop, n_windows)
         out = []
         for s in range(start, stop, batch):
             packed = self._pack(s, min(s + batch, stop))
@@ -93,9 +107,10 @@ class EventSequence:
         """(T, 2, H, W) f32 displacement flows of windows [start, stop): the
         stored flow times the window's duration (reference
         h5_dataset.py:239-241), or None when the file holds no flow for the
-        range (the MMP backend holds none)."""
+        range (the MMP backend holds none) or the windows are event-rate
+        sub-windows, which pair with no flow."""
         stop = self.length if stop is None else min(stop, self.length)
-        if getattr(self.reader, "num_flow", 0) < stop:
+        if self.item_last is not None or getattr(self.reader, "num_flow", 0) < stop:
             return None
         out = []
         for i in range(start, stop):
@@ -116,20 +131,41 @@ class EventSequence:
         return np.stack(out)
 
 
+def split_by_event_rate(windows: np.ndarray, num_pixels: int, ev_rate: float):
+    """(flat sub-windows (K, 2), item_last (items,)) of item ``windows``
+    split at ``ev_rate`` events per pixel (module docstring)."""
+    flat, last = [], []
+    for i0, i1 in windows:
+        n = int(i1 - i0)
+        num_vox = max(int(n // (num_pixels * ev_rate)), 1)
+        base, extra = divmod(n, num_vox)
+        start = int(i0)
+        for j in range(num_vox):
+            size = base + (1 if j < extra else 0)
+            flat.append([start, start + size])
+            start += size
+        last.append(len(flat) - 1)
+    return np.asarray(flat, np.int64).reshape(-1, 2), np.asarray(last, np.int64)
+
+
 def load_sequence(path: str, num_bins: int = 5, ltype: str = "H5",
-                  normalize: bool = False) -> EventSequence:
+                  normalize: bool = False, ev_rate: Optional[float] = None) -> EventSequence:
     """Open a sequence with between-frames windows: ``ltype`` "H5" (an event
-    h5 file) or "MMP" (a memmap directory); ``normalize`` LegacyNorms each
-    window's voxels."""
-    if ltype == "H5":
+    h5 file), "SpadeH5" (the same, split at ``ev_rate`` 0.35 unless given)
+    or "MMP" (a memmap directory); ``normalize`` LegacyNorms each window's
+    voxels; ``ev_rate`` splits each item's window by event rate (any
+    backend)."""
+    if ltype in ("H5", "SpadeH5"):
         from bde2vid_tpu_torch.events.h5_io import H5EventReader
 
         reader = H5EventReader(path)
+        if ltype == "SpadeH5" and ev_rate is None:
+            ev_rate = 0.35
     elif ltype == "MMP":
         from bde2vid_tpu_torch.events.tools import MemMapEventReader
 
         reader = MemMapEventReader(path)
     else:
-        raise NotImplementedError(f"loader type {ltype!r} is not ported yet (H5, MMP)")
+        raise NotImplementedError(f"loader type {ltype!r} is not ported yet (H5, SpadeH5, MMP)")
     windows = between_frames_windows(reader.frame_event_indices)
-    return EventSequence(reader, windows, num_bins=num_bins, normalize=normalize)
+    return EventSequence(reader, windows, num_bins=num_bins, normalize=normalize, ev_rate=ev_rate)

@@ -1,15 +1,17 @@
 """Evaluation CLI of the port (counterpart of ``bde2vid_tpu/eval/__main__.py``,
-the subset the BDE2VID and E2VID-family eval paths need).
+the subset the BDE2VID, E2VID-family, SPADE and EITR eval paths need).
 
     python -m bde2vid_tpu_torch.eval --weights_dir W --data_dir D \\
         --datasets HQF --loader_type MMP --metrics mse ssim --subseq_L 8
 
 Scores every ``*.pth`` under ``--weights_dir``: BDE2VID, E2VID,
-E2VIDRecurrent, FireNet, FireNetOrg and FlowNet checkpoints in the mmengine,
-pytorch-template and ``firenet_1000.pth`` dialects. Runs on CUDA unless
+E2VIDRecurrent, FireNet, FireNetOrg, FlowNet and EITR checkpoints in the
+mmengine, pytorch-template and ``firenet_1000.pth`` dialects, and bare
+SPADE state dicts (a file name with "SPADE"; on an H5 tree SPADE reads
+``SpadeH5``, the event-rate-split windows). Runs on CUDA unless
 ``--device cpu``; ``--pallas`` (default on CUDA) runs BDE2VID's attention
 blocks through the hand-written kernel, ``--no-pallas`` through the unfused
-PyTorch body (the E2VID family has no attention, and ignores both).
+PyTorch body (the step models have no window attention, and ignore both).
 ``--normalize`` LegacyNorms the voxels; a template checkpoint whose model
 arguments stand under ``model`` asks for it too.
 """
@@ -34,7 +36,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", nargs="*", default=["mse", "ssim"], choices=["mse", "ssim", "psnr"])
     p.add_argument("--subseq_L", default=1000, type=int)
     p.add_argument("--max_length", default=111200, type=int)
-    p.add_argument("--loader_type", default="H5", choices=["H5", "MMP"])
+    p.add_argument("--loader_type", default="H5", choices=["H5", "SpadeH5", "MMP"])
     p.add_argument("--normalize", action="store_true",
                    help="LegacyNorm each window's voxels (zero mean, unit std over nonzeros)")
     p.add_argument("--output_dir", default=None, type=str,
@@ -66,14 +68,15 @@ def read_checkpoints(weights_dir: str, st: int, ed: int):
 
 
 def read_datafiles(data_dir: str, datasets, loader_type: str = "H5"):
-    """Sequences under ``data_dir/h5`` (H5) or ``data_dir/mmp`` (MMP), from
-    ``eval_data.txt`` when present, filtered by dataset name."""
-    root = os.path.join(data_dir, "h5" if loader_type == "H5" else "mmp")
+    """Sequences under ``data_dir/h5`` (H5, SpadeH5) or ``data_dir/mmp``
+    (MMP), from ``eval_data.txt`` when present, filtered by dataset name."""
+    h5 = loader_type in ("H5", "SpadeH5")
+    root = os.path.join(data_dir, "h5" if h5 else "mmp")
     listing = os.path.join(root, "eval_data.txt")
     if os.path.exists(listing):
         with open(listing) as f:
             files = [l for l in f.read().split("\n") if l]
-    elif loader_type == "H5":
+    elif h5:
         files = sorted(os.path.relpath(p, root)
                        for p in glob(os.path.join(root, "**", "*.h5"), recursive=True))
     else:

@@ -8,10 +8,12 @@ dialects read (the JAX package's ``load_model_from_torch`` dispatch):
 - mmengine, ``{"meta": {"cfg": <python config source>}, "state_dict": ...}``:
   BDE2VID, or any other family by its ``type``;
 - pytorch-template, ``{"arch": <family>, "state_dict": ...}`` with the
-  model arguments under ``config.arch.args[.unet_kwargs]`` or ``model``
-  (the latter asks for LegacyNorm'd voxels).
+  model arguments under ``config.arch.args[.unet_kwargs|.eitr_kwargs]`` or
+  ``model`` (the latter asks for LegacyNorm'd voxels);
+- a bare state dict whose path names "SPADE": the SPADE generator, with
+  LegacyNorm'd voxels and 3 encoders' padding.
 
-Bare SPADE and SNN state dicts are refused until those families are ported.
+Bare SNN state dicts are refused until that family is ported.
 ``state_dict_from_jax`` turns a flax param tree of a ported family into the
 port's layout: the inverse of the JAX package's ``convert_state_dict`` +
 ``_map_module_path`` (+ ``_bde2vid_path_fixup`` for BDE2VID).
@@ -54,8 +56,14 @@ def _flax_paths(tree, prefix=()):
             yield prefix + (k,), v
 
 
-_INDEXED = re.compile(r"(forward_encoder|backward_encoder|feat_attns|blocks|fusion_layers)(\d+)")
+# flax names that fold a torch list index into the parent's name: BDE2VID's,
+# EITR's (DownsampleConv.N, UpsampleConv.N, layers.J, the generic
+# Transformer's encoder_layers.J / decoder_layers.J) and SPADE's mlp_shared.0
+_INDEXED = re.compile(r"(forward_encoder|backward_encoder|feat_attns|blocks|fusion_layers|"
+                      r"DownsampleConv|UpsampleConv|layers|encoder_layers|decoder_layers|"
+                      r"mlp_shared)(\d+)")
 _LISTS = re.compile(r"(encoder|decoder|resblock)(\d+)")  # the UNets' encoders.N, ...
+_TRANSFORMER = re.compile(r"trans_(encoder|decoder)\d+")  # EITR's stacks nest .encoder/.decoder
 
 
 def _torch_module_path(path: Tuple[str, ...], leaf: str) -> list:
@@ -76,8 +84,11 @@ def _torch_module_path(path: Tuple[str, ...], leaf: str) -> list:
         if m := re.fullmatch(r"predI(\d)", p):
             out += ["predI", m[1]]
             continue
-        if m := re.fullmatch(r"res(\d+)", p):
-            out.append(m[1])
+        if i > 0 and path[i - 1].startswith("feat_attns") and (m := re.fullmatch(r"res(\d+)", p)):
+            out.append(m[1])  # BDE2VID's res fallback; SPADE's res0/res1 keep their names
+            continue
+        if m := _TRANSFORMER.fullmatch(p):
+            out += [p, m[1]]
             continue
         if m := _INDEXED.fullmatch(p):
             out += [m[1], m[2]]
@@ -105,7 +116,10 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     ``conv2d``, ``gates`` -> ``Gates``, ``decode/decoderN1`` ->
     ``decoders.N.1.conv2d``, ``decode/decoderN1_norm`` ->
     ``decoders.N.1.norm_layer``, ``feat_attnsL/resJ`` -> ``feat_attns.L.J``,
-    ...). A 4-D kernel directly on ``decoderN`` is a TransposedConvLayer's,
+    EITR's ``trans_encoderN/layersJ`` -> ``trans_encoderN.encoder.layers.J``
+    and ``DownsampleConvN`` -> ``DownsampleConv.N``, SPADE's ``mlp_shared0``
+    -> ``mlp_shared.0``, ...); an attention's ``in_proj_kernel`` (d, 3d) goes
+    to ``in_proj_weight`` (3d, d). A 4-D kernel directly on ``decoderN`` is a TransposedConvLayer's,
     kept flipped in correlation form (kh, kw, in, out): it goes to
     ``decoders.N.transposed_conv2d.weight`` as torch's (in, out, kh, kw),
     un-flipped. Load the result with :func:`load_state_dict_checked`."""
@@ -117,8 +131,9 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         mod = _torch_module_path(path[:-1], leaf)
         if leaf == "kernel" and mod[-1] == "transposed_conv2d":
             name, val = "weight", val[::-1, ::-1].transpose(2, 3, 0, 1)
-        elif leaf == "kernel":
-            name, val = "weight", (val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T)
+        elif leaf in ("kernel", "in_proj_kernel"):
+            name = "weight" if leaf == "kernel" else "in_proj_weight"
+            val = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
         elif leaf == "scale":
             name = "weight"
         else:
@@ -181,10 +196,13 @@ def load_model_from_torch(path: str, device=None, dtype=torch.float32) -> ModelS
             config, normalize = _template_model_args(ckpt)
             return _build_spec(ckpt["arch"], config or {}, ckpt["state_dict"], device, dtype,
                                normalize=normalize)
-    for family in ("SPADE", "SNN"):
-        if family in path:
-            raise NotImplementedError(
-                f"{path}: a bare {family} state dict; the {family} family is still to be ported")
+    if "SPADE" in path:
+        # the reference wrapper hands load_state_dict to its generator (spade_e2v.py:14-15)
+        return _build_spec("SPADEE2VID", {}, {f"generator.{k}": v for k, v in ckpt.items()},
+                           device, dtype, normalize=True)
+    if "SNN" in path:
+        raise NotImplementedError(
+            f"{path}: a bare SNN state dict; the SNN family is still to be ported")
     raise ValueError(f"unrecognized checkpoint dialect: {path}")
 
 
@@ -196,11 +214,14 @@ def _build_spec(name: str, config: dict, state_dict: Mapping[str, Any], device, 
     model = build_model(name, config, device=device, dtype=dtype)
     load_state_dict_checked(model, state_dict)
     # the JAX package's rule: 4 encoders by default for names with "E2VID",
-    # else 3; FireNet and FireNetOrg do not downsample
+    # else 3; FireNet and FireNetOrg do not downsample; SPADE takes the
+    # reference driver's default of 3
     num_encoders = int(config.get("num_encoders",
                                   gen_cfg.get("num_encoders", 4 if "E2VID" in name else 3)))
     if name in ("FireNet", "FireNetOrg"):
         num_encoders = 0
+    if name == "SPADEE2VID":
+        num_encoders = 3
     return ModelSpec(name=name, module=model, num_bins=int(config["num_bins"]),
                      num_encoders=num_encoders, is_sequence_model=is_sequence_model,
                      normalize=normalize)

@@ -9,6 +9,9 @@ on every call of a sequence model, bde2vid.py:31). A step model (the E2VID
 family) starts from one ``initial_state`` per sequence and carries its state
 across chunks, as the reference's per-step loop does: ``subseq_L`` only
 bounds the steps of one dispatch, and the result does not depend on it.
+An event-rate-split sequence (``seq.item_last``, SpadeH5) runs the model
+over every sub-voxel up to item T-1's last, and item i's prediction is the
+output at ``item_last[i]``; SPADE on an H5 tree is read as SpadeH5.
 Results keep the reference JSON schema: ``{dataset: {sequence: {metric: sum over steps / T}}}`` plus a
 per-step detail file and a table.
 """
@@ -57,11 +60,12 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
     device, dtype = spec.device, spec.dtype
 
     preds = []
-    chunk = cfg.subseq_L or T
+    n_steps = T if seq.item_last is None else int(seq.item_last[T - 1]) + 1
+    chunk = cfg.subseq_L or n_steps
     if not spec.is_sequence_model:
         state = spec.initial_state(1, crop.height_crop_size, crop.width_crop_size)
-    for s in range(0, T, chunk):
-        v = seq.voxels(s, min(s + chunk, T), device=device, batch=cfg.voxel_batch)
+    for s in range(0, n_steps, chunk):
+        v = seq.voxels(s, min(s + chunk, n_steps), device=device, batch=cfg.voxel_batch)
         x = crop.pad(v[:, None]).to(dtype)  # (L, 1, B, H', W')
         with torch.no_grad():
             if spec.is_sequence_model:
@@ -69,7 +73,10 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
             else:
                 images, state = run_sequence(spec.module, x, state)
         preds.append(images.float())
-    preds = crop.crop(torch.cat(preds))[:, 0, 0]  # (T, H, W)
+    preds = torch.cat(preds)
+    if seq.item_last is not None:
+        preds = preds[torch.from_numpy(seq.item_last[:T]).to(preds.device)]
+    preds = crop.crop(preds)[:, 0, 0]  # (T, H, W)
 
     u8 = seq.frames_u8(0, T)
     if u8 is not None:
@@ -94,12 +101,14 @@ def evaluate_all(spec: ModelSpec, datafiles: Sequence[str], data_dir: str, resul
         return {}
     results = collections.defaultdict(dict)
     details = collections.defaultdict(dict)
+    # the reference pairs SPADE with event-rate splitting
+    ltype = "SpadeH5" if spec.name == "SPADEE2VID" and cfg.ltype == "H5" else cfg.ltype
     for datafile in datafiles:
         dataset_name, filename = os.path.split(datafile)
         dataset_name = os.path.basename(dataset_name) or "unknown"
         filename = filename.split(".h5")[0]
         seq = load_sequence(os.path.join(data_dir, datafile), num_bins=cfg.num_bins,
-                            ltype=cfg.ltype, normalize=cfg.normalize)
+                            ltype=ltype, normalize=cfg.normalize)
         try:
             result, detail = evaluate_sequence(spec, seq, cfg)
         finally:

@@ -84,10 +84,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     own update takes the unbiased one); in eval mode it normalises with the
     running statistics. Statistics and affine in f32; the result in the
     input's type. A recompute for the backward (``nn.remat``) leaves the
-    running statistics alone."""
+    running statistics alone. ``affine=False`` keeps no weight and bias
+    (SPADE's ``param_free_norm``)."""
 
-    def __init__(self, features: int):
-        super().__init__(features, eps=1e-5, momentum=0.1)
+    def __init__(self, features: int, affine: bool = True):
+        super().__init__(features, eps=1e-5, momentum=0.1, affine=affine)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -101,8 +102,12 @@ class BatchNorm2d(nn.BatchNorm2d):
                     self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        mul = torch.rsqrt(var + self.eps)
+        if self.affine:
+            mul = mul * self.weight.float()
+        y = (x32 - mean[:, None, None]) * mul[:, None, None]
+        if self.affine:
+            y = y + self.bias.float()[:, None, None]
         return y.to(x.dtype)
 
 
@@ -194,6 +199,45 @@ class UpsampleConvLayer(nn.Module):
 def resize_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
     """x2 bilinear upsample of (N, C, H, W), align_corners=False."""
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def resize_nearest_torch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest resize of (N, C, H, W) with torch's floor rule, source index
+    ``floor(dst * (in / out))``, the ratio and the product in f32 as the
+    JAX package computes them (JAX ``nn/layers.py::resize_nearest_torch``),
+    and the index clamped into range as JAX's gather clamps it."""
+    h, w = x.shape[-2:]
+
+    def index(n_out: int, n_in: int) -> torch.Tensor:
+        ratio = torch.tensor(n_in / n_out, dtype=torch.float32)
+        src = torch.floor(torch.arange(n_out, dtype=torch.float32) * ratio).long()
+        return src.clamp_(max=n_in - 1).to(x.device)
+
+    return x[:, :, index(out_h, h)[:, None], index(out_w, w)[None, :]]
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, C r^2, H, W) -> (N, C, H r, W r), which JAX's NHWC
+    ``pixel_shuffle`` was built to match."""
+    return F.pixel_shuffle(x, r)
+
+
+class PixelShufflePack(nn.Module):
+    """``upsample_conv`` (kaiming-normal weights) to ``out_channels * r^2``
+    channels, then ``pixel_shuffle`` by r (reference
+    model/submodules.py:39-81; no model uses it)."""
+
+    def __init__(self, in_channels: int, out_channels: int, scale_factor: int = 2,
+                 upsample_kernel: int = 3):
+        super().__init__()
+        self.scale_factor = scale_factor
+        self.upsample_conv = Conv2d(in_channels, out_channels * scale_factor**2, upsample_kernel,
+                                    padding=(upsample_kernel - 1) // 2)
+        nn.init.kaiming_normal_(self.upsample_conv.weight)
+        nn.init.zeros_(self.upsample_conv.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pixel_shuffle(self.upsample_conv(x), self.scale_factor)
 
 
 class ResidualBlockNoBN(nn.Module):

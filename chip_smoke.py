@@ -7,7 +7,8 @@ Phases, one JSON line each; a failure in any phase raises and the script
 exits non-zero without a result line. Two configurations run at full
 width with seeded random weights: the flagship BDE2VID (7x7 windows) and
 the same model with 8x8 windows, whose even dilated blocks take the
-WindowAttention3D kernel; then the E2VID family at its published widths.
+WindowAttention3D kernel; then the E2VID family at its published widths,
+SPADE-E2VID at its fixed widths and EITR at the reference's.
 
   build    nvcc-builds every CUDA kernel from the sources in this checkout,
            one process per source, all at once
@@ -44,12 +45,18 @@ WindowAttention3D kernel; then the E2VID family at its published widths.
            counts exact
   step_models  E2VIDRecurrent (the released E2VID: base 32, 3 encoders, BN,
            transposed-conv decoders), E2VID and FlowNet at 184x240, FireNet
-           and FireNetOrg (base 16, kernel 3) at 180x240, T=8: card vs CPU
-           (images and final state within 2e-4), forward ms, bf16 drift of
-           E2VIDRecurrent and FireNet (< 0.08); the eval CLI on template
-           checkpoints (E2VIDRecurrent f32 and --bf16, FireNet f32) at
-           subseq_L 8 and 0 (detail numbers within 1e-6: the state carries
-           across chunks); no hand-written kernel launches on this path
+           and FireNetOrg (base 16, kernel 3) at 180x240, SPADE-E2VID and
+           EITR (reference widths) at 184x240, T=8: card vs CPU (images and
+           final state within 2e-4), forward ms, the conv and GEMM FLOPs of
+           a frame and their bound at 67 TFLOP/s, one profiled forward of
+           SPADE and of EITR (device ms by kernel, idle share), bf16 drift of
+           E2VIDRecurrent, FireNet, SPADE and EITR (< 0.08); the eval CLI on
+           template checkpoints (E2VIDRecurrent f32 and --bf16, FireNet f32,
+           EITR f32 and --bf16) at subseq_L 8 (and 0 for the first two:
+           detail numbers within 1e-6, the state carries across chunks);
+           SPADE through the eval driver on the sequence split at ev_rate
+           0.35 (2 sub-voxels an item), subseq_L 8 vs the whole sequence
+           within 1e-6; no hand-written kernel launches on this path
   grads    training mode, 184x240, T=3: the kernel path's loss and gradients
            vs the unfused path's (relative 1e-3; the key half of attn.kv.bias
            absolute 1e-5), exact launch counts, for the flagship (then 5
@@ -152,14 +159,29 @@ E2VID_WIDTHS = {"num_bins": 5, "base_num_channels": 32, "num_encoders": 3,
                 "num_residual_blocks": 2, "skip_type": "sum", "recurrent_block_type": "convlstm",
                 "use_upsample_conv": False, "norm": "BN"}
 FIRENET_WIDTHS = {"num_bins": 5, "base_num_channels": 16, "kernel_size": 3}
+# EITR at the reference's default widths (model/eitr: channels 32/64/128/256,
+# d_model 256, 8 heads, FFN 1024, no norm): 23 x 30 = 690 tokens a stream at
+# 184x240. SPADE-E2VID's widths are fixed by the model.
+EITR_WIDTHS = {"num_bins": 5, "channels": [32, 64, 128, 256], "d_model": 256, "nhead": 8,
+               "dim_feedforward": 1024, "norm": None}
 STEP_MODELS = {
     "E2VIDRecurrent": (E2VID_WIDTHS, (184, 240)),
     "E2VID": (E2VID_WIDTHS, (184, 240)),
     "FlowNet": (E2VID_WIDTHS, (184, 240)),
     "FireNet": (FIRENET_WIDTHS, (180, 240)),
     "FireNetOrg": (dict(FIRENET_WIDTHS, recurrent_blocks={"resblock": [0]}), (180, 240)),
+    "SPADEE2VID": ({"num_bins": 5}, (184, 240)),
+    "EITR": (EITR_WIDTHS, (184, 240)),
 }
+STEP_BF16 = ("E2VIDRecurrent", "FireNet", "SPADEE2VID", "EITR")
+# the eval CLI's runs per template checkpoint: (run, subseq_L)
+STEP_CLI_RUNS = {"E2VIDRecurrent": (("f32", 8), ("f32_whole", 0), ("bf16", 8)),
+                 "FireNet": (("f32", 8), ("f32_whole", 0)),
+                 "EITR": (("f32", 8), ("bf16", 8))}
 STEP_T = 8
+# SPADE's event-rate splitting on the synthetic sequence: 180 x 240 x 0.35 =
+# 15120 events a sub-voxel, and every window holds 30240-45359 events
+EV_RATE, EV_SUBVOXELS = 0.35, 2
 # bf16 against f32 on the same weights: the JAX package's own drift bound for
 # its bf16 switch (tests/test_models_e2vid.py::test_bf16_drift_within_tolerance)
 BF16_DRIFT = 0.08
@@ -652,14 +674,72 @@ def seeded_step_model(torch, name, cfg, seed):
     return model
 
 
+def state_tensors(state):
+    """The floating tensors of a step model's state, in order (tuples of
+    LSTM states; SPADE's dict adds its f32 ``pred``)."""
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in state_tensors(state[k])]
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in state_tensors(s)]
+    return [state] if state.is_floating_point() else []
+
+
+def step_flops(torch, model, vox, h, w):
+    """Conv and GEMM FLOPs of one step of ``model`` (torch's FLOP counter:
+    2 per multiply-add of convolutions and matrix products)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from bde2vid_tpu_torch.models import run_sequence
+
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        run_sequence(model, vox[:1], model.initial_state(1, h, w))
+    return counter.get_total_flops()
+
+
+def spade_event_rate(torch, seq_path, model):
+    """SPADE through the eval driver on the synthetic sequence split at
+    ``EV_RATE``: ``EV_SUBVOXELS`` sub-voxels an item, subseq_L 8 against the
+    whole sequence in one dispatch within 1e-6, finite numbers."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_sequence
+    from bde2vid_tpu_torch.models import ModelSpec
+
+    seq = load_sequence(seq_path, ltype="MMP", ev_rate=EV_RATE, normalize=True)
+    per_item = np.diff(np.concatenate([[-1], seq.item_last]))
+    if not (per_item == EV_SUBVOXELS).all():
+        raise AssertionError(f"SPADE ev_rate: sub-voxels per item {per_item.tolist()}")
+    spec = ModelSpec("SPADEE2VID", model, num_encoders=3, normalize=True)
+    row, detail = {"items": len(seq), "sub_voxels": len(seq.windows),
+                   "ev_rate": EV_RATE}, {}
+    for run, subseq in (("subseq_L8", 8), ("whole", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, detail[run] = evaluate_sequence(spec, seq, EvalConfig(subseq_L=subseq, normalize=True))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not (all(math.isfinite(v) for v in result.values())
+                and all(len(v) == len(seq) and all(map(math.isfinite, v))
+                        for v in detail[run].values())):
+            raise AssertionError(f"SPADE ev_rate ({run}): bad results {result}")
+        row[run] = {"seconds": seconds, "frames_per_s": len(seq) / seconds, **result}
+    diff = max(abs(a - b) for k in detail["whole"]
+               for a, b in zip(detail["whole"][k], detail["subseq_L8"][k]))
+    if diff > 1e-6:
+        raise AssertionError(f"SPADE ev_rate: subseq_L 8 vs whole differ by {diff}")
+    row["max_abs_diff_vs_whole"] = diff
+    seq.reader.close()
+    return row
+
+
 def phase_step_models(torch, launch_counts, card):
-    """The E2VID family: each model over T=8 frames on the card and on the
-    CPU (images and final state within 2e-4; forward ms on the card; bf16
-    against f32 for E2VIDRecurrent and FireNet within the JAX package's drift
-    bound), then the eval CLI on the synthetic MMP sequence with template
-    checkpoints of E2VIDRecurrent (f32 and --bf16) and FireNet (f32), at
-    --subseq_L 8 and 0, the two within 1e-6. No hand-written kernel may
-    launch on this path."""
+    """The step models: each over T=8 frames on the card and on the CPU
+    (images and final state within 2e-4; forward ms and the bound of a
+    frame's FLOPs on the card; bf16 against f32 for the ``STEP_BF16`` models
+    within the JAX package's drift bound), then the eval CLI on the synthetic
+    MMP sequence with template checkpoints (``STEP_CLI_RUNS``; subseq_L 8
+    and 0 within 1e-6 where both run), and SPADE through the eval driver on
+    the sequence split by event rate. No hand-written kernel may launch on
+    this path."""
     import copy
 
     from bde2vid_tpu_torch.eval.__main__ import main as eval_main
@@ -681,12 +761,15 @@ def phase_step_models(torch, launch_counts, card):
 
         got, got_state = forward()
         fwd_ms = cuda_ms(torch, forward, iters=3, warmup=1)
+        flops = step_flops(torch, card_model, vox_d, h, w)
         with torch.no_grad():
             want, want_state = run_sequence(model, vox, model.initial_state(1, h, w))
-        flat = lambda st: [t for s in st for t in (s if isinstance(s, tuple) else (s,))]
         img_diff = (got.cpu() - want).abs().max().item()
-        state_diff = max([(a.cpu() - b).abs().max().item()
-                          for a, b in zip(flat(got_state), flat(want_state))], default=0.0)
+        got_st, want_st = state_tensors(got_state), state_tensors(want_state)
+        if len(got_st) != len(want_st):
+            raise AssertionError(f"step model {name}: state of {len(got_st)} tensors, want {len(want_st)}")
+        state_diff = max([(a.cpu() - b).abs().max().item() for a, b in zip(got_st, want_st)],
+                         default=0.0)
         if not (got.device.type == "cuda" and want.device.type == "cpu"
                 and got.shape == (STEP_T, 1, 1, h, w) and torch.isfinite(got).all()
                 and img_diff <= 2e-4 and state_diff <= 2e-4):
@@ -694,9 +777,11 @@ def phase_step_models(torch, launch_counts, card):
                                  f"state {state_diff}, shape {tuple(got.shape)}")
         row = {"hw": [h, w], "T": STEP_T, "params": sum(p.numel() for p in model.parameters()),
                "forward_ms": fwd_ms, "ms_per_frame": fwd_ms / STEP_T,
+               "gflop_per_frame": flops / 1e9,
+               "bound_ms_per_frame": 1e3 * flops / PEAK_FLOPS["float32"],
                "image_mean": want.mean().item(), "image_std": want.std().item(),
                "max_abs_diff_images": img_diff, "max_abs_diff_state": state_diff}
-        if name in ("E2VIDRecurrent", "FireNet"):
+        if name in STEP_BF16:
             bf16, vox_b = copy.deepcopy(card_model).to(torch.bfloat16), vox_d.to(torch.bfloat16)
             low, _ = forward(bf16, vox_b)
             drift = (low.float() - got).abs().max().item()
@@ -704,6 +789,8 @@ def phase_step_models(torch, launch_counts, card):
                 raise AssertionError(f"step model {name}: bf16 drift {drift} >= {BF16_DRIFT}")
             row["bf16_max_abs_drift"] = drift
             row["forward_ms_bf16"] = cuda_ms(torch, lambda: forward(bf16, vox_b), iters=3, warmup=1)
+        if name in ("SPADEE2VID", "EITR"):  # where a new family's forward time goes
+            row["profile"] = device_profile(torch, forward, top=8)
         rows[name] = row
         del card_model
     torch.cuda.synchronize()
@@ -713,12 +800,12 @@ def phase_step_models(torch, launch_counts, card):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         items = write_mmp_sequence(os.path.join(tmp, "data", "mmp", "SYN", "seq0"),
                                    np.random.default_rng(2))
-        for name in ("E2VIDRecurrent", "FireNet"):
+        for name, runs in STEP_CLI_RUNS.items():
             weights = os.path.join(tmp, "weights_" + name)
             os.makedirs(weights)
-            torch.save({"arch": name, "config": {"arch": {"args": {"unet_kwargs": STEP_MODELS[name][0]}}},
+            kwargs = "eitr_kwargs" if name == "EITR" else "unet_kwargs"
+            torch.save({"arch": name, "config": {"arch": {"args": {kwargs: STEP_MODELS[name][0]}}},
                         "state_dict": models[name].state_dict()}, os.path.join(weights, "model.pth"))
-            runs = [("f32", 8), ("f32_whole", 0)] + ([("bf16", 8)] if name == "E2VIDRecurrent" else [])
             for run, subseq in runs:
                 out_dir = os.path.join(tmp, f"out_{name}_{run}")
                 args = ["--weights_dir", weights, "--data_dir", os.path.join(tmp, "data"),
@@ -749,17 +836,23 @@ def phase_step_models(torch, launch_counts, card):
                     raise AssertionError(f"eval CLI ({name} {run}) launched kernels: {launches}")
                 cli[f"{name}_{run}"] = {"seconds": seconds, "frames_per_s": items / seconds,
                                         "subseq_L": subseq, "detail": detail, **result}
+            if f"{name}_f32_whole" not in cli:
+                continue
             whole, chunked = cli[f"{name}_f32_whole"]["detail"], cli[f"{name}_f32"]["detail"]
             diff = max(abs(a - b) for k in whole for a, b in zip(whole[k], chunked[k]))
             if diff > 1e-6:
                 raise AssertionError(f"eval CLI ({name}): subseq_L 8 vs 0 differ by {diff}")
             cli[f"{name}_f32"]["max_abs_diff_vs_whole"] = diff
+        launch_counts.clear()
+        spade = spade_event_rate(torch, os.path.join(tmp, "data", "mmp", "SYN", "seq0"),
+                                 copy.deepcopy(models["SPADEE2VID"]).cuda())
+        spade_launches = {k: v for k, v in launch_counts.items() if v}
     for row in cli.values():
         row.pop("detail")
-    if forward_launches:
-        raise AssertionError(f"step models launched kernels: {forward_launches}")
+    if forward_launches or spade_launches:
+        raise AssertionError(f"step models launched kernels: {forward_launches} {spade_launches}")
     emit({"phase": "step_models", "card": card, "models": rows, "eval": cli, "items": items,
-          "hw": [180, 240], "launches": forward_launches})
+          "hw": [180, 240], "spade_event_rate": spade, "launches": forward_launches})
 
 
 def attn_bwd_cost(b, m, n, c, heads, elem_bytes):

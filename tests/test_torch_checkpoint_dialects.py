@@ -11,8 +11,9 @@ steps within atol 2e-4. CPU, f32.
 - ``firenet_1000.pth``: FireNetOrg under ``net.``;
 - mmengine with a ``type`` other than BDE2VID.
 
-A missing or an extra tensor raises in both packages; a bare SPADE or SNN
-state dict raises ``NotImplementedError`` in the port.
+A missing or an extra tensor raises in both packages; a bare SNN state
+dict raises ``NotImplementedError`` in the port, and a bare SPADE one (read
+since SPADE was ported; tests/test_torch_spade.py) is loaded strictly.
 """
 
 import numpy as np
@@ -144,6 +145,10 @@ def test_flownet_without_num_encoders_pads_to_eighths_in_both(tmp_path):
 def test_bare_spade_and_snn_state_dicts_are_not_ported_yet(fname, family, tmp_path):
     path = str(tmp_path / fname)
     torch.save({"head.conv2d.weight": torch.zeros(1)}, path)
+    if family == "SPADE":  # ported: the dialect is read, and a foreign dict refused
+        with pytest.raises(ValueError, match="checkpoint/model mismatch"):
+            load_model_from_torch(path, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"{family} family is still to be ported"):
         load_model_from_torch(path, device="cpu")
 

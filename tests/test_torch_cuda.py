@@ -617,3 +617,96 @@ def test_cuda_e2vid_recurrent_full_width_matches_cpu_and_threads_state(cuda_devi
     for metric in ("mse", "ssim"):
         assert len(chunked[metric]) == 6
         np.testing.assert_allclose(chunked[metric], whole[metric], atol=1e-6, rtol=0)
+
+
+_EITR_SMALL = {"num_bins": 5, "norm": None, "d_model": 32, "dim_feedforward": 64, "nhead": 4,
+               "channels": [8, 16, 32, 32]}
+
+
+def _float_tensors(state):
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in _float_tensors(state[k])]
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _float_tensors(s)]
+    return [state] if state.is_floating_point() else []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg", [("SPADEE2VID", {}), ("EITR", _EITR_SMALL)])
+def test_cuda_spade_and_eitr_match_cpu_and_launch_no_kernel(cuda_device, name, cfg):
+    """SPADE-E2VID (its fixed widths) and EITR (small widths) over T=3
+    frames of 36x44 (EITR pads to 40x48 inside):
+    images and final state, SPADE's pred included, on the card within 2e-4
+    of the CPU's; no hand-written kernel launched."""
+    from bde2vid_tpu_torch.models import build_model, run_sequence
+
+    torch.manual_seed(0)
+    cpu = build_model(name, cfg, device="cpu")
+    for key, buf in cpu.named_buffers():
+        if key.endswith("running_var"):
+            buf.uniform_(0.5, 1.5)
+        elif key.endswith("running_mean"):
+            buf.normal_(0.0, 0.1)
+    card = build_model(name, cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    h, w = 36, 44
+    vox = torch.randn(3, 1, 5, h, w)
+    launch_counts.clear()
+    with torch.no_grad():
+        want, want_state = run_sequence(cpu, vox, cpu.initial_state(1, h, w))
+        got, got_state = run_sequence(card, vox.to(cuda_device), card.initial_state(1, h, w))
+    torch.cuda.synchronize()
+    assert not any(launch_counts.values())
+    assert got.shape == (3, 1, 1, h, w)
+    assert (got.cpu() - want).abs().max().item() <= 2e-4
+    got_st, want_st = _float_tensors(got_state), _float_tensors(want_state)
+    assert len(got_st) == len(want_st) == (9 if name == "SPADEE2VID" else 6)
+    for g, wt in zip(got_st, want_st):
+        assert (g.cpu() - wt).abs().max().item() <= 2e-4
+
+
+def _write_mmp(path, rng, num_frames=6, events_per_frame=2000, hw=(36, 44), fps=25.0):
+    """A memmap sequence directory (``events/tools.py``'s layout) with
+    uniform timestamps: ``events_per_frame`` events a window on average."""
+    import json
+    import os
+
+    os.makedirs(path)
+    h, w = hw
+    n = num_frames * events_per_frame
+    frame_ts = 1000.0 + (np.arange(num_frames) + 1) / fps
+    np.save(os.path.join(path, "t.npy"), np.sort(rng.uniform(1000.0, frame_ts[-1], size=n)))
+    np.save(os.path.join(path, "xy.npy"),
+            np.stack([rng.integers(0, w, n), rng.integers(0, h, n)], axis=1).astype(np.int16))
+    np.save(os.path.join(path, "p.npy"), rng.integers(0, 2, n).astype(np.uint8))
+    np.save(os.path.join(path, "images.npy"),
+            rng.integers(0, 256, (num_frames, h, w, 1)).astype(np.uint8))
+    np.save(os.path.join(path, "timestamps.npy"), frame_ts)
+    with open(os.path.join(path, "dataset_config.json"), "w") as fp:
+        json.dump({"sensor_resolution": [h, w]}, fp)
+
+
+@pytest.mark.cuda
+def test_cuda_event_rate_driver_on_a_tiny_mmp_tree(cuda_device, tmp_path):
+    """SPADE through the eval driver on a 36x44 MMP sequence split at
+    ev_rate 0.35 (554 events a sub-voxel, about 2000 a window: 3 sub-voxels
+    an item): finite numbers, one per item, the same at subseq_L 2 as in
+    one dispatch (within 1e-6), no hand-written kernel launched."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_sequence
+    from bde2vid_tpu_torch.models import ModelSpec, build_model
+
+    _write_mmp(str(tmp_path / "seq"), np.random.default_rng(4))
+    seq = load_sequence(str(tmp_path / "seq"), ltype="MMP", ev_rate=0.35, normalize=True)
+    assert len(seq) == 5
+    assert np.diff(np.concatenate([[-1], seq.item_last])).tolist() == [3] * 5
+    torch.manual_seed(0)
+    spec = ModelSpec("SPADEE2VID", build_model("SPADEE2VID", {}, device=cuda_device),
+                     num_encoders=3, normalize=True)
+    launch_counts.clear()
+    chunked = evaluate_sequence(spec, seq, EvalConfig(subseq_L=2, normalize=True))[1]
+    whole = evaluate_sequence(spec, seq, EvalConfig(subseq_L=None, normalize=True))[1]
+    assert not any(launch_counts.values())
+    for metric in ("mse", "ssim"):
+        assert len(chunked[metric]) == 5 and np.isfinite(chunked[metric]).all()
+        np.testing.assert_allclose(chunked[metric], whole[metric], atol=1e-6, rtol=0)
