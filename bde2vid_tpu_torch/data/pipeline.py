@@ -8,6 +8,12 @@ fewer than 3 events give a zero voxel, and a between-frames sequence has
 num_frames - 1 items. With ``normalize`` each window's voxel grid is then
 LegacyNorm'd on its own (``utils/norm.py::legacy_norm``).
 
+``voxels()`` takes its windows a batch at a time: one reader read of the
+batch's span of events, one ``native.pack_windows`` call into padded buffers
+(int16 coordinates, int8 polarity, f32 timestamps; the batch's largest window
+sets their width), which lie in pinned memory when the voxels go to the card
+and are copied there asynchronously.
+
 With ``ev_rate`` (SPADE's event-rate splitting, reference SpadeE2VDataset,
 h5_dataset.py:486-565) each item's window splits into
 ``n // (H W ev_rate)`` sub-windows (float floor division over the sensor's
@@ -26,6 +32,7 @@ import torch
 
 from bde2vid_tpu_torch.data.windowing import between_frames_windows
 from bde2vid_tpu_torch.events.voxel import events_to_voxel_batch
+from bde2vid_tpu_torch.native import pack_windows
 from bde2vid_tpu_torch.utils.device import resolve_device
 from bde2vid_tpu_torch.utils.norm import legacy_norm
 
@@ -53,33 +60,21 @@ class EventSequence:
     def __len__(self) -> int:
         return self.length
 
-    def raw_window(self, i: int):
-        """(xs, ys, ts, ps, n) for step i: int32 coords, f32 timestamps
-        relative to the window's first event, f32 polarity in {-1, +1}."""
-        i0, i1 = (int(v) for v in self.windows[i])
-        xs, ys, ts, ps = self.reader.raw_events(i0, i1)
-        n = len(xs)
-        ts = np.asarray(ts, np.float64)
-        ts_rel = (ts - ts[0]).astype(np.float32) if n else np.zeros(0, np.float32)
-        return (np.asarray(xs, np.int32), np.asarray(ys, np.int32), ts_rel,
-                np.where(np.asarray(ps) > 0, 1.0, -1.0).astype(np.float32), n)
-
-    def _pack(self, start: int, stop: int):
-        """Padded (stop-start, cap) buffers of windows [start, stop): padding
-        repeats the last timestamp and carries polarity 0."""
-        wins = [self.raw_window(i) for i in range(start, stop)]
-        cap = max(1, max(w[4] for w in wins))
-        c = len(wins)
-        xs = np.zeros((c, cap), np.int32)
-        ys = np.zeros((c, cap), np.int32)
-        ts = np.zeros((c, cap), np.float32)
-        ps = np.zeros((c, cap), np.float32)
-        ns = np.zeros(c, np.int64)
-        for j, (x, y, t, p, n) in enumerate(wins):
-            xs[j, :n], ys[j, :n], ts[j, :n], ps[j, :n] = x, y, t, p
-            ts[j, n:] = t[n - 1] if n else 0.0
-            ns[j] = n
-        return xs, ys, ts, ps, ns
+    def _pack(self, start: int, stop: int, pin: bool = False):
+        """Padded (stop-start, cap) tensors (xs, ys, ts, ps) and the (stop-start,)
+        counts of windows [start, stop), ``cap`` their largest count: padding
+        repeats the last timestamp and carries polarity 0. ``pin`` puts them
+        in page-locked memory, for an asynchronous copy to the card."""
+        wins = self.windows[start:stop]
+        span0, span1 = int(wins[:, 0].min()), int(wins[:, 1].max())
+        c, cap = len(wins), max(1, int((wins[:, 1] - wins[:, 0]).max()))
+        bufs = [torch.empty(shape, dtype=dt, pin_memory=pin)
+                for dt, shape in ((torch.int16, (c, cap)), (torch.int16, (c, cap)),
+                                  (torch.float32, (c, cap)), (torch.int8, (c, cap)),
+                                  (torch.int32, (c,)))]
+        pack_windows(*self.reader.raw_events(span0, span1), wins - span0, cap,
+                     out=[b.numpy() for b in bufs])
+        return bufs
 
     def voxels(self, start: int = 0, stop: Optional[int] = None, device=None,
                batch: int = 64) -> torch.Tensor:
@@ -90,8 +85,11 @@ class EventSequence:
         stop = n_windows if stop is None else min(stop, n_windows)
         out = []
         for s in range(start, stop, batch):
-            packed = self._pack(s, min(s + batch, stop))
-            xs, ys, ts, ps, ns = (torch.from_numpy(a).to(device) for a in packed)
+            # a pinned buffer is freed at the end of this iteration while its
+            # copy may still run: torch's pinned-memory cache holds it until
+            # the copy's stream has passed it, so no later batch reuses it early
+            packed = self._pack(s, min(s + batch, stop), pin=device.type == "cuda")
+            xs, ys, ts, ps, ns = (t.to(device, non_blocking=True) for t in packed)
             v = events_to_voxel_batch(xs, ys, ts, ps, ns, num_bins=self.num_bins,
                                       sensor_size=self.sensor_size)
             v = torch.where((ns < 3)[:, None, None, None], torch.zeros_like(v), v)

@@ -1,5 +1,5 @@
 """Evaluation CLI of the port (counterpart of ``bde2vid_tpu/eval/__main__.py``,
-the subset the BDE2VID, E2VID-family, SPADE and EITR eval paths need).
+the subset the BDE2VID, E2VID-family, SPADE, EITR and SNN eval paths need).
 
     python -m bde2vid_tpu_torch.eval --weights_dir W --data_dir D \\
         --datasets HQF --loader_type MMP --metrics mse ssim --subseq_L 8
@@ -13,7 +13,9 @@ SPADE state dicts (a file name with "SPADE"; on an H5 tree SPADE reads
 blocks through the hand-written kernel, ``--no-pallas`` through the unfused
 PyTorch body (the step models have no window attention, and ignore both).
 ``--normalize`` LegacyNorms the voxels; a template checkpoint whose model
-arguments stand under ``model`` asks for it too.
+arguments stand under ``model`` asks for it too. Bare EVSNN and PAEVSNN
+state dicts (a path with "SNN"; "PAEVSNN" picks the latter) are scored
+robust-normalised, by the loaded model's family.
 """
 
 from __future__ import annotations
@@ -132,6 +134,9 @@ def main(argv=None) -> int:
             max_length=args.max_length,
             normalize=args.normalize or spec.normalize,
             metrics=tuple(args.metrics),
+            # by the loaded family, not only the file name: a lowercase
+            # evsnn_e10.pth is an SNN too
+            robust_norm_output=spec.name in ("EVSNN", "PAEVSNN") or "SNN" in name,
         )
         evaluate_all(spec, datafiles, data_root, result_file, cfg)
     return 0

@@ -11,9 +11,12 @@ dialects read (the JAX package's ``load_model_from_torch`` dispatch):
   model arguments under ``config.arch.args[.unet_kwargs|.eitr_kwargs]`` or
   ``model`` (the latter asks for LegacyNorm'd voxels);
 - a bare state dict whose path names "SPADE": the SPADE generator, with
-  LegacyNorm'd voxels and 3 encoders' padding.
+  LegacyNorm'd voxels and 3 encoders' padding;
+- a bare state dict, or one under ``"model"``, whose path names "SNN":
+  PAEVSNN where the path names "PAEVSNN", else EVSNN, with 3 encoders'
+  padding; the pooled-MLP tensors the reference's forward never uses
+  (``_SNN_DEAD``) are dropped.
 
-Bare SNN state dicts are refused until that family is ported.
 ``state_dict_from_jax`` turns a flax param tree of a ported family into the
 port's layout: the inverse of the JAX package's ``convert_state_dict`` +
 ``_map_module_path`` (+ ``_bde2vid_path_fixup`` for BDE2VID).
@@ -33,6 +36,12 @@ from bde2vid_tpu_torch.models.api import ModelSpec, build_model
 # tensors the port makes itself: reference-layout extras that a flax tree
 # does not carry (the never-called fusion convs, the relative-position index buffer)
 _DERIVED = (re.compile(r"(^|\.)fusion_layers\."), re.compile(r"(^|\.)relative_position_index$"))
+# tensors of reference SNN checkpoints that their forward never reads (the JAX
+# package's two patterns): ConvLayer_ada_simmp's own conv2d_pool/fc1/fc2
+# (snn_network.py:86-110) and get_theta's fc1 (the 'mix' forward uses fc3 and
+# fc2, :144-150). get_theta's fc2 and fc3 are live and never dropped.
+_SNN_DEAD = (re.compile(r"(?<!get_theta)\.(?:conv2d_pool|fc1|fc2)\."),
+             re.compile(r"get_theta\.fc1\."))
 
 
 def load_state_dict_checked(model: torch.nn.Module, state_dict: Mapping[str, Any]) -> None:
@@ -58,10 +67,11 @@ def _flax_paths(tree, prefix=()):
 
 # flax names that fold a torch list index into the parent's name: BDE2VID's,
 # EITR's (DownsampleConv.N, UpsampleConv.N, layers.J, the generic
-# Transformer's encoder_layers.J / decoder_layers.J) and SPADE's mlp_shared.0
+# Transformer's encoder_layers.J / decoder_layers.J), SPADE's mlp_shared.0 and
+# the SNNs' static_conv.N, residualBlock.0 and final.0
 _INDEXED = re.compile(r"(forward_encoder|backward_encoder|feat_attns|blocks|fusion_layers|"
                       r"DownsampleConv|UpsampleConv|layers|encoder_layers|decoder_layers|"
-                      r"mlp_shared)(\d+)")
+                      r"mlp_shared|static_conv|residualBlock|final)(\d+)")
 _LISTS = re.compile(r"(encoder|decoder|resblock)(\d+)")  # the UNets' encoders.N, ...
 _TRANSFORMER = re.compile(r"trans_(encoder|decoder)\d+")  # EITR's stacks nest .encoder/.decoder
 
@@ -201,8 +211,9 @@ def load_model_from_torch(path: str, device=None, dtype=torch.float32) -> ModelS
         return _build_spec("SPADEE2VID", {}, {f"generator.{k}": v for k, v in ckpt.items()},
                            device, dtype, normalize=True)
     if "SNN" in path:
-        raise NotImplementedError(
-            f"{path}: a bare SNN state dict; the SNN family is still to be ported")
+        sd = ckpt.get("model", ckpt)
+        sd = {k: v for k, v in sd.items() if not any(p.search(k) for p in _SNN_DEAD)}
+        return _build_spec("PAEVSNN" if "PAEVSNN" in path else "EVSNN", {}, sd, device, dtype)
     raise ValueError(f"unrecognized checkpoint dialect: {path}")
 
 

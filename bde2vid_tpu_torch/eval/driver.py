@@ -11,7 +11,10 @@ across chunks, as the reference's per-step loop does: ``subseq_L`` only
 bounds the steps of one dispatch, and the result does not depend on it.
 An event-rate-split sequence (``seq.item_last``, SpadeH5) runs the model
 over every sub-voxel up to item T-1's last, and item i's prediction is the
-output at ``item_last[i]``; SPADE on an H5 tree is read as SpadeH5.
+output at ``item_last[i]``; SPADE on an H5 tree is read as SpadeH5. With
+``robust_norm_output`` (the SNNs, whose output is a membrane potential)
+each cropped prediction is robust-normalised to its 1st and 99th
+percentiles before scoring (reference eval_models_seq.py:246-248).
 Results keep the reference JSON schema: ``{dataset: {sequence: {metric: sum over steps / T}}}`` plus a
 per-step detail file and a table.
 """
@@ -30,6 +33,7 @@ import torch
 from bde2vid_tpu_torch.data.pipeline import EventSequence, load_sequence
 from bde2vid_tpu_torch.metrics.basic import mse, psnr, ssim
 from bde2vid_tpu_torch.models.api import ModelSpec, run_sequence
+from bde2vid_tpu_torch.utils.norm import robust_norm
 from bde2vid_tpu_torch.utils.padding import CropParameters
 
 _METRICS = {"mse": mse, "psnr": psnr, "ssim": ssim}
@@ -44,6 +48,7 @@ class EvalConfig:
     voxel_batch: int = 64
     normalize: bool = False
     metrics: Tuple[str, ...] = ("mse", "ssim")
+    robust_norm_output: bool = False
 
 
 def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
@@ -77,6 +82,8 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
     if seq.item_last is not None:
         preds = preds[torch.from_numpy(seq.item_last[:T]).to(preds.device)]
     preds = crop.crop(preds)[:, 0, 0]  # (T, H, W)
+    if cfg.robust_norm_output:
+        preds = torch.stack([robust_norm(p, 1, 99) for p in preds])
 
     u8 = seq.frames_u8(0, T)
     if u8 is not None:

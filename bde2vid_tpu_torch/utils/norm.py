@@ -1,9 +1,10 @@
-"""Voxel normalisation (counterpart of ``bde2vid_tpu/utils/norm.py``
-``legacy_norm``; reference utils_func/data_augmentation.py LegacyNorm
-:313-330)."""
+"""Voxel and image normalisation (counterpart of ``bde2vid_tpu/utils/norm.py``
+``legacy_norm``, ``robust_norm`` and ``to_uint8_image``; reference
+utils_func/data_augmentation.py LegacyNorm :313-330, RobustNorm :30-68)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,37 @@ def legacy_norm(x: torch.Tensor, unbiased: bool = False, batched: bool = False) 
     std = (sq / denom).clamp(min=0.0).sqrt()
     normed = nonzero * (flat - mean) / torch.where(std == 0, torch.ones_like(std), std)
     return torch.where((num > 0) & (std != 0), normed, flat).reshape(x.shape)
+
+
+def _nearest_rank_percentile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The sorted value of ``x`` at 0-based rank ``round(q / 100 (n - 1))``
+    (Python's ``round`` on the host), as ``torch.kthvalue`` with
+    k = 1 + that rank picks it."""
+    flat = x.reshape(-1)
+    k = int(round(0.01 * float(q) * (flat.numel() - 1)))
+    return torch.sort(flat).values[k]
+
+
+def robust_norm(x: torch.Tensor, low_perc: float = 0.0, top_perc: float = 95.0) -> torch.Tensor:
+    """Clamp ``x`` to its ``low_perc`` and ``top_perc`` nearest-rank
+    percentiles, then take ``(c - min c) / (max c + 1e-6)``: the reference
+    divides by the maximum, not by the range. When both percentiles are 0
+    (a mostly-zero image) ``x`` comes back unchanged."""
+    t_max = _nearest_rank_percentile(x, top_perc)
+    t_min = _nearest_rank_percentile(x, low_perc)
+    clamped = torch.clamp(x, t_min, t_max)
+    normed = (clamped - clamped.min()) / (clamped.max() + 1e-6)
+    return torch.where((t_max == 0) & (t_min == 0), x, normed)
+
+
+def robust_1_99(x: torch.Tensor) -> torch.Tensor:
+    return robust_norm(x, 1.0, 99.0)
+
+
+def to_uint8_image(img) -> np.ndarray:
+    """A [0, 1] image (tensor or array) -> uint8: squeezed, clipped, times
+    255, truncated (the reference's torch2cv2)."""
+    if isinstance(img, torch.Tensor):
+        img = img.detach().float().cpu().numpy()
+    arr = np.asarray(img).squeeze()
+    return (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)

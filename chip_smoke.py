@@ -8,10 +8,12 @@ exits non-zero without a result line. Two configurations run at full
 width with seeded random weights: the flagship BDE2VID (7x7 windows) and
 the same model with 8x8 windows, whose even dilated blocks take the
 WindowAttention3D kernel; then the E2VID family at its published widths,
-SPADE-E2VID at its fixed widths and EITR at the reference's.
+SPADE-E2VID, EVSNN and PAEVSNN at their fixed widths and EITR at the
+reference's.
 
   build    nvcc-builds every CUDA kernel from the sources in this checkout,
-           one process per source, all at once
+           one process per source, all at once, then the host event packer
+           with g++
   kernels  each kernel vs its plain PyTorch twin on the card (f32 within
            1e-4 x max(1, max|twin|), bf16 within 2e-2 * max|twin|), with
            times: the Swin block at the flagship and the 8x8 plain shapes
@@ -56,7 +58,21 @@ SPADE-E2VID at its fixed widths and EITR at the reference's.
            detail numbers within 1e-6, the state carries across chunks);
            SPADE through the eval driver on the sequence split at ev_rate
            0.35 (2 sub-voxels an item), subseq_L 8 vs the whole sequence
-           within 1e-6; no hand-written kernel launches on this path
+           within 1e-6; EVSNN and PAEVSNN (fixed widths 32-256) at 184x240,
+           T=8, held card vs CPU to the SNN gate (the first bin's pre-spike
+           drive within 2e-4, at least 99.9 % of image pixels within 2e-4,
+           relative L2 of the images at most 1e-2; flipped spikes and the
+           share of LIF units that fired reported), bf16 drift reported; the
+           eval CLI on bare EVSNN and PAEVSNN checkpoints (subseq_L 8 and 0
+           within 1e-6, robust-normalised output checked against the
+           driver); rec_snn on a 180x240 text stream, 10 chunks of 0.5
+           events a pixel (50 PNGs); no hand-written kernel launches on
+           this path
+  packing  the native event packer vs its NumPy twin, bit-equal, host ms for
+           a batch of 64 windows of the synthetic sequence, and the
+           pipeline's buffers pinned; the eval phase checks that the eval
+           CLI packed through the native packer and copied its events from
+           pinned memory (the HtoD copies of its profiled run by kind)
   grads    training mode, 184x240, T=3: the kernel path's loss and gradients
            vs the unfused path's (relative 1e-3; the key half of attn.kv.bias
            absolute 1e-5), exact launch counts, for the flagship (then 5
@@ -82,6 +98,7 @@ convolutions, so f32 comparisons are exact-f32 on both sides.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -173,7 +190,24 @@ STEP_MODELS = {
     "SPADEE2VID": ({"num_bins": 5}, (184, 240)),
     "EITR": (EITR_WIDTHS, (184, 240)),
 }
+STEP_MODELS["EVSNN"] = ({"num_bins": 5}, (184, 240))
+STEP_MODELS["PAEVSNN"] = ({"num_bins": 5}, (184, 240))
 STEP_BF16 = ("E2VIDRecurrent", "FireNet", "SPADEE2VID", "EITR")
+# The spiking models fire where a membrane reaches the threshold, and a
+# membrane within float rounding of it fires on one device and not on the
+# other (cuDNN and oneDNN sum in other orders); one flipped spike then moves
+# its neighbourhood by O(0.1-1). So card vs CPU they are held to a gate of
+# their own: the first bin's drive before any spike within 2e-4, at least
+# SNN_PIXEL_SHARE of the image pixels within 2e-4, the images' relative L2
+# distance at most SNN_REL_L2; the flipped spikes are counted and reported.
+# At least SNN_MIN_FIRE of the LIF units must fire once, or the gate would
+# hold a network that never spikes. bf16 is reported as drift only.
+SNN_MODELS = ("EVSNN", "PAEVSNN")
+SNN_PIXEL_SHARE, SNN_REL_L2, SNN_MIN_FIRE = 0.999, 1e-2, 0.01
+SNN_LIF_CALLS = 9  # LIF firings a bin: 8 layers, the residual block's fires twice
+# rec_snn's synthetic stream: 10 chunks of 180 x 240 x 0.5 events
+REC_SNN_HW, REC_SNN_CHUNKS, REC_SNN_EVENTS_PER_PIXEL = (180, 240), 10, 0.5
+PACK_BATCH = 64  # windows a batch of the packing phase (the eval driver's voxel_batch)
 # the eval CLI's runs per template checkpoint: (run, subseq_L)
 STEP_CLI_RUNS = {"E2VIDRecurrent": (("f32", 8), ("f32_whole", 0), ("bf16", 8)),
                  "FireNet": (("f32", 8), ("f32_whole", 0)),
@@ -207,9 +241,10 @@ def cuda_ms(torch, fn, iters, warmup=2):
 
 def device_profile(torch, fn, top=12):
     """One call of ``fn`` under torch.profiler: wall ms, summed device ms of
-    the CUDA kernels and copies it ran, the idle share of that wall time and
-    the ``top`` entries by device time. Device fields are None when the
-    profiler records no device activity."""
+    the CUDA kernels and copies it ran, the idle share of that wall time,
+    the ``top`` entries by device time and the host-to-device copies by
+    kind ({"Pageable" or "Pinned": {"ms", "count"}}). Device fields are None
+    when the profiler records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -219,18 +254,24 @@ def device_profile(torch, fn, top=12):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev = {}
+    dev, htod = {}, {}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         us = getattr(evt, "self_cuda_time_total", 0) if us is None else us
         if evt.device_type == DeviceType.CUDA and us > 0:
             dev[evt.key[:90]] = dev.get(evt.key[:90], 0.0) + us / 1e3
+            if evt.key.startswith("Memcpy HtoD"):  # "Memcpy HtoD (Pinned -> Device)"
+                kind = evt.key.split("(")[-1].split(" ")[0]
+                entry = htod.setdefault(kind, {"ms": 0.0, "count": 0})
+                entry["ms"] += us / 1e3
+                entry["count"] += evt.count
     busy = sum(dev.values()) if dev else None
     return {
         "wall_ms": wall_ms,
         "device_ms": busy,
         "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall_ms),
         "top": sorted(dev.items(), key=lambda kv: -kv[1])[:top],
+        "htod": htod,
     }
 
 
@@ -341,10 +382,12 @@ def b1_stage_library_ms(torch, x, ctr, p, acc, y, h, heads, q_ind):
 
 
 def phase_build():
+    from bde2vid_tpu_torch.native import evpack
     from bde2vid_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     libs = build.build()
+    libs["evpack"] = evpack.build()  # the host event packer, with g++
     ptxas = [line.strip() for log in build.ptxas_reports.values() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -596,9 +639,13 @@ def write_mmp_sequence(path, rng, num_frames=24, events_per_frame=40000, hw=(180
 def phase_eval(torch, launch_counts, card):
     """The eval CLI on one synthetic sequence: a flagship checkpoint (f32 and
     --bf16, cold and warm, and one profiled f32 run) and an 8x8 checkpoint
-    (f32 and --bf16). Returns the launches of the f32 runs (the main path)."""
+    (f32 and --bf16). Every run packs its events through the native packer,
+    one batch a subseq_L chunk; the profiled run copies them from pinned
+    memory (its HtoD copies by kind). Returns the launches of the f32 runs
+    (the main path)."""
     from bde2vid_tpu_torch.eval.__main__ import main as eval_main
     from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.native import pack_counts
 
     rows = {}
     main_path_launches = {}
@@ -625,19 +672,30 @@ def phase_eval(torch, launch_counts, card):
                         "--output_dir", out_dir]
                 if run.startswith("bf16"):
                     args.append("--bf16")
+                batches = -(-items // 8)  # one voxel batch a subseq_L chunk
                 if run == "f32_profiled":
-                    # a separate traced run: where the device time goes, and its idle share
+                    # a separate traced run: where the device time goes, its
+                    # idle share, and the events' copies from pinned memory
                     prof = device_profile(torch, lambda: eval_main(args))
+                    pinned = prof["htod"].get("Pinned", {}).get("count", 0)
+                    if pinned < 5 * batches:
+                        raise AssertionError(f"eval CLI ({name} {run}): {pinned} pinned HtoD "
+                                             f"copies, want >= {5 * batches}: {prof['htod']}")
                     continue
                 torch.cuda.synchronize()
                 launch_counts.clear()
+                packs = dict(pack_counts)
                 t0 = time.perf_counter()
                 rc = eval_main(args)
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
                 launches = dict(launch_counts)
+                packs = {k: pack_counts[k] - packs[k] for k in packs}
                 if rc != 0:
                     raise AssertionError(f"eval CLI ({name} {run}) returned {rc}")
+                if packs != {"native": batches, "numpy": 0}:
+                    raise AssertionError(f"eval CLI ({name} {run}) packed {packs}, want "
+                                         f"{batches} native batches")
                 if run == "f32":
                     main_path_launches[name] = launches
                 base = os.path.join(out_dir, "epoch_1_L8_org")
@@ -731,24 +789,246 @@ def spade_event_rate(torch, seq_path, model):
     return row
 
 
+def seeded_snn(torch, name, seed):
+    """A spiking model on the CPU with seeded weights that make its LIF units
+    fire: convolution and linear weights normal with variance 1 / fan-in,
+    norm scales around 1 and biases around 0, running means around 0 and
+    variances in [0.5, 1.5]. (torch's default initialisation leaves a
+    membrane of tau 2 below its threshold of 1 almost everywhere.)"""
+    from bde2vid_tpu_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(name, {"num_bins": 5}, device="cpu")
+    with torch.no_grad():
+        for key, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            noise = torch.randn(t.shape, generator=gen)
+            if t.ndim > 1:
+                t.copy_(noise / math.sqrt(t[0].numel()))
+            elif key.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            else:
+                t.copy_((1.0 if key.endswith(".weight") else 0.0) + 0.1 * noise)
+    return model
+
+
+@contextlib.contextmanager
+def record_spikes(evsnn):
+    """The spikes of every LIF firing of ``evsnn``'s models inside the block,
+    in call order, as bool tensors on their device."""
+    real, spikes = evsnn.lif_step, []
+
+    def recording(v, x, *args):
+        spike, v_new = real(v, x, *args)
+        spikes.append(spike > 0)
+        return spike, v_new
+
+    evsnn.lif_step = recording
+    try:
+        yield spikes
+    finally:
+        evsnn.lif_step = real
+
+
+def step_card_vs_cpu(torch, name, card_model, model, vox, vox_d, h, w):
+    """A step model's T frames on the card and on the CPU: images and final
+    state within 2e-4. Returns (the card's images, row fields)."""
+    from bde2vid_tpu_torch.models import run_sequence
+
+    with torch.no_grad():
+        got, got_state = run_sequence(card_model, vox_d, card_model.initial_state(1, h, w))
+        want, want_state = run_sequence(model, vox, model.initial_state(1, h, w))
+    img_diff = (got.cpu() - want).abs().max().item()
+    got_st, want_st = state_tensors(got_state), state_tensors(want_state)
+    if len(got_st) != len(want_st):
+        raise AssertionError(f"step model {name}: state of {len(got_st)} tensors, want {len(want_st)}")
+    state_diff = max([(a.cpu() - b).abs().max().item() for a, b in zip(got_st, want_st)],
+                     default=0.0)
+    if not (got.device.type == "cuda" and want.device.type == "cpu"
+            and got.shape == (STEP_T, 1, 1, h, w) and torch.isfinite(got).all()
+            and img_diff <= 2e-4 and state_diff <= 2e-4):
+        raise AssertionError(f"step model {name}: card vs CPU images {img_diff}, "
+                             f"state {state_diff}, shape {tuple(got.shape)}")
+    return got, {"image_mean": want.mean().item(), "image_std": want.std().item(),
+                 "max_abs_diff_images": img_diff, "max_abs_diff_state": state_diff}
+
+
+def snn_card_vs_cpu(torch, name, card_model, model, vox, vox_d, h, w):
+    """A spiking model's T frames on the card and on the CPU, held to the SNN
+    gate (``SNN_PIXEL_SHARE``): the first bin's pre-spike drive, the share of
+    close pixels, the images' relative L2; with the flipped spikes and the
+    share of LIF units that fired at least once. Returns (the card's
+    images, row fields)."""
+    from bde2vid_tpu_torch.models import evsnn, run_sequence
+    from bde2vid_tpu_torch.utils.norm import legacy_norm
+
+    with torch.no_grad():
+        drives = [m.static_conv(legacy_norm(x[0], unbiased=True, batched=True)[:, :1])
+                  for m, x in ((card_model, vox_d), (model, vox))]
+    drive_diff = (drives[0].cpu() - drives[1]).abs().max().item()
+    runs = {}
+    for key, m, x in (("card", card_model, vox_d), ("cpu", model, vox)):
+        with record_spikes(evsnn) as spikes, torch.no_grad():
+            images, _ = run_sequence(m, x, m.initial_state(1, h, w))
+        runs[key] = (images, spikes)
+    (got, card_spikes), (want, cpu_spikes) = runs["card"], runs["cpu"]
+    if len(card_spikes) != len(cpu_spikes) or len(cpu_spikes) != STEP_T * 5 * SNN_LIF_CALLS:
+        raise AssertionError(f"{name}: {len(card_spikes)} / {len(cpu_spikes)} LIF firings")
+    flips = sum(int((a.cpu() != b).sum()) for a, b in zip(card_spikes, cpu_spikes))
+    fired = [torch.zeros_like(cpu_spikes[k]) for k in range(SNN_LIF_CALLS)]
+    for k, spike in enumerate(cpu_spikes):
+        fired[k % SNN_LIF_CALLS] |= spike
+    fire_share = sum(int(f.sum()) for f in fired) / sum(f.numel() for f in fired)
+    spike_rate = sum(int(sp.sum()) for sp in cpu_spikes) / sum(sp.numel() for sp in cpu_spikes)
+    diff = (got.cpu() - want).abs()
+    close_share = (diff <= 2e-4).double().mean().item()
+    rel_l2 = (diff.norm() / want.norm()).item()
+    row = {"image_mean": want.mean().item(), "image_std": want.std().item(),
+           "max_abs_diff_first_drive": drive_diff, "share_of_pixels_within_2e-4": close_share,
+           "relative_l2_images": rel_l2, "max_abs_diff_images": diff.max().item(),
+           "flipped_spikes": flips, "spikes": sum(int(sp.sum()) for sp in cpu_spikes),
+           "lif_fired_share": fire_share, "lif_spike_rate": spike_rate}
+    if not (got.device.type == "cuda" and got.shape == (STEP_T, 1, 1, h, w)
+            and torch.isfinite(got).all() and drive_diff <= 2e-4
+            and close_share >= SNN_PIXEL_SHARE and rel_l2 <= SNN_REL_L2
+            and fire_share >= SNN_MIN_FIRE):
+        raise AssertionError(f"{name}: SNN gate failed {row}, shape {tuple(got.shape)}")
+    return got, row
+
+
+def run_eval_cli(torch, launch_counts, weights, data, out_dir, subseq, stem, items, extra=()):
+    """One eval CLI run (with ``extra`` arguments) over the MMP tree on the
+    checkpoints in ``weights``: (seconds, result, detail, launches) of
+    checkpoint ``stem``, whose result must be finite with one detail entry
+    an item."""
+    from bde2vid_tpu_torch.eval.__main__ import main as eval_main
+
+    args = ["--weights_dir", weights, "--data_dir", data, "--datasets", "SYN",
+            "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", str(subseq),
+            "--output_dir", out_dir, *extra]
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    rc = eval_main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts.items() if v}
+    base = os.path.join(out_dir, f"{stem}_L8_org" if subseq else f"{stem}_org")
+    if rc != 0:
+        raise AssertionError(f"eval CLI ({out_dir}) returned {rc}")
+    with open(base + ".txt") as fp:
+        result = json.load(fp)["SYN"]["seq0"]
+    with open(base + "_detail.txt") as fp:
+        detail = json.load(fp)["SYN"]["seq0"]
+    if not (os.path.exists(base + "_table.txt") and set(result) == {"mse", "ssim"}
+            and all(math.isfinite(v) for v in result.values())
+            and all(len(detail[k]) == items and all(map(math.isfinite, detail[k]))
+                    for k in result)):
+        raise AssertionError(f"eval CLI ({out_dir}) wrote bad results: {result}")
+    return seconds, result, detail, launches
+
+
+def max_detail_diff(a, b):
+    return max(abs(x - y) for k in a for x, y in zip(a[k], b[k]))
+
+
+def snn_eval_cli(torch, launch_counts, tmp, models, items):
+    """The eval CLI on a bare ``<family>_seeded.pth`` of each SNN, subseq_L 8
+    and 0 (within 1e-6); its detail numbers are those of the eval driver
+    with the output robust-normalised (1e-6), and not those without."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch
+    from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_sequence
+
+    rows, data = {}, os.path.join(tmp, "data")
+    for name in SNN_MODELS:
+        weights = os.path.join(tmp, "weights_" + name)
+        os.makedirs(weights)
+        ckpt = os.path.join(weights, f"{name}_seeded.pth")
+        torch.save(models[name].state_dict(), ckpt)
+        details = {}
+        for run, subseq in (("f32", 8), ("f32_whole", 0)):
+            seconds, result, details[run], launches = run_eval_cli(
+                torch, launch_counts, weights, data, os.path.join(tmp, f"out_{name}_{run}"), subseq,
+                f"{name}_seeded", items)
+            if launches:
+                raise AssertionError(f"eval CLI ({name} {run}) launched kernels: {launches}")
+            rows[f"{name}_{run}"] = {"seconds": seconds, "frames_per_s": items / seconds,
+                                     "subseq_L": subseq, **result}
+        rows[f"{name}_f32"]["max_abs_diff_vs_whole"] = max_detail_diff(details["f32_whole"],
+                                                                      details["f32"])
+        spec = load_model_from_torch(ckpt)
+        seq = load_sequence(os.path.join(data, "mmp", "SYN", "seq0"), ltype="MMP")
+        try:
+            by_norm = {on: evaluate_sequence(spec, seq, EvalConfig(subseq_L=8, robust_norm_output=on))[1]
+                       for on in (True, False)}
+        finally:
+            seq.reader.close()
+        robust = {"vs_driver_robust_norm": max_detail_diff(by_norm[True], details["f32"]),
+                  "vs_driver_raw_output": max_detail_diff(by_norm[False], details["f32"])}
+        rows[f"{name}_f32"].update(robust)
+        if not (rows[f"{name}_f32"]["max_abs_diff_vs_whole"] <= 1e-6
+                and robust["vs_driver_robust_norm"] <= 1e-6 and robust["vs_driver_raw_output"] > 1e-4):
+            raise AssertionError(f"eval CLI ({name}): {rows[f'{name}_f32']}")
+    return rows
+
+
+def rec_snn_run(torch, launch_counts, tmp, model):
+    """rec_snn over a synthetic text stream (a 10-line header, epoch-scale
+    timestamps) of ``REC_SNN_CHUNKS`` chunks at ``REC_SNN_HW``: one PNG a
+    bin, none uniform, no kernel launch."""
+    from bde2vid_tpu_torch.eval.rec_snn import main as rec_snn
+
+    h, w = REC_SNN_HW
+    n = REC_SNN_CHUNKS * int(h * w * REC_SNN_EVENTS_PER_PIXEL)
+    rng = np.random.default_rng(3)
+    events = np.stack([1.6e9 + np.sort(rng.uniform(0, 2.0, n)), rng.integers(0, w, n),
+                       rng.integers(0, h, n), rng.integers(0, 2, n)], axis=1)
+    stream = os.path.join(tmp, "events.txt")
+    np.savetxt(stream, events, fmt=["%.9f", "%d", "%d", "%d"],
+               header="\n".join(f"header line {i}" for i in range(10)))
+    ckpt = os.path.join(tmp, "rec_EVSNN.pth")
+    torch.save(model.state_dict(), ckpt)
+    out = os.path.join(tmp, "rec_out")
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    rc = rec_snn(["-network", "EVSNN", "-path_to_pretrain_models", ckpt,
+                  "-path_to_event_files", stream, "-save_path", out, "-height", str(h),
+                  "-width", str(w), "-num_events_per_pixel", str(REC_SNN_EVENTS_PER_PIXEL)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts.items() if v}
+    pngs = sorted(os.listdir(os.path.join(out, "EVSNN")))
+    want = [f"result-idx{i:04d}{j:04d}.png" for i in range(REC_SNN_CHUNKS) for j in range(5)]
+    sizes = {os.path.getsize(os.path.join(out, "EVSNN", p)) for p in pngs}
+    if rc != 0 or pngs != want or launches or len(sizes) < 2:
+        raise AssertionError(f"rec_snn: rc {rc}, {len(pngs)} PNGs, launches {launches}")
+    return {"hw": [h, w], "chunks": REC_SNN_CHUNKS, "events": n, "pngs": len(pngs),
+            "seconds": seconds}
+
+
 def phase_step_models(torch, launch_counts, card):
     """The step models: each over T=8 frames on the card and on the CPU
-    (images and final state within 2e-4; forward ms and the bound of a
-    frame's FLOPs on the card; bf16 against f32 for the ``STEP_BF16`` models
-    within the JAX package's drift bound), then the eval CLI on the synthetic
-    MMP sequence with template checkpoints (``STEP_CLI_RUNS``; subseq_L 8
-    and 0 within 1e-6 where both run), and SPADE through the eval driver on
-    the sequence split by event rate. No hand-written kernel may launch on
-    this path."""
+    (images and final state within 2e-4, the SNNs within their own gate;
+    forward ms and the bound of a frame's FLOPs on the card; bf16 against
+    f32 for the ``STEP_BF16`` models within the JAX package's drift bound,
+    and for the SNNs reported), then the eval CLI on the synthetic MMP
+    sequence with template checkpoints (``STEP_CLI_RUNS``; subseq_L 8 and 0
+    within 1e-6 where both run) and bare SNN checkpoints, SPADE through the
+    eval driver on the sequence split by event rate, and rec_snn. No
+    hand-written kernel may launch on this path."""
     import copy
 
-    from bde2vid_tpu_torch.eval.__main__ import main as eval_main
     from bde2vid_tpu_torch.models import run_sequence
 
     rows, models = {}, {}
     launch_counts.clear()
     for i, (name, (cfg, (h, w))) in enumerate(STEP_MODELS.items()):
-        model = seeded_step_model(torch, name, cfg, seed=20 + i)
+        snn = name in SNN_MODELS
+        model = (seeded_snn(torch, name, seed=20 + i) if snn
+                 else seeded_step_model(torch, name, cfg, seed=20 + i))
         models[name] = model
         vox = torch.from_numpy(np.random.default_rng(30 + i).normal(
             size=(STEP_T, 1, 5, h, w)).astype(np.float32))
@@ -759,37 +1039,23 @@ def phase_step_models(torch, launch_counts, card):
             with torch.no_grad():
                 return run_sequence(m, x, m.initial_state(1, h, w))
 
-        got, got_state = forward()
+        got, gate = (snn_card_vs_cpu if snn else step_card_vs_cpu)(
+            torch, name, card_model, model, vox, vox_d, h, w)
         fwd_ms = cuda_ms(torch, forward, iters=3, warmup=1)
         flops = step_flops(torch, card_model, vox_d, h, w)
-        with torch.no_grad():
-            want, want_state = run_sequence(model, vox, model.initial_state(1, h, w))
-        img_diff = (got.cpu() - want).abs().max().item()
-        got_st, want_st = state_tensors(got_state), state_tensors(want_state)
-        if len(got_st) != len(want_st):
-            raise AssertionError(f"step model {name}: state of {len(got_st)} tensors, want {len(want_st)}")
-        state_diff = max([(a.cpu() - b).abs().max().item() for a, b in zip(got_st, want_st)],
-                         default=0.0)
-        if not (got.device.type == "cuda" and want.device.type == "cpu"
-                and got.shape == (STEP_T, 1, 1, h, w) and torch.isfinite(got).all()
-                and img_diff <= 2e-4 and state_diff <= 2e-4):
-            raise AssertionError(f"step model {name}: card vs CPU images {img_diff}, "
-                                 f"state {state_diff}, shape {tuple(got.shape)}")
         row = {"hw": [h, w], "T": STEP_T, "params": sum(p.numel() for p in model.parameters()),
                "forward_ms": fwd_ms, "ms_per_frame": fwd_ms / STEP_T,
                "gflop_per_frame": flops / 1e9,
-               "bound_ms_per_frame": 1e3 * flops / PEAK_FLOPS["float32"],
-               "image_mean": want.mean().item(), "image_std": want.std().item(),
-               "max_abs_diff_images": img_diff, "max_abs_diff_state": state_diff}
-        if name in STEP_BF16:
+               "bound_ms_per_frame": 1e3 * flops / PEAK_FLOPS["float32"], **gate}
+        if name in STEP_BF16 or snn:
             bf16, vox_b = copy.deepcopy(card_model).to(torch.bfloat16), vox_d.to(torch.bfloat16)
             low, _ = forward(bf16, vox_b)
             drift = (low.float() - got).abs().max().item()
-            if not drift < BF16_DRIFT:
+            if not snn and not drift < BF16_DRIFT:
                 raise AssertionError(f"step model {name}: bf16 drift {drift} >= {BF16_DRIFT}")
             row["bf16_max_abs_drift"] = drift
             row["forward_ms_bf16"] = cuda_ms(torch, lambda: forward(bf16, vox_b), iters=3, warmup=1)
-        if name in ("SPADEE2VID", "EITR"):  # where a new family's forward time goes
+        if name in ("SPADEE2VID", "EITR") or snn:  # where a new family's forward time goes
             row["profile"] = device_profile(torch, forward, top=8)
         rows[name] = row
         del card_model
@@ -806,53 +1072,75 @@ def phase_step_models(torch, launch_counts, card):
             kwargs = "eitr_kwargs" if name == "EITR" else "unet_kwargs"
             torch.save({"arch": name, "config": {"arch": {"args": {kwargs: STEP_MODELS[name][0]}}},
                         "state_dict": models[name].state_dict()}, os.path.join(weights, "model.pth"))
+            details = {}
             for run, subseq in runs:
                 out_dir = os.path.join(tmp, f"out_{name}_{run}")
-                args = ["--weights_dir", weights, "--data_dir", os.path.join(tmp, "data"),
-                        "--datasets", "SYN", "--loader_type", "MMP", "--metrics", "mse", "ssim",
-                        "--subseq_L", str(subseq), "--output_dir", out_dir]
-                if run == "bf16":
-                    args.append("--bf16")
-                torch.cuda.synchronize()
-                launch_counts.clear()
-                t0 = time.perf_counter()
-                rc = eval_main(args)
-                torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-                launches = {k: v for k, v in launch_counts.items() if v}
-                base = os.path.join(out_dir, "model_L8_org" if subseq else "model_org")
-                if rc != 0:
-                    raise AssertionError(f"eval CLI ({name} {run}) returned {rc}")
-                with open(base + ".txt") as fp:
-                    result = json.load(fp)["SYN"]["seq0"]
-                with open(base + "_detail.txt") as fp:
-                    detail = json.load(fp)["SYN"]["seq0"]
-                if not (os.path.exists(base + "_table.txt") and set(result) == {"mse", "ssim"}
-                        and all(math.isfinite(v) for v in result.values())
-                        and all(len(detail[k]) == items and all(map(math.isfinite, detail[k]))
-                                for k in result)):
-                    raise AssertionError(f"eval CLI ({name} {run}) wrote bad results: {result}")
+                seconds, result, details[run], launches = run_eval_cli(
+                    torch, launch_counts, weights, os.path.join(tmp, "data"), out_dir, subseq,
+                    "model", items, ["--bf16"] if run == "bf16" else [])
                 if launches:
                     raise AssertionError(f"eval CLI ({name} {run}) launched kernels: {launches}")
                 cli[f"{name}_{run}"] = {"seconds": seconds, "frames_per_s": items / seconds,
-                                        "subseq_L": subseq, "detail": detail, **result}
-            if f"{name}_f32_whole" not in cli:
+                                        "subseq_L": subseq, **result}
+            if "f32_whole" not in details:
                 continue
-            whole, chunked = cli[f"{name}_f32_whole"]["detail"], cli[f"{name}_f32"]["detail"]
-            diff = max(abs(a - b) for k in whole for a, b in zip(whole[k], chunked[k]))
+            diff = max_detail_diff(details["f32_whole"], details["f32"])
             if diff > 1e-6:
                 raise AssertionError(f"eval CLI ({name}): subseq_L 8 vs 0 differ by {diff}")
             cli[f"{name}_f32"]["max_abs_diff_vs_whole"] = diff
+        cli.update(snn_eval_cli(torch, launch_counts, tmp, models, items))
         launch_counts.clear()
         spade = spade_event_rate(torch, os.path.join(tmp, "data", "mmp", "SYN", "seq0"),
                                  copy.deepcopy(models["SPADEE2VID"]).cuda())
         spade_launches = {k: v for k, v in launch_counts.items() if v}
-    for row in cli.values():
-        row.pop("detail")
+        rec = rec_snn_run(torch, launch_counts, tmp, models["EVSNN"])
     if forward_launches or spade_launches:
         raise AssertionError(f"step models launched kernels: {forward_launches} {spade_launches}")
     emit({"phase": "step_models", "card": card, "models": rows, "eval": cli, "items": items,
-          "hw": [180, 240], "spade_event_rate": spade, "launches": forward_launches})
+          "hw": [180, 240], "spade_event_rate": spade, "rec_snn": rec,
+          "launches": forward_launches})
+
+
+def phase_packing(torch, card):
+    """The native packer against its NumPy twin on ``PACK_BATCH`` windows of
+    the synthetic sequence's stream (bit-equal; host ms, the median of 5
+    calls each), and the sequence's packed buffers pinned for the card."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.native import pack_windows
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "seq0")
+        write_mmp_sequence(path, np.random.default_rng(4))
+        seq = load_sequence(path, ltype="MMP")
+        n = int(seq.windows[-1, 1])
+        edges = np.linspace(0, n, PACK_BATCH + 1).astype(np.int64)
+        windows = np.stack([edges[:-1], edges[1:]], axis=1)
+        capacity = int((windows[:, 1] - windows[:, 0]).max())
+        stream = seq.reader.raw_events(0, n)
+        row = {"windows": PACK_BATCH, "events": n, "capacity": capacity}
+        packed = {}
+        for packer in ("native", "numpy"):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                packed[packer] = pack_windows(*stream, windows, capacity, packer=packer)
+                times.append(1e3 * (time.perf_counter() - t0))
+            row[f"{packer}_host_ms"] = float(np.median(times))
+        if not all(np.array_equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(packed["native"], packed["numpy"])):
+            raise AssertionError("packing: the native packer and its NumPy twin differ")
+        bufs = seq._pack(0, len(seq.windows), pin=True)
+        if not all(b.is_pinned() for b in bufs):
+            raise AssertionError("packing: the pipeline's buffers are not pinned")
+        t0 = time.perf_counter()
+        vox = seq.voxels(device="cuda")
+        torch.cuda.synchronize()
+        row["sequence_voxels_ms"] = 1e3 * (time.perf_counter() - t0)
+        row["sequence_windows"] = len(seq.windows)
+        if not (vox.is_cuda and torch.isfinite(vox).all()):
+            raise AssertionError("packing: bad voxels")
+        seq.reader.close()
+    emit({"phase": "packing", "card": card, **row})
 
 
 def attn_bwd_cost(b, m, n, c, heads, elem_bytes):
@@ -1672,6 +1960,7 @@ def main() -> int:
     phase_parallel(torch, launch_counts)
     eval_launches = phase_eval(torch, launch_counts, card)
     phase_step_models(torch, launch_counts, card)
+    phase_packing(torch, card)
     phase_grads(torch, launch_counts)
     phase_variants(torch, launch_counts)
     bwd_launches, long_launches = phase_train(torch, launch_counts, card)

@@ -11,9 +11,9 @@ steps within atol 2e-4. CPU, f32.
 - ``firenet_1000.pth``: FireNetOrg under ``net.``;
 - mmengine with a ``type`` other than BDE2VID.
 
-A missing or an extra tensor raises in both packages; a bare SNN state
-dict raises ``NotImplementedError`` in the port, and a bare SPADE one (read
-since SPADE was ported; tests/test_torch_spade.py) is loaded strictly.
+A missing or an extra tensor raises in both packages; bare SPADE and SNN
+state dicts (read since those families were ported; tests/test_torch_spade.py,
+tests/test_torch_evsnn.py) are loaded strictly, so a foreign one is refused.
 """
 
 import numpy as np
@@ -143,13 +143,12 @@ def test_flownet_without_num_encoders_pads_to_eighths_in_both(tmp_path):
 @pytest.mark.parametrize("fname,family", [("SPADE_e2vid.pth", "SPADE"), ("EVSNN_e10.pth", "SNN"),
                                           ("PAEVSNN.pth", "SNN")])
 def test_bare_spade_and_snn_state_dicts_are_not_ported_yet(fname, family, tmp_path):
+    """Both families are ported now (the name is the one this test had when
+    it pinned their refusal): each dialect is read by its file name, and a
+    state dict of foreign tensors is refused as a mismatch."""
     path = str(tmp_path / fname)
     torch.save({"head.conv2d.weight": torch.zeros(1)}, path)
-    if family == "SPADE":  # ported: the dialect is read, and a foreign dict refused
-        with pytest.raises(ValueError, match="checkpoint/model mismatch"):
-            load_model_from_torch(path, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=f"{family} family is still to be ported"):
+    with pytest.raises(ValueError, match="checkpoint/model mismatch"):
         load_model_from_torch(path, device="cpu")
 
 

@@ -710,3 +710,54 @@ def test_cuda_event_rate_driver_on_a_tiny_mmp_tree(cuda_device, tmp_path):
     for metric in ("mse", "ssim"):
         assert len(chunked[metric]) == 5 and np.isfinite(chunked[metric]).all()
         np.testing.assert_allclose(chunked[metric], whole[metric], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_voxels_from_pinned_buffers_match_cpu(cuda_device, tmp_path):
+    """Batches of 2 windows, each packed into pinned buffers and copied
+    asynchronously: every batch's voxels equal the CPU's (the pinned cache
+    must not hand a buffer to the next batch while its copy runs)."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.native import pack_counts
+
+    _write_mmp(str(tmp_path / "seq"), np.random.default_rng(5))
+    seq = load_sequence(str(tmp_path / "seq"), ltype="MMP")
+    assert all(b.is_pinned() for b in seq._pack(0, 3, pin=True))
+    before = pack_counts["native"]
+    for _ in range(3):
+        got = seq.voxels(device=cuda_device, batch=2)
+        want = seq.voxels(device="cpu", batch=2)
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    assert pack_counts["native"] == before + 6 * -(-len(seq.windows) // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["EVSNN", "PAEVSNN"])
+def test_cuda_snn_matches_cpu_and_launches_no_kernel(cuda_device, name):
+    """Full width at 64x80, T=2: the pre-spike drive within 2e-4, at least
+    99.9 % of image pixels within 2e-4 and the images within 1e-2 by
+    relative L2 (a membrane at the threshold may fire on one device only)."""
+    from bde2vid_tpu_torch.models import build_model, run_sequence
+    from bde2vid_tpu_torch.utils.norm import legacy_norm
+
+    torch.manual_seed(0)
+    model = build_model(name, {}, device="cpu").eval()
+    with torch.no_grad():
+        for key, t in model.state_dict().items():
+            if t.is_floating_point() and t.ndim > 1:
+                t.copy_(torch.randn(t.shape) / t[0].numel() ** 0.5)
+    card = build_model(name, {}, device=cuda_device).eval()
+    card.load_state_dict(model.state_dict())
+    vox = torch.randn(2, 1, 5, 64, 80)
+    launch_counts.clear()
+    with torch.no_grad():
+        got, _ = run_sequence(card, vox.to(cuda_device), card.initial_state(1, 64, 80))
+        want, _ = run_sequence(model, vox, model.initial_state(1, 64, 80))
+        x0 = legacy_norm(vox[0], unbiased=True, batched=True)[:, :1]
+        drive = (card.static_conv(x0.to(cuda_device)).cpu() - model.static_conv(x0)).abs().max()
+    assert not any(launch_counts.values())
+    diff = (got.cpu() - want).abs()
+    assert drive <= 2e-4
+    assert (diff <= 2e-4).double().mean() >= 0.999
+    assert diff.norm() / want.norm() <= 1e-2
