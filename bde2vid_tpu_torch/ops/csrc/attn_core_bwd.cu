@@ -66,6 +66,16 @@
 //     stay bit-identical. Pass 2 is the one above with a key a lane. Only
 //     the k/v and q/g rows stay in shared memory, so the row length is
 //     bounded by those alone. It is right first and not tuned.
+//   - Key tiles (attn_bwd_tiled_kernel, which the plan picks where even
+//     the long rows' k/v rows do not fit; the JAX kernel holds them whole
+//     in VMEM): shared memory holds the block's q and g rows, the three
+//     row statistics and an (M, HD) f32 dq accumulator, and k and v come
+//     in one key tile at a time. Pass 1 sweeps the tiles for each row's
+//     running max, sum of exponentials and sum of dp times them; pass 2
+//     takes each tile's ds into the dbias partials and its share of dq into
+//     the accumulator, as the long rows do, then dk and dv for the tile's
+//     keys with the pass 2 above. Every sum runs in a fixed order, so two
+//     runs give bit-identical gradients.
 //   - head_dim 4 (level 0) is below an MMA's K, so every product is an FMA
 //     dot product templated on head_dim 1-32.
 
@@ -78,7 +88,8 @@ constexpr int kWarps = kThreads / 32;
 
 struct BwdArgs {
   int b, m, n, c, heads, groups;
-  int slices;  // pass 2: lanes per key token
+  int slices;    // pass 2: lanes per key token
+  int key_tile;  // 0, or the keys attn_bwd_tiled_kernel stages at a time
   float scale;
   const void *q, *k, *v, *g;  // (B_, M, C), (B_, N, C), (B_, N, C), (B_, M, C)
   const float* bias;          // (H, M, N) f32
@@ -87,8 +98,11 @@ struct BwdArgs {
 };
 
 // The k, v, q and g rows, three row statistics, and with J > 0 the
-// block's (M, N) dbias plane.
-size_t bwd_smem_floats(int m, int n, int hd, int j) {
+// block's (M, N) dbias plane; with a key tile, the k and v rows of one tile
+// and the (M, HD) dq sums instead of the plane.
+size_t bwd_smem_floats(int m, int n, int hd, int j, int key_tile) {
+  if (key_tile)
+    return 2 * ((size_t)key_tile + m) * key_stride(hd) + 3 * (size_t)m + (size_t)m * hd;
   return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (j ? (size_t)m * n : 0);
 }
 
@@ -113,6 +127,91 @@ int pass2_slices(int m, int n, int hd, int j) {
     }
   }
   return best;
+}
+
+// Pass 2 over keys 0 .. cnt - 1 of the staged rows ks, vs (token key0 +
+// nn of the window, out0 = w N + key0): S lanes per KPT key tokens, each
+// over rows slice, slice + S, ...; dk and dv accumulate in registers and
+// the S partial sums meet in a fixed butterfly. bias_h points at the key0
+// column of the head's bias plane.
+template <typename T, int HD, int KPT>
+__device__ __forceinline__ void pass2_dk_dv(const BwdArgs& a, const float* ks, const float* vs,
+                                            const float* qs, const float* gs,
+                                            const float* row_mxl, const float* row_inv,
+                                            const float* row_dot, const float* bias_h, int cnt,
+                                            size_t out0, int warp, int lane) {
+  constexpr int KS = key_stride(HD);
+  const int m_tok = a.m, n_tok = a.n, c = a.c, h = blockIdx.y;
+  const float scale = a.scale;
+  const int S = a.slices, keys_per_warp = KPT * 32 / S;
+  const int slot = lane / S, slice = lane % S;
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  for (int base = warp * keys_per_warp; base < cnt; base += kWarps * keys_per_warp) {
+    int nn[KPT], nc[KPT];
+    float kv_[KPT][HD], vv[KPT][HD], dka[KPT][HD], dva[KPT][HD], b_next[KPT];
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      nn[t] = base + slot + t * (32 / S);
+      nc[t] = nn[t] < cnt ? nn[t] : cnt - 1;  // idle lanes still join the shuffles
+      load_row<HD>(kv_[t], ks + nc[t] * KS);
+      load_row<HD>(vv[t], vs + nc[t] * KS);
+#pragma unroll
+      for (int dd = 0; dd < HD; ++dd) {
+        dka[t][dd] = 0.f;
+        dva[t][dd] = 0.f;
+      }
+      // the bias column streams from L2: its next element loads one row ahead
+      b_next[t] = slice < m_tok ? __ldg(bias_h + (size_t)slice * n_tok + nc[t]) : 0.f;
+    }
+    for (int i = slice; i < m_tok; i += S) {
+      float b_i[KPT];
+#pragma unroll
+      for (int t = 0; t < KPT; ++t) {
+        b_i[t] = b_next[t];
+        if (i + S < m_tok) b_next[t] = __ldg(bias_h + (size_t)(i + S) * n_tok + nc[t]);
+      }
+      float qi[HD], gi[HD];
+      load_row<HD>(qi, qs + i * KS);
+      load_row<HD>(gi, gs + i * KS);
+      const float mxl = row_mxl[i], inv = row_inv[i], rdot = row_dot[i];
+#pragma unroll
+      for (int t = 0; t < KPT; ++t) {
+        const float s = fmaf(dot<HD>(qi, kv_[t]), scale, b_i[t]);
+        const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
+        const float dp = dot<HD>(gi, vv[t]);
+        const float ds = p32 * (dp - rdot);
+        const float p = round_to<T>(p32);
+        const float dsc = round_to<T>(ds * scale);
+#pragma unroll
+        for (int dd = 0; dd < HD; ++dd) {
+          dva[t][dd] = fmaf(p, gi[dd], dva[t][dd]);
+          dka[t][dd] = fmaf(dsc, qi[dd], dka[t][dd]);
+        }
+      }
+    }
+    for (int o = 1; o < S; o <<= 1) {
+#pragma unroll
+      for (int t = 0; t < KPT; ++t) {
+#pragma unroll
+        for (int dd = 0; dd < HD; ++dd) {
+          dka[t][dd] += __shfl_xor_sync(0xffffffffu, dka[t][dd], o);
+          dva[t][dd] += __shfl_xor_sync(0xffffffffu, dva[t][dd], o);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      if (nn[t] < cnt && slice == 0) {
+        const size_t dst = (out0 + nn[t]) * c + h * HD;
+#pragma unroll
+        for (int dd = 0; dd < HD; ++dd) {
+          dk[dst + dd] = store_cast<T>(dka[t][dd]);
+          dv[dst + dd] = store_cast<T>(dva[t][dd]);
+        }
+      }
+    }
+  }
 }
 
 // Two blocks per SM where a lane's row share and head_dim leave room in 64
@@ -140,8 +239,6 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   const T* v = static_cast<const T*>(a.v);
   const T* g = static_cast<const T*>(a.g);
   T* dq = static_cast<T*>(a.dq);
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
   const float* bias_h = a.bias + (size_t)h * m_tok * n_tok;
   const float scale = a.scale;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -149,8 +246,6 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
   // pass 2: lane = key slot * S + slice; a warp covers KPT * 32 / S keys
   constexpr int KPT = keys_per_lane(HD, J);
-  const int S = a.slices, keys_per_warp = KPT * 32 / S;
-  const int slot = lane / S, slice = lane % S;
 
   for (int e = tid; e < m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
 
@@ -297,79 +392,160 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     }
     __syncthreads();
 
-    // pass 2: S lanes per KPT key tokens, each over rows slice, slice + S,
-    // ...; dk and dv accumulate in registers and the S partial sums meet
-    // in a fixed butterfly
-    for (int base = warp * keys_per_warp; base < n_tok; base += kWarps * keys_per_warp) {
-      int nn[KPT], nc[KPT];
-      float kv_[KPT][HD], vv[KPT][HD], dka[KPT][HD], dva[KPT][HD], b_next[KPT];
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) {
-        nn[t] = base + slot + t * (32 / S);
-        nc[t] = nn[t] < n_tok ? nn[t] : n_tok - 1;  // idle lanes still join the shuffles
-        load_row<HD>(kv_[t], ks + nc[t] * KS);
-        load_row<HD>(vv[t], vs + nc[t] * KS);
-#pragma unroll
-        for (int dd = 0; dd < HD; ++dd) {
-          dka[t][dd] = 0.f;
-          dva[t][dd] = 0.f;
-        }
-        // the bias column streams from L2: its next element loads one row ahead
-        b_next[t] = slice < m_tok ? __ldg(bias_h + (size_t)slice * n_tok + nc[t]) : 0.f;
-      }
-      for (int i = slice; i < m_tok; i += S) {
-        float b_i[KPT];
-#pragma unroll
-        for (int t = 0; t < KPT; ++t) {
-          b_i[t] = b_next[t];
-          if (i + S < m_tok) b_next[t] = __ldg(bias_h + (size_t)(i + S) * n_tok + nc[t]);
-        }
-        float qi[HD], gi[HD];
-        load_row<HD>(qi, qs + i * KS);
-        load_row<HD>(gi, gs + i * KS);
-        const float mxl = row_mxl[i], inv = row_inv[i], rdot = row_dot[i];
-#pragma unroll
-        for (int t = 0; t < KPT; ++t) {
-          const float s = fmaf(dot<HD>(qi, kv_[t]), scale, b_i[t]);
-          const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
-          const float dp = dot<HD>(gi, vv[t]);
-          const float ds = p32 * (dp - rdot);
-          const float p = round_to<T>(p32);
-          const float dsc = round_to<T>(ds * scale);
-#pragma unroll
-          for (int dd = 0; dd < HD; ++dd) {
-            dva[t][dd] = fmaf(p, gi[dd], dva[t][dd]);
-            dka[t][dd] = fmaf(dsc, qi[dd], dka[t][dd]);
-          }
-        }
-      }
-      for (int o = 1; o < S; o <<= 1) {
-#pragma unroll
-        for (int t = 0; t < KPT; ++t) {
-#pragma unroll
-          for (int dd = 0; dd < HD; ++dd) {
-            dka[t][dd] += __shfl_xor_sync(0xffffffffu, dka[t][dd], o);
-            dva[t][dd] += __shfl_xor_sync(0xffffffffu, dva[t][dd], o);
-          }
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) {
-        if (nn[t] < n_tok && slice == 0) {
-          const size_t dst = ((size_t)w * n_tok + nn[t]) * c + h * HD;
-#pragma unroll
-          for (int dd = 0; dd < HD; ++dd) {
-            dk[dst + dd] = store_cast<T>(dka[t][dd]);
-            dv[dst + dd] = store_cast<T>(dva[t][dd]);
-          }
-        }
-      }
-    }
+    pass2_dk_dv<T, HD, KPT>(a, ks, vs, qs, gs, row_mxl, row_inv, row_dot, bias_h, n_tok,
+                            (size_t)w * n_tok, warp, lane);
   }
   if constexpr (J > 0) {
     __syncthreads();
     float* part = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
     for (int e = tid; e < m_tok * n_tok; e += kThreads) part[e] = dbias[e];
+  }
+}
+
+// The key-tiled variant (see the header): block (group, head) walks its
+// windows in order; per window, pass 1 and pass 2 each stage the key tiles
+// in order. Two blocks per SM at head_dim <= 8, as the long rows run.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kernel(BwdArgs a) {
+  extern __shared__ float smem[];
+  const int grp = blockIdx.x, h = blockIdx.y;
+  const int m_tok = a.m, n_tok = a.n, c = a.c, kt = a.key_tile;
+  constexpr int KS = key_stride(HD);
+  float* ks = smem;                     // (key_tile, KS)
+  float* vs = ks + kt * KS;             // (key_tile, KS)
+  float* qs = vs + kt * KS;             // (M, KS)
+  float* gs = qs + m_tok * KS;          // (M, KS)
+  float* row_mxl = gs + m_tok * KS;     // (M): the row's running max score * log2 e
+  float* row_inv = row_mxl + m_tok;     // (M): its running sum of exp, then 1 / the sum
+  float* row_dot = row_inv + m_tok;     // (M): its running sum of dp exp, then rowsum(dp * p32)
+  float* dq_acc = row_dot + m_tok;      // (M, HD): dq summed over the tiles
+  // ds summed over this block's windows, in its slice of the partial buffer
+  float* dbias = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* g = static_cast<const T*>(a.g);
+  T* dq = static_cast<T*>(a.dq);
+  const float* bias_h = a.bias + (size_t)h * m_tok * n_tok;
+  const float scale = a.scale;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int w_begin = (int)((long long)grp * a.b / a.groups);
+  const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
+
+  for (size_t e = tid; e < (size_t)m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
+
+  for (int w = w_begin; w < w_end; ++w) {
+    __syncthreads();  // the previous window is done with qs/gs and dq_acc
+    for (int e = tid; e < m_tok * HD; e += kThreads) {
+      const int i = e / HD, dd = e % HD;
+      const size_t src = ((size_t)w * m_tok + i) * c + h * HD + dd;
+      qs[i * KS + dd] = load(q, src);
+      gs[i * KS + dd] = load(g, src);
+      dq_acc[e] = 0.f;
+    }
+    for (int i = tid; i < m_tok; i += kThreads) {
+      row_mxl[i] = __int_as_float(0xff800000);  // -inf
+      row_inv[i] = 0.f;
+      row_dot[i] = 0.f;
+    }
+    for (int pass = 1; pass <= 2; ++pass) {
+      for (int t0 = 0; t0 < n_tok; t0 += kt) {
+        const int cnt = min(kt, n_tok - t0);
+        __syncthreads();  // the block is done with the previous tile (and the statistics)
+        for (int e = tid; e < cnt * HD; e += kThreads) {
+          const int nn = e / HD, dd = e % HD;
+          const size_t src = ((size_t)w * n_tok + t0 + nn) * c + h * HD + dd;
+          ks[nn * KS + dd] = load(k, src);
+          vs[nn * KS + dd] = load(v, src);
+        }
+        __syncthreads();
+        if (pass == 1) {
+          // a warp per query row: the tile's max, then its sums of exp and of
+          // dp times exp under the new running max
+          for (int i = warp; i < m_tok; i += kWarps) {
+            float qv[HD], gv[HD];
+            load_row<HD>(qv, qs + i * KS);
+            load_row<HD>(gv, gs + i * KS);
+            const float* brow = bias_h + (size_t)i * n_tok + t0;
+            float mx = __int_as_float(0xff800000);  // -inf
+            for (int nn = lane; nn < cnt; nn += 32) {
+              float kr[HD];
+              load_row<HD>(kr, ks + nn * KS);
+              mx = fmaxf(mx, fmaf(dot<HD>(qv, kr), scale, brow[nn]));
+            }
+            const float m0 = row_mxl[i];
+            const float mxl = fmaxf(m0, warp_max(mx) * kLog2e);
+            float sum = 0.f, dpe = 0.f;
+            for (int nn = lane; nn < cnt; nn += 32) {
+              float kr[HD], vr[HD];
+              load_row<HD>(kr, ks + nn * KS);
+              load_row<HD>(vr, vs + nn * KS);
+              const float e = fast_exp2(fmaf(fmaf(dot<HD>(qv, kr), scale, brow[nn]), kLog2e, -mxl));
+              sum += e;
+              dpe = fmaf(dot<HD>(gv, vr), e, dpe);
+            }
+            const float r = fast_exp2(m0 - mxl);
+            const float tsum = fmaf(row_inv[i], r, warp_sum(sum));
+            const float tdot = fmaf(row_dot[i], r, warp_sum(dpe));
+            __syncwarp();  // every lane has read the row's statistics
+            if (lane == 0) {
+              row_mxl[i] = mxl;
+              row_inv[i] = tsum;
+              row_dot[i] = tdot;
+            }
+          }
+          if (t0 + cnt == n_tok) {
+            __syncthreads();
+            for (int i = tid; i < m_tok; i += kThreads) {
+              const float inv = 1.f / row_inv[i];
+              row_inv[i] = inv;
+              row_dot[i] *= inv;
+            }
+          }
+          continue;
+        }
+        // pass 2, a warp per query row: ds into the dbias partial and the
+        // tile's share of dq into the accumulator (the float operations of
+        // pass2_dk_dv, so both see the same p32 and ds)
+        for (int i = warp; i < m_tok; i += kWarps) {
+          float qv[HD], gv[HD];
+          load_row<HD>(qv, qs + i * KS);
+          load_row<HD>(gv, gs + i * KS);
+          const float* brow = bias_h + (size_t)i * n_tok + t0;
+          float* drow = dbias + (size_t)i * n_tok + t0;
+          const float mxl = row_mxl[i], inv = row_inv[i], rdot = row_dot[i];
+          float dqa[HD];
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
+          for (int nn = lane; nn < cnt; nn += 32) {
+            float kr[HD], vr[HD];
+            load_row<HD>(kr, ks + nn * KS);
+            load_row<HD>(vr, vs + nn * KS);
+            const float s = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
+            const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
+            const float ds = p32 * (dot<HD>(gv, vr) - rdot);
+            drow[nn] += ds;
+            const float dsc = round_to<T>(ds * scale);
+#pragma unroll
+            for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, kr[dd], dqa[dd]);
+          }
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
+          if (lane == 0) {
+#pragma unroll
+            for (int dd = 0; dd < HD; ++dd) dq_acc[i * HD + dd] += dqa[dd];
+          }
+        }
+        pass2_dk_dv<T, HD, 1>(a, ks, vs, qs, gs, row_mxl, row_inv, row_dot, bias_h + t0, cnt,
+                              (size_t)w * n_tok + t0, warp, lane);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < m_tok * HD; e += kThreads) {
+      const int i = e / HD, dd = e % HD;
+      dq[((size_t)w * m_tok + i) * c + h * HD + dd] = store_cast<T>(dq_acc[e]);
+    }
   }
 }
 
@@ -389,7 +565,8 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
 // resident blocks per SM.
 template <typename T, int HD, int J>
 cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
-  auto kernel = attn_bwd_kernel<T, HD, J>;
+  // J < 0 names the key-tiled variant
+  auto kernel = J < 0 ? attn_bwd_tiled_kernel<T, HD> : attn_bwd_kernel<T, HD, (J < 0 ? 0 : J)>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -414,6 +591,7 @@ cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t str
 template <typename T, int HD>
 cudaError_t run_j(int j, const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
   switch (j) {
+    case -1: return run<T, HD, -1>(a, smem, info, stream);
     case 0: return run<T, HD, 0>(a, smem, info, stream);
     case 12: return run<T, HD, 12>(a, smem, info, stream);
     case 16: return run<T, HD, 16>(a, smem, info, stream);
@@ -436,49 +614,58 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
   }
 }
 
-// Launches the variant with row share j (0: long rows; the wrapper's
-// attn_core_bwd_plan picks it from the shapes) with `a` (setting its pass-2
-// slices), or writes the occupancy and J, S to info[0..6] when `a` is null.
-cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, BwdArgs* a,
+// Launches the variant with row share j (0: long rows) or, with a key tile,
+// the key-tiled variant (the wrapper's attn_core_bwd_plan picks both from
+// the shapes) with `a` (setting its pass-2 slices and key tile), or writes
+// the occupancy and J, S and the key tile to info[0..7] when `a` is null.
+cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, int key_tile, BwdArgs* a,
                      long long* info, cudaStream_t stream) {
-  if (heads < 1 || c % heads || (j && n > 32 * j)) return cudaErrorInvalidValue;
-  const int hd = c / heads, slices = pass2_slices(m, n, hd, j);
+  if (heads < 1 || c % heads || (j && n > 32 * j) || (key_tile && (j || key_tile < 32)))
+    return cudaErrorInvalidValue;
+  const int hd = c / heads, slices = pass2_slices(m, key_tile ? key_tile : n, hd, j);
   if (a != nullptr) {
     a->slices = slices;
+    a->key_tile = key_tile;
   } else {
     info[5] = j;
     info[6] = slices;
+    info[7] = key_tile;
   }
-  const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd, j);
-  return is_bf16 ? run_hd<__nv_bfloat16>(hd, j, a, smem, info, stream)
-                 : run_hd<float>(hd, j, a, smem, info, stream);
+  const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd, j, key_tile);
+  const int variant = key_tile ? -1 : j;
+  return is_bf16 ? run_hd<__nv_bfloat16>(hd, variant, a, smem, info, stream)
+                 : run_hd<float>(hd, variant, a, smem, info, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) the backward kernel with row share j asks for (the
-// wrapper's attn_core_bwd_smem_bytes computes the same).
-long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j) {
-  return (long long)(sizeof(float) * bwd_smem_floats(m, n, c / heads, j));
+// Shared memory (bytes) the backward kernel with row share j or key tile
+// key_tile asks for (the wrapper's attn_core_bwd_smem_bytes computes the
+// same).
+long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j, int key_tile) {
+  return (long long)(sizeof(float) * bwd_smem_floats(m, n, c / heads, j, key_tile));
 }
 
-// The instantiation a launch at these shapes with row share j takes:
-// info[0..6] = registers, local (spill) bytes per thread, dynamic shared
-// memory per block, threads per block, resident blocks per SM, J (keys a
-// lane keeps of a row; 0 for long rows) and S (lanes per key in pass 2).
-// Returns the CUDA error code (0 on success).
-int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, long long* info) {
-  return (int)dispatch(is_bf16, m, n, c, heads, j, nullptr, info, nullptr);
+// The instantiation a launch at these shapes with row share j and key tile
+// key_tile takes: info[0..7] = registers, local (spill) bytes per thread,
+// dynamic shared memory per block, threads per block, resident blocks per
+// SM, J (keys a lane keeps of a row; 0 for long rows and key tiles), S
+// (lanes per key in pass 2) and the key tile. Returns the CUDA error code
+// (0 on success).
+int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, int key_tile,
+                            long long* info) {
+  return (int)dispatch(is_bf16, m, n, c, heads, j, key_tile, nullptr, info, nullptr);
 }
 
 // Launches the backward with row share j (12, 16 or 32 keys a lane, N <=
-// 32 j; or 0, long rows) and the dbias reduction on `stream`; returns the
-// first CUDA error code (0 on success). q/k/v/g/dq/dk/dv are f32 (is_bf16 =
-// 0) or bf16 (is_bf16 = 1); bias, partial and dbias are f32.
+// 32 j; or 0, long rows) or, with key_tile > 0 (and j 0), the key-tiled
+// variant, and the dbias reduction on `stream`; returns the first CUDA
+// error code (0 on success). q/k/v/g/dq/dk/dv are f32 (is_bf16 = 0) or
+// bf16 (is_bf16 = 1); bias, partial and dbias are f32.
 int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, int j,
-                       float scale,
+                       int key_tile, float scale,
                        const void* q, const void* k, const void* v, const float* bias,
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
                        void* stream) {
@@ -501,7 +688,7 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.dv = dv;
   a.partial = partial;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch(is_bf16, m, n, c, heads, j, &a, nullptr, s);
+  cudaError_t err = dispatch(is_bf16, m, n, c, heads, j, key_tile, &a, nullptr, s);
   if (err != cudaSuccess) return (int)err;
   const long long plane = (long long)heads * m * n;
   dbias_reduce_kernel<<<(unsigned)((plane + 255) / 256), 256, 0, s>>>(partial, dbias, groups,

@@ -35,7 +35,9 @@
 //       in registers (the TPU kept all 16 heads' (H*M, N) plane resident,
 //       which does not fit in 227 KB), so head_dim 4 (below an MMA's K)
 //       runs as FMA dot products; bf16 at head_dim 16 takes 16-row tiles on
-//       the tensor cores (attn_kernel_mma);
+//       the tensor cores (attn_kernel_mma); windows whose k and v rows do
+//       not fit in one block take the key-tiled variant
+//       (attn_tiled_kernel);
 //   (c1) y = ctr + m1 (acc @ Wp^T + bp), y into an f32 scratch;
 //   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y and the
 //        activation in the epilogue, h into a scratch in the operand type;
@@ -98,19 +100,21 @@ cudaError_t launch_mlp(const BlockArgs& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const BlockArgs& a, const float* bias, int heads,
-                       int attn_tiles, float scale, cudaStream_t stream) {
+                       int attn_tiles, int attn_key_tile, float scale, cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, attn_tiles, bias, const_cast<void*>(a.acc), scale, stream);
+  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tile, bias, const_cast<void*>(a.acc),
+                             scale, stream);
   if (err != cudaSuccess) return err;
   return launch_mlp<T>(a, stream);
 }
 
 // c3 streams its hidden rows, so no tile grows with the hidden width
 template <typename T>
-void smem_bytes(int d, int m, int c, int heads, long long* out3) {
+void smem_bytes(int d, int m, int c, int heads, int key_tile, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
-  out3[1] = (long long)attn_smem_bytes(d * m, c / heads);
+  out3[1] = (long long)attn_launch_smem_bytes(std::is_same<T, __nv_bfloat16>::value, m, d * m,
+                                              c / heads, key_tile);
   out3[2] = (long long)std::max(gemm_smem<T, TileS>(), ln_gemm_smem<T, float, TileS>(c));
 }
 
@@ -118,32 +122,34 @@ void smem_bytes(int d, int m, int c, int heads, long long* out3) {
 
 extern "C" {
 
-// Shared memory (bytes) the LN + projection GEMM, the attention and the
-// largest MLP GEMM ask for at most; the wrapper checks these against the
-// card's per-block limit before launching.
-void swin_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, long long* out3) {
+// Shared memory (bytes) the LN + projection GEMM, the attention (with
+// this key tile) and the largest MLP GEMM ask for at most; the wrapper
+// checks these against the card's per-block limit before launching.
+void swin_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, int key_tile,
+                           long long* out3) {
   if (is_bf16) {
-    smem_bytes<__nv_bfloat16>(d, m, c, heads, out3);
+    smem_bytes<__nv_bfloat16>(d, m, c, heads, key_tile, out3);
   } else {
-    smem_bytes<float>(d, m, c, heads, out3);
+    smem_bytes<float>(d, m, c, heads, key_tile, out3);
   }
 }
 
-// The occupancy of the attention stage's instantiation at these shapes
-// (window_attention_occupancy's info).
-int swin_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads,
+// The occupancy of the attention stage's instantiation at these shapes and
+// key tile (window_attention_occupancy's info).
+int swin_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile,
                               long long* info) {
-  return attn_occupancy<true>(is_bf16, m, n, c, heads, info);
+  return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tile, info);
 }
 
 // Launches the five kernels on `stream`, the attention with each window's
-// rows in attn_tiles tiles; returns the first CUDA error code (0 on
+// rows in attn_tiles tiles and its keys attn_key_tile at a time (0: all at
+// once); returns the first CUDA error code (0 on
 // success). Pointers are device pointers; vectors, the bias, the masks
 // and the y scratch are f32, x/ctr/weights/kv/q/acc/h/out are f32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1). m1 and m2 are both null or both (B_,)
 // arrays. act: an Act code.
 int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int heads, int hidden,
-                       int q_ind, int attn_tiles, float scale, const void* x,
+                       int q_ind, int attn_tiles, int attn_key_tile, float scale, const void* x,
                        const void* ctr, const float* g_q,
                        const float* b_q_ln, const float* g_kv, const float* b_kv_ln,
                        const void* w_q, const float* b_q, const void* w_kv, const float* b_kv,
@@ -192,8 +198,8 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, attn_tiles, scale, s)
-              : launch_all<float>(p, a, bias, heads, attn_tiles, scale, s);
+      is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, attn_tiles, attn_key_tile, scale, s)
+              : launch_all<float>(p, a, bias, heads, attn_tiles, attn_key_tile, scale, s);
   return (int)err;
 }
 

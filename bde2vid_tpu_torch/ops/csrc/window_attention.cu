@@ -24,33 +24,39 @@
 // element and one reciprocal a row; bf16 at head_dim >= 16 runs 16-row
 // tiles on the tensor cores (mma.sync m16n8k16). No score plane reaches
 // device memory. The wrapper's plan (attn_forward_plan) splits a window's
-// rows into tiles where there are too few windows to fill the card.
+// rows into tiles where there are too few windows to fill the card, and
+// sends windows whose k and v rows do not fit in one block's shared memory
+// to the key-tiled variant (attn_tiled_kernel), which stages them a tile
+// of keys at a time.
 
 #include "window_common.cuh"
 
 extern "C" {
 
-// Shared memory (bytes) the kernel asks for; the wrapper checks it against
-// the card's per-block limit before launching.
-long long window_attention_smem_bytes(int m, int n, int c, int heads) {
-  return (long long)attn_smem_bytes(n, c / heads);
+// Shared memory (bytes) the kernel that a launch with this key tile takes
+// asks for; the wrapper checks it against the card's per-block limit
+// before launching.
+long long window_attention_smem_bytes(int is_bf16, int m, int n, int c, int heads, int key_tile) {
+  return (long long)attn_launch_smem_bytes(is_bf16, m, n, c / heads, key_tile);
 }
 
-// The occupancy of the instantiation these shapes take: info[0..5] =
-// registers, local (spill) bytes per thread, dynamic shared memory per
-// block, threads per block, resident blocks per SM, J (keys a lane keeps of
-// a score row; 0 on the tensor cores). Returns the CUDA error code (0 on
-// success).
-int window_attention_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
-  return attn_occupancy<false>(is_bf16, m, n, c, heads, info);
+// The occupancy of the instantiation these shapes and key tile take:
+// info[0..6] = registers, local (spill) bytes per thread, dynamic shared
+// memory per block, threads per block, resident blocks per SM, J (keys a
+// lane keeps of a score row; 0 on the tensor cores), the key tile. Returns
+// the CUDA error code (0 on success).
+int window_attention_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile,
+                               long long* info) {
+  return attn_occupancy<false>(is_bf16, m, n, c, heads, key_tile, info);
 }
 
-// Launches the kernel on `stream`, each window's rows in `tiles` tiles;
-// returns the CUDA error code (0 on success). q, k, v, out are f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1) device arrays, bias is f32.
+// Launches the kernel on `stream`, each window's rows in `tiles` tiles and
+// its keys `key_tile` at a time (0: all at once); returns the CUDA error
+// code (0 on success). q, k, v, out are f32 (is_bf16 = 0) or bf16
+// (is_bf16 = 1) device arrays, bias is f32.
 int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads, int tiles,
-                             float scale, const void* q, const void* k, const void* v,
-                             const float* bias, void* out, void* stream) {
+                             int key_tile, float scale, const void* q, const void* k,
+                             const void* v, const float* bias, void* out, void* stream) {
   AttnArgs a{};
   a.b = b;
   a.m = m;
@@ -58,6 +64,7 @@ int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads,
   a.c = c;
   a.heads = heads;
   a.tiles = tiles;
+  a.key_tile = key_tile;
   a.q = q;
   a.k = k;
   a.v = v;

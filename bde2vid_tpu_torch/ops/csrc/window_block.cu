@@ -22,7 +22,8 @@
 //
 // What the design does about it: B1's launches without the tail
 // (window_common.cuh): the LN + q and k|v projection GEMM, fed the query
-// frame x[q_ind] as the centre, the per-(window, head) attention, then the
+// frame x[q_ind] as the centre, the per-(window, head) attention (key-tiled
+// where a window's k and v rows do not fit in one block), then the
 // out projection on the same GEMM core with a plain prologue and a bias
 // epilogue (register-blocked FMA tiles in f32, mma.sync tensor-core tiles in
 // bf16). Fusing the three launches is later work.
@@ -35,10 +36,10 @@ namespace {
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, void* acc,
                        void* out, const float* bias, int heads, int attn_tiles,
-                       float scale, cudaStream_t stream) {
+                       int attn_key_tile, float scale, cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, attn_tiles, bias, acc, scale, stream);
+  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tile, bias, acc, scale, stream);
   if (err != cudaSuccess) return err;
   const int rows = p.b * p.m;
   const GemmArgs g{rows, p.c, p.c, acc, w_p, vec_ok(p.c, {acc, w_p}), bias_epilogue(b_p, out, p.c)};
@@ -46,9 +47,10 @@ cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, v
 }
 
 template <typename T>
-void smem_bytes(int d, int m, int c, int heads, long long* out3) {
+void smem_bytes(int d, int m, int c, int heads, int key_tile, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
-  out3[1] = (long long)attn_smem_bytes(d * m, c / heads);
+  out3[1] = (long long)attn_launch_smem_bytes(std::is_same<T, __nv_bfloat16>::value, m, d * m,
+                                              c / heads, key_tile);
   out3[2] = (long long)gemm_smem<T, TileS>();
 }
 
@@ -56,30 +58,33 @@ void smem_bytes(int d, int m, int c, int heads, long long* out3) {
 
 extern "C" {
 
-// Shared memory (bytes) of the three launches at their smallest tile; the
-// wrapper checks these against the card's per-block limit before launching.
-void window_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, long long* out3) {
+// Shared memory (bytes) of the three launches at their smallest tile (the
+// attention with this key tile); the wrapper checks these against the
+// card's per-block limit before launching.
+void window_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, int key_tile,
+                             long long* out3) {
   if (is_bf16) {
-    smem_bytes<__nv_bfloat16>(d, m, c, heads, out3);
+    smem_bytes<__nv_bfloat16>(d, m, c, heads, key_tile, out3);
   } else {
-    smem_bytes<float>(d, m, c, heads, out3);
+    smem_bytes<float>(d, m, c, heads, key_tile, out3);
   }
 }
 
-// The occupancy of the attention stage's instantiation at these shapes
-// (window_attention_occupancy's info).
-int window_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads,
+// The occupancy of the attention stage's instantiation at these shapes and
+// key tile (window_attention_occupancy's info).
+int window_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile,
                                 long long* info) {
-  return attn_occupancy<true>(is_bf16, m, n, c, heads, info);
+  return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tile, info);
 }
 
 // Launches the three kernels on `stream`, the attention with each window's
-// rows in attn_tiles tiles; returns the first CUDA error code (0 on
+// rows in attn_tiles tiles and its keys attn_key_tile at a time (0: all at
+// once); returns the first CUDA error code (0 on
 // success). Pointers are device pointers; the LN affines, biases and
 // the attention bias are f32, x/weights/scratch/acc/out are f32 (is_bf16 =
 // 0) or bf16 (is_bf16 = 1).
 int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int q_ind,
-                         int attn_tiles, float scale, const void* x,
+                         int attn_tiles, int attn_key_tile, float scale, const void* x,
                          const float* g_q, const float* b_q_ln,
                          const float* g_kv, const float* b_kv_ln, const void* w_q,
                          const float* b_q, const void* w_kv, const float* b_kv, const void* w_p,
@@ -107,8 +112,10 @@ int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int
   p.q = q;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, scale, s)
-              : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, scale, s);
+      is_bf16 ? launch_all<__nv_bfloat16>(p, w_p, b_p, acc, out, bias, heads, attn_tiles,
+                                          attn_key_tile, scale, s)
+              : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, attn_key_tile,
+                                  scale, s);
   return (int)err;
 }
 

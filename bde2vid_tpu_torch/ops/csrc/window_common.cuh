@@ -714,8 +714,10 @@ size_t ln_proj_smem_bytes(int c) {
 // 32 J keys run the same code over chunks of 32 J keys: one sweep for the
 // running max and sum, a second for p v. head_dim 4 is below an MMA's K,
 // so every product is an FMA; bf16 at head_dim >= 16 takes the tensor
-// cores (attn_kernel_mma). The wrapper picks the tiles (attn_forward_plan
-// in ops/window_attn_cuda.py).
+// cores (attn_kernel_mma). Windows whose k and v rows do not fit in one
+// block's shared memory take the key-tiled variant (attn_tiled_kernel).
+// The wrapper picks the tiles and the key tile (attn_forward_plan in
+// ops/window_attn_cuda.py); the launchers take both from its plan.
 // ---------------------------------------------------------------------------
 
 // 8 warps a block. A warp takes one query row at a time (attn_kernel) or,
@@ -732,6 +734,7 @@ __host__ __device__ constexpr int attn_min_blocks(int hd) { return hd <= 4 ? 4 :
 struct AttnArgs {
   int b, m, n, c, heads;
   int tiles;  // block (w, h, tile) takes rows 8 (tile + tiles k) + warp, k = 0, 1, ...
+  int key_tile;  // 0, or the keys attn_tiled_kernel stages at a time
   const void* q;  // (B_, M, C)
   const void* k;  // k|v scratch (kKvScratch), else (B_, N, C)
   const void* v;  // (B_, N, C) (unused with kKvScratch)
@@ -793,17 +796,18 @@ __device__ __forceinline__ size_t kv_offset(const AttnArgs& a, int w, int nn) {
   return ((size_t)w * a.n + nn) * a.c;
 }
 
-// Window w's k and v columns of head h into ks and vs, (N, KS) f32 each.
+// Keys n0 .. n0 + cnt - 1 of window w's k and v columns of head h into ks
+// and vs, (cnt, KS) f32 each.
 template <typename T, int HD, bool kKvScratch>
-__device__ __forceinline__ void stage_window(float* ks, float* vs, const AttnArgs& a, int w,
-                                             int h) {
+__device__ __forceinline__ void stage_keys(float* ks, float* vs, const AttnArgs& a, int w, int h,
+                                           int n0, int cnt) {
   constexpr int CH = kChunk<T, HD>, KS = key_stride(HD), PER = HD / CH;
   const T* kg = static_cast<const T*>(a.k);
   const T* vg = kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
 #pragma unroll 4
-  for (int e = threadIdx.x; e < a.n * PER; e += blockDim.x) {
+  for (int e = threadIdx.x; e < cnt * PER; e += blockDim.x) {
     const int nn = e / PER, d0 = (e - nn * PER) * CH;
-    const size_t off = kv_offset<kKvScratch>(a, w, nn) + h * HD + d0;
+    const size_t off = kv_offset<kKvScratch>(a, w, n0 + nn) + h * HD + d0;
     float kr[CH], vr[CH];
     if (a.vec) {
       load_chunk<T, CH>(kr, kg + off);
@@ -831,6 +835,13 @@ __device__ __forceinline__ void stage_window(float* ks, float* vs, const AttnArg
       }
     }
   }
+}
+
+// Window w's k and v columns of head h into ks and vs, (N, KS) f32 each.
+template <typename T, int HD, bool kKvScratch>
+__device__ __forceinline__ void stage_window(float* ks, float* vs, const AttnArgs& a, int w,
+                                             int h) {
+  stage_keys<T, HD, kKvScratch>(ks, vs, a, w, h, 0, a.n);
 }
 
 // b[j] = brow[base + lane + 32 j] for the keys below n (0 past them).
@@ -1236,6 +1247,7 @@ cudaError_t attn_mma_run(const AttnArgs& a, float scale, long long* info, cudaSt
   info[3] = kAttnThreads;
   info[4] = blocks;
   info[5] = 0;  // no row share: the tensor cores hold the scores
+  info[6] = 0;  // no key tile
   return cudaSuccess;
 }
 
@@ -1270,7 +1282,148 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
   info[3] = kAttnThreads;
   info[4] = blocks;
   info[5] = J;
+  info[6] = 0;  // no key tile
   return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// Key-tiled variant, for windows whose k and v rows do not fit in one
+// block's shared memory (the JAX kernel stages them whole in VMEM, which
+// caps it only at 96 MB). A block stages key_tile keys of k and v at a
+// time and runs the two sweeps of attend_row's long rows over the tiles:
+// sweep 1 takes each row's running max and sum of exp across every tile,
+// sweep 2 recomputes the scores and adds round(p) v with p already
+// normalised, so the cast points stay those of attn_core_reference. A
+// warp keeps to its rows, as in attn_kernel, and their running max, sum
+// and (HD,) output sums stay in shared memory between tiles (M x (HD + 2)
+// floats); __syncthreads separates the tiles. Every product is an FMA,
+// for bf16 too (rows staged in f32). The wrapper's plan picks key_tile
+// (attn_key_tile in ops/window_attn_cuda.py); it is right first and not
+// tuned.
+// ---------------------------------------------------------------------------
+
+constexpr int kTiledJ = 16;  // keys a lane keeps of a 512-key chunk of a tile
+
+size_t attn_tiled_smem_bytes(int m, int hd, int key_tile) {
+  return sizeof(float) * (2 * (size_t)key_tile * key_stride(hd) + (size_t)m * (hd + 2));
+}
+
+template <typename T, int HD, bool kKvScratch>
+__global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(HD))
+    attn_tiled_kernel(AttnArgs a, float scale) {
+  extern __shared__ float smem[];
+  constexpr int KS = key_stride(HD), J = kTiledJ, kWarps = kAttnThreads / 32;
+  constexpr int kLanesPerComponent = 32 / HD;
+  const int w = blockIdx.x, h = blockIdx.y, kt = a.key_tile;
+  float* ks = smem;                // (key_tile, KS)
+  float* vs = ks + kt * KS;        // (key_tile, KS)
+  float* row_mxl = vs + kt * KS;   // (M): running max score * log2 e
+  float* row_sum = row_mxl + a.m;  // (M): running sum of exp under it
+  float* row_o = row_sum + a.m;    // (M, HD): round(p) v summed over tiles
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.z * kWarps + (threadIdx.x >> 5), step = a.tiles * kWarps;
+  for (int i = first; i < a.m; i += step) {
+    if (lane == 0) {
+      row_mxl[i] = __int_as_float(0xff800000);  // -inf
+      row_sum[i] = 0.f;
+    }
+    if (lane < HD) row_o[i * HD + lane] = 0.f;
+  }
+  const float* bias_h = a.bias + (size_t)h * a.m * a.n;
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int t0 = 0; t0 < a.n; t0 += kt) {
+      const int cnt = min(kt, a.n - t0);
+      __syncthreads();  // the block is done with the previous tile
+      stage_keys<T, HD, kKvScratch>(ks, vs, a, w, h, t0, cnt);
+      __syncthreads();
+      for (int i = first; i < a.m; i += step) {
+        const size_t row = ((size_t)w * a.m + i) * a.c + h * HD;
+        const float* brow = bias_h + (size_t)i * a.n + t0;
+        float qv[HD], sv[J], bc[J];
+        load_head_row<T, HD>(qv, static_cast<const T*>(a.q) + row, a.vec);
+        if (sweep == 0) {
+          // the running max over this tile's chunks and the lane's sum under it
+          const float m0 = row_mxl[i];
+          float mxl = m0, sum = 0.f;
+          for (int base = 0; base < cnt; base += 32 * J) {
+            load_bias_share<J>(bc, brow, base, cnt, lane);
+            const float cm =
+                warp_max(chunk_scores<HD, J>(sv, qv, bc, ks, base, cnt, lane, scale)) * kLog2e;
+            const float nm = fmaxf(mxl, cm);
+            sum *= fast_exp2(mxl - nm);
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+              if (base + lane + 32 * j < cnt) sum += fast_exp2(fmaf(sv[j], kLog2e, -nm));
+            mxl = nm;
+          }
+          const float total = row_sum[i] * fast_exp2(m0 - mxl) + warp_sum(sum);
+          __syncwarp();  // every lane has read the row's statistics
+          if (lane == 0) {
+            row_mxl[i] = mxl;
+            row_sum[i] = total;
+          }
+        } else {
+          // the scores again, p = exp(s - max) / sum and round(p) v
+          const float mxl = row_mxl[i], inv = 1.f / row_sum[i];
+          float o[HD];
+#pragma unroll
+          for (int d = 0; d < HD; ++d) o[d] = 0.f;
+          for (int base = 0; base < cnt; base += 32 * J) {
+            load_bias_share<J>(bc, brow, base, cnt, lane);
+            chunk_scores<HD, J>(sv, qv, bc, ks, base, cnt, lane, scale);
+#pragma unroll
+            for (int j = 0; j < J; ++j) sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl)) * inv;
+            accumulate_pv<T, HD, J>(o, sv, vs, base, cnt, lane);
+          }
+          const float s = warp_reduce_scatter<HD>(o, lane);
+          if (lane % kLanesPerComponent == 0) {
+            const int d = lane / kLanesPerComponent;
+            const float total = row_o[i * HD + d] + s;
+            if (t0 + cnt < a.n) {
+              row_o[i * HD + d] = total;
+            } else {
+              static_cast<T*>(a.out)[row + d] = store_cast<T>(total);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int HD, bool kKvScratch>
+cudaError_t attn_tiled_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
+  auto kernel = attn_tiled_kernel<T, HD, kKvScratch>;
+  const size_t smem = attn_tiled_smem_bytes(a.m, HD, a.key_tile);
+  if (a.key_tile < 32 || smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (info == nullptr) {
+    kernel<<<dim3(a.b, a.heads, a.tiles), kAttnThreads, smem, stream>>>(a, scale);
+    return cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kAttnThreads, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (long long)attr.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = kAttnThreads;
+  info[4] = blocks;
+  info[5] = kTiledJ;
+  info[6] = a.key_tile;
+  return cudaSuccess;
+}
+
+// Shared memory of the kernel a launch with this key tile takes (the
+// wrapper's attn_plan_smem_bytes).
+size_t attn_launch_smem_bytes(int is_bf16, int m, int n, int hd, int key_tile) {
+  if (key_tile) return attn_tiled_smem_bytes(m, hd, key_tile);
+  return is_bf16 && hd >= 16 ? attn_mma_smem_bytes(n, hd) : attn_smem_bytes(n, hd);
 }
 
 // q, k and v start on kChunk-element boundaries (the head offsets and row
@@ -1283,9 +1436,12 @@ bool attn_vec_ok(const AttnArgs& a, bool kv_scratch) {
   return true;
 }
 
+// The kernel the plan's key tile names: key-tiled, else bf16 at head_dim >=
+// 16 on the tensor cores, else the scalar kernel at the row share N asks.
 template <typename T, int HD, bool kKvScratch>
 cudaError_t attn_run_hd(AttnArgs a, float scale, long long* info, cudaStream_t stream) {
   if (info == nullptr) a.vec = attn_vec_ok<T, HD>(a, kKvScratch);
+  if (a.key_tile) return attn_tiled_run<T, HD, kKvScratch>(a, scale, info, stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 16) {
     return attn_mma_run<HD, kKvScratch>(a, scale, info, stream);
   } else {
@@ -1320,10 +1476,10 @@ cudaError_t launch_attn(int is_bf16, const AttnArgs& a, float scale, cudaStream_
                  : attn_run_t<float, kKvScratch>(a, scale, nullptr, stream);
 }
 
-// The occupancy of the instantiation that a launch at these shapes takes
-// (attn_run's info, then J).
+// The occupancy of the instantiation that a launch at these shapes with
+// this key tile takes (attn_run's info, then J and the key tile).
 template <bool kKvScratch>
-int attn_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info) {
+int attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile, long long* info) {
   AttnArgs a{};
   a.b = 1;
   a.m = m;
@@ -1331,14 +1487,16 @@ int attn_occupancy(int is_bf16, int m, int n, int c, int heads, long long* info)
   a.c = c;
   a.heads = heads;
   a.tiles = 1;
+  a.key_tile = key_tile;
   return (int)(is_bf16 ? attn_run_t<__nv_bfloat16, kKvScratch>(a, 0.f, info, nullptr)
                        : attn_run_t<float, kKvScratch>(a, 0.f, info, nullptr));
 }
 
 // The attention over the k|v scratch that the LN + projection GEMM
-// writes, each window's rows in `tiles` tiles.
+// writes, each window's rows in `tiles` tiles, its keys `key_tile` at a
+// time (0: all at once).
 template <typename T>
-cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles,
+cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles, int key_tile,
                               const float* bias, void* out, float scale, cudaStream_t stream) {
   AttnArgs a{};
   a.b = p.b;
@@ -1347,6 +1505,7 @@ cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles,
   a.c = p.c;
   a.heads = heads;
   a.tiles = tiles;
+  a.key_tile = key_tile;
   a.q = p.q;
   a.k = p.kv;
   a.v = nullptr;

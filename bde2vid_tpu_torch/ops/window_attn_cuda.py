@@ -53,6 +53,8 @@ _ACT_CODES = {
 }
 _HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+_SM_SMEM = 233472  # bytes of shared memory of one Hopper SM, for all its blocks
+_TILE_KEYS = 512  # the key-tiled kernels' tiles are multiples of this many keys
 ATTN_THREADS = 256  # threads of a forward attention block (kAttnThreads in csrc/window_common.cuh)
 
 
@@ -263,28 +265,28 @@ _LL, _LLP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
 # (argtypes, restype) of each library's C functions
 _SIGNATURES = {
     "swin_block": {
-        # 10 ints, the score scale, 25 tensor pointers, 2 mask pointers and the stream
-        "swin_block_forward": ([_CI] * 10 + [_CF] + [_VP] * 28, _CI),
-        "swin_block_smem_bytes": ([_CI] * 5 + [_LLP], None),
-        "swin_block_attn_occupancy": ([_CI] * 5 + [_LLP], _CI),
+        # 11 ints, the score scale, 25 tensor pointers, 2 mask pointers and the stream
+        "swin_block_forward": ([_CI] * 11 + [_CF] + [_VP] * 28, _CI),
+        "swin_block_smem_bytes": ([_CI] * 6 + [_LLP], None),
+        "swin_block_attn_occupancy": ([_CI] * 6 + [_LLP], _CI),
     },
     "window_block": {
-        # 8 ints, the score scale, 16 tensor pointers and the stream
-        "window_block_forward": ([_CI] * 8 + [_CF] + [_VP] * 17, _CI),
-        "window_block_smem_bytes": ([_CI] * 5 + [_LLP], None),
-        "window_block_attn_occupancy": ([_CI] * 5 + [_LLP], _CI),
+        # 9 ints, the score scale, 16 tensor pointers and the stream
+        "window_block_forward": ([_CI] * 9 + [_CF] + [_VP] * 17, _CI),
+        "window_block_smem_bytes": ([_CI] * 6 + [_LLP], None),
+        "window_block_attn_occupancy": ([_CI] * 6 + [_LLP], _CI),
     },
     "window_attention": {
-        # 7 ints, the score scale, 5 tensor pointers and the stream
-        "window_attention_forward": ([_CI] * 7 + [_CF] + [_VP] * 6, _CI),
-        "window_attention_smem_bytes": ([_CI] * 4, _LL),
-        "window_attention_occupancy": ([_CI] * 5 + [_LLP], _CI),
+        # 8 ints, the score scale, 5 tensor pointers and the stream
+        "window_attention_forward": ([_CI] * 8 + [_CF] + [_VP] * 6, _CI),
+        "window_attention_smem_bytes": ([_CI] * 6, _LL),
+        "window_attention_occupancy": ([_CI] * 6 + [_LLP], _CI),
     },
     "attn_core_bwd": {
-        # 8 ints, the score scale, 10 tensor pointers and the stream
-        "attn_core_backward": ([_CI] * 8 + [_CF] + [_VP] * 11, _CI),
-        "attn_core_bwd_smem_bytes": ([_CI] * 5, _LL),
-        "attn_core_bwd_occupancy": ([_CI] * 6 + [_LLP], _CI),
+        # 9 ints, the score scale, 10 tensor pointers and the stream
+        "attn_core_backward": ([_CI] * 9 + [_CF] + [_VP] * 11, _CI),
+        "attn_core_bwd_smem_bytes": ([_CI] * 6, _LL),
+        "attn_core_bwd_occupancy": ([_CI] * 7 + [_LLP], _CI),
     },
 }
 
@@ -376,8 +378,9 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
         mask_ptrs = [t.data_ptr() for t in mk]
 
     lib = _lib("swin_block")
+    plan = attn_plan_for("swin_block", b_, m, n, c, num_heads, dt, x.device.index)
     smem = (ctypes.c_longlong * 3)()
-    lib.swin_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, smem)
+    lib.swin_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, plan.key_tile, smem)
     if max(smem) > _MAX_SMEM:
         raise ValueError(f"shapes need {max(smem)} B of shared memory per block (limit {_MAX_SMEM})")
 
@@ -398,15 +401,14 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
         p["norm2_w"], p["norm2_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"],
         p["bias"], kv, q, acc, out, y, h,
     ]
-    plan = attn_plan_for("swin_block", b_, m, n, c, num_heads, dt, x.device.index)
     rc = lib.swin_block_forward(
         int(dt == torch.bfloat16), act, d, b_, m, c, num_heads,
-        hidden, q_ind, plan.tiles, float((c // num_heads) ** -0.5),
+        hidden, q_ind, plan.tiles, plan.key_tile, float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in ptrs], *mask_ptrs, _stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"swin_block kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_swin_block"] += 1
+    launch_counts["fused_swin_block_key_tiles" if plan.key_tile else "fused_swin_block"] += 1
     return out, acc
 
 
@@ -437,13 +439,14 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
     rc = lib.attn_core_backward(
-        int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share,
+        int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share, plan.key_tile,
         float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in (q, k, v, bias32, g, dq, dk, dv, partial, dbias)], _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"attn_core_backward kernel launch failed: CUDA error {rc}")
-    launch_counts["attn_core_backward" if plan.row_share else "attn_core_backward_long_rows"] += 1
+    launch_counts["attn_core_backward" if plan.row_share else
+                  "attn_core_backward_key_tiles" if plan.key_tile else "attn_core_backward_long_rows"] += 1
     return dq, dk, dv, dbias.to(bias.dtype)
 
 
@@ -456,29 +459,51 @@ class BwdPlan(NamedTuple):
     """Which backward kernel a launch takes: ``row_share`` J is the keys a
     lane keeps of a score row in registers (12, 16 or 32), or 0 for the
     long-row variant, which sweeps each row three times and keeps the dbias
-    sums in global memory; ``smem_bytes`` is its shared memory per block."""
+    sums in global memory; ``key_tile`` is 0, or the keys of one tile of the
+    key-tiled variant (rows whose k and v do not fit in one block's shared
+    memory: it stages them a tile at a time); ``smem_bytes`` is its shared
+    memory per block."""
 
     row_share: int
     smem_bytes: int
+    key_tile: int = 0
 
 
-def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int) -> int:
+def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int, key_tile: int = 0) -> int:
     """Shared memory of a backward block (``bwd_smem_floats`` in
     csrc/attn_core_bwd.cu): the padded k, v, q and g rows, three row
-    statistics, and with a row share the (M, N) dbias plane."""
+    statistics, and with a row share the (M, N) dbias plane; with a key
+    tile, the k and v rows of one tile and the (M, head_dim) dq sums."""
     ks = _key_stride(head_dim)
+    if key_tile:
+        return 4 * (2 * (key_tile + m) * ks + 3 * m + m * head_dim)
     return 4 * (2 * (n + m) * ks + 3 * m + (m * n if row_share else 0))
+
+
+def _key_tile(fixed: int, per_key: int, blocks: int, what: str) -> int:
+    """The most keys, a multiple of ``_TILE_KEYS``, whose rows of
+    ``per_key`` bytes fit beside ``fixed`` bytes in a block of which
+    ``blocks`` share one SM. Raises ``ValueError`` when not one multiple
+    fits."""
+    budget = min(_MAX_SMEM, _SM_SMEM // blocks - 1024)  # the SM keeps 1 KB a block
+    tile = (budget - fixed) // per_key // _TILE_KEYS * _TILE_KEYS
+    if tile <= 0:
+        raise ValueError(f"{what}: {fixed} B of shared memory per block leave no room for a tile "
+                         f"of {_TILE_KEYS} keys (limit {budget})")
+    return tile
 
 
 def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     """The backward kernel for windows of M query rows and N keys at width C
     over ``num_heads`` heads: rows of at most 32 x 32 keys whose (M, N)
     plane fits in shared memory beside the k/v rows keep their row share in
-    registers (the fewest J with N <= 32 J); any other row takes the
-    long-row variant. Raises ``ValueError`` when even that needs more shared
-    memory than a block has: the autograd Functions call it before their
-    forward, so no backward refuses a shape whose forward ran. A function of
-    its arguments alone."""
+    registers (the fewest J with N <= 32 J); rows whose k/v, q/g rows fit
+    take the long-row variant; longer rows take the key-tiled variant,
+    whose tile is a function of head_dim and M alone (two blocks per SM
+    where head_dim <= 8, as the long rows run). Raises ``ValueError`` only
+    when the query rows leave no room for a tile: the autograd Functions
+    call it before their forward, so no backward refuses a shape whose
+    forward ran. A function of its arguments alone."""
     hd = c // num_heads
     for j in _BWD_ROW_SHARES:
         if n <= 32 * j:
@@ -487,11 +512,12 @@ def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
                 return BwdPlan(j, smem)
             break
     smem = attn_core_bwd_smem_bytes(m, n, hd, 0)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"the attention backward kernel cannot take {n} keys at head_dim {hd}: "
-                         f"its k and v rows need {smem} B of shared memory per block "
-                         f"(limit {_MAX_SMEM})")
-    return BwdPlan(0, smem)
+    if smem <= _MAX_SMEM:
+        return BwdPlan(0, smem)
+    ks = _key_stride(hd)
+    tile = _key_tile(4 * (2 * m * ks + 3 * m + m * hd), 8 * ks, 2 if hd <= 8 else 1,
+                     f"the attention backward at {m} query rows of head_dim {hd}")
+    return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0, tile), tile)
 
 
 def bwd_window_groups(b_: int, heads: int, blocks_per_sm: int, sms: int) -> int:
@@ -514,16 +540,18 @@ def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype,
     CUDA card ``device_index``: registers and spill bytes per thread
     (ptxas), dynamic shared memory per block, threads per block, resident
     blocks per SM, J (keys a lane keeps of a score row; 0 for the long-row
-    variant), S (lanes per key in pass 2) and the card's SMs, for the kernel
+    and the key-tiled variants), S (lanes per key in pass 2), the key tile
+    (0 but for the key-tiled variant) and the card's SMs, for the kernel
     :func:`attn_core_bwd_plan` picks."""
     plan = attn_core_bwd_plan(m, n, c, num_heads)
-    info = (ctypes.c_longlong * 7)()
+    info = (ctypes.c_longlong * 8)()
     with torch.cuda.device(device_index):
         rc = _lib("attn_core_bwd").attn_core_bwd_occupancy(
-            int(dtype == torch.bfloat16), m, n, c, num_heads, plan.row_share, info)
+            int(dtype == torch.bfloat16), m, n, c, num_heads, plan.row_share, plan.key_tile, info)
     if rc != 0:
         raise RuntimeError(f"attn_core_bwd_occupancy failed: CUDA error {rc}")
-    keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "slices")
+    keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "slices",
+            "key_tile")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return {**dict(zip(keys, info)), "sms": sms}
 
@@ -553,13 +581,51 @@ def attn_smem_bytes(n: int, head_dim: int, bf16: bool = False) -> int:
     return 4 * 2 * n * _key_stride(head_dim)
 
 
+def attn_tiled_smem_bytes(m: int, head_dim: int, key_tile: int) -> int:
+    """Shared memory of a block of the key-tiled forward
+    (``attn_tiled_smem_bytes`` in csrc/window_common.cuh): one tile's k and
+    v rows in f32, and each query row's running max, sum and (head_dim,)
+    output sums."""
+    return 4 * (2 * key_tile * _key_stride(head_dim) + m * (head_dim + 2))
+
+
+def attn_min_blocks(head_dim: int) -> int:
+    """Blocks per SM the forward attention's registers are capped for
+    (``attn_min_blocks`` in csrc/window_common.cuh)."""
+    return 4 if head_dim <= 4 else 2 if head_dim <= 16 else 1
+
+
+def attn_key_tile(m: int, n: int, head_dim: int, bf16: bool = False) -> int:
+    """0 where one block stages a window's k and v rows whole (the kernels
+    of ``attn_smem_bytes``), else the keys of one tile of the key-tiled
+    forward: a function of head_dim and M alone, sized so that the blocks
+    the registers allow per SM (``attn_min_blocks``) fit in its shared
+    memory. bf16 runs the same tiles as f32 (the tiled kernel stages f32
+    rows)."""
+    if attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM:
+        return 0
+    return _key_tile(attn_tiled_smem_bytes(m, head_dim, 0), 8 * _key_stride(head_dim),
+                     attn_min_blocks(head_dim),
+                     f"the forward attention at {m} query rows of head_dim {head_dim}")
+
+
+def attn_plan_smem_bytes(m: int, n: int, head_dim: int, bf16: bool, key_tile: int) -> int:
+    """Shared memory of a block of the forward attention kernel a plan with
+    ``key_tile`` launches (``attn_launch_smem_bytes`` in
+    csrc/window_common.cuh)."""
+    return attn_tiled_smem_bytes(m, head_dim, key_tile) if key_tile else attn_smem_bytes(n, head_dim, bf16)
+
+
 class AttnPlan(NamedTuple):
     """How one forward attention launch splits its work: block (window,
     head, tile) has warp w take the window's row items (of ``attn_rows``
-    query rows each) tile * warps + w + k * warps * tiles, k = 0, 1, ..."""
+    query rows each) tile * warps + w + k * warps * tiles, k = 0, 1, ...;
+    ``key_tile`` is 0, or the keys a block of the key-tiled kernel stages
+    at a time (``attn_key_tile``)."""
 
     tiles: int
     threads: int  # threads per block
+    key_tile: int = 0
 
 
 def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: int,
@@ -569,16 +635,15 @@ def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: i
     operand type, which at head_dim >= 16 takes the tensor-core kernel), on
     a card with ``sms`` SMs of which each holds ``blocks_per_sm`` of its
     blocks: the fewest tiles a window for which the blocks fill two waves
-    of the card, and no more than leave each warp an item. A function of
-    its arguments alone."""
-    smem = attn_smem_bytes(n, head_dim, bf16)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{n} keys at head_dim {head_dim} need {smem} B of shared memory "
-                         f"per block (limit {_MAX_SMEM})")
+    of the card, and no more than leave each warp an item. Rows whose k and
+    v do not fit in one block take the key-tiled kernel (``attn_key_tile``),
+    which runs one query row a warp. A function of its arguments alone."""
+    key_tile = attn_key_tile(m, n, head_dim, bf16)
     warps = ATTN_THREADS // 32
-    most = max(1, -(-m // attn_rows(head_dim, bf16)) // warps)
+    rows = 1 if key_tile else attn_rows(head_dim, bf16)
+    most = max(1, -(-m // rows) // warps)
     want = -(-2 * sms * max(1, blocks_per_sm) // (b_ * heads))
-    return AttnPlan(max(1, min(most, want)), warps * 32)
+    return AttnPlan(max(1, min(most, want)), warps * 32, key_tile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -589,16 +654,19 @@ def attn_forward_occupancy(lib_name: str, m: int, n: int, c: int, num_heads: int
     ``window_block``) gets at these shapes on CUDA card ``device_index``:
     registers and spill bytes per thread (ptxas), dynamic shared memory per
     block, threads per block, resident blocks per SM, J (keys a lane keeps
-    of a score row; 0 on the tensor cores) and the card's SMs."""
-    info = (ctypes.c_longlong * 6)()
+    of a score row; 0 on the tensor cores), the key tile (0 but for the
+    key-tiled kernel, which ``attn_key_tile`` picks) and the card's SMs."""
+    info = (ctypes.c_longlong * 7)()
     fn = {"window_attention": "window_attention_occupancy",
           "swin_block": "swin_block_attn_occupancy",
           "window_block": "window_block_attn_occupancy"}[lib_name]
+    bf16 = dtype == torch.bfloat16
+    key_tile = attn_key_tile(m, n, c // num_heads, bf16)
     with torch.cuda.device(device_index):
-        rc = getattr(_lib(lib_name), fn)(int(dtype == torch.bfloat16), m, n, c, num_heads, info)
+        rc = getattr(_lib(lib_name), fn)(int(bf16), m, n, c, num_heads, key_tile, info)
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
-    keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share")
+    keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "key_tile")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return {**dict(zip(keys, info)), "sms": sms}
 
@@ -631,21 +699,21 @@ def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
         raise ValueError(f"bias must be {(num_heads, m, n)} on {q.device}, got {tuple(bias.shape)}")
     _check_head_dim(c, num_heads)
     lib = _lib("window_attention")
-    smem = lib.window_attention_smem_bytes(m, n, c, num_heads)
+    plan = attn_plan_for("window_attention", b_, m, n, c, num_heads, dt, q.device.index)
+    smem = lib.window_attention_smem_bytes(int(dt == torch.bfloat16), m, n, c, num_heads, plan.key_tile)
     if smem > _MAX_SMEM:
         raise ValueError(f"shapes need {smem} B of shared memory per block (limit {_MAX_SMEM})")
     q, k, v = (t.contiguous() for t in (q, k, v))
     bias32 = bias.float().contiguous()
     out = torch.empty_like(q)
-    plan = attn_plan_for("window_attention", b_, m, n, c, num_heads, dt, q.device.index)
     rc = lib.window_attention_forward(
-        int(dt == torch.bfloat16), b_, m, n, c, num_heads, plan.tiles,
+        int(dt == torch.bfloat16), b_, m, n, c, num_heads, plan.tiles, plan.key_tile,
         float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in (q, k, v, bias32, out)], _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"window_attention kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_window_attention"] += 1
+    launch_counts["fused_window_attention_key_tiles" if plan.key_tile else "fused_window_attention"] += 1
     return out
 
 
@@ -668,8 +736,9 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
     }
     p = _prepare_params(params, shapes, dt, x.device)
     lib = _lib("window_block")
+    plan = attn_plan_for("window_block", b_, m, d * m, c, num_heads, dt, x.device.index)
     smem = (ctypes.c_longlong * 3)()
-    lib.window_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, smem)
+    lib.window_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, plan.key_tile, smem)
     if max(smem) > _MAX_SMEM:
         raise ValueError(f"shapes need {max(smem)} B of shared memory per block (limit {_MAX_SMEM})")
 
@@ -682,14 +751,13 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
         x, p["norm_q_w"], p["norm_q_b"], p["norm_kv_w"], p["norm_kv_b"], p["q_w"], p["q_b"],
         p["kv_w"], p["kv_b"], p["proj_w"], p["proj_b"], p["bias"], kv, q, acc, out,
     ]
-    plan = attn_plan_for("window_block", b_, m, d * m, c, num_heads, dt, x.device.index)
     rc = lib.window_block_forward(
-        int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind, plan.tiles,
+        int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind, plan.tiles, plan.key_tile,
         float((c // num_heads) ** -0.5), *[t.data_ptr() for t in ptrs], _stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"window_block kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_window_block"] += 1
+    launch_counts["fused_window_block_key_tiles" if plan.key_tile else "fused_window_block"] += 1
     return out, acc
 
 

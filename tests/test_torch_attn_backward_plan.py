@@ -2,9 +2,10 @@
 function of (M, N, C, heads) that picks the row share J a lane of pass 1
 keeps in registers, or the long-row variant (J 0) for rows above 32 x 32
 keys or rows whose (M, N) dbias plane does not fit in a block's shared
-memory beside the k/v rows, and refuses only what neither kernel can
-take. Checked on the CPU against the shared-memory layout of
-``attn_bwd_kernel`` (csrc/attn_core_bwd.cu)."""
+memory beside the k/v rows, or the key-tiled variant for rows whose k/v
+rows do not fit either. Checked on the CPU against the shared-memory
+layouts of ``attn_bwd_kernel`` and ``attn_bwd_tiled_kernel``
+(csrc/attn_core_bwd.cu)."""
 
 import pytest
 
@@ -40,7 +41,8 @@ def test_plan_at_the_model_shapes(m, n, c, want):
 def test_plan_picks_the_registers_where_they_fit_and_long_rows_elsewhere(n, hd):
     """J is the fewest of 12, 16, 32 with N <= 32 J whenever that kernel's
     shared memory fits; otherwise the long-row variant runs, whose shared
-    memory holds no (M, N) plane; a refusal means neither fits."""
+    memory holds no (M, N) plane; where neither fits, the key-tiled variant
+    (which raised before it existed)."""
     m, heads = 49, 4
     ks = _key_stride(hd)
     rows = 4 * (2 * (n + m) * ks + 3 * m)
@@ -50,8 +52,11 @@ def test_plan_picks_the_registers_where_they_fit_and_long_rows_elsewhere(n, hd):
     elif rows <= LIMIT:
         want = BwdPlan(0, rows)
     else:
-        with pytest.raises(ValueError, match="shared memory"):
-            attn_core_bwd_plan(m, n, hd * heads, heads)
+        plan = attn_core_bwd_plan(m, n, hd * heads, heads)
+        assert plan.row_share == 0 and plan.key_tile > 0
+        tiled = 4 * (2 * (plan.key_tile + m) * ks + 3 * m + m * hd)
+        assert plan.smem_bytes == tiled <= LIMIT
+        assert attn_core_bwd_smem_bytes(m, n, hd, 0, plan.key_tile) == tiled
         return
     assert attn_core_bwd_plan(m, n, hd * heads, heads) == want
     assert attn_core_bwd_smem_bytes(m, n, hd, want.row_share) == want.smem_bytes
@@ -59,13 +64,14 @@ def test_plan_picks_the_registers_where_they_fit_and_long_rows_elsewhere(n, hd):
 
 @pytest.mark.parametrize("m,hd", [(49, 16), (64, 16), (64, 4), (4, 32)])
 def test_long_rows_run_up_to_the_shared_memory_limit(m, hd):
-    """The longest accepted row is the last whose k, v, q and g rows fit in
-    a block; one key more raises, with the limit in the message."""
+    """The longest long row is the last whose k, v, q and g rows fit in a
+    block; one key more takes the key-tiled variant (it raised before that
+    variant existed)."""
     ks = _key_stride(hd)
     most = (LIMIT // 4 - 3 * m) // (2 * ks) - m
-    assert attn_core_bwd_plan(m, most, hd, 1).row_share == 0
-    with pytest.raises(ValueError, match=str(LIMIT)):
-        attn_core_bwd_plan(m, most + 1, hd, 1)
+    assert attn_core_bwd_plan(m, most, hd, 1) == (0, attn_core_bwd_smem_bytes(m, most, hd, 0), 0)
+    tiled = attn_core_bwd_plan(m, most + 1, hd, 1)
+    assert tiled.row_share == 0 and tiled.key_tile > 0 and tiled.smem_bytes <= LIMIT
 
 
 def test_plan_is_a_function_of_its_arguments():

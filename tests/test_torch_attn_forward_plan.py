@@ -94,5 +94,10 @@ def test_plan_is_a_function_of_its_arguments_alone(b_, heads, m, n, hd, blocks_p
 
 
 def test_plan_refuses_keys_that_do_not_fit_one_block():
-    with pytest.raises(ValueError):
-        attn_forward_plan(1, 1, 4, 2000, 32, SMS, 1)
+    """Keys that do not fit one block take key tiles (they raised before
+    the key-tiled kernel existed); only query rows whose running
+    statistics leave no room for a tile of 512 keys are refused."""
+    plan = attn_forward_plan(1, 1, 4, 2000, 32, SMS, 1)
+    assert plan.key_tile == 512 and attn_smem_bytes(2000, 32) > 232448
+    with pytest.raises(ValueError, match="no room"):
+        attn_forward_plan(1, 1, 1000, 2000, 32, SMS, 1)

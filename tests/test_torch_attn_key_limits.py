@@ -1,15 +1,18 @@
-"""The key counts at which the attention kernels' plans start to refuse
-(ROADMAP Queue C5), pinned exactly on the CPU.
+"""The key counts at which the attention kernels stop staging a window's k
+and v rows whole, pinned exactly on the CPU, and the key-tiled variants
+that take every longer row (ROADMAP Queue C5, repaired).
 
-Both plans stage a window's k and v rows in one block's shared memory, so a
-row of N keys fits only up to a limit: the forward (``attn_forward_plan``)
-at head_dim 4 takes 7264 keys, at head_dim 16 1452 in f32 and 2896 in bf16
-(the tensor-core kernel's half-width rows); the backward
-(``attn_core_bwd_plan``, which computes in f32 whatever the operand type) at
-M 49 query rows takes 7196 at head_dim 4 and 1400 at head_dim 16, and at M
-64 7176 and 1384. The JAX package caps only at its 96 MB VMEM limit, so
-buffers beyond these run there and are refused here. A key-tiled variant of
-both kernels lifts the limit, and must update this test when it lands.
+Both untiled kernels stage a window's k and v rows in one block's shared
+memory, so a row of N keys fits them only up to a limit: the forward
+(``attn_forward_plan``) at head_dim 4 up to 7264 keys, at head_dim 16 up to
+1452 in f32 and 2896 in bf16 (the tensor-core kernel's half-width rows); the
+backward (``attn_core_bwd_plan``, which computes in f32 whatever the operand
+type) at M 49 query rows up to 7196 at head_dim 4 and 1400 at head_dim 16,
+and at M 64 up to 7176 and 1384. Each plan keeps today's kernel
+(``key_tile == 0``) up to that limit and gives every longer row a key tile
+(the JAX package caps only at its 96 MB VMEM limit): N + 1 and far rows of
+61 and 151 frames of 7x7 windows (2989 and 7399 keys) plan, and neither
+plan raises.
 """
 
 import pytest
@@ -18,27 +21,27 @@ import torch
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
     _MAX_SMEM,
     attn_core_bwd_plan,
+    attn_core_bwd_smem_bytes,
     attn_forward_plan,
+    attn_plan_smem_bytes,
     attn_smem_bytes,
 )
 
 HEADS = 16
+FAR = {16: 49 * 61, 4: 49 * 151}  # 61 and 151 buffer frames of 7x7 windows
 
 
-def _largest_accepted(plan):
-    """The largest N the plan takes, by bisection (a plan's shared memory
-    grows with N)."""
+def _last_untiled(plan):
+    """The largest N the plan gives to the untiled kernel, by bisection
+    (the untiled kernels' shared memory grows with N)."""
     lo, hi = 1, 1 << 14
-    plan(lo)
-    with pytest.raises(ValueError):
-        plan(hi)
+    assert plan(lo).key_tile == 0 and plan(hi).key_tile > 0
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        try:
-            plan(mid)
-            lo = mid
-        except ValueError:
+        if plan(mid).key_tile:
             hi = mid
+        else:
+            lo = mid
     return lo
 
 
@@ -47,39 +50,53 @@ def _largest_accepted(plan):
     (16, torch.float32, 1452), (16, torch.bfloat16, 2896),
 ])
 def test_forward_plan_refuses_above_its_key_limit(head_dim, dtype, limit):
+    """The untiled forward takes rows up to its limit and no further; the
+    key-tiled kernel takes N + 1 and the far row, in a block that fits."""
     bf16 = dtype == torch.bfloat16
 
     def plan(n):
         return attn_forward_plan(20, HEADS, 49, n, head_dim, sms=132, blocks_per_sm=1, bf16=bf16)
 
-    assert _largest_accepted(plan) == limit
+    assert _last_untiled(plan) == limit
     assert attn_smem_bytes(limit, head_dim, bf16) <= _MAX_SMEM < attn_smem_bytes(limit + 1, head_dim, bf16)
-    with pytest.raises(ValueError, match=f"{limit + 1} keys at head_dim {head_dim}"):
-        plan(limit + 1)
+    for n in (limit + 1, FAR[head_dim]):
+        tiled = plan(n)
+        assert tiled.key_tile > 0 and tiled.key_tile % 32 == 0
+        assert attn_plan_smem_bytes(49, n, head_dim, bf16, tiled.key_tile) <= _MAX_SMEM
+        # the tile is a function of head_dim and M alone
+        assert tiled.key_tile == plan(FAR[head_dim] + 1000).key_tile
 
 
 @pytest.mark.parametrize("head_dim,m,limit", [(4, 49, 7196), (16, 49, 1400), (4, 64, 7176),
                                               (16, 64, 1384)])
 def test_backward_plan_refuses_above_its_key_limit(head_dim, m, limit):
+    """The long-row variant takes the last rows whose k, v, q and g fit in
+    a block; N + 1 and the far row take the key-tiled variant."""
     def plan(n):
         return attn_core_bwd_plan(m, n, head_dim * HEADS, HEADS)
 
-    assert _largest_accepted(plan) == limit
+    assert _last_untiled(plan) == limit
     assert plan(limit).row_share == 0  # the long-row variant takes the last rows
-    with pytest.raises(ValueError, match=f"cannot take {limit + 1} keys at head_dim {head_dim}"):
-        plan(limit + 1)
+    assert attn_core_bwd_smem_bytes(m, limit + 1, head_dim, 0) > _MAX_SMEM
+    for n in (limit + 1, FAR[head_dim]):
+        tiled = plan(n)
+        assert tiled.row_share == 0 and tiled.key_tile > 0 and tiled.key_tile % 32 == 0
+        assert tiled.smem_bytes == attn_core_bwd_smem_bytes(m, n, head_dim, 0, tiled.key_tile)
+        assert tiled.smem_bytes <= _MAX_SMEM
+        assert tiled.key_tile == plan(FAR[head_dim] + 1000).key_tile
 
 
 def test_flagship_buffers_beyond_the_limits():
-    """In buffer frames of 7x7 windows (49 keys each): at level 2 the forward
-    refuses from 30 frames in f32 (60 in bf16) and the backward from 29, so
-    a ``buffer_index`` of -15..15 cannot evaluate and -14..14 cannot train."""
-    fwd = lambda frames, bf16=False: attn_forward_plan(20, HEADS, 49, 49 * frames, 16, 132, 1, bf16)
-    bwd = lambda frames: attn_core_bwd_plan(49, 49 * frames, 256, HEADS)
-    fwd(29)
-    fwd(59, bf16=True)
-    bwd(28)
-    for refused in (lambda: fwd(30), lambda: fwd(60, bf16=True), lambda: bwd(29),
-                    lambda: fwd(31), lambda: bwd(31)):
-        with pytest.raises(ValueError):
-            refused()
+    """Buffers of -15..15 (31 frames of 7x7 windows, 1519 keys) and -30..30
+    (61 frames, 2989 keys) plan in both directions at both levels, f32 and
+    bf16: at head_dim 16 (level 2) the forward and the backward take key
+    tiles, at head_dim 4 (level 0) the forward stages whole windows and the
+    backward runs long rows."""
+    for frames in (31, 61):
+        n = 49 * frames
+        for head_dim in (4, 16):
+            for bf16 in (False, True):
+                fwd = attn_forward_plan(20, HEADS, 49, n, head_dim, 132, 1, bf16)
+                assert (fwd.key_tile > 0) == (head_dim == 16 and (frames == 61 or not bf16))
+            bwd = attn_core_bwd_plan(49, n, head_dim * HEADS, HEADS)
+            assert bwd.row_share == 0 and (bwd.key_tile > 0) == (head_dim == 16)

@@ -149,8 +149,7 @@ def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, 
     g = torch.Generator(device=cuda_device).manual_seed(b_)
     f = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
     q, k, v, gr, bias = f(b_, m, c), f(b_, n, c), f(b_, n, c), f(b_, m, c), f(heads, m, n) * 0.5
-    key = "attn_core_backward" if wac.attn_core_bwd_plan(m, n, c, heads).row_share else \
-        "attn_core_backward_long_rows"
+    key = _bwd_counter(wac.attn_core_bwd_plan(m, n, c, heads))
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         ins = [t.to(dt) for t in (q, k, v)]
         before = launch_counts[key]
@@ -166,71 +165,71 @@ def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, 
             assert (a.float() - r).abs().max().item() <= bound
 
 
+def _bwd_counter(plan):
+    """The launch counter of the backward variant ``plan`` picks."""
+    if plan.row_share:
+        return "attn_core_backward"
+    return "attn_core_backward_key_tiles" if plan.key_tile else "attn_core_backward_long_rows"
+
+
 @pytest.mark.cuda
 def test_cuda_backward_refuses_rows_above_its_register_share(cuda_device):
     """A lane of the backward keeps at most 32 keys of a score row in
     registers: 1024 keys run that kernel, 1025 the long-row variant, and
-    rows whose k and v exceed a block's shared memory raise before any
-    launch."""
+    rows whose k and v exceed a block's shared memory the key-tiled
+    variant (they raised before it existed)."""
     f = lambda *s: torch.randn(*s, device=cuda_device)
     for n, heads, c, key in ((1024, 1, 4, "attn_core_backward"),
                              (1025, 1, 4, "attn_core_backward_long_rows"),
-                             (1800, 1, 32, None)):
+                             (1800, 1, 32, "attn_core_backward_key_tiles")):
         q, k, v, bias = f(1, 4, c), f(1, n, c), f(1, n, c), f(heads, 4, n)
         before = dict(launch_counts)
-        if key is not None:
-            got = attn_core_backward(q, k, v, bias, q, heads)
-            ref = attn_core_backward_reference(q, k, v, bias, q, heads)
-            torch.cuda.synchronize()
-            for a, r in zip(got, ref):
-                assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                attn_core_backward(q, k, v, bias, q, heads)
-        assert dict(launch_counts) == {**before, **({key: before.get(key, 0) + 1} if key else {})}
+        got = attn_core_backward(q, k, v, bias, q, heads)
+        ref = attn_core_backward_reference(q, k, v, bias, q, heads)
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+        assert dict(launch_counts) == {**before, key: before.get(key, 0) + 1}
 
 
 @pytest.mark.cuda
 def test_cuda_window_attention_with_grad_refuses_keys_its_backward_cannot_take(cuda_device):
     """With a gradient wanted, fused_window_attention trains rows of 1025
     keys (the backward's long-row variant) like its twin's autograd, and
-    refuses rows whose k and v exceed a block's shared memory before its
-    forward launches; without a gradient the forward kernel runs them."""
+    rows of 1450 keys at head_dim 16, whose k, v, q and g rows exceed a
+    block's shared memory (they were refused before their forward launched
+    until the backward's key-tiled variant took them)."""
     f = lambda *s: torch.randn(*s, device=cuda_device)
-    q, k, v, bias = f(2, 4, 4), f(2, 1025, 4), f(2, 1025, 4), f(1, 4, 1025)
-    grads = []
-    for fn in (fused_window_attention, window_attention_reference):
-        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
-        out = fn(*leaves, 1)
-        grads.append(torch.autograd.grad(out, leaves, torch.ones_like(out) + out.detach()))
-    for a, r in zip(*grads):
-        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
-
-    # 1450 keys at head_dim 16: the forward's k and v rows fit in a block's
-    # shared memory, the backward's k, v, q and g rows do not
-    q, k, v, bias = f(1, 4, 16), f(1, 1450, 16), f(1, 1450, 16), f(1, 4, 1450)
-    before = launch_counts["fused_window_attention"]
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_window_attention(q.clone().requires_grad_(), k, v, bias, 1)
-    assert launch_counts["fused_window_attention"] == before
-    got = fused_window_attention(q, k, v, bias, 1)
-    ref = window_attention_reference(q, k, v, bias, 1)
-    torch.cuda.synchronize()
-    assert launch_counts["fused_window_attention"] == before + 1
-    assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    for n, c, fwd, bwd in ((1025, 4, "fused_window_attention", "attn_core_backward_long_rows"),
+                           (1450, 16, "fused_window_attention", "attn_core_backward_key_tiles")):
+        q, k, v, bias = f(2, 4, c), f(2, n, c), f(2, n, c), f(1, 4, n)
+        grads = []
+        for fn in (fused_window_attention, window_attention_reference):
+            before = dict(launch_counts)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+            out = fn(*leaves, 1)
+            grads.append(torch.autograd.grad(out, leaves, torch.ones_like(out) + out.detach()))
+            torch.cuda.synchronize()
+            launched = {key: val - before.get(key, 0) for key, val in launch_counts.items()
+                        if val != before.get(key, 0)}
+            assert launched == ({fwd: 1, bwd: 1} if fn is fused_window_attention else {})
+        for a, r in zip(*grads):
+            assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,c,heads", [(49, 343, 64, 16), (64, 448, 256, 16), (49, 1029, 64, 16),
-                                         (64, 1088, 256, 16), (64, 1024, 256, 16)])
+                                         (64, 1088, 256, 16), (64, 1024, 256, 16),
+                                         (49, 1401, 256, 16), (49, 7399, 64, 16)])
 def test_cuda_backward_plan_is_the_librarys(cuda_device, m, n, c, heads):
     """The planner's shared memory is the library's for the kernel it picks,
-    and the occupancy query reports that kernel's row share."""
+    and the occupancy query reports that kernel's row share and key tile."""
     plan = wac.attn_core_bwd_plan(m, n, c, heads)
     lib = wac._lib("attn_core_bwd")
-    assert lib.attn_core_bwd_smem_bytes(m, n, c, heads, plan.row_share) == plan.smem_bytes
+    assert lib.attn_core_bwd_smem_bytes(m, n, c, heads, plan.row_share, plan.key_tile) == plan.smem_bytes
     occ = wac.attn_core_backward_occupancy(m, n, c, heads, torch.float32, torch.cuda.current_device())
     assert occ["row_share"] == plan.row_share and occ["smem_bytes"] == plan.smem_bytes
+    assert occ["key_tile"] == plan.key_tile
     assert occ["blocks_per_sm"] >= 1
 
 
@@ -761,3 +760,161 @@ def test_cuda_snn_matches_cpu_and_launches_no_kernel(cuda_device, name):
     assert drive <= 2e-4
     assert (diff <= 2e-4).double().mean() >= 0.999
     assert diff.norm() / want.norm() <= 1e-2
+
+
+# Key tiles (ROADMAP C5): the first N past each old limit and the far rows
+# (61 and 151 frames of 7x7 windows), per head_dim.
+_TILED_KEYS = {16: (1453, 2897, 2989), 4: (7265, 7399)}
+# the same in whole frames of 49 keys, for the block kernels (N = D M)
+_TILED_FRAMES = {16: (30, 60, 61), 4: (149, 151)}
+
+
+def _launched(before):
+    return {k: v - before.get(k, 0) for k, v in launch_counts.items() if v != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 4])
+def test_cuda_key_tiled_window_attention_matches_twin(cuda_device, hd):
+    """The bare attention core (k and v in their own layout) above its old
+    key limits, f32 and bf16: the key-tiled kernel wherever the plan picks
+    it, its own launch counter, within the kernel-vs-twin gates."""
+    heads = 16
+    for n in _TILED_KEYS[hd]:
+        q, k, v, bias = _attn_inputs(n, 3, 49, n, heads * hd, heads, cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            plan = wac.attn_forward_plan(3, heads, 49, n, hd, 132, 1, dt == torch.bfloat16)
+            ins = [t.to(dt) for t in (q, k, v)]
+            before = dict(launch_counts)
+            got = fused_window_attention(*ins, bias, heads)
+            ref = window_attention_reference(*ins, bias, heads)
+            torch.cuda.synchronize()
+            want = "fused_window_attention_key_tiles" if plan.key_tile else "fused_window_attention"
+            assert _launched(before) == {want: 1}, (n, dt)
+            assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt), (n, dt)
+    assert plan.key_tile  # the far rows take the tiles in bf16 too
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 4])
+@pytest.mark.parametrize("lib", ["swin_block", "window_block"])
+def test_cuda_key_tiled_block_attention_matches_twin(cuda_device, hd, lib):
+    """The Swin block's and the WindowAttention3D body's attention stage
+    (k and v in the k|v scratch) above the old key limits, f32 and bf16,
+    with and without acc: repeat bit for bit and match the twins."""
+    heads, m = 16, 49
+    for frames in _TILED_FRAMES[hd]:
+        x, ctr, p = _flat_inputs(frames, frames, 2, m, heads * hd, heads, cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            plan = wac.attn_forward_plan(2, heads, m, frames * m, hd, 132, 1, dt == torch.bfloat16)
+            xd, cd = x.to(dt), ctr.to(dt)
+            before = dict(launch_counts)
+            if lib == "swin_block":
+                got = fused_swin_block(xd, cd, p, heads, frames // 2, with_acc=True)
+                again = fused_swin_block(xd, cd, p, heads, frames // 2, with_acc=True)
+                ref = swin_block_reference(xd, cd, p, heads, frames // 2, with_acc=True)
+                name = "fused_swin_block"
+            else:
+                pb = _block_params(p)
+                got = fused_window_block(xd, pb, heads, frames // 2, with_acc=True)
+                again = fused_window_block(xd, pb, heads, frames // 2, with_acc=True)
+                ref = window_block_reference(xd, pb, heads, frames // 2, with_acc=True)
+                name = "fused_window_block"
+            torch.cuda.synchronize()
+            assert _launched(before) == {name + ("_key_tiles" if plan.key_tile else ""): 2}
+            for a, b, r in zip(got, again, ref):
+                assert torch.equal(a, b)
+                assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (frames, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,m,n", [(4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385),
+                                    (16, 49, 2989), (4, 49, 7399)])
+def test_cuda_key_tiled_backward_matches_twin_and_repeats_exactly(cuda_device, hd, m, n):
+    """The backward above its old key limits (the first N past each, and
+    the far rows): the key-tiled variant, f32 and bf16, within the gates of
+    attn_core_backward_reference, two runs bit for bit."""
+    heads, b_ = 16, 5
+    c = heads * hd
+    plan = wac.attn_core_bwd_plan(m, n, c, heads)
+    assert plan.key_tile and not plan.row_share
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    f = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
+    q, k, v, gr, bias = f(b_, m, c), f(b_, n, c), f(b_, n, c), f(b_, m, c), f(heads, m, n) * 0.5
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in (q, k, v)]
+        before = dict(launch_counts)
+        got = attn_core_backward(*ins, bias, gr.to(dt), heads)
+        again = attn_core_backward(*ins, bias, gr.to(dt), heads)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"attn_core_backward_key_tiles": 2}
+        ref = attn_core_backward_reference(*ins, bias, gr.to(dt), heads)
+        for a, b, r in zip(got, again, ref):
+            assert torch.equal(a, b)
+            assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win,c", [((7, 7), 256), ((7, 7), 64), ((8, 8), 256)])
+def test_cuda_key_tiled_blocks_train_on_the_kernel_path(cuda_device, win, c):
+    """Fault C5: a flagship-width block over 31 buffer frames (buffer_index
+    -15..15) forward and backward on the kernel path vs the unfused path:
+    at head_dim 16 both attention kernels run key-tiled (7x7: the Swin
+    block; 8x8 dilated: the WindowAttention3D body), at head_dim 4 the
+    forward stages whole windows and the backward takes long rows; outputs
+    within 2e-4, gradients within 1e-3 relative."""
+    torch.manual_seed(9)
+    frames = 31
+    h, w = 2 * win[0], 2 * win[1]
+    x = torch.randn(frames, 1, h, w, c, device=cuda_device)
+    for dilate in (False, True):
+        blk = twa.SwinTransformerBlock3D(c, 16, (frames, *win), dilate_win=dilate,
+                                         use_kernel=True).to(cuda_device)
+        fwd = "fused_window_block" if dilate and win[0] % 2 == 0 else "fused_swin_block"
+        plan_f = wac.attn_forward_plan(1, 16, win[0] * win[1], frames * win[0] * win[1], c // 16, 132, 1)
+        plan_b = wac.attn_core_bwd_plan(win[0] * win[1], frames * win[0] * win[1], c, 16)
+        outs, grads = [], []
+        for kernel in (True, False):
+            twa.set_attention_kernel(blk, kernel)
+            blk.zero_grad(set_to_none=True)
+            xl = x.clone().requires_grad_()
+            before = dict(launch_counts)
+            out = blk(xl)
+            out.square().mean().backward()
+            torch.cuda.synchronize()
+            if kernel:
+                assert _launched(before) == {fwd + ("_key_tiles" if plan_f.key_tile else ""): 1,
+                                             _bwd_counter(plan_b): 1}
+            else:
+                assert _launched(before) == {}
+            outs.append(out.detach())
+            grads.append({"x": xl.grad, **{k: p.grad for k, p in blk.named_parameters()}})
+        assert (outs[0] - outs[1]).abs().max().item() <= 2e-4
+        for key, gu in grads[1].items():
+            gk = grads[0][key]
+            if key == "attn.kv.bias":
+                gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
+            rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
+            assert rel <= 1e-3, (key, dilate, rel)
+    assert (plan_f.key_tile > 0) == (plan_b.key_tile > 0) == (c == 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib", ["window_attention", "swin_block", "window_block"])
+def test_cuda_key_tiled_forward_occupancy_and_smem_are_the_plans(cuda_device, lib):
+    """Where the plan picks key tiles, the occupancy query reports the
+    tiled instantiation (its key tile, the plan's shared memory) and the
+    library's shared-memory query gives the plan's bytes."""
+    index = torch.cuda.current_device()
+    for hd, n in ((16, 2989), (4, 7399)):
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            occ = wac.attn_forward_occupancy(lib, 49, n, 16 * hd, 16, dt, index)
+            tile = wac.attn_key_tile(49, n, hd, bf16)
+            assert tile and occ["key_tile"] == tile and occ["blocks_per_sm"] >= 1
+            assert occ["smem_bytes"] == wac.attn_plan_smem_bytes(49, n, hd, bf16, tile)
+            plan = wac.attn_plan_for(lib, 3, 49, n, 16 * hd, 16, dt, index)
+            assert plan.key_tile == tile
+    lib_ = wac._lib("window_attention")
+    assert lib_.window_attention_smem_bytes(0, 49, 2989, 256, 16, 512) == \
+        wac.attn_tiled_smem_bytes(49, 16, 512)
