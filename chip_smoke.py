@@ -90,6 +90,17 @@ reference's.
            then a remat train step of the flagship with 21 buffer frames and
            of the 8x8 config with 17, kernel path (B2's long rows) vs
            unfused path
+  key_tiles  the key-tiled variants of the attention forward and backward
+           (ROADMAP C5) vs their twins: the bare core, the Swin block's and
+           the WindowAttention3D body's attention stage and the backward at
+           the first N past each old key limit and at far rows (61 and 151
+           frames of 7x7 windows), f32 and bf16, repeated bit for bit, with
+           times, bounds, SDPA forward / backward and each tiled
+           instantiation's occupancy; then the flagship at full width with
+           buffer_index -15..15 (N 1519: level 2 runs both kernels
+           key-tiled) at 184x240, T=3, forward kernel vs unfused path
+           (2e-4) and one remat train step's loss and gradients (1e-3),
+           with exact launch counts of each variant
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -167,6 +178,17 @@ VARIANT_GRAD_L2 = 2e-2
 # buffer frames of the long-buffer runs: N = 21 x 49 = 1029 and 17 x 64 = 1088
 # keys a row, above the 1024 a backward lane keeps in registers
 LONG_FRAMES = {"flagship": 21, "8x8": 17}
+# key tiles (ROADMAP C5): the key_tiles phase's flagship has buffer_index
+# -15..15 (31 frames, N = 1519 keys a row), whose level 2 (head_dim 16) runs
+# both attention kernels key-tiled; its kernel cases take the first N past
+# each old limit of the untiled kernels and far rows of 61 and 151 frames
+# of 7x7 windows, by head_dim (the block kernels in whole frames of 49
+# keys), and the backward's rows as (head_dim, M, N)
+KEY_TILE_FRAMES = 31
+TILED_FWD_KEYS = {16: (1453, 2897, 2989), 4: (7265, 7399)}
+TILED_FWD_FRAMES = {16: (30, 60, 61), 4: (149, 151)}
+TILED_BWD_ROWS = ((4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385), (16, 49, 2989),
+                  (4, 49, 7399))
 # the E2VID family at published widths: E2VIDRecurrent as the released
 # E2VID (rpg_e2vid E2VID_lightweight: base 32, 3 encoders of 64/128/256, 2
 # residual blocks, ConvLSTM, sum skips, transposed-conv decoders, BN), E2VID
@@ -1318,6 +1340,213 @@ def bwd_occupancy(torch, heads):
     return rows
 
 
+def fwd_core_case(torch, q, k, v, bias, heads, **labels):
+    """One fused_window_attention case: the kernel vs its twin (gate), the
+    launch counter of the kernel its plan picks, its time (CUDA events and
+    profiler device ms), the twin's, torch's SDPA forward and the bound."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import (
+        attn_plan_for, fused_window_attention, launch_counts, window_attention_reference)
+
+    name = str(q.dtype).split(".")[-1]
+    b, m, c = q.shape
+    n = k.shape[1]
+    plan = attn_plan_for("window_attention", b, m, n, c, heads, q.dtype, 0)
+    counter = "fused_window_attention" + ("_key_tiles" if plan.key_tile else "")
+    before = launch_counts[counter]
+    with torch.no_grad():
+        got = fused_window_attention(q, k, v, bias, heads)
+        ref = window_attention_reference(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    if launch_counts[counter] != before + 1:
+        raise AssertionError(f"window attention {labels} {name}: {counter} did not count the launch")
+    (err,) = check_close(f"window attention {' '.join(map(str, labels.values()))} {name}",
+                         (got,), (ref,), q.dtype)
+    flops, nbytes = window_attention_cost(b, m, n, c, heads, q.element_size())
+    t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+    lib_ms, backend, lib_dev = sdpa_forward_ms(torch, q, k, v, bias, heads)
+    call = lambda: fused_window_attention(q, k, v, bias, heads)
+    with torch.no_grad():
+        return {
+            **labels, "dtype": name, "windows": b, "queries": m, "keys": n, "channels": c,
+            "plan": plan._asdict(), "max_abs_err": err,
+            "kernel_ms": cuda_ms(torch, call, 20), "kernel_device_ms": device_ms(torch, call),
+            "plain_ms": cuda_ms(torch, lambda: window_attention_reference(q, k, v, bias, heads), 3, 1),
+            "library_ms": lib_ms, "library": backend, "library_device_ms": lib_dev,
+            "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
+            "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+        }
+
+
+def key_tiled_block_cases(torch, rnd, heads=16, m=49, b=4):
+    """The Swin block's and the WindowAttention3D body's attention stage
+    (the k|v scratch layout) above the old key limits (TILED_FWD_FRAMES),
+    f32 and bf16, with acc: each vs its twin, repeated bit for bit, the
+    tiled launch counted, the block's time beside the twin's."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import (
+        WindowBlockParams, attn_key_tile, fused_swin_block, fused_window_block, launch_counts,
+        swin_block_reference, window_block_reference)
+
+    cases = []
+    for hd, frame_counts in TILED_FWD_FRAMES.items():
+        c = heads * hd
+        for frames in frame_counts:
+            p32 = block_params(rnd, c, heads, m, frames * m)
+            x32, c32, q_ind = rnd(frames, b, m, c), rnd(b, m, c), frames // 2
+            for dt in (torch.float32, torch.bfloat16):
+                name = str(dt).split(".")[-1]
+                x, ctr, p = x32.to(dt), c32.to(dt), operand_weights(p32, dt)
+                pw = WindowBlockParams(*p[:10], p.bias)
+                tiled = attn_key_tile(m, frames * m, hd, dt == torch.bfloat16) > 0
+                for lib, fn, twin in (
+                        ("swin_block", lambda: fused_swin_block(x, ctr, p, heads, q_ind, with_acc=True),
+                         lambda: swin_block_reference(x, ctr, p, heads, q_ind, with_acc=True)),
+                        ("window_block", lambda: fused_window_block(x, pw, heads, q_ind, with_acc=True),
+                         lambda: window_block_reference(x, pw, heads, q_ind, with_acc=True))):
+                    counter = f"fused_{lib}" + ("_key_tiles" if tiled else "")
+                    before = launch_counts[counter]
+                    with torch.no_grad():
+                        got, again, ref = fn(), fn(), twin()
+                    torch.cuda.synchronize()
+                    what = f"{lib} {frames} frames head_dim {hd} {name}"
+                    if launch_counts[counter] != before + 2:
+                        raise AssertionError(f"{what}: {counter} did not count its launches")
+                    if not all(torch.equal(a, r) for a, r in zip(got, again)):
+                        raise AssertionError(f"{what}: two runs differ")
+                    errs = check_close(what, got, ref, dt)
+                    with torch.no_grad():
+                        cases.append({"library": lib, "frames": frames, "keys": frames * m,
+                                      "head_dim": hd, "dtype": name, "windows": b, "key_tiles": tiled,
+                                      "max_abs_err": max(errs), "bitwise_repeat": True,
+                                      "kernel_ms": cuda_ms(torch, fn, 10),
+                                      "plain_ms": cuda_ms(torch, twin, 3, 1)})
+    return cases
+
+
+def phase_kernels_key_tiles(torch):
+    """The key-tiled variants (ROADMAP C5) vs their twins on the card: the
+    bare attention core (k, v in their own layout) at the flagship's level 2
+    with 31 buffer frames (B_ 20, M 49, N 1519, C 256: the key_tiles
+    phase's main-path shape) and at the rows of TILED_FWD_KEYS, the block
+    kernels' attention stage at TILED_FWD_FRAMES (key_tiled_block_cases),
+    and the backward at the main-path shape and at TILED_BWD_ROWS, each
+    repeated bit for bit (bwd_case), f32 and bf16, with times, bounds and
+    SDPA forward / backward as the library yardstick; then the occupancy
+    of each tiled instantiation at the main-path shape. Returns the
+    main-path forward and backward cases."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import (
+        attn_core_backward_occupancy, attn_core_bwd_plan, attn_forward_occupancy)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    heads, m = 16, 49
+    (hp, wp), c2 = LEVELS["level2"]
+    b2, n_main = (hp // 7) * (wp // 7), KEY_TILE_FRAMES * m
+    fwd_cases, bwd_cases = [], []
+    q32, k32, v32, g32 = rnd(b2, m, c2), rnd(b2, n_main, c2), rnd(b2, n_main, c2), rnd(b2, m, c2)
+    bias = rnd(heads, m, n_main, scale=0.5)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
+        fwd_cases.append(fwd_core_case(torch, q, k, v, bias, heads, config="flagship",
+                                       level="level2", frames=KEY_TILE_FRAMES))
+        if not attn_core_bwd_plan(m, n_main, c2, heads).key_tile:
+            raise AssertionError("key tiles: the backward plan took no key tile at the main-path shape")
+        bwd_cases.append(bwd_case(torch, q, k, v, bias, g, heads, config="flagship", level="level2",
+                                  frames=str(KEY_TILE_FRAMES)))
+    if not fwd_cases[0]["plan"]["key_tile"]:
+        raise AssertionError("key tiles: the f32 forward plan took no key tile at the main-path shape")
+    edge_fwd, edge_bwd = [], []
+    for hd, keys in TILED_FWD_KEYS.items():
+        c = heads * hd
+        for n in keys:
+            q32, k32, v32 = rnd(b2, m, c), rnd(b2, n, c), rnd(b2, n, c)
+            bias = rnd(heads, m, n, scale=0.5)
+            for dt in (torch.float32, torch.bfloat16):
+                edge_fwd.append(fwd_core_case(torch, *(t.to(dt) for t in (q32, k32, v32)), bias, heads,
+                                              config="edge", head_dim=hd))
+    for hd, mq, n in TILED_BWD_ROWS:
+        c, b = heads * hd, 5
+        if not attn_core_bwd_plan(mq, n, c, heads).key_tile:
+            raise AssertionError(f"key tiles: no backward key tile at M {mq}, N {n}, head_dim {hd}")
+        q32, k32, v32, g32 = rnd(b, mq, c), rnd(b, n, c), rnd(b, n, c), rnd(b, mq, c)
+        bias = rnd(heads, mq, n, scale=0.5)
+        for dt in (torch.float32, torch.bfloat16):
+            edge_bwd.append(bwd_case(torch, *(t.to(dt) for t in (q32, k32, v32)), bias, g32.to(dt),
+                                     heads, config="edge", head_dim=str(hd)))
+    blocks = key_tiled_block_cases(torch, rnd)
+    occupancy = {"forward": {lib: attn_forward_occupancy(lib, m, n_main, c2, heads, torch.float32, 0)
+                             for lib in ("window_attention", "swin_block", "window_block")},
+                 "backward": {str(dt).split(".")[-1]: attn_core_backward_occupancy(m, n_main, c2, heads, dt, 0)
+                              for dt in (torch.float32, torch.bfloat16)}}
+    emit({"phase": "kernels", "kernel": "attention key tiles",
+          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms; library = "
+                    "torch SDPA forward (bias as attn_mask) / SDPA backward alone",
+          "forward_main": fwd_cases, "backward_main": bwd_cases, "forward_edges": edge_fwd,
+          "backward_edges": edge_bwd, "block_stages": blocks, "occupancy_main": occupancy})
+    return fwd_cases, bwd_cases
+
+
+def phase_key_tiles(torch, launch_counts):
+    """ROADMAP C5 on the main path: the flagship at full width with
+    buffer_index -15..15 (N 1519) at 184x240, T=3, eval forward on the
+    kernel path (level 0's blocks untiled, level 2's key-tiled) vs the
+    unfused path within 2e-4, then one train-mode step with remat (DropPath
+    0) whose loss and gradients are within 1e-3 of the unfused path's
+    (compare_grads), with exact launch counts of each variant. Returns the
+    launches of the tiled forward (the eval run) and backward (the step)."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    T = 3
+    rng = np.random.default_rng(9)
+    vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
+    tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
+    half = KEY_TILE_FRAMES // 2
+    cfg = model_config(FLAGSHIP_CFG, remat=True)
+    cfg["generator"].update(buffer_index=list(range(-half, half + 1)), drop_path_rate=0.0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(9)
+        model = build_model("BDE2VID", cfg, train=True)
+    model.eval()
+    timed_forward(torch, model, vox)  # warm-up
+    launch_counts.clear()
+    img_kernel, kernel_ms = timed_forward(torch, model, vox)
+    fwd_launches = dict(launch_counts)
+    per_frame = {"fused_swin_block": 4 * T, "fused_swin_block_key_tiles": 6 * T}
+    expect_launches("key tiles forward", fwd_launches, per_frame)
+    set_attention_kernel(model, False)
+    img_plain, plain_ms = timed_forward(torch, model, vox)
+    diff = (img_kernel - img_plain).abs().max().item()
+    if not (img_kernel.shape == (T, 1, 1, 184, 240) and torch.isfinite(img_kernel).all()
+            and diff <= 2e-4):
+        raise AssertionError(f"key tiles: kernel vs unfused forward max diff {diff} (bound 2e-4)")
+    model.train()
+    comp = SequenceLossComputer([{"type": "L1Loss"}])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss_k, grads_k, step_launches = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, True)
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # remat runs each block's forward twice: in the step and in its recompute
+    expect_launches("key tiles step", step_launches,
+                    {**{k: 2 * v for k, v in per_frame.items()},
+                     "attn_core_backward_long_rows": 4 * T, "attn_core_backward_key_tiles": 6 * T})
+    loss_u, grads_u, _ = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, False)
+    row = {"frames": KEY_TILE_FRAMES, "keys": KEY_TILE_FRAMES * 49, "T": T, "hw": [184, 240],
+           "forward_launches": fwd_launches, "forward_max_abs_diff_vs_unfused": diff,
+           "forward_ms_kernel_path": kernel_ms, "forward_ms_unfused_path": plain_ms,
+           "step_launches": step_launches, "remat_step_ms_kernel_path": step_ms,
+           "max_memory_allocated_gib": peak_gb,
+           **compare_grads("key tiles step", loss_k, grads_k, loss_u, grads_u)}
+    del model
+    emit({"phase": "key_tiles", **row})
+    return fwd_launches["fused_swin_block_key_tiles"], step_launches["attn_core_backward_key_tiles"]
+
+
 def phase_kernels_long_rows(torch):
     """The attention backward at the shapes of long buffers, where it takes
     its long-row variant: 21 frames of 7x7 windows at the flagship's levels
@@ -1964,6 +2193,8 @@ def main() -> int:
     phase_grads(torch, launch_counts)
     phase_variants(torch, launch_counts)
     bwd_launches, long_launches = phase_train(torch, launch_counts, card)
+    tiled_fwd_cases, tiled_bwd_cases = phase_kernels_key_tiles(torch)
+    tiled_fwd_launches, tiled_bwd_launches = phase_key_tiles(torch, launch_counts)
 
     def per_frame(cases, key, blocks):
         # f32, per frame of the configuration: ``blocks`` launches per level,
@@ -1993,7 +2224,9 @@ def main() -> int:
     # times per frame in f32: B1 and B2 per flagship frame (4 + 6 launches),
     # B2's long rows per frame of the flagship with 21 buffer frames, B3 per
     # 8x8 frame (its 2 + 3 even dilated blocks, without acc), B4 at the same
-    # 8x8 shapes
+    # 8x8 shapes, and the two key-tiled variants per frame of the flagship
+    # with 31 buffer frames (its 6 level-2 blocks; the forward timed as the
+    # bare core, the kernel B1's attention stage runs there)
     no_acc = [c for c in block_cases if not c["with_acc"]]
     attn_8 = [c for c in attn_cases if c["config"] == "8x8"]
     emit({"kernels": [
@@ -2007,6 +2240,10 @@ def main() -> int:
                 eval_launches["8x8"]["fused_window_block"], BLOCKS_PER_FRAME_8, False),
         summary("fused_window_attention", "bde2vid_tpu_torch/ops/csrc/window_attention.cu", 89,
                 attn_8, attn_launches, BLOCKS_PER_FRAME_8, True),
+        summary("attn_forward_key_tiles", "bde2vid_tpu_torch/ops/csrc/window_common.cuh", 89,
+                tiled_fwd_cases, tiled_fwd_launches, {"level2": 6}, True),
+        summary("attn_core_backward_key_tiles", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
+                tiled_bwd_cases, tiled_bwd_launches, {"level2": 6}, True),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
