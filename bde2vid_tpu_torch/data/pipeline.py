@@ -5,8 +5,13 @@ and ``load_sequence``, H5, SpadeH5 and MMP backends).
 Reference item semantics (h5_dataset.py:204-259) kept: window timestamps are
 shifted to the window's first event (f64 difference, then f32), windows with
 fewer than 3 events give a zero voxel, and a between-frames sequence has
-num_frames - 1 items. With ``normalize`` each window's voxel grid is then
-LegacyNorm'd on its own (``utils/norm.py::legacy_norm``).
+num_frames - 1 items. ``combined_voxel_channels=False`` gives each window the
+positive and the non-positive events' grids, (2B, H, W), positive bins
+first. With ``hot_filter`` a mask of the 100 hottest pixels
+(``events/voxel.py::hot_event_mask`` over the first 2 000 000 events'
+|polarity|, once per sequence; reference h5_dataset.py:364) multiplies every
+voxel grid after the zeroing. With ``normalize`` each window's voxel grid is
+then LegacyNorm'd on its own (``utils/norm.py::legacy_norm``).
 
 ``voxels()`` takes its windows a batch at a time: one reader read of the
 batch's span of events, one ``native.pack_windows`` call into padded buffers
@@ -31,20 +36,30 @@ import numpy as np
 import torch
 
 from bde2vid_tpu_torch.data.windowing import between_frames_windows
-from bde2vid_tpu_torch.events.voxel import events_to_voxel_batch
+from bde2vid_tpu_torch.events.voxel import (
+    events_to_neg_pos_voxel_batch,
+    events_to_voxel_batch,
+    hot_event_mask,
+)
 from bde2vid_tpu_torch.native import pack_windows
 from bde2vid_tpu_torch.utils.device import resolve_device
 from bde2vid_tpu_torch.utils.norm import legacy_norm
+
+
+# events the hot-pixel mask counts, from the start of the sequence
+HOT_MASK_EVENTS = 2_000_000
 
 
 class EventSequence:
     """An indexed event sequence whose windows voxelize on ``device``."""
 
     def __init__(self, reader, windows: np.ndarray, num_bins: int = 5, normalize: bool = False,
-                 ev_rate: Optional[float] = None):
+                 ev_rate: Optional[float] = None, combined_voxel_channels: bool = True,
+                 hot_filter: bool = False):
         self.reader = reader
         self.num_bins = num_bins
         self.normalize = normalize
+        self.combined = combined_voxel_channels
         self.sensor_size = tuple(reader.sensor_size)
         windows = np.asarray(windows, np.int64)
         length = min(len(windows), reader.num_frames - 1) if reader.num_frames else 0
@@ -56,6 +71,10 @@ class EventSequence:
         if ev_rate is not None:
             self.windows, self.item_last = split_by_event_rate(
                 self.windows, self.sensor_size[0] * self.sensor_size[1], ev_rate)
+        self.hot_mask: Optional[np.ndarray] = None
+        if hot_filter:
+            sl = reader.events(0, min(reader.num_events, HOT_MASK_EVENTS))
+            self.hot_mask = hot_event_mask(sl.xs, sl.ys, np.abs(sl.ps), self.sensor_size, num_hot=100)
 
     def __len__(self) -> int:
         return self.length
@@ -79,10 +98,12 @@ class EventSequence:
     def voxels(self, start: int = 0, stop: Optional[int] = None, device=None,
                batch: int = 64) -> torch.Tensor:
         """(stop-start, B, H, W) f32 voxel grids of (flat) windows [start,
-        stop) on ``device`` (CUDA unless the CPU is asked for)."""
+        stop) on ``device`` (CUDA unless the CPU is asked for); (stop-start,
+        2B, H, W) with separate polarities."""
         device = resolve_device(device)
         n_windows = len(self.windows)
         stop = n_windows if stop is None else min(stop, n_windows)
+        mask = None if self.hot_mask is None else torch.from_numpy(self.hot_mask).to(device)
         out = []
         for s in range(start, stop, batch):
             # a pinned buffer is freed at the end of this iteration while its
@@ -90,9 +111,15 @@ class EventSequence:
             # the copy's stream has passed it, so no later batch reuses it early
             packed = self._pack(s, min(s + batch, stop), pin=device.type == "cuda")
             xs, ys, ts, ps, ns = (t.to(device, non_blocking=True) for t in packed)
-            v = events_to_voxel_batch(xs, ys, ts, ps, ns, num_bins=self.num_bins,
-                                      sensor_size=self.sensor_size)
+            if self.combined:
+                v = events_to_voxel_batch(xs, ys, ts, ps, ns, num_bins=self.num_bins,
+                                          sensor_size=self.sensor_size)
+            else:
+                v = torch.cat(events_to_neg_pos_voxel_batch(xs, ys, ts, ps, ns, num_bins=self.num_bins,
+                                                            sensor_size=self.sensor_size), 1)
             v = torch.where((ns < 3)[:, None, None, None], torch.zeros_like(v), v)
+            if mask is not None:
+                v = v * mask
             out.append(legacy_norm(v, batched=True) if self.normalize else v)
         return torch.cat(out)
 
@@ -147,12 +174,14 @@ def split_by_event_rate(windows: np.ndarray, num_pixels: int, ev_rate: float):
 
 
 def load_sequence(path: str, num_bins: int = 5, ltype: str = "H5",
-                  normalize: bool = False, ev_rate: Optional[float] = None) -> EventSequence:
+                  normalize: bool = False, ev_rate: Optional[float] = None,
+                  combined_voxel_channels: bool = True, hot_filter: bool = False) -> EventSequence:
     """Open a sequence with between-frames windows: ``ltype`` "H5" (an event
     h5 file), "SpadeH5" (the same, split at ``ev_rate`` 0.35 unless given)
     or "MMP" (a memmap directory); ``normalize`` LegacyNorms each window's
     voxels; ``ev_rate`` splits each item's window by event rate (any
-    backend)."""
+    backend); ``combined_voxel_channels=False`` separates the polarities;
+    ``hot_filter`` masks the sequence's 100 hottest pixels."""
     if ltype in ("H5", "SpadeH5"):
         from bde2vid_tpu_torch.events.h5_io import H5EventReader
 
@@ -166,4 +195,5 @@ def load_sequence(path: str, num_bins: int = 5, ltype: str = "H5",
     else:
         raise NotImplementedError(f"loader type {ltype!r} is not ported yet (H5, SpadeH5, MMP)")
     windows = between_frames_windows(reader.frame_event_indices)
-    return EventSequence(reader, windows, num_bins=num_bins, normalize=normalize, ev_rate=ev_rate)
+    return EventSequence(reader, windows, num_bins=num_bins, normalize=normalize, ev_rate=ev_rate,
+                         combined_voxel_channels=combined_voxel_channels, hot_filter=hot_filter)

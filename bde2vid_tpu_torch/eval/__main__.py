@@ -16,6 +16,14 @@ PyTorch body (the step models have no window attention, and ignore both).
 arguments stand under ``model`` asks for it too. Bare EVSNN and PAEVSNN
 state dicts (a path with "SNN"; "PAEVSNN" picks the latter) are scored
 robust-normalised, by the loaded model's family.
+
+The JAX CLI's experiment and output flags: ``--pause_st/--pause_ed`` (the
+pause experiment; the result file is ``{name}_{datatype}_{st}_{ed}.txt`` and
+the sequence runs in one chunk), ``--eq`` (histogram-equalised scoring),
+``--filter_hot_events`` (the 100 hottest pixels masked),
+``--separate_polarity`` (2B-channel voxels, positive bins first, for a model
+that takes them), ``--saveim DIR`` (triptych PNGs), ``--show`` and
+``--wait_time`` (a live viewer where cv2 and a display exist).
 """
 
 from __future__ import annotations
@@ -38,9 +46,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", nargs="*", default=["mse", "ssim"], choices=["mse", "ssim", "psnr"])
     p.add_argument("--subseq_L", default=1000, type=int)
     p.add_argument("--max_length", default=111200, type=int)
+    p.add_argument("--pause_st", default=None, type=int)
+    p.add_argument("--pause_ed", default=None, type=int)
     p.add_argument("--loader_type", default="H5", choices=["H5", "SpadeH5", "MMP"])
+    p.add_argument("--separate_polarity", action="store_true",
+                   help="2B-channel pos/neg voxel grids instead of combined")
+    p.add_argument("--filter_hot_events", action="store_true")
     p.add_argument("--normalize", action="store_true",
                    help="LegacyNorm each window's voxels (zero mean, unit std over nonzeros)")
+    p.add_argument("--eq", action="store_true")
+    p.add_argument("--saveim", default=None, type=str, help="folder to dump triptych PNGs")
+    p.add_argument("--show", action="store_true", help="live [events|pred|gt] cv2 window; ESC quits")
+    p.add_argument("--wait_time", default=1, type=int, help="cv2.waitKey ms per frame for --show")
     p.add_argument("--output_dir", default=None, type=str,
                    help="where result files go (default: weights_dir)")
     p.add_argument("--bf16", action="store_true", help="run the model in bfloat16")
@@ -115,7 +132,11 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     for ckpt in checkpoints:
         name = os.path.split(ckpt)[-1].split(".")[0]
-        if args.subseq_L:
+        subseq = args.subseq_L or None
+        if args.pause_st is not None:
+            result_file = f"{name}_{args.datatype}_{args.pause_st}_{args.pause_ed}.txt"
+            subseq = None
+        elif args.subseq_L:
             result_file = f"{name}_L{args.subseq_L}_{args.datatype}.txt"
         else:
             result_file = f"{name}_{args.datatype}.txt"
@@ -130,13 +151,21 @@ def main(argv=None) -> int:
         cfg = EvalConfig(
             ltype=args.loader_type,
             num_bins=spec.num_bins,
-            subseq_L=args.subseq_L or None,
+            combined_voxel_channels=not args.separate_polarity,
+            subseq_L=subseq,
             max_length=args.max_length,
+            pause_st=args.pause_st,
+            pause_ed=args.pause_ed,
+            filter_hot_events=args.filter_hot_events,
             normalize=args.normalize or spec.normalize,
+            eq=args.eq,
             metrics=tuple(args.metrics),
             # by the loaded family, not only the file name: a lowercase
             # evsnn_e10.pth is an SNN too
             robust_norm_output=spec.name in ("EVSNN", "PAEVSNN") or "SNN" in name,
+            save_images_to=args.saveim,
+            show=args.show,
+            wait_time=args.wait_time,
         )
         evaluate_all(spec, datafiles, data_root, result_file, cfg)
     return 0
