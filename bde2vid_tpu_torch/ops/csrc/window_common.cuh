@@ -1419,8 +1419,8 @@ cudaError_t attn_tiled_run(const AttnArgs& a, float scale, long long* info, cuda
   return cudaSuccess;
 }
 
-// Shared memory of the kernel a launch with this key tile takes (the
-// wrapper's attn_plan_smem_bytes).
+// Shared memory of the kernel a launch with this key tile takes
+// (attn_tiled_smem_bytes or attn_smem_bytes in ops/window_attn_cuda.py).
 size_t attn_launch_smem_bytes(int is_bf16, int m, int n, int hd, int key_tile) {
   if (key_tile) return attn_tiled_smem_bytes(m, hd, key_tile);
   return is_bf16 && hd >= 16 ? attn_mma_smem_bytes(n, hd) : attn_smem_bytes(n, hd);

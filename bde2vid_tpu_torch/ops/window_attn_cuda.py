@@ -609,13 +609,6 @@ def attn_key_tile(m: int, n: int, head_dim: int, bf16: bool = False) -> int:
                      f"the forward attention at {m} query rows of head_dim {head_dim}")
 
 
-def attn_plan_smem_bytes(m: int, n: int, head_dim: int, bf16: bool, key_tile: int) -> int:
-    """Shared memory of a block of the forward attention kernel a plan with
-    ``key_tile`` launches (``attn_launch_smem_bytes`` in
-    csrc/window_common.cuh)."""
-    return attn_tiled_smem_bytes(m, head_dim, key_tile) if key_tile else attn_smem_bytes(n, head_dim, bf16)
-
-
 class AttnPlan(NamedTuple):
     """How one forward attention launch splits its work: block (window,
     head, tile) has warp w take the window's row items (of ``attn_rows``

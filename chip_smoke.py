@@ -1370,7 +1370,7 @@ def fwd_core_case(torch, q, k, v, bias, heads, **labels):
             **labels, "dtype": name, "windows": b, "queries": m, "keys": n, "channels": c,
             "plan": plan._asdict(), "max_abs_err": err,
             "kernel_ms": cuda_ms(torch, call, 20), "kernel_device_ms": device_ms(torch, call),
-            "plain_ms": cuda_ms(torch, lambda: window_attention_reference(q, k, v, bias, heads), 3, 1),
+            "plain_ms": cuda_ms(torch, lambda: window_attention_reference(q, k, v, bias, heads), 5, 1),
             "library_ms": lib_ms, "library": backend, "library_device_ms": lib_dev,
             "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
             "bound_by": "operations" if t_flops >= t_bytes else "bytes",
@@ -1736,24 +1736,7 @@ def phase_kernels_window(torch):
                         })
                 # the attention core at the shapes the block gives it
                 q, k, v = _pre_stage(x, x[q_ind], p, heads, q_ind)
-                got = fused_window_attention(q, k, v, p.bias, heads)
-                ref = window_attention_reference(q, k, v, p.bias, heads)
-                torch.cuda.synchronize()
-                (err,) = check_close(f"window attention {config} {level} {name}", (got,), (ref,), dt)
-                flops, nbytes = window_attention_cost(b, m, d * m, c, heads, x.element_size())
-                t_flops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
-                lib_ms, backend, lib_dev = sdpa_forward_ms(torch, q, k, v, p.bias, heads)
-                attn_cases.append({
-                    "config": config, "level": level, "dtype": name, "windows": b, "channels": c,
-                    "kv_tokens": d * m, "max_abs_err": err,
-                    "kernel_ms": cuda_ms(torch, lambda: fused_window_attention(q, k, v, p.bias, heads), 20),
-                    "kernel_device_ms": device_ms(torch, lambda: fused_window_attention(q, k, v, p.bias, heads)),
-                    "library_device_ms": lib_dev,
-                    "plain_ms": cuda_ms(torch, lambda: window_attention_reference(q, k, v, p.bias, heads), 5, 1),
-                    "library_ms": lib_ms, "library": backend,
-                    "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
-                    "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-                })
+                attn_cases.append(fwd_core_case(torch, q, k, v, p.bias, heads, config=config, level=level))
             if config == "8x8" and level == "level0":
                 # both Functions' gradients (f32) vs autograd through the twins
                 g = rnd(b, m, c)

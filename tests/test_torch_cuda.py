@@ -912,7 +912,7 @@ def test_cuda_key_tiled_forward_occupancy_and_smem_are_the_plans(cuda_device, li
             occ = wac.attn_forward_occupancy(lib, 49, n, 16 * hd, 16, dt, index)
             tile = wac.attn_key_tile(49, n, hd, bf16)
             assert tile and occ["key_tile"] == tile and occ["blocks_per_sm"] >= 1
-            assert occ["smem_bytes"] == wac.attn_plan_smem_bytes(49, n, hd, bf16, tile)
+            assert occ["smem_bytes"] == wac.attn_tiled_smem_bytes(49, hd, tile)
             plan = wac.attn_plan_for(lib, 3, 49, n, 16 * hd, 16, dt, index)
             assert plan.key_tile == tile
     lib_ = wac._lib("window_attention")
