@@ -129,11 +129,14 @@ int pass2_slices(int m, int n, int hd, int j) {
   return best;
 }
 
-// Pass 2 over keys 0 .. cnt - 1 of the staged rows ks, vs (token key0 +
-// nn of the window, out0 = w N + key0): S lanes per KPT key tokens, each
-// over rows slice, slice + S, ...; dk and dv accumulate in registers and
-// the S partial sums meet in a fixed butterfly. bias_h points at the key0
-// column of the head's bias plane.
+// The key-tiled variant's pass 2 over keys 0 .. cnt - 1 of the staged rows
+// ks, vs (token key0 + nn of the window, out0 = w N + key0): attn_bwd_kernel's
+// pass 2 below over one tile, S lanes per KPT key tokens, each over rows
+// slice, slice + S, ...; dk and dv accumulate in registers and the S
+// partial sums meet in a fixed butterfly. bias_h points at the key0 column
+// of the head's bias plane. attn_bwd_kernel keeps its own copy inline:
+// calling this function from it slowed its long rows at head_dim 4 by half
+// on the H100 (PERF.md, PR 15).
 template <typename T, int HD, int KPT>
 __device__ __forceinline__ void pass2_dk_dv(const BwdArgs& a, const float* ks, const float* vs,
                                             const float* qs, const float* gs,
@@ -239,6 +242,8 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   const T* v = static_cast<const T*>(a.v);
   const T* g = static_cast<const T*>(a.g);
   T* dq = static_cast<T*>(a.dq);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
   const float* bias_h = a.bias + (size_t)h * m_tok * n_tok;
   const float scale = a.scale;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -246,6 +251,8 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
   // pass 2: lane = key slot * S + slice; a warp covers KPT * 32 / S keys
   constexpr int KPT = keys_per_lane(HD, J);
+  const int S = a.slices, keys_per_warp = KPT * 32 / S;
+  const int slot = lane / S, slice = lane % S;
 
   for (int e = tid; e < m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
 
@@ -392,8 +399,74 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     }
     __syncthreads();
 
-    pass2_dk_dv<T, HD, KPT>(a, ks, vs, qs, gs, row_mxl, row_inv, row_dot, bias_h, n_tok,
-                            (size_t)w * n_tok, warp, lane);
+    // pass 2: S lanes per KPT key tokens, each over rows slice, slice + S,
+    // ...; dk and dv accumulate in registers and the S partial sums meet
+    // in a fixed butterfly
+    for (int base = warp * keys_per_warp; base < n_tok; base += kWarps * keys_per_warp) {
+      int nn[KPT], nc[KPT];
+      float kv_[KPT][HD], vv[KPT][HD], dka[KPT][HD], dva[KPT][HD], b_next[KPT];
+#pragma unroll
+      for (int t = 0; t < KPT; ++t) {
+        nn[t] = base + slot + t * (32 / S);
+        nc[t] = nn[t] < n_tok ? nn[t] : n_tok - 1;  // idle lanes still join the shuffles
+        load_row<HD>(kv_[t], ks + nc[t] * KS);
+        load_row<HD>(vv[t], vs + nc[t] * KS);
+#pragma unroll
+        for (int dd = 0; dd < HD; ++dd) {
+          dka[t][dd] = 0.f;
+          dva[t][dd] = 0.f;
+        }
+        // the bias column streams from L2: its next element loads one row ahead
+        b_next[t] = slice < m_tok ? __ldg(bias_h + (size_t)slice * n_tok + nc[t]) : 0.f;
+      }
+      for (int i = slice; i < m_tok; i += S) {
+        float b_i[KPT];
+#pragma unroll
+        for (int t = 0; t < KPT; ++t) {
+          b_i[t] = b_next[t];
+          if (i + S < m_tok) b_next[t] = __ldg(bias_h + (size_t)(i + S) * n_tok + nc[t]);
+        }
+        float qi[HD], gi[HD];
+        load_row<HD>(qi, qs + i * KS);
+        load_row<HD>(gi, gs + i * KS);
+        const float mxl = row_mxl[i], inv = row_inv[i], rdot = row_dot[i];
+#pragma unroll
+        for (int t = 0; t < KPT; ++t) {
+          const float s = fmaf(dot<HD>(qi, kv_[t]), scale, b_i[t]);
+          const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
+          const float dp = dot<HD>(gi, vv[t]);
+          const float ds = p32 * (dp - rdot);
+          const float p = round_to<T>(p32);
+          const float dsc = round_to<T>(ds * scale);
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) {
+            dva[t][dd] = fmaf(p, gi[dd], dva[t][dd]);
+            dka[t][dd] = fmaf(dsc, qi[dd], dka[t][dd]);
+          }
+        }
+      }
+      for (int o = 1; o < S; o <<= 1) {
+#pragma unroll
+        for (int t = 0; t < KPT; ++t) {
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) {
+            dka[t][dd] += __shfl_xor_sync(0xffffffffu, dka[t][dd], o);
+            dva[t][dd] += __shfl_xor_sync(0xffffffffu, dva[t][dd], o);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < KPT; ++t) {
+        if (nn[t] < n_tok && slice == 0) {
+          const size_t dst = ((size_t)w * n_tok + nn[t]) * c + h * HD;
+#pragma unroll
+          for (int dd = 0; dd < HD; ++dd) {
+            dk[dst + dd] = store_cast<T>(dka[t][dd]);
+            dv[dst + dd] = store_cast<T>(dva[t][dd]);
+          }
+        }
+      }
+    }
   }
   if constexpr (J > 0) {
     __syncthreads();
