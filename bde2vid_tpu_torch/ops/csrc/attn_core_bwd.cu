@@ -136,7 +136,7 @@ int pass2_slices(int m, int n, int hd, int j) {
 // partial sums meet in a fixed butterfly. bias_h points at the key0 column
 // of the head's bias plane. attn_bwd_kernel keeps its own copy inline:
 // calling this function from it slowed its long rows at head_dim 4 by half
-// on the H100 (PERF.md, PR 15).
+// on the H100 (PERF.md, section 6).
 template <typename T, int HD, int KPT>
 __device__ __forceinline__ void pass2_dk_dv(const BwdArgs& a, const float* ks, const float* vs,
                                             const float* qs, const float* gs,
