@@ -88,6 +88,7 @@ constexpr int kWarps = kThreads / 32;
 
 struct BwdArgs {
   int b, m, n, c, heads, groups;
+  int hd;        // head_dim C / heads; kernels instantiated at a larger HD see zeros past it
   int slices;    // pass 2: lanes per key token
   int key_tile;  // 0, or the keys attn_bwd_tiled_kernel stages at a time
   float scale;
@@ -95,12 +96,17 @@ struct BwdArgs {
   const float* bias;          // (H, M, N) f32
   void *dq, *dk, *dv;         // like q, k, v
   float* partial;             // (groups, H, M, N) f32 scratch
+  float* dq_acc;              // attn_bwd_wide_kernel: (B_, M, C) f32 dq sums over key tiles
 };
 
 // The k, v, q and g rows, three row statistics, and with J > 0 the
 // block's (M, N) dbias plane; with a key tile, the k and v rows of one tile
-// and the (M, HD) dq sums instead of the plane.
+// and the (M, HD) dq sums instead of the plane; above head_dim 32 (the wide
+// kernel), the q and g rows, one tile's k and v rows and its two (M,
+// key_tile) planes. hd is the instantiated HD.
 size_t bwd_smem_floats(int m, int n, int hd, int j, int key_tile) {
+  if (hd > 32)
+    return 2 * ((size_t)m + key_tile) * key_stride(hd) + 2 * (size_t)m * key_tile + 3 * (size_t)m;
   if (key_tile)
     return 2 * ((size_t)key_tile + m) * key_stride(hd) + 3 * (size_t)m + (size_t)m * hd;
   return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (j ? (size_t)m * n : 0);
@@ -144,7 +150,7 @@ __device__ __forceinline__ void pass2_dk_dv(const BwdArgs& a, const float* ks, c
                                             const float* row_dot, const float* bias_h, int cnt,
                                             size_t out0, int warp, int lane) {
   constexpr int KS = key_stride(HD);
-  const int m_tok = a.m, n_tok = a.n, c = a.c, h = blockIdx.y;
+  const int m_tok = a.m, n_tok = a.n, c = a.c, h = blockIdx.y, hd = a.hd;
   const float scale = a.scale;
   const int S = a.slices, keys_per_warp = KPT * 32 / S;
   const int slot = lane / S, slice = lane % S;
@@ -206,11 +212,13 @@ __device__ __forceinline__ void pass2_dk_dv(const BwdArgs& a, const float* ks, c
 #pragma unroll
     for (int t = 0; t < KPT; ++t) {
       if (nn[t] < cnt && slice == 0) {
-        const size_t dst = (out0 + nn[t]) * c + h * HD;
+        const size_t dst = (out0 + nn[t]) * c + h * hd;
 #pragma unroll
         for (int dd = 0; dd < HD; ++dd) {
-          dk[dst + dd] = store_cast<T>(dka[t][dd]);
-          dv[dst + dd] = store_cast<T>(dva[t][dd]);
+          if (dd < hd) {
+            dk[dst + dd] = store_cast<T>(dka[t][dd]);
+            dv[dst + dd] = store_cast<T>(dva[t][dd]);
+          }
         }
       }
     }
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     attn_bwd_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const int grp = blockIdx.x, h = blockIdx.y;
-  const int m_tok = a.m, n_tok = a.n, c = a.c;
+  const int m_tok = a.m, n_tok = a.n, c = a.c, hd = a.hd;
   constexpr int KS = key_stride(HD);
   float* ks = smem;                        // (N, KS)
   float* vs = ks + n_tok * KS;             // (N, KS)
@@ -260,15 +268,15 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     __syncthreads();  // the previous window is done with ks/vs/qs/gs
     for (int e = tid; e < n_tok * HD; e += kThreads) {
       const int nn = e / HD, dd = e % HD;
-      const size_t src = ((size_t)w * n_tok + nn) * c + h * HD + dd;
-      ks[nn * KS + dd] = load(k, src);
-      vs[nn * KS + dd] = load(v, src);
+      const size_t src = ((size_t)w * n_tok + nn) * c + h * hd + dd;
+      ks[nn * KS + dd] = dd < hd ? load(k, src) : 0.f;
+      vs[nn * KS + dd] = dd < hd ? load(v, src) : 0.f;
     }
     for (int e = tid; e < m_tok * HD; e += kThreads) {
       const int i = e / HD, dd = e % HD;
-      const size_t src = ((size_t)w * m_tok + i) * c + h * HD + dd;
-      qs[i * KS + dd] = load(q, src);
-      gs[i * KS + dd] = load(g, src);
+      const size_t src = ((size_t)w * m_tok + i) * c + h * hd + dd;
+      qs[i * KS + dd] = dd < hd ? load(q, src) : 0.f;
+      gs[i * KS + dd] = dd < hd ? load(g, src) : 0.f;
     }
     __syncthreads();
 
@@ -337,9 +345,10 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
           row_mxl[i] = mxl;
           row_inv[i] = inv;
           row_dot[i] = rdot;
-          const size_t dst = ((size_t)w * m_tok + i) * c + h * HD;
+          const size_t dst = ((size_t)w * m_tok + i) * c + h * hd;
   #pragma unroll
-          for (int dd = 0; dd < HD; ++dd) dq[dst + dd] = store_cast<T>(dqa[dd]);
+          for (int dd = 0; dd < HD; ++dd)
+            if (dd < hd) dq[dst + dd] = store_cast<T>(dqa[dd]);
         }
       }
     } else {
@@ -391,9 +400,10 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
           row_mxl[i] = mxl;
           row_inv[i] = inv;
           row_dot[i] = rdot;
-          const size_t dst = ((size_t)w * m_tok + i) * c + h * HD;
+          const size_t dst = ((size_t)w * m_tok + i) * c + h * hd;
 #pragma unroll
-          for (int dd = 0; dd < HD; ++dd) dq[dst + dd] = store_cast<T>(dqa[dd]);
+          for (int dd = 0; dd < HD; ++dd)
+            if (dd < hd) dq[dst + dd] = store_cast<T>(dqa[dd]);
         }
       }
     }
@@ -458,11 +468,13 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
 #pragma unroll
       for (int t = 0; t < KPT; ++t) {
         if (nn[t] < n_tok && slice == 0) {
-          const size_t dst = ((size_t)w * n_tok + nn[t]) * c + h * HD;
+          const size_t dst = ((size_t)w * n_tok + nn[t]) * c + h * hd;
 #pragma unroll
           for (int dd = 0; dd < HD; ++dd) {
-            dk[dst + dd] = store_cast<T>(dka[t][dd]);
-            dv[dst + dd] = store_cast<T>(dva[t][dd]);
+            if (dd < hd) {
+              dk[dst + dd] = store_cast<T>(dka[t][dd]);
+              dv[dst + dd] = store_cast<T>(dva[t][dd]);
+            }
           }
         }
       }
@@ -482,7 +494,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const int grp = blockIdx.x, h = blockIdx.y;
-  const int m_tok = a.m, n_tok = a.n, c = a.c, kt = a.key_tile;
+  const int m_tok = a.m, n_tok = a.n, c = a.c, kt = a.key_tile, hd = a.hd;
   constexpr int KS = key_stride(HD);
   float* ks = smem;                     // (key_tile, KS)
   float* vs = ks + kt * KS;             // (key_tile, KS)
@@ -512,9 +524,9 @@ __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kern
     __syncthreads();  // the previous window is done with qs/gs and dq_acc
     for (int e = tid; e < m_tok * HD; e += kThreads) {
       const int i = e / HD, dd = e % HD;
-      const size_t src = ((size_t)w * m_tok + i) * c + h * HD + dd;
-      qs[i * KS + dd] = load(q, src);
-      gs[i * KS + dd] = load(g, src);
+      const size_t src = ((size_t)w * m_tok + i) * c + h * hd + dd;
+      qs[i * KS + dd] = dd < hd ? load(q, src) : 0.f;
+      gs[i * KS + dd] = dd < hd ? load(g, src) : 0.f;
       dq_acc[e] = 0.f;
     }
     for (int i = tid; i < m_tok; i += kThreads) {
@@ -528,9 +540,9 @@ __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kern
         __syncthreads();  // the block is done with the previous tile (and the statistics)
         for (int e = tid; e < cnt * HD; e += kThreads) {
           const int nn = e / HD, dd = e % HD;
-          const size_t src = ((size_t)w * n_tok + t0 + nn) * c + h * HD + dd;
-          ks[nn * KS + dd] = load(k, src);
-          vs[nn * KS + dd] = load(v, src);
+          const size_t src = ((size_t)w * n_tok + t0 + nn) * c + h * hd + dd;
+          ks[nn * KS + dd] = dd < hd ? load(k, src) : 0.f;
+          vs[nn * KS + dd] = dd < hd ? load(v, src) : 0.f;
         }
         __syncthreads();
         if (pass == 1) {
@@ -617,7 +629,180 @@ __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kern
     __syncthreads();
     for (int e = tid; e < m_tok * HD; e += kThreads) {
       const int i = e / HD, dd = e % HD;
-      dq[((size_t)w * m_tok + i) * c + h * HD + dd] = store_cast<T>(dq_acc[e]);
+      if (dd < hd) dq[((size_t)w * m_tok + i) * c + h * hd + dd] = store_cast<T>(dq_acc[e]);
+    }
+  }
+}
+
+// The head_dim above 32 (attn_bwd_wide_kernel): a.hd = 48 .. 256 at HD =
+// 64, 128 or 256. A lane per key with (HD,) rows in registers, as above,
+// would spill; here no thread holds a row. Per window, q and g stay in
+// shared memory, k and v come a key tile at a time, and each stage hands
+// whole dot products or output elements to the block's threads:
+//   pass 1, per tile: a thread per (row, key) takes s and dp (float4 dot
+//   products from shared memory) into two (M, key_tile) planes; a warp per
+//   row folds the tile into its running max, sum of exp and sum of dp exp.
+//   pass 2, per tile: the same threads recompute s and dp (the same float
+//   operations, so the bits of pass 1), add ds into the block's dbias
+//   slice (as the long rows do) and leave round(p) and round(ds scale) in
+//   the planes; then a thread per (row, column) adds the tile's share of dq
+//   into an f32 sum in device memory (dq_acc; dq itself at the last tile),
+//   and a thread per (key, column) of the tile sums its dk and dv over the
+//   window's rows.
+// Every sum runs in a fixed order, so two runs give bit-identical
+// gradients. It is right first and not tuned.
+template <int HD>
+__device__ __forceinline__ float dot_rows(const float* x, const float* y) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; d += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(x + d);
+    const float4 b = *reinterpret_cast<const float4*>(y + d);
+    s = fmaf(a.x, b.x, s);
+    s = fmaf(a.y, b.y, s);
+    s = fmaf(a.z, b.z, s);
+    s = fmaf(a.w, b.w, s);
+  }
+  return s;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1) attn_bwd_wide_kernel(BwdArgs a) {
+  extern __shared__ float smem[];
+  const int grp = blockIdx.x, h = blockIdx.y;
+  const int m_tok = a.m, n_tok = a.n, c = a.c, kt = a.key_tile, hd = a.hd;
+  constexpr int KS = key_stride(HD);
+  float* qs = smem;                   // (M, KS)
+  float* gs = qs + m_tok * KS;        // (M, KS)
+  float* ks = gs + m_tok * KS;        // (key_tile, KS)
+  float* vs = ks + kt * KS;           // (key_tile, KS)
+  float* sp = vs + kt * KS;           // (M, key_tile): scores, then round(p)
+  float* dpp = sp + m_tok * kt;       // (M, key_tile): dp, then round(ds * scale)
+  float* row_mxl = dpp + m_tok * kt;  // (M): the row's running max score * log2 e
+  float* row_inv = row_mxl + m_tok;   // (M): its running sum of exp, then 1 / the sum
+  float* row_dot = row_inv + m_tok;   // (M): its running sum of dp exp, then rowsum(dp * p32)
+  // ds summed over this block's windows, in its slice of the partial buffer
+  float* dbias = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* g = static_cast<const T*>(a.g);
+  T* dq = static_cast<T*>(a.dq);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  const float* bias_h = a.bias + (size_t)h * m_tok * n_tok;
+  const float scale = a.scale;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int w_begin = (int)((long long)grp * a.b / a.groups);
+  const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
+
+  for (size_t e = tid; e < (size_t)m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
+
+  for (int w = w_begin; w < w_end; ++w) {
+    __syncthreads();  // the previous window is done with qs/gs and the statistics
+    for (int e = tid; e < m_tok * HD; e += kThreads) {
+      const int i = e / HD, dd = e % HD;
+      const size_t src = ((size_t)w * m_tok + i) * c + h * hd + dd;
+      qs[i * KS + dd] = dd < hd ? load(q, src) : 0.f;
+      gs[i * KS + dd] = dd < hd ? load(g, src) : 0.f;
+    }
+    for (int i = tid; i < m_tok; i += kThreads) {
+      row_mxl[i] = __int_as_float(0xff800000);  // -inf
+      row_inv[i] = 0.f;
+      row_dot[i] = 0.f;
+    }
+    for (int pass = 1; pass <= 2; ++pass) {
+      for (int t0 = 0; t0 < n_tok; t0 += kt) {
+        const int cnt = min(kt, n_tok - t0);
+        __syncthreads();  // the block is done with the previous tile, its planes and the statistics
+        for (int e = tid; e < cnt * HD; e += kThreads) {
+          const int nn = e / HD, dd = e % HD;
+          const size_t src = ((size_t)w * n_tok + t0 + nn) * c + h * hd + dd;
+          ks[nn * KS + dd] = dd < hd ? load(k, src) : 0.f;
+          vs[nn * KS + dd] = dd < hd ? load(v, src) : 0.f;
+        }
+        __syncthreads();
+        for (int e = tid; e < m_tok * cnt; e += kThreads) {
+          const int i = e / cnt, nn = e - i * cnt;
+          const float s = fmaf(dot_rows<HD>(qs + i * KS, ks + nn * KS), scale,
+                               __ldg(bias_h + (size_t)i * n_tok + t0 + nn));
+          const float dp = dot_rows<HD>(gs + i * KS, vs + nn * KS);
+          if (pass == 1) {
+            sp[i * kt + nn] = s;
+            dpp[i * kt + nn] = dp;
+            continue;
+          }
+          const float p32 = fast_exp2(fmaf(s, kLog2e, -row_mxl[i])) * row_inv[i];
+          const float ds = p32 * (dp - row_dot[i]);
+          dbias[(size_t)i * n_tok + t0 + nn] += ds;
+          sp[i * kt + nn] = round_to<T>(p32);
+          dpp[i * kt + nn] = round_to<T>(ds * scale);
+        }
+        __syncthreads();
+        if (pass == 1) {
+          // a warp per query row: the tile's max, then its sums of exp and of
+          // dp times exp under the new running max
+          for (int i = warp; i < m_tok; i += kWarps) {
+            const float* srow = sp + i * kt;
+            const float* drow = dpp + i * kt;
+            float mx = __int_as_float(0xff800000);  // -inf
+            for (int nn = lane; nn < cnt; nn += 32) mx = fmaxf(mx, srow[nn]);
+            const float m0 = row_mxl[i];
+            const float mxl = fmaxf(m0, warp_max(mx) * kLog2e);
+            float sum = 0.f, dpe = 0.f;
+            for (int nn = lane; nn < cnt; nn += 32) {
+              const float e = fast_exp2(fmaf(srow[nn], kLog2e, -mxl));
+              sum += e;
+              dpe = fmaf(drow[nn], e, dpe);
+            }
+            const float r = fast_exp2(m0 - mxl);
+            const float tsum = fmaf(row_inv[i], r, warp_sum(sum));
+            const float tdot = fmaf(row_dot[i], r, warp_sum(dpe));
+            __syncwarp();  // every lane has read the row's statistics
+            if (lane == 0) {
+              row_mxl[i] = mxl;
+              row_inv[i] = tsum;
+              row_dot[i] = tdot;
+            }
+          }
+          if (t0 + cnt == n_tok) {
+            __syncthreads();
+            for (int i = tid; i < m_tok; i += kThreads) {
+              const float inv = 1.f / row_inv[i];
+              row_inv[i] = inv;
+              row_dot[i] *= inv;
+            }
+          }
+          continue;
+        }
+        // pass 2: the tile's share of dq, summed over the tiles in f32
+        const bool first = t0 == 0, last = t0 + cnt == n_tok;
+        for (int e = tid; e < m_tok * hd; e += kThreads) {
+          const int i = e / hd, dd = e - i * hd;
+          float acc = 0.f;
+          for (int nn = 0; nn < cnt; ++nn) acc = fmaf(dpp[i * kt + nn], ks[nn * KS + dd], acc);
+          const size_t o = ((size_t)w * m_tok + i) * c + h * hd + dd;
+          const float tot = first ? acc : a.dq_acc[o] + acc;
+          if (last) {
+            dq[o] = store_cast<T>(tot);
+          } else {
+            a.dq_acc[o] = tot;
+          }
+        }
+        // the tile's dk and dv, whole: every row of the window is in qs/gs
+        for (int e = tid; e < cnt * hd; e += kThreads) {
+          const int nn = e / hd, dd = e - nn * hd;
+          float dka = 0.f, dva = 0.f;
+          for (int i = 0; i < m_tok; ++i) {
+            dka = fmaf(dpp[i * kt + nn], qs[i * KS + dd], dka);
+            dva = fmaf(sp[i * kt + nn], gs[i * KS + dd], dva);
+          }
+          const size_t o = ((size_t)w * n_tok + t0 + nn) * c + h * hd + dd;
+          dk[o] = store_cast<T>(dka);
+          dv[o] = store_cast<T>(dva);
+        }
+      }
     }
   }
 }
@@ -636,10 +821,22 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
 // writes its occupancy at `smem` bytes to info: registers, local (spill)
 // bytes per thread, dynamic shared memory per block, threads per block,
 // resident blocks per SM.
+// The kernel for (T, HD, J): above head_dim 32 the wide kernel, else J < 0
+// names the key-tiled variant.
+template <typename T, int HD, int J>
+auto bwd_kernel() {
+  if constexpr (HD > 32) {
+    return attn_bwd_wide_kernel<T, HD>;
+  } else if constexpr (J < 0) {
+    return attn_bwd_tiled_kernel<T, HD>;
+  } else {
+    return attn_bwd_kernel<T, HD, J>;
+  }
+}
+
 template <typename T, int HD, int J>
 cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
-  // J < 0 names the key-tiled variant
-  auto kernel = J < 0 ? attn_bwd_tiled_kernel<T, HD> : attn_bwd_kernel<T, HD, (J < 0 ? 0 : J)>;
+  auto kernel = bwd_kernel<T, HD, J>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -683,20 +880,29 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
     case 8: return run_j<T, 8>(j, a, smem, info, stream);
     case 16: return run_j<T, 16>(j, a, smem, info, stream);
     case 32: return run_j<T, 32>(j, a, smem, info, stream);
+    // above 32 only the key-tiled (wide) kernel
+    case 64: return j == -1 ? run<T, 64, -1>(a, smem, info, stream) : cudaErrorInvalidValue;
+    case 128: return j == -1 ? run<T, 128, -1>(a, smem, info, stream) : cudaErrorInvalidValue;
+    case 256: return j == -1 ? run<T, 256, -1>(a, smem, info, stream) : cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Launches the variant with row share j (0: long rows) or, with a key tile,
-// the key-tiled variant (the wrapper's attn_core_bwd_plan picks both from
-// the shapes) with `a` (setting its pass-2 slices and key tile), or writes
-// the occupancy and J, S and the key tile to info[0..7] when `a` is null.
+// the key-tiled variant (the wide kernel above head_dim 32; the wrapper's
+// attn_core_bwd_plan picks both from the shapes) with `a` (setting its
+// head_dim, pass-2 slices and key tile), or writes the occupancy and J, S
+// and the key tile to info[0..7] when `a` is null. A head_dim between the
+// instantiated ones runs at the next one up (padded_hd).
 cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, int key_tile, BwdArgs* a,
                      long long* info, cudaStream_t stream) {
-  if (heads < 1 || c % heads || (j && n > 32 * j) || (key_tile && (j || key_tile < 32)))
+  if (heads < 1 || c % heads || (j && n > 32 * j) || (key_tile && (j || key_tile < 8)))
     return cudaErrorInvalidValue;
-  const int hd = c / heads, slices = pass2_slices(m, key_tile ? key_tile : n, hd, j);
+  const int hd = padded_hd(c / heads);
+  if (hd == 0 || (hd > 32 && !key_tile)) return cudaErrorInvalidValue;
+  const int slices = pass2_slices(m, key_tile ? key_tile : n, hd, j);
   if (a != nullptr) {
+    a->hd = c / heads;
     a->slices = slices;
     a->key_tile = key_tile;
   } else {
@@ -718,7 +924,7 @@ extern "C" {
 // key_tile asks for (the wrapper's attn_core_bwd_smem_bytes computes the
 // same).
 long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j, int key_tile) {
-  return (long long)(sizeof(float) * bwd_smem_floats(m, n, c / heads, j, key_tile));
+  return (long long)(sizeof(float) * bwd_smem_floats(m, n, padded_hd(c / heads), j, key_tile));
 }
 
 // The instantiation a launch at these shapes with row share j and key tile
@@ -736,12 +942,13 @@ int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, 
 // 32 j; or 0, long rows) or, with key_tile > 0 (and j 0), the key-tiled
 // variant, and the dbias reduction on `stream`; returns the first CUDA
 // error code (0 on success). q/k/v/g/dq/dk/dv are f32 (is_bf16 = 0) or
-// bf16 (is_bf16 = 1); bias, partial and dbias are f32.
+// bf16 (is_bf16 = 1); bias, partial and dbias are f32; dq_acc, (B_, M, C)
+// f32 scratch, is read only above head_dim 32.
 int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, int j,
                        int key_tile, float scale,
                        const void* q, const void* k, const void* v, const float* bias,
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
-                       void* stream) {
+                       float* dq_acc, void* stream) {
   if (groups < 1 || groups > b) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.b = b;
@@ -760,6 +967,7 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.dk = dk;
   a.dv = dv;
   a.partial = partial;
+  a.dq_acc = dq_acc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dispatch(is_bf16, m, n, c, heads, j, key_tile, &a, nullptr, s);
   if (err != cudaSuccess) return (int)err;

@@ -100,6 +100,14 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
+// The head_dim a kernel is instantiated at: the least of 1, 2, 4, ..., 256
+// that holds hd (0 above 256).
+__host__ __device__ inline int padded_hd(int hd) {
+  int p = 1;
+  while (p < hd && p < 256) p <<= 1;
+  return p >= hd ? p : 0;
+}
+
 // The instantiated J (keys a lane keeps of a score row in registers, lane +
 // 32 j for j < J); a row of the backward holds at most 32 lanes x the last.
 constexpr int kRowShares[] = {12, 16, 32};

@@ -715,7 +715,9 @@ size_t ln_proj_smem_bytes(int c) {
 // running max and sum, a second for p v. head_dim 4 is below an MMA's K,
 // so every product is an FMA; bf16 at head_dim >= 16 takes the tensor
 // cores (attn_kernel_mma). Windows whose k and v rows do not fit in one
-// block's shared memory take the key-tiled variant (attn_tiled_kernel).
+// block's shared memory, and every head_dim above 32, take the key-tiled
+// variant (attn_flash_kernel). A head_dim between the instantiated ones (1,
+// 2, 4, ..., 256) runs at the next one up with zero columns past it.
 // The wrapper picks the tiles and the key tile (attn_forward_plan in
 // ops/window_attn_cuda.py); the launchers take both from its plan.
 // ---------------------------------------------------------------------------
@@ -733,14 +735,15 @@ __host__ __device__ constexpr int attn_min_blocks(int hd) { return hd <= 4 ? 4 :
 // k); the bare attention reads separate (B_, N, C) k and v.
 struct AttnArgs {
   int b, m, n, c, heads;
+  int hd;     // head_dim C / heads; kernels instantiated at a larger HD see zeros past it
   int tiles;  // block (w, h, tile) takes rows 8 (tile + tiles k) + warp, k = 0, 1, ...
-  int key_tile;  // 0, or the keys attn_tiled_kernel stages at a time
+  int key_tile;  // 0, or the keys attn_flash_kernel stages at a time (flash_key_tile)
   const void* q;  // (B_, M, C)
   const void* k;  // k|v scratch (kKvScratch), else (B_, N, C)
   const void* v;  // (B_, N, C) (unused with kKvScratch)
   const float* bias;  // (H, M, N) f32
   void* out;          // (B_, M, C)
-  bool vec;           // q, k and v are aligned for kChunk-element loads
+  bool vec;           // q, k and v are aligned for kChunk-element loads (and hd == HD)
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -768,9 +771,10 @@ __device__ __forceinline__ void load_chunk(float (&r)[CH], const T* p) {
   for (int i = 0; i < CH; ++i) r[i] = to_f32(t[i]);
 }
 
-// r = p[0 .. HD) in f32: kChunk-element loads when vec, else one by one.
+// r = p[0 .. HD) in f32: kChunk-element loads when vec, else one by one,
+// zero past the head's hd columns.
 template <typename T, int HD>
-__device__ __forceinline__ void load_head_row(float (&r)[HD], const T* p, bool vec) {
+__device__ __forceinline__ void load_head_row(float (&r)[HD], const T* p, bool vec, int hd) {
   constexpr int CH = kChunk<T, HD>;
   if (vec) {
 #pragma unroll
@@ -782,7 +786,7 @@ __device__ __forceinline__ void load_head_row(float (&r)[HD], const T* p, bool v
     }
   } else {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) r[d] = load(p, d);
+    for (int d = 0; d < HD; ++d) r[d] = d < hd ? load(p, d) : 0.f;
   }
 }
 
@@ -797,7 +801,7 @@ __device__ __forceinline__ size_t kv_offset(const AttnArgs& a, int w, int nn) {
 }
 
 // Keys n0 .. n0 + cnt - 1 of window w's k and v columns of head h into ks
-// and vs, (cnt, KS) f32 each.
+// and vs, (cnt, KS) f32 each, zero past the head's hd columns.
 template <typename T, int HD, bool kKvScratch>
 __device__ __forceinline__ void stage_keys(float* ks, float* vs, const AttnArgs& a, int w, int h,
                                            int n0, int cnt) {
@@ -807,7 +811,7 @@ __device__ __forceinline__ void stage_keys(float* ks, float* vs, const AttnArgs&
 #pragma unroll 4
   for (int e = threadIdx.x; e < cnt * PER; e += blockDim.x) {
     const int nn = e / PER, d0 = (e - nn * PER) * CH;
-    const size_t off = kv_offset<kKvScratch>(a, w, n0 + nn) + h * HD + d0;
+    const size_t off = kv_offset<kKvScratch>(a, w, n0 + nn) + h * a.hd + d0;
     float kr[CH], vr[CH];
     if (a.vec) {
       load_chunk<T, CH>(kr, kg + off);
@@ -815,8 +819,9 @@ __device__ __forceinline__ void stage_keys(float* ks, float* vs, const AttnArgs&
     } else {
 #pragma unroll
       for (int i = 0; i < CH; ++i) {
-        kr[i] = load(kg, off + i);
-        vr[i] = load(vg, off + i);
+        const bool in = d0 + i < a.hd;
+        kr[i] = in ? load(kg, off + i) : 0.f;
+        vr[i] = in ? load(vg, off + i) : 0.f;
       }
     }
     float* kd = ks + nn * KS + d0;
@@ -938,9 +943,9 @@ __device__ __forceinline__ void attend_row(const AttnArgs& a, int w, int h, int 
                                            const float* ks, const float* vs, float scale,
                                            int lane) {
   const int n = a.n;
-  const size_t row = ((size_t)w * a.m + i) * a.c + h * HD;
+  const size_t row = ((size_t)w * a.m + i) * a.c + h * a.hd;
   float qv[HD];
-  load_head_row<T, HD>(qv, static_cast<const T*>(a.q) + row, a.vec);
+  load_head_row<T, HD>(qv, static_cast<const T*>(a.q) + row, a.vec, a.hd);
   float o[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) o[d] = 0.f;
@@ -985,7 +990,7 @@ __device__ __forceinline__ void attend_row(const AttnArgs& a, int w, int h, int 
   }
   const float s = warp_reduce_scatter<HD>(o, lane);
   constexpr int kLanesPerComponent = 32 / HD;
-  if (lane % kLanesPerComponent == 0)
+  if (lane % kLanesPerComponent == 0 && lane / kLanesPerComponent < a.hd)
     static_cast<T*>(a.out)[row + lane / kLanesPerComponent] = store_cast<T>(s);
 }
 
@@ -1036,7 +1041,8 @@ size_t attn_mma_smem_bytes(int n, int hd) {
          ((size_t)mma_keys(n) * mma_k_stride(hd) + (size_t)hd * mma_v_stride(n));
 }
 
-// Window w's k rows and v^T columns of head h, zero past N.
+// Window w's k rows and v^T columns of head h, zero past N and past the
+// head's hd columns.
 template <int HD, bool kKvScratch>
 __device__ __forceinline__ void stage_window_mma(__nv_bfloat16* ks, __nv_bfloat16* vt,
                                                  const AttnArgs& a, int w, int h) {
@@ -1048,7 +1054,7 @@ __device__ __forceinline__ void stage_window_mma(__nv_bfloat16* ks, __nv_bfloat1
     const int nn = e / PER, d0 = (e - nn * PER) * 8;
     __nv_bfloat16 kr[8], vr[8];
     if (nn < a.n) {
-      const size_t off = kv_offset<kKvScratch>(a, w, nn) + h * HD + d0;
+      const size_t off = kv_offset<kKvScratch>(a, w, nn) + h * a.hd + d0;
       if (a.vec) {
         const uint4 ku = *reinterpret_cast<const uint4*>(kg + off);
         const uint4 vu = *reinterpret_cast<const uint4*>(vg + off);
@@ -1057,8 +1063,9 @@ __device__ __forceinline__ void stage_window_mma(__nv_bfloat16* ks, __nv_bfloat1
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          kr[i] = kg[off + i];
-          vr[i] = vg[off + i];
+          const bool in = d0 + i < a.hd;
+          kr[i] = in ? kg[off + i] : __float2bfloat16_rn(0.f);
+          vr[i] = in ? vg[off + i] : __float2bfloat16_rn(0.f);
         }
       }
     } else {
@@ -1080,13 +1087,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return u;
 }
 
-// Two bf16 at p (4-byte aligned when vec).
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool vec) {
+// The bf16 at p, p + 1 of head columns col, col + 1 (p 4-byte aligned when
+// vec, which implies hd even), zero past the head's hd columns.
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool vec, int col, int hd) {
+  if (col >= hd) return 0u;
   if (vec) return *reinterpret_cast<const uint32_t*>(p);
-  const __nv_bfloat16 t[2] = {p[0], p[1]};
+  const __nv_bfloat16 t[2] = {p[0], col + 1 < hd ? p[1] : __float2bfloat16_rn(0.f)};
   uint32_t u;
   memcpy(&u, t, 4);
   return u;
+}
+
+// out[col], out[col + 1] = (lo, hi) in T, as one 4-byte store (bf16) when
+// vec, each column below hd alone otherwise.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* out, int col, int hd, bool vec, float lo, float hi) {
+  if (col >= hd) return;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(out + col) = pack_bf16(lo, hi);
+      return;
+    }
+  }
+  out[col] = store_cast<T>(lo);
+  if (col + 1 < hd) out[col + 1] = store_cast<T>(hi);
 }
 
 // The 16-row tile's scores against keys n0 .. n0 + 7: s[e] for the lane's
@@ -1136,7 +1160,7 @@ __device__ __forceinline__ void attend_tile_mma(const AttnArgs& a, int w, int h,
     for (int r = 0; r < 4; ++r) {
       const int row = rows[r & 1], col = 16 * kk + 2 * t4 + 8 * (r >> 1);
       qa[kk][r] = row < a.m
-                      ? load_pair(q + ((size_t)w * a.m + row) * a.c + h * HD + col, a.vec)
+                      ? load_pair(q + ((size_t)w * a.m + row) * a.c + h * a.hd + col, a.vec, col, a.hd)
                       : 0u;
     }
   }
@@ -1200,10 +1224,10 @@ __device__ __forceinline__ void attend_tile_mma(const AttnArgs& a, int w, int h,
   for (int hr = 0; hr < 2; ++hr) {
     if (rows[hr] >= a.m) continue;
     __nv_bfloat16* out =
-        static_cast<__nv_bfloat16*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * HD + 2 * t4;
+        static_cast<__nv_bfloat16*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * a.hd;
 #pragma unroll
     for (int dt = 0; dt < HD / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + 8 * dt) = pack_bf16(o[dt][2 * hr], o[dt][2 * hr + 1]);
+      store_pair(out, 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr], o[dt][2 * hr + 1]);
   }
 }
 
@@ -1287,134 +1311,345 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
 }
 
 // ---------------------------------------------------------------------------
-// Key-tiled variant, for windows whose k and v rows do not fit in one
-// block's shared memory (the JAX kernel stages them whole in VMEM, which
-// caps it only at 96 MB). A block stages key_tile keys of k and v at a
-// time and runs the two sweeps of attend_row's long rows over the tiles:
-// sweep 1 takes each row's running max and sum of exp across every tile,
-// sweep 2 recomputes the scores and adds round(p) v with p already
-// normalised, so the cast points stay those of attn_core_reference. A
-// warp keeps to its rows, as in attn_kernel, and their running max, sum
-// and (HD,) output sums stay in shared memory between tiles (M x (HD + 2)
-// floats); __syncthreads separates the tiles. Every product is an FMA,
-// for bf16 too (rows staged in f32). The wrapper's plan picks key_tile
-// (attn_key_tile in ops/window_attn_cuda.py); it is right first and not
-// tuned.
+// Key-tiled variant (attn_flash_kernel), for windows whose k and v rows do
+// not fit in one block's shared memory (the JAX kernel stages them whole in
+// VMEM, which caps it only at 96 MB) and for every head_dim above 32. One
+// sweep over the keys with an online softmax: a warp takes 16 query rows,
+// laid out as an mma.sync m16n8 accumulator (a lane holds rows lane / 4 and
+// lane / 4 + 8, columns 2 (lane % 4) and the next of each 8), and keeps each
+// row's running max, its lane's share of the running sum of exp, and its
+// (16, HD) output sums in registers. A tile's scores raise the max; the sums
+// and outputs are rescaled by exp(old max - new max), p = exp(s - max) is
+// added into the outputs, and the division by the row's sum comes once, at
+// the end. The block's four warps (64 rows) share each tile of KT keys,
+// which cp.async double-buffers in shared memory in the operand type, so
+// the next tile loads while this one computes.
+//   bf16: q k^T and p v on the tensor cores (m16n8k16, f32 accumulators):
+//         q's A fragments stay in registers, k rows are the B operand as
+//         they are, v rows reach p v's B operand through ldmatrix.trans;
+//         p is rounded to bf16 before its division by the sum (the twin
+//         rounds p after it: within the bf16 gate, PERF.md section 6).
+//   f32:  the same fragments by FMA (no TF32, so f32 stays exact): a lane's
+//         four scores of each 8 keys from float4 rows of q (staged once) and
+//         k, and its outputs from p gathered over the four lanes of its row
+//         by shuffles and float2 rows of v.
+// head_dim is padded to the instantiated HD (f32 >= 8, bf16 >= 16) with
+// zeros in the staged rows. The wrapper's plan picks the tile
+// (attn_key_tile in ops/window_attn_cuda.py; flash_key_tile below).
 // ---------------------------------------------------------------------------
 
-constexpr int kTiledJ = 16;  // keys a lane keeps of a 512-key chunk of a tile
+constexpr int kFlashWarps = 4;  // 16-row tiles a block, sharing each key tile
+constexpr int kFlashThreads = 32 * kFlashWarps;
 
-size_t attn_tiled_smem_bytes(int m, int hd, int key_tile) {
-  return sizeof(float) * (2 * (size_t)key_tile * key_stride(hd) + (size_t)m * (hd + 2));
+// Keys of one staged tile: the (16, KT) scores of a warp stay in registers
+// beside its (16, HD) outputs.
+__host__ __device__ constexpr int flash_key_tile(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 32 : 16; }
+// The HD a head_dim's key-tiled kernel runs at: 8-column groups in f32, the
+// 16-deep mma in bf16.
+template <typename T>
+constexpr int flash_hd(int hd) {
+  return hd > (std::is_same<T, __nv_bfloat16>::value ? 16 : 8) ? hd
+                                                               : (std::is_same<T, __nv_bfloat16>::value ? 16 : 8);
+}
+// Row stride (elements) of a staged k or v row: 16-byte rows whose stride
+// is an odd number of 16-byte chunks (f32: key_stride; bf16: mma_k_stride).
+template <typename T>
+__host__ __device__ constexpr int flash_stride(int hd) {
+  return std::is_same<T, __nv_bfloat16>::value ? mma_k_stride(hd) : key_stride(hd);
 }
 
+// Two stages of k and v tiles in T, and for f32 the block's 64 q rows.
+template <typename T>
+size_t flash_smem_bytes(int hd) {
+  const size_t kv = sizeof(T) * 4 * (size_t)flash_key_tile(hd) * flash_stride<T>(hd);
+  return kv + (std::is_same<T, float>::value ? sizeof(float) * 16 * kFlashWarps * key_stride(hd) : 0);
+}
+
+// Keys t0 .. t0 + KT - 1 of window w's k and v columns of head h into kd, vd
+// ((KT, KST) each): 16-byte cp.async when vec (rows aligned and hd a
+// multiple of 16 bytes), plain loads otherwise; zero past N and past hd.
 template <typename T, int HD, bool kKvScratch>
-__global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(HD))
-    attn_tiled_kernel(AttnArgs a, float scale) {
-  extern __shared__ float smem[];
-  constexpr int KS = key_stride(HD), J = kTiledJ, kWarps = kAttnThreads / 32;
-  constexpr int kLanesPerComponent = 32 / HD;
-  const int w = blockIdx.x, h = blockIdx.y, kt = a.key_tile;
-  float* ks = smem;                // (key_tile, KS)
-  float* vs = ks + kt * KS;        // (key_tile, KS)
-  float* row_mxl = vs + kt * KS;   // (M): running max score * log2 e
-  float* row_sum = row_mxl + a.m;  // (M): running sum of exp under it
-  float* row_o = row_sum + a.m;    // (M, HD): round(p) v summed over tiles
-  const int lane = threadIdx.x & 31;
-  const int first = blockIdx.z * kWarps + (threadIdx.x >> 5), step = a.tiles * kWarps;
-  for (int i = first; i < a.m; i += step) {
-    if (lane == 0) {
-      row_mxl[i] = __int_as_float(0xff800000);  // -inf
-      row_sum[i] = 0.f;
+__device__ __forceinline__ void flash_stage(T* kd, T* vd, const AttnArgs& a, int w, int h, int t0) {
+  constexpr int KT = flash_key_tile(HD), KST = flash_stride<T>(HD);
+  constexpr int CH = 16 / (int)sizeof(T), PER = HD / CH;
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
+  for (int e = threadIdx.x; e < KT * PER; e += kFlashThreads) {
+    const int nn = e / PER, d0 = (e - nn * PER) * CH, key = t0 + nn;
+    const size_t off = key < a.n ? kv_offset<kKvScratch>(a, w, key) + h * a.hd + d0 : 0;
+    T* kdst = kd + nn * KST + d0;
+    T* vdst = vd + nn * KST + d0;
+    if (a.vec) {
+      const bool in = key < a.n && d0 < a.hd;
+      cp_async16(kdst, kg + off, in ? 16 : 0);
+      cp_async16(vdst, vg + off, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const bool in = key < a.n && d0 + i < a.hd;
+        kdst[i] = in ? kg[off + i] : store_cast<T>(0.f);
+        vdst[i] = in ? vg[off + i] : store_cast<T>(0.f);
+      }
     }
-    if (lane < HD) row_o[i * HD + lane] = 0.f;
   }
-  const float* bias_h = a.bias + (size_t)h * a.m * a.n;
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int t0 = 0; t0 < a.n; t0 += kt) {
-      const int cnt = min(kt, a.n - t0);
-      __syncthreads();  // the block is done with the previous tile
-      stage_keys<T, HD, kKvScratch>(ks, vs, a, w, h, t0, cnt);
-      __syncthreads();
-      for (int i = first; i < a.m; i += step) {
-        const size_t row = ((size_t)w * a.m + i) * a.c + h * HD;
-        const float* brow = bias_h + (size_t)i * a.n + t0;
-        float qv[HD], sv[J], bc[J];
-        load_head_row<T, HD>(qv, static_cast<const T*>(a.q) + row, a.vec);
-        if (sweep == 0) {
-          // the running max over this tile's chunks and the lane's sum under it
-          const float m0 = row_mxl[i];
-          float mxl = m0, sum = 0.f;
-          for (int base = 0; base < cnt; base += 32 * J) {
-            load_bias_share<J>(bc, brow, base, cnt, lane);
-            const float cm =
-                warp_max(chunk_scores<HD, J>(sv, qv, bc, ks, base, cnt, lane, scale)) * kLog2e;
-            const float nm = fmaxf(mxl, cm);
-            sum *= fast_exp2(mxl - nm);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// bf16: s[j] = q k^T of the warp's 16 rows against the tile's keys 8 j ..
+// 8 j + 7, from q's A fragments and the staged k rows.
+template <int HD, int KT>
+__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const uint32_t (&qa)[HD / 16][4],
+                                             const __nv_bfloat16* ks, int lane) {
+  constexpr int KST = mma_k_stride(HD);
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-            for (int j = 0; j < J; ++j)
-              if (base + lane + 32 * j < cnt) sum += fast_exp2(fmaf(sv[j], kLog2e, -nm));
-            mxl = nm;
-          }
-          const float total = row_sum[i] * fast_exp2(m0 - mxl) + warp_sum(sum);
-          __syncwarp();  // every lane has read the row's statistics
-          if (lane == 0) {
-            row_mxl[i] = mxl;
-            row_sum[i] = total;
-          }
-        } else {
-          // the scores again, p = exp(s - max) / sum and round(p) v
-          const float mxl = row_mxl[i], inv = 1.f / row_sum[i];
-          float o[HD];
+  for (int j = 0; j < KT / 8; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-          for (int d = 0; d < HD; ++d) o[d] = 0.f;
-          for (int base = 0; base < cnt; base += 32 * J) {
-            load_bias_share<J>(bc, brow, base, cnt, lane);
-            chunk_scores<HD, J>(sv, qv, bc, ks, base, cnt, lane, scale);
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const __nv_bfloat16* kr = ks + (8 * j + g) * KST + 16 * kk + 2 * t4;
+      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
+                             *reinterpret_cast<const uint32_t*>(kr + 8)};
+      mma_bf16(s[j], qa[kk], b);
+    }
+  }
+}
+
+// f32: the same scores by FMA from the warp's q rows q0 (row lane / 4) and
+// q1 (8 below it) and the staged k rows.
+template <int HD, int KT>
+__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const float* q0, const float* q1,
+                                             const float* ks, int lane) {
+  constexpr int KS = key_stride(HD);
+  const int t4 = lane & 3;
 #pragma unroll
-            for (int j = 0; j < J; ++j) sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl)) * inv;
-            accumulate_pv<T, HD, J>(o, sv, vs, base, cnt, lane);
-          }
-          const float s = warp_reduce_scatter<HD>(o, lane);
-          if (lane % kLanesPerComponent == 0) {
-            const int d = lane / kLanesPerComponent;
-            const float total = row_o[i * HD + d] + s;
-            if (t0 + cnt < a.n) {
-              row_o[i * HD + d] = total;
-            } else {
-              static_cast<T*>(a.out)[row + d] = store_cast<T>(total);
-            }
-          }
-        }
+  for (int j = 0; j < KT / 8; ++j) {
+    const float* k0 = ks + (8 * j + 2 * t4) * KS;
+    const float* k1 = k0 + KS;
+    float c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; d += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(q0 + d);
+      const float4 y = *reinterpret_cast<const float4*>(q1 + d);
+      const float4 u = *reinterpret_cast<const float4*>(k0 + d);
+      const float4 v = *reinterpret_cast<const float4*>(k1 + d);
+      c00 = fmaf(x.x, u.x, fmaf(x.y, u.y, fmaf(x.z, u.z, fmaf(x.w, u.w, c00))));
+      c01 = fmaf(x.x, v.x, fmaf(x.y, v.y, fmaf(x.z, v.z, fmaf(x.w, v.w, c01))));
+      c10 = fmaf(y.x, u.x, fmaf(y.y, u.y, fmaf(y.z, u.z, fmaf(y.w, u.w, c10))));
+      c11 = fmaf(y.x, v.x, fmaf(y.y, v.y, fmaf(y.z, v.z, fmaf(y.w, v.w, c11))));
+    }
+    s[j][0] = c00;
+    s[j][1] = c01;
+    s[j][2] = c10;
+    s[j][3] = c11;
+  }
+}
+
+// bf16: o += round(p) v over the tile's keys, 16 at a time: p's A
+// fragments are the score fragments of two 8-key groups as they are.
+template <int HD, int KT>
+__device__ __forceinline__ void flash_pv(float (&o)[HD / 8][4], const float (&p)[KT / 8][4],
+                                         const __nv_bfloat16* vs, int lane) {
+  constexpr int KST = mma_k_stride(HD);
+  // ldmatrix.trans: lanes 8 i .. 8 i + 7 address the rows of matrix i =
+  // (keys 0-7 | 8-15) x (columns 0-7 | 8-15) of a 16 x 16 block
+  const int key = lane & 15, col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kc = 0; kc < KT / 16; ++kc) {
+    const uint32_t pa[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]), pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+                            pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                            pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; dt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vs + (16 * kc + key) * KST + 8 * dt + col);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma_bf16(o[dt], pa, b0);
+      mma_bf16(o[dt + 1], pa, b1);
+    }
+  }
+}
+
+// f32: o += p v by FMA, p of the lane's two rows gathered over the row's
+// four lanes, 8 keys at a time.
+template <int HD, int KT>
+__device__ __forceinline__ void flash_pv(float (&o)[HD / 8][4], const float (&p)[KT / 8][4],
+                                         const float* vs, int lane) {
+  constexpr int KS = key_stride(HD);
+  const int t4 = lane & 3, quad = lane & ~3;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+    for (int src = 0; src < 4; ++src) {
+      // keys 8 j + 2 src (p0: row lane / 4, p2: 8 below) and the next (p1, p3)
+      const float p0 = __shfl_sync(0xffffffffu, p[j][0], quad | src);
+      const float p1 = __shfl_sync(0xffffffffu, p[j][1], quad | src);
+      const float p2 = __shfl_sync(0xffffffffu, p[j][2], quad | src);
+      const float p3 = __shfl_sync(0xffffffffu, p[j][3], quad | src);
+      const float* v0 = vs + (8 * j + 2 * src) * KS + 2 * t4;
+      const float* v1 = v0 + KS;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        const float2 x = *reinterpret_cast<const float2*>(v0 + 8 * dt);
+        const float2 y = *reinterpret_cast<const float2*>(v1 + 8 * dt);
+        o[dt][0] = fmaf(p1, y.x, fmaf(p0, x.x, o[dt][0]));
+        o[dt][1] = fmaf(p1, y.y, fmaf(p0, x.y, o[dt][1]));
+        o[dt][2] = fmaf(p3, y.x, fmaf(p2, x.x, o[dt][2]));
+        o[dt][3] = fmaf(p3, y.y, fmaf(p2, x.y, o[dt][3]));
       }
     }
   }
 }
 
 template <typename T, int HD, bool kKvScratch>
-cudaError_t attn_tiled_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
-  auto kernel = attn_tiled_kernel<T, HD, kKvScratch>;
-  const size_t smem = attn_tiled_smem_bytes(a.m, HD, a.key_tile);
-  if (a.key_tile < 32 || smem > kMaxSmem) return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, float scale) {
+  constexpr int KT = flash_key_tile(HD), KST = flash_stride<T>(HD), KS = key_stride(HD);
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  T* kbuf = reinterpret_cast<T*>(flash_smem);  // 2 stages of (KT, KST)
+  T* vbuf = kbuf + 2 * KT * KST;               // 2 stages of (KT, KST)
+  float* qs = reinterpret_cast<float*>(vbuf + 2 * KT * KST);  // f32: the block's (64, KS) q rows
+  const int w = blockIdx.x, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tiles16 = cdiv(a.m, 16), ntiles = cdiv(a.n, KT);
+  const float* bias_h = a.bias + (size_t)h * a.m * a.n;
+  // block z takes the window's 64-row groups z, z + tiles, ...; a warp past
+  // M computes on zero rows and writes nothing, so every warp joins the syncs
+  for (int rg = blockIdx.z; rg * kFlashWarps < tiles16; rg += a.tiles) {
+    const int r0 = 16 * (rg * kFlashWarps + warp);
+    const int rows[2] = {r0 + g, r0 + g + 8};
+    const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * a.n : nullptr,
+                                  rows[1] < a.m ? bias_h + (size_t)rows[1] * a.n : nullptr};
+    uint32_t qa[kBf16 ? HD / 16 : 1][4];
+    if constexpr (kBf16) {
+      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = rows[r & 1], col = 16 * kk + 2 * t4 + 8 * (r >> 1);
+          qa[kk][r] = row < a.m ? load_pair(q + ((size_t)w * a.m + row) * a.c + h * a.hd + col,
+                                            a.vec, col, a.hd)
+                                : 0u;
+        }
+      }
+    } else {
+      const float* q = static_cast<const float*>(a.q);
+      for (int e = threadIdx.x; e < 16 * kFlashWarps * HD; e += kFlashThreads) {
+        const int r = e / HD, d = e - r * HD, row = 16 * rg * kFlashWarps + r;
+        qs[r * KS + d] = row < a.m && d < a.hd ? q[((size_t)w * a.m + row) * a.c + h * a.hd + d] : 0.f;
+      }
+    }
+    float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
+    float o[HD / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+
+    flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0);
+    cp_async_commit();
+    for (int it = 0; it < ntiles; ++it) {
+      const int buf = it & 1, t0 = it * KT;
+      if (it + 1 < ntiles)
+        flash_stage<T, HD, kKvScratch>(kbuf + (buf ^ 1) * KT * KST, vbuf + (buf ^ 1) * KT * KST, a, w,
+                                       h, t0 + KT);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile's copies have landed
+      __syncthreads();
+      const T* ks = kbuf + buf * KT * KST;
+      const T* vs = vbuf + buf * KT * KST;
+      float s[KT / 8][4];
+      if constexpr (kBf16) {
+        flash_scores<HD, KT>(s, qa, ks, lane);
+      } else {
+        const float* q0 = qs + (16 * warp + g) * KS;
+        flash_scores<HD, KT>(s, q0, q0 + 8 * KS, ks, lane);
+      }
+      // scale and bias, -inf past N; the tile's max of each row over its
+      // four lanes raises the running max
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float tm = mx[hr];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = t0 + 8 * j + 2 * t4 + e;
+            const float b = (key < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key) : 0.f;
+            float& v = s[j][2 * hr + e];
+            v = key < a.n ? fmaf(v, scale, b) : __int_as_float(0xff800000);
+            tm = fmaxf(tm, v);
+          }
+        }
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+        const float ml = tm * kLog2e;
+        const float alpha = fast_exp2(fmaf(mx[hr], kLog2e, -ml));
+        mx[hr] = tm;
+        float ts = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = s[j][2 * hr + e];
+            v = fast_exp2(fmaf(v, kLog2e, -ml));
+            ts += v;
+          }
+        }
+        sum[hr] = fmaf(sum[hr], alpha, ts);
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt) {
+          o[dt][2 * hr] *= alpha;
+          o[dt][2 * hr + 1] *= alpha;
+        }
+      }
+      flash_pv<HD, KT>(o, s, vs, lane);
+      __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float l = sum[hr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (rows[hr] >= a.m) continue;
+      const float inv = 1.f / l;
+      T* out = static_cast<T*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * a.hd;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt)
+        store_pair(out, 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
+    }
+  }
+}
+
+template <typename T, int HD, bool kKvScratch>
+cudaError_t attn_flash_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
+  auto kernel = attn_flash_kernel<T, HD, kKvScratch>;
+  const size_t smem = flash_smem_bytes<T>(HD);
+  if (a.key_tile != flash_key_tile(HD) || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info == nullptr) {
-    kernel<<<dim3(a.b, a.heads, a.tiles), kAttnThreads, smem, stream>>>(a, scale);
+    kernel<<<dim3(a.b, a.heads, a.tiles), kFlashThreads, smem, stream>>>(a, scale);
     return cudaGetLastError();
   }
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kAttnThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFlashThreads, smem);
   if (err != cudaSuccess) return err;
   info[0] = attr.numRegs;
   info[1] = (long long)attr.localSizeBytes;
   info[2] = (long long)smem;
-  info[3] = kAttnThreads;
+  info[3] = kFlashThreads;
   info[4] = blocks;
-  info[5] = kTiledJ;
+  info[5] = 0;  // no row share: a warp's scores are 16-row fragments
   info[6] = a.key_tile;
   return cudaSuccess;
 }
@@ -1422,27 +1657,49 @@ cudaError_t attn_tiled_run(const AttnArgs& a, float scale, long long* info, cuda
 // Shared memory of the kernel a launch with this key tile takes
 // (attn_tiled_smem_bytes or attn_smem_bytes in ops/window_attn_cuda.py).
 size_t attn_launch_smem_bytes(int is_bf16, int m, int n, int hd, int key_tile) {
-  if (key_tile) return attn_tiled_smem_bytes(m, hd, key_tile);
-  return is_bf16 && hd >= 16 ? attn_mma_smem_bytes(n, hd) : attn_smem_bytes(n, hd);
+  const int p = padded_hd(hd);
+  if (key_tile)
+    return is_bf16 ? flash_smem_bytes<__nv_bfloat16>(flash_hd<__nv_bfloat16>(p))
+                   : flash_smem_bytes<float>(flash_hd<float>(p));
+  return is_bf16 && p >= 16 ? attn_mma_smem_bytes(n, p) : attn_smem_bytes(n, p);
 }
 
 // q, k and v start on kChunk-element boundaries (the head offsets and row
-// strides are multiples of head_dim, so every row does too).
+// strides are multiples of head_dim, so every row does too) and head_dim is
+// the instantiation's own.
 template <typename T, int HD>
 bool attn_vec_ok(const AttnArgs& a, bool kv_scratch) {
+  if (a.hd != HD) return false;
   const uintptr_t align = kChunk<T, HD> * sizeof(T);
   for (const void* p : {a.q, a.k, kv_scratch ? a.k : a.v})
     if (reinterpret_cast<uintptr_t>(p) % align) return false;
   return true;
 }
 
+// The key-tiled kernel's 16-byte copies: every row starts on a 16-byte
+// boundary (q, k, v, C and the head offsets) and hd fills whole chunks.
+template <typename T>
+bool flash_vec_ok(const AttnArgs& a, bool kv_scratch) {
+  constexpr int CH = 16 / (int)sizeof(T);
+  if (a.hd % CH || a.c % CH) return false;
+  for (const void* p : {a.q, a.k, kv_scratch ? a.k : a.v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 // The kernel the plan's key tile names: key-tiled, else bf16 at head_dim >=
 // 16 on the tensor cores, else the scalar kernel at the row share N asks.
+// Above head_dim 32 only the key-tiled kernel is instantiated.
 template <typename T, int HD, bool kKvScratch>
 cudaError_t attn_run_hd(AttnArgs a, float scale, long long* info, cudaStream_t stream) {
+  if (a.key_tile) {
+    if (info == nullptr) a.vec = flash_vec_ok<T>(a, kKvScratch);
+    return attn_flash_run<T, flash_hd<T>(HD), kKvScratch>(a, scale, info, stream);
+  }
   if (info == nullptr) a.vec = attn_vec_ok<T, HD>(a, kKvScratch);
-  if (a.key_tile) return attn_tiled_run<T, HD, kKvScratch>(a, scale, info, stream);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 16) {
+  if constexpr (HD > 32) {
+    return cudaErrorInvalidValue;
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 16) {
     return attn_mma_run<HD, kKvScratch>(a, scale, info, stream);
   } else {
     const int j = row_share(a.n);
@@ -1456,16 +1713,20 @@ cudaError_t attn_run_hd(AttnArgs a, float scale, long long* info, cudaStream_t s
 }
 
 template <typename T, bool kKvScratch>
-cudaError_t attn_run_t(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
+cudaError_t attn_run_t(AttnArgs a, float scale, long long* info, cudaStream_t stream) {
   if (a.heads < 1 || a.c % a.heads || a.tiles < 1 || a.tiles > 65535)
     return cudaErrorInvalidValue;
-  switch (a.c / a.heads) {
+  a.hd = a.c / a.heads;
+  switch (padded_hd(a.hd)) {
     case 1: return attn_run_hd<T, 1, kKvScratch>(a, scale, info, stream);
     case 2: return attn_run_hd<T, 2, kKvScratch>(a, scale, info, stream);
     case 4: return attn_run_hd<T, 4, kKvScratch>(a, scale, info, stream);
     case 8: return attn_run_hd<T, 8, kKvScratch>(a, scale, info, stream);
     case 16: return attn_run_hd<T, 16, kKvScratch>(a, scale, info, stream);
     case 32: return attn_run_hd<T, 32, kKvScratch>(a, scale, info, stream);
+    case 64: return attn_run_hd<T, 64, kKvScratch>(a, scale, info, stream);
+    case 128: return attn_run_hd<T, 128, kKvScratch>(a, scale, info, stream);
+    case 256: return attn_run_hd<T, 256, kKvScratch>(a, scale, info, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -51,11 +51,13 @@ _ACT_CODES = {
     "gelu": 0, "default": 0, "relu": 1, "relu6": 2, "sigmoid": 3, "tanh": 4, "lrelu": 5,
     "leaky_relu": 5, "elu": 6, "softplus": 7, "identity": 8, "none": 8,
 }
-_HEAD_DIMS = (1, 2, 4, 8, 16, 32)
+_MAX_HEAD_DIM = 256  # the largest head_dim the kernels are instantiated at
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 _SM_SMEM = 233472  # bytes of shared memory of one Hopper SM, for all its blocks
-_TILE_KEYS = 512  # the key-tiled kernels' tiles are multiples of this many keys
+_TILE_KEYS = 512  # the key-tiled backward's tiles at head_dim <= 32 are multiples of this many keys
+_WIDE_TILE_KEYS = 8  # the wide backward's (head_dim > 32) tiles are multiples of this many keys
 ATTN_THREADS = 256  # threads of a forward attention block (kAttnThreads in csrc/window_common.cuh)
+FLASH_THREADS = 128  # threads of a key-tiled forward block, four 16-row tiles (kFlashThreads)
 
 
 class SwinBlockParams(NamedTuple):
@@ -284,7 +286,7 @@ _SIGNATURES = {
     },
     "attn_core_bwd": {
         # 9 ints, the score scale, 10 tensor pointers and the stream
-        "attn_core_backward": ([_CI] * 9 + [_CF] + [_VP] * 11, _CI),
+        "attn_core_backward": ([_CI] * 9 + [_CF] + [_VP] * 12, _CI),
         "attn_core_bwd_smem_bytes": ([_CI] * 6, _LL),
         "attn_core_bwd_occupancy": ([_CI] * 7 + [_LLP], _CI),
     },
@@ -320,9 +322,20 @@ def _refuse_grad(name: str, tensors) -> None:
         )
 
 
+def _padded_head_dim(head_dim: int) -> int:
+    """The head_dim the kernels run ``head_dim`` at (``padded_hd`` in
+    csrc/device_common.cuh): the least of 1, 2, 4, ..., 256 that holds it;
+    the columns past ``head_dim`` are zeros. Raises ``ValueError`` above
+    256, the largest instantiated (ROADMAP C7)."""
+    if not 1 <= head_dim <= _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {head_dim}: the attention kernels take head_dim 1 to {_MAX_HEAD_DIM}")
+    return 1 << (head_dim - 1).bit_length()
+
+
 def _check_head_dim(c: int, num_heads: int) -> None:
-    if c % num_heads or c // num_heads not in _HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {c}/{num_heads} not in {_HEAD_DIMS}")
+    if num_heads < 1 or c % num_heads:
+        raise ValueError(f"{num_heads} heads do not divide C {c}")
+    _padded_head_dim(c // num_heads)
 
 
 def _prepare_params(params, shapes: dict, dt: torch.dtype, device) -> dict:
@@ -438,15 +451,17 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
+    wide = _padded_head_dim(c // num_heads) > 32
+    dq_acc = torch.empty((b_, m, c), dtype=torch.float32, device=q.device) if wide else None
     rc = lib.attn_core_backward(
         int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share, plan.key_tile,
         float((c // num_heads) ** -0.5),
-        *[t.data_ptr() for t in (q, k, v, bias32, g, dq, dk, dv, partial, dbias)], _stream(q),
+        *[t.data_ptr() for t in (q, k, v, bias32, g, dq, dk, dv, partial, dbias)],
+        None if dq_acc is None else dq_acc.data_ptr(), _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"attn_core_backward kernel launch failed: CUDA error {rc}")
-    launch_counts["attn_core_backward" if plan.row_share else
-                  "attn_core_backward_key_tiles" if plan.key_tile else "attn_core_backward_long_rows"] += 1
+    launch_counts[bwd_counter(plan, c // num_heads)] += 1
     return dq, dk, dv, dbias.to(bias.dtype)
 
 
@@ -461,35 +476,50 @@ class BwdPlan(NamedTuple):
     long-row variant, which sweeps each row three times and keeps the dbias
     sums in global memory; ``key_tile`` is 0, or the keys of one tile of the
     key-tiled variant (rows whose k and v do not fit in one block's shared
-    memory: it stages them a tile at a time); ``smem_bytes`` is its shared
-    memory per block."""
+    memory: it stages them a tile at a time; above head_dim 32 every row
+    takes it, as the wide kernel ``attn_bwd_wide_kernel``); ``smem_bytes``
+    is its shared memory per block."""
 
     row_share: int
     smem_bytes: int
     key_tile: int = 0
 
 
+def bwd_counter(plan: BwdPlan, head_dim: int) -> str:
+    """The launch counter of the backward kernel ``plan`` takes at
+    ``head_dim``."""
+    if _padded_head_dim(head_dim) > 32:
+        return "attn_core_backward_wide"
+    if plan.row_share:
+        return "attn_core_backward"
+    return "attn_core_backward_key_tiles" if plan.key_tile else "attn_core_backward_long_rows"
+
+
 def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int, key_tile: int = 0) -> int:
     """Shared memory of a backward block (``bwd_smem_floats`` in
-    csrc/attn_core_bwd.cu): the padded k, v, q and g rows, three row
-    statistics, and with a row share the (M, N) dbias plane; with a key
-    tile, the k and v rows of one tile and the (M, head_dim) dq sums."""
-    ks = _key_stride(head_dim)
+    csrc/attn_core_bwd.cu) at the padded head_dim: the padded k, v, q and g
+    rows, three row statistics, and with a row share the (M, N) dbias plane;
+    with a key tile, the k and v rows of one tile and the (M, head_dim) dq
+    sums; above head_dim 32 (the wide kernel), the q and g rows, one tile's
+    k and v rows and two (M, key_tile) planes."""
+    hd = _padded_head_dim(head_dim)
+    ks = _key_stride(hd)
+    if hd > 32:
+        return 4 * (2 * (m + key_tile) * ks + 2 * m * key_tile + 3 * m)
     if key_tile:
-        return 4 * (2 * (key_tile + m) * ks + 3 * m + m * head_dim)
+        return 4 * (2 * (key_tile + m) * ks + 3 * m + m * hd)
     return 4 * (2 * (n + m) * ks + 3 * m + (m * n if row_share else 0))
 
 
-def _key_tile(fixed: int, per_key: int, blocks: int, what: str) -> int:
-    """The most keys, a multiple of ``_TILE_KEYS``, whose rows of
-    ``per_key`` bytes fit beside ``fixed`` bytes in a block of which
-    ``blocks`` share one SM. Raises ``ValueError`` when not one multiple
-    fits."""
+def _key_tile(fixed: int, per_key: int, blocks: int, what: str, unit: int = _TILE_KEYS) -> int:
+    """The most keys, a multiple of ``unit``, whose rows of ``per_key``
+    bytes fit beside ``fixed`` bytes in a block of which ``blocks`` share
+    one SM. Raises ``ValueError`` when not one multiple fits."""
     budget = min(_MAX_SMEM, _SM_SMEM // blocks - 1024)  # the SM keeps 1 KB a block
-    tile = (budget - fixed) // per_key // _TILE_KEYS * _TILE_KEYS
+    tile = (budget - fixed) // per_key // unit * unit
     if tile <= 0:
         raise ValueError(f"{what}: {fixed} B of shared memory per block leave no room for a tile "
-                         f"of {_TILE_KEYS} keys (limit {budget})")
+                         f"of {unit} keys (limit {budget})")
     return tile
 
 
@@ -500,11 +530,21 @@ def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     registers (the fewest J with N <= 32 J); rows whose k/v, q/g rows fit
     take the long-row variant; longer rows take the key-tiled variant,
     whose tile is a function of head_dim and M alone (two blocks per SM
-    where head_dim <= 8, as the long rows run). Raises ``ValueError`` only
-    when the query rows leave no room for a tile: the autograd Functions
-    call it before their forward, so no backward refuses a shape whose
-    forward ran. A function of its arguments alone."""
-    hd = c // num_heads
+    where head_dim <= 8, as the long rows run). Above head_dim 32 every row
+    takes the wide kernel, in tiles of a multiple of 8 keys. A head_dim
+    between the instantiated ones plans as the next one up. Raises
+    ``ValueError`` only when the query rows leave no room for a tile or
+    head_dim is above 256: the autograd Functions call it before their
+    forward, so no backward refuses a shape whose forward ran. A function
+    of its arguments alone."""
+    _check_head_dim(c, num_heads)
+    hd = _padded_head_dim(c // num_heads)
+    ks = _key_stride(hd)
+    if hd > 32:
+        tile = _key_tile(4 * (2 * m * ks + 3 * m), 4 * (2 * ks + 2 * m), 1,
+                         f"the attention backward at {m} query rows of head_dim {c // num_heads}",
+                         _WIDE_TILE_KEYS)
+        return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0, tile), tile)
     for j in _BWD_ROW_SHARES:
         if n <= 32 * j:
             smem = attn_core_bwd_smem_bytes(m, n, hd, j)
@@ -514,7 +554,6 @@ def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     smem = attn_core_bwd_smem_bytes(m, n, hd, 0)
     if smem <= _MAX_SMEM:
         return BwdPlan(0, smem)
-    ks = _key_stride(hd)
     tile = _key_tile(4 * (2 * m * ks + 3 * m + m * hd), 8 * ks, 2 if hd <= 8 else 1,
                      f"the attention backward at {m} query rows of head_dim {hd}")
     return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0, tile), tile)
@@ -565,48 +604,61 @@ def _key_stride(head_dim: int) -> int:
 
 
 def attn_rows(head_dim: int, bf16: bool = False) -> int:
-    """Query rows a warp of the forward attention takes at once: one, or 16
-    (an mma tile) for bf16 at head_dim >= 16, which runs on the tensor
-    cores (``attn_kernel_mma`` in csrc/window_common.cuh)."""
-    return 16 if bf16 and head_dim >= 16 else 1
+    """Query rows a warp of the untiled forward attention takes at once:
+    one, or 16 (an mma tile) for bf16 at head_dim >= 16 (padded), which
+    runs on the tensor cores (``attn_kernel_mma`` in
+    csrc/window_common.cuh)."""
+    return 16 if bf16 and _padded_head_dim(head_dim) >= 16 else 1
 
 
 def attn_smem_bytes(n: int, head_dim: int, bf16: bool = False) -> int:
-    """Shared memory of a forward attention block, which stages one
-    window's k and v rows (``attn_smem_bytes`` and, for the tensor-core
-    kernel, ``attn_mma_smem_bytes`` in csrc/window_common.cuh)."""
-    if bf16 and head_dim >= 16:
+    """Shared memory of an untiled forward attention block, which stages
+    one window's k and v rows at the padded head_dim (``attn_smem_bytes``
+    and, for the tensor-core kernel, ``attn_mma_smem_bytes`` in
+    csrc/window_common.cuh)."""
+    hd = _padded_head_dim(head_dim)
+    if bf16 and hd >= 16:
         keys = -(-n // 16) * 16
-        return 2 * (keys * (head_dim + 8) + head_dim * (keys + 8))
-    return 4 * 2 * n * _key_stride(head_dim)
+        return 2 * (keys * (hd + 8) + hd * (keys + 8))
+    return 4 * 2 * n * _key_stride(hd)
 
 
-def attn_tiled_smem_bytes(m: int, head_dim: int, key_tile: int) -> int:
-    """Shared memory of a block of the key-tiled forward
-    (``attn_tiled_smem_bytes`` in csrc/window_common.cuh): one tile's k and
-    v rows in f32, and each query row's running max, sum and (head_dim,)
+def _flash_head_dim(head_dim: int, bf16: bool) -> int:
+    """The head_dim the key-tiled forward runs at (``flash_hd``): the
+    padded one, at least 8 in f32 (8-column groups) and 16 in bf16 (the
+    mma's depth)."""
+    return max(_padded_head_dim(head_dim), 16 if bf16 else 8)
+
+
+def attn_tiled_keys(head_dim: int, bf16: bool = False) -> int:
+    """Keys of one tile of the key-tiled forward (``flash_key_tile``): a
+    warp's (16, tile) scores stay in registers beside its (16, head_dim)
     output sums."""
-    return 4 * (2 * key_tile * _key_stride(head_dim) + m * (head_dim + 2))
+    hd = _flash_head_dim(head_dim, bf16)
+    return 64 if hd <= 64 else 32 if hd <= 128 else 16
 
 
-def attn_min_blocks(head_dim: int) -> int:
-    """Blocks per SM the forward attention's registers are capped for
-    (``attn_min_blocks`` in csrc/window_common.cuh)."""
-    return 4 if head_dim <= 4 else 2 if head_dim <= 16 else 1
+def attn_tiled_smem_bytes(head_dim: int, bf16: bool = False) -> int:
+    """Shared memory of a block of the key-tiled forward
+    (``flash_smem_bytes`` in csrc/window_common.cuh): two stages of one
+    tile's k and v rows in the operand type, and in f32 the block's 64 q
+    rows."""
+    hd = _flash_head_dim(head_dim, bf16)
+    stride = hd + 8 if bf16 else _key_stride(hd)
+    kv = (2 if bf16 else 4) * 4 * attn_tiled_keys(head_dim, bf16) * stride
+    return kv + (0 if bf16 else 4 * 64 * _key_stride(hd))
 
 
 def attn_key_tile(m: int, n: int, head_dim: int, bf16: bool = False) -> int:
     """0 where one block stages a window's k and v rows whole (the kernels
-    of ``attn_smem_bytes``), else the keys of one tile of the key-tiled
-    forward: a function of head_dim and M alone, sized so that the blocks
-    the registers allow per SM (``attn_min_blocks``) fit in its shared
-    memory. bf16 runs the same tiles as f32 (the tiled kernel stages f32
-    rows)."""
-    if attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM:
+    of ``attn_smem_bytes``, instantiated up to head_dim 32), else the keys
+    of one tile of the key-tiled forward (``attn_tiled_keys``), which runs
+    every row whose k and v do not fit and every head_dim above 32: a
+    function of head_dim and the operand type alone (M does not enter).
+    Raises ``ValueError`` above head_dim 256."""
+    if _padded_head_dim(head_dim) <= 32 and attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM:
         return 0
-    return _key_tile(attn_tiled_smem_bytes(m, head_dim, 0), 8 * _key_stride(head_dim),
-                     attn_min_blocks(head_dim),
-                     f"the forward attention at {m} query rows of head_dim {head_dim}")
+    return attn_tiled_keys(head_dim, bf16)
 
 
 class AttnPlan(NamedTuple):
@@ -614,7 +666,8 @@ class AttnPlan(NamedTuple):
     head, tile) has warp w take the window's row items (of ``attn_rows``
     query rows each) tile * warps + w + k * warps * tiles, k = 0, 1, ...;
     ``key_tile`` is 0, or the keys a block of the key-tiled kernel stages
-    at a time (``attn_key_tile``)."""
+    at a time (``attn_key_tile``), whose blocks take 64-row groups (four
+    warps of 16 rows) tile, tile + tiles, ...."""
 
     tiles: int
     threads: int  # threads per block
@@ -629,11 +682,14 @@ def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: i
     a card with ``sms`` SMs of which each holds ``blocks_per_sm`` of its
     blocks: the fewest tiles a window for which the blocks fill two waves
     of the card, and no more than leave each warp an item. Rows whose k and
-    v do not fit in one block take the key-tiled kernel (``attn_key_tile``),
-    which runs one query row a warp. A function of its arguments alone."""
+    v do not fit in one block, and head_dims above 32, take the key-tiled
+    kernel (``attn_key_tile``), whose tiles are the window's 64-row groups.
+    A function of its arguments alone."""
     key_tile = attn_key_tile(m, n, head_dim, bf16)
-    warps = ATTN_THREADS // 32
-    rows = 1 if key_tile else attn_rows(head_dim, bf16)
+    if key_tile:
+        warps, rows = FLASH_THREADS // 32, 16
+    else:
+        warps, rows = ATTN_THREADS // 32, attn_rows(head_dim, bf16)
     most = max(1, -(-m // rows) // warps)
     want = -(-2 * sms * max(1, blocks_per_sm) // (b_ * heads))
     return AttnPlan(max(1, min(most, want)), warps * 32, key_tile)

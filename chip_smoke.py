@@ -1811,6 +1811,71 @@ def attn_forward_times(torch, calls=5):
     return {"b4": b4, "b1_attn_stage": b1}
 
 
+# the key-tiled forward's timing shapes (the PR 15 table in PERF.md section
+# 6): (head_dim, N) at B_ 20, M 49 and 16 heads, the flagship's level 2
+# with 31 buffer frames first
+TILED_TIMING = ((16, 1519), (16, 2989), (4, 7399))
+
+
+def attn_tiled_times(torch, iters=50):
+    """Device ms of the key-tiled forward of the package on sys.path at
+    TILED_TIMING, f32 and bf16, launched through the bare core's library
+    with a key tile also where the plan takes the untiled kernel (bf16 at N
+    1519), each checked against the twin, beside the plan's own kernel and
+    torch's SDPA forward on the same inputs. Seeded random inputs, so two
+    checkouts see the same ones: to compare trees, call it from each tree's
+    root in turn (a checkout of PR 15, which has no ``attn_tiled_keys``,
+    takes its f32 plan's tile in bf16 too, as its plan did)."""
+    from bde2vid_tpu_torch.ops import window_attn_cuda as wac
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dev = torch.device("cuda")
+    heads, m, b = 16, 49, 20
+    lib = wac._lib("window_attention")
+    rows = []
+    for hd, n in TILED_TIMING:
+        c = heads * hd
+        q32, k32, v32 = (torch.randn(b, r, c, generator=gen, device=dev) for r in (m, n, n))
+        bias = torch.randn(heads, m, n, generator=gen, device=dev) * 0.5
+        f32_plan = wac.attn_plan_for("window_attention", b, m, n, c, heads, torch.float32, 0)
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            q, k, v = (t.to(dt) for t in (q32, k32, v32))
+            plan = wac.attn_plan_for("window_attention", b, m, n, c, heads, dt, 0)
+            tile = plan.key_tile or (wac.attn_tiled_keys(hd, bf16) if hasattr(wac, "attn_tiled_keys")
+                                     else f32_plan.key_tile)
+            tiles = plan.tiles if plan.key_tile else f32_plan.tiles
+            out = torch.empty_like(q)
+
+            def tiled():
+                rc = lib.window_attention_forward(
+                    int(bf16), b, m, n, c, heads, tiles, tile, float(hd ** -0.5),
+                    *[t.data_ptr() for t in (q, k, v, bias, out)], wac._stream(q))
+                if rc:
+                    raise RuntimeError(f"window_attention_forward: CUDA error {rc}")
+
+            with torch.no_grad():
+                tiled()
+                ref = wac.window_attention_reference(q, k, v, bias, heads)
+                torch.cuda.synchronize()
+                (err,) = check_close(f"tiled forward head_dim {hd} N {n}", (out,), (ref,), dt)
+                first = out.clone()
+                tiled()
+                torch.cuda.synchronize()
+                if not torch.equal(first, out):
+                    raise AssertionError(f"tiled forward head_dim {hd} N {n}: two runs differ")
+                ms = cuda_ms(torch, tiled, iters, 5)
+                plan_ms = cuda_ms(torch, lambda: wac.fused_window_attention(q, k, v, bias, heads), iters, 5)
+            lib_ms, backend, _ = sdpa_forward_ms(torch, q, k, v, bias, heads, iters=iters)
+            flops, nbytes = window_attention_cost(b, m, n, c, heads, q.element_size())
+            rows.append({"head_dim": hd, "keys": n, "dtype": str(dt).split(".")[-1], "key_tile": tile,
+                         "tiles": tiles, "max_abs_err": err, "tiled_ms": ms, "plan_key_tile": plan.key_tile,
+                         "plan_ms": plan_ms, "sdpa_ms": lib_ms, "sdpa": backend,
+                         "bound_ms": 1e3 * max(flops / PEAK_FLOPS[str(dt).split(".")[-1]],
+                                               nbytes / PEAK_BYTES)})
+    return rows
+
+
 def phase_attention(torch, launch_counts):
     """The ops.fused_window_attention entry point, forward and backward, at
     one 8x8 frame's dilated attention shapes (2 calls at level 0, 3 at
@@ -2148,20 +2213,33 @@ def long_buffer_steps(torch, launch_counts):
     return rows
 
 
+def card_name():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
+    """With no arguments, every phase. ``--tiled-times [ROOT]`` runs only
+    attn_tiled_times for the package of the checkout at ROOT (default this
+    one) and prints its rows with the card: run it from two checkouts in
+    turn, in one call, to compare their key-tiled forward."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = sys.argv[2] if sys.argv[1:2] == ["--tiled-times"] and len(sys.argv) > 2 else ROOT
+    sys.path.insert(0, os.path.abspath(root))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--tiled-times"]:
+        emit({"tiled_times": attn_tiled_times(torch), "root": os.path.abspath(root), "card": card_name()})
+        return 0
     from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     phase_build()
     cases = phase_kernels(torch)
     bwd_cases = phase_kernels_training(torch)

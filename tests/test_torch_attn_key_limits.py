@@ -24,6 +24,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     attn_core_bwd_smem_bytes,
     attn_forward_plan,
     attn_smem_bytes,
+    attn_tiled_keys,
     attn_tiled_smem_bytes,
 )
 
@@ -62,8 +63,9 @@ def test_forward_plan_refuses_above_its_key_limit(head_dim, dtype, limit):
     for n in (limit + 1, FAR[head_dim]):
         tiled = plan(n)
         assert tiled.key_tile > 0 and tiled.key_tile % 32 == 0
-        assert attn_tiled_smem_bytes(49, head_dim, tiled.key_tile) <= _MAX_SMEM
-        # the tile is a function of head_dim and M alone
+        assert tiled.key_tile == attn_tiled_keys(head_dim, bf16)
+        assert attn_tiled_smem_bytes(head_dim, bf16) <= _MAX_SMEM
+        # the tile is a function of head_dim (and the operand type) alone
         assert tiled.key_tile == plan(FAR[head_dim] + 1000).key_tile
 
 

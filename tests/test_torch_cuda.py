@@ -165,11 +165,9 @@ def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, 
             assert (a.float() - r).abs().max().item() <= bound
 
 
-def _bwd_counter(plan):
+def _bwd_counter(plan, head_dim=16):
     """The launch counter of the backward variant ``plan`` picks."""
-    if plan.row_share:
-        return "attn_core_backward"
-    return "attn_core_backward_key_tiles" if plan.key_tile else "attn_core_backward_long_rows"
+    return wac.bwd_counter(plan, head_dim)
 
 
 @pytest.mark.cuda
@@ -912,9 +910,135 @@ def test_cuda_key_tiled_forward_occupancy_and_smem_are_the_plans(cuda_device, li
             occ = wac.attn_forward_occupancy(lib, 49, n, 16 * hd, 16, dt, index)
             tile = wac.attn_key_tile(49, n, hd, bf16)
             assert tile and occ["key_tile"] == tile and occ["blocks_per_sm"] >= 1
-            assert occ["smem_bytes"] == wac.attn_tiled_smem_bytes(49, hd, tile)
+            assert occ["smem_bytes"] == wac.attn_tiled_smem_bytes(hd, bf16)
+            assert occ["threads"] == wac.FLASH_THREADS
             plan = wac.attn_plan_for(lib, 3, 49, n, 16 * hd, 16, dt, index)
-            assert plan.key_tile == tile
+            assert plan.key_tile == tile and plan.threads == wac.FLASH_THREADS
     lib_ = wac._lib("window_attention")
-    assert lib_.window_attention_smem_bytes(0, 49, 2989, 256, 16, 512) == \
-        wac.attn_tiled_smem_bytes(49, 16, 512)
+    for bf16 in (0, 1):
+        assert lib_.window_attention_smem_bytes(bf16, 49, 2989, 256, 16, 64) == \
+            wac.attn_tiled_smem_bytes(16, bool(bf16))
+
+
+# Head dims between and above the instantiated ones (ROADMAP C6, repaired):
+# each runs at the next instantiated head_dim with zero columns past its
+# own; above 32 the forward takes the key-tiled kernel and the backward the
+# wide kernel. Heads per head_dim, so that C stays at most 256.
+_HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", sorted(_HEAD_DIM_HEADS))
+def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
+    """The bare core, the Swin block and the WindowAttention3D body (with
+    acc) at head_dim 3 to 256, M 49 and N 147, f32 and bf16: each matches
+    its twin, repeats bit for bit and counts the variant its plan names
+    (key-tiled exactly above head_dim 32)."""
+    heads, m, d, b_ = _HEAD_DIM_HEADS[hd], 49, 3, 5
+    c = heads * hd
+    q, k, v, bias = _attn_inputs(hd, b_, m, d * m, c, heads, cuda_device)
+    x, ctr, p = _flat_inputs(hd, d, b_, m, c, heads, cuda_device)
+    pb = _block_params(p)
+    for dt in (torch.float32, torch.bfloat16):
+        tiled = wac.attn_key_tile(m, d * m, hd, dt == torch.bfloat16) > 0
+        assert tiled == (hd > 32)
+        ins = [t.to(dt) for t in (q, k, v)]
+        xd, cd = x.to(dt), ctr.to(dt)
+        cases = (
+            ("fused_window_attention", lambda: (fused_window_attention(*ins, bias, heads),),
+             lambda: (window_attention_reference(*ins, bias, heads),)),
+            ("fused_swin_block", lambda: fused_swin_block(xd, cd, p, heads, 1, with_acc=True),
+             lambda: swin_block_reference(xd, cd, p, heads, 1, with_acc=True)),
+            ("fused_window_block", lambda: fused_window_block(xd, pb, heads, 1, with_acc=True),
+             lambda: window_block_reference(xd, pb, heads, 1, with_acc=True)),
+        )
+        for name, fn, twin in cases:
+            before = dict(launch_counts)
+            got, again, ref = fn(), fn(), twin()
+            torch.cuda.synchronize()
+            assert _launched(before) == {name + ("_key_tiles" if tiled else ""): 2}, (name, dt)
+            for a, b, r in zip(got, again, ref):
+                assert torch.equal(a, b), (name, dt)
+                assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (name, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", sorted(_HEAD_DIM_HEADS))
+def test_cuda_backward_matches_twin_at_each_head_dim(cuda_device, hd):
+    """The attention backward at head_dim 3 to 256, N 147 and 1519, f32 and
+    bf16: within the gates of attn_core_backward_reference, two runs bit
+    for bit, the wide kernel counted above head_dim 32."""
+    heads, m, b_ = _HEAD_DIM_HEADS[hd], 49, 5
+    c = heads * hd
+    for n in (147, 1519):
+        plan = wac.attn_core_bwd_plan(m, n, c, heads)
+        counter = wac.bwd_counter(plan, hd)
+        assert (counter == "attn_core_backward_wide") == (hd > 32)
+        q, k, v, bias = _attn_inputs(n + hd, b_, m, n, c, heads, cuda_device)
+        gr = torch.randn(b_, m, c, device=cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            ins = [t.to(dt) for t in (q, k, v)]
+            before = dict(launch_counts)
+            got = attn_core_backward(*ins, bias, gr.to(dt), heads)
+            again = attn_core_backward(*ins, bias, gr.to(dt), heads)
+            torch.cuda.synchronize()
+            assert _launched(before) == {counter: 2}
+            ref = attn_core_backward_reference(*ins, bias, gr.to(dt), heads)
+            for a, b, r in zip(got, again, ref):
+                assert torch.equal(a, b)
+                assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (n, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_key_tiled_forward_at_large_head_dims(cuda_device, hd):
+    """The key-tiled forward at head_dim 64, 128 and 256 over rows of 343,
+    1519 and 2989 keys (7, 31 and 61 frames of 7x7 windows), f32 and bf16,
+    repeated bit for bit."""
+    heads = 2
+    for n in (343, 1519, 2989):
+        q, k, v, bias = _attn_inputs(n, 3, 49, n, heads * hd, heads, cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            ins = [t.to(dt) for t in (q, k, v)]
+            before = dict(launch_counts)
+            got = fused_window_attention(*ins, bias, heads)
+            again = fused_window_attention(*ins, bias, heads)
+            ref = window_attention_reference(*ins, bias, heads)
+            torch.cuda.synchronize()
+            assert _launched(before) == {"fused_window_attention_key_tiles": 2}
+            assert torch.equal(got, again)
+            assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt), (n, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilate", [False, True])
+def test_cuda_four_head_block_at_c256_trains_on_the_kernel_path(cuda_device, dilate):
+    """A 4-head block at C 256 (head_dim 64, the flagship's level 2 with
+    num_heads 4) over 7 frames of 7x7 windows, forward and backward on the
+    kernel path (the key-tiled forward, the wide backward) vs the unfused
+    path: outputs within 2e-4, gradients within 1e-3 relative."""
+    torch.manual_seed(4)
+    c, frames, win = 256, 7, (7, 7)
+    x = torch.randn(frames, 1, 14, 14, c, device=cuda_device)
+    blk = twa.SwinTransformerBlock3D(c, 4, (frames, *win), dilate_win=dilate,
+                                     use_kernel=True).to(cuda_device)
+    outs, grads = [], []
+    for kernel in (True, False):
+        twa.set_attention_kernel(blk, kernel)
+        blk.zero_grad(set_to_none=True)
+        xl = x.clone().requires_grad_()
+        before = dict(launch_counts)
+        out = blk(xl)
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        want = {"fused_swin_block_key_tiles": 1, "attn_core_backward_wide": 1} if kernel else {}
+        assert _launched(before) == want
+        outs.append(out.detach())
+        grads.append({"x": xl.grad, **{k: p.grad for k, p in blk.named_parameters()}})
+    assert (outs[0] - outs[1]).abs().max().item() <= 2e-4
+    for key, gu in grads[1].items():
+        gk = grads[0][key]
+        if key == "attn.kv.bias":
+            gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
+        rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
+        assert rel <= 1e-3, (key, rel)
