@@ -1322,8 +1322,9 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
 // and outputs are rescaled by exp(old max - new max), p = exp(s - max) is
 // added into the outputs, and the division by the row's sum comes once, at
 // the end. The block's four warps (64 rows) share each tile of KT keys,
-// which cp.async double-buffers in shared memory in the operand type, so
-// the next tile loads while this one computes.
+// which cp.async double-buffers in shared memory in the operand type with
+// the tile's (64, KT) bias columns, so the next tile loads while this one
+// computes and no score waits on a load from L2.
 //   bf16: q k^T and p v on the tensor cores (m16n8k16, f32 accumulators):
 //         q's A fragments stay in registers, k rows are the B operand as
 //         they are, v rows reach p v's B operand through ldmatrix.trans;
@@ -1358,11 +1359,37 @@ __host__ __device__ constexpr int flash_stride(int hd) {
   return std::is_same<T, __nv_bfloat16>::value ? mma_k_stride(hd) : key_stride(hd);
 }
 
-// Two stages of k and v tiles in T, and for f32 the block's 64 q rows.
+// Row stride (floats) of a staged bias tile: float2 reads of 8 rows at one
+// column fall in distinct bank pairs but for one 2-way conflict.
+__host__ __device__ constexpr int flash_bias_stride(int hd) { return flash_key_tile(hd) + 4; }
+
+// Two stages of k and v tiles in T and of the (64, KT) bias tile in f32,
+// and for f32 the block's 64 q rows.
 template <typename T>
 size_t flash_smem_bytes(int hd) {
   const size_t kv = sizeof(T) * 4 * (size_t)flash_key_tile(hd) * flash_stride<T>(hd);
-  return kv + (std::is_same<T, float>::value ? sizeof(float) * 16 * kFlashWarps * key_stride(hd) : 0);
+  const size_t bias = sizeof(float) * 2 * 16 * kFlashWarps * flash_bias_stride(hd);
+  return kv + bias +
+         (std::is_same<T, float>::value ? sizeof(float) * 16 * kFlashWarps * key_stride(hd) : 0);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+// The bias of the block's 64 rows from row r0 against keys t0 .. t0 + KT -
+// 1 into bd ((64, KBS) f32) by 4-byte cp.async, zero past M and N.
+template <int HD>
+__device__ __forceinline__ void flash_stage_bias(float* bd, const float* bias_h, const AttnArgs& a,
+                                                 int r0, int t0) {
+  constexpr int KT = flash_key_tile(HD), KBS = flash_bias_stride(HD);
+  for (int e = threadIdx.x; e < 16 * kFlashWarps * KT; e += kFlashThreads) {
+    const int r = e / KT, key = e - r * KT;
+    const bool in = r0 + r < a.m && t0 + key < a.n;
+    cp_async4(bd + r * KBS + key, in ? bias_h + (size_t)(r0 + r) * a.n + t0 + key : bias_h, in ? 4 : 0);
+  }
 }
 
 // Keys t0 .. t0 + KT - 1 of window w's k and v columns of head h into kd, vd
@@ -1510,11 +1537,13 @@ __device__ __forceinline__ void flash_pv(float (&o)[HD / 8][4], const float (&p)
 template <typename T, int HD, bool kKvScratch>
 __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, float scale) {
   constexpr int KT = flash_key_tile(HD), KST = flash_stride<T>(HD), KS = key_stride(HD);
+  constexpr int KBS = flash_bias_stride(HD), BT = 16 * kFlashWarps * KBS;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char flash_smem[];
   T* kbuf = reinterpret_cast<T*>(flash_smem);  // 2 stages of (KT, KST)
   T* vbuf = kbuf + 2 * KT * KST;               // 2 stages of (KT, KST)
-  float* qs = reinterpret_cast<float*>(vbuf + 2 * KT * KST);  // f32: the block's (64, KS) q rows
+  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KST);  // 2 stages of (64, KBS) bias
+  float* qs = bbuf + 2 * BT;  // f32: the block's (64, KS) q rows
   const int w = blockIdx.x, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int tiles16 = cdiv(a.m, 16), ntiles = cdiv(a.n, KT);
@@ -1522,10 +1551,8 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
   // block z takes the window's 64-row groups z, z + tiles, ...; a warp past
   // M computes on zero rows and writes nothing, so every warp joins the syncs
   for (int rg = blockIdx.z; rg * kFlashWarps < tiles16; rg += a.tiles) {
-    const int r0 = 16 * (rg * kFlashWarps + warp);
+    const int r0 = 16 * (rg * kFlashWarps + warp), rb = 16 * rg * kFlashWarps;
     const int rows[2] = {r0 + g, r0 + g + 8};
-    const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * a.n : nullptr,
-                                  rows[1] < a.m ? bias_h + (size_t)rows[1] * a.n : nullptr};
     uint32_t qa[kBf16 ? HD / 16 : 1][4];
     if constexpr (kBf16) {
       const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -1552,17 +1579,21 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
     for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
     flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0);
+    flash_stage_bias<HD>(bbuf, bias_h, a, rb, 0);
     cp_async_commit();
     for (int it = 0; it < ntiles; ++it) {
       const int buf = it & 1, t0 = it * KT;
-      if (it + 1 < ntiles)
+      if (it + 1 < ntiles) {
         flash_stage<T, HD, kKvScratch>(kbuf + (buf ^ 1) * KT * KST, vbuf + (buf ^ 1) * KT * KST, a, w,
                                        h, t0 + KT);
+        flash_stage_bias<HD>(bbuf + (buf ^ 1) * BT, bias_h, a, rb, t0 + KT);
+      }
       cp_async_commit();
       cp_async_wait<1>();  // this tile's copies have landed
       __syncthreads();
       const T* ks = kbuf + buf * KT * KST;
       const T* vs = vbuf + buf * KT * KST;
+      const float* bs = bbuf + buf * BT + (16 * warp + g) * KBS + 2 * t4;  // row lane / 4
       float s[KT / 8][4];
       if constexpr (kBf16) {
         flash_scores<HD, KT>(s, qa, ks, lane);
@@ -1577,12 +1608,12 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
         float tm = mx[hr];
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(bs + 8 * hr * KBS + 8 * j);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = t0 + 8 * j + 2 * t4 + e;
-            const float b = (key < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key) : 0.f;
             float& v = s[j][2 * hr + e];
-            v = key < a.n ? fmaf(v, scale, b) : __int_as_float(0xff800000);
+            v = key < a.n ? fmaf(v, scale, e ? b.y : b.x) : __int_as_float(0xff800000);
             tm = fmaxf(tm, v);
           }
         }

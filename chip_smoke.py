@@ -189,6 +189,17 @@ TILED_FWD_KEYS = {16: (1453, 2897, 2989), 4: (7265, 7399)}
 TILED_FWD_FRAMES = {16: (30, 60, 61), 4: (149, 151)}
 TILED_BWD_ROWS = ((4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385), (16, 49, 2989),
                   (4, 49, 7399))
+# head dims (ROADMAP C6): the kernel cases' head_dims between and above the
+# flagship's 4 and 16 with their heads (C at most 256), and the head_dims
+# phase's flagship versions: num_heads 4 (head_dim 16 at level 0, 64 at
+# level 2) and 2 (32 and 128)
+HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1}
+HEAD_DIM_MODELS = (4, 2)
+# the key-tiled forward at the PR 15 table's shapes (TILED_TIMING) as PR 15
+# left it: ms per launch, f32 / bf16 (bf16 at N 1519 forced key-tiled), from
+# attn_tiled_times run from a checkout of PR 15 in the same call as this
+# PR's kernel (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+PR15_TILED_MS = {(16, 1519): (0.3331, 0.2925), (16, 2989): (0.6474, 0.5555), (4, 7399): (0.9078, 0.6565)}
 # the E2VID family at published widths: E2VIDRecurrent as the released
 # E2VID (rpg_e2vid E2VID_lightweight: base 32, 3 encoders of 64/128/256, 2
 # residual blocks, ConvLSTM, sum skips, transposed-conv decoders, BN), E2VID
@@ -1547,6 +1558,140 @@ def phase_key_tiles(torch, launch_counts):
     return fwd_launches["fused_swin_block_key_tiles"], step_launches["attn_core_backward_key_tiles"]
 
 
+def phase_kernels_head_dims(torch):
+    """ROADMAP C6 on the card: the three forward libraries (the bare core,
+    the Swin block's and the WindowAttention3D body's attention stage, with
+    acc) and the backward vs their twins at every HEAD_DIM_HEADS head_dim,
+    f32 and bf16, at the flagship's level-2 windows over 7 frames (B_ 20, M
+    49, N 343), each repeated bit for bit, the launch counted on the
+    variant its plan names (key-tiled forward and wide backward above
+    head_dim 32), with times per launch beside the bound; then the
+    key-tiled forward at TILED_TIMING through attn_tiled_times, beside PR
+    15's times. Returns the backward cases at the head_dims phase's level-2
+    shapes (head_dim 64 and 128 at C 256), which take the wide kernel."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import (
+        WindowBlockParams, attn_core_bwd_plan, attn_key_tile, bwd_counter, fused_swin_block,
+        fused_window_attention, fused_window_block, launch_counts, swin_block_reference,
+        window_block_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    b, m, d = 20, 49, 7
+    n = d * m
+    fwd, blocks, bwd = [], [], []
+    for hd, heads in HEAD_DIM_HEADS.items():
+        c = heads * hd
+        q32, k32, v32, g32 = rnd(b, m, c), rnd(b, n, c), rnd(b, n, c), rnd(b, m, c)
+        bias = rnd(heads, m, n, scale=0.5)
+        p32 = block_params(rnd, c, heads, m, n)
+        x32, c32 = rnd(d, b, m, c), rnd(b, m, c)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
+            case = fwd_core_case(torch, q, k, v, bias, heads, config="head_dims", head_dim=hd)
+            with torch.no_grad():
+                if not torch.equal(fused_window_attention(q, k, v, bias, heads),
+                                   fused_window_attention(q, k, v, bias, heads)):
+                    raise AssertionError(f"head_dim {hd} {name}: two window attention runs differ")
+            fwd.append({**case, "bitwise_repeat": True})
+            x, ctr, p = x32.to(dt), c32.to(dt), operand_weights(p32, dt)
+            pw = WindowBlockParams(*p[:10], p.bias)
+            tiled = attn_key_tile(m, n, hd, dt == torch.bfloat16) > 0
+            for lib, fn, twin in (
+                    ("swin_block", lambda: fused_swin_block(x, ctr, p, heads, d // 2, with_acc=True),
+                     lambda: swin_block_reference(x, ctr, p, heads, d // 2, with_acc=True)),
+                    ("window_block", lambda: fused_window_block(x, pw, heads, d // 2, with_acc=True),
+                     lambda: window_block_reference(x, pw, heads, d // 2, with_acc=True))):
+                counter = f"fused_{lib}" + ("_key_tiles" if tiled else "")
+                before = launch_counts[counter]
+                with torch.no_grad():
+                    got, again, ref = fn(), fn(), twin()
+                torch.cuda.synchronize()
+                what = f"{lib} head_dim {hd} {name}"
+                if launch_counts[counter] != before + 2:
+                    raise AssertionError(f"{what}: {counter} did not count its launches")
+                if not all(torch.equal(a, r) for a, r in zip(got, again)):
+                    raise AssertionError(f"{what}: two runs differ")
+                errs = check_close(what, got, ref, dt)
+                with torch.no_grad():
+                    blocks.append({"library": lib, "head_dim": hd, "heads": heads, "dtype": name,
+                                   "key_tiles": tiled, "max_abs_err": max(errs), "bitwise_repeat": True,
+                                   "kernel_ms": cuda_ms(torch, fn, 10), "plain_ms": cuda_ms(torch, twin, 3, 1)})
+            counter = bwd_counter(attn_core_bwd_plan(m, n, c, heads), hd)
+            before = launch_counts[counter]
+            case = bwd_case(torch, q, k, v, bias, g, heads, config="head_dims", level="level2",
+                            head_dim=str(hd))
+            if launch_counts[counter] < before + 2:
+                raise AssertionError(f"backward head_dim {hd} {name}: {counter} did not count its launches")
+            bwd.append({**case, "kernel": counter})
+    tiled = attn_tiled_times(torch)
+    for row in tiled:
+        row["pr15_ms"] = PR15_TILED_MS[(row["head_dim"], row["keys"])][row["dtype"] == "bfloat16"]
+    emit({"phase": "kernels", "kernel": "attention head dims",
+          "timing": "CUDA events over calls, inputs L2-warm; library = torch SDPA forward (bias as "
+                    "attn_mask) / SDPA backward alone; tiled_forward: attn_tiled_times, pr15_ms from "
+                    "PERF.md section 6",
+          "forward": fwd, "block_stages": blocks, "backward": bwd, "tiled_forward": tiled})
+    return [c for c in bwd if c["head_dim"] in ("64", "128")]
+
+
+def phase_head_dims(torch, launch_counts):
+    """ROADMAP C6 on the main path: the flagship at full width with
+    num_heads 4 (head_dim 16 at level 0, 64 at level 2) and 2 (32 and 128)
+    at 184x240, T=3: the eval forward on the kernel path (level 2 on the
+    key-tiled forward) vs the unfused path within 2e-4, then one train-mode
+    step (DropPath 0) whose loss and gradients are within 1e-3 of the
+    unfused path's (compare_grads; level 2 on the wide backward), with
+    exact launch counts. Returns the wide backward's launches."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    T = 3
+    rng = np.random.default_rng(16)
+    vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
+    tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
+    comp = SequenceLossComputer([{"type": "L1Loss"}])
+    rows, wide = [], 0
+    for heads in HEAD_DIM_MODELS:
+        cfg = model_config(FLAGSHIP_CFG)
+        cfg["generator"].update(num_heads=heads, drop_path_rate=0.0)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(16 + heads)
+            model = build_model("BDE2VID", cfg, train=True)
+        model.eval()
+        timed_forward(torch, model, vox)  # warm-up
+        launch_counts.clear()
+        img_kernel, kernel_ms = timed_forward(torch, model, vox)
+        fwd_launches = dict(launch_counts)
+        per_frame = {"fused_swin_block": 4 * T, "fused_swin_block_key_tiles": 6 * T}
+        expect_launches(f"head dims {heads} heads forward", fwd_launches, per_frame)
+        set_attention_kernel(model, False)
+        img_plain, plain_ms = timed_forward(torch, model, vox)
+        diff = (img_kernel - img_plain).abs().max().item()
+        if not (img_kernel.shape == (T, 1, 1, 184, 240) and torch.isfinite(img_kernel).all()
+                and diff <= 2e-4):
+            raise AssertionError(f"head dims {heads} heads: kernel vs unfused forward max diff {diff}")
+        model.train()
+        loss_k, grads_k, step_launches = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, True)
+        expect_launches(f"head dims {heads} heads step", step_launches,
+                        {**per_frame, "attn_core_backward": 4 * T, "attn_core_backward_wide": 6 * T})
+        loss_u, grads_u, _ = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, False)
+        wide += step_launches["attn_core_backward_wide"]
+        rows.append({"num_heads": heads, "head_dims": [64 // heads, 256 // heads], "T": T,
+                     "hw": [184, 240], "forward_launches": fwd_launches,
+                     "forward_max_abs_diff_vs_unfused": diff, "forward_ms_kernel_path": kernel_ms,
+                     "forward_ms_unfused_path": plain_ms, "step_launches": step_launches,
+                     **compare_grads(f"head dims {heads} heads step", loss_k, grads_k, loss_u, grads_u)})
+        del model
+    emit({"phase": "head_dims", "models": rows})
+    return wide
+
+
 def phase_kernels_long_rows(torch):
     """The attention backward at the shapes of long buffers, where it takes
     its long-row variant: 21 frames of 7x7 windows at the flagship's levels
@@ -2256,6 +2401,8 @@ def main() -> int:
     bwd_launches, long_launches = phase_train(torch, launch_counts, card)
     tiled_fwd_cases, tiled_bwd_cases = phase_kernels_key_tiles(torch)
     tiled_fwd_launches, tiled_bwd_launches = phase_key_tiles(torch, launch_counts)
+    wide_cases = phase_kernels_head_dims(torch)
+    wide_launches = phase_head_dims(torch, launch_counts)
 
     def per_frame(cases, key, blocks):
         # f32, per frame of the configuration: ``blocks`` launches per level,
@@ -2305,6 +2452,8 @@ def main() -> int:
                 tiled_fwd_cases, tiled_fwd_launches, {"level2": 6}, True),
         summary("attn_core_backward_key_tiles", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
                 tiled_bwd_cases, tiled_bwd_launches, {"level2": 6}, True),
+        summary("attn_core_backward_wide", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
+                wide_cases, wide_launches, {"level2": 6}, True),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
