@@ -1322,9 +1322,11 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
 // and outputs are rescaled by exp(old max - new max), p = exp(s - max) is
 // added into the outputs, and the division by the row's sum comes once, at
 // the end. The block's four warps (64 rows) share each tile of KT keys,
-// which cp.async double-buffers in shared memory in the operand type with
-// the tile's (64, KT) bias columns, so the next tile loads while this one
-// computes and no score waits on a load from L2.
+// which cp.async double-buffers in shared memory in the operand type, so
+// the next tile loads while this one computes; in f32 the tile's (64, KT)
+// bias columns come with it, so that no score waits on a load from L2 (in
+// bf16, where a tile costs a few mma, the 4-byte copies cost more than the
+// loads they hide: it reads the bias from L2).
 //   bf16: q k^T and p v on the tensor cores (m16n8k16, f32 accumulators):
 //         q's A fragments stay in registers, k rows are the B operand as
 //         they are, v rows reach p v's B operand through ldmatrix.trans;
@@ -1363,14 +1365,13 @@ __host__ __device__ constexpr int flash_stride(int hd) {
 // column fall in distinct bank pairs but for one 2-way conflict.
 __host__ __device__ constexpr int flash_bias_stride(int hd) { return flash_key_tile(hd) + 4; }
 
-// Two stages of k and v tiles in T and of the (64, KT) bias tile in f32,
-// and for f32 the block's 64 q rows.
+// Two stages of k and v tiles in T, and for f32 two stages of the (64, KT)
+// bias tile and the block's 64 q rows.
 template <typename T>
 size_t flash_smem_bytes(int hd) {
   const size_t kv = sizeof(T) * 4 * (size_t)flash_key_tile(hd) * flash_stride<T>(hd);
-  const size_t bias = sizeof(float) * 2 * 16 * kFlashWarps * flash_bias_stride(hd);
-  return kv + bias +
-         (std::is_same<T, float>::value ? sizeof(float) * 16 * kFlashWarps * key_stride(hd) : 0);
+  if (std::is_same<T, __nv_bfloat16>::value) return kv;
+  return kv + sizeof(float) * 16 * kFlashWarps * (2 * flash_bias_stride(hd) + key_stride(hd));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
@@ -1542,7 +1543,7 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
   extern __shared__ __align__(16) unsigned char flash_smem[];
   T* kbuf = reinterpret_cast<T*>(flash_smem);  // 2 stages of (KT, KST)
   T* vbuf = kbuf + 2 * KT * KST;               // 2 stages of (KT, KST)
-  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KST);  // 2 stages of (64, KBS) bias
+  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KST);  // f32: 2 stages of (64, KBS) bias
   float* qs = bbuf + 2 * BT;  // f32: the block's (64, KS) q rows
   const int w = blockIdx.x, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -1553,6 +1554,8 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
   for (int rg = blockIdx.z; rg * kFlashWarps < tiles16; rg += a.tiles) {
     const int r0 = 16 * (rg * kFlashWarps + warp), rb = 16 * rg * kFlashWarps;
     const int rows[2] = {r0 + g, r0 + g + 8};
+    const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * a.n : nullptr,
+                                  rows[1] < a.m ? bias_h + (size_t)rows[1] * a.n : nullptr};
     uint32_t qa[kBf16 ? HD / 16 : 1][4];
     if constexpr (kBf16) {
       const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -1579,14 +1582,14 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
     for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
     flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0);
-    flash_stage_bias<HD>(bbuf, bias_h, a, rb, 0);
+    if constexpr (!kBf16) flash_stage_bias<HD>(bbuf, bias_h, a, rb, 0);
     cp_async_commit();
     for (int it = 0; it < ntiles; ++it) {
       const int buf = it & 1, t0 = it * KT;
       if (it + 1 < ntiles) {
         flash_stage<T, HD, kKvScratch>(kbuf + (buf ^ 1) * KT * KST, vbuf + (buf ^ 1) * KT * KST, a, w,
                                        h, t0 + KT);
-        flash_stage_bias<HD>(bbuf + (buf ^ 1) * BT, bias_h, a, rb, t0 + KT);
+        if constexpr (!kBf16) flash_stage_bias<HD>(bbuf + (buf ^ 1) * BT, bias_h, a, rb, t0 + KT);
       }
       cp_async_commit();
       cp_async_wait<1>();  // this tile's copies have landed
@@ -1608,7 +1611,14 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
         float tm = mx[hr];
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) {
-          const float2 b = *reinterpret_cast<const float2*>(bs + 8 * hr * KBS + 8 * j);
+          float2 b;
+          if constexpr (kBf16) {
+            const int key = t0 + 8 * j + 2 * t4;
+            b.x = (key < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key) : 0.f;
+            b.y = (key + 1 < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key + 1) : 0.f;
+          } else {
+            b = *reinterpret_cast<const float2*>(bs + 8 * hr * KBS + 8 * j);
+          }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = t0 + 8 * j + 2 * t4 + e;

@@ -641,13 +641,13 @@ def attn_tiled_keys(head_dim: int, bf16: bool = False) -> int:
 def attn_tiled_smem_bytes(head_dim: int, bf16: bool = False) -> int:
     """Shared memory of a block of the key-tiled forward
     (``flash_smem_bytes`` in csrc/window_common.cuh): two stages of one
-    tile's k and v rows in the operand type and of its (64, tile + 4) f32
-    bias columns, and in f32 the block's 64 q rows."""
+    tile's k and v rows in the operand type, and in f32 two stages of its
+    (64, tile + 4) bias columns and the block's 64 q rows."""
     hd = _flash_head_dim(head_dim, bf16)
-    stride = hd + 8 if bf16 else _key_stride(hd)
     tile = attn_tiled_keys(head_dim, bf16)
-    kv = (2 if bf16 else 4) * 4 * tile * stride
-    return kv + 4 * 2 * 64 * (tile + 4) + (0 if bf16 else 4 * 64 * _key_stride(hd))
+    if bf16:
+        return 2 * 4 * tile * (hd + 8)
+    return 4 * 4 * tile * _key_stride(hd) + 4 * 64 * (2 * (tile + 4) + _key_stride(hd))
 
 
 def attn_key_tile(m: int, n: int, head_dim: int, bf16: bool = False) -> int:
