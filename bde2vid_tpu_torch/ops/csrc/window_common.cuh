@@ -1449,10 +1449,36 @@ __device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const uint32
   }
 }
 
-// f32: the same scores by FMA from the warp's q rows q0 (row lane / 4) and
-// q1 (8 below it) and the staged k rows.
+// The f32 q rows a lane scores with: up to head_dim 16 in registers
+// (loaded once a row group), above it read from the staged rows each time.
+template <int HD>
+struct FlashQ {
+  static constexpr bool kRegs = HD <= 16;
+  float4 r[kRegs ? 2 : 1][kRegs ? HD / 4 : 1];
+  const float* q0;
+  const float* q1;
+
+  __device__ __forceinline__ void init(const float* row0, const float* row1) {
+    q0 = row0;
+    q1 = row1;
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int d = 0; d < HD / 4; ++d) {
+        r[0][d] = *reinterpret_cast<const float4*>(row0 + 4 * d);
+        r[1][d] = *reinterpret_cast<const float4*>(row1 + 4 * d);
+      }
+    }
+  }
+  __device__ __forceinline__ float4 get(int row, int d) const {
+    if constexpr (kRegs) return r[row][d / 4];
+    return *reinterpret_cast<const float4*>((row ? q1 : q0) + d);
+  }
+};
+
+// f32: the same scores by FMA from the warp's q rows (row lane / 4 and 8
+// below it) and the staged k rows.
 template <int HD, int KT>
-__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const float* q0, const float* q1,
+__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const FlashQ<HD>& q,
                                              const float* ks, int lane) {
   constexpr int KS = key_stride(HD);
   const int t4 = lane & 3;
@@ -1463,8 +1489,8 @@ __device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const float*
     float c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
 #pragma unroll 8
     for (int d = 0; d < HD; d += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(q0 + d);
-      const float4 y = *reinterpret_cast<const float4*>(q1 + d);
+      const float4 x = q.get(0, d);
+      const float4 y = q.get(1, d);
       const float4 u = *reinterpret_cast<const float4*>(k0 + d);
       const float4 v = *reinterpret_cast<const float4*>(k1 + d);
       c00 = fmaf(x.x, u.x, fmaf(x.y, u.y, fmaf(x.z, u.z, fmaf(x.w, u.w, c00))));
@@ -1580,6 +1606,7 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
     float o[HD / 8][4];
 #pragma unroll
     for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    FlashQ<HD> fq;
 
     flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0);
     if constexpr (!kBf16) flash_stage_bias<HD>(bbuf, bias_h, a, rb, 0);
@@ -1601,8 +1628,8 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
       if constexpr (kBf16) {
         flash_scores<HD, KT>(s, qa, ks, lane);
       } else {
-        const float* q0 = qs + (16 * warp + g) * KS;
-        flash_scores<HD, KT>(s, q0, q0 + 8 * KS, ks, lane);
+        if (it == 0) fq.init(qs + (16 * warp + g) * KS, qs + (16 * warp + g + 8) * KS);
+        flash_scores<HD, KT>(s, fq, ks, lane);
       }
       // scale and bias, -inf past N; the tile's max of each row over its
       // four lanes raises the running max
