@@ -1324,9 +1324,11 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
 // the end. The block's four warps (64 rows) share each tile of KT keys,
 // which cp.async double-buffers in shared memory in the operand type, so
 // the next tile loads while this one computes; in f32 the tile's (64, KT)
-// bias columns come with it, so that no score waits on a load from L2 (in
+// bias columns come with it, so that no score waits on a load from L2. In
 // bf16, where a tile costs a few mma, the 4-byte copies cost more than the
-// loads they hide: it reads the bias from L2).
+// loads they hide, and each score reads its bias element from L2 where it
+// is added (one load of the lane's pair before the pair's scores took 40 %
+// more time on the H100: PERF.md, section 6).
 //   bf16: q k^T and p v on the tensor cores (m16n8k16, f32 accumulators):
 //         q's A fragments stay in registers, k rows are the B operand as
 //         they are, v rows reach p v's B operand through ldmatrix.trans;
@@ -1638,19 +1640,15 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
         float tm = mx[hr];
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) {
-          float2 b;
-          if constexpr (kBf16) {
-            const int key = t0 + 8 * j + 2 * t4;
-            b.x = (key < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key) : 0.f;
-            b.y = (key + 1 < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key + 1) : 0.f;
-          } else {
-            b = *reinterpret_cast<const float2*>(bs + 8 * hr * KBS + 8 * j);
-          }
+          float2 bf = make_float2(0.f, 0.f);
+          if constexpr (!kBf16) bf = *reinterpret_cast<const float2*>(bs + 8 * hr * KBS + 8 * j);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = t0 + 8 * j + 2 * t4 + e;
+            const float b = !kBf16 ? (e ? bf.y : bf.x)
+                                   : (key < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key) : 0.f;
             float& v = s[j][2 * hr + e];
-            v = key < a.n ? fmaf(v, scale, e ? b.y : b.x) : __int_as_float(0xff800000);
+            v = key < a.n ? fmaf(v, scale, b) : __int_as_float(0xff800000);
             tm = fmaxf(tm, v);
           }
         }
