@@ -77,7 +77,10 @@
 //     keys with the pass 2 above. Every sum runs in a fixed order, so two
 //     runs give bit-identical gradients.
 //   - head_dim 4 (level 0) is below an MMA's K, so every product is an FMA
-//     dot product templated on head_dim 1-32.
+//     dot product templated on head_dim 1-32; a head_dim between them runs
+//     at the next one up with zero columns past it (staged, never written).
+//   - Above head_dim 32 (attn_bwd_wide_kernel, head_dim 48-256 at 64, 128
+//     and 256): no thread holds a head row; see that kernel.
 
 #include "device_common.cuh"
 

@@ -36,8 +36,8 @@
 //       which does not fit in 227 KB), so head_dim 4 (below an MMA's K)
 //       runs as FMA dot products; bf16 at head_dim 16 takes 16-row tiles on
 //       the tensor cores (attn_kernel_mma); windows whose k and v rows do
-//       not fit in one block take the key-tiled variant
-//       (attn_tiled_kernel);
+//       not fit in one block, and every head_dim above 32, take the
+//       one-sweep key-tiled variant (attn_flash_kernel);
 //   (c1) y = ctr + m1 (acc @ Wp^T + bp), y into an f32 scratch;
 //   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y and the
 //        activation in the epilogue, h into a scratch in the operand type;

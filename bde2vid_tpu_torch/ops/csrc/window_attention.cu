@@ -25,9 +25,11 @@
 // tiles on the tensor cores (mma.sync m16n8k16). No score plane reaches
 // device memory. The wrapper's plan (attn_forward_plan) splits a window's
 // rows into tiles where there are too few windows to fill the card, and
-// sends windows whose k and v rows do not fit in one block's shared memory
-// to the key-tiled variant (attn_tiled_kernel), which stages them a tile
-// of keys at a time.
+// sends windows whose k and v rows do not fit in one block's shared memory,
+// and every head_dim above 32, to the key-tiled variant (attn_flash_kernel),
+// which sweeps the keys once, a tile at a time, with an online softmax. A
+// head_dim between the instantiated ones (1, 2, 4, ..., 256) runs at the
+// next one up with zero columns past it.
 
 #include "window_common.cuh"
 

@@ -2,6 +2,7 @@
 """Drive the PyTorch port (bde2vid_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tiled-times [ROOT]   # the key-tiled forward alone
 
 Phases, one JSON line each; a failure in any phase raises and the script
 exits non-zero without a result line. Two configurations run at full
@@ -101,6 +102,16 @@ reference's.
            key-tiled) at 184x240, T=3, forward kernel vs unfused path
            (2e-4) and one remat train step's loss and gradients (1e-3),
            with exact launch counts of each variant
+  head_dims  every head_dim (ROADMAP C6): the three forward libraries and
+           the backward vs their twins at head_dim 3, 6, 12, 24, 48, 64, 96,
+           128 and 256 (B_ 20, M 49, N 343), f32 and bf16, repeated bit for
+           bit, with times per launch and bounds; the key-tiled forward at
+           PR 15's shapes (TILED_TIMING) beside PR 15's times and SDPA; then
+           the flagship at full width with num_heads 4 (head_dim 16 / 64)
+           and 2 (32 / 128) at 184x240, T=3: eval forward kernel vs unfused
+           path (2e-4), one train step's loss and gradients (1e-3), exact
+           launch counts (level 2 on the key-tiled forward and the wide
+           backward)
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -2434,7 +2445,9 @@ def main() -> int:
     # 8x8 frame (its 2 + 3 even dilated blocks, without acc), B4 at the same
     # 8x8 shapes, and the two key-tiled variants per frame of the flagship
     # with 31 buffer frames (its 6 level-2 blocks; the forward timed as the
-    # bare core, the kernel B1's attention stage runs there)
+    # bare core, the kernel B1's attention stage runs there), and the wide
+    # backward per level-2 frame of the flagship with num_heads 4 and 2 (6
+    # launches, the mean of head_dim 64 and 128 at C 256)
     no_acc = [c for c in block_cases if not c["with_acc"]]
     attn_8 = [c for c in attn_cases if c["config"] == "8x8"]
     emit({"kernels": [

@@ -149,7 +149,7 @@ def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, 
     g = torch.Generator(device=cuda_device).manual_seed(b_)
     f = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
     q, k, v, gr, bias = f(b_, m, c), f(b_, n, c), f(b_, n, c), f(b_, m, c), f(heads, m, n) * 0.5
-    key = _bwd_counter(wac.attn_core_bwd_plan(m, n, c, heads))
+    key = wac.bwd_counter(wac.attn_core_bwd_plan(m, n, c, heads), c // heads)
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         ins = [t.to(dt) for t in (q, k, v)]
         before = launch_counts[key]
@@ -163,11 +163,6 @@ def test_cuda_backward_kernel_matches_twin_and_repeats_exactly(cuda_device, b_, 
             r = r.float()
             bound = tol * max(1.0, r.abs().max().item()) if dt == torch.float32 else tol * r.abs().max().item()
             assert (a.float() - r).abs().max().item() <= bound
-
-
-def _bwd_counter(plan, head_dim=16):
-    """The launch counter of the backward variant ``plan`` picks."""
-    return wac.bwd_counter(plan, head_dim)
 
 
 @pytest.mark.cuda
@@ -882,7 +877,7 @@ def test_cuda_key_tiled_blocks_train_on_the_kernel_path(cuda_device, win, c):
             torch.cuda.synchronize()
             if kernel:
                 assert _launched(before) == {fwd + ("_key_tiles" if plan_f.key_tile else ""): 1,
-                                             _bwd_counter(plan_b): 1}
+                                             wac.bwd_counter(plan_b, c // 16): 1}
             else:
                 assert _launched(before) == {}
             outs.append(out.detach())
