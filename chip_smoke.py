@@ -1628,10 +1628,14 @@ def phase_kernels_head_dims(torch):
                 if not all(torch.equal(a, r) for a, r in zip(got, again)):
                     raise AssertionError(f"{what}: two runs differ")
                 errs = check_close(what, got, ref, dt)
+                flops, nbytes = (swin_block_cost(d, b, m, c, heads, 4 * c, x.element_size())
+                                 if lib == "swin_block" else
+                                 window_block_cost(d, b, m, c, heads, x.element_size(), True))
                 with torch.no_grad():
                     blocks.append({"library": lib, "head_dim": hd, "heads": heads, "dtype": name,
                                    "key_tiles": tiled, "max_abs_err": max(errs), "bitwise_repeat": True,
-                                   "kernel_ms": cuda_ms(torch, fn, 10), "plain_ms": cuda_ms(torch, twin, 3, 1)})
+                                   "kernel_ms": cuda_ms(torch, fn, 10), "plain_ms": cuda_ms(torch, twin, 3, 1),
+                                   "bound_ms": 1e3 * max(flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES)})
             counter = bwd_counter(attn_core_bwd_plan(m, n, c, heads), hd)
             before = launch_counts[counter]
             case = bwd_case(torch, q, k, v, bias, g, heads, config="head_dims", level="level2",

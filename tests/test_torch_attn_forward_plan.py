@@ -9,7 +9,7 @@ import collections
 import pytest
 
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
-    attn_forward_plan, attn_rows, attn_smem_bytes, attn_tiled_keys, attn_tiled_smem_bytes)
+    FLASH_THREADS, attn_forward_plan, attn_rows, attn_smem_bytes, attn_tiled_keys, attn_tiled_smem_bytes)
 
 SMS = 132  # an H100's SMs
 
@@ -102,7 +102,7 @@ def test_plan_refuses_keys_that_do_not_fit_one_block():
     head_dim above 256, the largest instantiated, is refused."""
     plan = attn_forward_plan(1, 1, 4, 2000, 32, SMS, 1)
     assert plan.key_tile == attn_tiled_keys(32) == 64 and attn_smem_bytes(2000, 32) > 232448
-    assert plan.threads == 128 and attn_tiled_smem_bytes(32) <= 232448
+    assert plan.threads == FLASH_THREADS and attn_tiled_smem_bytes(32) <= 232448
     assert attn_forward_plan(1, 1, 1000, 2000, 32, SMS, 1).key_tile == 64
     with pytest.raises(ValueError, match="head_dim 1 to 256"):
         attn_forward_plan(1, 1, 4, 2000, 512, SMS, 1)

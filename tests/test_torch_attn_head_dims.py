@@ -25,6 +25,7 @@ from bde2vid_tpu.models import build_model as jax_build
 from bde2vid_tpu.ops.window_attn_pallas import fused_window_attention as jax_attention
 from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
+    FLASH_THREADS,
     _MAX_SMEM,
     _check_head_dim,
     _heads,
@@ -58,7 +59,7 @@ def test_plans_take_every_head_dim_and_the_launch_checks_accept_them(hd, bf16):
         m = 64 if n == 448 else 49
         fwd = attn_forward_plan(20, heads, m, n, hd, sms=132, blocks_per_sm=1, bf16=bf16)
         if fwd.key_tile:
-            assert fwd.key_tile == attn_tiled_keys(hd, bf16) and fwd.threads == 128
+            assert fwd.key_tile == attn_tiled_keys(hd, bf16) and fwd.threads == FLASH_THREADS
             assert attn_tiled_smem_bytes(hd, bf16) <= _MAX_SMEM
         else:
             assert hd <= 32 and attn_smem_bytes(n, hd, bf16) <= _MAX_SMEM
