@@ -106,7 +106,7 @@ reference's.
            the backward vs their twins at head_dim 3, 6, 12, 24, 48, 64, 96,
            128 and 256 (B_ 20, M 49, N 343), f32 and bf16, repeated bit for
            bit, with times per launch and bounds; the key-tiled forward at
-           PR 15's shapes (TILED_TIMING) beside PR 15's times and SDPA; then
+           TILED_TIMING beside the two-sweep kernel's times and SDPA; then
            the flagship at full width with num_heads 4 (head_dim 16 / 64)
            and 2 (32 / 128) at 184x240, T=3: eval forward kernel vs unfused
            path (2e-4), one train step's loss and gradients (1e-3), exact
@@ -206,11 +206,13 @@ TILED_BWD_ROWS = ((4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385), 
 # level 2) and 2 (32 and 128)
 HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1}
 HEAD_DIM_MODELS = (4, 2)
-# the key-tiled forward at the PR 15 table's shapes (TILED_TIMING) as PR 15
-# left it: ms per launch, f32 / bf16 (bf16 at N 1519 forced key-tiled), from
-# attn_tiled_times run from a checkout of PR 15 in the same call as this
-# PR's kernel (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
-PR15_TILED_MS = {(16, 1519): (0.3331, 0.2925), (16, 2989): (0.6474, 0.5555), (4, 7399): (0.9078, 0.6565)}
+# the two-sweep key-tiled forward that the one-sweep kernel replaced, at
+# TILED_TIMING: ms per launch, f32 / bf16 (bf16 at N 1519 forced
+# key-tiled), from attn_tiled_times run from a checkout with that kernel in
+# the same call as the one-sweep kernel (PERF.md section 6, NVIDIA H100 80GB
+# HBM3, 700 W)
+TWO_SWEEP_TILED_MS = {(16, 1519): (0.3331, 0.2925), (16, 2989): (0.6474, 0.5555),
+                      (4, 7399): (0.9078, 0.6565)}
 # the E2VID family at published widths: E2VIDRecurrent as the released
 # E2VID (rpg_e2vid E2VID_lightweight: base 32, 3 encoders of 64/128/256, 2
 # residual blocks, ConvLSTM, sum skips, transposed-conv decoders, BN), E2VID
@@ -1577,8 +1579,8 @@ def phase_kernels_head_dims(torch):
     49, N 343), each repeated bit for bit, the launch counted on the
     variant its plan names (key-tiled forward and wide backward above
     head_dim 32), with times per launch beside the bound; then the
-    key-tiled forward at TILED_TIMING through attn_tiled_times, beside PR
-    15's times. Returns the backward cases at the head_dims phase's level-2
+    key-tiled forward at TILED_TIMING through attn_tiled_times, beside the
+    two-sweep kernel's times. Returns the backward cases at the head_dims phase's level-2
     shapes (head_dim 64 and 128 at C 256), which take the wide kernel."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
         WindowBlockParams, attn_core_bwd_plan, attn_key_tile, bwd_counter, fused_swin_block,
@@ -1645,11 +1647,11 @@ def phase_kernels_head_dims(torch):
             bwd.append({**case, "kernel": counter})
     tiled = attn_tiled_times(torch)
     for row in tiled:
-        row["pr15_ms"] = PR15_TILED_MS[(row["head_dim"], row["keys"])][row["dtype"] == "bfloat16"]
+        row["two_sweep_ms"] = TWO_SWEEP_TILED_MS[(row["head_dim"], row["keys"])][row["dtype"] == "bfloat16"]
     emit({"phase": "kernels", "kernel": "attention head dims",
           "timing": "CUDA events over calls, inputs L2-warm; library = torch SDPA forward (bias as "
-                    "attn_mask) / SDPA backward alone; tiled_forward: attn_tiled_times, pr15_ms from "
-                    "PERF.md section 6",
+                    "attn_mask) / SDPA backward alone; tiled_forward: attn_tiled_times, two_sweep_ms "
+                    "from PERF.md section 6",
           "forward": fwd, "block_stages": blocks, "backward": bwd, "tiled_forward": tiled})
     return [c for c in bwd if c["head_dim"] in ("64", "128")]
 
@@ -1971,9 +1973,9 @@ def attn_forward_times(torch, calls=5):
     return {"b4": b4, "b1_attn_stage": b1}
 
 
-# the key-tiled forward's timing shapes (the PR 15 table in PERF.md section
-# 6): (head_dim, N) at B_ 20, M 49 and 16 heads, the flagship's level 2
-# with 31 buffer frames first
+# the key-tiled forward's timing shapes (PERF.md section 6): (head_dim, N)
+# at B_ 20, M 49 and 16 heads, the flagship's level 2 with 31 buffer frames
+# first
 TILED_TIMING = ((16, 1519), (16, 2989), (4, 7399))
 
 
@@ -1984,8 +1986,9 @@ def attn_tiled_times(torch, iters=50):
     1519), each checked against the twin, beside the plan's own kernel and
     torch's SDPA forward on the same inputs. Seeded random inputs, so two
     checkouts see the same ones: to compare trees, call it from each tree's
-    root in turn (a checkout of PR 15, which has no ``attn_tiled_keys``,
-    takes its f32 plan's tile in bf16 too, as its plan did)."""
+    root in turn (a checkout of the two-sweep kernel, which has no
+    ``attn_tiled_keys``, takes its f32 plan's tile in bf16 too, as its plan
+    did)."""
     from bde2vid_tpu_torch.ops import window_attn_cuda as wac
 
     gen = torch.Generator(device="cuda").manual_seed(15)
