@@ -100,21 +100,21 @@ cudaError_t launch_mlp(const BlockArgs& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const BlockArgs& a, const float* bias, int heads,
-                       int attn_tiles, int attn_key_tile, float scale, cudaStream_t stream) {
+                       int attn_tiles, int attn_key_tiled, float scale, cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tile, bias, const_cast<void*>(a.acc),
-                             scale, stream);
+  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tiled, bias,
+                             const_cast<void*>(a.acc), scale, stream);
   if (err != cudaSuccess) return err;
   return launch_mlp<T>(a, stream);
 }
 
 // c3 streams its hidden rows, so no tile grows with the hidden width
 template <typename T>
-void smem_bytes(int d, int m, int c, int heads, int key_tile, long long* out3) {
+void smem_bytes(int d, int m, int c, int heads, int key_tiled, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
   out3[1] = (long long)attn_launch_smem_bytes(std::is_same<T, __nv_bfloat16>::value, m, d * m,
-                                              c / heads, key_tile);
+                                              c / heads, key_tiled);
   out3[2] = (long long)std::max(gemm_smem<T, TileS>(), ln_gemm_smem<T, float, TileS>(c));
 }
 
@@ -122,34 +122,34 @@ void smem_bytes(int d, int m, int c, int heads, int key_tile, long long* out3) {
 
 extern "C" {
 
-// Shared memory (bytes) the LN + projection GEMM, the attention (with
-// this key tile) and the largest MLP GEMM ask for at most; the wrapper
+// Shared memory (bytes) the LN + projection GEMM, the attention (key-tiled
+// or not) and the largest MLP GEMM ask for at most; the wrapper
 // checks these against the card's per-block limit before launching.
-void swin_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, int key_tile,
+void swin_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, int key_tiled,
                            long long* out3) {
   if (is_bf16) {
-    smem_bytes<__nv_bfloat16>(d, m, c, heads, key_tile, out3);
+    smem_bytes<__nv_bfloat16>(d, m, c, heads, key_tiled, out3);
   } else {
-    smem_bytes<float>(d, m, c, heads, key_tile, out3);
+    smem_bytes<float>(d, m, c, heads, key_tiled, out3);
   }
 }
 
-// The occupancy of the attention stage's instantiation at these shapes and
-// key tile (window_attention_occupancy's info).
-int swin_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile,
+// The occupancy of the attention stage's instantiation at these shapes,
+// key-tiled or not (window_attention_occupancy's info).
+int swin_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tiled,
                               long long* info) {
-  return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tile, info);
+  return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tiled, info);
 }
 
 // Launches the five kernels on `stream`, the attention with each window's
-// rows in attn_tiles tiles and its keys attn_key_tile at a time (0: all at
-// once); returns the first CUDA error code (0 on
+// rows in attn_tiles tiles, by the key-tiled kernel (attn_key_tiled 1)
+// or all keys at once (0); returns the first CUDA error code (0 on
 // success). Pointers are device pointers; vectors, the bias, the masks
 // and the y scratch are f32, x/ctr/weights/kv/q/acc/h/out are f32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1). m1 and m2 are both null or both (B_,)
 // arrays. act: an Act code.
 int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int heads, int hidden,
-                       int q_ind, int attn_tiles, int attn_key_tile, float scale, const void* x,
+                       int q_ind, int attn_tiles, int attn_key_tiled, float scale, const void* x,
                        const void* ctr, const float* g_q,
                        const float* b_q_ln, const float* g_kv, const float* b_kv_ln,
                        const void* w_q, const float* b_q, const void* w_kv, const float* b_kv,
@@ -198,8 +198,8 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, attn_tiles, attn_key_tile, scale, s)
-              : launch_all<float>(p, a, bias, heads, attn_tiles, attn_key_tile, scale, s);
+      is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, attn_tiles, attn_key_tiled, scale, s)
+              : launch_all<float>(p, a, bias, heads, attn_tiles, attn_key_tiled, scale, s);
   return (int)err;
 }
 

@@ -35,29 +35,29 @@
 
 extern "C" {
 
-// Shared memory (bytes) the kernel that a launch with this key tile takes
+// Shared memory (bytes) the kernel that a launch, key-tiled or not, takes
 // asks for; the wrapper checks it against the card's per-block limit
 // before launching.
-long long window_attention_smem_bytes(int is_bf16, int m, int n, int c, int heads, int key_tile) {
-  return (long long)attn_launch_smem_bytes(is_bf16, m, n, c / heads, key_tile);
+long long window_attention_smem_bytes(int is_bf16, int m, int n, int c, int heads, int key_tiled) {
+  return (long long)attn_launch_smem_bytes(is_bf16, m, n, c / heads, key_tiled);
 }
 
-// The occupancy of the instantiation these shapes and key tile take:
+// The occupancy of the instantiation these shapes take, key-tiled or not:
 // info[0..6] = registers, local (spill) bytes per thread, dynamic shared
 // memory per block, threads per block, resident blocks per SM, J (keys a
 // lane keeps of a score row; 0 on the tensor cores), the key tile. Returns
 // the CUDA error code (0 on success).
-int window_attention_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile,
+int window_attention_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tiled,
                                long long* info) {
-  return attn_occupancy<false>(is_bf16, m, n, c, heads, key_tile, info);
+  return attn_occupancy<false>(is_bf16, m, n, c, heads, key_tiled, info);
 }
 
-// Launches the kernel on `stream`, each window's rows in `tiles` tiles and
-// its keys `key_tile` at a time (0: all at once); returns the CUDA error
-// code (0 on success). q, k, v, out are f32 (is_bf16 = 0) or bf16
-// (is_bf16 = 1) device arrays, bias is f32.
+// Launches the kernel on `stream`, each window's rows in `tiles` tiles, by
+// the key-tiled kernel (key_tiled 1) or all keys at once (0); returns the
+// CUDA error code (0 on success). q, k, v, out are f32 (is_bf16 = 0) or
+// bf16 (is_bf16 = 1) device arrays, bias is f32.
 int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads, int tiles,
-                             int key_tile, float scale, const void* q, const void* k,
+                             int key_tiled, float scale, const void* q, const void* k,
                              const void* v, const float* bias, void* out, void* stream) {
   AttnArgs a{};
   a.b = b;
@@ -66,7 +66,7 @@ int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads,
   a.c = c;
   a.heads = heads;
   a.tiles = tiles;
-  a.key_tile = key_tile;
+  a.key_tiled = key_tiled;
   a.q = q;
   a.k = k;
   a.v = v;

@@ -36,10 +36,10 @@ namespace {
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, void* acc,
                        void* out, const float* bias, int heads, int attn_tiles,
-                       int attn_key_tile, float scale, cudaStream_t stream) {
+                       int attn_key_tiled, float scale, cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tile, bias, acc, scale, stream);
+  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tiled, bias, acc, scale, stream);
   if (err != cudaSuccess) return err;
   const int rows = p.b * p.m;
   const GemmArgs g{rows, p.c, p.c, acc, w_p, vec_ok(p.c, {acc, w_p}), bias_epilogue(b_p, out, p.c)};
@@ -47,10 +47,10 @@ cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, v
 }
 
 template <typename T>
-void smem_bytes(int d, int m, int c, int heads, int key_tile, long long* out3) {
+void smem_bytes(int d, int m, int c, int heads, int key_tiled, long long* out3) {
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
   out3[1] = (long long)attn_launch_smem_bytes(std::is_same<T, __nv_bfloat16>::value, m, d * m,
-                                              c / heads, key_tile);
+                                              c / heads, key_tiled);
   out3[2] = (long long)gemm_smem<T, TileS>();
 }
 
@@ -59,32 +59,32 @@ void smem_bytes(int d, int m, int c, int heads, int key_tile, long long* out3) {
 extern "C" {
 
 // Shared memory (bytes) of the three launches at their smallest tile (the
-// attention with this key tile); the wrapper checks these against the
+// attention key-tiled or not); the wrapper checks these against the
 // card's per-block limit before launching.
-void window_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, int key_tile,
+void window_block_smem_bytes(int is_bf16, int d, int m, int c, int heads, int key_tiled,
                              long long* out3) {
   if (is_bf16) {
-    smem_bytes<__nv_bfloat16>(d, m, c, heads, key_tile, out3);
+    smem_bytes<__nv_bfloat16>(d, m, c, heads, key_tiled, out3);
   } else {
-    smem_bytes<float>(d, m, c, heads, key_tile, out3);
+    smem_bytes<float>(d, m, c, heads, key_tiled, out3);
   }
 }
 
-// The occupancy of the attention stage's instantiation at these shapes and
-// key tile (window_attention_occupancy's info).
-int window_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile,
+// The occupancy of the attention stage's instantiation at these shapes,
+// key-tiled or not (window_attention_occupancy's info).
+int window_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tiled,
                                 long long* info) {
-  return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tile, info);
+  return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tiled, info);
 }
 
 // Launches the three kernels on `stream`, the attention with each window's
-// rows in attn_tiles tiles and its keys attn_key_tile at a time (0: all at
-// once); returns the first CUDA error code (0 on
+// rows in attn_tiles tiles, by the key-tiled kernel (attn_key_tiled 1)
+// or all keys at once (0); returns the first CUDA error code (0 on
 // success). Pointers are device pointers; the LN affines, biases and
 // the attention bias are f32, x/weights/scratch/acc/out are f32 (is_bf16 =
 // 0) or bf16 (is_bf16 = 1).
 int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int q_ind,
-                         int attn_tiles, int attn_key_tile, float scale, const void* x,
+                         int attn_tiles, int attn_key_tiled, float scale, const void* x,
                          const float* g_q, const float* b_q_ln,
                          const float* g_kv, const float* b_kv_ln, const void* w_q,
                          const float* b_q, const void* w_kv, const float* b_kv, const void* w_p,
@@ -113,8 +113,8 @@ int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_all<__nv_bfloat16>(p, w_p, b_p, acc, out, bias, heads, attn_tiles,
-                                          attn_key_tile, scale, s)
-              : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, attn_key_tile,
+                                          attn_key_tiled, scale, s)
+              : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, attn_key_tiled,
                                   scale, s);
   return (int)err;
 }

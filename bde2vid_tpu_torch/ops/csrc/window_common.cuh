@@ -718,8 +718,9 @@ size_t ln_proj_smem_bytes(int c) {
 // block's shared memory, and every head_dim above 32, take the key-tiled
 // variant (attn_flash_kernel). A head_dim between the instantiated ones (1,
 // 2, 4, ..., 256) runs at the next one up with zero columns past it.
-// The wrapper picks the tiles and the key tile (attn_forward_plan in
-// ops/window_attn_cuda.py); the launchers take both from its plan.
+// The wrapper picks the tiles and whether the keys are tiled
+// (attn_forward_plan in ops/window_attn_cuda.py); the launchers take both
+// from its plan.
 // ---------------------------------------------------------------------------
 
 // 8 warps a block. A warp takes one query row at a time (attn_kernel) or,
@@ -737,7 +738,7 @@ struct AttnArgs {
   int b, m, n, c, heads;
   int hd;     // head_dim C / heads; kernels instantiated at a larger HD see zeros past it
   int tiles;  // block (w, h, tile) takes rows 8 (tile + tiles k) + warp, k = 0, 1, ...
-  int key_tile;  // 0, or the keys attn_flash_kernel stages at a time (flash_key_tile)
+  int key_tiled;  // 1: attn_flash_kernel (flash_key_tile keys a staged tile); 0: all keys at once
   const void* q;  // (B_, M, C)
   const void* k;  // k|v scratch (kKvScratch), else (B_, N, C)
   const void* v;  // (B_, N, C) (unused with kKvScratch)
@@ -1339,8 +1340,9 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
 //         k, and its outputs from p gathered over the four lanes of its row
 //         by shuffles and float2 rows of v.
 // head_dim is padded to the instantiated HD (f32 >= 8, bf16 >= 16) with
-// zeros in the staged rows. The wrapper's plan picks the tile
-// (attn_key_tile in ops/window_attn_cuda.py; flash_key_tile below).
+// zeros in the staged rows. The wrapper's plan picks this kernel
+// (attn_key_tiled in ops/window_attn_cuda.py); its tile is flash_key_tile's,
+// which the occupancy query reports.
 // ---------------------------------------------------------------------------
 
 constexpr int kFlashWarps = 4;  // 16-row tiles a block, sharing each key tile
@@ -1370,7 +1372,7 @@ __host__ __device__ constexpr int flash_bias_stride(int hd) { return flash_key_t
 // Two stages of k and v tiles in T, and for f32 two stages of the (64, KT)
 // bias tile and the block's 64 q rows.
 template <typename T>
-size_t flash_smem_bytes(int hd) {
+constexpr size_t flash_smem_bytes(int hd) {
   const size_t kv = sizeof(T) * 4 * (size_t)flash_key_tile(hd) * flash_stride<T>(hd);
   if (std::is_same<T, __nv_bfloat16>::value) return kv;
   return kv + sizeof(float) * 16 * kFlashWarps * (2 * flash_bias_stride(hd) + key_stride(hd));
@@ -1695,8 +1697,8 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
 template <typename T, int HD, bool kKvScratch>
 cudaError_t attn_flash_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
   auto kernel = attn_flash_kernel<T, HD, kKvScratch>;
-  const size_t smem = flash_smem_bytes<T>(HD);
-  if (a.key_tile != flash_key_tile(HD) || smem > kMaxSmem) return cudaErrorInvalidValue;
+  constexpr size_t smem = flash_smem_bytes<T>(HD);
+  static_assert(smem <= kMaxSmem, "a key-tiled block must fit in one SM's shared memory");
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1716,15 +1718,15 @@ cudaError_t attn_flash_run(const AttnArgs& a, float scale, long long* info, cuda
   info[3] = kFlashThreads;
   info[4] = blocks;
   info[5] = 0;  // no row share: a warp's scores are 16-row fragments
-  info[6] = a.key_tile;
+  info[6] = flash_key_tile(HD);
   return cudaSuccess;
 }
 
-// Shared memory of the kernel a launch with this key tile takes
-// (attn_tiled_smem_bytes or attn_smem_bytes in ops/window_attn_cuda.py).
-size_t attn_launch_smem_bytes(int is_bf16, int m, int n, int hd, int key_tile) {
+// Shared memory of the kernel a launch takes, key-tiled or untiled
+// (attn_smem_bytes in ops/window_attn_cuda.py for the untiled kernels).
+size_t attn_launch_smem_bytes(int is_bf16, int m, int n, int hd, int key_tiled) {
   const int p = padded_hd(hd);
-  if (key_tile)
+  if (key_tiled)
     return is_bf16 ? flash_smem_bytes<__nv_bfloat16>(flash_hd<__nv_bfloat16>(p))
                    : flash_smem_bytes<float>(flash_hd<float>(p));
   return is_bf16 && p >= 16 ? attn_mma_smem_bytes(n, p) : attn_smem_bytes(n, p);
@@ -1753,12 +1755,12 @@ bool flash_vec_ok(const AttnArgs& a, bool kv_scratch) {
   return true;
 }
 
-// The kernel the plan's key tile names: key-tiled, else bf16 at head_dim >=
-// 16 on the tensor cores, else the scalar kernel at the row share N asks.
+// The kernel the plan names: key-tiled, else bf16 at head_dim >= 16 on
+// the tensor cores, else the scalar kernel at the row share N asks.
 // Above head_dim 32 only the key-tiled kernel is instantiated.
 template <typename T, int HD, bool kKvScratch>
 cudaError_t attn_run_hd(AttnArgs a, float scale, long long* info, cudaStream_t stream) {
-  if (a.key_tile) {
+  if (a.key_tiled) {
     if (info == nullptr) a.vec = flash_vec_ok<T>(a, kKvScratch);
     return attn_flash_run<T, flash_hd<T>(HD), kKvScratch>(a, scale, info, stream);
   }
@@ -1803,10 +1805,10 @@ cudaError_t launch_attn(int is_bf16, const AttnArgs& a, float scale, cudaStream_
                  : attn_run_t<float, kKvScratch>(a, scale, nullptr, stream);
 }
 
-// The occupancy of the instantiation that a launch at these shapes with
-// this key tile takes (attn_run's info, then J and the key tile).
+// The occupancy of the instantiation that a launch at these shapes, key-
+// tiled or not, takes (attn_run's info, then J and the key tile).
 template <bool kKvScratch>
-int attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile, long long* info) {
+int attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tiled, long long* info) {
   AttnArgs a{};
   a.b = 1;
   a.m = m;
@@ -1814,16 +1816,16 @@ int attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tile, lo
   a.c = c;
   a.heads = heads;
   a.tiles = 1;
-  a.key_tile = key_tile;
+  a.key_tiled = key_tiled;
   return (int)(is_bf16 ? attn_run_t<__nv_bfloat16, kKvScratch>(a, 0.f, info, nullptr)
                        : attn_run_t<float, kKvScratch>(a, 0.f, info, nullptr));
 }
 
 // The attention over the k|v scratch that the LN + projection GEMM
-// writes, each window's rows in `tiles` tiles, its keys `key_tile` at a
-// time (0: all at once).
+// writes, each window's rows in `tiles` tiles, by the key-tiled kernel
+// (key_tiled 1) or all keys at once (0).
 template <typename T>
-cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles, int key_tile,
+cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles, int key_tiled,
                               const float* bias, void* out, float scale, cudaStream_t stream) {
   AttnArgs a{};
   a.b = p.b;
@@ -1832,7 +1834,7 @@ cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles, int key
   a.c = p.c;
   a.heads = heads;
   a.tiles = tiles;
-  a.key_tile = key_tile;
+  a.key_tiled = key_tiled;
   a.q = p.q;
   a.k = p.kv;
   a.v = nullptr;

@@ -393,7 +393,7 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
     lib = _lib("swin_block")
     plan = attn_plan_for("swin_block", b_, m, n, c, num_heads, dt, x.device.index)
     smem = (ctypes.c_longlong * 3)()
-    lib.swin_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, plan.key_tile, smem)
+    lib.swin_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, int(plan.key_tiled), smem)
     if max(smem) > _MAX_SMEM:
         raise ValueError(f"shapes need {max(smem)} B of shared memory per block (limit {_MAX_SMEM})")
 
@@ -416,12 +416,12 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
     ]
     rc = lib.swin_block_forward(
         int(dt == torch.bfloat16), act, d, b_, m, c, num_heads,
-        hidden, q_ind, plan.tiles, plan.key_tile, float((c // num_heads) ** -0.5),
+        hidden, q_ind, plan.tiles, int(plan.key_tiled), float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in ptrs], *mask_ptrs, _stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"swin_block kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_swin_block_key_tiles" if plan.key_tile else "fused_swin_block"] += 1
+    launch_counts["fused_swin_block_key_tiles" if plan.key_tiled else "fused_swin_block"] += 1
     return out, acc
 
 
@@ -623,56 +623,28 @@ def attn_smem_bytes(n: int, head_dim: int, bf16: bool = False) -> int:
     return 4 * 2 * n * _key_stride(hd)
 
 
-def _flash_head_dim(head_dim: int, bf16: bool) -> int:
-    """The head_dim the key-tiled forward runs at (``flash_hd``): the
-    padded one, at least 8 in f32 (8-column groups) and 16 in bf16 (the
-    mma's depth)."""
-    return max(_padded_head_dim(head_dim), 16 if bf16 else 8)
-
-
-def attn_tiled_keys(head_dim: int, bf16: bool = False) -> int:
-    """Keys of one tile of the key-tiled forward (``flash_key_tile``): a
-    warp's (16, tile) scores stay in registers beside its (16, head_dim)
-    output sums."""
-    hd = _flash_head_dim(head_dim, bf16)
-    return 64 if hd <= 64 else 32 if hd <= 128 else 16
-
-
-def attn_tiled_smem_bytes(head_dim: int, bf16: bool = False) -> int:
-    """Shared memory of a block of the key-tiled forward
-    (``flash_smem_bytes`` in csrc/window_common.cuh): two stages of one
-    tile's k and v rows in the operand type, and in f32 two stages of its
-    (64, tile + 4) bias columns and the block's 64 q rows."""
-    hd = _flash_head_dim(head_dim, bf16)
-    tile = attn_tiled_keys(head_dim, bf16)
-    if bf16:
-        return 2 * 4 * tile * (hd + 8)
-    return 4 * 4 * tile * _key_stride(hd) + 4 * 64 * (2 * (tile + 4) + _key_stride(hd))
-
-
-def attn_key_tile(m: int, n: int, head_dim: int, bf16: bool = False) -> int:
-    """0 where one block stages a window's k and v rows whole (the kernels
-    of ``attn_smem_bytes``, instantiated up to head_dim 32), else the keys
-    of one tile of the key-tiled forward (``attn_tiled_keys``), which runs
-    every row whose k and v do not fit and every head_dim above 32: a
-    function of head_dim and the operand type alone (M does not enter).
-    Raises ``ValueError`` above head_dim 256."""
-    if _padded_head_dim(head_dim) <= 32 and attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM:
-        return 0
-    return attn_tiled_keys(head_dim, bf16)
+def attn_key_tiled(m: int, n: int, head_dim: int, bf16: bool = False) -> bool:
+    """False where one block stages a window's k and v rows whole (the
+    kernels of ``attn_smem_bytes``, instantiated up to head_dim 32), else
+    True: the key-tiled forward (``attn_flash_kernel`` in
+    csrc/window_common.cuh) runs every row whose k and v do not fit and
+    every head_dim above 32. Its key tile and shared memory are constants of
+    its instantiation, which ``attn_forward_occupancy`` reads back. Raises
+    ``ValueError`` above head_dim 256."""
+    return not (_padded_head_dim(head_dim) <= 32 and attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM)
 
 
 class AttnPlan(NamedTuple):
     """How one forward attention launch splits its work: block (window,
     head, tile) has warp w take the window's row items (of ``attn_rows``
     query rows each) tile * warps + w + k * warps * tiles, k = 0, 1, ...;
-    ``key_tile`` is 0, or the keys a block of the key-tiled kernel stages
-    at a time (``attn_key_tile``), whose blocks take 64-row groups (four
-    warps of 16 rows) tile, tile + tiles, ...."""
+    with ``key_tiled`` (``attn_key_tiled``), blocks of the key-tiled kernel
+    take the window's 64-row groups (four warps of 16 rows) tile, tile +
+    tiles, ...."""
 
     tiles: int
     threads: int  # threads per block
-    key_tile: int = 0
+    key_tiled: bool = False
 
 
 def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: int,
@@ -684,16 +656,16 @@ def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: i
     blocks: the fewest tiles a window for which the blocks fill two waves
     of the card, and no more than leave each warp an item. Rows whose k and
     v do not fit in one block, and head_dims above 32, take the key-tiled
-    kernel (``attn_key_tile``), whose tiles are the window's 64-row groups.
+    kernel (``attn_key_tiled``), whose tiles are the window's 64-row groups.
     A function of its arguments alone."""
-    key_tile = attn_key_tile(m, n, head_dim, bf16)
-    if key_tile:
+    key_tiled = attn_key_tiled(m, n, head_dim, bf16)
+    if key_tiled:
         warps, rows = FLASH_THREADS // 32, 16
     else:
         warps, rows = ATTN_THREADS // 32, attn_rows(head_dim, bf16)
     most = max(1, -(-m // rows) // warps)
     want = -(-2 * sms * max(1, blocks_per_sm) // (b_ * heads))
-    return AttnPlan(max(1, min(most, want)), warps * 32, key_tile)
+    return AttnPlan(max(1, min(most, want)), warps * 32, key_tiled)
 
 
 @functools.lru_cache(maxsize=None)
@@ -705,15 +677,15 @@ def attn_forward_occupancy(lib_name: str, m: int, n: int, c: int, num_heads: int
     registers and spill bytes per thread (ptxas), dynamic shared memory per
     block, threads per block, resident blocks per SM, J (keys a lane keeps
     of a score row; 0 on the tensor cores), the key tile (0 but for the
-    key-tiled kernel, which ``attn_key_tile`` picks) and the card's SMs."""
+    key-tiled kernel, which ``attn_key_tiled`` picks) and the card's SMs."""
     info = (ctypes.c_longlong * 7)()
     fn = {"window_attention": "window_attention_occupancy",
           "swin_block": "swin_block_attn_occupancy",
           "window_block": "window_block_attn_occupancy"}[lib_name]
     bf16 = dtype == torch.bfloat16
-    key_tile = attn_key_tile(m, n, c // num_heads, bf16)
+    key_tiled = attn_key_tiled(m, n, c // num_heads, bf16)
     with torch.cuda.device(device_index):
-        rc = getattr(_lib(lib_name), fn)(int(bf16), m, n, c, num_heads, key_tile, info)
+        rc = getattr(_lib(lib_name), fn)(int(bf16), m, n, c, num_heads, int(key_tiled), info)
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
     keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "key_tile")
@@ -750,20 +722,20 @@ def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
     _check_head_dim(c, num_heads)
     lib = _lib("window_attention")
     plan = attn_plan_for("window_attention", b_, m, n, c, num_heads, dt, q.device.index)
-    smem = lib.window_attention_smem_bytes(int(dt == torch.bfloat16), m, n, c, num_heads, plan.key_tile)
+    smem = lib.window_attention_smem_bytes(int(dt == torch.bfloat16), m, n, c, num_heads, int(plan.key_tiled))
     if smem > _MAX_SMEM:
         raise ValueError(f"shapes need {smem} B of shared memory per block (limit {_MAX_SMEM})")
     q, k, v = (t.contiguous() for t in (q, k, v))
     bias32 = bias.float().contiguous()
     out = torch.empty_like(q)
     rc = lib.window_attention_forward(
-        int(dt == torch.bfloat16), b_, m, n, c, num_heads, plan.tiles, plan.key_tile,
+        int(dt == torch.bfloat16), b_, m, n, c, num_heads, plan.tiles, int(plan.key_tiled),
         float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in (q, k, v, bias32, out)], _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"window_attention kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_window_attention_key_tiles" if plan.key_tile else "fused_window_attention"] += 1
+    launch_counts["fused_window_attention_key_tiles" if plan.key_tiled else "fused_window_attention"] += 1
     return out
 
 
@@ -788,7 +760,7 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
     lib = _lib("window_block")
     plan = attn_plan_for("window_block", b_, m, d * m, c, num_heads, dt, x.device.index)
     smem = (ctypes.c_longlong * 3)()
-    lib.window_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, plan.key_tile, smem)
+    lib.window_block_smem_bytes(int(dt == torch.bfloat16), d, m, c, num_heads, int(plan.key_tiled), smem)
     if max(smem) > _MAX_SMEM:
         raise ValueError(f"shapes need {max(smem)} B of shared memory per block (limit {_MAX_SMEM})")
 
@@ -802,12 +774,12 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
         p["kv_w"], p["kv_b"], p["proj_w"], p["proj_b"], p["bias"], kv, q, acc, out,
     ]
     rc = lib.window_block_forward(
-        int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind, plan.tiles, plan.key_tile,
+        int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind, plan.tiles, int(plan.key_tiled),
         float((c // num_heads) ** -0.5), *[t.data_ptr() for t in ptrs], _stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"window_block kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_window_block_key_tiles" if plan.key_tile else "fused_window_block"] += 1
+    launch_counts["fused_window_block_key_tiles" if plan.key_tiled else "fused_window_block"] += 1
     return out, acc
 
 

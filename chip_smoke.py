@@ -2,7 +2,6 @@
 """Drive the PyTorch port (bde2vid_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --tiled-times [ROOT]   # the key-tiled forward alone
 
 Phases, one JSON line each; a failure in any phase raises and the script
 exits non-zero without a result line. Two configurations run at full
@@ -106,14 +105,15 @@ reference's.
            the backward vs their twins at head_dim 3, 6, 12, 24, 48, 64, 96,
            128 and 256 (B_ 20, M 49, N 343), f32 and bf16, repeated bit for
            bit, with times per launch and bounds; the key-tiled forward at
-           TILED_TIMING beside the two-sweep kernel's times and SDPA; then
+           TILED_TIMING with its occupancy, beside SDPA; then
            the flagship at full width with num_heads 4 (head_dim 16 / 64)
            and 2 (32 / 128) at 184x240, T=3: eval forward kernel vs unfused
            path (2e-4), one train step's loss and gradients (1e-3), exact
            launch counts (level 2 on the key-tiled forward and the wide
            backward)
 
-Then the kernel summary line, the card's name and power limit, and
+Then the count of profiler traces that device_ms took and found short,
+the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
 convolutions, so f32 comparisons are exact-f32 on both sides.
 """
@@ -121,6 +121,7 @@ convolutions, so f32 comparisons are exact-f32 on both sides.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -206,13 +207,6 @@ TILED_BWD_ROWS = ((4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385), 
 # level 2) and 2 (32 and 128)
 HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1}
 HEAD_DIM_MODELS = (4, 2)
-# the two-sweep key-tiled forward that the one-sweep kernel replaced, at
-# TILED_TIMING: ms per launch, f32 / bf16 (bf16 at N 1519 forced
-# key-tiled), from attn_tiled_times run from a checkout with that kernel in
-# the same call as the one-sweep kernel (PERF.md section 6, NVIDIA H100 80GB
-# HBM3, 700 W)
-TWO_SWEEP_TILED_MS = {(16, 1519): (0.3331, 0.2925), (16, 2989): (0.6474, 0.5555),
-                      (4, 7399): (0.9078, 0.6565)}
 # the E2VID family at published widths: E2VIDRecurrent as the released
 # E2VID (rpg_e2vid E2VID_lightweight: base 32, 3 encoders of 64/128/256, 2
 # residual blocks, ConvLSTM, sum skips, transposed-conv decoders, BN), E2VID
@@ -356,11 +350,11 @@ def kernel_sequence(torch, fn, calls):
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evts]
 
 
-def b1_stage_ms(torch, fn, calls=5, traces=3):
+def b1_stage_ms(torch, fn, calls=5, traces=8):
     """Device ms per launch of each of B1's five kernels (B1_STAGES), and
     the kernel each stage ran (its tile shows in the name). A trace that
-    lost kernel records (the profiler drops some at times: 15 of 25 in one
-    H100 run) is taken again, up to ``traces`` times."""
+    lost kernel records (the profiler drops some or all at times, PERF.md
+    section 7) is taken again, up to ``traces`` times."""
     for _ in range(traces):
         seq = [(n, ms) for n, ms in kernel_sequence(torch, fn, calls)
                if "gemm_kernel" in n or "attn_kernel" in n]
@@ -1375,7 +1369,7 @@ def fwd_core_case(torch, q, k, v, bias, heads, **labels):
     b, m, c = q.shape
     n = k.shape[1]
     plan = attn_plan_for("window_attention", b, m, n, c, heads, q.dtype, 0)
-    counter = "fused_window_attention" + ("_key_tiles" if plan.key_tile else "")
+    counter = "fused_window_attention" + ("_key_tiles" if plan.key_tiled else "")
     before = launch_counts[counter]
     with torch.no_grad():
         got = fused_window_attention(q, k, v, bias, heads)
@@ -1407,7 +1401,7 @@ def key_tiled_block_cases(torch, rnd, heads=16, m=49, b=4):
     f32 and bf16, with acc: each vs its twin, repeated bit for bit, the
     tiled launch counted, the block's time beside the twin's."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
-        WindowBlockParams, attn_key_tile, fused_swin_block, fused_window_block, launch_counts,
+        WindowBlockParams, attn_key_tiled, fused_swin_block, fused_window_block, launch_counts,
         swin_block_reference, window_block_reference)
 
     cases = []
@@ -1420,7 +1414,7 @@ def key_tiled_block_cases(torch, rnd, heads=16, m=49, b=4):
                 name = str(dt).split(".")[-1]
                 x, ctr, p = x32.to(dt), c32.to(dt), operand_weights(p32, dt)
                 pw = WindowBlockParams(*p[:10], p.bias)
-                tiled = attn_key_tile(m, frames * m, hd, dt == torch.bfloat16) > 0
+                tiled = attn_key_tiled(m, frames * m, hd, dt == torch.bfloat16)
                 for lib, fn, twin in (
                         ("swin_block", lambda: fused_swin_block(x, ctr, p, heads, q_ind, with_acc=True),
                          lambda: swin_block_reference(x, ctr, p, heads, q_ind, with_acc=True)),
@@ -1480,8 +1474,8 @@ def phase_kernels_key_tiles(torch):
             raise AssertionError("key tiles: the backward plan took no key tile at the main-path shape")
         bwd_cases.append(bwd_case(torch, q, k, v, bias, g, heads, config="flagship", level="level2",
                                   frames=str(KEY_TILE_FRAMES)))
-    if not fwd_cases[0]["plan"]["key_tile"]:
-        raise AssertionError("key tiles: the f32 forward plan took no key tile at the main-path shape")
+    if not fwd_cases[0]["plan"]["key_tiled"]:
+        raise AssertionError("key tiles: the f32 forward plan is not key-tiled at the main-path shape")
     edge_fwd, edge_bwd = [], []
     for hd, keys in TILED_FWD_KEYS.items():
         c = heads * hd
@@ -1506,8 +1500,9 @@ def phase_kernels_key_tiles(torch):
                  "backward": {str(dt).split(".")[-1]: attn_core_backward_occupancy(m, n_main, c2, heads, dt, 0)
                               for dt in (torch.float32, torch.bfloat16)}}
     emit({"phase": "kernels", "kernel": "attention key tiles",
-          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms; library = "
-                    "torch SDPA forward (bias as attn_mask) / SDPA backward alone",
+          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms (null where "
+                    "every trace lost kernel records); library = torch SDPA forward (bias as "
+                    "attn_mask) / SDPA backward alone",
           "forward_main": fwd_cases, "backward_main": bwd_cases, "forward_edges": edge_fwd,
           "backward_edges": edge_bwd, "block_stages": blocks, "occupancy_main": occupancy})
     return fwd_cases, bwd_cases
@@ -1579,11 +1574,11 @@ def phase_kernels_head_dims(torch):
     49, N 343), each repeated bit for bit, the launch counted on the
     variant its plan names (key-tiled forward and wide backward above
     head_dim 32), with times per launch beside the bound; then the
-    key-tiled forward at TILED_TIMING through attn_tiled_times, beside the
-    two-sweep kernel's times. Returns the backward cases at the head_dims phase's level-2
-    shapes (head_dim 64 and 128 at C 256), which take the wide kernel."""
+    key-tiled forward at TILED_TIMING through attn_tiled_times. Returns
+    the backward cases at the head_dims phase's level-2 shapes (head_dim 64
+    and 128 at C 256), which take the wide kernel."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
-        WindowBlockParams, attn_core_bwd_plan, attn_key_tile, bwd_counter, fused_swin_block,
+        WindowBlockParams, attn_core_bwd_plan, attn_key_tiled, bwd_counter, fused_swin_block,
         fused_window_attention, fused_window_block, launch_counts, swin_block_reference,
         window_block_reference)
 
@@ -1613,7 +1608,7 @@ def phase_kernels_head_dims(torch):
             fwd.append({**case, "bitwise_repeat": True})
             x, ctr, p = x32.to(dt), c32.to(dt), operand_weights(p32, dt)
             pw = WindowBlockParams(*p[:10], p.bias)
-            tiled = attn_key_tile(m, n, hd, dt == torch.bfloat16) > 0
+            tiled = attn_key_tiled(m, n, hd, dt == torch.bfloat16)
             for lib, fn, twin in (
                     ("swin_block", lambda: fused_swin_block(x, ctr, p, heads, d // 2, with_acc=True),
                      lambda: swin_block_reference(x, ctr, p, heads, d // 2, with_acc=True)),
@@ -1646,12 +1641,10 @@ def phase_kernels_head_dims(torch):
                 raise AssertionError(f"backward head_dim {hd} {name}: {counter} did not count its launches")
             bwd.append({**case, "kernel": counter})
     tiled = attn_tiled_times(torch)
-    for row in tiled:
-        row["two_sweep_ms"] = TWO_SWEEP_TILED_MS[(row["head_dim"], row["keys"])][row["dtype"] == "bfloat16"]
     emit({"phase": "kernels", "kernel": "attention head dims",
-          "timing": "CUDA events over calls, inputs L2-warm; library = torch SDPA forward (bias as "
-                    "attn_mask) / SDPA backward alone; tiled_forward: attn_tiled_times, two_sweep_ms "
-                    "from PERF.md section 6",
+          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms (null where "
+                    "every trace lost kernel records); library = torch SDPA forward (bias as "
+                    "attn_mask) / SDPA backward alone; tiled_forward: attn_tiled_times",
           "forward": fwd, "block_stages": blocks, "backward": bwd, "tiled_forward": tiled})
     return [c for c in bwd if c["head_dim"] in ("64", "128")]
 
@@ -1825,11 +1818,29 @@ def sdpa_forward_ms(torch, q, k, v, bias, heads, iters=20):
     return None, f"no SDPA backend takes these shapes: {errors}", None
 
 
-def device_ms(torch, fn, calls=5):
+# device_ms's traces: taken, and short (no kernel records, not a multiple
+# of the calls, or fewer than another trace of the same calls held)
+PROFILER_TRACES = {"taken": 0, "short": 0}
+
+
+def device_ms(torch, fn, calls=5, traces=6):
     """Device ms per call of the CUDA kernels that ``calls`` calls of ``fn``
-    launch, from one profiler trace: the kernels' own time, without the
-    host's."""
-    return sum(ms for _, ms in kernel_sequence(torch, fn, calls)) / calls
+    launch, from profiler traces: the kernels' own time, without the host's.
+    A trace on the card can lose some or all of its kernel records (PERF.md
+    section 7), so a trace counts only once another holds as many records,
+    a nonzero multiple of ``calls`` and no fewer than any trace so far;
+    None (null in the kernels lines) if no two of ``traces`` traces do."""
+    whole = {}
+    for _ in range(traces):
+        seq = kernel_sequence(torch, fn, calls)
+        PROFILER_TRACES["taken"] += 1
+        if not seq or len(seq) % calls or len(seq) < max(whole, default=0):
+            PROFILER_TRACES["short"] += 1
+            continue
+        if len(seq) in whole:
+            return sum(ms for _, ms in whole[len(seq)] + seq) / (2 * calls)
+        whole[len(seq)] = seq
+    return None
 
 
 def check_close(what, got, ref, dt):
@@ -1920,7 +1931,8 @@ def phase_kernels_window(torch):
           "cases": block_cases})
     emit({"phase": "kernels", "kernel": "fused_window_attention",
           "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms of the "
-                    "kernels alone; library = torch SDPA forward, bias as attn_mask",
+                    "kernels alone (null where every trace lost kernel records); library = torch "
+                    "SDPA forward, bias as attn_mask",
           "cases": attn_cases, "gradients_max_abs_err_vs_twin_autograd": grads})
     emit({"phase": "kernels", "kernel": "attention forward occupancy",
           "instantiations": fwd_occupancy(torch, heads)})
@@ -1980,15 +1992,13 @@ TILED_TIMING = ((16, 1519), (16, 2989), (4, 7399))
 
 
 def attn_tiled_times(torch, iters=50):
-    """Device ms of the key-tiled forward of the package on sys.path at
+    """Ms per launch (CUDA events) of the key-tiled forward at
     TILED_TIMING, f32 and bf16, launched through the bare core's library
-    with a key tile also where the plan takes the untiled kernel (bf16 at N
-    1519), each checked against the twin, beside the plan's own kernel and
-    torch's SDPA forward on the same inputs. Seeded random inputs, so two
-    checkouts see the same ones: to compare trees, call it from each tree's
-    root in turn (a checkout of the two-sweep kernel, which has no
-    ``attn_tiled_keys``, takes its f32 plan's tile in bf16 too, as its plan
-    did)."""
+    key-tiled also where the plan takes the untiled kernel (bf16 at N 1519,
+    then at the f32 plan's tiles), each checked against the twin and
+    repeated bit for bit, beside the plan's own kernel and torch's SDPA
+    forward on the same seeded inputs; the key tile and occupancy are the
+    key-tiled instantiation's, from the library's occupancy query."""
     from bde2vid_tpu_torch.ops import window_attn_cuda as wac
 
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -2005,14 +2015,15 @@ def attn_tiled_times(torch, iters=50):
             bf16 = dt == torch.bfloat16
             q, k, v = (t.to(dt) for t in (q32, k32, v32))
             plan = wac.attn_plan_for("window_attention", b, m, n, c, heads, dt, 0)
-            tile = plan.key_tile or (wac.attn_tiled_keys(hd, bf16) if hasattr(wac, "attn_tiled_keys")
-                                     else f32_plan.key_tile)
-            tiles = plan.tiles if plan.key_tile else f32_plan.tiles
+            tiles = plan.tiles if plan.key_tiled else f32_plan.tiles
+            occ = (ctypes.c_longlong * 7)()
+            if lib.window_attention_occupancy(int(bf16), m, n, c, heads, 1, occ):
+                raise RuntimeError("window_attention_occupancy failed")
             out = torch.empty_like(q)
 
             def tiled():
                 rc = lib.window_attention_forward(
-                    int(bf16), b, m, n, c, heads, tiles, tile, float(hd ** -0.5),
+                    int(bf16), b, m, n, c, heads, tiles, 1, float(hd ** -0.5),
                     *[t.data_ptr() for t in (q, k, v, bias, out)], wac._stream(q))
                 if rc:
                     raise RuntimeError(f"window_attention_forward: CUDA error {rc}")
@@ -2031,8 +2042,10 @@ def attn_tiled_times(torch, iters=50):
                 plan_ms = cuda_ms(torch, lambda: wac.fused_window_attention(q, k, v, bias, heads), iters, 5)
             lib_ms, backend, _ = sdpa_forward_ms(torch, q, k, v, bias, heads, iters=iters)
             flops, nbytes = window_attention_cost(b, m, n, c, heads, q.element_size())
-            rows.append({"head_dim": hd, "keys": n, "dtype": str(dt).split(".")[-1], "key_tile": tile,
-                         "tiles": tiles, "max_abs_err": err, "tiled_ms": ms, "plan_key_tile": plan.key_tile,
+            rows.append({"head_dim": hd, "keys": n, "dtype": str(dt).split(".")[-1], "key_tile": occ[6],
+                         "registers": occ[0], "spill_bytes": occ[1], "smem_bytes": occ[2],
+                         "blocks_per_sm": occ[4], "tiles": tiles, "max_abs_err": err, "tiled_ms": ms,
+                         "plan_key_tiled": plan.key_tiled,
                          "plan_ms": plan_ms, "sdpa_ms": lib_ms, "sdpa": backend,
                          "bound_ms": 1e3 * max(flops / PEAK_FLOPS[str(dt).split(".")[-1]],
                                                nbytes / PEAK_BYTES)})
@@ -2376,33 +2389,20 @@ def long_buffer_steps(torch, launch_counts):
     return rows
 
 
-def card_name():
-    """The card's name and power limit as nvidia-smi prints them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
 def main() -> int:
-    """With no arguments, every phase. ``--tiled-times [ROOT]`` runs only
-    attn_tiled_times for the package of the checkout at ROOT (default this
-    one) and prints its rows with the card: run it from two checkouts in
-    turn, in one call, to compare their key-tiled forward."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    root = sys.argv[2] if sys.argv[1:2] == ["--tiled-times"] and len(sys.argv) > 2 else ROOT
-    sys.path.insert(0, os.path.abspath(root))
-    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    sys.path.insert(0, ROOT)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ["--tiled-times"]:
-        emit({"tiled_times": attn_tiled_times(torch), "root": os.path.abspath(root), "card": card_name()})
-        return 0
     from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
 
-    card = card_name()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     phase_build()
     cases = phase_kernels(torch)
     bwd_cases = phase_kernels_training(torch)
@@ -2455,6 +2455,7 @@ def main() -> int:
     # bare core, the kernel B1's attention stage runs there), and the wide
     # backward per level-2 frame of the flagship with num_heads 4 and 2 (6
     # launches, the mean of head_dim 64 and 128 at C 256)
+    emit({"phase": "profiler", "device_ms_traces": PROFILER_TRACES})
     no_acc = [c for c in block_cases if not c["with_acc"]]
     attn_8 = [c for c in attn_cases if c["config"] == "8x8"]
     emit({"kernels": [

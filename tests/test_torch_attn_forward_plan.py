@@ -8,8 +8,7 @@ import collections
 
 import pytest
 
-from bde2vid_tpu_torch.ops.window_attn_cuda import (
-    FLASH_THREADS, attn_forward_plan, attn_rows, attn_smem_bytes, attn_tiled_keys, attn_tiled_smem_bytes)
+from bde2vid_tpu_torch.ops.window_attn_cuda import FLASH_THREADS, attn_forward_plan, attn_rows, attn_smem_bytes
 
 SMS = 132  # an H100's SMs
 
@@ -95,14 +94,14 @@ def test_plan_is_a_function_of_its_arguments_alone(b_, heads, m, n, hd, blocks_p
 
 
 def test_plan_refuses_keys_that_do_not_fit_one_block():
-    """Keys that do not fit one block take key tiles (they raised before
-    the key-tiled kernel existed) of ``attn_tiled_keys``. The one-sweep
-    key-tiled kernel keeps its rows' statistics in registers, so its shared
-    memory does not grow with M and 1000 query rows plan too; only a
-    head_dim above 256, the largest instantiated, is refused."""
+    """Keys that do not fit one block take the key-tiled kernel (they
+    raised before it existed). The one-sweep key-tiled kernel keeps its
+    rows' statistics in registers and its tile is a constant of its build,
+    so its shared memory does not grow with M and 1000 query rows plan too;
+    only a head_dim above 256, the largest instantiated, is refused."""
     plan = attn_forward_plan(1, 1, 4, 2000, 32, SMS, 1)
-    assert plan.key_tile == attn_tiled_keys(32) == 64 and attn_smem_bytes(2000, 32) > 232448
-    assert plan.threads == FLASH_THREADS and attn_tiled_smem_bytes(32) <= 232448
-    assert attn_forward_plan(1, 1, 1000, 2000, 32, SMS, 1).key_tile == 64
+    assert plan.key_tiled and attn_smem_bytes(2000, 32) > 232448
+    assert plan.threads == FLASH_THREADS
+    assert attn_forward_plan(1, 1, 1000, 2000, 32, SMS, 1).key_tiled
     with pytest.raises(ValueError, match="head_dim 1 to 256"):
         attn_forward_plan(1, 1, 4, 2000, 512, SMS, 1)

@@ -34,8 +34,6 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     attn_core_reference,
     attn_forward_plan,
     attn_smem_bytes,
-    attn_tiled_keys,
-    attn_tiled_smem_bytes,
     bwd_counter,
 )
 from tests.test_torch_config_surface import BASE, _port, nchw, seeded_variables
@@ -44,6 +42,7 @@ from tests.test_torch_parallel_nwindow import concrete_gathers  # noqa: F401  (a
 HEAD_DIMS = (3, 6, 12, 24, 48, 64, 96, 128, 256)
 KEYS = (343, 448, 1519, 2989)  # 7 frames of 7x7, of 8x8 windows; 31 and 61 of 7x7
 HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1}
+KEY_TILES = (16, 32, 64)  # the key-tiled forward's tiles (flash_key_tile in csrc/window_common.cuh)
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
@@ -58,12 +57,11 @@ def test_plans_take_every_head_dim_and_the_launch_checks_accept_them(hd, bf16):
     for n in KEYS:
         m = 64 if n == 448 else 49
         fwd = attn_forward_plan(20, heads, m, n, hd, sms=132, blocks_per_sm=1, bf16=bf16)
-        if fwd.key_tile:
-            assert fwd.key_tile == attn_tiled_keys(hd, bf16) and fwd.threads == FLASH_THREADS
-            assert attn_tiled_smem_bytes(hd, bf16) <= _MAX_SMEM
+        if fwd.key_tiled:
+            assert fwd.threads == FLASH_THREADS
         else:
             assert hd <= 32 and attn_smem_bytes(n, hd, bf16) <= _MAX_SMEM
-        assert fwd.key_tile or hd <= 32
+        assert fwd.key_tiled or hd <= 32
         bwd = attn_core_bwd_plan(m, n, c, heads)
         assert bwd.smem_bytes <= _MAX_SMEM
         assert (bwd_counter(bwd, hd) == "attn_core_backward_wide") == (hd > 32)
@@ -169,7 +167,7 @@ def one_sweep_attention(q, k, v, bias, num_heads, key_tile):
 def test_one_sweep_recurrence_meets_the_gates_against_the_twin(hd):
     """The emulated one-sweep forward against the twin, f32 within 1e-4 x
     max(1, max|twin|) and bf16 within 2e-2 x max|twin| (the kernel-vs-twin
-    gates), at every N of KEYS and the tile the plan gives head_dim."""
+    gates), at every N of KEYS and every tile of KEY_TILES."""
     heads = HEADS[hd]
     c = heads * hd
     rng = np.random.default_rng(hd)
@@ -180,7 +178,8 @@ def test_one_sweep_recurrence_meets_the_gates_against_the_twin(hd):
         for dt in (torch.float32, torch.bfloat16):
             ins = [t.to(dt) for t in (q, k, v)]
             want = attn_core_reference(*ins, bias, heads).float()
-            got = one_sweep_attention(*ins, bias, heads, attn_tiled_keys(hd, dt == torch.bfloat16))
-            err = (got.float() - want).abs().max().item()
             top = want.abs().max().item()
-            assert err <= (1e-4 * max(1.0, top) if dt == torch.float32 else 2e-2 * top), (n, dt, err)
+            for tile in KEY_TILES:
+                got = one_sweep_attention(*ins, bias, heads, tile)
+                err = (got.float() - want).abs().max().item()
+                assert err <= (1e-4 * max(1.0, top) if dt == torch.float32 else 2e-2 * top), (n, dt, tile, err)

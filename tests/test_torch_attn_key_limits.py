@@ -8,9 +8,9 @@ memory, so a row of N keys fits them only up to a limit: the forward
 1452 in f32 and 2896 in bf16 (the tensor-core kernel's half-width rows); the
 backward (``attn_core_bwd_plan``, which computes in f32 whatever the operand
 type) at M 49 query rows up to 7196 at head_dim 4 and 1400 at head_dim 16,
-and at M 64 up to 7176 and 1384. Each plan keeps today's kernel
-(``key_tile == 0``) up to that limit and gives every longer row a key tile
-(the JAX package caps only at its 96 MB VMEM limit): N + 1 and far rows of
+and at M 64 up to 7176 and 1384. Each plan keeps today's kernel up to that
+limit and gives every longer row the key-tiled one (the JAX package caps
+only at its 96 MB VMEM limit): N + 1 and far rows of
 61 and 151 frames of 7x7 windows (2989 and 7399 keys) plan, and neither
 plan raises.
 """
@@ -19,27 +19,26 @@ import pytest
 import torch
 
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
+    FLASH_THREADS,
     _MAX_SMEM,
     attn_core_bwd_plan,
     attn_core_bwd_smem_bytes,
     attn_forward_plan,
     attn_smem_bytes,
-    attn_tiled_keys,
-    attn_tiled_smem_bytes,
 )
 
 HEADS = 16
 FAR = {16: 49 * 61, 4: 49 * 151}  # 61 and 151 buffer frames of 7x7 windows
 
 
-def _last_untiled(plan):
-    """The largest N the plan gives to the untiled kernel, by bisection
-    (the untiled kernels' shared memory grows with N)."""
+def _last_untiled(tiled):
+    """The largest N for which ``tiled(N)`` is false, by bisection (the
+    untiled kernels' shared memory grows with N)."""
     lo, hi = 1, 1 << 14
-    assert plan(lo).key_tile == 0 and plan(hi).key_tile > 0
+    assert not tiled(lo) and tiled(hi)
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        if plan(mid).key_tile:
+        if tiled(mid):
             hi = mid
         else:
             lo = mid
@@ -58,15 +57,12 @@ def test_forward_plan_refuses_above_its_key_limit(head_dim, dtype, limit):
     def plan(n):
         return attn_forward_plan(20, HEADS, 49, n, head_dim, sms=132, blocks_per_sm=1, bf16=bf16)
 
-    assert _last_untiled(plan) == limit
+    assert _last_untiled(lambda n: plan(n).key_tiled) == limit
     assert attn_smem_bytes(limit, head_dim, bf16) <= _MAX_SMEM < attn_smem_bytes(limit + 1, head_dim, bf16)
-    for n in (limit + 1, FAR[head_dim]):
+    for n in (limit + 1, FAR[head_dim], FAR[head_dim] + 1000):
+        # the key-tiled kernel's shared memory is a constant of its build
         tiled = plan(n)
-        assert tiled.key_tile > 0 and tiled.key_tile % 32 == 0
-        assert tiled.key_tile == attn_tiled_keys(head_dim, bf16)
-        assert attn_tiled_smem_bytes(head_dim, bf16) <= _MAX_SMEM
-        # the tile is a function of head_dim (and the operand type) alone
-        assert tiled.key_tile == plan(FAR[head_dim] + 1000).key_tile
+        assert tiled.key_tiled and tiled.threads == FLASH_THREADS
 
 
 @pytest.mark.parametrize("head_dim,m,limit", [(4, 49, 7196), (16, 49, 1400), (4, 64, 7176),
@@ -77,7 +73,7 @@ def test_backward_plan_refuses_above_its_key_limit(head_dim, m, limit):
     def plan(n):
         return attn_core_bwd_plan(m, n, head_dim * HEADS, HEADS)
 
-    assert _last_untiled(plan) == limit
+    assert _last_untiled(lambda n: plan(n).key_tile > 0) == limit
     assert plan(limit).row_share == 0  # the long-row variant takes the last rows
     assert attn_core_bwd_smem_bytes(m, limit + 1, head_dim, 0) > _MAX_SMEM
     for n in (limit + 1, FAR[head_dim]):
@@ -99,6 +95,6 @@ def test_flagship_buffers_beyond_the_limits():
         for head_dim in (4, 16):
             for bf16 in (False, True):
                 fwd = attn_forward_plan(20, HEADS, 49, n, head_dim, 132, 1, bf16)
-                assert (fwd.key_tile > 0) == (head_dim == 16 and (frames == 61 or not bf16))
+                assert fwd.key_tiled == (head_dim == 16 and (frames == 61 or not bf16))
             bwd = attn_core_bwd_plan(49, n, head_dim * HEADS, HEADS)
             assert bwd.row_share == 0 and (bwd.key_tile > 0) == (head_dim == 16)

@@ -782,10 +782,10 @@ def test_cuda_key_tiled_window_attention_matches_twin(cuda_device, hd):
             got = fused_window_attention(*ins, bias, heads)
             ref = window_attention_reference(*ins, bias, heads)
             torch.cuda.synchronize()
-            want = "fused_window_attention_key_tiles" if plan.key_tile else "fused_window_attention"
+            want = "fused_window_attention_key_tiles" if plan.key_tiled else "fused_window_attention"
             assert _launched(before) == {want: 1}, (n, dt)
             assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt), (n, dt)
-    assert plan.key_tile  # the far rows take the tiles in bf16 too
+    assert plan.key_tiled  # the far rows take the tiles in bf16 too
 
 
 @pytest.mark.cuda
@@ -814,7 +814,7 @@ def test_cuda_key_tiled_block_attention_matches_twin(cuda_device, hd, lib):
                 ref = window_block_reference(xd, pb, heads, frames // 2, with_acc=True)
                 name = "fused_window_block"
             torch.cuda.synchronize()
-            assert _launched(before) == {name + ("_key_tiles" if plan.key_tile else ""): 2}
+            assert _launched(before) == {name + ("_key_tiles" if plan.key_tiled else ""): 2}
             for a, b, r in zip(got, again, ref):
                 assert torch.equal(a, b)
                 assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (frames, dt)
@@ -876,7 +876,7 @@ def test_cuda_key_tiled_blocks_train_on_the_kernel_path(cuda_device, win, c):
             out.square().mean().backward()
             torch.cuda.synchronize()
             if kernel:
-                assert _launched(before) == {fwd + ("_key_tiles" if plan_f.key_tile else ""): 1,
+                assert _launched(before) == {fwd + ("_key_tiles" if plan_f.key_tiled else ""): 1,
                                              wac.bwd_counter(plan_b, c // 16): 1}
             else:
                 assert _launched(before) == {}
@@ -889,30 +889,30 @@ def test_cuda_key_tiled_blocks_train_on_the_kernel_path(cuda_device, win, c):
                 gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
             rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
             assert rel <= 1e-3, (key, dilate, rel)
-    assert (plan_f.key_tile > 0) == (plan_b.key_tile > 0) == (c == 256)
+    assert plan_f.key_tiled == (plan_b.key_tile > 0) == (c == 256)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lib", ["window_attention", "swin_block", "window_block"])
 def test_cuda_key_tiled_forward_occupancy_and_smem_are_the_plans(cuda_device, lib):
     """Where the plan picks key tiles, the occupancy query reports the
-    tiled instantiation (its key tile, the plan's shared memory) and the
-    library's shared-memory query gives the plan's bytes."""
+    tiled instantiation (its key tile, its threads, the shared memory the
+    library's query gives for a key-tiled launch) and the shared memory
+    does not grow with N."""
     index = torch.cuda.current_device()
+    lib_ = wac._lib("window_attention")
     for hd, n in ((16, 2989), (4, 7399)):
         for dt in (torch.float32, torch.bfloat16):
             bf16 = dt == torch.bfloat16
             occ = wac.attn_forward_occupancy(lib, 49, n, 16 * hd, 16, dt, index)
-            tile = wac.attn_key_tile(49, n, hd, bf16)
-            assert tile and occ["key_tile"] == tile and occ["blocks_per_sm"] >= 1
-            assert occ["smem_bytes"] == wac.attn_tiled_smem_bytes(hd, bf16)
+            assert wac.attn_key_tiled(49, n, hd, bf16)
+            assert occ["key_tile"] in (16, 32, 64) and occ["blocks_per_sm"] >= 1
+            smem = lib_.window_attention_smem_bytes(int(bf16), 49, n, 16 * hd, 16, 1)
+            assert occ["smem_bytes"] == smem <= wac._MAX_SMEM
+            assert smem == lib_.window_attention_smem_bytes(int(bf16), 49, 2 * n, 16 * hd, 16, 1)
             assert occ["threads"] == wac.FLASH_THREADS
             plan = wac.attn_plan_for(lib, 3, 49, n, 16 * hd, 16, dt, index)
-            assert plan.key_tile == tile and plan.threads == wac.FLASH_THREADS
-    lib_ = wac._lib("window_attention")
-    for bf16 in (0, 1):
-        assert lib_.window_attention_smem_bytes(bf16, 49, 2989, 256, 16, 64) == \
-            wac.attn_tiled_smem_bytes(16, bool(bf16))
+            assert plan.key_tiled and plan.threads == wac.FLASH_THREADS
 
 
 # Head dims between and above the instantiated ones (ROADMAP C6, repaired):
@@ -935,7 +935,7 @@ def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
     x, ctr, p = _flat_inputs(hd, d, b_, m, c, heads, cuda_device)
     pb = _block_params(p)
     for dt in (torch.float32, torch.bfloat16):
-        tiled = wac.attn_key_tile(m, d * m, hd, dt == torch.bfloat16) > 0
+        tiled = wac.attn_key_tiled(m, d * m, hd, dt == torch.bfloat16)
         assert tiled == (hd > 32)
         ins = [t.to(dt) for t in (q, k, v)]
         xd, cd = x.to(dt), ctr.to(dt)
