@@ -112,8 +112,7 @@ reference's.
            launch counts (level 2 on the key-tiled forward and the wide
            backward)
 
-Then the count of profiler traces that device_ms took and found short,
-the kernel summary line, the card's name and power limit, and
+Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
 convolutions, so f32 comparisons are exact-f32 on both sides.
 """
@@ -1360,8 +1359,8 @@ def bwd_occupancy(torch, heads):
 
 def fwd_core_case(torch, q, k, v, bias, heads, **labels):
     """One fused_window_attention case: the kernel vs its twin (gate), the
-    launch counter of the kernel its plan picks, its time (CUDA events and
-    profiler device ms), the twin's, torch's SDPA forward and the bound."""
+    launch counter of the kernel its plan picks, its time (CUDA events over
+    calls, and device_ms), the twin's, torch's SDPA forward and the bound."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
         attn_plan_for, fused_window_attention, launch_counts, window_attention_reference)
 
@@ -1500,8 +1499,8 @@ def phase_kernels_key_tiles(torch):
                  "backward": {str(dt).split(".")[-1]: attn_core_backward_occupancy(m, n_main, c2, heads, dt, 0)
                               for dt in (torch.float32, torch.bfloat16)}}
     emit({"phase": "kernels", "kernel": "attention key tiles",
-          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms (null where "
-                    "every trace lost kernel records); library = torch SDPA forward (bias as "
+          "timing": "CUDA events over calls, inputs L2-warm, and device ms (CUDA events around "
+                    "calls queued behind a spin kernel); library = torch SDPA forward (bias as "
                     "attn_mask) / SDPA backward alone",
           "forward_main": fwd_cases, "backward_main": bwd_cases, "forward_edges": edge_fwd,
           "backward_edges": edge_bwd, "block_stages": blocks, "occupancy_main": occupancy})
@@ -1642,8 +1641,8 @@ def phase_kernels_head_dims(torch):
             bwd.append({**case, "kernel": counter})
     tiled = attn_tiled_times(torch)
     emit({"phase": "kernels", "kernel": "attention head dims",
-          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms (null where "
-                    "every trace lost kernel records); library = torch SDPA forward (bias as "
+          "timing": "CUDA events over calls, inputs L2-warm, and device ms (CUDA events around "
+                    "calls queued behind a spin kernel); library = torch SDPA forward (bias as "
                     "attn_mask) / SDPA backward alone; tiled_forward: attn_tiled_times",
           "forward": fwd, "block_stages": blocks, "backward": bwd, "tiled_forward": tiled})
     return [c for c in bwd if c["head_dim"] in ("64", "128")]
@@ -1818,29 +1817,30 @@ def sdpa_forward_ms(torch, q, k, v, bias, heads, iters=20):
     return None, f"no SDPA backend takes these shapes: {errors}", None
 
 
-# device_ms's traces: taken, and short (no kernel records, not a multiple
-# of the calls, or fewer than another trace of the same calls held)
-PROFILER_TRACES = {"taken": 0, "short": 0}
-
-
-def device_ms(torch, fn, calls=5, traces=6):
-    """Device ms per call of the CUDA kernels that ``calls`` calls of ``fn``
-    launch, from profiler traces: the kernels' own time, without the host's.
-    A trace on the card can lose some or all of its kernel records (PERF.md
-    section 7), so a trace counts only once another holds as many records,
-    a nonzero multiple of ``calls`` and no fewer than any trace so far;
-    None (null in the kernels lines) if no two of ``traces`` traces do."""
-    whole = {}
-    for _ in range(traces):
-        seq = kernel_sequence(torch, fn, calls)
-        PROFILER_TRACES["taken"] += 1
-        if not seq or len(seq) % calls or len(seq) < max(whole, default=0):
-            PROFILER_TRACES["short"] += 1
-            continue
-        if len(seq) in whole:
-            return sum(ms for _, ms in whole[len(seq)] + seq) / (2 * calls)
-        whole[len(seq)] = seq
-    return None
+def device_ms(torch, fn, calls=5, spin_cycles=20_000_000):
+    """Device ms per call of the CUDA kernels that ``fn`` launches, without
+    the host's time: ``calls`` calls enqueued behind a spin kernel
+    (``torch.cuda._sleep``), so the card runs them back to back, timed by
+    CUDA events around them. If the spin ended before the host had
+    enqueued them all, the card may have waited on the host: the spin
+    doubles and the calls run again. (Profiler traces on the card lose
+    kernel records in long runs, PERF.md section 7.)"""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        if not start.query():  # the card still spins: it never waited on the host
+            end.synchronize()
+            return start.elapsed_time(end) / calls
+        spin_cycles *= 2
+    raise AssertionError(f"device_ms: the host took longer to enqueue {calls} calls than a spin "
+                         f"of {spin_cycles // 2} cycles")
 
 
 def check_close(what, got, ref, dt):
@@ -1930,9 +1930,9 @@ def phase_kernels_window(torch):
     emit({"phase": "kernels", "kernel": "fused_window_block", "timing": "CUDA events, inputs L2-warm",
           "cases": block_cases})
     emit({"phase": "kernels", "kernel": "fused_window_attention",
-          "timing": "CUDA events over calls, inputs L2-warm, and profiler device ms of the "
-                    "kernels alone (null where every trace lost kernel records); library = torch "
-                    "SDPA forward, bias as attn_mask",
+          "timing": "CUDA events over calls, inputs L2-warm, and device ms of the kernels alone "
+                    "(CUDA events around calls queued behind a spin kernel); library = torch SDPA "
+                    "forward, bias as attn_mask",
           "cases": attn_cases, "gradients_max_abs_err_vs_twin_autograd": grads})
     emit({"phase": "kernels", "kernel": "attention forward occupancy",
           "instantiations": fwd_occupancy(torch, heads)})
@@ -2455,7 +2455,6 @@ def main() -> int:
     # bare core, the kernel B1's attention stage runs there), and the wide
     # backward per level-2 frame of the flagship with num_heads 4 and 2 (6
     # launches, the mean of head_dim 64 and 128 at C 256)
-    emit({"phase": "profiler", "device_ms_traces": PROFILER_TRACES})
     no_acc = [c for c in block_cases if not c["with_acc"]]
     attn_8 = [c for c in attn_cases if c["config"] == "8x8"]
     emit({"kernels": [
