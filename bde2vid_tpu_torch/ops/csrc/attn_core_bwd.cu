@@ -79,8 +79,13 @@
 //   - head_dim 4 (level 0) is below an MMA's K, so every product is an FMA
 //     dot product templated on head_dim 1-32; a head_dim between them runs
 //     at the next one up with zero columns past it (staged, never written).
-//   - Above head_dim 32 (attn_bwd_wide_kernel, head_dim 48-256 at 64, 128
-//     and 256): no thread holds a head row; see that kernel.
+//   - Above head_dim 32 (the wide backward, any head_dim in chunks of 64
+//     columns): three launches that split each (window, head) over key
+//     tiles, row tiles and head_dim chunks, f32 by register-tiled FMA and
+//     bf16 on the tensor cores; see attn_bwd_scores_kernel below.
+
+#include <algorithm>
+#include <type_traits>
 
 #include "device_common.cuh"
 
@@ -98,18 +103,16 @@ struct BwdArgs {
   const void *q, *k, *v, *g;  // (B_, M, C), (B_, N, C), (B_, N, C), (B_, M, C)
   const float* bias;          // (H, M, N) f32
   void *dq, *dk, *dv;         // like q, k, v
-  float* partial;             // (groups, H, M, N) f32 scratch
-  float* dq_acc;              // attn_bwd_wide_kernel: (B_, M, C) f32 dq sums over key tiles
+  float* partial;             // (groups, H, M, N) f32 scratch; the wide backward's ds planes (groups = B_)
+  float* scratch;             // the wide backward's f32 s and dp planes and row statistics (WidePlanes)
+  bool vec;                   // the wide backward: 16-byte copies (rows and head_dim 16-byte multiples)
 };
 
 // The k, v, q and g rows, three row statistics, and with J > 0 the
 // block's (M, N) dbias plane; with a key tile, the k and v rows of one tile
-// and the (M, HD) dq sums instead of the plane; above head_dim 32 (the wide
-// kernel), the q and g rows, one tile's k and v rows and its two (M,
-// key_tile) planes. hd is the instantiated HD.
+// and the (M, HD) dq sums instead of the plane. hd is the instantiated HD
+// (at most 32; the wide backward's blocks are wide_*_smem below).
 size_t bwd_smem_floats(int m, int n, int hd, int j, int key_tile) {
-  if (hd > 32)
-    return 2 * ((size_t)m + key_tile) * key_stride(hd) + 2 * (size_t)m * key_tile + 3 * (size_t)m;
   if (key_tile)
     return 2 * ((size_t)key_tile + m) * key_stride(hd) + 3 * (size_t)m + (size_t)m * hd;
   return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (j ? (size_t)m * n : 0);
@@ -637,177 +640,445 @@ __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kern
   }
 }
 
-// The head_dim above 32 (attn_bwd_wide_kernel): a.hd = 48 .. 256 at HD =
-// 64, 128 or 256. A lane per key with (HD,) rows in registers, as above,
-// would spill; here no thread holds a row. Per window, q and g stay in
-// shared memory, k and v come a key tile at a time, and each stage hands
-// whole dot products or output elements to the block's threads:
-//   pass 1, per tile: a thread per (row, key) takes s and dp (float4 dot
-//   products from shared memory) into two (M, key_tile) planes; a warp per
-//   row folds the tile into its running max, sum of exp and sum of dp exp.
-//   pass 2, per tile: the same threads recompute s and dp (the same float
-//   operations, so the bits of pass 1), add ds into the block's dbias
-//   slice (as the long rows do) and leave round(p) and round(ds scale) in
-//   the planes; then a thread per (row, column) adds the tile's share of dq
-//   into an f32 sum in device memory (dq_acc; dq itself at the last tile),
-//   and a thread per (key, column) of the tile sums its dk and dv over the
-//   window's rows.
-// Every sum runs in a fixed order, so two runs give bit-identical
-// gradients. It is right first and not tuned.
-template <int HD>
-__device__ __forceinline__ float dot_rows(const float* x, const float* y) {
-  float s = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; d += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(x + d);
-    const float4 b = *reinterpret_cast<const float4*>(y + d);
-    s = fmaf(a.x, b.x, s);
-    s = fmaf(a.y, b.y, s);
-    s = fmaf(a.z, b.z, s);
-    s = fmaf(a.w, b.w, s);
-  }
-  return s;
+// ---------------------------------------------------------------------------
+// head_dim above 32 (the wide backward): three launches and the dbias
+// reduction, in 128-thread blocks that split each (window, head) over key
+// tiles, row tiles and head_dim chunks of 64 columns, so that any head_dim
+// runs (zero columns past it, staged and never written) and the grid fills
+// the card (B_ 20 with one head: 220 blocks of dk/dv at head_dim 64):
+//   1. attn_bwd_scores_kernel, block (key tile of 32, row tile of 64,
+//      window x head): s = q k^T scale + bias and dp = g v^T, summed over the
+//      head_dim chunks in registers; it writes s and dp to two (B_, H, M, N)
+//      f32 planes in device memory, and for each row the tile's max score,
+//      sum of exp and sum of dp times exp (a warp per row, a lane per key).
+//   2. attn_bwd_dkdv_kernel, block (key tile of 32, head_dim chunk, window x
+//      head): per 64 rows at a time it merges the rows' statistics over the
+//      key tiles in order, reads s and dp back, forms p32, ds, round(p) and
+//      round(ds scale) in shared memory, writes ds to the (B_, H, M, N) plane
+//      that dbias and launch 3 read (chunk 0 alone), and adds the chunk's dv =
+//      p^T g and dk = dsc^T q for its keys in registers.
+//   3. attn_bwd_dq_kernel, block (row tile of 32, head_dim chunk, window x
+//      head): dq = round(ds scale) k over the key tiles.
+//   4. dbias_reduce_kernel sums the ds planes over the windows in order.
+// Products: f32 by FMA with no TF32, each thread a 4 x 4 register tile from
+// float4 rows in shared memory, 8 FMAs a load; bf16 on the tensor cores
+// (mma.sync m16n8k16, f32 accumulators, ldmatrix fragments), a warp 16 x 32.
+// Every output element and every partial has one owner and sums in a fixed
+// order, so two runs give bit-identical gradients, with no float atomics; no
+// (M, N) plane stays in shared memory across launches.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 128;
+constexpr int kWideKeys = 32;   // keys of a scores tile and of a dk/dv block
+constexpr int kWideRows = 64;   // rows of a scores tile; rows a dk/dv block takes at a time
+constexpr int kWideCols = 64;   // head_dim columns of one chunk
+constexpr int kWideQRows = 32;  // rows of a dq block
+constexpr int kWideQKeys = 64;  // keys a dq block takes at a time
+static_assert(kWideKeys == 32, "a lane per key of a scores tile");
+
+// Row stride (elements) of a staged tile of `cols` columns: an odd number of
+// 16-byte chunks, so eight rows read at one column fall in distinct banks.
+template <typename T>
+__host__ __device__ constexpr int wide_ld(int cols) {
+  return cols + 16 / (int)sizeof(T);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1) attn_bwd_wide_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  const int grp = blockIdx.x, h = blockIdx.y;
-  const int m_tok = a.m, n_tok = a.n, c = a.c, kt = a.key_tile, hd = a.hd;
-  constexpr int KS = key_stride(HD);
-  float* qs = smem;                   // (M, KS)
-  float* gs = qs + m_tok * KS;        // (M, KS)
-  float* ks = gs + m_tok * KS;        // (key_tile, KS)
-  float* vs = ks + kt * KS;           // (key_tile, KS)
-  float* sp = vs + kt * KS;           // (M, key_tile): scores, then round(p)
-  float* dpp = sp + m_tok * kt;       // (M, key_tile): dp, then round(ds * scale)
-  float* row_mxl = dpp + m_tok * kt;  // (M): the row's running max score * log2 e
-  float* row_inv = row_mxl + m_tok;   // (M): its running sum of exp, then 1 / the sum
-  float* row_dot = row_inv + m_tok;   // (M): its running sum of dp exp, then rowsum(dp * p32)
-  // ds summed over this block's windows, in its slice of the partial buffer
-  float* dbias = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
+// Shared memory of each wide launch (bytes): the scores tile's q, g, k and v
+// chunks (its f32 (64, 33) s and dp planes alias them after the products);
+// the dk/dv block's g and q chunks, its round(p) and round(ds scale) tiles
+// and three row statistics; the dq block's round(ds scale) tile and k chunk.
+template <typename T>
+constexpr size_t wide_scores_smem() {
+  return sizeof(T) * (size_t)(2 * kWideRows + 2 * kWideKeys) * wide_ld<T>(kWideCols);
+}
+template <typename T>
+constexpr size_t wide_dkdv_smem() {
+  return sizeof(T) * (size_t)kWideRows * (2 * wide_ld<T>(kWideCols) + 2 * wide_ld<T>(kWideKeys)) +
+         sizeof(float) * 3 * kWideRows;
+}
+template <typename T>
+constexpr size_t wide_dq_smem() {
+  return sizeof(T) * (size_t)(kWideQRows * wide_ld<T>(kWideQKeys) + kWideQKeys * wide_ld<T>(kWideCols));
+}
+static_assert(wide_scores_smem<__nv_bfloat16>() >= sizeof(float) * 2 * kWideRows * (kWideKeys + 1),
+              "the s and dp planes fit over the staged chunks");
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* g = static_cast<const T*>(a.g);
-  T* dq = static_cast<T*>(a.dq);
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
-  const float* bias_h = a.bias + (size_t)h * m_tok * n_tok;
-  const float scale = a.scale;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int w_begin = (int)((long long)grp * a.b / a.groups);
-  const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
-
-  for (size_t e = tid; e < (size_t)m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
-
-  for (int w = w_begin; w < w_end; ++w) {
-    __syncthreads();  // the previous window is done with qs/gs and the statistics
-    for (int e = tid; e < m_tok * HD; e += kThreads) {
-      const int i = e / HD, dd = e % HD;
-      const size_t src = ((size_t)w * m_tok + i) * c + h * hd + dd;
-      qs[i * KS + dd] = dd < hd ? load(q, src) : 0.f;
-      gs[i * KS + dd] = dd < hd ? load(g, src) : 0.f;
+// Rows [0, nrows) x columns [0, COLS) of dst (row stride ldd) from src row r
+// at src + r * lds, zero past `rows` rows and `cols` columns. vec: 16-byte
+// cp.async (src rows 16-byte aligned, cols a multiple of 16 bytes), which
+// the caller commits and waits for; else plain loads.
+template <typename T, int COLS>
+__device__ __forceinline__ void wide_stage(T* dst, int ldd, const T* src, size_t lds, int nrows, int rows,
+                                           int cols, bool vec) {
+  constexpr int CH = 16 / (int)sizeof(T), PER = COLS / CH;
+  if (vec) {
+    for (int e = threadIdx.x; e < nrows * PER; e += kWideThreads) {
+      const int r = e / PER, col = (e - r * PER) * CH;
+      const bool in = r < rows && col < cols;
+      cp_async16(dst + r * ldd + col, in ? src + r * lds + col : src, in ? 16 : 0);
     }
-    for (int i = tid; i < m_tok; i += kThreads) {
-      row_mxl[i] = __int_as_float(0xff800000);  // -inf
-      row_inv[i] = 0.f;
-      row_dot[i] = 0.f;
+  } else {
+    for (int e = threadIdx.x; e < nrows * COLS; e += kWideThreads) {
+      const int r = e / COLS, col = e - r * COLS;
+      dst[r * ldd + col] = r < rows && col < cols ? src[r * lds + col] : store_cast<T>(0.f);
     }
-    for (int pass = 1; pass <= 2; ++pass) {
-      for (int t0 = 0; t0 < n_tok; t0 += kt) {
-        const int cnt = min(kt, n_tok - t0);
-        __syncthreads();  // the block is done with the previous tile, its planes and the statistics
-        for (int e = tid; e < cnt * HD; e += kThreads) {
-          const int nn = e / HD, dd = e % HD;
-          const size_t src = ((size_t)w * n_tok + t0 + nn) * c + h * hd + dd;
-          ks[nn * KS + dd] = dd < hd ? load(k, src) : 0.f;
-          vs[nn * KS + dd] = dd < hd ? load(v, src) : 0.f;
-        }
-        __syncthreads();
-        for (int e = tid; e < m_tok * cnt; e += kThreads) {
-          const int i = e / cnt, nn = e - i * cnt;
-          const float s = fmaf(dot_rows<HD>(qs + i * KS, ks + nn * KS), scale,
-                               __ldg(bias_h + (size_t)i * n_tok + t0 + nn));
-          const float dp = dot_rows<HD>(gs + i * KS, vs + nn * KS);
-          if (pass == 1) {
-            sp[i * kt + nn] = s;
-            dpp[i * kt + nn] = dp;
-            continue;
-          }
-          const float p32 = fast_exp2(fmaf(s, kLog2e, -row_mxl[i])) * row_inv[i];
-          const float ds = p32 * (dp - row_dot[i]);
-          dbias[(size_t)i * n_tok + t0 + nn] += ds;
-          sp[i * kt + nn] = round_to<T>(p32);
-          dpp[i * kt + nn] = round_to<T>(ds * scale);
-        }
-        __syncthreads();
-        if (pass == 1) {
-          // a warp per query row: the tile's max, then its sums of exp and of
-          // dp times exp under the new running max
-          for (int i = warp; i < m_tok; i += kWarps) {
-            const float* srow = sp + i * kt;
-            const float* drow = dpp + i * kt;
-            float mx = __int_as_float(0xff800000);  // -inf
-            for (int nn = lane; nn < cnt; nn += 32) mx = fmaxf(mx, srow[nn]);
-            const float m0 = row_mxl[i];
-            const float mxl = fmaxf(m0, warp_max(mx) * kLog2e);
-            float sum = 0.f, dpe = 0.f;
-            for (int nn = lane; nn < cnt; nn += 32) {
-              const float e = fast_exp2(fmaf(srow[nn], kLog2e, -mxl));
-              sum += e;
-              dpe = fmaf(drow[nn], e, dpe);
-            }
-            const float r = fast_exp2(m0 - mxl);
-            const float tsum = fmaf(row_inv[i], r, warp_sum(sum));
-            const float tdot = fmaf(row_dot[i], r, warp_sum(dpe));
-            __syncwarp();  // every lane has read the row's statistics
-            if (lane == 0) {
-              row_mxl[i] = mxl;
-              row_inv[i] = tsum;
-              row_dot[i] = tdot;
-            }
-          }
-          if (t0 + cnt == n_tok) {
-            __syncthreads();
-            for (int i = tid; i < m_tok; i += kThreads) {
-              const float inv = 1.f / row_inv[i];
-              row_inv[i] = inv;
-              row_dot[i] *= inv;
-            }
-          }
-          continue;
-        }
-        // pass 2: the tile's share of dq, summed over the tiles in f32
-        const bool first = t0 == 0, last = t0 + cnt == n_tok;
-        for (int e = tid; e < m_tok * hd; e += kThreads) {
-          const int i = e / hd, dd = e - i * hd;
-          float acc = 0.f;
-          for (int nn = 0; nn < cnt; ++nn) acc = fmaf(dpp[i * kt + nn], ks[nn * KS + dd], acc);
-          const size_t o = ((size_t)w * m_tok + i) * c + h * hd + dd;
-          const float tot = first ? acc : a.dq_acc[o] + acc;
-          if (last) {
-            dq[o] = store_cast<T>(tot);
-          } else {
-            a.dq_acc[o] = tot;
-          }
-        }
-        // the tile's dk and dv, whole: every row of the window is in qs/gs
-        for (int e = tid; e < cnt * hd; e += kThreads) {
-          const int nn = e / hd, dd = e - nn * hd;
-          float dka = 0.f, dva = 0.f;
-          for (int i = 0; i < m_tok; ++i) {
-            dka = fmaf(dpp[i * kt + nn], qs[i * KS + dd], dka);
-            dva = fmaf(sp[i * kt + nn], gs[i * KS + dd], dva);
-          }
-          const size_t o = ((size_t)w * n_tok + t0 + nn) * c + h * hd + dd;
-          dk[o] = store_cast<T>(dka);
-          dv[o] = store_cast<T>(dva);
-        }
+  }
+}
+
+// The three products of the wide backward, each into acc[4][4] of a
+// 128-thread block, and where each accumulator lands (row, column of the
+// block's tile). f32: thread tiles of 4 x 4 by FMA; bf16: warp tiles of 16 x
+// 32 by mma.sync (acc[j] is the 16 x 8 fragment j: rows lane / 4 and 8
+// below, columns 2 (lane % 4) and the next).
+//
+// NT: acc (64 x 32) += a (64 x K) b (32 x K)^T, a and b row-major.
+template <int K>
+__device__ __forceinline__ void wide_nt(float (&acc)[4][4], const float* as, const float* bs, int ld) {
+  // thread (tr, tc): rows tr + 16 i, columns tc + 8 j; eight lanes of a
+  // 128-bit phase read eight rows of a and one row of b
+  const int tr = threadIdx.x & 15, tc = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(as + (tr + 16 * i) * ld + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(bs + (tc + 8 * j) * ld + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+  }
+}
+template <int K>
+__device__ __forceinline__ void wide_nt(float (&acc)[4][4], const __nv_bfloat16* as,
+                                        const __nv_bfloat16* bs, int ld) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, as + (16 * warp + (lane & 15)) * ld + k + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      uint32_t r[4];
+      ldmatrix_x4(r, bs + (8 * j + (lane >> 4) * 8 + (lane & 7)) * ld + k + ((lane >> 3) & 1) * 8);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(acc[j], a, b0);
+      mma_bf16(acc[j + 1], a, b1);
+    }
+  }
+}
+template <typename T, class F>
+__device__ __forceinline__ void wide_nt_each(const float (&acc)[4][4], F&& f) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f(16 * warp + (lane >> 2) + 8 * (e >> 1), 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
+  } else {
+    const int tr = threadIdx.x & 15, tc = threadIdx.x >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f(tr + 16 * i, tc + 8 * j, acc[i][j]);
+  }
+}
+
+// TN: acc (32 x 64) += a^T b over R rows, a (R x 32) and b (R x 64)
+// row-major: dv = p^T g and dk = dsc^T q for a key tile.
+template <int R>
+__device__ __forceinline__ void wide_tn(float (&acc)[4][4], const float* as, int lda, const float* bs,
+                                        int ldb) {
+  // thread (tk, td): rows 4 tk .. 4 tk + 3 of the result, columns 4 td ..
+  const int tk = threadIdx.x >> 4, td = threadIdx.x & 15;
+#pragma unroll 4
+  for (int r = 0; r < R; ++r) {
+    const float4 x = *reinterpret_cast<const float4*>(as + r * lda + 4 * tk);
+    const float4 y = *reinterpret_cast<const float4*>(bs + r * ldb + 4 * td);
+    const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
+  }
+}
+template <int R>
+__device__ __forceinline__ void wide_tn(float (&acc)[4][4], const __nv_bfloat16* as, int lda,
+                                        const __nv_bfloat16* bs, int ldb) {
+  // warp (wk, wd): result rows 16 wk .., columns 32 wd ..; a^T's fragments
+  // by ldmatrix.trans of a's rows, b's as the B operand by ldmatrix.trans
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wk = warp & 1, wd = warp >> 1;
+#pragma unroll
+  for (int r = 0; r < R; r += 16) {
+    uint32_t a[4];
+    ldmatrix_x4_trans(a, as + (r + (lane & 7) + ((lane >> 4) << 3)) * lda + 16 * wk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, bs + (r + (lane & 15)) * ldb + 32 * wd + 8 * j + (lane >> 4) * 8);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma_bf16(acc[j], a, b0);
+      mma_bf16(acc[j + 1], a, b1);
+    }
+  }
+}
+
+// NN: acc (32 x 64) += a (32 x K) b (K x 64), a and b row-major: dq = dsc k.
+template <int K>
+__device__ __forceinline__ void wide_nn(float (&acc)[4][4], const float* as, int lda, const float* bs,
+                                        int ldb) {
+  // thread (tr, td): rows tr + 8 i, columns 4 td ..
+  const int tr = threadIdx.x & 7, td = threadIdx.x >> 3;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(as + (tr + 8 * i) * lda + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[e] = *reinterpret_cast<const float4*>(bs + (k + e) * ldb + 4 * td);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][0] = fmaf(xs[e], y[e].x, acc[i][0]);
+        acc[i][1] = fmaf(xs[e], y[e].y, acc[i][1]);
+        acc[i][2] = fmaf(xs[e], y[e].z, acc[i][2]);
+        acc[i][3] = fmaf(xs[e], y[e].w, acc[i][3]);
       }
     }
   }
+}
+template <int K>
+__device__ __forceinline__ void wide_nn(float (&acc)[4][4], const __nv_bfloat16* as, int lda,
+                                        const __nv_bfloat16* bs, int ldb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp & 1, wd = warp >> 1;
+#pragma unroll
+  for (int k = 0; k < K; k += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, as + (16 * wr + (lane & 15)) * lda + k + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, bs + (k + (lane & 15)) * ldb + 32 * wd + 8 * j + (lane >> 4) * 8);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma_bf16(acc[j], a, b0);
+      mma_bf16(acc[j + 1], a, b1);
+    }
+  }
+}
+
+// Where the TN (tn = true) or NN accumulators land in the 32 x 64 result.
+template <typename T, bool kTn, class F>
+__device__ __forceinline__ void wide_out_each(const float (&acc)[4][4], F&& f) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r0 = 16 * (warp & 1), c0 = 32 * (warp >> 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f(r0 + (lane >> 2) + 8 * (e >> 1), c0 + 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
+  } else if constexpr (kTn) {
+    const int tk = threadIdx.x >> 4, td = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f(4 * tk + i, 4 * td + j, acc[i][j]);
+  } else {
+    const int tr = threadIdx.x & 7, td = threadIdx.x >> 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f(tr + 8 * i, 4 * td + j, acc[i][j]);
+  }
+}
+
+// The wide backward's scratch (f32, in a.scratch): the s and dp planes (B_,
+// H, M, N), then the key tiles' row statistics (B_ H, tiles, M) three times.
+struct WidePlanes {
+  float *s, *dp, *mx, *sum, *dot;
+  int tiles;
+  __device__ __forceinline__ WidePlanes(const BwdArgs& a) {
+    const size_t plane = (size_t)a.b * a.heads * a.m * a.n;
+    const size_t stats = (size_t)a.b * a.heads * cdiv(a.n, kWideKeys) * a.m;
+    tiles = cdiv(a.n, kWideKeys);
+    s = a.scratch;
+    dp = s + plane;
+    mx = dp + plane;
+    sum = mx + stats;
+    dot = sum + stats;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) attn_bwd_scores_kernel(BwdArgs a) {
+  constexpr int LD = wide_ld<T>(kWideCols), SP = kWideKeys + 1;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  T* qs = reinterpret_cast<T*>(wide_smem);  // (64, LD): the tile's q rows, one chunk
+  T* gs = qs + kWideRows * LD;              // (64, LD): its g rows
+  T* ks = gs + kWideRows * LD;              // (32, LD): the key tile's k rows
+  T* vs = ks + kWideKeys * LD;              // (32, LD): its v rows
+  float* sp = reinterpret_cast<float*>(wide_smem);  // after the products: (64, SP) q k^T
+  float* dpp = sp + kWideRows * SP;                 // and (64, SP) dp
+  const int kt = blockIdx.x, r0 = blockIdx.y * kWideRows, bh = blockIdx.z;
+  const int m = a.m, n = a.n, c = a.c, hd = a.hd, n0 = kt * kWideKeys;
+  const int w = bh / a.heads, h = bh - w * a.heads;
+  const T* q = static_cast<const T*>(a.q) + ((size_t)w * m + r0) * c + h * hd;
+  const T* g = static_cast<const T*>(a.g) + ((size_t)w * m + r0) * c + h * hd;
+  const T* k = static_cast<const T*>(a.k) + ((size_t)w * n + n0) * c + h * hd;
+  const T* v = static_cast<const T*>(a.v) + ((size_t)w * n + n0) * c + h * hd;
+  float s[4][4] = {}, dp[4][4] = {};
+  for (int d0 = 0; d0 < hd; d0 += kWideCols) {
+    __syncthreads();  // the block is done with the previous chunk
+    wide_stage<T, kWideCols>(qs, LD, q + d0, c, kWideRows, m - r0, hd - d0, a.vec);
+    wide_stage<T, kWideCols>(gs, LD, g + d0, c, kWideRows, m - r0, hd - d0, a.vec);
+    wide_stage<T, kWideCols>(ks, LD, k + d0, c, kWideKeys, n - n0, hd - d0, a.vec);
+    wide_stage<T, kWideCols>(vs, LD, v + d0, c, kWideKeys, n - n0, hd - d0, a.vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    wide_nt<kWideCols>(s, qs, ks, LD);
+    wide_nt<kWideCols>(dp, gs, vs, LD);
+  }
+  __syncthreads();  // the planes lie over the staged chunks
+  wide_nt_each<T>(s, [&](int r, int col, float x) { sp[r * SP + col] = x; });
+  wide_nt_each<T>(dp, [&](int r, int col, float x) { dpp[r * SP + col] = x; });
+  __syncthreads();
+  // a warp per row, a lane per key: scale and bias, the planes out, and the
+  // tile's max, sum of exp and sum of dp times exp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, key = n0 + lane;
+  const WidePlanes pl(a);
+  const size_t plane0 = (size_t)bh * m * n;
+  const float* bias_h = a.bias + (size_t)h * m * n;
+  for (int r = warp; r < kWideRows && r0 + r < m; r += kWideThreads / 32) {
+    const int row = r0 + r;
+    const bool in = key < n;
+    const float sv = in ? fmaf(sp[r * SP + lane], a.scale, __ldg(bias_h + (size_t)row * n + key))
+                        : __int_as_float(0xff800000);  // -inf
+    const float dv = dpp[r * SP + lane];
+    if (in) {
+      pl.s[plane0 + (size_t)row * n + key] = sv;
+      pl.dp[plane0 + (size_t)row * n + key] = dv;
+    }
+    const float mxl = warp_max(sv) * kLog2e;
+    const float e = in ? fast_exp2(fmaf(sv, kLog2e, -mxl)) : 0.f;
+    const float sum = warp_sum(e), dot = warp_sum(in ? dv * e : 0.f);
+    if (lane == 0) {
+      const size_t o = ((size_t)bh * pl.tiles + kt) * m + row;
+      pl.mx[o] = mxl;
+      pl.sum[o] = sum;
+      pl.dot[o] = dot;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
+  constexpr int LD = wide_ld<T>(kWideCols), LP = wide_ld<T>(kWideKeys);
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  T* gs = reinterpret_cast<T*>(wide_smem);  // (64, LD): g rows, the block's chunk
+  T* qs = gs + kWideRows * LD;              // (64, LD): q rows
+  T* ps = qs + kWideRows * LD;              // (64, LP): round(p) against the tile's keys
+  T* dss = ps + kWideRows * LP;             // (64, LP): round(ds scale)
+  float* row_mxl = reinterpret_cast<float*>(dss + kWideRows * LP);  // (64): the row's max * log2 e
+  float* row_inv = row_mxl + kWideRows;                            // (64): 1 / its sum of exp
+  float* row_dot = row_inv + kWideRows;                            // (64): rowsum(dp * p32)
+  const int kt = blockIdx.x, d0 = blockIdx.y * kWideCols, bh = blockIdx.z;
+  const int m = a.m, n = a.n, c = a.c, hd = a.hd, n0 = kt * kWideKeys;
+  const int w = bh / a.heads, h = bh - w * a.heads;
+  const T* q = static_cast<const T*>(a.q) + (size_t)w * m * c + h * hd + d0;
+  const T* g = static_cast<const T*>(a.g) + (size_t)w * m * c + h * hd + d0;
+  const WidePlanes pl(a);
+  const size_t plane0 = (size_t)bh * m * n;
+  float dv[4][4] = {}, dk[4][4] = {};
+  for (int r0 = 0; r0 < m; r0 += kWideRows) {
+    __syncthreads();  // the block is done with the previous rows
+    wide_stage<T, kWideCols>(gs, LD, g + (size_t)r0 * c, c, kWideRows, m - r0, hd - d0, a.vec);
+    wide_stage<T, kWideCols>(qs, LD, q + (size_t)r0 * c, c, kWideRows, m - r0, hd - d0, a.vec);
+    cp_async_commit();
+    // the rows' statistics, merged over the key tiles in order
+    for (int r = threadIdx.x; r < kWideRows && r0 + r < m; r += kWideThreads) {
+      const size_t o = (size_t)bh * pl.tiles * m + r0 + r;
+      float mx = __int_as_float(0xff800000);  // -inf
+      for (int t = 0; t < pl.tiles; ++t) mx = fmaxf(mx, pl.mx[o + (size_t)t * m]);
+      float sum = 0.f, dot = 0.f;
+      for (int t = 0; t < pl.tiles; ++t) {
+        const float f = fast_exp2(pl.mx[o + (size_t)t * m] - mx);
+        sum = fmaf(pl.sum[o + (size_t)t * m], f, sum);
+        dot = fmaf(pl.dot[o + (size_t)t * m], f, dot);
+      }
+      const float inv = 1.f / sum;
+      row_mxl[r] = mx;
+      row_inv[r] = inv;
+      row_dot[r] = dot * inv;
+    }
+    __syncthreads();
+    // p32 and ds from the planes, a thread per (row, key): ds to its plane,
+    // round(p) and round(ds scale) to the block's tiles (zero past M and N)
+    for (int e = threadIdx.x; e < kWideRows * kWideKeys; e += kWideThreads) {
+      const int r = e / kWideKeys, col = e - r * kWideKeys, row = r0 + r, key = n0 + col;
+      float p = 0.f, dsc = 0.f;
+      if (row < m && key < n) {
+        const size_t o = plane0 + (size_t)row * n + key;
+        const float p32 = fast_exp2(fmaf(pl.s[o], kLog2e, -row_mxl[r])) * row_inv[r];
+        const float ds = p32 * (pl.dp[o] - row_dot[r]);
+        if (blockIdx.y == 0) a.partial[o] = ds;
+        p = p32;
+        dsc = ds * a.scale;
+      }
+      ps[r * LP + col] = store_cast<T>(p);
+      dss[r * LP + col] = store_cast<T>(dsc);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    wide_tn<kWideRows>(dv, ps, LP, gs, LD);
+    wide_tn<kWideRows>(dk, dss, LP, qs, LD);
+  }
+  T* dvo = static_cast<T*>(a.dv) + ((size_t)w * n + n0) * c + h * hd + d0;
+  T* dko = static_cast<T*>(a.dk) + ((size_t)w * n + n0) * c + h * hd + d0;
+  wide_out_each<T, true>(dv, [&](int r, int col, float x) {
+    if (n0 + r < n && d0 + col < hd) dvo[(size_t)r * c + col] = store_cast<T>(x);
+  });
+  wide_out_each<T, true>(dk, [&](int r, int col, float x) {
+    if (n0 + r < n && d0 + col < hd) dko[(size_t)r * c + col] = store_cast<T>(x);
+  });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) attn_bwd_dq_kernel(BwdArgs a) {
+  constexpr int LA = wide_ld<T>(kWideQKeys), LD = wide_ld<T>(kWideCols);
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  T* dss = reinterpret_cast<T*>(wide_smem);  // (32, LA): round(ds scale) of the rows, one key tile
+  T* ks = dss + kWideQRows * LA;             // (64, LD): the key tile's k rows, the block's chunk
+  const int r0 = blockIdx.x * kWideQRows, d0 = blockIdx.y * kWideCols, bh = blockIdx.z;
+  const int m = a.m, n = a.n, c = a.c, hd = a.hd;
+  const int w = bh / a.heads, h = bh - w * a.heads;
+  const T* k = static_cast<const T*>(a.k) + (size_t)w * n * c + h * hd + d0;
+  const float* ds = a.partial + (size_t)bh * m * n;
+  float acc[4][4] = {};
+  for (int n0 = 0; n0 < n; n0 += kWideQKeys) {
+    __syncthreads();  // the block is done with the previous keys
+    wide_stage<T, kWideCols>(ks, LD, k + (size_t)n0 * c, c, kWideQKeys, n - n0, hd - d0, a.vec);
+    cp_async_commit();
+    for (int e = threadIdx.x; e < kWideQRows * kWideQKeys; e += kWideThreads) {
+      const int r = e / kWideQKeys, col = e - r * kWideQKeys, row = r0 + r, key = n0 + col;
+      // the float operation of attn_bwd_dkdv_kernel's round(ds scale)
+      dss[r * LA + col] = store_cast<T>(row < m && key < n ? ds[(size_t)row * n + key] * a.scale : 0.f);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    wide_nn<kWideQKeys>(acc, dss, LA, ks, LD);
+  }
+  T* dq = static_cast<T*>(a.dq) + ((size_t)w * m + r0) * c + h * hd + d0;
+  wide_out_each<T, false>(acc, [&](int r, int col, float x) {
+    if (r0 + r < m && d0 + col < hd) dq[(size_t)r * c + col] = store_cast<T>(x);
+  });
 }
 
 // dbias[e] = sum over groups of partial[group][e], in group order.
@@ -820,23 +1091,38 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
   dbias[e] = s;
 }
 
-// Launches the instantiation for (T, HD, J) when `a` is given; otherwise
-// writes its occupancy at `smem` bytes to info: registers, local (spill)
-// bytes per thread, dynamic shared memory per block, threads per block,
-// resident blocks per SM.
-// The kernel for (T, HD, J): above head_dim 32 the wide kernel, else J < 0
-// names the key-tiled variant.
+// The kernel for (T, HD, J) at head_dim <= 32: J < 0 names the key-tiled
+// variant.
 template <typename T, int HD, int J>
 auto bwd_kernel() {
-  if constexpr (HD > 32) {
-    return attn_bwd_wide_kernel<T, HD>;
-  } else if constexpr (J < 0) {
+  if constexpr (J < 0) {
     return attn_bwd_tiled_kernel<T, HD>;
   } else {
     return attn_bwd_kernel<T, HD, J>;
   }
 }
 
+// Writes the occupancy of `kernel` at `smem` bytes and `threads` to info:
+// registers, local (spill) bytes per thread, dynamic shared memory per
+// block, threads per block, resident blocks per SM.
+template <class K>
+cudaError_t occupancy(K kernel, int threads, size_t smem, long long* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (long long)attr.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = threads;
+  info[4] = blocks;
+  return cudaSuccess;
+}
+
+// Launches the instantiation for (T, HD, J) when `a` is given; otherwise
+// writes its occupancy at `smem` bytes to info.
 template <typename T, int HD, int J>
 cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
   auto kernel = bwd_kernel<T, HD, J>();
@@ -847,18 +1133,7 @@ cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t str
     kernel<<<dim3(a->groups, a->heads), kThreads, smem, stream>>>(*a);
     return cudaGetLastError();
   }
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  info[0] = attr.numRegs;
-  info[1] = (long long)attr.localSizeBytes;
-  info[2] = (long long)smem;
-  info[3] = kThreads;
-  info[4] = blocks;
-  return cudaSuccess;
+  return occupancy(kernel, kThreads, smem, info);
 }
 
 template <typename T, int HD>
@@ -883,26 +1158,89 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
     case 8: return run_j<T, 8>(j, a, smem, info, stream);
     case 16: return run_j<T, 16>(j, a, smem, info, stream);
     case 32: return run_j<T, 32>(j, a, smem, info, stream);
-    // above 32 only the key-tiled (wide) kernel
-    case 64: return j == -1 ? run<T, 64, -1>(a, smem, info, stream) : cudaErrorInvalidValue;
-    case 128: return j == -1 ? run<T, 128, -1>(a, smem, info, stream) : cudaErrorInvalidValue;
-    case 256: return j == -1 ? run<T, 256, -1>(a, smem, info, stream) : cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The wide backward's three launches (and not the reduction) with `a`, or,
+// when `a` is null, the occupancy of its three kernels in info: the most
+// registers, spill bytes and shared memory of the three, their threads and
+// the fewest resident blocks per SM.
+template <typename T>
+cudaError_t run_wide(const BwdArgs* a, long long* info, cudaStream_t stream) {
+  constexpr size_t smem[3] = {wide_scores_smem<T>(), wide_dkdv_smem<T>(), wide_dq_smem<T>()};
+  static_assert(wide_scores_smem<T>() <= 232448 && wide_dkdv_smem<T>() <= 232448, "wide blocks fit");
+  void (*kernels[3])(BwdArgs) = {attn_bwd_scores_kernel<T>, attn_bwd_dkdv_kernel<T>, attn_bwd_dq_kernel<T>};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
+    if (err != cudaSuccess) return err;
+  }
+  if (a == nullptr) {
+    for (int i = 0; i < 3; ++i) {
+      long long one[5];
+      const cudaError_t err = occupancy(kernels[i], kWideThreads, smem[i], one);
+      if (err != cudaSuccess) return err;
+      for (int f = 0; f < 3; ++f) info[f] = i ? std::max(info[f], one[f]) : one[f];
+      info[3] = kWideThreads;
+      info[4] = i ? std::min(info[4], one[4]) : one[4];
+    }
+    return cudaSuccess;
+  }
+  const int bh = a->b * a->heads, chunks = cdiv(a->hd, kWideCols);
+  attn_bwd_scores_kernel<T><<<dim3(cdiv(a->n, kWideKeys), cdiv(a->m, kWideRows), bh), kWideThreads,
+                              smem[0], stream>>>(*a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv_kernel<T><<<dim3(cdiv(a->n, kWideKeys), chunks, bh), kWideThreads, smem[1], stream>>>(*a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T><<<dim3(cdiv(a->m, kWideQRows), chunks, bh), kWideThreads, smem[2], stream>>>(*a);
+  return cudaGetLastError();
+}
+
+// Floats of the wide backward's scratch (WidePlanes) at these shapes.
+size_t wide_scratch_floats(int b, int m, int n, int heads) {
+  return (size_t)b * heads * m * (2 * (size_t)n + 3 * (size_t)cdiv(n, kWideKeys));
+}
+
+// The wide backward's 16-byte copies: every head row starts on a 16-byte
+// boundary (q, k, v, g, C and the head offsets) and head_dim fills whole
+// chunks.
+template <typename T>
+bool wide_vec_ok(const BwdArgs& a) {
+  constexpr int CH = 16 / (int)sizeof(T);
+  if (a.hd % CH || a.c % CH) return false;
+  for (const void* p : {a.q, a.k, a.v, a.g})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 // Launches the variant with row share j (0: long rows) or, with a key tile,
-// the key-tiled variant (the wide kernel above head_dim 32; the wrapper's
-// attn_core_bwd_plan picks both from the shapes) with `a` (setting its
-// head_dim, pass-2 slices and key tile), or writes the occupancy and J, S
-// and the key tile to info[0..7] when `a` is null. A head_dim between the
-// instantiated ones runs at the next one up (padded_hd).
+// the key-tiled variant (the wrapper's attn_core_bwd_plan picks both from
+// the shapes), or above head_dim 32 the wide backward (j and key_tile 0),
+// with `a` (setting its head_dim, pass-2 slices and key tile), or writes the
+// occupancy and J, S and the key tile to info[0..7] when `a` is null (for
+// the wide backward all three 0). A head_dim
+// between the instantiated ones runs at the next one up (padded_hd).
 cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, int key_tile, BwdArgs* a,
                      long long* info, cudaStream_t stream) {
   if (heads < 1 || c % heads || (j && n > 32 * j) || (key_tile && (j || key_tile < 8)))
     return cudaErrorInvalidValue;
   const int hd = padded_hd(c / heads);
-  if (hd == 0 || (hd > 32 && !key_tile)) return cudaErrorInvalidValue;
+  if (hd == 0) return cudaErrorInvalidValue;
+  if (hd > 32) {
+    if (j || key_tile) return cudaErrorInvalidValue;
+    if (a != nullptr) {
+      a->hd = c / heads;
+      a->vec = is_bf16 ? wide_vec_ok<__nv_bfloat16>(*a) : wide_vec_ok<float>(*a);
+    } else {
+      info[5] = 0;
+      info[6] = 0;
+      info[7] = 0;  // its tiles are its own (kWideKeys keys)
+    }
+    return is_bf16 ? run_wide<__nv_bfloat16>(a, info, stream) : run_wide<float>(a, info, stream);
+  }
   const int slices = pass2_slices(m, key_tile ? key_tile : n, hd, j);
   if (a != nullptr) {
     a->hd = c / heads;
@@ -925,17 +1263,25 @@ extern "C" {
 
 // Shared memory (bytes) the backward kernel with row share j or key tile
 // key_tile asks for (the wrapper's attn_core_bwd_smem_bytes computes the
-// same).
+// same); above head_dim 32 the largest of the wide backward's blocks (f32).
 long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j, int key_tile) {
-  return (long long)(sizeof(float) * bwd_smem_floats(m, n, padded_hd(c / heads), j, key_tile));
+  const int hd = padded_hd(c / heads);
+  if (hd > 32) return (long long)std::max({wide_scores_smem<float>(), wide_dkdv_smem<float>(), wide_dq_smem<float>()});
+  return (long long)(sizeof(float) * bwd_smem_floats(m, n, hd, j, key_tile));
+}
+
+// Floats of f32 scratch the backward needs at these shapes: the wide
+// backward's s and dp planes and row statistics above head_dim 32, else 0.
+long long attn_core_bwd_scratch_floats(int b, int m, int n, int c, int heads) {
+  return padded_hd(c / heads) > 32 ? (long long)wide_scratch_floats(b, m, n, heads) : 0;
 }
 
 // The instantiation a launch at these shapes with row share j and key tile
 // key_tile takes: info[0..7] = registers, local (spill) bytes per thread,
 // dynamic shared memory per block, threads per block, resident blocks per
-// SM, J (keys a lane keeps of a row; 0 for long rows and key tiles), S
-// (lanes per key in pass 2) and the key tile. Returns the CUDA error code
-// (0 on success).
+// SM, J (keys a lane keeps of a row; 0 for long rows, key tiles and the wide
+// backward), S (lanes per key in pass 2) and the key tile (0 for the wide
+// backward, whose other numbers are the extremes of its three kernels). Returns the CUDA error code (0 on success).
 int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, int key_tile,
                             long long* info) {
   return (int)dispatch(is_bf16, m, n, c, heads, j, key_tile, nullptr, info, nullptr);
@@ -943,16 +1289,20 @@ int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, 
 
 // Launches the backward with row share j (12, 16 or 32 keys a lane, N <=
 // 32 j; or 0, long rows) or, with key_tile > 0 (and j 0), the key-tiled
-// variant, and the dbias reduction on `stream`; returns the first CUDA
-// error code (0 on success). q/k/v/g/dq/dk/dv are f32 (is_bf16 = 0) or
-// bf16 (is_bf16 = 1); bias, partial and dbias are f32; dq_acc, (B_, M, C)
-// f32 scratch, is read only above head_dim 32.
+// variant, or above head_dim 32 (j and key_tile 0) the wide backward, and
+// the dbias reduction on `stream`; returns the first CUDA error code (0 on
+// success). q/k/v/g/dq/dk/dv are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
+// bias, partial, dbias and scratch are f32. partial is (groups, H, M, N);
+// the wide backward takes groups = B_ (a ds plane a window) and scratch of
+// attn_core_bwd_scratch_floats floats, which the others do not read.
 int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, int j,
                        int key_tile, float scale,
                        const void* q, const void* k, const void* v, const float* bias,
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
-                       float* dq_acc, void* stream) {
+                       float* scratch, void* stream) {
   if (groups < 1 || groups > b) return (int)cudaErrorInvalidValue;
+  if (heads >= 1 && c % heads == 0 && padded_hd(c / heads) > 32 && (groups != b || scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.b = b;
   a.m = m;
@@ -970,7 +1320,8 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.dk = dk;
   a.dv = dv;
   a.partial = partial;
-  a.dq_acc = dq_acc;
+  a.scratch = scratch;
+  a.vec = false;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dispatch(is_bf16, m, n, c, heads, j, key_tile, &a, nullptr, s);
   if (err != cudaSuccess) return (int)err;

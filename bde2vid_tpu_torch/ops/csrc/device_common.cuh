@@ -13,6 +13,8 @@
 
 namespace {
 
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 __device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
@@ -100,11 +102,11 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// The head_dim a kernel is instantiated at: the least of 1, 2, 4, ..., 256
-// that holds hd (0 above 256).
+// The head_dim a kernel is instantiated at: the least of 1, 2, 4, ..., 1024
+// that holds hd (0 above 1024).
 __host__ __device__ inline int padded_hd(int hd) {
   int p = 1;
-  while (p < hd && p < 256) p <<= 1;
+  while (p < hd && p < 1024) p <<= 1;
   return p >= hd ? p : 0;
 }
 
@@ -119,6 +121,48 @@ int row_share(int n) {
   for (int j : kRowShares)
     if (n <= 32 * j) return j;
   return 0;
+}
+
+// 16-byte asynchronous copies into shared memory (src_bytes 0: zeros) and
+// their groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Tensor-core fragments: ldmatrix of four 8x8 bf16 matrices (transposed
+// with .trans) and mma.sync m16n8k16.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace

@@ -132,26 +132,10 @@ constexpr int kBK = 128 / (int)sizeof(T);
 template <typename T>
 constexpr int kLd = kBK<T> + kPad<T>;  // row stride of a pipeline stage
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // row stride of a resident A tile over k (K rounded up to kBK, zero-filled)
 template <typename T>
 __host__ __device__ inline int resident_ld(int k) {
   return (k + kBK<T> - 1) / kBK<T> * kBK<T> + kPad<T>;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // rows [0, rows) x columns [k0, k0 + kBK<T>) of a row-major global matrix (row
@@ -227,23 +211,6 @@ struct FmaAcc {
       for (int j = 0; j < TN; ++j) f(ty + 8 * i, tx + 16 * j, acc[i][j]);
   }
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // bf16: warps 2 x 2, warp (wm, wn) owns rows wm BM/2.. and columns wn BN/2..
 // as MF x NF fragments of 16 x 8. A is row-major (ldmatrix x4 gives a 16x16
@@ -1343,6 +1310,17 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
 // zeros in the staged rows. The wrapper's plan picks this kernel
 // (attn_key_tiled in ops/window_attn_cuda.py); its tile is flash_key_tile's,
 // which the occupancy query reports.
+// Above head_dim 256 (HD 512, 1024) a warp's (16, HD) outputs would not fit
+// in registers, so the output columns split into chunks of 256, an extra
+// grid dimension (y = head x chunk): each block computes its rows' scores
+// over the whole head_dim and keeps only its chunk of p v, so its v tiles
+// hold only those columns. Chunks rather than two warps a head: the kernel
+// and its accumulators stay as they are at 256, and the chunks of one head
+// run as independent blocks that fill the card. The scores cost each chunk
+// again (HD / 256 times). q no longer fits in registers (bf16: HD / 4 a
+// lane) nor, in f32, in shared memory beside the k tiles (64 rows x 1028
+// floats at 1024): bf16 stages the block's q rows in shared memory and
+// reads each A fragment by ldmatrix; f32 reads q's float4 from L1/L2.
 // ---------------------------------------------------------------------------
 
 constexpr int kFlashWarps = 4;  // 16-row tiles a block, sharing each key tile
@@ -1369,13 +1347,20 @@ __host__ __device__ constexpr int flash_stride(int hd) {
 // column fall in distinct bank pairs but for one 2-way conflict.
 __host__ __device__ constexpr int flash_bias_stride(int hd) { return flash_key_tile(hd) + 4; }
 
-// Two stages of k and v tiles in T, and for f32 two stages of the (64, KT)
-// bias tile and the block's 64 q rows.
+// Output columns a block keeps: the whole head up to 256, else a chunk of
+// 256 (the grid's y takes head x chunk).
+__host__ __device__ constexpr int flash_out_cols(int hd) { return hd > 256 ? 256 : hd; }
+
+// Two stages of k tiles (HD columns) and v tiles (the block's output
+// columns) in T; for f32 two stages of the (64, KT) bias tile and, up to
+// head_dim 256, the block's 64 q rows; for bf16 above 256 the q rows.
 template <typename T>
 constexpr size_t flash_smem_bytes(int hd) {
-  const size_t kv = sizeof(T) * 4 * (size_t)flash_key_tile(hd) * flash_stride<T>(hd);
-  if (std::is_same<T, __nv_bfloat16>::value) return kv;
-  return kv + sizeof(float) * 16 * kFlashWarps * (2 * flash_bias_stride(hd) + key_stride(hd));
+  const size_t kv = sizeof(T) * 2 * (size_t)flash_key_tile(hd) *
+                    (flash_stride<T>(hd) + flash_stride<T>(flash_out_cols(hd)));
+  if (std::is_same<T, __nv_bfloat16>::value)
+    return kv + (hd > 256 ? sizeof(T) * 16 * kFlashWarps * (size_t)mma_k_stride(hd) : 0);
+  return kv + sizeof(float) * 16 * kFlashWarps * (2 * flash_bias_stride(hd) + (hd > 256 ? 0 : key_stride(hd)));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
@@ -1397,40 +1382,49 @@ __device__ __forceinline__ void flash_stage_bias(float* bd, const float* bias_h,
   }
 }
 
-// Keys t0 .. t0 + KT - 1 of window w's k and v columns of head h into kd, vd
-// ((KT, KST) each): 16-byte cp.async when vec (rows aligned and hd a
-// multiple of 16 bytes), plain loads otherwise; zero past N and past hd.
+// CH = 16 bytes of T from src to dst: a 16-byte cp.async when vec, plain
+// loads otherwise; zero past N (key) and past hd (column d0 + i).
+template <typename T>
+__device__ __forceinline__ void flash_copy16(T* dst, const T* src, const AttnArgs& a, int key, int d0) {
+  constexpr int CH = 16 / (int)sizeof(T);
+  if (a.vec) {
+    const bool in = key < a.n && d0 < a.hd;
+    cp_async16(dst, src, in ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const bool in = key < a.n && d0 + i < a.hd;
+      dst[i] = in ? src[i] : store_cast<T>(0.f);
+    }
+  }
+}
+
+// Keys t0 .. t0 + KT - 1 of window w's k columns of head h into kd ((KT,
+// KST)) and its v columns oc0 .. oc0 + OC - 1 (the block's output chunk;
+// the whole head up to 256) into vd ((KT, KSV)): 16-byte cp.async when vec
+// (rows aligned and hd a multiple of 16 bytes), plain loads otherwise; zero
+// past N and past hd.
 template <typename T, int HD, bool kKvScratch>
-__device__ __forceinline__ void flash_stage(T* kd, T* vd, const AttnArgs& a, int w, int h, int t0) {
+__device__ __forceinline__ void flash_stage(T* kd, T* vd, const AttnArgs& a, int w, int h, int t0,
+                                            int oc0) {
   constexpr int KT = flash_key_tile(HD), KST = flash_stride<T>(HD);
-  constexpr int CH = 16 / (int)sizeof(T), PER = HD / CH;
+  constexpr int OC = flash_out_cols(HD), KSV = flash_stride<T>(OC);
+  constexpr int CH = 16 / (int)sizeof(T), PER = HD / CH, PERV = OC / CH;
   const T* kg = static_cast<const T*>(a.k);
   const T* vg = kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
   for (int e = threadIdx.x; e < KT * PER; e += kFlashThreads) {
     const int nn = e / PER, d0 = (e - nn * PER) * CH, key = t0 + nn;
     const size_t off = key < a.n ? kv_offset<kKvScratch>(a, w, key) + h * a.hd + d0 : 0;
-    T* kdst = kd + nn * KST + d0;
-    T* vdst = vd + nn * KST + d0;
-    if (a.vec) {
-      const bool in = key < a.n && d0 < a.hd;
-      cp_async16(kdst, kg + off, in ? 16 : 0);
-      cp_async16(vdst, vg + off, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int i = 0; i < CH; ++i) {
-        const bool in = key < a.n && d0 + i < a.hd;
-        kdst[i] = in ? kg[off + i] : store_cast<T>(0.f);
-        vdst[i] = in ? vg[off + i] : store_cast<T>(0.f);
-      }
+    flash_copy16(kd + nn * KST + d0, kg + off, a, key, d0);
+    if constexpr (OC == HD) flash_copy16(vd + nn * KSV + d0, vg + off, a, key, d0);
+  }
+  if constexpr (OC < HD) {
+    for (int e = threadIdx.x; e < KT * PERV; e += kFlashThreads) {
+      const int nn = e / PERV, d0 = (e - nn * PERV) * CH, key = t0 + nn;
+      const size_t off = key < a.n ? kv_offset<kKvScratch>(a, w, key) + h * a.hd + oc0 + d0 : 0;
+      flash_copy16(vd + nn * KSV + d0, vg + off, a, key, oc0 + d0);
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
 }
 
 // bf16: s[j] = q k^T of the warp's 16 rows against the tile's keys 8 j ..
@@ -1453,14 +1447,40 @@ __device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const uint32
   }
 }
 
+// bf16 above head_dim 256: the same scores with q's A fragments read from
+// the warp's 16 staged q rows (qs, row stride mma_k_stride(HD)) by ldmatrix.
+template <int HD, int KT>
+__device__ __forceinline__ void flash_scores_smem_q(float (&s)[KT / 8][4], const __nv_bfloat16* qs,
+                                                    const __nv_bfloat16* ks, int lane) {
+  constexpr int KST = mma_k_stride(HD);
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t qa[4];
+    ldmatrix_x4(qa, qs + (lane & 15) * KST + 16 * kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      const __nv_bfloat16* kr = ks + (8 * j + g) * KST + 16 * kk + 2 * t4;
+      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
+                             *reinterpret_cast<const uint32_t*>(kr + 8)};
+      mma_bf16(s[j], qa, b);
+    }
+  }
+}
+
 // The f32 q rows a lane scores with: up to head_dim 16 in registers
-// (loaded once a row group), above it read from the staged rows each time.
+// (loaded once a row group), above it read from the staged rows each time,
+// and above 256 read from device memory (L1/L2) each time, zero past hd.
 template <int HD>
 struct FlashQ {
-  static constexpr bool kRegs = HD <= 16;
+  static constexpr bool kRegs = HD <= 16, kGlobal = HD > 256;
   float4 r[kRegs ? 2 : 1][kRegs ? HD / 4 : 1];
   const float* q0;
   const float* q1;
+  int hd;    // kGlobal: the head's columns
+  bool vec;  // kGlobal: 16-byte loads (rows 16-byte aligned, hd a multiple of 4)
 
   __device__ __forceinline__ void init(const float* row0, const float* row1) {
     q0 = row0;
@@ -1475,7 +1495,13 @@ struct FlashQ {
   }
   __device__ __forceinline__ float4 get(int row, int d) const {
     if constexpr (kRegs) return r[row][d / 4];
-    return *reinterpret_cast<const float4*>((row ? q1 : q0) + d);
+    const float* p = (row ? q1 : q0) + d;
+    if constexpr (kGlobal) {
+      if (vec) return d < hd ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      return make_float4(d < hd ? __ldg(p) : 0.f, d + 1 < hd ? __ldg(p + 1) : 0.f,
+                         d + 2 < hd ? __ldg(p + 2) : 0.f, d + 3 < hd ? __ldg(p + 3) : 0.f);
+    }
+    return *reinterpret_cast<const float4*>(p);
   }
 };
 
@@ -1568,14 +1594,18 @@ __device__ __forceinline__ void flash_pv(float (&o)[HD / 8][4], const float (&p)
 template <typename T, int HD, bool kKvScratch>
 __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, float scale) {
   constexpr int KT = flash_key_tile(HD), KST = flash_stride<T>(HD), KS = key_stride(HD);
+  constexpr int OC = flash_out_cols(HD), CHUNKS = HD / OC, KSV = flash_stride<T>(OC);
   constexpr int KBS = flash_bias_stride(HD), BT = 16 * kFlashWarps * KBS;
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value, kWideQ = HD > 256;
   extern __shared__ __align__(16) unsigned char flash_smem[];
   T* kbuf = reinterpret_cast<T*>(flash_smem);  // 2 stages of (KT, KST)
-  T* vbuf = kbuf + 2 * KT * KST;               // 2 stages of (KT, KST)
-  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KST);  // f32: 2 stages of (64, KBS) bias
-  float* qs = bbuf + 2 * BT;  // f32: the block's (64, KS) q rows
-  const int w = blockIdx.x, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* vbuf = kbuf + 2 * KT * KST;               // 2 stages of (KT, KSV): the block's output columns
+  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KSV);  // f32: 2 stages of (64, KBS) bias
+  float* qs = bbuf + 2 * BT;  // f32 up to head_dim 256: the block's (64, KS) q rows
+  // bf16 above head_dim 256: the block's (64, mma_k_stride(HD)) q rows
+  __nv_bfloat16* qsb = reinterpret_cast<__nv_bfloat16*>(vbuf + 2 * KT * KSV);
+  const int w = blockIdx.x, h = blockIdx.y / CHUNKS, oc0 = (blockIdx.y % CHUNKS) * OC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int tiles16 = cdiv(a.m, 16), ntiles = cdiv(a.n, KT);
   const float* bias_h = a.bias + (size_t)h * a.m * a.n;
@@ -1586,8 +1616,16 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
     const int rows[2] = {r0 + g, r0 + g + 8};
     const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * a.n : nullptr,
                                   rows[1] < a.m ? bias_h + (size_t)rows[1] * a.n : nullptr};
-    uint32_t qa[kBf16 ? HD / 16 : 1][4];
-    if constexpr (kBf16) {
+    uint32_t qa[kBf16 && !kWideQ ? HD / 16 : 1][4];
+    if constexpr (kBf16 && kWideQ) {
+      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+      constexpr int KQ = mma_k_stride(HD);
+      for (int e = threadIdx.x; e < 16 * kFlashWarps * HD; e += kFlashThreads) {
+        const int r = e / HD, d = e - r * HD, row = 16 * rg * kFlashWarps + r;
+        qsb[r * KQ + d] = row < a.m && d < a.hd ? q[((size_t)w * a.m + row) * a.c + h * a.hd + d]
+                                                : __float2bfloat16_rn(0.f);
+      }
+    } else if constexpr (kBf16) {
       const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
@@ -1599,7 +1637,7 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
                                 : 0u;
         }
       }
-    } else {
+    } else if constexpr (!kWideQ) {
       const float* q = static_cast<const float*>(a.q);
       for (int e = threadIdx.x; e < 16 * kFlashWarps * HD; e += kFlashThreads) {
         const int r = e / HD, d = e - r * HD, row = 16 * rg * kFlashWarps + r;
@@ -1607,32 +1645,41 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
       }
     }
     float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
-    float o[HD / 8][4];
+    float o[OC / 8][4];
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    for (int dt = 0; dt < OC / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
     FlashQ<HD> fq;
+    if constexpr (!kBf16 && kWideQ) {
+      // rows past M read row M - 1 (finite; their outputs are not written)
+      const float* q = static_cast<const float*>(a.q) + ((size_t)w * a.m) * a.c + h * a.hd;
+      fq.init(q + (size_t)min(rows[0], a.m - 1) * a.c, q + (size_t)min(rows[1], a.m - 1) * a.c);
+      fq.hd = a.hd;
+      fq.vec = a.vec;
+    }
 
-    flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0);
+    flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0, oc0);
     if constexpr (!kBf16) flash_stage_bias<HD>(bbuf, bias_h, a, rb, 0);
     cp_async_commit();
     for (int it = 0; it < ntiles; ++it) {
       const int buf = it & 1, t0 = it * KT;
       if (it + 1 < ntiles) {
-        flash_stage<T, HD, kKvScratch>(kbuf + (buf ^ 1) * KT * KST, vbuf + (buf ^ 1) * KT * KST, a, w,
-                                       h, t0 + KT);
+        flash_stage<T, HD, kKvScratch>(kbuf + (buf ^ 1) * KT * KST, vbuf + (buf ^ 1) * KT * KSV, a, w,
+                                       h, t0 + KT, oc0);
         if constexpr (!kBf16) flash_stage_bias<HD>(bbuf + (buf ^ 1) * BT, bias_h, a, rb, t0 + KT);
       }
       cp_async_commit();
       cp_async_wait<1>();  // this tile's copies have landed
       __syncthreads();
       const T* ks = kbuf + buf * KT * KST;
-      const T* vs = vbuf + buf * KT * KST;
+      const T* vs = vbuf + buf * KT * KSV;
       const float* bs = bbuf + buf * BT + (16 * warp + g) * KBS + 2 * t4;  // row lane / 4
       float s[KT / 8][4];
-      if constexpr (kBf16) {
+      if constexpr (kBf16 && kWideQ) {
+        flash_scores_smem_q<HD, KT>(s, qsb + 16 * warp * mma_k_stride(HD), ks, lane);
+      } else if constexpr (kBf16) {
         flash_scores<HD, KT>(s, qa, ks, lane);
       } else {
-        if (it == 0) fq.init(qs + (16 * warp + g) * KS, qs + (16 * warp + g + 8) * KS);
+        if (!kWideQ && it == 0) fq.init(qs + (16 * warp + g) * KS, qs + (16 * warp + g + 8) * KS);
         flash_scores<HD, KT>(s, fq, ks, lane);
       }
       // scale and bias, -inf past N; the tile's max of each row over its
@@ -1671,12 +1718,12 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
         }
         sum[hr] = fmaf(sum[hr], alpha, ts);
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
+        for (int dt = 0; dt < OC / 8; ++dt) {
           o[dt][2 * hr] *= alpha;
           o[dt][2 * hr + 1] *= alpha;
         }
       }
-      flash_pv<HD, KT>(o, s, vs, lane);
+      flash_pv<OC, KT>(o, s, vs, lane);
       __syncthreads();  // every warp is done with this stage before it is refilled
     }
 #pragma unroll
@@ -1688,8 +1735,8 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
       const float inv = 1.f / l;
       T* out = static_cast<T*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * a.hd;
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
-        store_pair(out, 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
+      for (int dt = 0; dt < OC / 8; ++dt)
+        store_pair(out, oc0 + 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
     }
   }
 }
@@ -1703,7 +1750,7 @@ cudaError_t attn_flash_run(const AttnArgs& a, float scale, long long* info, cuda
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info == nullptr) {
-    kernel<<<dim3(a.b, a.heads, a.tiles), kFlashThreads, smem, stream>>>(a, scale);
+    kernel<<<dim3(a.b, a.heads * (HD / flash_out_cols(HD)), a.tiles), kFlashThreads, smem, stream>>>(a, scale);
     return cudaGetLastError();
   }
   cudaFuncAttributes attr;
@@ -1795,6 +1842,8 @@ cudaError_t attn_run_t(AttnArgs a, float scale, long long* info, cudaStream_t st
     case 64: return attn_run_hd<T, 64, kKvScratch>(a, scale, info, stream);
     case 128: return attn_run_hd<T, 128, kKvScratch>(a, scale, info, stream);
     case 256: return attn_run_hd<T, 256, kKvScratch>(a, scale, info, stream);
+    case 512: return attn_run_hd<T, 512, kKvScratch>(a, scale, info, stream);
+    case 1024: return attn_run_hd<T, 1024, kKvScratch>(a, scale, info, stream);
     default: return cudaErrorInvalidValue;
   }
 }

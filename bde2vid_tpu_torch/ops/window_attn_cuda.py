@@ -51,11 +51,16 @@ _ACT_CODES = {
     "gelu": 0, "default": 0, "relu": 1, "relu6": 2, "sigmoid": 3, "tanh": 4, "lrelu": 5,
     "leaky_relu": 5, "elu": 6, "softplus": 7, "identity": 8, "none": 8,
 }
-_MAX_HEAD_DIM = 256  # the largest head_dim the kernels are instantiated at
+# the largest head_dim the forward kernels are instantiated at (ROADMAP C8:
+# above it one f32 key tile of 16 k rows and the v chunk fill a block)
+_MAX_HEAD_DIM = 1024
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 _SM_SMEM = 233472  # bytes of shared memory of one Hopper SM, for all its blocks
 _TILE_KEYS = 512  # the key-tiled backward's tiles at head_dim <= 32 are multiples of this many keys
-_WIDE_TILE_KEYS = 8  # the wide backward's (head_dim > 32) tiles are multiples of this many keys
+# the wide backward's (head_dim > 32) largest block (f32, the dk/dv kernel's:
+# wide_dkdv_smem in csrc/attn_core_bwd.cu): 64 rows of g and q in 64-column
+# chunks, their round(p) and round(ds scale) against 32 keys, 3 statistics
+_WIDE_SMEM = 4 * (64 * (2 * (64 + 4) + 2 * (32 + 4)) + 3 * 64)
 ATTN_THREADS = 256  # threads of a forward attention block (kAttnThreads in csrc/window_common.cuh)
 FLASH_THREADS = 128  # threads of a key-tiled forward block, four 16-row tiles (kFlashThreads)
 
@@ -289,6 +294,7 @@ _SIGNATURES = {
         "attn_core_backward": ([_CI] * 9 + [_CF] + [_VP] * 12, _CI),
         "attn_core_bwd_smem_bytes": ([_CI] * 6, _LL),
         "attn_core_bwd_occupancy": ([_CI] * 7 + [_LLP], _CI),
+        "attn_core_bwd_scratch_floats": ([_CI] * 5, _LL),
     },
 }
 
@@ -324,9 +330,9 @@ def _refuse_grad(name: str, tensors) -> None:
 
 def _padded_head_dim(head_dim: int) -> int:
     """The head_dim the kernels run ``head_dim`` at (``padded_hd`` in
-    csrc/device_common.cuh): the least of 1, 2, 4, ..., 256 that holds it;
+    csrc/device_common.cuh): the least of 1, 2, 4, ..., 1024 that holds it;
     the columns past ``head_dim`` are zeros. Raises ``ValueError`` above
-    256, the largest instantiated (ROADMAP C7)."""
+    1024, the largest instantiated forward (ROADMAP C8)."""
     if not 1 <= head_dim <= _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {head_dim}: the attention kernels take head_dim 1 to {_MAX_HEAD_DIM}")
     return 1 << (head_dim - 1).bit_length()
@@ -446,18 +452,23 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
 
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     bias32 = bias.float().contiguous()
-    occ = attn_core_backward_occupancy(m, n, c, num_heads, dt, q.device.index)
-    groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], occ["sms"])
+    # the wide backward (head_dim > 32) writes a ds plane a window, which the
+    # reduction sums in window order, and its s and dp planes into scratch
+    scratch_floats = lib.attn_core_bwd_scratch_floats(b_, m, n, c, num_heads)
+    if scratch_floats:
+        groups = b_
+    else:
+        occ = attn_core_backward_occupancy(m, n, c, num_heads, dt, q.device.index)
+        groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], occ["sms"])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
-    wide = _padded_head_dim(c // num_heads) > 32
-    dq_acc = torch.empty((b_, m, c), dtype=torch.float32, device=q.device) if wide else None
+    scratch = torch.empty((scratch_floats,), dtype=torch.float32, device=q.device) if scratch_floats else None
     rc = lib.attn_core_backward(
         int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share, plan.key_tile,
         float((c // num_heads) ** -0.5),
         *[t.data_ptr() for t in (q, k, v, bias32, g, dq, dk, dv, partial, dbias)],
-        None if dq_acc is None else dq_acc.data_ptr(), _stream(q),
+        None if scratch is None else scratch.data_ptr(), _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"attn_core_backward kernel launch failed: CUDA error {rc}")
@@ -476,9 +487,10 @@ class BwdPlan(NamedTuple):
     long-row variant, which sweeps each row three times and keeps the dbias
     sums in global memory; ``key_tile`` is 0, or the keys of one tile of the
     key-tiled variant (rows whose k and v do not fit in one block's shared
-    memory: it stages them a tile at a time; above head_dim 32 every row
-    takes it, as the wide kernel ``attn_bwd_wide_kernel``); ``smem_bytes``
-    is its shared memory per block."""
+    memory: it stages them a tile at a time); above head_dim 32 both are 0
+    and the wide backward runs (three launches whose tiles are its own,
+    ``attn_bwd_scores_kernel`` in csrc/attn_core_bwd.cu); ``smem_bytes`` is
+    its shared memory per block (the wide backward's largest block)."""
 
     row_share: int
     smem_bytes: int
@@ -500,12 +512,12 @@ def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int, key_
     csrc/attn_core_bwd.cu) at the padded head_dim: the padded k, v, q and g
     rows, three row statistics, and with a row share the (M, N) dbias plane;
     with a key tile, the k and v rows of one tile and the (M, head_dim) dq
-    sums; above head_dim 32 (the wide kernel), the q and g rows, one tile's
-    k and v rows and two (M, key_tile) planes."""
+    sums; above head_dim 32, the wide backward's largest block, whatever the
+    shapes."""
     hd = _padded_head_dim(head_dim)
     ks = _key_stride(hd)
     if hd > 32:
-        return 4 * (2 * (m + key_tile) * ks + 2 * m * key_tile + 3 * m)
+        return _WIDE_SMEM
     if key_tile:
         return 4 * (2 * (key_tile + m) * ks + 3 * m + m * hd)
     return 4 * (2 * (n + m) * ks + 3 * m + (m * n if row_share else 0))
@@ -531,20 +543,17 @@ def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     take the long-row variant; longer rows take the key-tiled variant,
     whose tile is a function of head_dim and M alone (two blocks per SM
     where head_dim <= 8, as the long rows run). Above head_dim 32 every row
-    takes the wide kernel, in tiles of a multiple of 8 keys. A head_dim
-    between the instantiated ones plans as the next one up. Raises
-    ``ValueError`` only when the query rows leave no room for a tile or
-    head_dim is above 256: the autograd Functions call it before their
-    forward, so no backward refuses a shape whose forward ran. A function
-    of its arguments alone."""
+    takes the wide backward, whose blocks tile M, N and head_dim themselves
+    and fit at any shape. A head_dim between the instantiated ones plans as
+    the next one up. Raises ``ValueError`` only when the query rows leave no
+    room for a tile or head_dim is above 1024: the autograd Functions call
+    it before their forward, so no backward refuses a shape whose forward
+    ran. A function of its arguments alone."""
     _check_head_dim(c, num_heads)
     hd = _padded_head_dim(c // num_heads)
     ks = _key_stride(hd)
     if hd > 32:
-        tile = _key_tile(4 * (2 * m * ks + 3 * m), 4 * (2 * ks + 2 * m), 1,
-                         f"the attention backward at {m} query rows of head_dim {c // num_heads}",
-                         _WIDE_TILE_KEYS)
-        return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0, tile), tile)
+        return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0))
     for j in _BWD_ROW_SHARES:
         if n <= 32 * j:
             smem = attn_core_bwd_smem_bytes(m, n, hd, j)
@@ -581,7 +590,9 @@ def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype,
     blocks per SM, J (keys a lane keeps of a score row; 0 for the long-row
     and the key-tiled variants), S (lanes per key in pass 2), the key tile
     (0 but for the key-tiled variant) and the card's SMs, for the kernel
-    :func:`attn_core_bwd_plan` picks."""
+    :func:`attn_core_bwd_plan` picks. The wide backward (head_dim > 32)
+    reports the extremes of its three kernels (the most registers, spill
+    and shared memory, the fewest blocks per SM) and S and key tile 0."""
     plan = attn_core_bwd_plan(m, n, c, num_heads)
     info = (ctypes.c_longlong * 8)()
     with torch.cuda.device(device_index):
@@ -630,7 +641,7 @@ def attn_key_tiled(m: int, n: int, head_dim: int, bf16: bool = False) -> bool:
     csrc/window_common.cuh) runs every row whose k and v do not fit and
     every head_dim above 32. Its key tile and shared memory are constants of
     its instantiation, which ``attn_forward_occupancy`` reads back. Raises
-    ``ValueError`` above head_dim 256."""
+    ``ValueError`` above head_dim 1024."""
     return not (_padded_head_dim(head_dim) <= 32 and attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM)
 
 

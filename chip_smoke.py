@@ -101,16 +101,17 @@ reference's.
            key-tiled) at 184x240, T=3, forward kernel vs unfused path
            (2e-4) and one remat train step's loss and gradients (1e-3),
            with exact launch counts of each variant
-  head_dims  every head_dim (ROADMAP C6): the three forward libraries and
-           the backward vs their twins at head_dim 3, 6, 12, 24, 48, 64, 96,
-           128 and 256 (B_ 20, M 49, N 343), f32 and bf16, repeated bit for
-           bit, with times per launch and bounds; the key-tiled forward at
-           TILED_TIMING with its occupancy, beside SDPA; then
-           the flagship at full width with num_heads 4 (head_dim 16 / 64)
-           and 2 (32 / 128) at 184x240, T=3: eval forward kernel vs unfused
-           path (2e-4), one train step's loss and gradients (1e-3), exact
-           launch counts (level 2 on the key-tiled forward and the wide
-           backward)
+  head_dims  every head_dim (ROADMAP C6, C7): the three forward libraries
+           and the backward vs their twins at head_dim 3, 6, 12, 24, 48, 64,
+           96, 128, 256, 384 and 512 (B_ 20, M 49, N 343), f32 and bf16,
+           repeated bit for bit, with times per launch beside the bound and
+           SDPA; the key-tiled forward at TILED_TIMING with its occupancy,
+           beside SDPA; then the flagship at full width with num_heads 4
+           (head_dim 16 / 64) and 2 (32 / 128), and at base 64 with one
+           head (128 / 512), at 184x240, T=3: eval forward kernel vs
+           unfused path (2e-4), one train step's loss and gradients
+           (1e-3), exact launch counts (the key-tiled forward and the wide
+           backward wherever head_dim is above 32)
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -200,12 +201,15 @@ TILED_FWD_KEYS = {16: (1453, 2897, 2989), 4: (7265, 7399)}
 TILED_FWD_FRAMES = {16: (30, 60, 61), 4: (149, 151)}
 TILED_BWD_ROWS = ((4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385), (16, 49, 2989),
                   (4, 49, 7399))
-# head dims (ROADMAP C6): the kernel cases' head_dims between and above the
-# flagship's 4 and 16 with their heads (C at most 256), and the head_dims
-# phase's flagship versions: num_heads 4 (head_dim 16 at level 0, 64 at
-# level 2) and 2 (32 and 128)
-HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1}
-HEAD_DIM_MODELS = (4, 2)
+# head dims (ROADMAP C6, C7): the kernel cases' head_dims between and above
+# the flagship's 4 and 16 with their heads (C at most 256 up to head_dim
+# 256, one head above it), and the head_dims phase's flagship versions
+# (generator overrides): num_heads 4 (head_dim 16 at level 0, 64 at level
+# 2), 2 (32 and 128), and base 64 with one head (128 and 512, C7's
+# configuration: about 4x the flagship's parameters)
+HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 384: 1, 512: 1}
+HEAD_DIM_MODELS = {"4 heads": {"num_heads": 4}, "2 heads": {"num_heads": 2},
+                   "base 64, 1 head": {"basechannels": 64, "num_heads": 1}}
 # the E2VID family at published widths: E2VIDRecurrent as the released
 # E2VID (rpg_e2vid E2VID_lightweight: base 32, 3 encoders of 64/128/256, 2
 # residual blocks, ConvLSTM, sum skips, transposed-conv decoders, BN), E2VID
@@ -1649,13 +1653,14 @@ def phase_kernels_head_dims(torch):
 
 
 def phase_head_dims(torch, launch_counts):
-    """ROADMAP C6 on the main path: the flagship at full width with
-    num_heads 4 (head_dim 16 at level 0, 64 at level 2) and 2 (32 and 128)
-    at 184x240, T=3: the eval forward on the kernel path (level 2 on the
-    key-tiled forward) vs the unfused path within 2e-4, then one train-mode
-    step (DropPath 0) whose loss and gradients are within 1e-3 of the
-    unfused path's (compare_grads; level 2 on the wide backward), with
-    exact launch counts. Returns the wide backward's launches."""
+    """ROADMAP C6 and C7 on the main path: the flagship at full width with
+    num_heads 4 (head_dim 16 at level 0, 64 at level 2) and 2 (32 and 128),
+    and at base 64 with one head (128 and 512), at 184x240, T=3: the eval
+    forward on the kernel path (the key-tiled forward at every level whose
+    head_dim is above 32) vs the unfused path within 2e-4, then one
+    train-mode step (DropPath 0) whose loss and gradients are within 1e-3 of
+    the unfused path's (compare_grads; the wide backward there), with exact
+    launch counts. Returns the wide backward's launches."""
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
     from bde2vid_tpu_torch.train import SequenceLossComputer
@@ -1666,36 +1671,48 @@ def phase_head_dims(torch, launch_counts):
     tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
     comp = SequenceLossComputer([{"type": "L1Loss"}])
     rows, wide = [], 0
-    for heads in HEAD_DIM_MODELS:
+    for seed, (label, gen_cfg) in enumerate(HEAD_DIM_MODELS.items()):
         cfg = model_config(FLAGSHIP_CFG)
-        cfg["generator"].update(num_heads=heads, drop_path_rate=0.0)
+        cfg["generator"].update(gen_cfg, drop_path_rate=0.0)
+        base, heads = cfg["generator"]["basechannels"], cfg["generator"]["num_heads"]
+        head_dims = [2 * base // heads, 8 * base // heads]  # levels 0 and 2
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(16 + heads)
+            torch.manual_seed(16 + seed)
             model = build_model("BDE2VID", cfg, train=True)
         model.eval()
         timed_forward(torch, model, vox)  # warm-up
         launch_counts.clear()
         img_kernel, kernel_ms = timed_forward(torch, model, vox)
         fwd_launches = dict(launch_counts)
-        per_frame = {"fused_swin_block": 4 * T, "fused_swin_block_key_tiles": 6 * T}
-        expect_launches(f"head dims {heads} heads forward", fwd_launches, per_frame)
+        # launches per level (4 and 6 blocks a frame): key-tiled forward and
+        # wide backward above head_dim 32
+        per_frame, step_want = {}, {}
+        for hd, blocks in zip(head_dims, (4 * T, 6 * T)):
+            fwd_key = "fused_swin_block_key_tiles" if hd > 32 else "fused_swin_block"
+            bwd_key = "attn_core_backward_wide" if hd > 32 else "attn_core_backward"
+            per_frame[fwd_key] = per_frame.get(fwd_key, 0) + blocks
+            step_want[bwd_key] = step_want.get(bwd_key, 0) + blocks
+        expect_launches(f"head dims {label} forward", fwd_launches, per_frame)
+        if not torch.equal(timed_forward(torch, model, vox)[0], img_kernel):
+            raise AssertionError(f"head dims {label}: two kernel-path forwards differ")
         set_attention_kernel(model, False)
         img_plain, plain_ms = timed_forward(torch, model, vox)
         diff = (img_kernel - img_plain).abs().max().item()
         if not (img_kernel.shape == (T, 1, 1, 184, 240) and torch.isfinite(img_kernel).all()
                 and diff <= 2e-4):
-            raise AssertionError(f"head dims {heads} heads: kernel vs unfused forward max diff {diff}")
+            raise AssertionError(f"head dims {label}: kernel vs unfused forward max diff {diff}")
         model.train()
         loss_k, grads_k, step_launches = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, True)
-        expect_launches(f"head dims {heads} heads step", step_launches,
-                        {**per_frame, "attn_core_backward": 4 * T, "attn_core_backward_wide": 6 * T})
+        expect_launches(f"head dims {label} step", step_launches, {**per_frame, **step_want})
         loss_u, grads_u, _ = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, False)
         wide += step_launches["attn_core_backward_wide"]
-        rows.append({"num_heads": heads, "head_dims": [64 // heads, 256 // heads], "T": T,
+        rows.append({"model": label, "basechannels": base, "num_heads": heads, "head_dims": head_dims,
+                     "parameters": sum(p.numel() for p in model.parameters()), "T": T,
                      "hw": [184, 240], "forward_launches": fwd_launches,
                      "forward_max_abs_diff_vs_unfused": diff, "forward_ms_kernel_path": kernel_ms,
                      "forward_ms_unfused_path": plain_ms, "step_launches": step_launches,
-                     **compare_grads(f"head dims {heads} heads step", loss_k, grads_k, loss_u, grads_u)})
+                     "forward_repeats_bitwise": True,
+                     **compare_grads(f"head dims {label} step", loss_k, grads_k, loss_u, grads_u)})
         del model
     emit({"phase": "head_dims", "models": rows})
     return wide

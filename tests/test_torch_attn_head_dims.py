@@ -1,8 +1,10 @@
 """Every head_dim from 1 to 256 through the attention kernels' plans and
 twins (ROADMAP C6, repaired): a head_dim between the instantiated ones (1,
-2, 4, ..., 256) runs at the next one up with zero columns past its own, and
+2, 4, ..., 1024) runs at the next one up with zero columns past its own, and
 above 32 the forward takes the key-tiled kernel and the backward the wide
-kernel; above 256 both plans raise ``ValueError`` (ROADMAP C7).
+backward; above 256 both plans take them too (ROADMAP C7, repaired; head
+dims 320 to 1024 in tests/test_torch_attn_wide_backward.py), and only above
+1024 do they raise ``ValueError`` (ROADMAP C8).
 
 On the CPU: the plans at the head dims the flagship's widths give with 1 to
 16 heads (3 to 256) and at the buffers of 7, 9, 31 and 61 frames; the twins
@@ -65,8 +67,8 @@ def test_plans_take_every_head_dim_and_the_launch_checks_accept_them(hd, bf16):
         bwd = attn_core_bwd_plan(m, n, c, heads)
         assert bwd.smem_bytes <= _MAX_SMEM
         assert (bwd_counter(bwd, hd) == "attn_core_backward_wide") == (hd > 32)
-        if hd > 32:
-            assert bwd.key_tile > 0 and bwd.key_tile % 8 == 0 and not bwd.row_share
+        if hd > 32:  # the wide backward's tiles are its own
+            assert bwd.key_tile == 0 and not bwd.row_share
 
 
 @pytest.mark.parametrize("c,heads", [(256, 4), (256, 2), (256, 1), (96, 16), (192, 16), (48, 16)])
@@ -77,12 +79,17 @@ def test_head_dim_check_takes_the_flagship_widths_at_any_head_count(c, heads):
 
 
 def test_head_dims_above_256_raise_value_error_in_both_plans():
-    """ROADMAP C7: one head at base >= 64 (head_dim >= 512) is refused by
-    both plans before any forward runs."""
-    for fn in (lambda: attn_forward_plan(20, 1, 49, 343, 512, sms=132, blocks_per_sm=1),
-               lambda: attn_core_bwd_plan(49, 343, 512, 1),
-               lambda: _check_head_dim(512, 1)):
-        with pytest.raises(ValueError, match="head_dim 1 to 256"):
+    """ROADMAP C7, repaired: one head at base 64 or 128 (head_dim 512 or
+    1024) no longer raises in either plan or the launch check; only head
+    dims above 1024 do, before any forward runs (ROADMAP C8)."""
+    for hd in (512, 1024):
+        assert attn_forward_plan(20, 1, 49, 343, hd, sms=132, blocks_per_sm=1).key_tiled
+        assert attn_core_bwd_plan(49, 343, hd, 1).smem_bytes <= _MAX_SMEM
+        _check_head_dim(hd, 1)
+    for fn in (lambda: attn_forward_plan(20, 1, 49, 343, 2048, sms=132, blocks_per_sm=1),
+               lambda: attn_core_bwd_plan(49, 343, 2048, 1),
+               lambda: _check_head_dim(2048, 1)):
+        with pytest.raises(ValueError, match="head_dim 1 to 1024"):
             fn()
 
 

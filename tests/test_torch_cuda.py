@@ -213,7 +213,8 @@ def test_cuda_window_attention_with_grad_refuses_keys_its_backward_cannot_take(c
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,c,heads", [(49, 343, 64, 16), (64, 448, 256, 16), (49, 1029, 64, 16),
                                          (64, 1088, 256, 16), (64, 1024, 256, 16),
-                                         (49, 1401, 256, 16), (49, 7399, 64, 16)])
+                                         (49, 1401, 256, 16), (49, 7399, 64, 16), (49, 343, 512, 1),
+                                         (64, 1519, 1024, 1)])
 def test_cuda_backward_plan_is_the_librarys(cuda_device, m, n, c, heads):
     """The planner's shared memory is the library's for the kernel it picks,
     and the occupancy query reports that kernel's row share and key tile."""
@@ -915,18 +916,20 @@ def test_cuda_key_tiled_forward_occupancy_and_smem_are_the_plans(cuda_device, li
             assert plan.key_tiled and plan.threads == wac.FLASH_THREADS
 
 
-# Head dims between and above the instantiated ones (ROADMAP C6, repaired):
-# each runs at the next instantiated head_dim with zero columns past its
-# own; above 32 the forward takes the key-tiled kernel and the backward the
-# wide kernel. Heads per head_dim, so that C stays at most 256.
-_HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1}
+# Head dims between and above the instantiated ones (ROADMAP C6 and C7,
+# repaired): each runs at the next instantiated head_dim with zero columns
+# past its own; above 32 the forward takes the key-tiled kernel (above 256
+# in column chunks) and the backward the wide backward. Heads per head_dim,
+# so that C stays at most 256 up to head_dim 256 (one head above it).
+_HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 384: 1, 512: 1,
+                   1024: 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", sorted(_HEAD_DIM_HEADS))
 def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
     """The bare core, the Swin block and the WindowAttention3D body (with
-    acc) at head_dim 3 to 256, M 49 and N 147, f32 and bf16: each matches
+    acc) at head_dim 3 to 1024, M 49 and N 147, f32 and bf16: each matches
     its twin, repeats bit for bit and counts the variant its plan names
     (key-tiled exactly above head_dim 32)."""
     heads, m, d, b_ = _HEAD_DIM_HEADS[hd], 49, 3, 5
@@ -960,7 +963,7 @@ def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", sorted(_HEAD_DIM_HEADS))
 def test_cuda_backward_matches_twin_at_each_head_dim(cuda_device, hd):
-    """The attention backward at head_dim 3 to 256, N 147 and 1519, f32 and
+    """The attention backward at head_dim 3 to 1024, N 147 and 1519, f32 and
     bf16: within the gates of attn_core_backward_reference, two runs bit
     for bit, the wide kernel counted above head_dim 32."""
     heads, m, b_ = _HEAD_DIM_HEADS[hd], 49, 5
@@ -985,9 +988,9 @@ def test_cuda_backward_matches_twin_at_each_head_dim(cuda_device, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 256, 384, 512])
 def test_cuda_key_tiled_forward_at_large_head_dims(cuda_device, hd):
-    """The key-tiled forward at head_dim 64, 128 and 256 over rows of 343,
+    """The key-tiled forward at head_dim 64 to 512 over rows of 343,
     1519 and 2989 keys (7, 31 and 61 frames of 7x7 windows), f32 and bf16,
     repeated bit for bit."""
     heads = 2
