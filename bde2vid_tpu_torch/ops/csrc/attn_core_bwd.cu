@@ -80,7 +80,7 @@
 //     dot product templated on head_dim 1-32; a head_dim between them runs
 //     at the next one up with zero columns past it (staged, never written).
 //   - Above head_dim 32 (the wide backward, any head_dim in chunks of 64
-//     columns): three launches that split each (window, head) over key
+//     columns): four launches that split each (window, head) over key
 //     tiles, row tiles and head_dim chunks, f32 by register-tiled FMA and
 //     bf16 on the tensor cores; see attn_bwd_scores_kernel below.
 
@@ -104,7 +104,7 @@ struct BwdArgs {
   const float* bias;          // (H, M, N) f32
   void *dq, *dk, *dv;         // like q, k, v
   float* partial;             // (groups, H, M, N) f32 scratch; the wide backward's ds planes (groups = B_)
-  float* scratch;             // the wide backward's f32 s and dp planes and row statistics (WidePlanes)
+  float* scratch;             // the wide backward's planes and row statistics (WidePlanes), 16-byte aligned
   bool vec;                   // the wide backward: 16-byte copies (rows and head_dim 16-byte multiples)
 };
 
@@ -641,7 +641,7 @@ __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kern
 }
 
 // ---------------------------------------------------------------------------
-// head_dim above 32 (the wide backward): three launches and the dbias
+// head_dim above 32 (the wide backward): four launches and the dbias
 // reduction, in 128-thread blocks that split each (window, head) over key
 // tiles, row tiles and head_dim chunks of 64 columns, so that any head_dim
 // runs (zero columns past it, staged and never written) and the grid fills
@@ -651,15 +651,18 @@ __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kern
 //      head_dim chunks in registers; it writes s and dp to two (B_, H, M, N)
 //      f32 planes in device memory, and for each row the tile's max score,
 //      sum of exp and sum of dp times exp (a warp per row, a lane per key).
-//   2. attn_bwd_dkdv_kernel, block (key tile of 32, head_dim chunk, window x
-//      head): per 64 rows at a time it merges the rows' statistics over the
-//      key tiles in order, reads s and dp back, forms p32, ds, round(p) and
-//      round(ds scale) in shared memory, writes ds to the (B_, H, M, N) plane
-//      that dbias and launch 3 read (chunk 0 alone), and adds the chunk's dv =
-//      p^T g and dk = dsc^T q for its keys in registers.
-//   3. attn_bwd_dq_kernel, block (row tile of 32, head_dim chunk, window x
-//      head): dq = round(ds scale) k over the key tiles.
-//   4. dbias_reduce_kernel sums the ds planes over the windows in order.
+//   2. attn_bwd_rowstats_kernel merges each row's statistics over the key
+//      tiles in order (a thread a row).
+//   3. attn_bwd_dkdv_kernel, block (key tile of 32, head_dim chunk, window x
+//      head): per 64 rows at a time it reads s and dp back, forms p32, ds,
+//      round(p) and round(ds scale) in shared memory, writes ds to the (B_,
+//      H, M, N) plane that dbias reads and round(ds scale) to a plane in the
+//      operand type (chunk 0 alone), and adds the chunk's dv = p^T g and dk
+//      = dsc^T q for its keys in registers.
+//   4. attn_bwd_dq_kernel, block (row tile of 32, head_dim chunk, window x
+//      head): dq = round(ds scale) k over key tiles of 64, the next tile's
+//      copies in flight (cp.async, two stages) while this one multiplies.
+//   5. dbias_reduce_kernel sums the ds planes over the windows in order.
 // Products: f32 by FMA with no TF32, each thread a 4 x 4 register tile from
 // float4 rows in shared memory, 8 FMAs a load; bf16 on the tensor cores
 // (mma.sync m16n8k16, f32 accumulators, ldmatrix fragments), a warp 16 x 32.
@@ -686,7 +689,8 @@ __host__ __device__ constexpr int wide_ld(int cols) {
 // Shared memory of each wide launch (bytes): the scores tile's q, g, k and v
 // chunks (its f32 (64, 33) s and dp planes alias them after the products);
 // the dk/dv block's g and q chunks, its round(p) and round(ds scale) tiles
-// and three row statistics; the dq block's round(ds scale) tile and k chunk.
+// and three row statistics; two stages of the dq block's round(ds scale)
+// tile and k chunk.
 template <typename T>
 constexpr size_t wide_scores_smem() {
   return sizeof(T) * (size_t)(2 * kWideRows + 2 * kWideKeys) * wide_ld<T>(kWideCols);
@@ -698,7 +702,7 @@ constexpr size_t wide_dkdv_smem() {
 }
 template <typename T>
 constexpr size_t wide_dq_smem() {
-  return sizeof(T) * (size_t)(kWideQRows * wide_ld<T>(kWideQKeys) + kWideQKeys * wide_ld<T>(kWideCols));
+  return sizeof(T) * 2 * (size_t)(kWideQRows * wide_ld<T>(kWideQKeys) + kWideQKeys * wide_ld<T>(kWideCols));
 }
 static_assert(wide_scores_smem<__nv_bfloat16>() >= sizeof(float) * 2 * kWideRows * (kWideKeys + 1),
               "the s and dp planes fit over the staged chunks");
@@ -734,9 +738,10 @@ __device__ __forceinline__ void wide_stage(T* dst, int ldd, const T* src, size_t
 // NT: acc (64 x 32) += a (64 x K) b (32 x K)^T, a and b row-major.
 template <int K>
 __device__ __forceinline__ void wide_nt(float (&acc)[4][4], const float* as, const float* bs, int ld) {
-  // thread (tr, tc): rows tr + 16 i, columns tc + 8 j; eight lanes of a
-  // 128-bit phase read eight rows of a and one row of b
-  const int tr = threadIdx.x & 15, tc = threadIdx.x >> 4;
+  // thread (tr, tc): rows tr + 16 i, columns tc + 8 j; a warp reads eight
+  // rows of a and four of b at each k, one 128-byte wavefront each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr = (lane & 7) + 8 * (warp & 1), tc = (lane >> 3) + 4 * (warp >> 1);
 #pragma unroll 4
   for (int k = 0; k < K; k += 4) {
     float4 x[4], y[4];
@@ -782,7 +787,8 @@ __device__ __forceinline__ void wide_nt_each(const float (&acc)[4][4], F&& f) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) f(16 * warp + (lane >> 2) + 8 * (e >> 1), 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
   } else {
-    const int tr = threadIdx.x & 15, tc = threadIdx.x >> 4;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int tr = (lane & 7) + 8 * (warp & 1), tc = (lane >> 3) + 4 * (warp >> 1);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -795,8 +801,10 @@ __device__ __forceinline__ void wide_nt_each(const float (&acc)[4][4], F&& f) {
 template <int R>
 __device__ __forceinline__ void wide_tn(float (&acc)[4][4], const float* as, int lda, const float* bs,
                                         int ldb) {
-  // thread (tk, td): rows 4 tk .. 4 tk + 3 of the result, columns 4 td ..
-  const int tk = threadIdx.x >> 4, td = threadIdx.x & 15;
+  // thread (tk, td): rows 4 tk .. 4 tk + 3 of the result, columns 4 td ..;
+  // a warp reads four float4 of a and eight of b at each row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int td = (lane & 7) + 8 * (warp & 1), tk = (lane >> 3) + 4 * (warp >> 1);
 #pragma unroll 4
   for (int r = 0; r < R; ++r) {
     const float4 x = *reinterpret_cast<const float4*>(as + r * lda + 4 * tk);
@@ -885,7 +893,8 @@ __device__ __forceinline__ void wide_out_each(const float (&acc)[4][4], F&& f) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) f(r0 + (lane >> 2) + 8 * (e >> 1), c0 + 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
   } else if constexpr (kTn) {
-    const int tk = threadIdx.x >> 4, td = threadIdx.x & 15;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int td = (lane & 7) + 8 * (warp & 1), tk = (lane >> 3) + 4 * (warp >> 1);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -899,20 +908,32 @@ __device__ __forceinline__ void wide_out_each(const float (&acc)[4][4], F&& f) {
   }
 }
 
-// The wide backward's scratch (f32, in a.scratch): the s and dp planes (B_,
-// H, M, N), then the key tiles' row statistics (B_ H, tiles, M) three times.
+// The wide backward's scratch (in a.scratch, 16-byte aligned): round(ds
+// scale) in the operand type, rows padded to np keys (zeros past N, so that
+// whole 16-byte chunks copy); the s and dp planes (B_ H, M, N) f32; the key
+// tiles' row statistics (B_ H, tiles, M) three times; the rows' merged
+// statistics (B_ H, M) three times.
 struct WidePlanes {
-  float *s, *dp, *mx, *sum, *dot;
-  int tiles;
-  __device__ __forceinline__ WidePlanes(const BwdArgs& a) {
-    const size_t plane = (size_t)a.b * a.heads * a.m * a.n;
-    const size_t stats = (size_t)a.b * a.heads * cdiv(a.n, kWideKeys) * a.m;
+  void* dsc;
+  float *s, *dp, *tmx, *tsum, *tdot, *rmx, *rinv, *rdot;
+  int tiles, np;
+  __host__ __device__ WidePlanes(const BwdArgs& a) {
     tiles = cdiv(a.n, kWideKeys);
-    s = a.scratch;
-    dp = s + plane;
-    mx = dp + plane;
-    sum = mx + stats;
-    dot = sum + stats;
+    np = tiles * kWideKeys;
+    const size_t rows = (size_t)a.b * a.heads * a.m;
+    dsc = a.scratch;
+    s = a.scratch + rows * np;  // room for f32 dsc
+    dp = s + rows * a.n;
+    tmx = dp + rows * a.n;
+    tsum = tmx + rows * tiles;
+    tdot = tsum + rows * tiles;
+    rmx = tdot + rows * tiles;
+    rinv = rmx + rows;
+    rdot = rinv + rows;
+  }
+  static size_t floats(int b, int m, int n, int heads) {
+    const int t = cdiv(n, kWideKeys);
+    return (size_t)b * heads * m * ((size_t)t * kWideKeys + 2 * (size_t)n + 3 * (size_t)t + 3);
   }
 };
 
@@ -971,16 +992,39 @@ __global__ void __launch_bounds__(kWideThreads) attn_bwd_scores_kernel(BwdArgs a
     const float sum = warp_sum(e), dot = warp_sum(in ? dv * e : 0.f);
     if (lane == 0) {
       const size_t o = ((size_t)bh * pl.tiles + kt) * m + row;
-      pl.mx[o] = mxl;
-      pl.sum[o] = sum;
-      pl.dot[o] = dot;
+      pl.tmx[o] = mxl;
+      pl.tsum[o] = sum;
+      pl.tdot[o] = dot;
     }
   }
+}
+
+// Each row's statistics, merged over the key tiles in order: its max score
+// times log2 e, 1 / its sum of exp and rowsum(dp * p32); a thread a row.
+__global__ void __launch_bounds__(kWideThreads) attn_bwd_rowstats_kernel(BwdArgs a) {
+  const WidePlanes pl(a);
+  const size_t rows = (size_t)a.b * a.heads * a.m;
+  const size_t i = (size_t)blockIdx.x * kWideThreads + threadIdx.x;
+  if (i >= rows) return;
+  const size_t bh = i / a.m, o = bh * pl.tiles * a.m + (i - bh * a.m);
+  float mx = __int_as_float(0xff800000);  // -inf
+  for (int t = 0; t < pl.tiles; ++t) mx = fmaxf(mx, pl.tmx[o + (size_t)t * a.m]);
+  float sum = 0.f, dot = 0.f;
+  for (int t = 0; t < pl.tiles; ++t) {
+    const float f = fast_exp2(pl.tmx[o + (size_t)t * a.m] - mx);
+    sum = fmaf(pl.tsum[o + (size_t)t * a.m], f, sum);
+    dot = fmaf(pl.tdot[o + (size_t)t * a.m], f, dot);
+  }
+  const float inv = 1.f / sum;
+  pl.rmx[i] = mx;
+  pl.rinv[i] = inv;
+  pl.rdot[i] = dot * inv;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
   constexpr int LD = wide_ld<T>(kWideCols), LP = wide_ld<T>(kWideKeys);
+  constexpr int PER = kWideRows * kWideKeys / kWideThreads;  // (row, key) pairs a thread
   extern __shared__ __align__(16) unsigned char wide_smem[];
   T* gs = reinterpret_cast<T*>(wide_smem);  // (64, LD): g rows, the block's chunk
   T* qs = gs + kWideRows * LD;              // (64, LD): q rows
@@ -995,6 +1039,7 @@ __global__ void __launch_bounds__(kWideThreads) attn_bwd_dkdv_kernel(BwdArgs a) 
   const T* q = static_cast<const T*>(a.q) + (size_t)w * m * c + h * hd + d0;
   const T* g = static_cast<const T*>(a.g) + (size_t)w * m * c + h * hd + d0;
   const WidePlanes pl(a);
+  T* dsc_out = static_cast<T*>(pl.dsc) + (size_t)bh * m * pl.np;
   const size_t plane0 = (size_t)bh * m * n;
   float dv[4][4] = {}, dk[4][4] = {};
   for (int r0 = 0; r0 < m; r0 += kWideRows) {
@@ -1002,38 +1047,39 @@ __global__ void __launch_bounds__(kWideThreads) attn_bwd_dkdv_kernel(BwdArgs a) 
     wide_stage<T, kWideCols>(gs, LD, g + (size_t)r0 * c, c, kWideRows, m - r0, hd - d0, a.vec);
     wide_stage<T, kWideCols>(qs, LD, q + (size_t)r0 * c, c, kWideRows, m - r0, hd - d0, a.vec);
     cp_async_commit();
-    // the rows' statistics, merged over the key tiles in order
     for (int r = threadIdx.x; r < kWideRows && r0 + r < m; r += kWideThreads) {
-      const size_t o = (size_t)bh * pl.tiles * m + r0 + r;
-      float mx = __int_as_float(0xff800000);  // -inf
-      for (int t = 0; t < pl.tiles; ++t) mx = fmaxf(mx, pl.mx[o + (size_t)t * m]);
-      float sum = 0.f, dot = 0.f;
-      for (int t = 0; t < pl.tiles; ++t) {
-        const float f = fast_exp2(pl.mx[o + (size_t)t * m] - mx);
-        sum = fmaf(pl.sum[o + (size_t)t * m], f, sum);
-        dot = fmaf(pl.dot[o + (size_t)t * m], f, dot);
-      }
-      const float inv = 1.f / sum;
-      row_mxl[r] = mx;
-      row_inv[r] = inv;
-      row_dot[r] = dot * inv;
+      row_mxl[r] = pl.rmx[(size_t)bh * m + r0 + r];
+      row_inv[r] = pl.rinv[(size_t)bh * m + r0 + r];
+      row_dot[r] = pl.rdot[(size_t)bh * m + r0 + r];
     }
     __syncthreads();
-    // p32 and ds from the planes, a thread per (row, key): ds to its plane,
+    // p32 and ds from the planes, a thread per (row, key), all loads first:
+    // ds to its plane and round(ds scale) to the padded one (chunk 0 alone),
     // round(p) and round(ds scale) to the block's tiles (zero past M and N)
-    for (int e = threadIdx.x; e < kWideRows * kWideKeys; e += kWideThreads) {
-      const int r = e / kWideKeys, col = e - r * kWideKeys, row = r0 + r, key = n0 + col;
+    float sv[PER], dpv[PER];
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int e = threadIdx.x + it * kWideThreads, r = e / kWideKeys, key = n0 + e % kWideKeys;
+      const bool in = r0 + r < m && key < n;
+      const size_t o = plane0 + (size_t)(r0 + r) * n + key;
+      sv[it] = in ? pl.s[o] : 0.f;
+      dpv[it] = in ? pl.dp[o] : 0.f;
+    }
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int e = threadIdx.x + it * kWideThreads, r = e / kWideKeys, col = e % kWideKeys;
+      const int row = r0 + r, key = n0 + col;
       float p = 0.f, dsc = 0.f;
       if (row < m && key < n) {
-        const size_t o = plane0 + (size_t)row * n + key;
-        const float p32 = fast_exp2(fmaf(pl.s[o], kLog2e, -row_mxl[r])) * row_inv[r];
-        const float ds = p32 * (pl.dp[o] - row_dot[r]);
-        if (blockIdx.y == 0) a.partial[o] = ds;
+        const float p32 = fast_exp2(fmaf(sv[it], kLog2e, -row_mxl[r])) * row_inv[r];
+        const float ds = p32 * (dpv[it] - row_dot[r]);
+        if (blockIdx.y == 0) a.partial[plane0 + (size_t)row * n + key] = ds;
         p = p32;
         dsc = ds * a.scale;
       }
       ps[r * LP + col] = store_cast<T>(p);
       dss[r * LP + col] = store_cast<T>(dsc);
+      if (blockIdx.y == 0 && row < m) dsc_out[(size_t)row * pl.np + key] = store_cast<T>(dsc);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -1053,27 +1099,34 @@ __global__ void __launch_bounds__(kWideThreads) attn_bwd_dkdv_kernel(BwdArgs a) 
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads) attn_bwd_dq_kernel(BwdArgs a) {
   constexpr int LA = wide_ld<T>(kWideQKeys), LD = wide_ld<T>(kWideCols);
+  constexpr int STAGE = kWideQRows * LA + kWideQKeys * LD;
   extern __shared__ __align__(16) unsigned char wide_smem[];
-  T* dss = reinterpret_cast<T*>(wide_smem);  // (32, LA): round(ds scale) of the rows, one key tile
-  T* ks = dss + kWideQRows * LA;             // (64, LD): the key tile's k rows, the block's chunk
+  // two stages of: (32, LA) round(ds scale) of the rows against one key
+  // tile, then (64, LD) the tile's k rows, the block's chunk
+  T* smem = reinterpret_cast<T*>(wide_smem);
   const int r0 = blockIdx.x * kWideQRows, d0 = blockIdx.y * kWideCols, bh = blockIdx.z;
   const int m = a.m, n = a.n, c = a.c, hd = a.hd;
   const int w = bh / a.heads, h = bh - w * a.heads;
   const T* k = static_cast<const T*>(a.k) + (size_t)w * n * c + h * hd + d0;
-  const float* ds = a.partial + (size_t)bh * m * n;
+  const WidePlanes pl(a);
+  const T* dsc = static_cast<const T*>(pl.dsc) + ((size_t)bh * m + r0) * pl.np;
+  // the padded dsc rows copy in whole 16-byte chunks (zeros past N)
+  auto stage = [&](T* st, int n0) {
+    wide_stage<T, kWideQKeys>(st, LA, dsc + n0, pl.np, kWideQRows, m - r0, pl.np - n0, true);
+    wide_stage<T, kWideCols>(st + kWideQRows * LA, LD, k + (size_t)n0 * c, c, kWideQKeys, n - n0, hd - d0,
+                             a.vec);
+  };
   float acc[4][4] = {};
-  for (int n0 = 0; n0 < n; n0 += kWideQKeys) {
-    __syncthreads();  // the block is done with the previous keys
-    wide_stage<T, kWideCols>(ks, LD, k + (size_t)n0 * c, c, kWideQKeys, n - n0, hd - d0, a.vec);
+  stage(smem, 0);
+  cp_async_commit();
+  for (int n0 = 0, it = 0; n0 < n; n0 += kWideQKeys, ++it) {
+    T* cur = smem + (it & 1) * STAGE;
+    if (n0 + kWideQKeys < n) stage(smem + ((it + 1) & 1) * STAGE, n0 + kWideQKeys);
     cp_async_commit();
-    for (int e = threadIdx.x; e < kWideQRows * kWideQKeys; e += kWideThreads) {
-      const int r = e / kWideQKeys, col = e - r * kWideQKeys, row = r0 + r, key = n0 + col;
-      // the float operation of attn_bwd_dkdv_kernel's round(ds scale)
-      dss[r * LA + col] = store_cast<T>(row < m && key < n ? ds[(size_t)row * n + key] * a.scale : 0.f);
-    }
-    cp_async_wait<0>();
+    cp_async_wait<1>();  // this tile's copies have landed
     __syncthreads();
-    wide_nn<kWideQKeys>(acc, dss, LA, ks, LD);
+    wide_nn<kWideQKeys>(acc, cur, LA, cur + kWideQRows * LA, LD);
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
   T* dq = static_cast<T*>(a.dq) + ((size_t)w * m + r0) * c + h * hd + d0;
   wide_out_each<T, false>(acc, [&](int r, int col, float x) {
@@ -1162,10 +1215,10 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
   }
 }
 
-// The wide backward's three launches (and not the reduction) with `a`, or,
-// when `a` is null, the occupancy of its three kernels in info: the most
-// registers, spill bytes and shared memory of the three, their threads and
-// the fewest resident blocks per SM.
+// The wide backward's four launches (and not the reduction) with `a`, or,
+// when `a` is null, the occupancy of its three tiled kernels in info: the
+// most registers, spill bytes and shared memory of the three, their threads
+// and the fewest resident blocks per SM.
 template <typename T>
 cudaError_t run_wide(const BwdArgs* a, long long* info, cudaStream_t stream) {
   constexpr size_t smem[3] = {wide_scores_smem<T>(), wide_dkdv_smem<T>(), wide_dq_smem<T>()};
@@ -1192,6 +1245,9 @@ cudaError_t run_wide(const BwdArgs* a, long long* info, cudaStream_t stream) {
                               smem[0], stream>>>(*a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  attn_bwd_rowstats_kernel<<<(unsigned)cdiv(bh * a->m, kWideThreads), kWideThreads, 0, stream>>>(*a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   attn_bwd_dkdv_kernel<T><<<dim3(cdiv(a->n, kWideKeys), chunks, bh), kWideThreads, smem[1], stream>>>(*a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1199,10 +1255,6 @@ cudaError_t run_wide(const BwdArgs* a, long long* info, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Floats of the wide backward's scratch (WidePlanes) at these shapes.
-size_t wide_scratch_floats(int b, int m, int n, int heads) {
-  return (size_t)b * heads * m * (2 * (size_t)n + 3 * (size_t)cdiv(n, kWideKeys));
-}
 
 // The wide backward's 16-byte copies: every head row starts on a 16-byte
 // boundary (q, k, v, g, C and the head offsets) and head_dim fills whole
@@ -1273,7 +1325,7 @@ long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j, int ke
 // Floats of f32 scratch the backward needs at these shapes: the wide
 // backward's s and dp planes and row statistics above head_dim 32, else 0.
 long long attn_core_bwd_scratch_floats(int b, int m, int n, int c, int heads) {
-  return padded_hd(c / heads) > 32 ? (long long)wide_scratch_floats(b, m, n, heads) : 0;
+  return padded_hd(c / heads) > 32 ? (long long)WidePlanes::floats(b, m, n, heads) : 0;
 }
 
 // The instantiation a launch at these shapes with row share j and key tile

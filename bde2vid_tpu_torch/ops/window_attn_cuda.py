@@ -453,7 +453,8 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     bias32 = bias.float().contiguous()
     # the wide backward (head_dim > 32) writes a ds plane a window, which the
-    # reduction sums in window order, and its s and dp planes into scratch
+    # reduction sums in window order, and its other planes into scratch after
+    # them (one allocation; the scratch starts on a 16-byte boundary)
     scratch_floats = lib.attn_core_bwd_scratch_floats(b_, m, n, c, num_heads)
     if scratch_floats:
         groups = b_
@@ -461,9 +462,11 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
         occ = attn_core_backward_occupancy(m, n, c, num_heads, dt, q.device.index)
         groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], occ["sms"])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
+    plane = groups * num_heads * m * n
+    start = -(-plane // 4) * 4
+    buf = torch.empty((start + scratch_floats,), dtype=torch.float32, device=q.device)
+    partial, scratch = buf[:plane], buf[start:] if scratch_floats else None
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
-    scratch = torch.empty((scratch_floats,), dtype=torch.float32, device=q.device) if scratch_floats else None
     rc = lib.attn_core_backward(
         int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share, plan.key_tile,
         float((c // num_heads) ** -0.5),
@@ -488,7 +491,7 @@ class BwdPlan(NamedTuple):
     sums in global memory; ``key_tile`` is 0, or the keys of one tile of the
     key-tiled variant (rows whose k and v do not fit in one block's shared
     memory: it stages them a tile at a time); above head_dim 32 both are 0
-    and the wide backward runs (three launches whose tiles are its own,
+    and the wide backward runs (four launches whose tiles are its own,
     ``attn_bwd_scores_kernel`` in csrc/attn_core_bwd.cu); ``smem_bytes`` is
     its shared memory per block (the wide backward's largest block)."""
 
@@ -535,6 +538,7 @@ def _key_tile(fixed: int, per_key: int, blocks: int, what: str, unit: int = _TIL
     return tile
 
 
+@functools.lru_cache(maxsize=None)
 def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     """The backward kernel for windows of M query rows and N keys at width C
     over ``num_heads`` heads: rows of at most 32 x 32 keys whose (M, N)
@@ -591,7 +595,7 @@ def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype,
     and the key-tiled variants), S (lanes per key in pass 2), the key tile
     (0 but for the key-tiled variant) and the card's SMs, for the kernel
     :func:`attn_core_bwd_plan` picks. The wide backward (head_dim > 32)
-    reports the extremes of its three kernels (the most registers, spill
+    reports the extremes of its three tiled kernels (the most registers, spill
     and shared memory, the fewest blocks per SM) and S and key tile 0."""
     plan = attn_core_bwd_plan(m, n, c, num_heads)
     info = (ctypes.c_longlong * 8)()

@@ -118,22 +118,25 @@ def test_twins_match_jax_fused_attention_and_its_vjp(heads):
         np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), atol=1e-4, rtol=0)
 
 
-@pytest.fixture
-def _concrete(concrete_gathers):
-    yield
-
-
-@pytest.mark.parametrize("kernel", [False, True])
-def test_bde2vid_with_head_dim_64_at_level_2_matches_jax(kernel, _concrete):
-    """A small BDE2VID with one head over three encoders (head_dim 16 at
-    level 0, 64 at level 2), port vs the JAX package on the CPU in f32,
-    both attention paths (the kernel path takes the kernels' twins here),
-    within atol 2e-4 (tests/test_bde2vid.py:313)."""
+@pytest.fixture(scope="module")
+def head_dim_64_jax(concrete_gathers):
+    """The JAX side of the head_dim-64 BDE2VID, run once for both attention
+    paths of the port: (cfg, voxels, variables, images)."""
     cfg = {"generator": dict(BASE, num_encoders=3, depths=[1, 0, 1], num_heads=1)}
     vox = _seeded((2, 1, 32, 32, 5), np.random.default_rng(16))  # 32 = 4 x 2^3
     jmodel = jax_build("BDE2VID", cfg)
     variables = seeded_variables(jmodel, vox, seed=16)
     want = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(vox))[0]["image"])
+    return cfg, vox, variables, want
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+def test_bde2vid_with_head_dim_64_at_level_2_matches_jax(kernel, head_dim_64_jax):
+    """A small BDE2VID with one head over three encoders (head_dim 16 at
+    level 0, 64 at level 2), port vs the JAX package on the CPU in f32,
+    both attention paths (the kernel path takes the kernels' twins here),
+    within atol 2e-4 (tests/test_bde2vid.py:313)."""
+    cfg, vox, variables, want = head_dim_64_jax
     model = _port(cfg, variables, train=False)
     set_attention_kernel(model, kernel)
     with torch.no_grad():

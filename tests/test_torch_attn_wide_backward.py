@@ -6,7 +6,7 @@ On the CPU: the plans and launch checks at head_dim 320 to 1024 over rows of
 343 and 1519 keys; the twins against the JAX package's fused attention in
 interpret mode and its VJP at C 512 with one head; a small BDE2VID at base
 64 with one head (head_dim 512 at level 2) against the JAX package; and the
-wide backward's three launches emulated in plain torch (per key tile
+wide backward's launches emulated in plain torch (per key tile
 statistics merged in tile order, s and dp summed over 64-column chunks,
 round(p) and round(ds scale) in the operand type, one ds plane a window
 summed in window order) against the twin under the kernel-vs-twin gates.
@@ -102,12 +102,12 @@ def test_bde2vid_at_base_64_with_one_head_matches_jax(concrete_gathers):
 
 
 def wide_backward(q, k, v, bias, g, num_heads, key_tile=32, cols=64):
-    """The wide backward's three launches in plain torch: (1) per key tile
-    of ``key_tile`` keys, s = q k^T scale + bias and dp = g v^T summed over
+    """The wide backward's launches in plain torch: (1) per key tile of
+    ``key_tile`` keys, s = q k^T scale + bias and dp = g v^T summed over
     head_dim chunks of ``cols`` columns, and each row's tile max (times log2
     e), sum of exp2 and sum of dp times exp2; (2) the statistics merged over
-    the tiles in order, p32, ds, dv = round(p)^T g and dk = round(ds
-    scale)^T q; (3) dq = round(ds scale) k; dbias the ds planes summed over
+    the tiles in order; (3) p32, ds, dv = round(p)^T g and dk = round(ds
+    scale)^T q; (4) dq = round(ds scale) k; dbias the ds planes summed over
     the windows in window order. round() is the cast to the operand type."""
     b_, m, c = q.shape
     n = k.shape[1]

@@ -6,6 +6,8 @@ generator in tests/test_bde2vid.py saved as an mmengine .pth, which the port
 loads as is and the JAX package converts; or flax init params carried over
 with ``state_dict_from_jax``."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -58,6 +60,14 @@ model = dict(
     return str(path)
 
 
+@pytest.fixture(scope="module")
+def jax_flagship(flagship_pth):
+    """The JAX package's model of the checkpoint, converted once for the
+    file's cases (each takes a shallow copy before it sets its attention
+    path, which rebuilds the copy's module)."""
+    return jax_load(flagship_pth)
+
+
 def _voxels(t, h=56, w=56, seed=0):
     return np.random.default_rng(seed).normal(size=(t, 1, h, w, 5)).astype(np.float32)
 
@@ -69,10 +79,10 @@ def _port_images(spec, voxels):
 
 
 @pytest.mark.parametrize("use_kernel,t", [(False, 8), (True, 3)])
-def test_flagship_width_matches_jax(flagship_pth, use_kernel, t):
+def test_flagship_width_matches_jax(flagship_pth, jax_flagship, use_kernel, t):
     """use_kernel: the port's fused-block path (plain twin on the CPU) vs the
     JAX package's Pallas path in interpret mode; otherwise both unfused."""
-    jspec = jax_load(flagship_pth)
+    jspec = copy.copy(jax_flagship)
     if use_kernel:
         jspec = set_pallas_attention(jspec, True)
     spec = load_model_from_torch(flagship_pth, device="cpu")

@@ -28,13 +28,21 @@ def _concrete(concrete_gathers):
     yield
 
 
-@pytest.mark.parametrize("kernel", [False, True])
-def test_31_frame_buffer_matches_jax(kernel):
+@pytest.fixture(scope="module")
+def jax_31_frames(concrete_gathers):
+    """The JAX side, run once for both attention paths of the port: (cfg,
+    voxels, variables, images)."""
     cfg = {"generator": dict(BASE, buffer_index=BUFFER)}
     vox, _ = _inputs(4)
     jmodel = jax_build("BDE2VID", cfg)
     variables = seeded_variables(jmodel, vox, seed=8)
     want = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(vox))[0]["image"])
+    return cfg, vox, variables, want
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+def test_31_frame_buffer_matches_jax(kernel, jax_31_frames):
+    cfg, vox, variables, want = jax_31_frames
     model = _port(cfg, variables, train=False)
     set_attention_kernel(model, kernel)
     with torch.no_grad():
