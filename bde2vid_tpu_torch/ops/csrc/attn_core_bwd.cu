@@ -103,9 +103,9 @@ struct BwdArgs {
   const void *q, *k, *v, *g;  // (B_, M, C), (B_, N, C), (B_, N, C), (B_, M, C)
   const float* bias;          // (H, M, N) f32
   void *dq, *dk, *dv;         // like q, k, v
-  float* partial;             // (groups, H, M, N) f32 scratch; the wide backward's ds planes (groups = B_)
-  float* scratch;             // the wide backward's planes and row statistics (WidePlanes), 16-byte aligned
-  bool vec;                   // the wide backward: 16-byte copies (rows and head_dim 16-byte multiples)
+  float* partial;             // (groups, H, M, N) f32; the wide backward's ds planes (groups = B_)
+  float* scratch;             // the wide backward's planes and statistics (WidePlanes), aligned
+  bool vec;                   // the wide backward: 16-byte copies (aligned rows and head_dim)
 };
 
 // The k, v, q and g rows, three row statistics, and with J > 0 the
@@ -702,7 +702,8 @@ constexpr size_t wide_dkdv_smem() {
 }
 template <typename T>
 constexpr size_t wide_dq_smem() {
-  return sizeof(T) * 2 * (size_t)(kWideQRows * wide_ld<T>(kWideQKeys) + kWideQKeys * wide_ld<T>(kWideCols));
+  return sizeof(T) * 2 *
+         (size_t)(kWideQRows * wide_ld<T>(kWideQKeys) + kWideQKeys * wide_ld<T>(kWideCols));
 }
 static_assert(wide_scores_smem<__nv_bfloat16>() >= sizeof(float) * 2 * kWideRows * (kWideKeys + 1),
               "the s and dp planes fit over the staged chunks");
@@ -712,8 +713,8 @@ static_assert(wide_scores_smem<__nv_bfloat16>() >= sizeof(float) * 2 * kWideRows
 // cp.async (src rows 16-byte aligned, cols a multiple of 16 bytes), which
 // the caller commits and waits for; else plain loads.
 template <typename T, int COLS>
-__device__ __forceinline__ void wide_stage(T* dst, int ldd, const T* src, size_t lds, int nrows, int rows,
-                                           int cols, bool vec) {
+__device__ __forceinline__ void wide_stage(T* dst, int ldd, const T* src, size_t lds, int nrows,
+                                           int rows, int cols, bool vec) {
   constexpr int CH = 16 / (int)sizeof(T), PER = COLS / CH;
   if (vec) {
     for (int e = threadIdx.x; e < nrows * PER; e += kWideThreads) {
@@ -737,7 +738,8 @@ __device__ __forceinline__ void wide_stage(T* dst, int ldd, const T* src, size_t
 //
 // NT: acc (64 x 32) += a (64 x K) b (32 x K)^T, a and b row-major.
 template <int K>
-__device__ __forceinline__ void wide_nt(float (&acc)[4][4], const float* as, const float* bs, int ld) {
+__device__ __forceinline__ void wide_nt(float (&acc)[4][4], const float* as, const float* bs,
+                                        int ld) {
   // thread (tr, tc): rows tr + 16 i, columns tc + 8 j; a warp reads eight
   // rows of a and four of b at each k, one 128-byte wavefront each
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -746,7 +748,8 @@ __device__ __forceinline__ void wide_nt(float (&acc)[4][4], const float* as, con
   for (int k = 0; k < K; k += 4) {
     float4 x[4], y[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(as + (tr + 16 * i) * ld + k);
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(as + (tr + 16 * i) * ld + k);
 #pragma unroll
     for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(bs + (tc + 8 * j) * ld + k);
 #pragma unroll
@@ -785,7 +788,8 @@ __device__ __forceinline__ void wide_nt_each(const float (&acc)[4][4], F&& f) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) f(16 * warp + (lane >> 2) + 8 * (e >> 1), 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
+      for (int e = 0; e < 4; ++e)
+        f(16 * warp + (lane >> 2) + 8 * (e >> 1), 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
   } else {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int tr = (lane & 7) + 8 * (warp & 1), tc = (lane >> 3) + 4 * (warp >> 1);
@@ -799,8 +803,8 @@ __device__ __forceinline__ void wide_nt_each(const float (&acc)[4][4], F&& f) {
 // TN: acc (32 x 64) += a^T b over R rows, a (R x 32) and b (R x 64)
 // row-major: dv = p^T g and dk = dsc^T q for a key tile.
 template <int R>
-__device__ __forceinline__ void wide_tn(float (&acc)[4][4], const float* as, int lda, const float* bs,
-                                        int ldb) {
+__device__ __forceinline__ void wide_tn(float (&acc)[4][4], const float* as, int lda,
+                                        const float* bs, int ldb) {
   // thread (tk, td): rows 4 tk .. 4 tk + 3 of the result, columns 4 td ..;
   // a warp reads four float4 of a and eight of b at each row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -825,7 +829,8 @@ __device__ __forceinline__ void wide_tn(float (&acc)[4][4], const __nv_bfloat16*
 #pragma unroll
   for (int r = 0; r < R; r += 16) {
     uint32_t a[4];
-    ldmatrix_x4_trans(a, as + (r + (lane & 7) + ((lane >> 4) << 3)) * lda + 16 * wk + ((lane >> 3) & 1) * 8);
+    ldmatrix_x4_trans(a, as + (r + (lane & 7) + ((lane >> 4) << 3)) * lda + 16 * wk +
+                             ((lane >> 3) & 1) * 8);
 #pragma unroll
     for (int j = 0; j < 4; j += 2) {
       uint32_t b[4];
@@ -839,17 +844,19 @@ __device__ __forceinline__ void wide_tn(float (&acc)[4][4], const __nv_bfloat16*
 
 // NN: acc (32 x 64) += a (32 x K) b (K x 64), a and b row-major: dq = dsc k.
 template <int K>
-__device__ __forceinline__ void wide_nn(float (&acc)[4][4], const float* as, int lda, const float* bs,
-                                        int ldb) {
+__device__ __forceinline__ void wide_nn(float (&acc)[4][4], const float* as, int lda,
+                                        const float* bs, int ldb) {
   // thread (tr, td): rows tr + 8 i, columns 4 td ..
   const int tr = threadIdx.x & 7, td = threadIdx.x >> 3;
 #pragma unroll 4
   for (int k = 0; k < K; k += 4) {
     float4 x[4], y[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(as + (tr + 8 * i) * lda + k);
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(as + (tr + 8 * i) * lda + k);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) y[e] = *reinterpret_cast<const float4*>(bs + (k + e) * ldb + 4 * td);
+    for (int e = 0; e < 4; ++e)
+      y[e] = *reinterpret_cast<const float4*>(bs + (k + e) * ldb + 4 * td);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
@@ -891,7 +898,8 @@ __device__ __forceinline__ void wide_out_each(const float (&acc)[4][4], F&& f) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) f(r0 + (lane >> 2) + 8 * (e >> 1), c0 + 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
+      for (int e = 0; e < 4; ++e)
+        f(r0 + (lane >> 2) + 8 * (e >> 1), c0 + 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
   } else if constexpr (kTn) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int td = (lane & 7) + 8 * (warp & 1), tk = (lane >> 3) + 4 * (warp >> 1);
@@ -1113,8 +1121,8 @@ __global__ void __launch_bounds__(kWideThreads) attn_bwd_dq_kernel(BwdArgs a) {
   // the padded dsc rows copy in whole 16-byte chunks (zeros past N)
   auto stage = [&](T* st, int n0) {
     wide_stage<T, kWideQKeys>(st, LA, dsc + n0, pl.np, kWideQRows, m - r0, pl.np - n0, true);
-    wide_stage<T, kWideCols>(st + kWideQRows * LA, LD, k + (size_t)n0 * c, c, kWideQKeys, n - n0, hd - d0,
-                             a.vec);
+    wide_stage<T, kWideCols>(st + kWideQRows * LA, LD, k + (size_t)n0 * c, c, kWideQKeys, n - n0,
+                             hd - d0, a.vec);
   };
   float acc[4][4] = {};
   stage(smem, 0);
@@ -1222,8 +1230,9 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
 template <typename T>
 cudaError_t run_wide(const BwdArgs* a, long long* info, cudaStream_t stream) {
   constexpr size_t smem[3] = {wide_scores_smem<T>(), wide_dkdv_smem<T>(), wide_dq_smem<T>()};
-  static_assert(wide_scores_smem<T>() <= 232448 && wide_dkdv_smem<T>() <= 232448, "wide blocks fit");
-  void (*kernels[3])(BwdArgs) = {attn_bwd_scores_kernel<T>, attn_bwd_dkdv_kernel<T>, attn_bwd_dq_kernel<T>};
+  static_assert(std::max(wide_scores_smem<T>(), wide_dkdv_smem<T>()) <= 232448, "wide blocks fit");
+  void (*kernels[3])(BwdArgs) = {attn_bwd_scores_kernel<T>, attn_bwd_dkdv_kernel<T>,
+                                 attn_bwd_dq_kernel<T>};
   for (int i = 0; i < 3; ++i) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
@@ -1245,13 +1254,16 @@ cudaError_t run_wide(const BwdArgs* a, long long* info, cudaStream_t stream) {
                               smem[0], stream>>>(*a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_rowstats_kernel<<<(unsigned)cdiv(bh * a->m, kWideThreads), kWideThreads, 0, stream>>>(*a);
+  attn_bwd_rowstats_kernel<<<(unsigned)cdiv(bh * a->m, kWideThreads), kWideThreads, 0, stream>>>(
+      *a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<T><<<dim3(cdiv(a->n, kWideKeys), chunks, bh), kWideThreads, smem[1], stream>>>(*a);
+  attn_bwd_dkdv_kernel<T><<<dim3(cdiv(a->n, kWideKeys), chunks, bh), kWideThreads, smem[1],
+                            stream>>>(*a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T><<<dim3(cdiv(a->m, kWideQRows), chunks, bh), kWideThreads, smem[2], stream>>>(*a);
+  attn_bwd_dq_kernel<T><<<dim3(cdiv(a->m, kWideQRows), chunks, bh), kWideThreads, smem[2],
+                          stream>>>(*a);
   return cudaGetLastError();
 }
 
@@ -1318,7 +1330,9 @@ extern "C" {
 // same); above head_dim 32 the largest of the wide backward's blocks (f32).
 long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j, int key_tile) {
   const int hd = padded_hd(c / heads);
-  if (hd > 32) return (long long)std::max({wide_scores_smem<float>(), wide_dkdv_smem<float>(), wide_dq_smem<float>()});
+  if (hd > 32)
+    return (long long)std::max(
+        {wide_scores_smem<float>(), wide_dkdv_smem<float>(), wide_dq_smem<float>()});
   return (long long)(sizeof(float) * bwd_smem_floats(m, n, hd, j, key_tile));
 }
 
@@ -1333,7 +1347,8 @@ long long attn_core_bwd_scratch_floats(int b, int m, int n, int c, int heads) {
 // dynamic shared memory per block, threads per block, resident blocks per
 // SM, J (keys a lane keeps of a row; 0 for long rows, key tiles and the wide
 // backward), S (lanes per key in pass 2) and the key tile (0 for the wide
-// backward, whose other numbers are the extremes of its three kernels). Returns the CUDA error code (0 on success).
+// backward, whose other numbers are the extremes of its three tiled
+// kernels). Returns the CUDA error code (0 on success).
 int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, int key_tile,
                             long long* info) {
   return (int)dispatch(is_bf16, m, n, c, heads, j, key_tile, nullptr, info, nullptr);
@@ -1353,8 +1368,8 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
                        float* scratch, void* stream) {
   if (groups < 1 || groups > b) return (int)cudaErrorInvalidValue;
-  if (heads >= 1 && c % heads == 0 && padded_hd(c / heads) > 32 && (groups != b || scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
+  const bool wide = heads >= 1 && c % heads == 0 && padded_hd(c / heads) > 32;
+  if (wide && (groups != b || scratch == nullptr)) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.b = b;
   a.m = m;

@@ -1360,7 +1360,8 @@ constexpr size_t flash_smem_bytes(int hd) {
                     (flash_stride<T>(hd) + flash_stride<T>(flash_out_cols(hd)));
   if (std::is_same<T, __nv_bfloat16>::value)
     return kv + (hd > 256 ? sizeof(T) * 16 * kFlashWarps * (size_t)mma_k_stride(hd) : 0);
-  return kv + sizeof(float) * 16 * kFlashWarps * (2 * flash_bias_stride(hd) + (hd > 256 ? 0 : key_stride(hd)));
+  return kv + sizeof(float) * 16 * kFlashWarps *
+                  (2 * flash_bias_stride(hd) + (hd > 256 ? 0 : key_stride(hd)));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
@@ -1497,7 +1498,8 @@ struct FlashQ {
     if constexpr (kRegs) return r[row][d / 4];
     const float* p = (row ? q1 : q0) + d;
     if constexpr (kGlobal) {
-      if (vec) return d < hd ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (vec)
+        return d < hd ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
       return make_float4(d < hd ? __ldg(p) : 0.f, d + 1 < hd ? __ldg(p + 1) : 0.f,
                          d + 2 < hd ? __ldg(p + 2) : 0.f, d + 3 < hd ? __ldg(p + 3) : 0.f);
     }
@@ -1736,7 +1738,8 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
       T* out = static_cast<T*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * a.hd;
 #pragma unroll
       for (int dt = 0; dt < OC / 8; ++dt)
-        store_pair(out, oc0 + 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
+        store_pair(out, oc0 + 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv,
+                   o[dt][2 * hr + 1] * inv);
     }
   }
 }
@@ -1750,7 +1753,8 @@ cudaError_t attn_flash_run(const AttnArgs& a, float scale, long long* info, cuda
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info == nullptr) {
-    kernel<<<dim3(a.b, a.heads * (HD / flash_out_cols(HD)), a.tiles), kFlashThreads, smem, stream>>>(a, scale);
+    kernel<<<dim3(a.b, a.heads * (HD / flash_out_cols(HD)), a.tiles), kFlashThreads, smem, stream>>>(
+        a, scale);
     return cudaGetLastError();
   }
   cudaFuncAttributes attr;

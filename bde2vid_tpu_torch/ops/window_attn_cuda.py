@@ -453,8 +453,7 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     bias32 = bias.float().contiguous()
     # the wide backward (head_dim > 32) writes a ds plane a window, which the
-    # reduction sums in window order, and its other planes into scratch after
-    # them (one allocation; the scratch starts on a 16-byte boundary)
+    # reduction sums in window order, and its other planes into scratch
     scratch_floats = lib.attn_core_bwd_scratch_floats(b_, m, n, c, num_heads)
     if scratch_floats:
         groups = b_
@@ -462,10 +461,8 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
         occ = attn_core_backward_occupancy(m, n, c, num_heads, dt, q.device.index)
         groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], occ["sms"])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    plane = groups * num_heads * m * n
-    start = -(-plane // 4) * 4
-    buf = torch.empty((start + scratch_floats,), dtype=torch.float32, device=q.device)
-    partial, scratch = buf[:plane], buf[start:] if scratch_floats else None
+    partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((scratch_floats,), dtype=torch.float32, device=q.device) if scratch_floats else None
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
     rc = lib.attn_core_backward(
         int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share, plan.key_tile,
@@ -526,19 +523,18 @@ def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int, key_
     return 4 * (2 * (n + m) * ks + 3 * m + (m * n if row_share else 0))
 
 
-def _key_tile(fixed: int, per_key: int, blocks: int, what: str, unit: int = _TILE_KEYS) -> int:
-    """The most keys, a multiple of ``unit``, whose rows of ``per_key``
+def _key_tile(fixed: int, per_key: int, blocks: int, what: str) -> int:
+    """The most keys, a multiple of ``_TILE_KEYS``, whose rows of ``per_key``
     bytes fit beside ``fixed`` bytes in a block of which ``blocks`` share
     one SM. Raises ``ValueError`` when not one multiple fits."""
     budget = min(_MAX_SMEM, _SM_SMEM // blocks - 1024)  # the SM keeps 1 KB a block
-    tile = (budget - fixed) // per_key // unit * unit
+    tile = (budget - fixed) // per_key // _TILE_KEYS * _TILE_KEYS
     if tile <= 0:
         raise ValueError(f"{what}: {fixed} B of shared memory per block leave no room for a tile "
-                         f"of {unit} keys (limit {budget})")
+                         f"of {_TILE_KEYS} keys (limit {budget})")
     return tile
 
 
-@functools.lru_cache(maxsize=None)
 def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     """The backward kernel for windows of M query rows and N keys at width C
     over ``num_heads`` heads: rows of at most 32 x 32 keys whose (M, N)

@@ -1300,7 +1300,8 @@ def phase_kernels_training(torch):
 
 def bwd_case(torch, q, k, v, bias, g, heads, **labels):
     """One attn_core_backward case: the kernel vs its twin (gate and bitwise
-    repeat), its time, the twin's, torch's SDPA backward and the bound."""
+    repeat), its time (back to back, and device ms behind a spin kernel),
+    the twin's, torch's SDPA backward and the bound."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
         attn_core_backward, attn_core_backward_reference)
 
@@ -1322,6 +1323,7 @@ def bwd_case(torch, q, k, v, bias, g, heads, **labels):
         **labels, "dtype": name, "windows": b, "queries": m, "keys": n, "channels": c,
         "max_abs_err": max(errs), "errs_dq_dk_dv_dbias": errs, "deterministic": True,
         "kernel_ms": cuda_ms(torch, lambda: attn_core_backward(q, k, v, bias, g, heads), 20),
+        "kernel_device_ms": device_ms(torch, lambda: attn_core_backward(q, k, v, bias, g, heads)),
         "plain_ms": cuda_ms(torch, lambda: attn_core_backward_reference(q, k, v, bias, g, heads), 5, 1),
         "library_ms": lib_ms, "library": backend,
         "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_flops, t_bytes),
@@ -1671,13 +1673,13 @@ def phase_head_dims(torch, launch_counts):
     tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
     comp = SequenceLossComputer([{"type": "L1Loss"}])
     rows, wide = [], 0
-    for seed, (label, gen_cfg) in enumerate(HEAD_DIM_MODELS.items()):
+    for label, gen_cfg in HEAD_DIM_MODELS.items():
         cfg = model_config(FLAGSHIP_CFG)
         cfg["generator"].update(gen_cfg, drop_path_rate=0.0)
         base, heads = cfg["generator"]["basechannels"], cfg["generator"]["num_heads"]
         head_dims = [2 * base // heads, 8 * base // heads]  # levels 0 and 2
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(16 + seed)
+            torch.manual_seed(16 + heads)
             model = build_model("BDE2VID", cfg, train=True)
         model.eval()
         timed_forward(torch, model, vox)  # warm-up

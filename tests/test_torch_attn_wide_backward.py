@@ -4,14 +4,14 @@ csrc/attn_core_bwd.cu).
 
 On the CPU: the plans and launch checks at head_dim 320 to 1024 over rows of
 343 and 1519 keys; the twins against the JAX package's fused attention in
-interpret mode and its VJP at C 512 with one head; a small BDE2VID at base
-64 with one head (head_dim 512 at level 2) against the JAX package; and the
-wide backward's launches emulated in plain torch (per key tile
-statistics merged in tile order, s and dp summed over 64-column chunks,
-round(p) and round(ds scale) in the operand type, one ds plane a window
-summed in window order) against the twin under the kernel-vs-twin gates.
+interpret mode and its VJP at C 512 with one head; and the wide backward's
+launches emulated in plain torch (per key tile statistics merged in tile
+order, s and dp summed over 64-column chunks, round(p) and round(ds scale)
+in the operand type, one ds plane a window summed in window order) against
+the twin under the kernel-vs-twin gates.
 The kernels themselves run in tests/test_torch_cuda.py and chip_smoke.py's
-``head_dims`` phase.
+``head_dims`` phase, which also holds the flagship at base 64 with one head
+(head_dim 512 at level 2) to the unfused path on the card.
 """
 
 import numpy as np
@@ -21,9 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from bde2vid_tpu.models import build_model as jax_build
 from bde2vid_tpu.ops.window_attn_pallas import fused_window_attention as jax_attention
-from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
     FLASH_THREADS,
     _MAX_SMEM,
@@ -36,8 +34,6 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     attn_key_tiled,
     bwd_counter,
 )
-from tests.test_torch_config_surface import BASE, _port, nchw, seeded_variables
-from tests.test_torch_parallel_nwindow import concrete_gathers  # noqa: F401  (a fixture)
 
 WIDE_HEAD_DIMS = (320, 384, 512, 1024)
 LOG2E = 1.4426950408889634
@@ -81,24 +77,6 @@ def test_twins_match_jax_fused_attention_and_its_vjp_at_head_dim_512():
                                atol=2e-4, rtol=0)
     for got_g, want_g in zip(attn_core_backward_reference(tq, tk, tv, tb, tg, 1), want_grads):
         np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), atol=1e-4, rtol=0)
-
-
-def test_bde2vid_at_base_64_with_one_head_matches_jax(concrete_gathers):
-    """BDE2VID at base 64 with one head over three encoders (head_dim 128 at
-    level 0, 512 at level 2, the C7 configuration at 32x32), port on the
-    kernel path (the kernels' twins on the CPU) vs the JAX package in f32,
-    within atol 2e-4 (tests/test_bde2vid.py:313)."""
-    cfg = {"generator": dict(BASE, basechannels=64, num_encoders=3, depths=[1, 0, 1], num_heads=1)}
-    vox = _seeded((2, 1, 32, 32, 5), np.random.default_rng(17))
-    jmodel = jax_build("BDE2VID", cfg)
-    variables = seeded_variables(jmodel, vox, seed=17)
-    want = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(vox))[0]["image"])
-    model = _port(cfg, variables, train=False)
-    set_attention_kernel(model, True)
-    with torch.no_grad():
-        got = model(nchw(vox))["image"].numpy()
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, want.transpose(0, 1, 4, 2, 3), atol=2e-4, rtol=0)
 
 
 def wide_backward(q, k, v, bias, g, num_heads, key_tile=32, cols=64):

@@ -988,6 +988,32 @@ def test_cuda_backward_matches_twin_at_each_head_dim(cuda_device, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd,heads", [(36, 2), (64, 4), (512, 1)])
+def test_cuda_wide_backward_past_one_row_tile(cuda_device, hd, heads):
+    """The wide backward where a window's rows span several of its row
+    tiles (M 81 and 130: 9x9 windows, and more rows than two tiles of 64)
+    and its keys a ragged last tile (N 567 and 130), with head_dim 36
+    (bf16 rows not whole 16-byte chunks: plain copies), 64 and 512, f32 and
+    bf16: within the gates of attn_core_backward_reference, two runs bit for
+    bit."""
+    c, b_ = heads * hd, 3
+    for m, n in ((81, 567), (130, 130)):
+        q, k, v, bias = _attn_inputs(m + hd, b_, m, n, c, heads, cuda_device)
+        gr = torch.randn(b_, m, c, device=cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            ins = [t.to(dt) for t in (q, k, v)]
+            before = dict(launch_counts)
+            got = attn_core_backward(*ins, bias, gr.to(dt), heads)
+            again = attn_core_backward(*ins, bias, gr.to(dt), heads)
+            torch.cuda.synchronize()
+            assert _launched(before) == {"attn_core_backward_wide": 2}
+            ref = attn_core_backward_reference(*ins, bias, gr.to(dt), heads)
+            for a, b, r in zip(got, again, ref):
+                assert torch.equal(a, b)
+                assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (m, n, dt)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128, 256, 384, 512])
 def test_cuda_key_tiled_forward_at_large_head_dims(cuda_device, hd):
     """The key-tiled forward at head_dim 64 to 512 over rows of 343,
