@@ -173,8 +173,20 @@ def one_sweep_attention(q, k, v, bias, num_heads, key_tile):
     return out.transpose(1, 2).reshape(b_, m, c).to(dt)
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread for the test: the recurrence is
+    thousands of small ops, each a parallel region that, beside other test
+    processes on the same cores, waits on descheduled threads (a hundred
+    times slower than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("hd", HEAD_DIMS)
-def test_one_sweep_recurrence_meets_the_gates_against_the_twin(hd):
+def test_one_sweep_recurrence_meets_the_gates_against_the_twin(hd, one_thread):
     """The emulated one-sweep forward against the twin, f32 within 1e-4 x
     max(1, max|twin|) and bf16 within 2e-2 x max|twin| (the kernel-vs-twin
     gates), at every N of KEYS and every tile of KEY_TILES."""
