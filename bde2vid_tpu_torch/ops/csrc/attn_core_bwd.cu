@@ -651,14 +651,14 @@ __global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kern
 //      head_dim chunks in registers; it writes s and dp to two (B_, H, M, N)
 //      f32 planes in device memory, and for each row the tile's max score,
 //      sum of exp and sum of dp times exp (a warp per row, a lane per key).
-//   2. attn_bwd_rowstats_kernel merges each row's statistics over the key
-//      tiles in order (a thread a row).
+//   2. attn_bwd_probs_kernel, a warp a row: the row's statistics merged over
+//      the key tiles in order, then p32 and ds for each key: ds to the (B_,
+//      H, M, N) plane that dbias reads, round(p) and round(ds scale) to
+//      planes in the operand type.
 //   3. attn_bwd_dkdv_kernel, block (key tile of 32, head_dim chunk, window x
-//      head): per 64 rows at a time it reads s and dp back, forms p32, ds,
-//      round(p) and round(ds scale) in shared memory, writes ds to the (B_,
-//      H, M, N) plane that dbias reads and round(ds scale) to a plane in the
-//      operand type (chunk 0 alone), and adds the chunk's dv = p^T g and dk
-//      = dsc^T q for its keys in registers.
+//      head): per 64 rows at a time it copies round(p), round(ds scale), g
+//      and q in (cp.async) and adds the chunk's dv = p^T g and dk = dsc^T q
+//      for its keys in registers.
 //   4. attn_bwd_dq_kernel, block (row tile of 32, head_dim chunk, window x
 //      head): dq = round(ds scale) k over key tiles of 64, the next tile's
 //      copies in flight (cp.async, two stages) while this one multiplies.
@@ -688,17 +688,15 @@ __host__ __device__ constexpr int wide_ld(int cols) {
 
 // Shared memory of each wide launch (bytes): the scores tile's q, g, k and v
 // chunks (its f32 (64, 33) s and dp planes alias them after the products);
-// the dk/dv block's g and q chunks, its round(p) and round(ds scale) tiles
-// and three row statistics; two stages of the dq block's round(ds scale)
-// tile and k chunk.
+// the dk/dv block's g and q chunks and its round(p) and round(ds scale)
+// tiles; two stages of the dq block's round(ds scale) tile and k chunk.
 template <typename T>
 constexpr size_t wide_scores_smem() {
   return sizeof(T) * (size_t)(2 * kWideRows + 2 * kWideKeys) * wide_ld<T>(kWideCols);
 }
 template <typename T>
 constexpr size_t wide_dkdv_smem() {
-  return sizeof(T) * (size_t)kWideRows * (2 * wide_ld<T>(kWideCols) + 2 * wide_ld<T>(kWideKeys)) +
-         sizeof(float) * 3 * kWideRows;
+  return sizeof(T) * (size_t)kWideRows * (2 * wide_ld<T>(kWideCols) + 2 * wide_ld<T>(kWideKeys));
 }
 template <typename T>
 constexpr size_t wide_dq_smem() {
@@ -917,31 +915,28 @@ __device__ __forceinline__ void wide_out_each(const float (&acc)[4][4], F&& f) {
 }
 
 // The wide backward's scratch (in a.scratch, 16-byte aligned): round(ds
-// scale) in the operand type, rows padded to np keys (zeros past N, so that
-// whole 16-byte chunks copy); the s and dp planes (B_ H, M, N) f32; the key
-// tiles' row statistics (B_ H, tiles, M) three times; the rows' merged
-// statistics (B_ H, M) three times.
+// scale) and round(p) in the operand type, rows padded to np keys (zeros
+// past N, so that whole 16-byte chunks copy); the s and dp planes (B_ H, M,
+// N) f32; the key tiles' row statistics (B_ H, tiles, M) three times.
 struct WidePlanes {
-  void* dsc;
-  float *s, *dp, *tmx, *tsum, *tdot, *rmx, *rinv, *rdot;
+  void *dsc, *p;
+  float *s, *dp, *tmx, *tsum, *tdot;
   int tiles, np;
   __host__ __device__ WidePlanes(const BwdArgs& a) {
     tiles = cdiv(a.n, kWideKeys);
     np = tiles * kWideKeys;
     const size_t rows = (size_t)a.b * a.heads * a.m;
-    dsc = a.scratch;
-    s = a.scratch + rows * np;  // room for f32 dsc
+    dsc = a.scratch;  // room for f32
+    p = a.scratch + rows * np;
+    s = a.scratch + 2 * rows * np;
     dp = s + rows * a.n;
     tmx = dp + rows * a.n;
     tsum = tmx + rows * tiles;
     tdot = tsum + rows * tiles;
-    rmx = tdot + rows * tiles;
-    rinv = rmx + rows;
-    rdot = rinv + rows;
   }
   static size_t floats(int b, int m, int n, int heads) {
     const int t = cdiv(n, kWideKeys);
-    return (size_t)b * heads * m * ((size_t)t * kWideKeys + 2 * (size_t)n + 3 * (size_t)t + 3);
+    return (size_t)b * heads * m * (2 * (size_t)t * kWideKeys + 2 * (size_t)n + 3 * (size_t)t);
   }
 };
 
@@ -1007,88 +1002,81 @@ __global__ void __launch_bounds__(kWideThreads) attn_bwd_scores_kernel(BwdArgs a
   }
 }
 
-// Each row's statistics, merged over the key tiles in order: its max score
-// times log2 e, 1 / its sum of exp and rowsum(dp * p32); a thread a row.
-__global__ void __launch_bounds__(kWideThreads) attn_bwd_rowstats_kernel(BwdArgs a) {
+// A warp a row: its statistics merged over the key tiles in order (lane 0:
+// the max score times log2 e, 1 / the sum of exp, rowsum(dp * p32)), then
+// for every key, a lane a key, p32 = exp(s - max) / sum and ds = p32 (dp -
+// rowsum(dp * p32)): ds to the plane that dbias sums, round(p) and round(ds
+// scale) to the padded operand-typed planes (zeros past N).
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) attn_bwd_probs_kernel(BwdArgs a) {
   const WidePlanes pl(a);
+  const int lane = threadIdx.x & 31;
   const size_t rows = (size_t)a.b * a.heads * a.m;
-  const size_t i = (size_t)blockIdx.x * kWideThreads + threadIdx.x;
+  const size_t i = (size_t)blockIdx.x * (kWideThreads / 32) + (threadIdx.x >> 5);
   if (i >= rows) return;
   const size_t bh = i / a.m, o = bh * pl.tiles * a.m + (i - bh * a.m);
-  float mx = __int_as_float(0xff800000);  // -inf
-  for (int t = 0; t < pl.tiles; ++t) mx = fmaxf(mx, pl.tmx[o + (size_t)t * a.m]);
-  float sum = 0.f, dot = 0.f;
-  for (int t = 0; t < pl.tiles; ++t) {
-    const float f = fast_exp2(pl.tmx[o + (size_t)t * a.m] - mx);
-    sum = fmaf(pl.tsum[o + (size_t)t * a.m], f, sum);
-    dot = fmaf(pl.tdot[o + (size_t)t * a.m], f, dot);
+  float mx = 0.f, inv = 0.f, rdot = 0.f;
+  if (lane == 0) {
+    mx = __int_as_float(0xff800000);  // -inf
+    for (int t = 0; t < pl.tiles; ++t) mx = fmaxf(mx, pl.tmx[o + (size_t)t * a.m]);
+    float sum = 0.f, dot = 0.f;
+    for (int t = 0; t < pl.tiles; ++t) {
+      const float f = fast_exp2(pl.tmx[o + (size_t)t * a.m] - mx);
+      sum = fmaf(pl.tsum[o + (size_t)t * a.m], f, sum);
+      dot = fmaf(pl.tdot[o + (size_t)t * a.m], f, dot);
+    }
+    inv = 1.f / sum;
+    rdot = dot * inv;
   }
-  const float inv = 1.f / sum;
-  pl.rmx[i] = mx;
-  pl.rinv[i] = inv;
-  pl.rdot[i] = dot * inv;
+  mx = __shfl_sync(0xffffffffu, mx, 0);
+  inv = __shfl_sync(0xffffffffu, inv, 0);
+  rdot = __shfl_sync(0xffffffffu, rdot, 0);
+  const float* srow = pl.s + i * a.n;
+  const float* dprow = pl.dp + i * a.n;
+  float* dsrow = a.partial + i * a.n;
+  T* prow = static_cast<T*>(pl.p) + i * pl.np;
+  T* dscrow = static_cast<T*>(pl.dsc) + i * pl.np;
+  for (int key = lane; key < pl.np; key += 32) {
+    float p = 0.f, dsc = 0.f;
+    if (key < a.n) {
+      const float p32 = fast_exp2(fmaf(srow[key], kLog2e, -mx)) * inv;
+      const float ds = p32 * (dprow[key] - rdot);
+      dsrow[key] = ds;
+      p = p32;
+      dsc = ds * a.scale;
+    }
+    prow[key] = store_cast<T>(p);
+    dscrow[key] = store_cast<T>(dsc);
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
   constexpr int LD = wide_ld<T>(kWideCols), LP = wide_ld<T>(kWideKeys);
-  constexpr int PER = kWideRows * kWideKeys / kWideThreads;  // (row, key) pairs a thread
   extern __shared__ __align__(16) unsigned char wide_smem[];
   T* gs = reinterpret_cast<T*>(wide_smem);  // (64, LD): g rows, the block's chunk
   T* qs = gs + kWideRows * LD;              // (64, LD): q rows
   T* ps = qs + kWideRows * LD;              // (64, LP): round(p) against the tile's keys
   T* dss = ps + kWideRows * LP;             // (64, LP): round(ds scale)
-  float* row_mxl = reinterpret_cast<float*>(dss + kWideRows * LP);  // (64): the row's max * log2 e
-  float* row_inv = row_mxl + kWideRows;                            // (64): 1 / its sum of exp
-  float* row_dot = row_inv + kWideRows;                            // (64): rowsum(dp * p32)
   const int kt = blockIdx.x, d0 = blockIdx.y * kWideCols, bh = blockIdx.z;
   const int m = a.m, n = a.n, c = a.c, hd = a.hd, n0 = kt * kWideKeys;
   const int w = bh / a.heads, h = bh - w * a.heads;
   const T* q = static_cast<const T*>(a.q) + (size_t)w * m * c + h * hd + d0;
   const T* g = static_cast<const T*>(a.g) + (size_t)w * m * c + h * hd + d0;
   const WidePlanes pl(a);
-  T* dsc_out = static_cast<T*>(pl.dsc) + (size_t)bh * m * pl.np;
-  const size_t plane0 = (size_t)bh * m * n;
+  const T* p = static_cast<const T*>(pl.p) + (size_t)bh * m * pl.np + n0;
+  const T* dsc = static_cast<const T*>(pl.dsc) + (size_t)bh * m * pl.np + n0;
   float dv[4][4] = {}, dk[4][4] = {};
   for (int r0 = 0; r0 < m; r0 += kWideRows) {
     __syncthreads();  // the block is done with the previous rows
     wide_stage<T, kWideCols>(gs, LD, g + (size_t)r0 * c, c, kWideRows, m - r0, hd - d0, a.vec);
     wide_stage<T, kWideCols>(qs, LD, q + (size_t)r0 * c, c, kWideRows, m - r0, hd - d0, a.vec);
+    // the padded planes copy in whole 16-byte chunks (zeros past N)
+    wide_stage<T, kWideKeys>(ps, LP, p + (size_t)r0 * pl.np, pl.np, kWideRows, m - r0, kWideKeys,
+                             true);
+    wide_stage<T, kWideKeys>(dss, LP, dsc + (size_t)r0 * pl.np, pl.np, kWideRows, m - r0, kWideKeys,
+                             true);
     cp_async_commit();
-    for (int r = threadIdx.x; r < kWideRows && r0 + r < m; r += kWideThreads) {
-      row_mxl[r] = pl.rmx[(size_t)bh * m + r0 + r];
-      row_inv[r] = pl.rinv[(size_t)bh * m + r0 + r];
-      row_dot[r] = pl.rdot[(size_t)bh * m + r0 + r];
-    }
-    __syncthreads();
-    // p32 and ds from the planes, a thread per (row, key), all loads first:
-    // ds to its plane and round(ds scale) to the padded one (chunk 0 alone),
-    // round(p) and round(ds scale) to the block's tiles (zero past M and N)
-    float sv[PER], dpv[PER];
-#pragma unroll
-    for (int it = 0; it < PER; ++it) {
-      const int e = threadIdx.x + it * kWideThreads, r = e / kWideKeys, key = n0 + e % kWideKeys;
-      const bool in = r0 + r < m && key < n;
-      const size_t o = plane0 + (size_t)(r0 + r) * n + key;
-      sv[it] = in ? pl.s[o] : 0.f;
-      dpv[it] = in ? pl.dp[o] : 0.f;
-    }
-#pragma unroll
-    for (int it = 0; it < PER; ++it) {
-      const int e = threadIdx.x + it * kWideThreads, r = e / kWideKeys, col = e % kWideKeys;
-      const int row = r0 + r, key = n0 + col;
-      float p = 0.f, dsc = 0.f;
-      if (row < m && key < n) {
-        const float p32 = fast_exp2(fmaf(sv[it], kLog2e, -row_mxl[r])) * row_inv[r];
-        const float ds = p32 * (dpv[it] - row_dot[r]);
-        if (blockIdx.y == 0) a.partial[plane0 + (size_t)row * n + key] = ds;
-        p = p32;
-        dsc = ds * a.scale;
-      }
-      ps[r * LP + col] = store_cast<T>(p);
-      dss[r * LP + col] = store_cast<T>(dsc);
-      if (blockIdx.y == 0 && row < m) dsc_out[(size_t)row * pl.np + key] = store_cast<T>(dsc);
-    }
     cp_async_wait<0>();
     __syncthreads();
     wide_tn<kWideRows>(dv, ps, LP, gs, LD);
@@ -1254,8 +1242,8 @@ cudaError_t run_wide(const BwdArgs* a, long long* info, cudaStream_t stream) {
                               smem[0], stream>>>(*a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_rowstats_kernel<<<(unsigned)cdiv(bh * a->m, kWideThreads), kWideThreads, 0, stream>>>(
-      *a);
+  attn_bwd_probs_kernel<T><<<(unsigned)cdiv(bh * a->m, kWideThreads / 32), kWideThreads, 0,
+                             stream>>>(*a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attn_bwd_dkdv_kernel<T><<<dim3(cdiv(a->n, kWideKeys), chunks, bh), kWideThreads, smem[1],

@@ -59,8 +59,8 @@ _SM_SMEM = 233472  # bytes of shared memory of one Hopper SM, for all its blocks
 _TILE_KEYS = 512  # the key-tiled backward's tiles at head_dim <= 32 are multiples of this many keys
 # the wide backward's (head_dim > 32) largest block (f32, the dk/dv kernel's:
 # wide_dkdv_smem in csrc/attn_core_bwd.cu): 64 rows of g and q in 64-column
-# chunks, their round(p) and round(ds scale) against 32 keys, 3 statistics
-_WIDE_SMEM = 4 * (64 * (2 * (64 + 4) + 2 * (32 + 4)) + 3 * 64)
+# chunks and their round(p) and round(ds scale) against 32 keys
+_WIDE_SMEM = 4 * 64 * (2 * (64 + 4) + 2 * (32 + 4))
 ATTN_THREADS = 256  # threads of a forward attention block (kAttnThreads in csrc/window_common.cuh)
 FLASH_THREADS = 128  # threads of a key-tiled forward block, four 16-row tiles (kFlashThreads)
 
