@@ -102,12 +102,15 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// The head_dim a kernel is instantiated at: the least of 1, 2, 4, ..., 1024
-// that holds hd (0 above 1024).
+// The head_dim a kernel runs hd at: the least of 1, 2, 4, ..., 1024 that
+// holds it, and above 1024 hd rounded up to a multiple of 256 (the forward's
+// chunked key-tiled kernel, attn_flash_chunked_kernel, takes any of those;
+// the backward above 32 any head_dim).
 __host__ __device__ inline int padded_hd(int hd) {
+  if (hd > 1024) return cdiv(hd, 256) * 256;
   int p = 1;
-  while (p < hd && p < 1024) p <<= 1;
-  return p >= hd ? p : 0;
+  while (p < hd) p <<= 1;
+  return p;
 }
 
 // The instantiated J (keys a lane keeps of a score row in registers, lane +

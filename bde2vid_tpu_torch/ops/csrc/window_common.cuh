@@ -1474,9 +1474,9 @@ __device__ __forceinline__ void flash_scores_smem_q(float (&s)[KT / 8][4], const
 // The f32 q rows a lane scores with: up to head_dim 16 in registers
 // (loaded once a row group), above it read from the staged rows each time,
 // and above 256 read from device memory (L1/L2) each time, zero past hd.
-template <int HD>
+template <int HD, bool kGlobal_ = (HD > 256)>
 struct FlashQ {
-  static constexpr bool kRegs = HD <= 16, kGlobal = HD > 256;
+  static constexpr bool kRegs = HD <= 16 && !kGlobal_, kGlobal = kGlobal_;
   float4 r[kRegs ? 2 : 1][kRegs ? HD / 4 : 1];
   const float* q0;
   const float* q1;
@@ -1509,8 +1509,8 @@ struct FlashQ {
 
 // f32: the same scores by FMA from the warp's q rows (row lane / 4 and 8
 // below it) and the staged k rows.
-template <int HD, int KT>
-__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const FlashQ<HD>& q,
+template <int HD, int KT, bool kGlobalQ>
+__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const FlashQ<HD, kGlobalQ>& q,
                                              const float* ks, int lane) {
   constexpr int KS = key_stride(HD);
   const int t4 = lane & 3;
@@ -1590,6 +1590,78 @@ __device__ __forceinline__ void flash_pv(float (&o)[HD / 8][4], const float (&p)
         o[dt][3] = fmaf(p3, y.y, fmaf(p2, x.y, o[dt][3]));
       }
     }
+  }
+}
+
+// One key tile's online-softmax step for a lane's two rows: s (q k^T) ->
+// scale and bias, -inf past N; the tile's max of each row over its four
+// lanes raises the running max mx; the sums and outputs o are rescaled by
+// exp(old max - new max), and s becomes p = exp(s - max). The bias comes
+// from the staged f32 tile bs (row lane / 4, 8 below it at 8 KBS) or, in
+// bf16, from L2 (brow: the rows' bias rows, null past M).
+template <typename T, int KT, int KBS, int OC>
+__device__ __forceinline__ void flash_softmax_tile(float (&s)[KT / 8][4], float (&mx)[2], float (&sum)[2],
+                                                   float (&o)[OC / 8][4], const float* bs,
+                                                   const float* const (&brow)[2], int t0, int n,
+                                                   float scale, int t4) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float tm = mx[hr];
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      float2 bf = make_float2(0.f, 0.f);
+      if constexpr (!kBf16) bf = *reinterpret_cast<const float2*>(bs + 8 * hr * KBS + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = t0 + 8 * j + 2 * t4 + e;
+        const float b = !kBf16 ? (e ? bf.y : bf.x)
+                               : (key < n && brow[hr] != nullptr) ? __ldg(brow[hr] + key) : 0.f;
+        float& v = s[j][2 * hr + e];
+        v = key < n ? fmaf(v, scale, b) : __int_as_float(0xff800000);
+        tm = fmaxf(tm, v);
+      }
+    }
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+    const float ml = tm * kLog2e;
+    const float alpha = fast_exp2(fmaf(mx[hr], kLog2e, -ml));
+    mx[hr] = tm;
+    float ts = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = s[j][2 * hr + e];
+        v = fast_exp2(fmaf(v, kLog2e, -ml));
+        ts += v;
+      }
+    }
+    sum[hr] = fmaf(sum[hr], alpha, ts);
+#pragma unroll
+    for (int dt = 0; dt < OC / 8; ++dt) {
+      o[dt][2 * hr] *= alpha;
+      o[dt][2 * hr + 1] *= alpha;
+    }
+  }
+}
+
+// The lane's two rows' outputs o / (their sums over the row's four lanes)
+// into out (row r of window w at rows[r]; nothing past M), columns oc0 + ...
+template <typename T, int OC>
+__device__ __forceinline__ void flash_store(const AttnArgs& a, const float (&o)[OC / 8][4], const float (&sum)[2],
+                                            const int (&rows)[2], int w, int h, int oc0, int t4) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = sum[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (rows[hr] >= a.m) continue;
+    const float inv = 1.f / l;
+    T* out = static_cast<T*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * a.hd;
+#pragma unroll
+    for (int dt = 0; dt < OC / 8; ++dt)
+      store_pair(out, oc0 + 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
   }
 }
 
@@ -1684,64 +1756,32 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
         if (!kWideQ && it == 0) fq.init(qs + (16 * warp + g) * KS, qs + (16 * warp + g + 8) * KS);
         flash_scores<HD, KT>(s, fq, ks, lane);
       }
-      // scale and bias, -inf past N; the tile's max of each row over its
-      // four lanes raises the running max
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float tm = mx[hr];
-#pragma unroll
-        for (int j = 0; j < KT / 8; ++j) {
-          float2 bf = make_float2(0.f, 0.f);
-          if constexpr (!kBf16) bf = *reinterpret_cast<const float2*>(bs + 8 * hr * KBS + 8 * j);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = t0 + 8 * j + 2 * t4 + e;
-            const float b = !kBf16 ? (e ? bf.y : bf.x)
-                                   : (key < a.n && brow[hr] != nullptr) ? __ldg(brow[hr] + key) : 0.f;
-            float& v = s[j][2 * hr + e];
-            v = key < a.n ? fmaf(v, scale, b) : __int_as_float(0xff800000);
-            tm = fmaxf(tm, v);
-          }
-        }
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
-        const float ml = tm * kLog2e;
-        const float alpha = fast_exp2(fmaf(mx[hr], kLog2e, -ml));
-        mx[hr] = tm;
-        float ts = 0.f;
-#pragma unroll
-        for (int j = 0; j < KT / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& v = s[j][2 * hr + e];
-            v = fast_exp2(fmaf(v, kLog2e, -ml));
-            ts += v;
-          }
-        }
-        sum[hr] = fmaf(sum[hr], alpha, ts);
-#pragma unroll
-        for (int dt = 0; dt < OC / 8; ++dt) {
-          o[dt][2 * hr] *= alpha;
-          o[dt][2 * hr + 1] *= alpha;
-        }
-      }
+      flash_softmax_tile<T, KT, KBS, OC>(s, mx, sum, o, bs, brow, t0, a.n, scale, t4);
       flash_pv<OC, KT>(o, s, vs, lane);
       __syncthreads();  // every warp is done with this stage before it is refilled
     }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float l = sum[hr];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      if (rows[hr] >= a.m) continue;
-      const float inv = 1.f / l;
-      T* out = static_cast<T*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * a.hd;
-#pragma unroll
-      for (int dt = 0; dt < OC / 8; ++dt)
-        store_pair(out, oc0 + 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv,
-                   o[dt][2 * hr + 1] * inv);
-    }
+    flash_store<T, OC>(a, o, sum, rows, w, h, oc0, t4);
   }
+}
+
+// A key-tiled kernel's occupancy at smem bytes (attn_run's info, then J 0:
+// a warp's scores are 16-row fragments, and the key tile).
+template <class K>
+cudaError_t flash_occupancy(K kernel, size_t smem, int key_tile, long long* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFlashThreads, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (long long)attr.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = kFlashThreads;
+  info[4] = blocks;
+  info[5] = 0;
+  info[6] = key_tile;
+  return cudaSuccess;
 }
 
 template <typename T, int HD, bool kKvScratch>
@@ -1757,26 +1797,172 @@ cudaError_t attn_flash_run(const AttnArgs& a, float scale, long long* info, cuda
         a, scale);
     return cudaGetLastError();
   }
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
+  return flash_occupancy(kernel, smem, flash_key_tile(HD), info);
+}
+
+// ---------------------------------------------------------------------------
+// Above head_dim 1024 (attn_flash_chunked_kernel): the key-tiled kernel with
+// the scores, too, summed over head_dim chunks of 256 columns staged one
+// after another, so that a block's shared memory and registers do not grow
+// with head_dim and one instantiation takes every head_dim above 1024
+// (padded_hd rounds it up to a multiple of 256). As above 256, the grid's y
+// takes head x output chunk. A block walks (key tile, score chunk) steps and
+// cp.async double-buffers each step's k chunk (16 keys x 256 columns) and,
+// with a tile's first step, the tile's v columns of its output chunk (f32:
+// and its bias tile), so the next step's copies overlap this one's
+// products. q comes from device memory (L1/L2) at each step: f32 as float4,
+// bf16 as the mma's A fragments; rows past M read row M - 1 (finite, never
+// written). The scores cost each output chunk again (HD / 256 times).
+// ---------------------------------------------------------------------------
+
+constexpr int kFlashChunk = 256;
+
+// Two stages each of the k chunk and the v chunk; f32: two of the bias tile.
+template <typename T>
+constexpr size_t flash_chunked_smem_bytes() {
+  const size_t kv = sizeof(T) * 2 * 2 * (size_t)flash_key_tile(kFlashChunk) * flash_stride<T>(kFlashChunk);
+  if (std::is_same<T, __nv_bfloat16>::value) return kv;
+  return kv + sizeof(float) * 2 * 16 * kFlashWarps * (size_t)flash_bias_stride(kFlashChunk);
+}
+
+// Keys t0 .. t0 + KT - 1 of window w's columns col0 .. col0 + 255 of head h,
+// of k (or of v with kV), into dst ((KT, flash_stride(256))): zero past N
+// and past hd.
+template <typename T, bool kKvScratch, bool kV>
+__device__ __forceinline__ void flash_stage_chunk(T* dst, const AttnArgs& a, int w, int h, int t0,
+                                                  int col0) {
+  constexpr int KT = flash_key_tile(kFlashChunk), KS = flash_stride<T>(kFlashChunk);
+  constexpr int CH = 16 / (int)sizeof(T), PER = kFlashChunk / CH;
+  const T* kg = static_cast<const T*>(a.k);
+  const T* src = !kV ? kg : kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
+  for (int e = threadIdx.x; e < KT * PER; e += kFlashThreads) {
+    const int nn = e / PER, d0 = (e - nn * PER) * CH, key = t0 + nn;
+    const size_t off = key < a.n ? kv_offset<kKvScratch>(a, w, key) + h * a.hd + col0 + d0 : 0;
+    flash_copy16(dst + nn * KS + d0, src + off, a, key, col0 + d0);
+  }
+}
+
+// bf16: s += q k^T of one 256-column chunk, q's A fragments read from the
+// warp's two rows q[0], q[1] (at the chunk's first column; hd: the head's
+// columns from there).
+template <int KT>
+__device__ __forceinline__ void flash_scores_global_q(float (&s)[KT / 8][4], const __nv_bfloat16* const (&q)[2],
+                                                      int hd, bool vec, const __nv_bfloat16* ks, int lane) {
+  constexpr int KST = mma_k_stride(kFlashChunk);
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll 4
+  for (int kk = 0; kk < kFlashChunk / 16; ++kk) {
+    uint32_t qa[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int col = 16 * kk + 2 * t4 + 8 * (r >> 1);
+      qa[r] = load_pair(q[r & 1] + col, vec, col, hd);
+    }
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      const __nv_bfloat16* kr = ks + (8 * j + g) * KST + 16 * kk + 2 * t4;
+      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
+                             *reinterpret_cast<const uint32_t*>(kr + 8)};
+      mma_bf16(s[j], qa, b);
+    }
+  }
+}
+
+template <typename T, bool kKvScratch>
+__global__ void __launch_bounds__(kFlashThreads) attn_flash_chunked_kernel(AttnArgs a, float scale) {
+  constexpr int HD = kFlashChunk, KT = flash_key_tile(HD), KS = flash_stride<T>(HD);
+  constexpr int KBS = flash_bias_stride(HD), BT = 16 * kFlashWarps * KBS;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  T* kbuf = reinterpret_cast<T*>(flash_smem);  // 2 stages of (KT, KS): a step's k chunk
+  T* vbuf = kbuf + 2 * KT * KS;                // 2 stages of (KT, KS): a tile's v chunk
+  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KS);  // f32: 2 stages of (64, KBS) bias
+  const int nd = cdiv(a.hd, HD);
+  const int w = blockIdx.x, h = blockIdx.y / nd, oc0 = (blockIdx.y % nd) * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tiles16 = cdiv(a.m, 16), steps = cdiv(a.n, KT) * nd;
+  const float* bias_h = a.bias + (size_t)h * a.m * a.n;
+  for (int rg = blockIdx.z; rg * kFlashWarps < tiles16; rg += a.tiles) {
+    const int r0 = 16 * (rg * kFlashWarps + warp), rb = 16 * rg * kFlashWarps;
+    const int rows[2] = {r0 + g, r0 + g + 8};
+    const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * a.n : nullptr,
+                                  rows[1] < a.m ? bias_h + (size_t)rows[1] * a.n : nullptr};
+    const T* q = static_cast<const T*>(a.q) + (size_t)w * a.m * a.c + h * a.hd;
+    const T* const qrow[2] = {q + (size_t)min(rows[0], a.m - 1) * a.c, q + (size_t)min(rows[1], a.m - 1) * a.c};
+    float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
+    float o[HD / 8][4], s[KT / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    // step st: k chunk st % nd of key tile st / nd; a tile's first step also
+    // brings its v chunk and (f32) bias tile
+    auto issue = [&](int st) {
+      const int it = st / nd, d = st - it * nd, t0 = it * KT;
+      flash_stage_chunk<T, kKvScratch, false>(kbuf + (st & 1) * KT * KS, a, w, h, t0, d * HD);
+      if (d == 0) {
+        flash_stage_chunk<T, kKvScratch, true>(vbuf + (it & 1) * KT * KS, a, w, h, t0, oc0);
+        if constexpr (!kBf16) flash_stage_bias<HD>(bbuf + (it & 1) * BT, bias_h, a, rb, t0);
+      }
+    };
+    issue(0);
+    cp_async_commit();
+    for (int st = 0; st < steps; ++st) {
+      const int it = st / nd, d = st - it * nd, t0 = it * KT;
+      if (st + 1 < steps) issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this step's copies have landed
+      __syncthreads();
+      if (d == 0) {
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      }
+      const T* ks = kbuf + (st & 1) * KT * KS;
+      if constexpr (kBf16) {
+        const __nv_bfloat16* const qc[2] = {qrow[0] + d * HD, qrow[1] + d * HD};
+        flash_scores_global_q<KT>(s, qc, a.hd - d * HD, a.vec, ks, lane);
+      } else {
+        FlashQ<HD, true> fq;
+        fq.init(qrow[0] + d * HD, qrow[1] + d * HD);
+        fq.hd = a.hd - d * HD;
+        fq.vec = a.vec;
+        float t[KT / 8][4];
+        flash_scores<HD, KT>(t, fq, ks, lane);
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += t[j][e];
+      }
+      if (d == nd - 1) {
+        const float* bs = bbuf + (it & 1) * BT + (16 * warp + g) * KBS + 2 * t4;  // row lane / 4
+        flash_softmax_tile<T, KT, KBS, HD>(s, mx, sum, o, bs, brow, t0, a.n, scale, t4);
+        flash_pv<HD, KT>(o, s, vbuf + (it & 1) * KT * KS, lane);
+      }
+      __syncthreads();  // every warp is done with this step's stages before they are refilled
+    }
+    flash_store<T, HD>(a, o, sum, rows, w, h, oc0, t4);
+  }
+}
+
+template <typename T, bool kKvScratch>
+cudaError_t attn_flash_chunked_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
+  auto kernel = attn_flash_chunked_kernel<T, kKvScratch>;
+  constexpr size_t smem = flash_chunked_smem_bytes<T>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFlashThreads, smem);
-  if (err != cudaSuccess) return err;
-  info[0] = attr.numRegs;
-  info[1] = (long long)attr.localSizeBytes;
-  info[2] = (long long)smem;
-  info[3] = kFlashThreads;
-  info[4] = blocks;
-  info[5] = 0;  // no row share: a warp's scores are 16-row fragments
-  info[6] = flash_key_tile(HD);
-  return cudaSuccess;
+  if (info == nullptr) {
+    kernel<<<dim3(a.b, a.heads * cdiv(a.hd, kFlashChunk), a.tiles), kFlashThreads, smem, stream>>>(a, scale);
+    return cudaGetLastError();
+  }
+  return flash_occupancy(kernel, smem, flash_key_tile(kFlashChunk), info);
 }
 
 // Shared memory of the kernel a launch takes, key-tiled or untiled
 // (attn_smem_bytes in ops/window_attn_cuda.py for the untiled kernels).
 size_t attn_launch_smem_bytes(int is_bf16, int m, int n, int hd, int key_tiled) {
   const int p = padded_hd(hd);
+  if (key_tiled && p > 1024)
+    return is_bf16 ? flash_chunked_smem_bytes<__nv_bfloat16>() : flash_chunked_smem_bytes<float>();
   if (key_tiled)
     return is_bf16 ? flash_smem_bytes<__nv_bfloat16>(flash_hd<__nv_bfloat16>(p))
                    : flash_smem_bytes<float>(flash_hd<float>(p));
@@ -1836,6 +2022,11 @@ cudaError_t attn_run_t(AttnArgs a, float scale, long long* info, cudaStream_t st
   if (a.heads < 1 || a.c % a.heads || a.tiles < 1 || a.tiles > 65535)
     return cudaErrorInvalidValue;
   a.hd = a.c / a.heads;
+  if (padded_hd(a.hd) > 1024) {
+    if (!a.key_tiled) return cudaErrorInvalidValue;
+    if (info == nullptr) a.vec = flash_vec_ok<T>(a, kKvScratch);
+    return attn_flash_chunked_run<T, kKvScratch>(a, scale, info, stream);
+  }
   switch (padded_hd(a.hd)) {
     case 1: return attn_run_hd<T, 1, kKvScratch>(a, scale, info, stream);
     case 2: return attn_run_hd<T, 2, kKvScratch>(a, scale, info, stream);

@@ -330,18 +330,20 @@ def _refuse_grad(name: str, tensors) -> None:
 
 def _padded_head_dim(head_dim: int) -> int:
     """The head_dim the kernels run ``head_dim`` at (``padded_hd`` in
-    csrc/device_common.cuh): the least of 1, 2, 4, ..., 1024 that holds it;
-    the columns past ``head_dim`` are zeros. Raises ``ValueError`` above
-    1024, the largest instantiated forward (ROADMAP C8)."""
-    if not 1 <= head_dim <= _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {head_dim}: the attention kernels take head_dim 1 to {_MAX_HEAD_DIM}")
+    csrc/device_common.cuh): the least of 1, 2, 4, ..., 1024 that holds it,
+    and above 1024 ``head_dim`` rounded up to a multiple of 256 (the chunked
+    key-tiled forward takes any of those); the columns past ``head_dim`` are
+    zeros."""
+    if head_dim < 1:
+        raise ValueError(f"head_dim {head_dim}: the attention kernels take head_dim 1 or more")
+    if head_dim > 1024:
+        return -(-head_dim // 256) * 256
     return 1 << (head_dim - 1).bit_length()
 
 
 def _check_head_dim(c: int, num_heads: int) -> None:
     if num_heads < 1 or c % num_heads:
         raise ValueError(f"{num_heads} heads do not divide C {c}")
-    _padded_head_dim(c // num_heads)
 
 
 def _prepare_params(params, shapes: dict, dt: torch.dtype, device) -> dict:
@@ -640,8 +642,7 @@ def attn_key_tiled(m: int, n: int, head_dim: int, bf16: bool = False) -> bool:
     True: the key-tiled forward (``attn_flash_kernel`` in
     csrc/window_common.cuh) runs every row whose k and v do not fit and
     every head_dim above 32. Its key tile and shared memory are constants of
-    its instantiation, which ``attn_forward_occupancy`` reads back. Raises
-    ``ValueError`` above head_dim 1024."""
+    its instantiation, which ``attn_forward_occupancy`` reads back."""
     return not (_padded_head_dim(head_dim) <= 32 and attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM)
 
 

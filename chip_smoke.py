@@ -101,9 +101,10 @@ reference's.
            key-tiled) at 184x240, T=3, forward kernel vs unfused path
            (2e-4) and one remat train step's loss and gradients (1e-3),
            with exact launch counts of each variant
-  head_dims  every head_dim (ROADMAP C6, C7): the three forward libraries
-           and the backward vs their twins at head_dim 3, 6, 12, 24, 48, 64,
-           96, 128, 256, 384 and 512 (B_ 20, M 49, N 343), f32 and bf16,
+  head_dims  every head_dim and C (ROADMAP C6-C9): the three forward
+           libraries and the backward vs their twins at head_dim 3, 6, 12,
+           24, 48, 64, 96, 128, 256, 384, 512 and 2048, and at C 2048 over 8
+           heads (B_ 20, M 49, N 343), f32 and bf16,
            repeated bit for bit, with times per launch beside the bound and
            SDPA; the key-tiled forward at TILED_TIMING with its occupancy,
            beside SDPA; then the flagship at full width with num_heads 4
@@ -207,7 +208,12 @@ TILED_BWD_ROWS = ((4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385), 
 # (generator overrides): num_heads 4 (head_dim 16 at level 0, 64 at level
 # 2), 2 (32 and 128), and base 64 with one head (128 and 512, C7's
 # configuration: about 4x the flagship's parameters)
-HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 384: 1, 512: 1}
+HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 384: 1, 512: 1,
+                  2048: 1}
+# the kernel cases' (head_dim, heads) pairs: HEAD_DIM_HEADS, then C 2048
+# over 8 heads (ROADMAP C9: B1's and B3's LN GEMMs stream their rows above
+# C 1664 in f32, 1088 in bf16; head_dim 2048 above is C8 and C9 at once)
+HEAD_DIM_CASES = tuple(HEAD_DIM_HEADS.items()) + ((256, 8),)
 HEAD_DIM_MODELS = {"4 heads": {"num_heads": 4}, "2 heads": {"num_heads": 2},
                    "base 64, 1 head": {"basechannels": 64, "num_heads": 1}}
 # the E2VID family at published widths: E2VIDRecurrent as the released
@@ -1572,9 +1578,10 @@ def phase_key_tiles(torch, launch_counts):
 
 
 def phase_kernels_head_dims(torch):
-    """ROADMAP C6 on the card: the three forward libraries (the bare core,
-    the Swin block's and the WindowAttention3D body's attention stage, with
-    acc) and the backward vs their twins at every HEAD_DIM_HEADS head_dim,
+    """ROADMAP C6, C8 and C9 on the card: the three forward libraries (the
+    bare core, the Swin block's and the WindowAttention3D body's attention
+    stage, with acc) and the backward vs their twins at every HEAD_DIM_CASES
+    head_dim and head count (head_dim 3 to 2048, and C 2048 over 8 heads),
     f32 and bf16, at the flagship's level-2 windows over 7 frames (B_ 20, M
     49, N 343), each repeated bit for bit, the launch counted on the
     variant its plan names (key-tiled forward and wide backward above
@@ -1596,7 +1603,7 @@ def phase_kernels_head_dims(torch):
     b, m, d = 20, 49, 7
     n = d * m
     fwd, blocks, bwd = [], [], []
-    for hd, heads in HEAD_DIM_HEADS.items():
+    for hd, heads in HEAD_DIM_CASES:
         c = heads * hd
         q32, k32, v32, g32 = rnd(b, m, c), rnd(b, n, c), rnd(b, n, c), rnd(b, m, c)
         bias = rnd(heads, m, n, scale=0.5)

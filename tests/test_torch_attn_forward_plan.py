@@ -98,12 +98,12 @@ def test_plan_refuses_keys_that_do_not_fit_one_block():
     raised before it existed). The one-sweep key-tiled kernel keeps its
     rows' statistics in registers and its tile is a constant of its build,
     so its shared memory does not grow with M and 1000 query rows plan too;
-    only a head_dim above 1024, the largest instantiated, is refused (ROADMAP
-    C8; C7 repaired the refusal above 256)."""
+    nor does it grow with head_dim, whose scores sum over 256-column chunks
+    above 1024, so no head_dim is refused (ROADMAP C8, repaired; C7 repaired
+    the refusal above 256)."""
     plan = attn_forward_plan(1, 1, 4, 2000, 32, SMS, 1)
     assert plan.key_tiled and attn_smem_bytes(2000, 32) > 232448
     assert plan.threads == FLASH_THREADS
     assert attn_forward_plan(1, 1, 1000, 2000, 32, SMS, 1).key_tiled
     assert attn_forward_plan(1, 1, 4, 2000, 512, SMS, 1).key_tiled
-    with pytest.raises(ValueError, match="head_dim 1 to 1024"):
-        attn_forward_plan(1, 1, 4, 2000, 2048, SMS, 1)
+    assert attn_forward_plan(1, 1, 4, 2000, 2048, SMS, 1).key_tiled

@@ -3,8 +3,9 @@ twins (ROADMAP C6, repaired): a head_dim between the instantiated ones (1,
 2, 4, ..., 1024) runs at the next one up with zero columns past its own, and
 above 32 the forward takes the key-tiled kernel and the backward the wide
 backward; above 256 both plans take them too (ROADMAP C7, repaired; head
-dims 320 to 1024 in tests/test_torch_attn_wide_backward.py), and only above
-1024 do they raise ``ValueError`` (ROADMAP C8).
+dims 320 to 1024 in tests/test_torch_attn_wide_backward.py), and above 1024
+as well, the forward by its chunked key-tiled kernel (ROADMAP C8,
+repaired; head_dim 2048 in tests/test_torch_attn_tiled_backward.py).
 
 On the CPU: the plans at the head dims the flagship's widths give with 1 to
 16 heads (3 to 256) and at the buffers of 7, 9, 31 and 61 frames; the twins
@@ -31,6 +32,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     _MAX_SMEM,
     _check_head_dim,
     _heads,
+    _padded_head_dim,
     attn_core_backward_reference,
     attn_core_bwd_plan,
     attn_core_reference,
@@ -79,18 +81,17 @@ def test_head_dim_check_takes_the_flagship_widths_at_any_head_count(c, heads):
 
 
 def test_head_dims_above_256_raise_value_error_in_both_plans():
-    """ROADMAP C7, repaired: one head at base 64 or 128 (head_dim 512 or
-    1024) no longer raises in either plan or the launch check; only head
-    dims above 1024 do, before any forward runs (ROADMAP C8)."""
-    for hd in (512, 1024):
+    """ROADMAP C7 and C8, repaired: no head_dim raises any longer. One head
+    at base 64 or 128 (head_dim 512 or 1024) and above 1024 (1536, 2048 and
+    2049, which the chunked key-tiled forward runs at a multiple of 256)
+    plans in both plans and passes the launch check: the key-tiled forward
+    and the wide backward."""
+    for hd, padded in ((512, 512), (1024, 1024), (1536, 1536), (2048, 2048), (2049, 2304)):
         assert attn_forward_plan(20, 1, 49, 343, hd, sms=132, blocks_per_sm=1).key_tiled
-        assert attn_core_bwd_plan(49, 343, hd, 1).smem_bytes <= _MAX_SMEM
+        plan = attn_core_bwd_plan(49, 343, hd, 1)
+        assert plan.smem_bytes <= _MAX_SMEM and bwd_counter(plan, hd) == "attn_core_backward_wide"
+        assert _padded_head_dim(hd) == padded
         _check_head_dim(hd, 1)
-    for fn in (lambda: attn_forward_plan(20, 1, 49, 343, 2048, sms=132, blocks_per_sm=1),
-               lambda: attn_core_bwd_plan(49, 343, 2048, 1),
-               lambda: _check_head_dim(2048, 1)):
-        with pytest.raises(ValueError, match="head_dim 1 to 1024"):
-            fn()
 
 
 def _seeded(shape, rng, scale=1.0):

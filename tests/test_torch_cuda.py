@@ -922,14 +922,16 @@ def test_cuda_key_tiled_forward_occupancy_and_smem_are_the_plans(cuda_device, li
 # in column chunks) and the backward the wide backward. Heads per head_dim,
 # so that C stays at most 256 up to head_dim 256 (one head above it).
 _HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 384: 1, 512: 1,
-                   1024: 1}
+                   1024: 1, 1536: 1, 2048: 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", sorted(_HEAD_DIM_HEADS))
 def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
     """The bare core, the Swin block and the WindowAttention3D body (with
-    acc) at head_dim 3 to 1024, M 49 and N 147, f32 and bf16: each matches
+    acc) at head_dim 3 to 2048 (above 1024 the chunked key-tiled forward,
+    and B1's and B3's LN GEMMs streaming their rows: ROADMAP C8 and C9), M
+    49 and N 147, f32 and bf16: each matches
     its twin, repeats bit for bit and counts the variant its plan names
     (key-tiled exactly above head_dim 32)."""
     heads, m, d, b_ = _HEAD_DIM_HEADS[hd], 49, 3, 5
@@ -963,7 +965,7 @@ def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", sorted(_HEAD_DIM_HEADS))
 def test_cuda_backward_matches_twin_at_each_head_dim(cuda_device, hd):
-    """The attention backward at head_dim 3 to 1024, N 147 and 1519, f32 and
+    """The attention backward at head_dim 3 to 2048, N 147 and 1519, f32 and
     bf16: within the gates of attn_core_backward_reference, two runs bit
     for bit, the wide kernel counted above head_dim 32."""
     heads, m, b_ = _HEAD_DIM_HEADS[hd], 49, 5
