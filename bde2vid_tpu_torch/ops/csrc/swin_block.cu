@@ -28,8 +28,9 @@
 // tensor-core tiles in bf16, cp.async operand stages, a tile shape chosen
 // per launch so that the grid covers the SMs without split-K):
 //   (a) LN + k|v and q projections: the LayerNorm prologue keeps the block's
-//       rows resident, the centre frame substituted by choosing the row's
-//       source pointer; a bias epilogue;
+//       rows resident (or, at a C where they do not fit, normalises each k
+//       stage as it streams in: ln_gemm_stream_kernel), the centre frame
+//       substituted by choosing the row's source pointer; a bias epilogue;
 //   (b) attn_kernel (window_common.cuh): a block per (window, head, row
 //       tile); a warp per query row keeps its lane's share of the score row
 //       in registers (the TPU kept all 16 heads' (H*M, N) plane resident,
@@ -39,8 +40,9 @@
 //       not fit in one block, and every head_dim above 32, take the
 //       one-sweep key-tiled variant (attn_flash_kernel);
 //   (c1) y = ctr + m1 (acc @ Wp^T + bp), y into an f32 scratch;
-//   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y and the
-//        activation in the epilogue, h into a scratch in the operand type;
+//   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y (resident
+//        or streamed as in (a)) and the activation in the epilogue, h into a
+//        scratch in the operand type;
 //   (c3) out = y + m2 (h @ W2^T + b2).
 // y and h stay in L2 between the launches at these sizes (h: 12.6 MB at
 // the flagship's level 0 in f32).
@@ -115,7 +117,7 @@ void smem_bytes(int d, int m, int c, int heads, int key_tiled, long long* out3) 
   out3[0] = (long long)ln_proj_smem_bytes<T>(c);
   out3[1] = (long long)attn_launch_smem_bytes(std::is_same<T, __nv_bfloat16>::value, m, d * m,
                                               c / heads, key_tiled);
-  out3[2] = (long long)std::max(gemm_smem<T, TileS>(), ln_gemm_smem<T, float, TileS>(c));
+  out3[2] = (long long)std::max(gemm_smem<T, TileS>(), ln_gemm_launch_smem<T, float>(c));
 }
 
 }  // namespace

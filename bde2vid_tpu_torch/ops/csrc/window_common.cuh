@@ -461,6 +461,15 @@ __device__ __forceinline__ void layernorm_rows(const Src* src, int lds, T* dst, 
   }
 }
 
+// Source row r of part 1 (ctr) or part 0 (x, its frame q_ind read from ctr).
+template <typename Src>
+__device__ __forceinline__ const Src* ln_row(const LnGemmArgs& a, bool second, int r) {
+  const Src* ctr = static_cast<const Src*>(a.ctr);
+  if (second) return ctr + (size_t)r * a.c;
+  if (r / a.rows_per_frame == a.q_ind) return ctr + (size_t)(r - a.q_ind * a.rows_per_frame) * a.c;
+  return static_cast<const Src*>(a.x) + (size_t)r * a.c;
+}
+
 template <typename T, typename Src, class S>
 __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm) ln_gemm_kernel(LnGemmArgs a) {
   extern __shared__ __align__(16) unsigned char gemm_smem_raw[];
@@ -473,14 +482,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm) ln_gemm_kernel
   T* as = reinterpret_cast<T*>(gemm_smem_raw);
   T* ws = as + S::BM * lda;
   const int n_valid = min(S::BM, p.rows - r0);
-  const Src* x = static_cast<const Src*>(a.x);
-  const Src* ctr = static_cast<const Src*>(a.ctr);
-  auto row = [&](int lr) -> const Src* {
-    const int r = r0 + lr;
-    if (second) return ctr + (size_t)r * c;
-    if (r / a.rows_per_frame == a.q_ind) return ctr + (size_t)(r - a.q_ind * a.rows_per_frame) * c;
-    return x + (size_t)r * c;
-  };
+  auto row = [&](int lr) { return ln_row<Src>(a, second, r0 + lr); };
 
   // the raw rows: in place in the A tile when they have its type, else in an
   // f32 stage after W's stages
@@ -528,6 +530,137 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm) ln_gemm_kernel
     __syncthreads();  // the epilogue's tile lies over W's stages
     pipe_at(o0).issue(0);
     cp_async_commit();
+  }
+}
+
+// The same GEMM where even the smallest tile's resident A rows do not fit in
+// shared memory (f32 above C 1664; bf16 B1's LN2 -> MLP, whose f32 y rows
+// are staged beside them, above C 1088): A streams over k like the plain
+// GEMM core. The block first takes its rows' LayerNorm statistics in one
+// sweep from device memory (a warp a row at a time: sums of x - x0 and of
+// its square, x0 the row's first element, so that the variance does not
+// cancel), then normalises each k stage of raw rows as it lands: in place
+// when the rows have the operand type, else from an f32 stage into the
+// operand-typed A stage. Shared memory no longer grows with C.
+template <typename T, typename Src>
+__host__ __device__ constexpr int stream_raw_ld() {
+  return kBK<T> + kPad<Src>;  // row stride of an f32 raw stage (Src != T)
+}
+
+template <typename T, typename Src, class S>
+constexpr size_t ln_stream_stage_bytes() {
+  size_t b = sizeof(T) * 2 * (size_t)(S::BM + S::BN) * kLd<T>;
+  if (!std::is_same<Src, T>::value) b += sizeof(Src) * 2 * (size_t)S::BM * stream_raw_ld<T, Src>();
+  return b;
+}
+
+// the rows' (mean, rstd), then the stages or the epilogue's tile over them
+template <typename T, typename Src, class S>
+constexpr size_t ln_gemm_stream_smem() {
+  return sizeof(float) * 2 * S::BM + std::max(ln_stream_stage_bytes<T, Src, S>(), epilogue_smem<S>());
+}
+
+template <typename T, typename Src, class S>
+__global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm) ln_gemm_stream_kernel(LnGemmArgs a) {
+  extern __shared__ __align__(16) unsigned char gemm_smem_raw[];
+  constexpr bool kSame = std::is_same<Src, T>::value;
+  constexpr int RLD = kSame ? kLd<T> : stream_raw_ld<T, Src>();
+  const bool second = blockIdx.x >= (unsigned)a.tiles0;
+  const LnPart p = second ? a.part[1] : a.part[0];
+  const int r0 = (second ? blockIdx.x - a.tiles0 : blockIdx.x) * S::BM;
+  int o0 = blockIdx.y * S::BN;
+  if (o0 >= p.o_total) return;
+  const int c = a.c;
+  float* mean = reinterpret_cast<float*>(gemm_smem_raw);  // (BM)
+  float* rstd = mean + S::BM;                             // (BM)
+  unsigned char* stages = gemm_smem_raw + sizeof(float) * 2 * S::BM;
+  T* ws = reinterpret_cast<T*>(stages);  // W's two stages
+  T* as = ws + 2 * S::BN * kLd<T>;       // A's two stages (normalised)
+  // the raw rows' two stages: A's own when they have its type
+  Src* raw = kSame ? reinterpret_cast<Src*>(as) : reinterpret_cast<Src*>(as + 2 * S::BM * kLd<T>);
+  const int n_valid = min(S::BM, p.rows - r0);
+  auto row = [&](int lr) { return ln_row<Src>(a, second, r0 + lr); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int lr = warp; lr < S::BM; lr += kGemmThreads / 32) {
+    float s1 = 0.f, s2 = 0.f;
+    if (lr < n_valid) {
+      const Src* xr = row(lr);
+      const float x0 = load(xr, 0);
+      for (int k = lane; k < c; k += 32) {
+        const float d = load(xr, k) - x0;
+        s1 += d;
+        s2 = fmaf(d, d, s2);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      const float dm = s1 / c;
+      if (lane == 0) {
+        mean[lr] = x0 + dm;
+        rstd[lr] = rsqrtf(fmaxf(s2 / c - dm * dm, 0.f) + kLnEps);
+      }
+    } else if (lane == 0) {
+      mean[lr] = 0.f;
+      rstd[lr] = 0.f;
+    }
+  }
+
+  const T* w_all = static_cast<const T*>(p.w);
+  const int nk = cdiv(c, kBK<T>);
+  // k-tile kt of W's rows o .. o + BN - 1 and of the raw rows into stage kt & 1
+  auto issue = [&](int o, int kt) {
+    const int s = kt & 1, k0 = kt * kBK<T>;
+    load_tile<T, S::BN>(ws + s * S::BN * kLd<T>, w_all + (size_t)o * c, min(S::BN, p.o_total - o), c, k0,
+                        c, a.vec);
+    constexpr int CH = kPad<Src>, PER = kBK<T> / CH;
+    Src* dst = raw + s * S::BM * RLD;
+    if (a.vec) {
+      for (int e = threadIdx.x; e < S::BM * PER; e += kGemmThreads) {
+        const int lr = e / PER, kc = (e - lr * PER) * CH;
+        const bool ok = lr < n_valid && k0 + kc < c;
+        cp_async16(dst + lr * RLD + kc, ok ? static_cast<const void*>(row(lr) + k0 + kc) : a.x, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < S::BM * kBK<T>; e += kGemmThreads) {
+        const int lr = e / kBK<T>, kk = e - lr * kBK<T>;
+        dst[lr * RLD + kk] = lr < n_valid && k0 + kk < c ? row(lr)[k0 + kk] : store_cast<Src>(0.f);
+      }
+    }
+  };
+
+  typename AccFor<T, S>::type acc;
+  for (;;) {
+    acc.zero();
+    issue(o0, 0);
+    cp_async_commit();
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt + 1 < nk) {
+        issue(o0, kt + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // the stage has landed (and, the first time, the statistics)
+      const int s = kt & 1, k0 = kt * kBK<T>;
+      const Src* rs = raw + s * S::BM * RLD;
+      T* ad = as + s * S::BM * kLd<T>;
+      for (int e = threadIdx.x; e < S::BM * kBK<T>; e += kGemmThreads) {
+        const int lr = e / kBK<T>, kk = e - lr * kBK<T>, k = k0 + kk;
+        const float v = lr < n_valid && k < c
+                            ? (load(rs, lr * RLD + kk) - mean[lr]) * rstd[lr] * __ldg(p.g + k) + __ldg(p.b + k)
+                            : 0.f;
+        ad[lr * kLd<T> + kk] = store_cast<T>(v);
+      }
+      __syncthreads();
+      acc.step(ad, kLd<T>, ws + s * S::BN * kLd<T>, kLd<T>);
+      __syncthreads();
+    }
+    store_tile<T, S>(acc, reinterpret_cast<float*>(stages), p.epi, r0, o0, n_valid,
+                     min(S::BN, p.o_total - o0));
+    o0 += gridDim.y * S::BN;
+    if (o0 >= p.o_total) break;
+    __syncthreads();  // the epilogue's tile lies over the stages
   }
 }
 
@@ -603,16 +736,59 @@ cudaError_t launch_ln_gemm_tile(LnGemmArgs a, int sms, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// grid.y as launch_ln_gemm_tile's, for the streamed variant
+template <typename T, typename Src, class S>
+cudaError_t launch_ln_gemm_stream_tile(LnGemmArgs a, int sms, cudaStream_t stream) {
+  a.tiles0 = cdiv(a.part[0].rows, S::BM);
+  const int tiles1 = cdiv(a.part[1].rows, S::BM);
+  const int cols = std::min(std::max(cdiv(a.part[0].o_total, S::BN), cdiv(a.part[1].o_total, S::BN)),
+                            std::max(1, cdiv(2 * sms, a.tiles0 + tiles1)));
+  constexpr size_t smem = ln_gemm_stream_smem<T, Src, S>();
+  cudaError_t err = cudaFuncSetAttribute(ln_gemm_stream_kernel<T, Src, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ln_gemm_stream_kernel<T, Src, S><<<dim3(a.tiles0 + tiles1, cols), kGemmThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Whether the LN-prologue GEMM at width c streams A (ln_gemm_stream_kernel):
+// where not even the smallest tile's resident rows fit.
+template <typename T, typename Src>
+bool ln_gemm_streams(int c) {
+  return ln_gemm_smem<T, Src, TileS>(c) > kMaxSmem;
+}
+
+// Shared memory of the smallest tile of the LN-prologue GEMM a launch at
+// width c takes, resident or streamed: it fails unless this fits (a larger
+// tile is taken only where it fits too).
+template <typename T, typename Src>
+size_t ln_gemm_launch_smem(int c) {
+  return ln_gemm_streams<T, Src>(c) ? ln_gemm_stream_smem<T, Src, TileS>() : ln_gemm_smem<T, Src, TileS>(c);
+}
+
 // part[1].rows = 0: one row set
 template <typename T, typename Src>
 cudaError_t launch_ln_gemm(const LnGemmArgs& a, cudaStream_t stream) {
   const LnPart &p0 = a.part[0], &p1 = a.part[1];
+  auto blocks = [&](int bm, int bn) {
+    return cdiv(p0.rows, bm) * cdiv(p0.o_total, bn) + cdiv(p1.rows, bm) * cdiv(p1.o_total, bn);
+  };
+  const int o_max = std::max(p0.o_total, p1.o_total);
   int tile = 0, sms = 0;
+  if (ln_gemm_streams<T, Src>(a.c)) {
+    const cudaError_t err = pick_tile(o_max, blocks,
+                                      {ln_gemm_stream_smem<T, Src, TileL>(), ln_gemm_stream_smem<T, Src, TileM>(),
+                                       ln_gemm_stream_smem<T, Src, TileS>()},
+                                      &tile, &sms);
+    if (err != cudaSuccess) return err;
+    switch (tile) {
+      case 0: return launch_ln_gemm_stream_tile<T, Src, TileL>(a, sms, stream);
+      case 1: return launch_ln_gemm_stream_tile<T, Src, TileM>(a, sms, stream);
+      default: return launch_ln_gemm_stream_tile<T, Src, TileS>(a, sms, stream);
+    }
+  }
   const cudaError_t err = pick_tile(
-      std::max(p0.o_total, p1.o_total),
-      [&](int bm, int bn) {
-        return cdiv(p0.rows, bm) * cdiv(p0.o_total, bn) + cdiv(p1.rows, bm) * cdiv(p1.o_total, bn);
-      },
+      o_max, blocks,
       {ln_gemm_smem<T, Src, TileL>(a.c), ln_gemm_smem<T, Src, TileM>(a.c),
        ln_gemm_smem<T, Src, TileS>(a.c)},
       &tile, &sms);
@@ -661,11 +837,10 @@ cudaError_t launch_ln_proj(const LnProjArgs& p, cudaStream_t stream) {
   return launch_ln_gemm<T, T>(ln_proj_gemm(p), stream);
 }
 
-// shared memory of the smallest tile: a launch of these shapes fails unless
-// it fits (the launcher takes a larger tile only where that fits too)
+// shared memory of the smallest tile (ln_gemm_launch_smem)
 template <typename T>
 size_t ln_proj_smem_bytes(int c) {
-  return ln_gemm_smem<T, T, TileS>(c);
+  return ln_gemm_launch_smem<T, T>(c);
 }
 
 // ---------------------------------------------------------------------------
