@@ -54,28 +54,14 @@
 //   - Occupancy: 16 warps a block, and two blocks per SM where shared
 //     memory allows (head_dim <= 8 at N <= 384: `__launch_bounds__` caps
 //     registers at 64 there).
-//   - Long rows (J = 0, the variant the wrapper's attn_core_bwd_plan picks
-//     where a row has more than 32 x 32 keys or the (M, N) plane does not
-//     fit in shared memory beside the k/v rows): pass 1 keeps nothing of
-//     the row in registers and sweeps its keys three times, recomputing
-//     the scores each time: the row's max; its sum of exponentials and of
-//     dp times them; then ds, dq and the dbias sums. The ds sums go to the
-//     block's own (M, N) slice of the global partial buffer instead of
-//     shared memory: one block owns the slice and walks its windows in
-//     order, so a plain read-modify-write needs no atomics and two runs
-//     stay bit-identical. Pass 2 is the one above with a key a lane. Only
-//     the k/v and q/g rows stay in shared memory, so the row length is
-//     bounded by those alone. It is right first and not tuned.
-//   - Key tiles (attn_bwd_tiled_kernel, which the plan picks where even
-//     the long rows' k/v rows do not fit; the JAX kernel holds them whole
-//     in VMEM): shared memory holds the block's q and g rows, the three
-//     row statistics and an (M, HD) f32 dq accumulator, and k and v come
-//     in one key tile at a time. Pass 1 sweeps the tiles for each row's
-//     running max, sum of exponentials and sum of dp times them; pass 2
-//     takes each tile's ds into the dbias partials and its share of dq into
-//     the accumulator, as the long rows do, then dk and dv for the tile's
-//     keys with the pass 2 above. Every sum runs in a fixed order, so two
-//     runs give bit-identical gradients.
+//   - Rows the register kernel cannot take (J = 0: more than 32 x 32 keys,
+//     or an (M, N) plane that does not fit beside the k/v rows), at head_dim
+//     <= 32: the tiled backward, three launches that tile the keys and keep
+//     nothing of size (M, N) in shared memory (attn_bwd_rows_kernel,
+//     attn_bwd_keys_kernel and attn_bwd_dq_reduce_kernel below; the JAX
+//     kernel holds the rows whole in VMEM). The wrapper still counts long
+//     rows (a window's k/v, q/g rows would fit in one block) apart from key
+//     tiles (they would not).
 //   - head_dim 4 (level 0) is below an MMA's K, so every product is an FMA
 //     dot product templated on head_dim 1-32; a head_dim between them runs
 //     at the next one up with zero columns past it (staged, never written).
@@ -98,29 +84,28 @@ struct BwdArgs {
   int b, m, n, c, heads, groups;
   int hd;        // head_dim C / heads; kernels instantiated at a larger HD see zeros past it
   int slices;    // pass 2: lanes per key token
-  int key_tile;  // 0, or the keys attn_bwd_tiled_kernel stages at a time
   float scale;
   const void *q, *k, *v, *g;  // (B_, M, C), (B_, N, C), (B_, N, C), (B_, M, C)
   const float* bias;          // (H, M, N) f32
   void *dq, *dk, *dv;         // like q, k, v
   float* partial;             // (groups, H, M, N) f32; the wide backward's ds planes (groups = B_)
-  float* scratch;             // the wide backward's planes and statistics (WidePlanes), aligned
-  bool vec;                   // the wide backward: 16-byte copies (aligned rows and head_dim)
+  float* dbias;               // (H, M, N) f32: the tiled backward writes it (no partials)
+  float* scratch;             // the wide backward's planes and statistics (WidePlanes), or the
+                              // tiled backward's row statistics ((B_, H, M) float4), aligned
+  bool vec;                   // 16-byte copies (the wide backward), or whole-row chunk loads
+                              // of the tiled backward (aligned rows, head_dim its HD)
 };
 
-// The k, v, q and g rows, three row statistics, and with J > 0 the
-// block's (M, N) dbias plane; with a key tile, the k and v rows of one tile
-// and the (M, HD) dq sums instead of the plane. hd is the instantiated HD
-// (at most 32; the wide backward's blocks are wide_*_smem below).
-size_t bwd_smem_floats(int m, int n, int hd, int j, int key_tile) {
-  if (key_tile)
-    return 2 * ((size_t)key_tile + m) * key_stride(hd) + 3 * (size_t)m + (size_t)m * hd;
-  return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (j ? (size_t)m * n : 0);
+// The k, v, q and g rows, three row statistics and the block's (M, N)
+// dbias plane of the register kernel (J > 0; hd is the instantiated HD, at
+// most 32).
+size_t bwd_smem_floats(int m, int n, int hd) {
+  return 2 * ((size_t)n + m) * key_stride(hd) + 3 * (size_t)m + (size_t)m * n;
 }
 
 // Keys a pass-2 lane takes: two at head_dim <= 4 where one block fills an
 // SM (J > 12: 128 registers), so that each q and g row loaded from shared
-// memory feeds both; else one, as registers run out (and for long rows, J = 0).
+// memory feeds both; else one, as registers run out.
 __host__ __device__ constexpr int keys_per_lane(int hd, int j) { return hd <= 4 && j > 12 ? 2 : 1; }
 
 // Lanes per key in pass 2 (1, 2, 4 or 8): the fewest that minimise one
@@ -141,98 +126,8 @@ int pass2_slices(int m, int n, int hd, int j) {
   return best;
 }
 
-// The key-tiled variant's pass 2 over keys 0 .. cnt - 1 of the staged rows
-// ks, vs (token key0 + nn of the window, out0 = w N + key0): attn_bwd_kernel's
-// pass 2 below over one tile, S lanes per KPT key tokens, each over rows
-// slice, slice + S, ...; dk and dv accumulate in registers and the S
-// partial sums meet in a fixed butterfly. bias_h points at the key0 column
-// of the head's bias plane. attn_bwd_kernel keeps its own copy inline:
-// calling this function from it slowed its long rows at head_dim 4 by half
-// on the H100 (PERF.md, section 6).
-template <typename T, int HD, int KPT>
-__device__ __forceinline__ void pass2_dk_dv(const BwdArgs& a, const float* ks, const float* vs,
-                                            const float* qs, const float* gs,
-                                            const float* row_mxl, const float* row_inv,
-                                            const float* row_dot, const float* bias_h, int cnt,
-                                            size_t out0, int warp, int lane) {
-  constexpr int KS = key_stride(HD);
-  const int m_tok = a.m, n_tok = a.n, c = a.c, h = blockIdx.y, hd = a.hd;
-  const float scale = a.scale;
-  const int S = a.slices, keys_per_warp = KPT * 32 / S;
-  const int slot = lane / S, slice = lane % S;
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
-  for (int base = warp * keys_per_warp; base < cnt; base += kWarps * keys_per_warp) {
-    int nn[KPT], nc[KPT];
-    float kv_[KPT][HD], vv[KPT][HD], dka[KPT][HD], dva[KPT][HD], b_next[KPT];
-#pragma unroll
-    for (int t = 0; t < KPT; ++t) {
-      nn[t] = base + slot + t * (32 / S);
-      nc[t] = nn[t] < cnt ? nn[t] : cnt - 1;  // idle lanes still join the shuffles
-      load_row<HD>(kv_[t], ks + nc[t] * KS);
-      load_row<HD>(vv[t], vs + nc[t] * KS);
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd) {
-        dka[t][dd] = 0.f;
-        dva[t][dd] = 0.f;
-      }
-      // the bias column streams from L2: its next element loads one row ahead
-      b_next[t] = slice < m_tok ? __ldg(bias_h + (size_t)slice * n_tok + nc[t]) : 0.f;
-    }
-    for (int i = slice; i < m_tok; i += S) {
-      float b_i[KPT];
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) {
-        b_i[t] = b_next[t];
-        if (i + S < m_tok) b_next[t] = __ldg(bias_h + (size_t)(i + S) * n_tok + nc[t]);
-      }
-      float qi[HD], gi[HD];
-      load_row<HD>(qi, qs + i * KS);
-      load_row<HD>(gi, gs + i * KS);
-      const float mxl = row_mxl[i], inv = row_inv[i], rdot = row_dot[i];
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) {
-        const float s = fmaf(dot<HD>(qi, kv_[t]), scale, b_i[t]);
-        const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
-        const float dp = dot<HD>(gi, vv[t]);
-        const float ds = p32 * (dp - rdot);
-        const float p = round_to<T>(p32);
-        const float dsc = round_to<T>(ds * scale);
-#pragma unroll
-        for (int dd = 0; dd < HD; ++dd) {
-          dva[t][dd] = fmaf(p, gi[dd], dva[t][dd]);
-          dka[t][dd] = fmaf(dsc, qi[dd], dka[t][dd]);
-        }
-      }
-    }
-    for (int o = 1; o < S; o <<= 1) {
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) {
-#pragma unroll
-        for (int dd = 0; dd < HD; ++dd) {
-          dka[t][dd] += __shfl_xor_sync(0xffffffffu, dka[t][dd], o);
-          dva[t][dd] += __shfl_xor_sync(0xffffffffu, dva[t][dd], o);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < KPT; ++t) {
-      if (nn[t] < cnt && slice == 0) {
-        const size_t dst = (out0 + nn[t]) * c + h * hd;
-#pragma unroll
-        for (int dd = 0; dd < HD; ++dd) {
-          if (dd < hd) {
-            dk[dst + dd] = store_cast<T>(dka[t][dd]);
-            dv[dst + dd] = store_cast<T>(dva[t][dd]);
-          }
-        }
-      }
-    }
-  }
-}
-
 // Two blocks per SM where a lane's row share and head_dim leave room in 64
-// registers, else one. J = 0 is the long-row variant.
+// registers, else one.
 template <typename T, int HD, int J>
 __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     attn_bwd_kernel(BwdArgs a) {
@@ -247,9 +142,7 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
   float* row_mxl = gs + m_tok * KS;        // (M): the row's max score * log2 e
   float* row_inv = row_mxl + m_tok;        // (M): 1 / the row's sum of exponentials
   float* row_dot = row_inv + m_tok;        // (M): rowsum(dp * p32)
-  // (M, N): ds summed over this block's windows, in shared memory, or for
-  // long rows in the block's slice of the global partial buffer
-  float* dbias = J ? row_dot + m_tok : a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
+  float* dbias = row_dot + m_tok;          // (M, N): ds summed over this block's windows
 
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -286,131 +179,74 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
     }
     __syncthreads();
 
-    if constexpr (J > 0) {
-      // pass 1: a warp per query row, the lane's keys lane + 32 j in registers
-      for (int i = warp; i < m_tok; i += kWarps) {
-        float qv[HD], gv[HD];
-        load_row<HD>(qv, qs + i * KS);
-        load_row<HD>(gv, gs + i * KS);
-        const float* brow = bias_h + (size_t)i * n_tok;
-        float sv[J], dpv[J];
-        float mx = __int_as_float(0xff800000);  // -inf
-  #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int nn = lane + 32 * j;
-          sv[j] = 0.f;
-          dpv[j] = 0.f;
-          if (nn < n_tok) {
-            float kr[HD], vr[HD];
-            load_row<HD>(kr, ks + nn * KS);
-            load_row<HD>(vr, vs + nn * KS);
-            sv[j] = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
-            dpv[j] = dot<HD>(gv, vr);
-            mx = fmaxf(mx, sv[j]);
-          }
-        }
-        const float mxl = warp_max(mx) * kLog2e;
-        float sum = 0.f;
-  #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          if (lane + 32 * j < n_tok) {
-            sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl));
-            sum += sv[j];
-          }
-        }
-        const float inv = 1.f / warp_sum(sum);
-        float rdot = 0.f;
-  #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          if (lane + 32 * j < n_tok) {
-            sv[j] *= inv;  // p32
-            rdot = fmaf(dpv[j], sv[j], rdot);
-          }
-        }
-        rdot = warp_sum(rdot);
-        float dqa[HD];
-  #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
-        float* drow = dbias + (size_t)i * n_tok;
-  #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int nn = lane + 32 * j;
-          if (nn < n_tok) {
-            const float ds = sv[j] * (dpv[j] - rdot);
-            drow[nn] += ds;
-            const float dsc = round_to<T>(ds * scale);
-            float kr[HD];
-            load_row<HD>(kr, ks + nn * KS);
-  #pragma unroll
-            for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, kr[dd], dqa[dd]);
-          }
-        }
-  #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
-        if (lane == 0) {
-          row_mxl[i] = mxl;
-          row_inv[i] = inv;
-          row_dot[i] = rdot;
-          const size_t dst = ((size_t)w * m_tok + i) * c + h * hd;
-  #pragma unroll
-          for (int dd = 0; dd < HD; ++dd)
-            if (dd < hd) dq[dst + dd] = store_cast<T>(dqa[dd]);
+    // pass 1: a warp per query row, the lane's keys lane + 32 j in registers
+    for (int i = warp; i < m_tok; i += kWarps) {
+      float qv[HD], gv[HD];
+      load_row<HD>(qv, qs + i * KS);
+      load_row<HD>(gv, gs + i * KS);
+      const float* brow = bias_h + (size_t)i * n_tok;
+      float sv[J], dpv[J];
+      float mx = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int nn = lane + 32 * j;
+        sv[j] = 0.f;
+        dpv[j] = 0.f;
+        if (nn < n_tok) {
+          float kr[HD], vr[HD];
+          load_row<HD>(kr, ks + nn * KS);
+          load_row<HD>(vr, vs + nn * KS);
+          sv[j] = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
+          dpv[j] = dot<HD>(gv, vr);
+          mx = fmaxf(mx, sv[j]);
         }
       }
-    } else {
-      // pass 1, long rows: a warp per query row sweeps the lane's keys
-      // lane + 32 t three times, recomputing the scores
-      for (int i = warp; i < m_tok; i += kWarps) {
-        float qv[HD], gv[HD];
-        load_row<HD>(qv, qs + i * KS);
-        load_row<HD>(gv, gs + i * KS);
-        const float* brow = bias_h + (size_t)i * n_tok;
-        float mx = __int_as_float(0xff800000);  // -inf
-        for (int nn = lane; nn < n_tok; nn += 32) {
-          float kr[HD];
-          load_row<HD>(kr, ks + nn * KS);
-          mx = fmaxf(mx, fmaf(dot<HD>(qv, kr), scale, brow[nn]));
-        }
-        const float mxl = warp_max(mx) * kLog2e;
-        float sum = 0.f, dpe = 0.f;
-        for (int nn = lane; nn < n_tok; nn += 32) {
-          float kr[HD], vr[HD];
-          load_row<HD>(kr, ks + nn * KS);
-          load_row<HD>(vr, vs + nn * KS);
-          const float e = fast_exp2(fmaf(fmaf(dot<HD>(qv, kr), scale, brow[nn]), kLog2e, -mxl));
-          sum += e;
-          dpe = fmaf(dot<HD>(gv, vr), e, dpe);
-        }
-        const float inv = 1.f / warp_sum(sum);
-        const float rdot = warp_sum(dpe) * inv;  // rowsum(dp * p32)
-        float dqa[HD];
+      const float mxl = warp_max(mx) * kLog2e;
+      float sum = 0.f;
 #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
-        float* drow = dbias + (size_t)i * n_tok;
-        for (int nn = lane; nn < n_tok; nn += 32) {
-          float kr[HD], vr[HD];
-          load_row<HD>(kr, ks + nn * KS);
-          load_row<HD>(vr, vs + nn * KS);
-          // the float operations of pass 2, so both passes see the same p32 and ds
-          const float s = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
-          const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
-          const float ds = p32 * (dot<HD>(gv, vr) - rdot);
+      for (int j = 0; j < J; ++j) {
+        if (lane + 32 * j < n_tok) {
+          sv[j] = fast_exp2(fmaf(sv[j], kLog2e, -mxl));
+          sum += sv[j];
+        }
+      }
+      const float inv = 1.f / warp_sum(sum);
+      float rdot = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (lane + 32 * j < n_tok) {
+          sv[j] *= inv;  // p32
+          rdot = fmaf(dpv[j], sv[j], rdot);
+        }
+      }
+      rdot = warp_sum(rdot);
+      float dqa[HD];
+#pragma unroll
+      for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
+      float* drow = dbias + (size_t)i * n_tok;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int nn = lane + 32 * j;
+        if (nn < n_tok) {
+          const float ds = sv[j] * (dpv[j] - rdot);
           drow[nn] += ds;
           const float dsc = round_to<T>(ds * scale);
+          float kr[HD];
+          load_row<HD>(kr, ks + nn * KS);
 #pragma unroll
           for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, kr[dd], dqa[dd]);
         }
+      }
 #pragma unroll
-        for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
-        if (lane == 0) {
-          row_mxl[i] = mxl;
-          row_inv[i] = inv;
-          row_dot[i] = rdot;
-          const size_t dst = ((size_t)w * m_tok + i) * c + h * hd;
+      for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
+      if (lane == 0) {
+        row_mxl[i] = mxl;
+        row_inv[i] = inv;
+        row_dot[i] = rdot;
+        const size_t dst = ((size_t)w * m_tok + i) * c + h * hd;
 #pragma unroll
-          for (int dd = 0; dd < HD; ++dd)
-            if (dd < hd) dq[dst + dd] = store_cast<T>(dqa[dd]);
-        }
+        for (int dd = 0; dd < HD; ++dd)
+          if (dd < hd) dq[dst + dd] = store_cast<T>(dqa[dd]);
       }
     }
     __syncthreads();
@@ -486,158 +322,444 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
       }
     }
   }
-  if constexpr (J > 0) {
-    __syncthreads();
-    float* part = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
-    for (int e = tid; e < m_tok * n_tok; e += kThreads) part[e] = dbias[e];
+  __syncthreads();
+  float* part = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
+  for (int e = tid; e < m_tok * n_tok; e += kThreads) part[e] = dbias[e];
+}
+
+// ---------------------------------------------------------------------------
+// The tiled backward (head_dim <= 32, the rows the register kernel cannot
+// take): FlashAttention-2's backward with the windows kept apart and every
+// sum in a fixed order, in three launches.
+//   1. attn_bwd_rows_kernel: the rows' softmax statistics in one sweep. A
+//      block per (window, head, 8 R rows) stages its q and g rows (in f32)
+//      and, two stages deep by cp.async, each 64-key tile's k and v rows and
+//      the rows' bias against it; a warp takes R rows (8, 4 at head_dim 32)
+//      and a lane a key of the tile. Each lane keeps a running max, sum of
+//      exp and sum of dp times exp for each row over its keys, rescaled only
+//      when a score raises its max; the lanes merge in a fixed butterfly, and
+//      the row's max, 1 / sum and rowsum(dp * p32) go to the statistics
+//      scratch ((B_, H, M) float4).
+//   2. attn_bwd_keys_kernel: a block per (32-key tile, head), a warp per 16
+//      rows (cdiv(M, 16) warps) and a lane per key. It walks the B_ windows
+//      in order, the next window's q and g rows, k and v tile and row
+//      statistics in flight (cp.async, two stages) while this one computes
+//      p32 and ds for the lane's key against the warp's rows, dv = p^T g and
+//      dk = dsc^T q in registers; the warps' partial dk and dv then add in
+//      warp order through shared memory. round(ds scale) of the (row, key)
+//      tile goes to shared memory too, and a thread a row sums dq's share of
+//      the tile's keys in key order into a partial plane of the tile. dbias
+//      of the lane's (row, key) elements sums in registers over all windows
+//      and is written once at the end: no (M, N) partial buffer,
+//      read-modify-write or dbias reduction remains.
+//   3. attn_bwd_dq_reduce_kernel adds the tiles' dq planes in tile order.
+// p32, ds, round(p) and round(ds scale) are the float operations of the
+// register kernel's pass 2. The products are FMA dot products over head_dim
+// (4 is below an MMA's K); bf16 rows convert to f32 once per stage where a
+// row feeds many products.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsThreads = 256;  // attn_bwd_rows_kernel: 8 warps
+constexpr int kRowsKeys = 64;      // keys of its staged tiles, two a lane
+constexpr int kRowsBias = kRowsKeys + 4;  // row stride (floats) of its staged bias tiles
+constexpr int kTileKeys = 32;      // keys of an attn_bwd_keys_kernel block, a lane each
+constexpr int kKeysRows = 16;      // rows an attn_bwd_keys_kernel warp takes
+constexpr int kKeysWarps = 8;      // its most warps: M <= 128
+
+// The HD the tiled backward runs head_dim hd at (4, 8, 16 or 32).
+__host__ __device__ constexpr int tiled_hd(int hd) { return hd < 4 ? 4 : hd; }
+// Rows of an attn_bwd_rows_kernel warp (its q and g rows are read from
+// shared memory): 8, and 4 at head_dim 32, where the k and v rows a lane
+// holds take 64 registers.
+__host__ __device__ constexpr int tiled_rows(int hd) { return hd <= 16 ? 8 : 4; }
+// Row stride (elements) of a staged row: 16 bytes of padding.
+template <typename T>
+__host__ __device__ constexpr int tiled_ld(int hd) {
+  return hd + 16 / (int)sizeof(T);
+}
+
+// One stage of attn_bwd_keys_kernel (bytes, a multiple of 16): the
+// window's M row statistics (float4), its q and g rows, the tile's k and v.
+template <typename T>
+__host__ __device__ inline size_t tiled_stage_bytes(int m, int hd) {
+  const size_t b = 16 * (size_t)m + sizeof(T) * (size_t)(2 * m + 2 * kTileKeys) * tiled_ld<T>(hd);
+  return (b + 15) / 16 * 16;
+}
+// Two stages, then the warps' partial dk and dv ((warps, 32, 2 HD + 4) f32),
+// round(ds scale) of the tile ((M, 33) f32, rounded up to 16 bytes) and,
+// for bf16, the window's q and g rows in f32.
+__host__ __device__ inline int tiled_dst_floats(int m) { return cdiv(m * (kTileKeys + 1), 4) * 4; }
+template <typename T>
+size_t tiled_keys_smem(int m, int hd) {
+  return 2 * tiled_stage_bytes<T>(m, hd) + sizeof(float) * (size_t)cdiv(m, kKeysRows) * kTileKeys * (2 * hd + 4) +
+         sizeof(float) * (size_t)tiled_dst_floats(m) +
+         (std::is_same<T, float>::value ? 0 : sizeof(float) * 2 * (size_t)m * (hd + 4));
+}
+// attn_bwd_rows_kernel: its 8 R q and g rows (f32), two stages of kRowsKeys
+// k and v rows and of the 8 R rows' bias against them.
+template <typename T>
+size_t tiled_rows_smem(int hd) {
+  return sizeof(float) * (size_t)(hd + 4) * 2 * 8 * tiled_rows(hd) + sizeof(T) * (size_t)tiled_ld<T>(hd) * 4 * kRowsKeys +
+         sizeof(float) * 2 * 8 * tiled_rows(hd) * kRowsBias;
+}
+// The larger block of the two.
+template <typename T>
+size_t tiled_smem(int m, int hd) {
+  return std::max(tiled_keys_smem<T>(m, hd), tiled_rows_smem<T>(hd));
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// r = p[0 .. HD) in f32 by whole 16-byte (bf16 at HD 4: 8-byte) loads from
+// shared memory, p aligned to them.
+template <typename T, int HD>
+__device__ __forceinline__ void tiled_row(float (&r)[HD], const T* p) {
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + d);
+      r[d] = t.x;
+      r[d + 1] = t.y;
+      r[d + 2] = t.z;
+      r[d + 3] = t.w;
+    }
+  } else if constexpr (HD == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 x = bf16x2_to_float2(u.x), y = bf16x2_to_float2(u.y);
+    r[0] = x.x;
+    r[1] = x.y;
+    r[2] = y.x;
+    r[3] = y.y;
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; d += 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + d);
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = bf16x2_to_float2(w[e]);
+        r[d + 2 * e] = x.x;
+        r[d + 2 * e + 1] = x.y;
+      }
+    }
   }
 }
 
-// The key-tiled variant (see the header): block (group, head) walks its
-// windows in order; per window, pass 1 and pass 2 each stage the key tiles
-// in order. Two blocks per SM at head_dim <= 8, as the long rows run.
+// CB-byte asynchronous copy into shared memory (src_bytes 0: zeros).
+template <int CB>
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem), "n"(CB),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// rows [0, rows) of a head's columns (row r at src + r * c) into dst (row
+// stride LD): one CB-byte cp.async a row chunk when vec, else plain loads
+// with zeros past hd; rows [rows, nrows) zero.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, HD <= 8 ? 2 : 1) attn_bwd_tiled_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  const int grp = blockIdx.x, h = blockIdx.y;
-  const int m_tok = a.m, n_tok = a.n, c = a.c, kt = a.key_tile, hd = a.hd;
-  constexpr int KS = key_stride(HD);
-  float* ks = smem;                     // (key_tile, KS)
-  float* vs = ks + kt * KS;             // (key_tile, KS)
-  float* qs = vs + kt * KS;             // (M, KS)
-  float* gs = qs + m_tok * KS;          // (M, KS)
-  float* row_mxl = gs + m_tok * KS;     // (M): the row's running max score * log2 e
-  float* row_inv = row_mxl + m_tok;     // (M): its running sum of exp, then 1 / the sum
-  float* row_dot = row_inv + m_tok;     // (M): its running sum of dp exp, then rowsum(dp * p32)
-  float* dq_acc = row_dot + m_tok;      // (M, HD): dq summed over the tiles
-  // ds summed over this block's windows, in its slice of the partial buffer
-  float* dbias = a.partial + ((size_t)grp * a.heads + h) * m_tok * n_tok;
-
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* g = static_cast<const T*>(a.g);
-  T* dq = static_cast<T*>(a.dq);
-  const float* bias_h = a.bias + (size_t)h * m_tok * n_tok;
-  const float scale = a.scale;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int w_begin = (int)((long long)grp * a.b / a.groups);
-  const int w_end = (int)((long long)(grp + 1) * a.b / a.groups);
-
-  for (size_t e = tid; e < (size_t)m_tok * n_tok; e += kThreads) dbias[e] = 0.f;
-
-  for (int w = w_begin; w < w_end; ++w) {
-    __syncthreads();  // the previous window is done with qs/gs and dq_acc
-    for (int e = tid; e < m_tok * HD; e += kThreads) {
-      const int i = e / HD, dd = e % HD;
-      const size_t src = ((size_t)w * m_tok + i) * c + h * hd + dd;
-      qs[i * KS + dd] = dd < hd ? load(q, src) : 0.f;
-      gs[i * KS + dd] = dd < hd ? load(g, src) : 0.f;
-      dq_acc[e] = 0.f;
+__device__ __forceinline__ void tiled_stage_rows(T* dst, const T* src, int c, int nrows, int rows,
+                                                 int hd, bool vec) {
+  constexpr int LD = tiled_ld<T>(HD), CB = HD * (int)sizeof(T) < 16 ? HD * (int)sizeof(T) : 16;
+  constexpr int CH = CB / (int)sizeof(T), PER = HD / CH;
+  if (vec) {
+    for (int e = threadIdx.x; e < nrows * PER; e += blockDim.x) {
+      const int r = e / PER, d = (e - r * PER) * CH;
+      const bool in = r < rows;
+      cp_async_n<CB>(dst + r * LD + d, in ? src + (size_t)r * c + d : src, in ? CB : 0);
     }
-    for (int i = tid; i < m_tok; i += kThreads) {
-      row_mxl[i] = __int_as_float(0xff800000);  // -inf
-      row_inv[i] = 0.f;
-      row_dot[i] = 0.f;
-    }
-    for (int pass = 1; pass <= 2; ++pass) {
-      for (int t0 = 0; t0 < n_tok; t0 += kt) {
-        const int cnt = min(kt, n_tok - t0);
-        __syncthreads();  // the block is done with the previous tile (and the statistics)
-        for (int e = tid; e < cnt * HD; e += kThreads) {
-          const int nn = e / HD, dd = e % HD;
-          const size_t src = ((size_t)w * n_tok + t0 + nn) * c + h * hd + dd;
-          ks[nn * KS + dd] = dd < hd ? load(k, src) : 0.f;
-          vs[nn * KS + dd] = dd < hd ? load(v, src) : 0.f;
-        }
-        __syncthreads();
-        if (pass == 1) {
-          // a warp per query row: the tile's max, then its sums of exp and of
-          // dp times exp under the new running max
-          for (int i = warp; i < m_tok; i += kWarps) {
-            float qv[HD], gv[HD];
-            load_row<HD>(qv, qs + i * KS);
-            load_row<HD>(gv, gs + i * KS);
-            const float* brow = bias_h + (size_t)i * n_tok + t0;
-            float mx = __int_as_float(0xff800000);  // -inf
-            for (int nn = lane; nn < cnt; nn += 32) {
-              float kr[HD];
-              load_row<HD>(kr, ks + nn * KS);
-              mx = fmaxf(mx, fmaf(dot<HD>(qv, kr), scale, brow[nn]));
-            }
-            const float m0 = row_mxl[i];
-            const float mxl = fmaxf(m0, warp_max(mx) * kLog2e);
-            float sum = 0.f, dpe = 0.f;
-            for (int nn = lane; nn < cnt; nn += 32) {
-              float kr[HD], vr[HD];
-              load_row<HD>(kr, ks + nn * KS);
-              load_row<HD>(vr, vs + nn * KS);
-              const float e = fast_exp2(fmaf(fmaf(dot<HD>(qv, kr), scale, brow[nn]), kLog2e, -mxl));
-              sum += e;
-              dpe = fmaf(dot<HD>(gv, vr), e, dpe);
-            }
-            const float r = fast_exp2(m0 - mxl);
-            const float tsum = fmaf(row_inv[i], r, warp_sum(sum));
-            const float tdot = fmaf(row_dot[i], r, warp_sum(dpe));
-            __syncwarp();  // every lane has read the row's statistics
-            if (lane == 0) {
-              row_mxl[i] = mxl;
-              row_inv[i] = tsum;
-              row_dot[i] = tdot;
-            }
-          }
-          if (t0 + cnt == n_tok) {
-            __syncthreads();
-            for (int i = tid; i < m_tok; i += kThreads) {
-              const float inv = 1.f / row_inv[i];
-              row_inv[i] = inv;
-              row_dot[i] *= inv;
-            }
-          }
-          continue;
-        }
-        // pass 2, a warp per query row: ds into the dbias partial and the
-        // tile's share of dq into the accumulator (the float operations of
-        // pass2_dk_dv, so both see the same p32 and ds)
-        for (int i = warp; i < m_tok; i += kWarps) {
-          float qv[HD], gv[HD];
-          load_row<HD>(qv, qs + i * KS);
-          load_row<HD>(gv, gs + i * KS);
-          const float* brow = bias_h + (size_t)i * n_tok + t0;
-          float* drow = dbias + (size_t)i * n_tok + t0;
-          const float mxl = row_mxl[i], inv = row_inv[i], rdot = row_dot[i];
-          float dqa[HD];
-#pragma unroll
-          for (int dd = 0; dd < HD; ++dd) dqa[dd] = 0.f;
-          for (int nn = lane; nn < cnt; nn += 32) {
-            float kr[HD], vr[HD];
-            load_row<HD>(kr, ks + nn * KS);
-            load_row<HD>(vr, vs + nn * KS);
-            const float s = fmaf(dot<HD>(qv, kr), scale, brow[nn]);
-            const float p32 = fast_exp2(fmaf(s, kLog2e, -mxl)) * inv;
-            const float ds = p32 * (dot<HD>(gv, vr) - rdot);
-            drow[nn] += ds;
-            const float dsc = round_to<T>(ds * scale);
-#pragma unroll
-            for (int dd = 0; dd < HD; ++dd) dqa[dd] = fmaf(dsc, kr[dd], dqa[dd]);
-          }
-#pragma unroll
-          for (int dd = 0; dd < HD; ++dd) dqa[dd] = warp_sum(dqa[dd]);
-          if (lane == 0) {
-#pragma unroll
-            for (int dd = 0; dd < HD; ++dd) dq_acc[i * HD + dd] += dqa[dd];
-          }
-        }
-        pass2_dk_dv<T, HD, 1>(a, ks, vs, qs, gs, row_mxl, row_inv, row_dot, bias_h + t0, cnt,
-                              (size_t)w * n_tok + t0, warp, lane);
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < m_tok * HD; e += kThreads) {
-      const int i = e / HD, dd = e % HD;
-      if (dd < hd) dq[((size_t)w * m_tok + i) * c + h * hd + dd] = store_cast<T>(dq_acc[e]);
+  } else {
+    for (int e = threadIdx.x; e < nrows * HD; e += blockDim.x) {
+      const int r = e / HD, d = e - r * HD;
+      dst[r * LD + d] = r < rows && d < hd ? src[(size_t)r * c + d] : store_cast<T>(0.f);
     }
   }
+}
+
+// The same rows in f32 (row stride HD + 4): f32 rows by tiled_stage_rows'
+// copies, bf16 rows converted by plain loads, so that the products read
+// them without conversions.
+template <typename T, int HD>
+__device__ __forceinline__ void tiled_stage_rows_f32(float* dst, const T* src, int c, int nrows, int rows,
+                                                     int hd, bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    tiled_stage_rows<float, HD>(dst, src, c, nrows, rows, hd, vec);
+  } else {
+    for (int e = threadIdx.x; e < nrows * HD; e += blockDim.x) {
+      const int r = e / HD, d = e - r * HD;
+      dst[r * (HD + 4) + d] = r < rows && d < hd ? load(src, (size_t)r * c + d) : 0.f;
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kRowsThreads, 2) attn_bwd_rows_kernel(BwdArgs a) {
+  constexpr int R = tiled_rows(HD), LD = tiled_ld<T>(HD), LDF = HD + 4, ROWS = (kRowsThreads / 32) * R;
+  extern __shared__ __align__(16) unsigned char rows_smem[];
+  float* qs = reinterpret_cast<float*>(rows_smem);  // (ROWS, LDF): the block's q rows in f32
+  float* gs = qs + ROWS * LDF;                      // (ROWS, LDF): its g rows
+  T* kv = reinterpret_cast<T*>(gs + ROWS * LDF);    // 2 stages of (kRowsKeys, LD) k, then v rows
+  float* bs = reinterpret_cast<float*>(kv + 4 * kRowsKeys * LD);  // 2 stages of (ROWS, kRowsBias) bias
+  const int w = blockIdx.x, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.z * ROWS, m = a.m, n = a.n, c = a.c, hd = a.hd;
+  const int tiles = cdiv(n, kRowsKeys);
+  const float scale = a.scale;
+  const T* kg = static_cast<const T*>(a.k) + (size_t)w * n * c + h * hd;
+  const T* vg = static_cast<const T*>(a.v) + (size_t)w * n * c + h * hd;
+  const float* bias_h = a.bias + (size_t)h * m * n;
+  // step st stages key tile st
+  auto stage = [&](int st) {
+    const int t0 = st * kRowsKeys;
+    T* ks = kv + (st & 1) * 2 * kRowsKeys * LD;
+    tiled_stage_rows<T, HD>(ks, kg + (size_t)t0 * c, c, kRowsKeys, n - t0, hd, a.vec);
+    tiled_stage_rows<T, HD>(ks + kRowsKeys * LD, vg + (size_t)t0 * c, c, kRowsKeys, n - t0, hd, a.vec);
+    // the rows' bias against the tile's keys, 4 bytes a copy (rows of N
+    // floats are not 16-byte aligned); zero past M and N
+    float* bd = bs + (st & 1) * ROWS * kRowsBias;
+    for (int e = threadIdx.x; e < ROWS * kRowsKeys; e += kRowsThreads) {
+      const int r = e / kRowsKeys, kk = e - r * kRowsKeys;
+      const bool in = r0 + r < m && t0 + kk < n;
+      cp_async_n<4>(bd + r * kRowsBias + kk, in ? bias_h + (size_t)(r0 + r) * n + t0 + kk : bias_h, in ? 4 : 0);
+    }
+  };
+  const size_t row0 = ((size_t)w * m + r0) * c + h * hd;
+  tiled_stage_rows_f32<T, HD>(qs, static_cast<const T*>(a.q) + row0, c, ROWS, m - r0, hd, a.vec);
+  tiled_stage_rows_f32<T, HD>(gs, static_cast<const T*>(a.g) + row0, c, ROWS, m - r0, hd, a.vec);
+  stage(0);
+  cp_async_commit();
+
+  // a warp's rows r0 + warp + 8 t: the lane's running max (times log2 e),
+  // sum of exp and sum of dp exp over its keys
+  float ml[R], sum[R], dpe[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    ml[t] = -1e30f;
+    sum[t] = 0.f;
+    dpe[t] = 0.f;
+  }
+  for (int st = 0; st < tiles; ++st) {
+    if (st + 1 < tiles) stage(st + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's tile has landed
+    __syncthreads();
+    const int t0 = st * kRowsKeys;
+    const T* ks = kv + (st & 1) * 2 * kRowsKeys * LD;
+    const float* bt = bs + (st & 1) * ROWS * kRowsBias;
+#pragma unroll
+    for (int u = 0; u < kRowsKeys / 32; ++u) {
+      const int kk = lane + 32 * u;
+      if (t0 + kk >= n) break;
+      float kr[HD], vr[HD];
+      tiled_row<T, HD>(kr, ks + kk * LD);
+      tiled_row<T, HD>(vr, ks + (kRowsKeys + kk) * LD);
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        const int li = warp + (kRowsThreads / 32) * t;
+        if (r0 + li < m) {
+          float qi[HD], gi[HD];
+          tiled_row<float, HD>(qi, qs + li * LDF);
+          tiled_row<float, HD>(gi, gs + li * LDF);
+          const float s = fmaf(dot<HD>(qi, kr), scale, bt[li * kRowsBias + kk]);
+          const float tl = s * kLog2e;
+          if (tl > ml[t]) {
+            const float f = fast_exp2(ml[t] - tl);
+            sum[t] *= f;
+            dpe[t] *= f;
+            ml[t] = tl;
+          }
+          const float e = fast_exp2(fmaf(s, kLog2e, -ml[t]));
+          sum[t] += e;
+          dpe[t] = fmaf(dot<HD>(gi, vr), e, dpe[t]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  // the lanes' statistics merged in a fixed butterfly; lane 0's are the row's:
+  // its max * log2 e, 1 / sum and rowsum(dp * p32)
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, ml[t], o);
+      const float s2 = __shfl_xor_sync(0xffffffffu, sum[t], o);
+      const float d2 = __shfl_xor_sync(0xffffffffu, dpe[t], o);
+      const float mn = fmaxf(ml[t], m2);
+      const float f1 = fast_exp2(ml[t] - mn), f2 = fast_exp2(m2 - mn);
+      sum[t] = fmaf(sum[t], f1, s2 * f2);
+      dpe[t] = fmaf(dpe[t], f1, d2 * f2);
+      ml[t] = mn;
+    }
+    const int i = r0 + warp + (kRowsThreads / 32) * t;
+    if (lane == 0 && i < m) {
+      const float inv = 1.f / sum[t];
+      reinterpret_cast<float4*>(a.scratch)[((size_t)w * a.heads + h) * m + i] =
+          make_float4(ml[t], inv, dpe[t] * inv, 0.f);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kKeysWarps * 32, 2) attn_bwd_keys_kernel(BwdArgs a) {
+  constexpr int LD = tiled_ld<T>(HD), LDF = HD + 4, LR = 2 * HD + 4;
+  extern __shared__ __align__(16) unsigned char keys_smem[];
+  const int m = a.m, n = a.n, c = a.c, hd = a.hd, heads = a.heads;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * kTileKeys, h = blockIdx.y, key = n0 + lane;
+  const size_t stage_bytes = tiled_stage_bytes<T>(m, HD);
+  float* red = reinterpret_cast<float*>(keys_smem + 2 * stage_bytes);  // (warps, 32, LR)
+  float* dst = red + warps * kTileKeys * LR;  // (M, 33): round(ds scale) of the tile's (row, key)
+  float* qgf = dst + tiled_dst_floats(m);     // bf16: (2 M, HD + 4) the window's q, g rows in f32
+  // dq's partial sums over this block's keys, (B_, H, M, HD) a key tile, after the statistics
+  float* dqp = a.scratch + 4 * (size_t)a.b * heads * m + (size_t)blockIdx.x * a.b * heads * m * HD;
+  const float scale = a.scale;
+  const bool live = key < n;
+
+  // the bias of the lane's (row, key) elements, and their dbias sums
+  float bv[kKeysRows], db[kKeysRows];
+#pragma unroll
+  for (int t = 0; t < kKeysRows; ++t) {
+    const int i = warp + warps * t;
+    bv[t] = i < m && live ? __ldg(a.bias + ((size_t)h * m + i) * n + key) : 0.f;
+    db[t] = 0.f;
+  }
+  auto stats_of = [&](unsigned char* st) { return reinterpret_cast<float4*>(st); };
+  auto rows_of = [&](unsigned char* st) { return reinterpret_cast<T*>(st + 16 * (size_t)m); };
+  auto stage = [&](int w, unsigned char* st) {
+    const float4* sg = reinterpret_cast<const float4*>(a.scratch) + ((size_t)w * heads + h) * m;
+    for (int i = threadIdx.x; i < m; i += blockDim.x) cp_async16(stats_of(st) + i, sg + i, 16);
+    T* qs = rows_of(st);
+    const size_t row0 = (size_t)w * m * c + h * hd, key0 = ((size_t)w * n + n0) * c + h * hd;
+    tiled_stage_rows<T, HD>(qs, static_cast<const T*>(a.q) + row0, c, m, m, hd, a.vec);
+    tiled_stage_rows<T, HD>(qs + m * LD, static_cast<const T*>(a.g) + row0, c, m, m, hd, a.vec);
+    tiled_stage_rows<T, HD>(qs + 2 * m * LD, static_cast<const T*>(a.k) + key0, c, kTileKeys, n - n0, hd,
+                            a.vec);
+    tiled_stage_rows<T, HD>(qs + (2 * m + kTileKeys) * LD, static_cast<const T*>(a.v) + key0, c, kTileKeys,
+                            n - n0, hd, a.vec);
+  };
+
+  unsigned char* buf[2] = {keys_smem, keys_smem + stage_bytes};
+  stage(0, buf[0]);
+  cp_async_commit();
+  for (int w = 0; w < a.b; ++w) {
+    if (w + 1 < a.b) stage(w + 1, buf[(w + 1) & 1]);
+    cp_async_commit();
+    cp_async_wait<1>();  // this window's copies have landed
+    __syncthreads();
+    const float4* st = stats_of(buf[w & 1]);
+    const T* qs = rows_of(buf[w & 1]);
+    const float *qf, *gf;  // the window's q and g rows in f32 (row stride LDF)
+    if constexpr (std::is_same<T, float>::value) {
+      qf = qs;
+      gf = qs + m * LD;
+    } else {
+      for (int e = threadIdx.x; e < 2 * m * HD; e += blockDim.x) {
+        const int r = e / HD, d = e - r * HD;
+        qgf[r * LDF + d] = load(qs, (size_t)r * LD + d);
+      }
+      __syncthreads();
+      qf = qgf;
+      gf = qgf + m * LDF;
+    }
+    float kr[HD], vr[HD], dka[HD], dva[HD];
+    tiled_row<T, HD>(kr, qs + (2 * m + lane) * LD);
+    tiled_row<T, HD>(vr, qs + (2 * m + kTileKeys + lane) * LD);
+#pragma unroll
+    for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kKeysRows; ++t) {
+      const int i = warp + warps * t;
+      if (i < m) {
+        float qi[HD], gi[HD];
+        tiled_row<float, HD>(qi, qf + i * LDF);
+        tiled_row<float, HD>(gi, gf + i * LDF);
+        const float4 sti = st[i];  // max * log2 e, 1 / sum, rowsum(dp * p32)
+        const float s = fmaf(dot<HD>(qi, kr), scale, bv[t]);
+        const float p32 = fast_exp2(fmaf(s, kLog2e, -sti.x)) * sti.y;
+        const float ds = p32 * (dot<HD>(gi, vr) - sti.z);
+        db[t] += ds;
+        const float p = round_to<T>(p32);
+        const float dsc = round_to<T>(ds * scale);
+        dst[i * (kTileKeys + 1) + lane] = live ? dsc : 0.f;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) {
+          dva[d] = fmaf(p, gi[d], dva[d]);
+          dka[d] = fmaf(dsc, qi[d], dka[d]);
+        }
+      }
+    }
+    float* mine = red + (warp * kTileKeys + lane) * LR;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      *reinterpret_cast<float4*>(mine + d) = make_float4(dka[d], dka[d + 1], dka[d + 2], dka[d + 3]);
+      *reinterpret_cast<float4*>(mine + HD + d) = make_float4(dva[d], dva[d + 1], dva[d + 2], dva[d + 3]);
+    }
+    __syncthreads();
+    // the warps' partial sums, added in warp order
+    T* dk = static_cast<T*>(a.dk);
+    T* dv = static_cast<T*>(a.dv);
+    for (int e = threadIdx.x; e < kTileKeys * 2 * HD; e += blockDim.x) {
+      const int kk = e / (2 * HD), col = e - kk * 2 * HD, d = col < HD ? col : col - HD;
+      float x = red[kk * LR + col];
+      for (int ws = 1; ws < warps; ++ws) x += red[(ws * kTileKeys + kk) * LR + col];
+      if (n0 + kk < n && d < hd) (col < HD ? dk : dv)[((size_t)w * n + n0 + kk) * c + h * hd + d] = store_cast<T>(x);
+    }
+    // dq's share of the tile's keys, a row a thread, summed over the keys in
+    // order (attn_bwd_dq_reduce_kernel adds the tiles in order)
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      float acc[HD];
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < kTileKeys; ++kk) {
+        float kt[HD];
+        tiled_row<T, HD>(kt, qs + (2 * m + kk) * LD);
+        const float x = dst[i * (kTileKeys + 1) + kk];
+#pragma unroll
+        for (int d = 0; d < HD; ++d) acc[d] = fmaf(x, kt[d], acc[d]);
+      }
+      float* o = dqp + (((size_t)w * heads + h) * m + i) * HD;
+#pragma unroll
+      for (int d = 0; d < HD; d += 4) *reinterpret_cast<float4*>(o + d) = make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
+    }
+    __syncthreads();  // the k rows of this stage are read: the next window's copies may refill it
+  }
+#pragma unroll
+  for (int t = 0; t < kKeysRows; ++t) {
+    const int i = warp + warps * t;
+    if (i < m && live) a.dbias[((size_t)h * m + i) * n + key] = db[t];
+  }
+}
+
+// dq = the keys kernel's partial sums added over the key tiles in order, a
+// thread an element.
+template <typename T, int HD>
+__global__ void attn_bwd_dq_reduce_kernel(BwdArgs a) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t rows = (size_t)a.b * a.heads * a.m;
+  if (e >= rows * HD) return;
+  const int d = (int)(e % HD);
+  if (d >= a.hd) return;
+  const size_t r = e / HD;  // ((w, h), i)
+  const int i = (int)(r % a.m), wh = (int)(r / a.m), h = wh % a.heads, w = wh / a.heads;
+  const float* p = a.scratch + 4 * rows + e;
+  const int tiles = cdiv(a.n, kTileKeys);
+  float x = 0.f;
+  for (int t = 0; t < tiles; ++t) x += p[(size_t)t * rows * HD];
+  static_cast<T*>(a.dq)[((size_t)w * a.m + i) * a.c + h * a.hd + d] = store_cast<T>(x);
+}
+
+// Whole-row chunk loads and copies of the tiled backward: head_dim its HD and
+// every head row aligned to the chunk (min(16, HD sizeof(T)) bytes).
+template <typename T>
+bool tiled_vec_ok(const BwdArgs& a, int hd_inst) {
+  const int cb = std::min(16, hd_inst * (int)sizeof(T));
+  if (a.hd != hd_inst || (a.c * (int)sizeof(T)) % cb) return false;
+  for (const void* p : {a.q, a.k, a.v, a.g})
+    if (reinterpret_cast<uintptr_t>(p) % cb) return false;
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -1140,17 +1262,6 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
   dbias[e] = s;
 }
 
-// The kernel for (T, HD, J) at head_dim <= 32: J < 0 names the key-tiled
-// variant.
-template <typename T, int HD, int J>
-auto bwd_kernel() {
-  if constexpr (J < 0) {
-    return attn_bwd_tiled_kernel<T, HD>;
-  } else {
-    return attn_bwd_kernel<T, HD, J>;
-  }
-}
-
 // Writes the occupancy of `kernel` at `smem` bytes and `threads` to info:
 // registers, local (spill) bytes per thread, dynamic shared memory per
 // block, threads per block, resident blocks per SM.
@@ -1170,11 +1281,11 @@ cudaError_t occupancy(K kernel, int threads, size_t smem, long long* info) {
   return cudaSuccess;
 }
 
-// Launches the instantiation for (T, HD, J) when `a` is given; otherwise
+// Launches the register kernel for (T, HD, J) when `a` is given; otherwise
 // writes its occupancy at `smem` bytes to info.
 template <typename T, int HD, int J>
 cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
-  auto kernel = bwd_kernel<T, HD, J>();
+  auto kernel = attn_bwd_kernel<T, HD, J>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1188,8 +1299,6 @@ cudaError_t run(const BwdArgs* a, size_t smem, long long* info, cudaStream_t str
 template <typename T, int HD>
 cudaError_t run_j(int j, const BwdArgs* a, size_t smem, long long* info, cudaStream_t stream) {
   switch (j) {
-    case -1: return run<T, HD, -1>(a, smem, info, stream);
-    case 0: return run<T, HD, 0>(a, smem, info, stream);
     case 12: return run<T, HD, 12>(a, smem, info, stream);
     case 16: return run<T, HD, 16>(a, smem, info, stream);
     case 32: return run<T, HD, 32>(a, smem, info, stream);
@@ -1207,6 +1316,54 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
     case 8: return run_j<T, 8>(j, a, smem, info, stream);
     case 16: return run_j<T, 16>(j, a, smem, info, stream);
     case 32: return run_j<T, 32>(j, a, smem, info, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The tiled backward's two launches at M rows with `a`, or, when `a` is
+// null, the occupancy of its two kernels in info: the most registers, spill
+// bytes and shared memory of the two, the keys kernel's threads and the
+// fewest resident blocks per SM.
+template <typename T, int HD>
+cudaError_t run_tiled(int m, const BwdArgs* a, long long* info, cudaStream_t stream) {
+  const int warps = cdiv(m, kKeysRows);
+  if (warps > kKeysWarps) return cudaErrorInvalidValue;
+  const size_t smem = tiled_keys_smem<T>(m, HD), rsmem = tiled_rows_smem<T>(HD);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_keys_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_rows_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)rsmem);
+  if (err != cudaSuccess) return err;
+  if (a == nullptr) {
+    long long rows[5];
+    err = occupancy(attn_bwd_rows_kernel<T, HD>, kRowsThreads, rsmem, rows);
+    if (err != cudaSuccess) return err;
+    err = occupancy(attn_bwd_keys_kernel<T, HD>, 32 * warps, smem, info);
+    if (err != cudaSuccess) return err;
+    for (int f = 0; f < 3; ++f) info[f] = std::max(info[f], rows[f]);
+    info[4] = std::min(info[4], rows[4]);
+    return cudaSuccess;
+  }
+  attn_bwd_rows_kernel<T, HD><<<dim3(a->b, a->heads, cdiv(m, (kRowsThreads / 32) * tiled_rows(HD))),
+                                kRowsThreads, rsmem, stream>>>(*a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_keys_kernel<T, HD><<<dim3(cdiv(a->n, kTileKeys), a->heads), 32 * warps, smem, stream>>>(*a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t elems = (size_t)a->b * a->heads * m * HD;
+  attn_bwd_dq_reduce_kernel<T, HD><<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(*a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_tiled_hd(int hd, int m, const BwdArgs* a, long long* info, cudaStream_t stream) {
+  switch (tiled_hd(hd)) {
+    case 4: return run_tiled<T, 4>(m, a, info, stream);
+    case 8: return run_tiled<T, 8>(m, a, info, stream);
+    case 16: return run_tiled<T, 16>(m, a, info, stream);
+    case 32: return run_tiled<T, 32>(m, a, info, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1268,21 +1425,18 @@ bool wide_vec_ok(const BwdArgs& a) {
   return true;
 }
 
-// Launches the variant with row share j (0: long rows) or, with a key tile,
-// the key-tiled variant (the wrapper's attn_core_bwd_plan picks both from
-// the shapes), or above head_dim 32 the wide backward (j and key_tile 0),
-// with `a` (setting its head_dim, pass-2 slices and key tile), or writes the
-// occupancy and J, S and the key tile to info[0..7] when `a` is null (for
-// the wide backward all three 0). A head_dim
-// between the instantiated ones runs at the next one up (padded_hd).
-cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, int key_tile, BwdArgs* a,
+// Launches the register kernel with row share j or, with j 0, the tiled
+// backward, or above head_dim 32 (j 0) the wide backward, with `a` (setting
+// its head_dim, pass-2 slices and copy width), or writes the occupancy and
+// J, S and the key tile to info[0..7] when `a` is null (J and S 0 for the
+// tiled and the wide backward, key tile 0 for the wide). A head_dim between
+// the instantiated ones runs at the next one up (padded_hd).
+cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, BwdArgs* a,
                      long long* info, cudaStream_t stream) {
-  if (heads < 1 || c % heads || (j && n > 32 * j) || (key_tile && (j || key_tile < 8)))
-    return cudaErrorInvalidValue;
+  if (heads < 1 || c % heads || (j && n > 32 * j)) return cudaErrorInvalidValue;
   const int hd = padded_hd(c / heads);
-  if (hd == 0) return cudaErrorInvalidValue;
   if (hd > 32) {
-    if (j || key_tile) return cudaErrorInvalidValue;
+    if (j) return cudaErrorInvalidValue;
     if (a != nullptr) {
       a->hd = c / heads;
       a->vec = is_bf16 ? wide_vec_ok<__nv_bfloat16>(*a) : wide_vec_ok<float>(*a);
@@ -1293,71 +1447,89 @@ cudaError_t dispatch(int is_bf16, int m, int n, int c, int heads, int j, int key
     }
     return is_bf16 ? run_wide<__nv_bfloat16>(a, info, stream) : run_wide<float>(a, info, stream);
   }
-  const int slices = pass2_slices(m, key_tile ? key_tile : n, hd, j);
+  if (!j) {
+    if (a != nullptr) {
+      a->hd = c / heads;
+      a->vec = is_bf16 ? tiled_vec_ok<__nv_bfloat16>(*a, tiled_hd(hd)) : tiled_vec_ok<float>(*a, tiled_hd(hd));
+    } else {
+      info[5] = 0;
+      info[6] = 0;
+      info[7] = kTileKeys;
+    }
+    return is_bf16 ? run_tiled_hd<__nv_bfloat16>(hd, m, a, info, stream)
+                   : run_tiled_hd<float>(hd, m, a, info, stream);
+  }
+  const int slices = pass2_slices(m, n, hd, j);
   if (a != nullptr) {
     a->hd = c / heads;
     a->slices = slices;
-    a->key_tile = key_tile;
   } else {
     info[5] = j;
     info[6] = slices;
-    info[7] = key_tile;
+    info[7] = 0;
   }
-  const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd, j, key_tile);
-  const int variant = key_tile ? -1 : j;
-  return is_bf16 ? run_hd<__nv_bfloat16>(hd, variant, a, smem, info, stream)
-                 : run_hd<float>(hd, variant, a, smem, info, stream);
+  const size_t smem = sizeof(float) * bwd_smem_floats(m, n, hd);
+  return is_bf16 ? run_hd<__nv_bfloat16>(hd, j, a, smem, info, stream)
+                 : run_hd<float>(hd, j, a, smem, info, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) the backward kernel with row share j or key tile
-// key_tile asks for (the wrapper's attn_core_bwd_smem_bytes computes the
-// same); above head_dim 32 the largest of the wide backward's blocks (f32).
-long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j, int key_tile) {
+// Shared memory (bytes) of the backward's largest block in f32: the register
+// kernel with row share j, or with j 0 the tiled backward's keys kernel, or
+// above head_dim 32 the wide backward's (the wrapper's
+// attn_core_bwd_smem_bytes computes the same).
+long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j) {
   const int hd = padded_hd(c / heads);
   if (hd > 32)
     return (long long)std::max(
         {wide_scores_smem<float>(), wide_dkdv_smem<float>(), wide_dq_smem<float>()});
-  return (long long)(sizeof(float) * bwd_smem_floats(m, n, hd, j, key_tile));
+  if (!j) return (long long)tiled_smem<float>(m, tiled_hd(hd));
+  return (long long)(sizeof(float) * bwd_smem_floats(m, n, hd));
 }
 
 // Floats of f32 scratch the backward needs at these shapes: the wide
-// backward's s and dp planes and row statistics above head_dim 32, else 0.
-long long attn_core_bwd_scratch_floats(int b, int m, int n, int c, int heads) {
-  return padded_hd(c / heads) > 32 ? (long long)WidePlanes::floats(b, m, n, heads) : 0;
+// backward's s and dp planes and row statistics above head_dim 32, the tiled
+// backward's row statistics ((B_, H, M) float4) and dq partial sums (a
+// (B_, H, M, HD) plane a 32-key tile) with row share 0, else 0.
+long long attn_core_bwd_scratch_floats(int b, int m, int n, int c, int heads, int j) {
+  const int hd = padded_hd(c / heads);
+  if (hd > 32) return (long long)WidePlanes::floats(b, m, n, heads);
+  return j ? 0 : (long long)b * heads * m * (4 + (long long)cdiv(n, kTileKeys) * tiled_hd(hd));
 }
 
-// The instantiation a launch at these shapes with row share j and key tile
-// key_tile takes: info[0..7] = registers, local (spill) bytes per thread,
-// dynamic shared memory per block, threads per block, resident blocks per
-// SM, J (keys a lane keeps of a row; 0 for long rows, key tiles and the wide
-// backward), S (lanes per key in pass 2) and the key tile (0 for the wide
-// backward, whose other numbers are the extremes of its three tiled
-// kernels). Returns the CUDA error code (0 on success).
-int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, int key_tile,
-                            long long* info) {
-  return (int)dispatch(is_bf16, m, n, c, heads, j, key_tile, nullptr, info, nullptr);
+// The instantiation a launch at these shapes with row share j takes:
+// info[0..7] = registers, local (spill) bytes per thread, dynamic shared
+// memory per block, threads per block, resident blocks per SM, J (keys a
+// lane keeps of a row; 0 for the tiled and the wide backward), S (lanes per
+// key in pass 2) and the key tile (the tiled backward's keys kernel's; 0 for
+// the wide backward). The tiled and the wide backward report the extremes of
+// their kernels. Returns the CUDA error code (0 on success).
+int attn_core_bwd_occupancy(int is_bf16, int m, int n, int c, int heads, int j, long long* info) {
+  return (int)dispatch(is_bf16, m, n, c, heads, j, nullptr, info, nullptr);
 }
 
 // Launches the backward with row share j (12, 16 or 32 keys a lane, N <=
-// 32 j; or 0, long rows) or, with key_tile > 0 (and j 0), the key-tiled
-// variant, or above head_dim 32 (j and key_tile 0) the wide backward, and
-// the dbias reduction on `stream`; returns the first CUDA error code (0 on
-// success). q/k/v/g/dq/dk/dv are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// bias, partial, dbias and scratch are f32. partial is (groups, H, M, N);
-// the wide backward takes groups = B_ (a ds plane a window) and scratch of
-// attn_core_bwd_scratch_floats floats, which the others do not read.
+// 32 j) and the dbias reduction, or with j 0 the tiled backward (which
+// writes dbias itself), or above head_dim 32 (j 0) the wide backward and the
+// reduction, on `stream`; returns the first CUDA error code (0 on success).
+// q/k/v/g/dq/dk/dv are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); bias,
+// partial, dbias and scratch are f32. partial is (groups, H, M, N): the wide
+// backward takes groups = B_ (a ds plane a window), the tiled backward none
+// (null); scratch holds attn_core_bwd_scratch_floats floats (null where
+// that is 0).
 int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int groups, int j,
-                       int key_tile, float scale,
-                       const void* q, const void* k, const void* v, const float* bias,
+                       float scale, const void* q, const void* k, const void* v, const float* bias,
                        const void* g, void* dq, void* dk, void* dv, float* partial, float* dbias,
                        float* scratch, void* stream) {
-  if (groups < 1 || groups > b) return (int)cudaErrorInvalidValue;
-  const bool wide = heads >= 1 && c % heads == 0 && padded_hd(c / heads) > 32;
-  if (wide && (groups != b || scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  if (heads < 1 || c % heads || groups < 1 || groups > b) return (int)cudaErrorInvalidValue;
+  const int hd = padded_hd(c / heads);
+  const bool tiled = hd <= 32 && !j;
+  if ((hd > 32 && groups != b) || ((hd > 32 || tiled) && scratch == nullptr) ||
+      (!tiled && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.b = b;
   a.m = m;
@@ -1375,11 +1547,12 @@ int attn_core_backward(int is_bf16, int b, int m, int n, int c, int heads, int g
   a.dk = dk;
   a.dv = dv;
   a.partial = partial;
+  a.dbias = dbias;
   a.scratch = scratch;
   a.vec = false;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch(is_bf16, m, n, c, heads, j, key_tile, &a, nullptr, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = dispatch(is_bf16, m, n, c, heads, j, &a, nullptr, s);
+  if (err != cudaSuccess || tiled) return (int)err;
   const long long plane = (long long)heads * m * n;
   dbias_reduce_kernel<<<(unsigned)((plane + 255) / 256), 256, 0, s>>>(partial, dbias, groups,
                                                                       plane);

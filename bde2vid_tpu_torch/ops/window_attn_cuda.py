@@ -51,12 +51,9 @@ _ACT_CODES = {
     "gelu": 0, "default": 0, "relu": 1, "relu6": 2, "sigmoid": 3, "tanh": 4, "lrelu": 5,
     "leaky_relu": 5, "elu": 6, "softplus": 7, "identity": 8, "none": 8,
 }
-# the largest head_dim the forward kernels are instantiated at (ROADMAP C8:
-# above it one f32 key tile of 16 k rows and the v chunk fill a block)
-_MAX_HEAD_DIM = 1024
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
-_SM_SMEM = 233472  # bytes of shared memory of one Hopper SM, for all its blocks
-_TILE_KEYS = 512  # the key-tiled backward's tiles at head_dim <= 32 are multiples of this many keys
+_TILE_KEYS = 32  # keys of one block of the tiled backward's keys kernel (kTileKeys)
+_TILED_ROWS = 128  # the most query rows the tiled backward takes (8 warps of 16 rows)
 # the wide backward's (head_dim > 32) largest block (f32, the dk/dv kernel's:
 # wide_dkdv_smem in csrc/attn_core_bwd.cu): 64 rows of g and q in 64-column
 # chunks and their round(p) and round(ds scale) against 32 keys
@@ -290,11 +287,11 @@ _SIGNATURES = {
         "window_attention_occupancy": ([_CI] * 6 + [_LLP], _CI),
     },
     "attn_core_bwd": {
-        # 9 ints, the score scale, 10 tensor pointers and the stream
-        "attn_core_backward": ([_CI] * 9 + [_CF] + [_VP] * 12, _CI),
-        "attn_core_bwd_smem_bytes": ([_CI] * 6, _LL),
-        "attn_core_bwd_occupancy": ([_CI] * 7 + [_LLP], _CI),
-        "attn_core_bwd_scratch_floats": ([_CI] * 5, _LL),
+        # 8 ints, the score scale, 11 tensor pointers and the stream
+        "attn_core_backward": ([_CI] * 8 + [_CF] + [_VP] * 12, _CI),
+        "attn_core_bwd_smem_bytes": ([_CI] * 5, _LL),
+        "attn_core_bwd_occupancy": ([_CI] * 6 + [_LLP], _CI),
+        "attn_core_bwd_scratch_floats": ([_CI] * 6, _LL),
     },
 }
 
@@ -455,22 +452,25 @@ def _launch_attn_core_backward(q, k, v, bias, g, num_heads: int):
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     bias32 = bias.float().contiguous()
     # the wide backward (head_dim > 32) writes a ds plane a window, which the
-    # reduction sums in window order, and its other planes into scratch
-    scratch_floats = lib.attn_core_bwd_scratch_floats(b_, m, n, c, num_heads)
-    if scratch_floats:
-        groups = b_
-    else:
+    # reduction sums in window order, and its other planes into scratch; the
+    # tiled backward (row share 0) keeps its row statistics in scratch and
+    # writes dbias itself; the register kernel sums dbias per window group
+    scratch_floats = lib.attn_core_bwd_scratch_floats(b_, m, n, c, num_heads, plan.row_share)
+    if plan.row_share:
         occ = attn_core_backward_occupancy(m, n, c, num_heads, dt, q.device.index)
         groups = bwd_window_groups(b_, num_heads, occ["blocks_per_sm"], occ["sms"])
+    else:
+        groups = b_
+    tiled = not plan.row_share and _padded_head_dim(c // num_heads) <= 32
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    partial = torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
+    partial = None if tiled else torch.empty((groups, num_heads, m, n), dtype=torch.float32, device=q.device)
     scratch = torch.empty((scratch_floats,), dtype=torch.float32, device=q.device) if scratch_floats else None
     dbias = torch.empty((num_heads, m, n), dtype=torch.float32, device=q.device)
     rc = lib.attn_core_backward(
-        int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share, plan.key_tile,
+        int(dt == torch.bfloat16), b_, m, n, c, num_heads, groups, plan.row_share,
         float((c // num_heads) ** -0.5),
-        *[t.data_ptr() for t in (q, k, v, bias32, g, dq, dk, dv, partial, dbias)],
-        None if scratch is None else scratch.data_ptr(), _stream(q),
+        *[t.data_ptr() for t in (q, k, v, bias32, g, dq, dk, dv)],
+        *[None if t is None else t.data_ptr() for t in (partial, dbias, scratch)], _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"attn_core_backward kernel launch failed: CUDA error {rc}")
@@ -485,14 +485,16 @@ _BWD_ROW_SHARES = (12, 16, 32)
 
 class BwdPlan(NamedTuple):
     """Which backward kernel a launch takes: ``row_share`` J is the keys a
-    lane keeps of a score row in registers (12, 16 or 32), or 0 for the
-    long-row variant, which sweeps each row three times and keeps the dbias
-    sums in global memory; ``key_tile`` is 0, or the keys of one tile of the
-    key-tiled variant (rows whose k and v do not fit in one block's shared
-    memory: it stages them a tile at a time); above head_dim 32 both are 0
-    and the wide backward runs (four launches whose tiles are its own,
-    ``attn_bwd_scores_kernel`` in csrc/attn_core_bwd.cu); ``smem_bytes`` is
-    its shared memory per block (the wide backward's largest block)."""
+    lane keeps of a score row in registers (12, 16 or 32), or 0: at head_dim
+    <= 32 the tiled backward (three launches, ``attn_bwd_rows_kernel``,
+    ``attn_bwd_keys_kernel`` and ``attn_bwd_dq_reduce_kernel`` in
+    csrc/attn_core_bwd.cu), above it the wide
+    backward (four launches whose tiles are its own,
+    ``attn_bwd_scores_kernel``); ``smem_bytes`` is the shared memory of the
+    kernel's largest block in f32; ``key_tile`` is, for the tiled backward,
+    the keys of one block of its keys kernel where a window's k/v and q/g
+    rows would not fit in one block (rows counted as key tiles), and 0 where
+    they would (long rows) and for the other kernels."""
 
     row_share: int
     smem_bytes: int
@@ -509,51 +511,58 @@ def bwd_counter(plan: BwdPlan, head_dim: int) -> str:
     return "attn_core_backward_key_tiles" if plan.key_tile else "attn_core_backward_long_rows"
 
 
-def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int, key_tile: int = 0) -> int:
-    """Shared memory of a backward block (``bwd_smem_floats`` in
-    csrc/attn_core_bwd.cu) at the padded head_dim: the padded k, v, q and g
-    rows, three row statistics, and with a row share the (M, N) dbias plane;
-    with a key tile, the k and v rows of one tile and the (M, head_dim) dq
-    sums; above head_dim 32, the wide backward's largest block, whatever the
-    shapes."""
+def _tiled_hd(head_dim: int) -> int:
+    """The HD the tiled backward runs ``head_dim`` at (``tiled_hd``): 4, 8,
+    16 or 32."""
+    return max(4, _padded_head_dim(head_dim))
+
+
+def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int) -> int:
+    """Shared memory of the backward's largest block in f32
+    (``attn_core_bwd_smem_bytes`` in csrc/attn_core_bwd.cu) at the padded
+    head_dim: with a row share, the padded k, v, q and g rows, three row
+    statistics and the (M, N) dbias plane; with none, the larger block of
+    the tiled backward: its keys kernel (two stages of the window's row
+    statistics, q and g rows and the tile's k and v rows, then the warps'
+    partial dk and dv and the tile's (M, 33) round(ds scale)) or its rows
+    kernel (8 R q and g rows, R 8 and 4 at head_dim 32, two stages of 64 k
+    and v rows and of the rows' bias against them); above head_dim 32, the
+    wide backward's largest block, whatever the shapes."""
     hd = _padded_head_dim(head_dim)
-    ks = _key_stride(hd)
     if hd > 32:
         return _WIDE_SMEM
-    if key_tile:
-        return 4 * (2 * (key_tile + m) * ks + 3 * m + m * hd)
-    return 4 * (2 * (n + m) * ks + 3 * m + (m * n if row_share else 0))
+    if not row_share:
+        thd = _tiled_hd(head_dim)
+        stage = -(-(16 * m + 4 * (2 * m + 2 * _TILE_KEYS) * (thd + 4)) // 16) * 16
+        keys = 2 * stage + 4 * -(-m // 16) * _TILE_KEYS * (2 * thd + 4) + 16 * -(-m * (_TILE_KEYS + 1) // 4)
+        rows_r = 8 * (8 if thd <= 16 else 4)
+        rows = 4 * (thd + 4) * (2 * rows_r + 4 * 64) + 4 * 2 * rows_r * 68
+        return max(keys, rows)
+    return 4 * (2 * (n + m) * _key_stride(hd) + 3 * m + m * n)
 
 
-def _key_tile(fixed: int, per_key: int, blocks: int, what: str) -> int:
-    """The most keys, a multiple of ``_TILE_KEYS``, whose rows of ``per_key``
-    bytes fit beside ``fixed`` bytes in a block of which ``blocks`` share
-    one SM. Raises ``ValueError`` when not one multiple fits."""
-    budget = min(_MAX_SMEM, _SM_SMEM // blocks - 1024)  # the SM keeps 1 KB a block
-    tile = (budget - fixed) // per_key // _TILE_KEYS * _TILE_KEYS
-    if tile <= 0:
-        raise ValueError(f"{what}: {fixed} B of shared memory per block leave no room for a tile "
-                         f"of {_TILE_KEYS} keys (limit {budget})")
-    return tile
+def attn_core_bwd_window_bytes(m: int, n: int, head_dim: int) -> int:
+    """Bytes of one window's k, v, q and g rows (padded, f32) and three row
+    statistics: the rows the tiled backward counts as long rows where this
+    fits in one block, as key tiles where it does not."""
+    return 4 * (2 * (n + m) * _key_stride(_padded_head_dim(head_dim)) + 3 * m)
 
 
 def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     """The backward kernel for windows of M query rows and N keys at width C
     over ``num_heads`` heads: rows of at most 32 x 32 keys whose (M, N)
     plane fits in shared memory beside the k/v rows keep their row share in
-    registers (the fewest J with N <= 32 J); rows whose k/v, q/g rows fit
-    take the long-row variant; longer rows take the key-tiled variant,
-    whose tile is a function of head_dim and M alone (two blocks per SM
-    where head_dim <= 8, as the long rows run). Above head_dim 32 every row
-    takes the wide backward, whose blocks tile M, N and head_dim themselves
-    and fit at any shape. A head_dim between the instantiated ones plans as
-    the next one up. Raises ``ValueError`` only when the query rows leave no
-    room for a tile or head_dim is above 1024: the autograd Functions call
-    it before their forward, so no backward refuses a shape whose forward
-    ran. A function of its arguments alone."""
+    registers (the fewest J with N <= 32 J); the other rows at head_dim <=
+    32 take the tiled backward, whose blocks hold a 32-key tile and at most
+    128 query rows, whatever N; above head_dim 32 every row takes the wide
+    backward, whose blocks tile M, N and head_dim themselves and fit at any
+    shape. A head_dim between the instantiated ones plans as the next one
+    up. Raises ``ValueError`` only for the tiled backward above 128 query
+    rows: the autograd Functions call it before their forward, so no
+    backward refuses a shape whose forward ran. A function of its arguments
+    alone."""
     _check_head_dim(c, num_heads)
     hd = _padded_head_dim(c // num_heads)
-    ks = _key_stride(hd)
     if hd > 32:
         return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0))
     for j in _BWD_ROW_SHARES:
@@ -562,12 +571,11 @@ def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
             if smem <= _MAX_SMEM:
                 return BwdPlan(j, smem)
             break
-    smem = attn_core_bwd_smem_bytes(m, n, hd, 0)
-    if smem <= _MAX_SMEM:
-        return BwdPlan(0, smem)
-    tile = _key_tile(4 * (2 * m * ks + 3 * m + m * hd), 8 * ks, 2 if hd <= 8 else 1,
-                     f"the attention backward at {m} query rows of head_dim {hd}")
-    return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0, tile), tile)
+    if m > _TILED_ROWS:
+        raise ValueError(f"the attention backward at head_dim {hd} takes at most {_TILED_ROWS} query rows "
+                         f"where the row share does not fit, got {m}")
+    long_rows = attn_core_bwd_window_bytes(m, n, hd) <= _MAX_SMEM
+    return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0), 0 if long_rows else _TILE_KEYS)
 
 
 def bwd_window_groups(b_: int, heads: int, blocks_per_sm: int, sms: int) -> int:
@@ -589,17 +597,17 @@ def attn_core_backward_occupancy(m: int, n: int, c: int, num_heads: int, dtype,
     """What the backward kernel's instantiation for these shapes gets on
     CUDA card ``device_index``: registers and spill bytes per thread
     (ptxas), dynamic shared memory per block, threads per block, resident
-    blocks per SM, J (keys a lane keeps of a score row; 0 for the long-row
-    and the key-tiled variants), S (lanes per key in pass 2), the key tile
-    (0 but for the key-tiled variant) and the card's SMs, for the kernel
-    :func:`attn_core_bwd_plan` picks. The wide backward (head_dim > 32)
-    reports the extremes of its three tiled kernels (the most registers, spill
-    and shared memory, the fewest blocks per SM) and S and key tile 0."""
+    blocks per SM, J (keys a lane keeps of a score row; 0 for the tiled and
+    the wide backward), S (lanes per key in pass 2), the key tile (the tiled
+    backward's keys kernel's, else 0) and the card's SMs, for the kernel
+    :func:`attn_core_bwd_plan` picks. The tiled and the wide backward report
+    the extremes of their kernels (the most registers, spill and shared
+    memory, the fewest blocks per SM)."""
     plan = attn_core_bwd_plan(m, n, c, num_heads)
     info = (ctypes.c_longlong * 8)()
     with torch.cuda.device(device_index):
         rc = _lib("attn_core_bwd").attn_core_bwd_occupancy(
-            int(dtype == torch.bfloat16), m, n, c, num_heads, plan.row_share, plan.key_tile, info)
+            int(dtype == torch.bfloat16), m, n, c, num_heads, plan.row_share, info)
     if rc != 0:
         raise RuntimeError(f"attn_core_bwd_occupancy failed: CUDA error {rc}")
     keys = ("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm", "row_share", "slices",

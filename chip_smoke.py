@@ -29,7 +29,7 @@ reference's.
            the yardstick; the registers, shared memory, resident blocks per
            SM and launch plan of its instantiations and of B1's attention
            stage), and both new Functions' gradients vs the twins' autograd;
-           and the backward's long-row variant at long-buffer shapes (21
+           and the backward's long rows (the tiled backward) at long-buffer shapes (21
            frames of 7x7 windows, N 1029; 17 of 8x8, N 1088), f32 and bf16,
            with its plan, occupancy, bound and a bitwise repeat
   attention  the ops.fused_window_attention entry point forward and backward
@@ -1729,7 +1729,8 @@ def phase_head_dims(torch, launch_counts):
 
 def phase_kernels_long_rows(torch):
     """The attention backward at the shapes of long buffers, where it takes
-    its long-row variant: 21 frames of 7x7 windows at the flagship's levels
+    the tiled backward, counted as long rows (PR 18; PR 11's long-row
+    variant before it): 21 frames of 7x7 windows at the flagship's levels
     (M 49, N 1029) and 17 of 8x8 at the 8x8 config's (M 64, N 1088), f32
     and bf16, each vs its twin, repeated for bit equality, timed beside its
     bound and SDPA's backward, with the plan and the instantiation's
@@ -2370,7 +2371,7 @@ def phase_train(torch, launch_counts, card):
 def long_buffer_steps(torch, launch_counts):
     """A train-mode step with remat of the flagship with 21 buffer frames
     (buffer_index -10..10, N 1029) and of the 8x8 config with 17 (N 1088), at
-    184x240, T=3: the kernel path (B2 in its long-row variant; each block's
+    184x240, T=3: the kernel path (B2 on its tiled backward, long rows; each block's
     forward twice, in the step and in its recompute) vs the unfused path
     (compare_grads), with the kernel path's step ms and peak memory, and
     both without remat beside them. Returns a row per configuration."""

@@ -1,11 +1,11 @@
 """The attention backward's kernel choice (``attn_core_bwd_plan``): a pure
 function of (M, N, C, heads) that picks the row share J a lane of pass 1
-keeps in registers, or the long-row variant (J 0) for rows above 32 x 32
+keeps in registers, or the tiled backward (J 0) for rows above 32 x 32
 keys or rows whose (M, N) dbias plane does not fit in a block's shared
-memory beside the k/v rows, or the key-tiled variant for rows whose k/v
-rows do not fit either. Checked on the CPU against the shared-memory
-layouts of ``attn_bwd_kernel`` and ``attn_bwd_tiled_kernel``
-(csrc/attn_core_bwd.cu)."""
+memory beside the k/v rows, counted as long rows where a window's k/v and
+q/g rows would fit in one block and as key tiles (a 32-key tile) where they
+would not. Checked on the CPU against the shared-memory layouts of
+``attn_bwd_kernel`` and ``attn_bwd_keys_kernel`` (csrc/attn_core_bwd.cu)."""
 
 import pytest
 
@@ -13,6 +13,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     BwdPlan,
     attn_core_bwd_plan,
     attn_core_bwd_smem_bytes,
+    attn_core_bwd_window_bytes,
 )
 
 LIMIT = 232448  # bytes of shared memory one Hopper block may use
@@ -20,6 +21,21 @@ LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 def _key_stride(hd):
     return hd + 1 if hd < 4 else hd if (hd // 4) % 2 else hd + 4
+
+
+def _tiled_smem(m, hd):
+    """The tiled backward's larger f32 block: attn_bwd_keys_kernel's (two
+    stages of M float4 statistics, M q and g rows and 32 k and v rows of HD
+    + 4 floats, rounded to 16 bytes, then (cdiv(M, 16), 32, 2 HD + 4)
+    partial dk and dv and (M, 33) round(ds scale), rounded to 16 bytes) or
+    attn_bwd_rows_kernel's (8 R q and g rows, two stages of 64 k and v rows
+    and of the rows' bias, 68 floats a row, R = 8, 4 at HD 32)."""
+    thd = max(4, hd)
+    stage = -(-(16 * m + 4 * (2 * m + 64) * (thd + 4)) // 16) * 16
+    keys = 2 * stage + 4 * -(-m // 16) * 32 * (2 * thd + 4) + 16 * -(-m * 33 // 4)
+    rows_r = 8 * (8 if thd <= 16 else 4)
+    rows = 4 * (thd + 4) * (2 * rows_r + 256) + 8 * rows_r * 68
+    return max(keys, rows)
 
 
 @pytest.mark.parametrize("m,n,c,want", [
@@ -40,38 +56,35 @@ def test_plan_at_the_model_shapes(m, n, c, want):
 @pytest.mark.parametrize("n", [1, 32, 384, 385, 512, 513, 1024, 1025, 1029, 1088, 2048])
 def test_plan_picks_the_registers_where_they_fit_and_long_rows_elsewhere(n, hd):
     """J is the fewest of 12, 16, 32 with N <= 32 J whenever that kernel's
-    shared memory fits; otherwise the long-row variant runs, whose shared
-    memory holds no (M, N) plane; where neither fits, the key-tiled variant
-    (which raised before it existed)."""
+    shared memory fits; otherwise the tiled backward runs, whose shared
+    memory holds neither an (M, N) plane nor a window's k/v rows, with a
+    32-key tile where those rows would not fit in one block (key tiles; it
+    raised before that variant existed), else none (long rows)."""
     m, heads = 49, 4
     ks = _key_stride(hd)
     rows = 4 * (2 * (n + m) * ks + 3 * m)
     short_j = next((j for j in (12, 16, 32) if n <= 32 * j), 0)
     if short_j and rows + 4 * m * n <= LIMIT:
         want = BwdPlan(short_j, rows + 4 * m * n)
-    elif rows <= LIMIT:
-        want = BwdPlan(0, rows)
     else:
-        plan = attn_core_bwd_plan(m, n, hd * heads, heads)
-        assert plan.row_share == 0 and plan.key_tile > 0
-        tiled = 4 * (2 * (plan.key_tile + m) * ks + 3 * m + m * hd)
-        assert plan.smem_bytes == tiled <= LIMIT
-        assert attn_core_bwd_smem_bytes(m, n, hd, 0, plan.key_tile) == tiled
-        return
+        want = BwdPlan(0, _tiled_smem(m, hd), 0 if rows <= LIMIT else 32)
+        assert want.smem_bytes <= LIMIT
     assert attn_core_bwd_plan(m, n, hd * heads, heads) == want
     assert attn_core_bwd_smem_bytes(m, n, hd, want.row_share) == want.smem_bytes
 
 
 @pytest.mark.parametrize("m,hd", [(49, 16), (64, 16), (64, 4), (4, 32)])
 def test_long_rows_run_up_to_the_shared_memory_limit(m, hd):
-    """The longest long row is the last whose k, v, q and g rows fit in a
-    block; one key more takes the key-tiled variant (it raised before that
-    variant existed)."""
+    """The longest long row is the last whose k, v, q and g rows would fit
+    in a block; one key more counts as key tiles (a 32-key tile; it raised
+    before that variant existed). Both take the tiled backward, whose block
+    does not grow with N."""
     ks = _key_stride(hd)
     most = (LIMIT // 4 - 3 * m) // (2 * ks) - m
+    assert attn_core_bwd_window_bytes(m, most, hd) <= LIMIT < attn_core_bwd_window_bytes(m, most + 1, hd)
     assert attn_core_bwd_plan(m, most, hd, 1) == (0, attn_core_bwd_smem_bytes(m, most, hd, 0), 0)
     tiled = attn_core_bwd_plan(m, most + 1, hd, 1)
-    assert tiled.row_share == 0 and tiled.key_tile > 0 and tiled.smem_bytes <= LIMIT
+    assert tiled == (0, attn_core_bwd_smem_bytes(m, most, hd, 0), 32) and tiled.smem_bytes <= LIMIT
 
 
 def test_plan_is_a_function_of_its_arguments():

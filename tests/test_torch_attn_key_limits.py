@@ -6,13 +6,14 @@ Both untiled kernels stage a window's k and v rows in one block's shared
 memory, so a row of N keys fits them only up to a limit: the forward
 (``attn_forward_plan``) at head_dim 4 up to 7264 keys, at head_dim 16 up to
 1452 in f32 and 2896 in bf16 (the tensor-core kernel's half-width rows); the
-backward (``attn_core_bwd_plan``, which computes in f32 whatever the operand
-type) at M 49 query rows up to 7196 at head_dim 4 and 1400 at head_dim 16,
-and at M 64 up to 7176 and 1384. Each plan keeps today's kernel up to that
-limit and gives every longer row the key-tiled one (the JAX package caps
-only at its 96 MB VMEM limit): N + 1 and far rows of
-61 and 151 frames of 7x7 windows (2989 and 7399 keys) plan, and neither
-plan raises.
+backward's long rows (``attn_core_bwd_plan``, which counts in f32 whatever
+the operand type) at M 49 query rows up to 7196 at head_dim 4 and 1400 at
+head_dim 16, and at M 64 up to 7176 and 1384. Each plan gives every longer
+row the key-tiled kernel (the JAX package caps only at its 96 MB VMEM
+limit): N + 1 and far rows of 61 and 151 frames of 7x7 windows (2989 and
+7399 keys) plan, and neither plan raises. The backward's long rows and key
+tiles both run the tiled backward (``attn_bwd_keys_kernel``), which stages
+no window whole; the limit only separates their launch counters.
 """
 
 import pytest
@@ -23,6 +24,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     _MAX_SMEM,
     attn_core_bwd_plan,
     attn_core_bwd_smem_bytes,
+    attn_core_bwd_window_bytes,
     attn_forward_plan,
     attn_smem_bytes,
 )
@@ -68,18 +70,19 @@ def test_forward_plan_refuses_above_its_key_limit(head_dim, dtype, limit):
 @pytest.mark.parametrize("head_dim,m,limit", [(4, 49, 7196), (16, 49, 1400), (4, 64, 7176),
                                               (16, 64, 1384)])
 def test_backward_plan_refuses_above_its_key_limit(head_dim, m, limit):
-    """The long-row variant takes the last rows whose k, v, q and g fit in
-    a block; N + 1 and the far row take the key-tiled variant."""
+    """Long rows are the last rows whose k, v, q and g would fit in a
+    block; N + 1 and the far row count as key tiles (a 32-key tile). Both
+    take the tiled backward, whose block is the same at every N."""
     def plan(n):
         return attn_core_bwd_plan(m, n, head_dim * HEADS, HEADS)
 
     assert _last_untiled(lambda n: plan(n).key_tile > 0) == limit
-    assert plan(limit).row_share == 0  # the long-row variant takes the last rows
-    assert attn_core_bwd_smem_bytes(m, limit + 1, head_dim, 0) > _MAX_SMEM
+    assert plan(limit).row_share == 0  # the tiled backward takes the last long rows
+    assert attn_core_bwd_window_bytes(m, limit + 1, head_dim) > _MAX_SMEM
     for n in (limit + 1, FAR[head_dim]):
         tiled = plan(n)
         assert tiled.row_share == 0 and tiled.key_tile > 0 and tiled.key_tile % 32 == 0
-        assert tiled.smem_bytes == attn_core_bwd_smem_bytes(m, n, head_dim, 0, tiled.key_tile)
+        assert tiled.smem_bytes == attn_core_bwd_smem_bytes(m, n, head_dim, 0) == plan(limit).smem_bytes
         assert tiled.smem_bytes <= _MAX_SMEM
         assert tiled.key_tile == plan(FAR[head_dim] + 1000).key_tile
 

@@ -217,13 +217,16 @@ def test_cuda_window_attention_with_grad_refuses_keys_its_backward_cannot_take(c
                                          (64, 1519, 1024, 1)])
 def test_cuda_backward_plan_is_the_librarys(cuda_device, m, n, c, heads):
     """The planner's shared memory is the library's for the kernel it picks,
-    and the occupancy query reports that kernel's row share and key tile."""
+    and the occupancy query reports that kernel's row share and key tile
+    (the tiled backward's 32 keys, which its plan names only for rows
+    counted as key tiles)."""
     plan = wac.attn_core_bwd_plan(m, n, c, heads)
     lib = wac._lib("attn_core_bwd")
-    assert lib.attn_core_bwd_smem_bytes(m, n, c, heads, plan.row_share, plan.key_tile) == plan.smem_bytes
+    assert lib.attn_core_bwd_smem_bytes(m, n, c, heads, plan.row_share) == plan.smem_bytes
     occ = wac.attn_core_backward_occupancy(m, n, c, heads, torch.float32, torch.cuda.current_device())
     assert occ["row_share"] == plan.row_share and occ["smem_bytes"] == plan.smem_bytes
-    assert occ["key_tile"] == plan.key_tile
+    tiled = not plan.row_share and c // heads <= 32
+    assert occ["key_tile"] == (32 if tiled else 0) and plan.key_tile in (0, occ["key_tile"])
     assert occ["blocks_per_sm"] >= 1
 
 
@@ -823,10 +826,11 @@ def test_cuda_key_tiled_block_attention_matches_twin(cuda_device, hd, lib):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd,m,n", [(4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385),
-                                    (16, 49, 2989), (4, 49, 7399)])
+                                    (16, 49, 2989), (4, 49, 7399), (16, 49, 1519)])
 def test_cuda_key_tiled_backward_matches_twin_and_repeats_exactly(cuda_device, hd, m, n):
-    """The backward above its old key limits (the first N past each, and
-    the far rows): the key-tiled variant, f32 and bf16, within the gates of
+    """The backward above its old key limits (the first N past each, the
+    far rows, and the flagship's 31 buffer frames at level 2): the tiled
+    backward counted as key tiles, f32 and bf16, within the gates of
     attn_core_backward_reference, two runs bit for bit."""
     heads, b_ = 16, 5
     c = heads * hd
@@ -1013,6 +1017,59 @@ def test_cuda_wide_backward_past_one_row_tile(cuda_device, hd, heads):
             for a, b, r in zip(got, again, ref):
                 assert torch.equal(a, b)
                 assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (m, n, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,m,n", [(4, 81, 1029), (16, 128, 1100), (32, 100, 1500)])
+def test_cuda_tiled_backward_past_four_row_warps(cuda_device, hd, m, n):
+    """The tiled backward where a window has more than 64 rows (9x9 windows
+    and up to its 128: six to eight row warps of its keys kernel, rows
+    kernel blocks past the first) and a ragged last key tile, f32 and bf16:
+    within the gates of attn_core_backward_reference, two runs bit for bit."""
+    heads, b_ = 4, 3
+    c = heads * hd
+    plan = wac.attn_core_bwd_plan(m, n, c, heads)
+    assert not plan.row_share
+    counter = wac.bwd_counter(plan, hd)
+    q, k, v, bias = _attn_inputs(m + hd, b_, m, n, c, heads, cuda_device)
+    gr = torch.randn(b_, m, c, device=cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in (q, k, v)]
+        before = dict(launch_counts)
+        got = attn_core_backward(*ins, bias, gr.to(dt), heads)
+        again = attn_core_backward(*ins, bias, gr.to(dt), heads)
+        torch.cuda.synchronize()
+        assert _launched(before) == {counter: 2}
+        ref = attn_core_backward_reference(*ins, bias, gr.to(dt), heads)
+        for a, b, r in zip(got, again, ref):
+            assert torch.equal(a, b)
+            assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (m, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 16])
+def test_cuda_blocks_at_c2048_match_twins(cuda_device, heads):
+    """B1 and B3 at C 2048 (head_dim 256 and 128; ROADMAP C9, repaired):
+    their LN GEMMs stream the rows that no longer fit resident, f32 and
+    bf16 (B1's LN2 -> MLP with its f32 y rows), matching the twins bit for
+    bit on repeat."""
+    m, d, b_, c = 49, 3, 4, 2048
+    x, ctr, p = _flat_inputs(heads, d, b_, m, c, heads, cuda_device)
+    pb = _block_params(p)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, cd = x.to(dt), ctr.to(dt)
+        for name, fn, twin in (
+                ("fused_swin_block", lambda: fused_swin_block(xd, cd, p, heads, 1, with_acc=True),
+                 lambda: swin_block_reference(xd, cd, p, heads, 1, with_acc=True)),
+                ("fused_window_block", lambda: fused_window_block(xd, pb, heads, 1, with_acc=True),
+                 lambda: window_block_reference(xd, pb, heads, 1, with_acc=True))):
+            before = dict(launch_counts)
+            got, again, ref = fn(), fn(), twin()
+            torch.cuda.synchronize()
+            assert _launched(before) == {name + "_key_tiles": 2}, (name, dt)
+            for a, b, r in zip(got, again, ref):
+                assert torch.equal(a, b), (name, dt)
+                assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (name, dt)
 
 
 @pytest.mark.cuda
