@@ -608,7 +608,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm) ln_gemm_stream
   const T* w_all = static_cast<const T*>(p.w);
   const int nk = cdiv(c, kBK<T>);
   // k-tile kt of W's rows o .. o + BN - 1 and of the raw rows into stage kt & 1
-  auto issue = [&](int o, int kt) {
+  auto fetch = [&](int o, int kt) {
     const int s = kt & 1, k0 = kt * kBK<T>;
     load_tile<T, S::BN>(ws + s * S::BN * kLd<T>, w_all + (size_t)o * c, min(S::BN, p.o_total - o), c, k0,
                         c, a.vec);
@@ -631,11 +631,11 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm) ln_gemm_stream
   typename AccFor<T, S>::type acc;
   for (;;) {
     acc.zero();
-    issue(o0, 0);
+    fetch(o0, 0);
     cp_async_commit();
     for (int kt = 0; kt < nk; ++kt) {
       if (kt + 1 < nk) {
-        issue(o0, kt + 1);
+        fetch(o0, kt + 1);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -2071,7 +2071,7 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_chunked_kernel(AttnA
     for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
     // step st: k chunk st % nd of key tile st / nd; a tile's first step also
     // brings its v chunk and (f32) bias tile
-    auto issue = [&](int st) {
+    auto fetch = [&](int st) {
       const int it = st / nd, d = st - it * nd, t0 = it * KT;
       flash_stage_chunk<T, kKvScratch, false>(kbuf + (st & 1) * KT * KS, a, w, h, t0, d * HD);
       if (d == 0) {
@@ -2079,11 +2079,11 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_chunked_kernel(AttnA
         if constexpr (!kBf16) flash_stage_bias<HD>(bbuf + (it & 1) * BT, bias_h, a, rb, t0);
       }
     };
-    issue(0);
+    fetch(0);
     cp_async_commit();
     for (int st = 0; st < steps; ++st) {
       const int it = st / nd, d = st - it * nd, t0 = it * KT;
-      if (st + 1 < steps) issue(st + 1);
+      if (st + 1 < steps) fetch(st + 1);
       cp_async_commit();
       cp_async_wait<1>();  // this step's copies have landed
       __syncthreads();

@@ -1729,12 +1729,11 @@ def phase_head_dims(torch, launch_counts):
 
 def phase_kernels_long_rows(torch):
     """The attention backward at the shapes of long buffers, where it takes
-    the tiled backward, counted as long rows (PR 18; PR 11's long-row
-    variant before it): 21 frames of 7x7 windows at the flagship's levels
-    (M 49, N 1029) and 17 of 8x8 at the 8x8 config's (M 64, N 1088), f32
-    and bf16, each vs its twin, repeated for bit equality, timed beside its
-    bound and SDPA's backward, with the plan and the instantiation's
-    occupancy. Returns the flagship's cases."""
+    the tiled backward, counted as long rows: 21 frames of 7x7 windows at
+    the flagship's levels (M 49, N 1029) and 17 of 8x8 at the 8x8 config's
+    (M 64, N 1088), f32 and bf16, each vs its twin, repeated for bit
+    equality, timed beside its bound and SDPA's backward, with the plan and
+    the instantiation's occupancy. Returns the flagship's cases."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
         attn_core_backward_occupancy, attn_core_bwd_plan)
 
