@@ -341,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
 //      the row's max, 1 / sum and rowsum(dp * p32) go to the statistics
 //      scratch ((B_, H, M) float4).
 //   2. attn_bwd_keys_kernel: a block per (32-key tile, head), a warp per 16
-//      rows (cdiv(M, 16) warps) and a lane per key. It walks the B_ windows
+//      rows (at most 8 warps) and a lane per key. It walks the B_ windows
 //      in order, the next window's q and g rows, k and v tile and row
 //      statistics in flight (cp.async, two stages) while this one computes
 //      p32 and ds for the lane's key against the warp's rows, dv = p^T g and
@@ -351,8 +351,12 @@ __global__ void __launch_bounds__(kThreads, (HD <= 8 && J <= 12) ? 2 : 1)
 //      the tile's keys in key order into a partial plane of the tile. dbias
 //      of the lane's (row, key) elements sums in registers over all windows
 //      and is written once at the end: no (M, N) partial buffer,
-//      read-modify-write or dbias reduction remains.
-//   3. attn_bwd_dq_reduce_kernel adds the tiles' dq planes in tile order.
+//      read-modify-write or dbias reduction remains. Past 128 rows the rows
+//      split into groups of at most 128 (keys_groups), a grid dimension: a
+//      block per (key tile, head, row group) writes its rows' dbias and an
+//      f32 partial plane of dk and dv for its group.
+//   3. attn_bwd_dq_reduce_kernel adds the tiles' dq planes in tile order
+//      and, past 128 rows, the row groups' dk and dv planes in group order.
 // p32, ds, round(p) and round(ds scale) are the float operations of the
 // register kernel's pass 2. The products are FMA dot products over head_dim
 // (4 is below an MMA's K); bf16 rows convert to f32 once per stage where a
@@ -364,7 +368,17 @@ constexpr int kRowsKeys = 64;      // keys of its staged tiles, two a lane
 constexpr int kRowsBias = kRowsKeys + 4;  // row stride (floats) of its staged bias tiles
 constexpr int kTileKeys = 32;      // keys of an attn_bwd_keys_kernel block, a lane each
 constexpr int kKeysRows = 16;      // rows an attn_bwd_keys_kernel warp takes
-constexpr int kKeysWarps = 8;      // its most warps: M <= 128
+constexpr int kKeysWarps = 8;      // its most warps: a row group of at most 128 rows
+
+// Row groups of attn_bwd_keys_kernel at M rows (a block each): the fewest of
+// at most kKeysWarps warps of 16 rows; its warps, the rows split evenly over
+// the groups (M 144: two groups of five warps, 80 rows); and the rows of the
+// largest group: M itself in one group, else 16 rows a warp.
+__host__ __device__ inline int keys_groups(int m) { return cdiv(m, kKeysWarps * kKeysRows); }
+__host__ __device__ inline int keys_warps(int m) { return cdiv(cdiv(m, keys_groups(m)), kKeysRows); }
+__host__ __device__ inline int keys_group_rows(int m) {
+  return keys_groups(m) == 1 ? m : kKeysRows * keys_warps(m);
+}
 
 // The HD the tiled backward runs head_dim hd at (4, 8, 16 or 32).
 __host__ __device__ constexpr int tiled_hd(int hd) { return hd < 4 ? 4 : hd; }
@@ -379,21 +393,24 @@ __host__ __device__ constexpr int tiled_ld(int hd) {
 }
 
 // One stage of attn_bwd_keys_kernel (bytes, a multiple of 16): the
-// window's M row statistics (float4), its q and g rows, the tile's k and v.
+// statistics (float4) and q and g rows of the window's m rows of a row
+// group, the tile's k and v.
 template <typename T>
 __host__ __device__ inline size_t tiled_stage_bytes(int m, int hd) {
   const size_t b = 16 * (size_t)m + sizeof(T) * (size_t)(2 * m + 2 * kTileKeys) * tiled_ld<T>(hd);
   return (b + 15) / 16 * 16;
 }
 // Two stages, then the warps' partial dk and dv ((warps, 32, 2 HD + 4) f32),
-// round(ds scale) of the tile ((M, 33) f32, rounded up to 16 bytes) and,
-// for bf16, the window's q and g rows in f32.
+// round(ds scale) of the tile ((rows, 33) f32, rounded up to 16 bytes) and,
+// for bf16, the window's q and g rows in f32, for a row group of
+// keys_group_rows(M) rows.
 __host__ __device__ inline int tiled_dst_floats(int m) { return cdiv(m * (kTileKeys + 1), 4) * 4; }
 template <typename T>
 size_t tiled_keys_smem(int m, int hd) {
-  return 2 * tiled_stage_bytes<T>(m, hd) + sizeof(float) * (size_t)cdiv(m, kKeysRows) * kTileKeys * (2 * hd + 4) +
-         sizeof(float) * (size_t)tiled_dst_floats(m) +
-         (std::is_same<T, float>::value ? 0 : sizeof(float) * 2 * (size_t)m * (hd + 4));
+  const int warps = keys_warps(m), mg = keys_group_rows(m);
+  return 2 * tiled_stage_bytes<T>(mg, hd) + sizeof(float) * (size_t)warps * kTileKeys * (2 * hd + 4) +
+         sizeof(float) * (size_t)tiled_dst_floats(mg) +
+         (std::is_same<T, float>::value ? 0 : sizeof(float) * 2 * (size_t)mg * (hd + 4));
 }
 // attn_bwd_rows_kernel: its 8 R q and g rows (f32), two stages of kRowsKeys
 // k and v rows and of the 8 R rows' bias against them.
@@ -601,17 +618,22 @@ __global__ void __launch_bounds__(kRowsThreads, 2) attn_bwd_rows_kernel(BwdArgs 
   }
 }
 
-template <typename T, int HD>
+// kGroups: more than one row group (blockIdx.z), whose dk and dv go to
+// its f32 partial plane ((groups, B_, N, H, 2 HD), after the dq planes).
+template <typename T, int HD, bool kGroups>
 __global__ void __launch_bounds__(kKeysWarps * 32, 2) attn_bwd_keys_kernel(BwdArgs a) {
   constexpr int LD = tiled_ld<T>(HD), LDF = HD + 4, LR = 2 * HD + 4;
   extern __shared__ __align__(16) unsigned char keys_smem[];
   const int m = a.m, n = a.n, c = a.c, hd = a.hd, heads = a.heads;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n0 = blockIdx.x * kTileKeys, h = blockIdx.y, key = n0 + lane;
-  const size_t stage_bytes = tiled_stage_bytes<T>(m, HD);
+  // the block's rows: r0 .. r0 + rows - 1 of a group of mg
+  const int mg = kGroups ? kKeysRows * warps : m, r0 = kGroups ? blockIdx.z * mg : 0;
+  const int rows = kGroups ? min(mg, m - r0) : m;
+  const size_t stage_bytes = tiled_stage_bytes<T>(mg, HD);
   float* red = reinterpret_cast<float*>(keys_smem + 2 * stage_bytes);  // (warps, 32, LR)
-  float* dst = red + warps * kTileKeys * LR;  // (M, 33): round(ds scale) of the tile's (row, key)
-  float* qgf = dst + tiled_dst_floats(m);     // bf16: (2 M, HD + 4) the window's q, g rows in f32
+  float* dst = red + warps * kTileKeys * LR;  // (mg, 33): round(ds scale) of the tile's (row, key)
+  float* qgf = dst + tiled_dst_floats(mg);    // bf16: (2 mg, HD + 4) the window's q, g rows in f32
   // dq's partial sums over this block's keys, (B_, H, M, HD) a key tile, after the statistics
   float* dqp = a.scratch + 4 * (size_t)a.b * heads * m + (size_t)blockIdx.x * a.b * heads * m * HD;
   const float scale = a.scale;
@@ -622,29 +644,30 @@ __global__ void __launch_bounds__(kKeysWarps * 32, 2) attn_bwd_keys_kernel(BwdAr
 #pragma unroll
   for (int t = 0; t < kKeysRows; ++t) {
     const int i = warp + warps * t;
-    bv[t] = i < m && live ? __ldg(a.bias + ((size_t)h * m + i) * n + key) : 0.f;
+    bv[t] = i < rows && live ? __ldg(a.bias + ((size_t)h * m + r0 + i) * n + key) : 0.f;
     db[t] = 0.f;
   }
   auto stats_of = [&](unsigned char* st) { return reinterpret_cast<float4*>(st); };
-  auto rows_of = [&](unsigned char* st) { return reinterpret_cast<T*>(st + 16 * (size_t)m); };
-  auto stage = [&](int w, unsigned char* st) {
-    const float4* sg = reinterpret_cast<const float4*>(a.scratch) + ((size_t)w * heads + h) * m;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) cp_async16(stats_of(st) + i, sg + i, 16);
+  auto rows_of = [&](unsigned char* st) { return reinterpret_cast<T*>(st + 16 * (size_t)mg); };
+  // window w's statistics and q and g rows of the block's rows, and the tile's k and v
+  auto fetch = [&](int w, unsigned char* st) {
+    const float4* sg = reinterpret_cast<const float4*>(a.scratch) + ((size_t)w * heads + h) * m + r0;
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) cp_async16(stats_of(st) + i, sg + i, 16);
     T* qs = rows_of(st);
-    const size_t row0 = (size_t)w * m * c + h * hd, key0 = ((size_t)w * n + n0) * c + h * hd;
-    tiled_stage_rows<T, HD>(qs, static_cast<const T*>(a.q) + row0, c, m, m, hd, a.vec);
-    tiled_stage_rows<T, HD>(qs + m * LD, static_cast<const T*>(a.g) + row0, c, m, m, hd, a.vec);
-    tiled_stage_rows<T, HD>(qs + 2 * m * LD, static_cast<const T*>(a.k) + key0, c, kTileKeys, n - n0, hd,
+    const size_t row0 = ((size_t)w * m + r0) * c + h * hd, key0 = ((size_t)w * n + n0) * c + h * hd;
+    tiled_stage_rows<T, HD>(qs, static_cast<const T*>(a.q) + row0, c, rows, rows, hd, a.vec);
+    tiled_stage_rows<T, HD>(qs + mg * LD, static_cast<const T*>(a.g) + row0, c, rows, rows, hd, a.vec);
+    tiled_stage_rows<T, HD>(qs + 2 * mg * LD, static_cast<const T*>(a.k) + key0, c, kTileKeys, n - n0, hd,
                             a.vec);
-    tiled_stage_rows<T, HD>(qs + (2 * m + kTileKeys) * LD, static_cast<const T*>(a.v) + key0, c, kTileKeys,
+    tiled_stage_rows<T, HD>(qs + (2 * mg + kTileKeys) * LD, static_cast<const T*>(a.v) + key0, c, kTileKeys,
                             n - n0, hd, a.vec);
   };
 
   unsigned char* buf[2] = {keys_smem, keys_smem + stage_bytes};
-  stage(0, buf[0]);
+  fetch(0, buf[0]);
   cp_async_commit();
   for (int w = 0; w < a.b; ++w) {
-    if (w + 1 < a.b) stage(w + 1, buf[(w + 1) & 1]);
+    if (w + 1 < a.b) fetch(w + 1, buf[(w + 1) & 1]);
     cp_async_commit();
     cp_async_wait<1>();  // this window's copies have landed
     __syncthreads();
@@ -653,25 +676,25 @@ __global__ void __launch_bounds__(kKeysWarps * 32, 2) attn_bwd_keys_kernel(BwdAr
     const float *qf, *gf;  // the window's q and g rows in f32 (row stride LDF)
     if constexpr (std::is_same<T, float>::value) {
       qf = qs;
-      gf = qs + m * LD;
+      gf = qs + mg * LD;
     } else {
-      for (int e = threadIdx.x; e < 2 * m * HD; e += blockDim.x) {
+      for (int e = threadIdx.x; e < 2 * mg * HD; e += blockDim.x) {
         const int r = e / HD, d = e - r * HD;
         qgf[r * LDF + d] = load(qs, (size_t)r * LD + d);
       }
       __syncthreads();
       qf = qgf;
-      gf = qgf + m * LDF;
+      gf = qgf + mg * LDF;
     }
     float kr[HD], vr[HD], dka[HD], dva[HD];
-    tiled_row<T, HD>(kr, qs + (2 * m + lane) * LD);
-    tiled_row<T, HD>(vr, qs + (2 * m + kTileKeys + lane) * LD);
+    tiled_row<T, HD>(kr, qs + (2 * mg + lane) * LD);
+    tiled_row<T, HD>(vr, qs + (2 * mg + kTileKeys + lane) * LD);
 #pragma unroll
     for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
 #pragma unroll
     for (int t = 0; t < kKeysRows; ++t) {
       const int i = warp + warps * t;
-      if (i < m) {
+      if (i < rows) {
         float qi[HD], gi[HD];
         tiled_row<float, HD>(qi, qf + i * LDF);
         tiled_row<float, HD>(gi, gf + i * LDF);
@@ -704,23 +727,29 @@ __global__ void __launch_bounds__(kKeysWarps * 32, 2) attn_bwd_keys_kernel(BwdAr
       const int kk = e / (2 * HD), col = e - kk * 2 * HD, d = col < HD ? col : col - HD;
       float x = red[kk * LR + col];
       for (int ws = 1; ws < warps; ++ws) x += red[(ws * kTileKeys + kk) * LR + col];
-      if (n0 + kk < n && d < hd) (col < HD ? dk : dv)[((size_t)w * n + n0 + kk) * c + h * hd + d] = store_cast<T>(x);
+      if (n0 + kk >= n) continue;
+      if constexpr (kGroups) {
+        float* dkv = a.scratch + (size_t)a.b * heads * m * (4 + (size_t)cdiv(n, kTileKeys) * HD);
+        dkv[((((size_t)blockIdx.z * a.b + w) * n + n0 + kk) * heads + h) * 2 * HD + col] = x;
+      } else if (d < hd) {
+        (col < HD ? dk : dv)[((size_t)w * n + n0 + kk) * c + h * hd + d] = store_cast<T>(x);
+      }
     }
     // dq's share of the tile's keys, a row a thread, summed over the keys in
     // order (attn_bwd_dq_reduce_kernel adds the tiles in order)
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
       float acc[HD];
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc[d] = 0.f;
 #pragma unroll 4
       for (int kk = 0; kk < kTileKeys; ++kk) {
         float kt[HD];
-        tiled_row<T, HD>(kt, qs + (2 * m + kk) * LD);
+        tiled_row<T, HD>(kt, qs + (2 * mg + kk) * LD);
         const float x = dst[i * (kTileKeys + 1) + kk];
 #pragma unroll
         for (int d = 0; d < HD; ++d) acc[d] = fmaf(x, kt[d], acc[d]);
       }
-      float* o = dqp + (((size_t)w * heads + h) * m + i) * HD;
+      float* o = dqp + (((size_t)w * heads + h) * m + r0 + i) * HD;
 #pragma unroll
       for (int d = 0; d < HD; d += 4) *reinterpret_cast<float4*>(o + d) = make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
     }
@@ -729,23 +758,38 @@ __global__ void __launch_bounds__(kKeysWarps * 32, 2) attn_bwd_keys_kernel(BwdAr
 #pragma unroll
   for (int t = 0; t < kKeysRows; ++t) {
     const int i = warp + warps * t;
-    if (i < m && live) a.dbias[((size_t)h * m + i) * n + key] = db[t];
+    if (i < rows && live) a.dbias[((size_t)h * m + r0 + i) * n + key] = db[t];
   }
 }
 
 // dq = the keys kernel's partial sums added over the key tiles in order, a
-// thread an element.
+// thread an element; past 128 rows (groups > 1) the threads past dq's
+// elements add the row groups' dk and dv planes in group order.
 template <typename T, int HD>
-__global__ void attn_bwd_dq_reduce_kernel(BwdArgs a) {
+__global__ void attn_bwd_dq_reduce_kernel(BwdArgs a, int groups) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t rows = (size_t)a.b * a.heads * a.m;
-  if (e >= rows * HD) return;
+  const int tiles = cdiv(a.n, kTileKeys);
+  if (e >= rows * HD) {
+    // (w, key, h, col) of the (B_, N, H, 2 HD) planes
+    const size_t f = e - rows * HD, plane = (size_t)a.b * a.n * a.heads * 2 * HD;
+    if (groups == 1 || f >= plane) return;
+    const int col = (int)(f % (2 * HD)), d = col < HD ? col : col - HD;
+    if (d >= a.hd) return;
+    const size_t wkh = f / (2 * HD);
+    const int h = (int)(wkh % a.heads);
+    const size_t wk = wkh / a.heads;  // w * N + key
+    const float* p = a.scratch + rows * (4 + (size_t)tiles * HD) + f;
+    float x = 0.f;
+    for (int gr = 0; gr < groups; ++gr) x += p[(size_t)gr * plane];
+    static_cast<T*>(col < HD ? a.dk : a.dv)[wk * a.c + h * a.hd + d] = store_cast<T>(x);
+    return;
+  }
   const int d = (int)(e % HD);
   if (d >= a.hd) return;
   const size_t r = e / HD;  // ((w, h), i)
   const int i = (int)(r % a.m), wh = (int)(r / a.m), h = wh % a.heads, w = wh / a.heads;
   const float* p = a.scratch + 4 * rows + e;
-  const int tiles = cdiv(a.n, kTileKeys);
   float x = 0.f;
   for (int t = 0; t < tiles; ++t) x += p[(size_t)t * rows * HD];
   static_cast<T*>(a.dq)[((size_t)w * a.m + i) * a.c + h * a.hd + d] = store_cast<T>(x);
@@ -1320,17 +1364,16 @@ cudaError_t run_hd(int hd, int j, const BwdArgs* a, size_t smem, long long* info
   }
 }
 
-// The tiled backward's two launches at M rows with `a`, or, when `a` is
-// null, the occupancy of its two kernels in info: the most registers, spill
-// bytes and shared memory of the two, the keys kernel's threads and the
-// fewest resident blocks per SM.
+// The tiled backward's three launches at M rows with `a`, or, when `a` is
+// null, the occupancy of its rows and keys kernels in info: the most
+// registers, spill bytes and shared memory of the two, the keys kernel's
+// threads and the fewest resident blocks per SM.
 template <typename T, int HD>
 cudaError_t run_tiled(int m, const BwdArgs* a, long long* info, cudaStream_t stream) {
-  const int warps = cdiv(m, kKeysRows);
-  if (warps > kKeysWarps) return cudaErrorInvalidValue;
+  const int warps = keys_warps(m), groups = keys_groups(m);
+  auto keys = groups > 1 ? attn_bwd_keys_kernel<T, HD, true> : attn_bwd_keys_kernel<T, HD, false>;
   const size_t smem = tiled_keys_smem<T>(m, HD), rsmem = tiled_rows_smem<T>(HD);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_keys_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(keys, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(attn_bwd_rows_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)rsmem);
@@ -1339,7 +1382,7 @@ cudaError_t run_tiled(int m, const BwdArgs* a, long long* info, cudaStream_t str
     long long rows[5];
     err = occupancy(attn_bwd_rows_kernel<T, HD>, kRowsThreads, rsmem, rows);
     if (err != cudaSuccess) return err;
-    err = occupancy(attn_bwd_keys_kernel<T, HD>, 32 * warps, smem, info);
+    err = occupancy(keys, 32 * warps, smem, info);
     if (err != cudaSuccess) return err;
     for (int f = 0; f < 3; ++f) info[f] = std::max(info[f], rows[f]);
     info[4] = std::min(info[4], rows[4]);
@@ -1349,14 +1392,14 @@ cudaError_t run_tiled(int m, const BwdArgs* a, long long* info, cudaStream_t str
                                 kRowsThreads, rsmem, stream>>>(*a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_keys_kernel<T, HD><<<dim3(cdiv(a->n, kTileKeys), a->heads), 32 * warps, smem, stream>>>(*a);
+  keys<<<dim3(cdiv(a->n, kTileKeys), a->heads, groups), 32 * warps, smem, stream>>>(*a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t elems = (size_t)a->b * a->heads * m * HD;
-  attn_bwd_dq_reduce_kernel<T, HD><<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(*a);
+  const size_t elems = (size_t)a->b * a->heads * m * HD +
+                       (groups > 1 ? (size_t)a->b * a->n * a->heads * 2 * HD : 0);
+  attn_bwd_dq_reduce_kernel<T, HD><<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(*a, groups);
   return cudaGetLastError();
 }
-
 template <typename T>
 cudaError_t run_tiled_hd(int hd, int m, const BwdArgs* a, long long* info, cudaStream_t stream) {
   switch (tiled_hd(hd)) {
@@ -1492,12 +1535,16 @@ long long attn_core_bwd_smem_bytes(int m, int n, int c, int heads, int j) {
 
 // Floats of f32 scratch the backward needs at these shapes: the wide
 // backward's s and dp planes and row statistics above head_dim 32, the tiled
-// backward's row statistics ((B_, H, M) float4) and dq partial sums (a
-// (B_, H, M, HD) plane a 32-key tile) with row share 0, else 0.
+// backward's row statistics ((B_, H, M) float4), dq partial sums (a
+// (B_, H, M, HD) plane a 32-key tile) and, past 128 rows, each row group's
+// dk and dv ((groups, B_, N, H, 2 HD)) with row share 0, else 0.
 long long attn_core_bwd_scratch_floats(int b, int m, int n, int c, int heads, int j) {
   const int hd = padded_hd(c / heads);
   if (hd > 32) return (long long)WidePlanes::floats(b, m, n, heads);
-  return j ? 0 : (long long)b * heads * m * (4 + (long long)cdiv(n, kTileKeys) * tiled_hd(hd));
+  if (j) return 0;
+  const long long thd = tiled_hd(hd), groups = keys_groups(m);
+  const long long dkv = groups > 1 ? groups * b * n * heads * 2 * thd : 0;
+  return (long long)b * heads * m * (4 + (long long)cdiv(n, kTileKeys) * thd) + dkv;
 }
 
 // The instantiation a launch at these shapes with row share j takes:

@@ -53,7 +53,7 @@ _ACT_CODES = {
 }
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 _TILE_KEYS = 32  # keys of one block of the tiled backward's keys kernel (kTileKeys)
-_TILED_ROWS = 128  # the most query rows the tiled backward takes (8 warps of 16 rows)
+_KEYS_WARPS = 8  # its most warps of 16 rows: a row group of at most 128 rows (kKeysWarps)
 # the wide backward's (head_dim > 32) largest block (f32, the dk/dv kernel's:
 # wide_dkdv_smem in csrc/attn_core_bwd.cu): 64 rows of g and q in 64-column
 # chunks and their round(p) and round(ds scale) against 32 keys
@@ -488,17 +488,18 @@ class BwdPlan(NamedTuple):
     lane keeps of a score row in registers (12, 16 or 32), or 0: at head_dim
     <= 32 the tiled backward (three launches, ``attn_bwd_rows_kernel``,
     ``attn_bwd_keys_kernel`` and ``attn_bwd_dq_reduce_kernel`` in
-    csrc/attn_core_bwd.cu), above it the wide
-    backward (four launches whose tiles are its own,
+    csrc/attn_core_bwd.cu, whose blocks take 32-key tiles at every shape),
+    above it the wide backward (four launches whose tiles are its own,
     ``attn_bwd_scores_kernel``); ``smem_bytes`` is the shared memory of the
-    kernel's largest block in f32; ``key_tile`` is, for the tiled backward,
-    the keys of one block of its keys kernel where a window's k/v and q/g
-    rows would not fit in one block (rows counted as key tiles), and 0 where
-    they would (long rows) and for the other kernels."""
+    kernel's largest block in f32; ``key_tiles`` only names the tiled
+    backward's launch counter: True where a window's k, v, q and g rows
+    would not fit in one block (``attn_core_bwd_window_bytes``), counted as
+    key tiles, False where they would (long rows) and for the other
+    kernels."""
 
     row_share: int
     smem_bytes: int
-    key_tile: int = 0
+    key_tiles: bool = False
 
 
 def bwd_counter(plan: BwdPlan, head_dim: int) -> str:
@@ -508,7 +509,7 @@ def bwd_counter(plan: BwdPlan, head_dim: int) -> str:
         return "attn_core_backward_wide"
     if plan.row_share:
         return "attn_core_backward"
-    return "attn_core_backward_key_tiles" if plan.key_tile else "attn_core_backward_long_rows"
+    return "attn_core_backward_key_tiles" if plan.key_tiles else "attn_core_backward_long_rows"
 
 
 def _tiled_hd(head_dim: int) -> int:
@@ -517,14 +518,25 @@ def _tiled_hd(head_dim: int) -> int:
     return max(4, _padded_head_dim(head_dim))
 
 
+def tiled_keys_rows(m: int) -> tuple[int, int]:
+    """Warps of the tiled backward's keys kernel at M query rows and the rows
+    of its largest row group (``keys_warps`` and ``keys_group_rows`` in
+    csrc/attn_core_bwd.cu): the fewest groups of at most 8 warps of 16 rows,
+    the rows split evenly over them; one group holds M rows."""
+    groups = -(-m // (16 * _KEYS_WARPS))
+    per_group = -(-m // groups)
+    warps = -(-per_group // 16)
+    return warps, (m if groups == 1 else 16 * warps)
+
+
 def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int) -> int:
     """Shared memory of the backward's largest block in f32
     (``attn_core_bwd_smem_bytes`` in csrc/attn_core_bwd.cu) at the padded
     head_dim: with a row share, the padded k, v, q and g rows, three row
     statistics and the (M, N) dbias plane; with none, the larger block of
-    the tiled backward: its keys kernel (two stages of the window's row
-    statistics, q and g rows and the tile's k and v rows, then the warps'
-    partial dk and dv and the tile's (M, 33) round(ds scale)) or its rows
+    the tiled backward: its keys kernel (two stages of a row group's
+    statistics and q and g rows and the tile's k and v rows, then the warps'
+    partial dk and dv and the tile's (rows, 33) round(ds scale)) or its rows
     kernel (8 R q and g rows, R 8 and 4 at head_dim 32, two stages of 64 k
     and v rows and of the rows' bias against them); above head_dim 32, the
     wide backward's largest block, whatever the shapes."""
@@ -533,8 +545,9 @@ def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int) -> i
         return _WIDE_SMEM
     if not row_share:
         thd = _tiled_hd(head_dim)
-        stage = -(-(16 * m + 4 * (2 * m + 2 * _TILE_KEYS) * (thd + 4)) // 16) * 16
-        keys = 2 * stage + 4 * -(-m // 16) * _TILE_KEYS * (2 * thd + 4) + 16 * -(-m * (_TILE_KEYS + 1) // 4)
+        warps, mg = tiled_keys_rows(m)
+        stage = -(-(16 * mg + 4 * (2 * mg + 2 * _TILE_KEYS) * (thd + 4)) // 16) * 16
+        keys = 2 * stage + 4 * warps * _TILE_KEYS * (2 * thd + 4) + 16 * -(-mg * (_TILE_KEYS + 1) // 4)
         rows_r = 8 * (8 if thd <= 16 else 4)
         rows = 4 * (thd + 4) * (2 * rows_r + 4 * 64) + 4 * 2 * rows_r * 68
         return max(keys, rows)
@@ -543,8 +556,10 @@ def attn_core_bwd_smem_bytes(m: int, n: int, head_dim: int, row_share: int) -> i
 
 def attn_core_bwd_window_bytes(m: int, n: int, head_dim: int) -> int:
     """Bytes of one window's k, v, q and g rows (padded, f32) and three row
-    statistics: the rows the tiled backward counts as long rows where this
-    fits in one block, as key tiles where it does not."""
+    statistics. Only the launch counter reads it: the tiled backward counts
+    rows as long rows where this fits in one block's shared memory (the
+    rows PR 11's long-row kernel took), as key tiles where it does not; the
+    kernels are the same."""
     return 4 * (2 * (n + m) * _key_stride(_padded_head_dim(head_dim)) + 3 * m)
 
 
@@ -553,13 +568,11 @@ def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
     over ``num_heads`` heads: rows of at most 32 x 32 keys whose (M, N)
     plane fits in shared memory beside the k/v rows keep their row share in
     registers (the fewest J with N <= 32 J); the other rows at head_dim <=
-    32 take the tiled backward, whose blocks hold a 32-key tile and at most
-    128 query rows, whatever N; above head_dim 32 every row takes the wide
-    backward, whose blocks tile M, N and head_dim themselves and fit at any
-    shape. A head_dim between the instantiated ones plans as the next one
-    up. Raises ``ValueError`` only for the tiled backward above 128 query
-    rows: the autograd Functions call it before their forward, so no
-    backward refuses a shape whose forward ran. A function of its arguments
+    32 take the tiled backward, whose blocks hold a 32-key tile and row
+    groups of at most 128 rows, whatever M and N; above head_dim 32 every
+    row takes the wide backward, whose blocks tile M, N and head_dim
+    themselves. Every plan fits, whatever the shapes. A head_dim between the
+    instantiated ones plans as the next one up. A function of its arguments
     alone."""
     _check_head_dim(c, num_heads)
     hd = _padded_head_dim(c // num_heads)
@@ -571,11 +584,8 @@ def attn_core_bwd_plan(m: int, n: int, c: int, num_heads: int) -> BwdPlan:
             if smem <= _MAX_SMEM:
                 return BwdPlan(j, smem)
             break
-    if m > _TILED_ROWS:
-        raise ValueError(f"the attention backward at head_dim {hd} takes at most {_TILED_ROWS} query rows "
-                         f"where the row share does not fit, got {m}")
-    long_rows = attn_core_bwd_window_bytes(m, n, hd) <= _MAX_SMEM
-    return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0), 0 if long_rows else _TILE_KEYS)
+    key_tiles = attn_core_bwd_window_bytes(m, n, hd) > _MAX_SMEM
+    return BwdPlan(0, attn_core_bwd_smem_bytes(m, n, hd, 0), key_tiles)
 
 
 def bwd_window_groups(b_: int, heads: int, blocks_per_sm: int, sms: int) -> int:

@@ -30,8 +30,9 @@ reference's.
            SM and launch plan of its instantiations and of B1's attention
            stage), and both new Functions' gradients vs the twins' autograd;
            and the backward's long rows (the tiled backward) at long-buffer shapes (21
-           frames of 7x7 windows, N 1029; 17 of 8x8, N 1088), f32 and bf16,
-           with its plan, occupancy, bound and a bitwise repeat
+           frames of 7x7 windows, N 1029; 17 of 8x8, N 1088; 3 of 12x12,
+           M 144, N 432), f32 and bf16, with its plan, occupancy, bound and
+           a bitwise repeat
   attention  the ops.fused_window_attention entry point forward and backward
            at the 8x8 shapes (2 + 3 calls: one 8x8 frame's dilated blocks)
   model    flagship at 184x240, T=8: kernel path vs unfused path (f32,
@@ -191,6 +192,10 @@ VARIANT_GRAD_L2 = 2e-2
 # buffer frames of the long-buffer runs: N = 21 x 49 = 1029 and 17 x 64 = 1088
 # keys a row, above the 1024 a backward lane keeps in registers
 LONG_FRAMES = {"flagship": 21, "8x8": 17}
+# window_size (12, 12), a config key of the BDE2VID (M 144, past the tiled
+# backward's 128 rows a block): the long-row kernel cases at T=3 (N 432),
+# on the 8x8 config's level sizes
+TWELVE_FRAMES = 3
 # key tiles (ROADMAP C5): the key_tiles phase's flagship has buffer_index
 # -15..15 (31 frames, N = 1519 keys a row), whose level 2 (head_dim 16) runs
 # both attention kernels key-tiled; its kernel cases take the first N past
@@ -1481,8 +1486,8 @@ def phase_kernels_key_tiles(torch):
         q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
         fwd_cases.append(fwd_core_case(torch, q, k, v, bias, heads, config="flagship",
                                        level="level2", frames=KEY_TILE_FRAMES))
-        if not attn_core_bwd_plan(m, n_main, c2, heads).key_tile:
-            raise AssertionError("key tiles: the backward plan took no key tile at the main-path shape")
+        if not attn_core_bwd_plan(m, n_main, c2, heads).key_tiles:
+            raise AssertionError("key tiles: the backward plan does not count key tiles at the main-path shape")
         bwd_cases.append(bwd_case(torch, q, k, v, bias, g, heads, config="flagship", level="level2",
                                   frames=str(KEY_TILE_FRAMES)))
     if not fwd_cases[0]["plan"]["key_tiled"]:
@@ -1498,8 +1503,8 @@ def phase_kernels_key_tiles(torch):
                                               config="edge", head_dim=hd))
     for hd, mq, n in TILED_BWD_ROWS:
         c, b = heads * hd, 5
-        if not attn_core_bwd_plan(mq, n, c, heads).key_tile:
-            raise AssertionError(f"key tiles: no backward key tile at M {mq}, N {n}, head_dim {hd}")
+        if not attn_core_bwd_plan(mq, n, c, heads).key_tiles:
+            raise AssertionError(f"key tiles: the backward does not count key tiles at M {mq}, N {n}, head_dim {hd}")
         q32, k32, v32, g32 = rnd(b, mq, c), rnd(b, n, c), rnd(b, n, c), rnd(b, mq, c)
         bias = rnd(heads, mq, n, scale=0.5)
         for dt in (torch.float32, torch.bfloat16):
@@ -1730,8 +1735,9 @@ def phase_head_dims(torch, launch_counts):
 def phase_kernels_long_rows(torch):
     """The attention backward at the shapes of long buffers, where it takes
     the tiled backward, counted as long rows: 21 frames of 7x7 windows at
-    the flagship's levels (M 49, N 1029) and 17 of 8x8 at the 8x8 config's
-    (M 64, N 1088), f32 and bf16, each vs its twin, repeated for bit
+    the flagship's levels (M 49, N 1029), 17 of 8x8 at the 8x8 config's
+    (M 64, N 1088) and TWELVE_FRAMES of 12x12 (M 144 in two row groups, N
+    432), f32 and bf16, each vs its twin, repeated for bit
     equality, timed beside its bound and SDPA's backward, with the plan and
     the instantiation's occupancy. Returns the flagship's cases."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
@@ -1744,9 +1750,10 @@ def phase_kernels_long_rows(torch):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     heads, cases = 16, []
-    for config, levels, win in (("flagship", LEVELS, 7), ("8x8", LEVELS_8, 8)):
+    for config, levels, win in (("flagship", LEVELS, 7), ("8x8", LEVELS_8, 8), ("12x12", LEVELS_8, 12)):
         m = win * win
-        n = LONG_FRAMES[config] * m
+        frames = LONG_FRAMES.get(config, TWELVE_FRAMES)
+        n = frames * m
         for level, ((hp, wp), c) in levels.items():
             b = (hp // win) * (wp // win)
             plan = attn_core_bwd_plan(m, n, c, heads)
@@ -1758,7 +1765,7 @@ def phase_kernels_long_rows(torch):
                 case = bwd_case(torch, *(t.to(dt) for t in (q32, k32, v32)), bias, g32.to(dt), heads,
                                 config=config, level=level, layout="plain")
                 occ = attn_core_backward_occupancy(m, n, c, heads, dt, 0)
-                cases.append({**case, "frames": LONG_FRAMES[config], "plan": plan._asdict(),
+                cases.append({**case, "frames": frames, "plan": plan._asdict(),
                               "occupancy": {k: occ[k] for k in ("registers", "spill_bytes",
                                                                 "blocks_per_sm", "slices")}})
     emit({"phase": "kernels", "kernel": "attn_core_backward, long rows",

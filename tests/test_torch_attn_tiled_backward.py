@@ -29,6 +29,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     attn_core_bwd_window_bytes,
     attn_core_reference,
     bwd_counter,
+    tiled_keys_rows,
 )
 
 LOG2E = 1.4426950408889634
@@ -48,15 +49,16 @@ def one_thread():
     torch.set_num_threads(before)
 
 
-def tiled_backward(q, k, v, bias, g, num_heads, warps=None):
+def tiled_backward(q, k, v, bias, g, num_heads):
     """The tiled backward's launches in plain torch. Rows: a lane per key
     (keys lane + 32 t), each lane's running max (times log2 e), sum of exp2
     and sum of dp times exp2 in key order, rescaled when a score raises the
     max; the lanes merged in the kernel's butterfly. Keys: per window in
     order, p32 and ds from those statistics, dv = round(p)^T g and dk =
-    round(ds scale)^T q summed per row warp (rows warp + warps t) and then
-    over the warps in order, dq a 32-key tile's share at a time, the tiles
-    added in order, dbias summed over the windows in order."""
+    round(ds scale)^T q summed per row warp (rows r0 + warp + warps t of a
+    row group from r0) and then over the warps in order and the row groups
+    in order, dq a 32-key tile's share at a time, the tiles added in order,
+    dbias summed over the windows in order."""
     b_, m, c = q.shape
     n = k.shape[1]
     dt = q.dtype
@@ -103,14 +105,17 @@ def tiled_backward(q, k, v, bias, g, num_heads, warps=None):
     dq = torch.zeros(b_, num_heads, m, hd)
     for t0 in range(0, n, 32):
         dq = dq + dsc[..., t0:t0 + 32] @ kh[:, :, t0:t0 + 32]
-    # dk, dv: the row warps' partial sums in warp order
-    warps = warps or -(-m // 16)
+    # dk, dv: the row warps' partial sums in warp order, then the row groups in order
+    warps, mg = tiled_keys_rows(m)
     dk = torch.zeros(b_, num_heads, n, hd)
     dv = torch.zeros(b_, num_heads, n, hd)
-    for wp in range(warps):
-        rows = torch.arange(wp, m, warps)
-        dk = dk + dsc[:, :, rows].transpose(-2, -1) @ qh[:, :, rows]
-        dv = dv + p[:, :, rows].transpose(-2, -1) @ gh[:, :, rows]
+    for r0 in range(0, m, mg):
+        gk, gv = torch.zeros_like(dk), torch.zeros_like(dv)
+        for wp in range(warps):
+            rows = torch.arange(r0 + wp, min(m, r0 + mg), warps)
+            gk = gk + dsc[:, :, rows].transpose(-2, -1) @ qh[:, :, rows]
+            gv = gv + p[:, :, rows].transpose(-2, -1) @ gh[:, :, rows]
+        dk, dv = dk + gk, dv + gv
     dbias = torch.zeros(num_heads, m, n)
     for w in range(b_):
         dbias = dbias + ds[w]
@@ -122,11 +127,11 @@ def tiled_backward(q, k, v, bias, g, num_heads, warps=None):
 
 
 @pytest.mark.parametrize("hd,heads", [(4, 4), (16, 2)])
-@pytest.mark.parametrize("m", [49, 64])
+@pytest.mark.parametrize("m", [49, 64, 144])
 def test_tiled_backward_decomposition_meets_the_gates_against_the_twin(one_thread, hd, heads, m):
     """The emulated tiled backward against attn_core_backward_reference at
-    head_dim 4 and 16 (B_ 3, M 49 and 64, N 147: five 32-key steps, the last
-    ragged), f32 within 1e-4 x max(1, max|twin|) and bf16 within 2e-2 x
+    head_dim 4 and 16 (B_ 3, M 49, 64 and 144, the last in two row groups
+    of 80 and 64 rows; N 147: five 32-key steps, the last ragged), f32 within 1e-4 x max(1, max|twin|) and bf16 within 2e-2 x
     max|twin| (the kernel-vs-twin gates), for dq, dk, dv and dbias."""
     rng = np.random.default_rng(hd * 100 + m)
     b_, n, c = 3, 147, heads * hd
@@ -169,16 +174,24 @@ def test_long_rows_and_key_tiles_take_the_tiled_backward(m, n, c, heads, counter
     plan = attn_core_bwd_plan(m, n, c, heads)
     fits = attn_core_bwd_window_bytes(m, n, c // heads) <= _MAX_SMEM
     assert plan.row_share == 0 and plan.smem_bytes <= _MAX_SMEM
-    assert plan.key_tile == (0 if fits else 32)
+    assert plan.key_tiles == (not fits)
     assert bwd_counter(plan, c // heads) == counter
 
 
-def test_tiled_backward_refuses_more_than_128_query_rows():
-    """The tiled backward's keys kernel holds at most eight warps of 16
-    rows: the plan refuses more rows before any forward runs."""
-    assert attn_core_bwd_plan(128, 4000, 64, 16).row_share == 0
-    with pytest.raises(ValueError, match="at most 128 query rows"):
-        attn_core_bwd_plan(129, 4000, 64, 16)
+@pytest.mark.parametrize("m,n,c,heads", [(144, 432, 64, 16), (144, 432, 256, 16), (144, 1029, 64, 16),
+                                         (144, 1029, 256, 16), (129, 4000, 64, 16), (144, 432, 96, 3),
+                                         (343, 2744, 64, 16)])
+def test_tiled_backward_plans_any_query_rows(m, n, c, heads):
+    """Past 128 query rows (window_size (12, 12): M 144) the tiled
+    backward's keys kernel takes the rows in groups of at most eight warps
+    of 16 rows, split evenly, and its block fits at every head_dim <= 32."""
+    plan = attn_core_bwd_plan(m, n, c, heads)
+    warps, mg = tiled_keys_rows(m)
+    groups = -(-m // mg)
+    assert plan.row_share == 0 and plan.smem_bytes <= _MAX_SMEM
+    assert warps <= 8 and mg == 16 * warps and groups == -(-m // 128)
+    assert (groups - 1) * mg < m <= groups * mg and m - (groups - 1) * mg > mg - 16 * groups
+    assert tiled_keys_rows(128) == (8, 128) and tiled_keys_rows(49) == (4, 49)
 
 
 def test_twins_match_jax_fused_attention_and_its_vjp_at_head_dim_2048():

@@ -214,19 +214,18 @@ def test_cuda_window_attention_with_grad_refuses_keys_its_backward_cannot_take(c
 @pytest.mark.parametrize("m,n,c,heads", [(49, 343, 64, 16), (64, 448, 256, 16), (49, 1029, 64, 16),
                                          (64, 1088, 256, 16), (64, 1024, 256, 16),
                                          (49, 1401, 256, 16), (49, 7399, 64, 16), (49, 343, 512, 1),
-                                         (64, 1519, 1024, 1)])
+                                         (64, 1519, 1024, 1), (144, 432, 64, 16), (144, 1029, 256, 16)])
 def test_cuda_backward_plan_is_the_librarys(cuda_device, m, n, c, heads):
     """The planner's shared memory is the library's for the kernel it picks,
     and the occupancy query reports that kernel's row share and key tile
-    (the tiled backward's 32 keys, which its plan names only for rows
-    counted as key tiles)."""
+    (the tiled backward's 32 keys, at every shape it takes)."""
     plan = wac.attn_core_bwd_plan(m, n, c, heads)
     lib = wac._lib("attn_core_bwd")
     assert lib.attn_core_bwd_smem_bytes(m, n, c, heads, plan.row_share) == plan.smem_bytes
     occ = wac.attn_core_backward_occupancy(m, n, c, heads, torch.float32, torch.cuda.current_device())
     assert occ["row_share"] == plan.row_share and occ["smem_bytes"] == plan.smem_bytes
     tiled = not plan.row_share and c // heads <= 32
-    assert occ["key_tile"] == (32 if tiled else 0) and plan.key_tile in (0, occ["key_tile"])
+    assert occ["key_tile"] == (32 if tiled else 0) and (plan.key_tiles <= tiled)
     assert occ["blocks_per_sm"] >= 1
 
 
@@ -835,7 +834,7 @@ def test_cuda_key_tiled_backward_matches_twin_and_repeats_exactly(cuda_device, h
     heads, b_ = 16, 5
     c = heads * hd
     plan = wac.attn_core_bwd_plan(m, n, c, heads)
-    assert plan.key_tile and not plan.row_share
+    assert plan.key_tiles and not plan.row_share
     g = torch.Generator(device=cuda_device).manual_seed(n)
     f = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
     q, k, v, gr, bias = f(b_, m, c), f(b_, n, c), f(b_, n, c), f(b_, m, c), f(heads, m, n) * 0.5
@@ -894,7 +893,7 @@ def test_cuda_key_tiled_blocks_train_on_the_kernel_path(cuda_device, win, c):
                 gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
             rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
             assert rel <= 1e-3, (key, dilate, rel)
-    assert plan_f.key_tiled == (plan_b.key_tile > 0) == (c == 256)
+    assert plan_f.key_tiled == plan_b.key_tiles == (c == 256)
 
 
 @pytest.mark.cuda
@@ -1044,6 +1043,33 @@ def test_cuda_tiled_backward_past_four_row_warps(cuda_device, hd, m, n):
         for a, b, r in zip(got, again, ref):
             assert torch.equal(a, b)
             assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (m, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,n", [(4, 432), (16, 432), (4, 1029), (16, 1029), (32, 432)])
+def test_cuda_tiled_backward_past_128_rows(cuda_device, hd, n):
+    """The tiled backward at M 144 (window_size (12, 12); T=3 gives N 432),
+    past its keys kernel's 128 rows a block: two row groups of 80 and 64
+    rows, dk and dv summed over them through the scratch, f32 and bf16,
+    within the gates of attn_core_backward_reference, two runs bit for bit."""
+    heads, b_, m = 4, 3, 144
+    c = heads * hd
+    plan = wac.attn_core_bwd_plan(m, n, c, heads)
+    assert not plan.row_share and wac.tiled_keys_rows(m) == (5, 80)
+    counter = wac.bwd_counter(plan, hd)
+    q, k, v, bias = _attn_inputs(m + n + hd, b_, m, n, c, heads, cuda_device)
+    gr = torch.randn(b_, m, c, device=cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in (q, k, v)]
+        before = dict(launch_counts)
+        got = attn_core_backward(*ins, bias, gr.to(dt), heads)
+        again = attn_core_backward(*ins, bias, gr.to(dt), heads)
+        torch.cuda.synchronize()
+        assert _launched(before) == {counter: 2}
+        ref = attn_core_backward_reference(*ins, bias, gr.to(dt), heads)
+        for a, b, r in zip(got, again, ref):
+            assert torch.equal(a, b)
+            assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (n, dt)
 
 
 @pytest.mark.cuda
