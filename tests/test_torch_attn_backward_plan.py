@@ -3,8 +3,8 @@ function of (M, N, C, heads) that picks the row share J a lane of pass 1
 keeps in registers, or the tiled backward (J 0) for rows above 32 x 32
 keys or rows whose (M, N) dbias plane does not fit in a block's shared
 memory beside the k/v rows, counted as long rows where a window's k/v and
-q/g rows would fit in one block and as key tiles (a 32-key tile) where they
-would not. Checked on the CPU against the shared-memory layouts of
+q/g rows would fit in one block and as key tiles where they would not
+(the same kernels, 32-key tiles at every shape). Checked on the CPU against the shared-memory layouts of
 ``attn_bwd_kernel`` and ``attn_bwd_keys_kernel`` (csrc/attn_core_bwd.cu)."""
 
 import pytest
@@ -57,9 +57,9 @@ def test_plan_at_the_model_shapes(m, n, c, want):
 def test_plan_picks_the_registers_where_they_fit_and_long_rows_elsewhere(n, hd):
     """J is the fewest of 12, 16, 32 with N <= 32 J whenever that kernel's
     shared memory fits; otherwise the tiled backward runs, whose shared
-    memory holds neither an (M, N) plane nor a window's k/v rows, with a
-    32-key tile where those rows would not fit in one block (key tiles; it
-    raised before that variant existed), else none (long rows)."""
+    memory holds neither an (M, N) plane nor a window's k/v rows, counted
+    as key tiles where those rows would not fit in one block (it raised
+    before that variant existed), else as long rows."""
     m, heads = 49, 4
     ks = _key_stride(hd)
     rows = 4 * (2 * (n + m) * ks + 3 * m)
@@ -67,7 +67,7 @@ def test_plan_picks_the_registers_where_they_fit_and_long_rows_elsewhere(n, hd):
     if short_j and rows + 4 * m * n <= LIMIT:
         want = BwdPlan(short_j, rows + 4 * m * n)
     else:
-        want = BwdPlan(0, _tiled_smem(m, hd), 0 if rows <= LIMIT else 32)
+        want = BwdPlan(0, _tiled_smem(m, hd), rows > LIMIT)
         assert want.smem_bytes <= LIMIT
     assert attn_core_bwd_plan(m, n, hd * heads, heads) == want
     assert attn_core_bwd_smem_bytes(m, n, hd, want.row_share) == want.smem_bytes
@@ -76,15 +76,15 @@ def test_plan_picks_the_registers_where_they_fit_and_long_rows_elsewhere(n, hd):
 @pytest.mark.parametrize("m,hd", [(49, 16), (64, 16), (64, 4), (4, 32)])
 def test_long_rows_run_up_to_the_shared_memory_limit(m, hd):
     """The longest long row is the last whose k, v, q and g rows would fit
-    in a block; one key more counts as key tiles (a 32-key tile; it raised
-    before that variant existed). Both take the tiled backward, whose block
+    in a block; one key more counts as key tiles (it raised before that
+    variant existed). Both take the tiled backward, whose block
     does not grow with N."""
     ks = _key_stride(hd)
     most = (LIMIT // 4 - 3 * m) // (2 * ks) - m
     assert attn_core_bwd_window_bytes(m, most, hd) <= LIMIT < attn_core_bwd_window_bytes(m, most + 1, hd)
-    assert attn_core_bwd_plan(m, most, hd, 1) == (0, attn_core_bwd_smem_bytes(m, most, hd, 0), 0)
+    assert attn_core_bwd_plan(m, most, hd, 1) == (0, attn_core_bwd_smem_bytes(m, most, hd, 0), False)
     tiled = attn_core_bwd_plan(m, most + 1, hd, 1)
-    assert tiled == (0, attn_core_bwd_smem_bytes(m, most, hd, 0), 32) and tiled.smem_bytes <= LIMIT
+    assert tiled == (0, attn_core_bwd_smem_bytes(m, most, hd, 0), True) and tiled.smem_bytes <= LIMIT
 
 
 def test_plan_is_a_function_of_its_arguments():

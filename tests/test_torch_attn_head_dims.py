@@ -70,7 +70,7 @@ def test_plans_take_every_head_dim_and_the_launch_checks_accept_them(hd, bf16):
         assert bwd.smem_bytes <= _MAX_SMEM
         assert (bwd_counter(bwd, hd) == "attn_core_backward_wide") == (hd > 32)
         if hd > 32:  # the wide backward's tiles are its own
-            assert bwd.key_tile == 0 and not bwd.row_share
+            assert not bwd.key_tiles and not bwd.row_share
 
 
 @pytest.mark.parametrize("c,heads", [(256, 4), (256, 2), (256, 1), (96, 16), (192, 16), (48, 16)])

@@ -71,20 +71,20 @@ def test_forward_plan_refuses_above_its_key_limit(head_dim, dtype, limit):
                                               (16, 64, 1384)])
 def test_backward_plan_refuses_above_its_key_limit(head_dim, m, limit):
     """Long rows are the last rows whose k, v, q and g would fit in a
-    block; N + 1 and the far row count as key tiles (a 32-key tile). Both
-    take the tiled backward, whose block is the same at every N."""
+    block; N + 1 and the far row count as key tiles. Both take the tiled
+    backward, whose block is the same at every N."""
     def plan(n):
         return attn_core_bwd_plan(m, n, head_dim * HEADS, HEADS)
 
-    assert _last_untiled(lambda n: plan(n).key_tile > 0) == limit
+    assert _last_untiled(lambda n: plan(n).key_tiles) == limit
     assert plan(limit).row_share == 0  # the tiled backward takes the last long rows
     assert attn_core_bwd_window_bytes(m, limit + 1, head_dim) > _MAX_SMEM
     for n in (limit + 1, FAR[head_dim]):
         tiled = plan(n)
-        assert tiled.row_share == 0 and tiled.key_tile > 0 and tiled.key_tile % 32 == 0
+        assert tiled.row_share == 0 and tiled.key_tiles
         assert tiled.smem_bytes == attn_core_bwd_smem_bytes(m, n, head_dim, 0) == plan(limit).smem_bytes
         assert tiled.smem_bytes <= _MAX_SMEM
-        assert tiled.key_tile == plan(FAR[head_dim] + 1000).key_tile
+        assert tiled == plan(FAR[head_dim] + 1000)
 
 
 def test_flagship_buffers_beyond_the_limits():
@@ -100,4 +100,4 @@ def test_flagship_buffers_beyond_the_limits():
                 fwd = attn_forward_plan(20, HEADS, 49, n, head_dim, 132, 1, bf16)
                 assert fwd.key_tiled == (head_dim == 16 and (frames == 61 or not bf16))
             bwd = attn_core_bwd_plan(49, n, head_dim * HEADS, HEADS)
-            assert bwd.row_share == 0 and (bwd.key_tile > 0) == (head_dim == 16)
+            assert bwd.row_share == 0 and bwd.key_tiles == (head_dim == 16)

@@ -52,7 +52,7 @@ def test_plans_and_launch_checks_take_head_dims_up_to_1024(hd, n):
         assert fwd.key_tiled and fwd.threads == FLASH_THREADS and attn_key_tiled(49, n, hd, bf16)
     bwd = attn_core_bwd_plan(49, n, hd, 1)
     assert bwd_counter(bwd, hd) == "attn_core_backward_wide"
-    assert bwd.row_share == 0 and bwd.key_tile == 0 and bwd.smem_bytes <= _MAX_SMEM
+    assert bwd.row_share == 0 and not bwd.key_tiles and bwd.smem_bytes <= _MAX_SMEM
 
 
 def _seeded(shape, rng, scale=1.0):
