@@ -558,8 +558,8 @@ def attn_core_bwd_window_bytes(m: int, n: int, head_dim: int) -> int:
     """Bytes of one window's k, v, q and g rows (padded, f32) and three row
     statistics. Only the launch counter reads it: the tiled backward counts
     rows as long rows where this fits in one block's shared memory (the
-    rows PR 11's long-row kernel took), as key tiles where it does not; the
-    kernels are the same."""
+    rows an earlier long-row kernel took), as key tiles where it does not;
+    the kernels are the same."""
     return 4 * (2 * (n + m) * _key_stride(_padded_head_dim(head_dim)) + 3 * m)
 
 
