@@ -301,6 +301,8 @@ class BDE2VID(nn.Module):
     mode (``.train()``) a ``torch.Generator`` draws the DropPath masks. The
     output is in the voxels' type."""
 
+    is_sequence_model = True
+
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
         self.config = dict(config)

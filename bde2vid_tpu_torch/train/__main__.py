@@ -1,7 +1,9 @@
 """Training CLI of the port (counterpart of ``bde2vid_tpu/train/__main__.py``).
 
     python -m bde2vid_tpu_torch.train --config cfg.json --data_dir D \\
-        [--steps N] [--out_dir O] [--batch B] [--loader_type {H5,MMP}] [--device cpu]
+        [--steps N] [--out_dir O] [--batch B] [--loader_type {H5,MMP}] [--device cpu] \\
+        [--resume epoch_K.state | W.pth] [--save_state] [--prefetch P] \\
+        [--val_dir V --val_every E [--val_windows W]]
 
 The json config has the JAX CLI's schema:
 
@@ -16,26 +18,37 @@ The json config has the JAX CLI's schema:
               "transforms": {"RandomRotationFlip": {...}, "RandomCrop": {"size": 112}}},
      "train": {"steps": 1000, "ckpt_every": 200, "bf16": false, "remat": false}}
 
+Every registered family trains: BDE2VID takes each window in one call; the
+step models (E2VID, E2VIDRecurrent, FireNet, FireNetOrg, FlowNet,
+SPADEE2VID, EITR, EVSNN, PAEVSNN) run over it from their initial state.
+
 Training windows come from every sequence under ``--data_dir``: ``**/*.h5``
 files (``--loader_type H5``, the default and the JAX CLI's only discovery)
 or memmap directories (``MMP``). The window stream of step k is a pure
 function of (seed, k): each step draws from a fresh numpy
 ``default_rng([seed, k])``, so the port draws the JAX CLI's windows, crops
-and pauses. Voxels stay on the device from voxelization to the model.
-Noise, hot pixels and DropPath draw from seeded ``torch.Generator``s.
+and pauses, and a resumed run draws the uninterrupted run's. Voxels stay on
+the device from voxelization to the model. Noise and hot pixels draw from
+the seeded ``torch.Generator`` "augment" on the main thread, in step order,
+DropPath from "droppath". ``--prefetch P`` assembles the next P batches on
+a background thread (on CUDA on a stream of its own) and leaves the losses
+as they are without it.
 
 ``"train": {"bf16": true}`` computes the model in bf16 over f32 weights and
-f32 Adam state; ``"train": {"remat": true}`` sets the model's ``remat``, which
-rematerialises each time step of its sweeps in the backward.
+f32 Adam state; ``"train": {"remat": true}`` rematerialises BDE2VID per
+time step of its sweeps, and a step model's whole forward, in the backward.
 
 Each checkpoint is ``epoch_N.pth`` in the mmengine layout that the port's and
-the JAX package's eval CLIs load; ``train_log.jsonl`` in the output
+the JAX package's eval CLIs load; with ``--save_state`` ``epoch_N.state``
+beside it holds the full train state (``trainer.save_train_state``), which
+``--resume`` continues bit for bit. ``train_log.jsonl`` in the output
 directory gets one line per step: the losses, the step's host seconds and
-the part of them spent assembling and augmenting the batch.
+the part of them spent getting and augmenting the batch. ``--val_dir``
+scores held-out windows (``train/validate.py``) into ``val_log.jsonl`` and
+keeps the best-MSE weights as ``best.pth``.
 
-Not ported yet, and refused: ``--resume``, ``--save_state``, ``--val_dir``,
-``--prefetch``, ``--lpips_lin``/``--lpips_backbone`` (ROADMAP A8); one card
-per run.
+Not ported yet, and refused: ``--lpips_lin``/``--lpips_backbone`` (ROADMAP
+A9); one card per run.
 """
 
 from __future__ import annotations
@@ -179,11 +192,13 @@ def _discover(data_dir: str, ltype: str):
 
 def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, seed=0, multiple=1,
                              crop_size=None, want_flows=False, rot_cfg=None, ltype="H5",
-                             device=None):
+                             device=None, start_step=0):
     """Yield (voxels (L, N, B, H, W), frames (L, N, 1, H, W), flows
     (L, N, 2, H, W) or None) batches of ``batch`` independent windows on
     ``device``, one run-wide crop shape (from the smallest sensor, rounded
-    down to ``multiple``). Step k draws from ``default_rng([seed, k])``."""
+    down to ``multiple``), from step ``start_step`` on. Step k draws from
+    ``default_rng([seed, k])``, so a run resumed at step k draws what the
+    uninterrupted run drew there."""
     import torch
 
     from bde2vid_tpu_torch.utils.device import resolve_device
@@ -196,7 +211,7 @@ def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, se
     sensors = [open_sequence(p).sensor_size for p in files]
     min_hw = (min(s[0] for s in sensors), min(s[1] for s in sensors))
     crop_hw = _crop_shape(min_hw, crop_size, multiple)
-    step = 0
+    step = int(start_step)
     while True:
         rng = np.random.default_rng([int(seed), step])
         step += 1
@@ -215,12 +230,12 @@ def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, se
         yield torch.stack(vs, dim=1), frames, flows
 
 
-# flags of the JAX CLI that the port accepts and refuses until they are ported
-_NOT_PORTED = ("resume", "save_state", "val_dir", "prefetch", "lpips_lin", "lpips_backbone")
+# flags of the JAX CLI that the port accepts and refuses until LPIPS is ported (A9)
+_NOT_PORTED = ("lpips_lin", "lpips_backbone")
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="train BDE2VID on event sequences")
+    p = argparse.ArgumentParser(description="train reconstruction models on event sequences")
     p.add_argument("--config", required=True)
     p.add_argument("--data_dir", default="data/train")
     p.add_argument("--steps", type=int, default=None)
@@ -229,9 +244,22 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--loader_type", default="H5", choices=["H5", "MMP"],
                    help="H5 event files (default) or memmap directories")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--resume", default=None,
+                   help="an epoch_N.state (exact resume at step N: weights, optimizer, "
+                   "scheduler and generator states) or a weights .pth (fresh optimizer, step 0)")
+    p.add_argument("--save_state", action="store_true",
+                   help="also write the full train state epoch_N.state beside each epoch_N.pth")
+    p.add_argument("--val_dir", default=None,
+                   help="held-out sequences: score MSE/SSIM on fixed windows every --val_every "
+                   "steps, append val_log.jsonl, keep the best-MSE weights as best.pth")
+    p.add_argument("--val_every", type=int, default=0,
+                   help="validation interval in steps (0 disables)")
+    p.add_argument("--val_windows", type=int, default=4,
+                   help="number of held-out windows scored per validation")
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="batches assembled ahead by a background thread (0: none)")
     for flag in _NOT_PORTED:
-        kind = dict(action="store_true") if flag == "save_state" else {}
-        p.add_argument(f"--{flag}", help="not ported yet; refused", **kind)
+        p.add_argument(f"--{flag}", help="not ported yet; refused")
     return p
 
 
@@ -239,14 +267,17 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     for flag in _NOT_PORTED:
         if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP A8, A9 for LPIPS)")
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP A9, LPIPS)")
 
     import torch
 
     from bde2vid_tpu_torch.data.transforms import add_hot_pixels_to_sequence, add_noise_to_voxel
+    from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, load_torch_file
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.train.optim import build_optimizer
-    from bde2vid_tpu_torch.train.trainer import SequenceLossComputer, save_checkpoint, train_step
+    from bde2vid_tpu_torch.train.trainer import (SequenceLossComputer, is_train_state,
+                                                 restore_train_state, save_checkpoint,
+                                                 save_train_state, train_step)
     from bde2vid_tpu_torch.utils.config import Config
     from bde2vid_tpu_torch.utils.device import resolve_device
 
@@ -257,12 +288,11 @@ def main(argv=None) -> int:
 
     model_cfg = dict(cfg["model"].get("args", {}))
     model_name = cfg["model"]["type"]
-    if model_name != "BDE2VID":
-        raise NotImplementedError(f"training {model_name!r} is not ported yet (BDE2VID only)")
     train_cfg = cfg.get("train", {})
-    if train_cfg.get("remat"):
-        # per-step remat inside the model (JAX train/__main__.py: a checkpoint
-        # of the whole forward would lower no peak)
+    remat = bool(train_cfg.get("remat", False))
+    if remat and model_name == "BDE2VID":
+        # per-step remat inside the sequence model; a step model's whole
+        # forward is recomputed instead (train_step's ``remat``), as in JAX
         model_cfg["remat"] = True
     # bf16 compute over f32 weights and optimizer state
     dtype = torch.bfloat16 if train_cfg.get("bf16") else torch.float32
@@ -272,6 +302,7 @@ def main(argv=None) -> int:
     num_bins = int(data_cfg.get("num_bins", 5))
     noise_std = float(data_cfg.get("noise_std", 0.0))
     noise_fraction = float(data_cfg.get("noise_fraction", 0.0))
+    # H/W divisibility of the decoder pyramid (BDE2VID keeps it under "generator")
     num_encoders = int(model_cfg.get("generator", model_cfg).get("num_encoders", 3))
     crop_size = data_cfg.get("crop_size")
     transforms_cfg = dict(data_cfg.get("transforms", {}))
@@ -299,45 +330,83 @@ def main(argv=None) -> int:
     optimizer, scheduler, grad_clip, desc = build_optimizer(
         model.parameters(), cfg.get("optimizer"), cfg.get("lr_scheduler"))
     print(f"optimizer: {desc}")
+    # noise and hot pixels draw from "augment", DropPath from "droppath"
+    generators = {"augment": torch.Generator(device=device).manual_seed(42),
+                  "droppath": torch.Generator(device=device).manual_seed(1)}
+    start_step = 0
+    if args.resume and is_train_state(args.resume):
+        start_step = restore_train_state(args.resume, model, optimizer, scheduler, generators)
+        print(f"exact resume from {args.resume} at step {start_step}")
+    elif args.resume:
+        ckpt = load_torch_file(args.resume)
+        load_state_dict_checked(model, ckpt.get("state_dict", ckpt))
+        print(f"weights from {args.resume}; fresh optimizer at step 0")
+
+    validator = None
+    if args.val_dir and args.val_every > 0:
+        from bde2vid_tpu_torch.train.validate import Validator
+
+        validator = Validator(model_name, model_cfg, args.val_dir, seq_len=seq_len,
+                              num_bins=num_bins, windows=args.val_windows,
+                              multiple=2**num_encoders, crop_size=crop_size, dtype=dtype,
+                              ltype=args.loader_type, device=device)
 
     it = iterate_training_windows(
         args.data_dir, seq_len, num_bins, data_cfg, batch=args.batch, multiple=2**num_encoders,
         crop_size=crop_size, want_flows=want_flows, rot_cfg=rot_cfg, ltype=args.loader_type,
-        device=device,
+        device=device, start_step=start_step,
     )
-    aug_gen = torch.Generator(device=device).manual_seed(42)
-    drop_gen = torch.Generator(device=device).manual_seed(1)
+    if args.prefetch > 0:
+        from bde2vid_tpu_torch.data.prefetch import Prefetcher
+
+        it = Prefetcher(it, size=args.prefetch, device=device)
     steps = args.steps or int(train_cfg.get("steps", 1000))
     ckpt_every = int(train_cfg.get("ckpt_every", 200))
     log_path = os.path.join(out_dir, "train_log.jsonl")
     t_start = time.perf_counter()
-    with open(log_path, "a") as log:
-        for i in range(steps):
-            t0 = time.perf_counter()
-            voxels, gts, flows = next(it)
-            if noise_std > 0:
-                voxels = add_noise_to_voxel(voxels, aug_gen, noise_std, noise_fraction)
-            if hot_frac > 0:
-                # one hot-pixel pattern per window, shared by its steps
-                # (data_augmentation.py:48-59)
-                voxels = torch.stack([
-                    add_hot_pixels_to_sequence(voxels[:, n], aug_gen, hot_std, hot_frac)
-                    for n in range(voxels.shape[1])
-                ], dim=1)
-            t_data = time.perf_counter() - t0
-            loss_dict = train_step(model, optimizer, comp, voxels, gts, flows, generator=drop_gen,
-                                   grad_clip=grad_clip, scheduler=scheduler, dtype=dtype)
-            losses = dict(zip(loss_dict, torch.stack(list(loss_dict.values())).tolist()))
-            log.write(json.dumps({"step": i, **losses, "seconds": time.perf_counter() - t0,
-                                  "data_seconds": t_data}) + "\n")
-            log.flush()
-            if i % 20 == 0:
-                rate = (i + 1) / (time.perf_counter() - t_start)
-                print(f"step {i}: loss={losses['loss']:.5f} ({rate:.2f} steps/s)", flush=True)
-            if (i + 1) % ckpt_every == 0 or i + 1 == steps:
-                path = os.path.join(out_dir, f"epoch_{i + 1}.pth")
-                save_checkpoint(path, model, model_name, model_cfg)
-                print(f"saved {path}", flush=True)
+    try:
+        with open(log_path, "a") as log:
+            for i in range(start_step, steps):
+                t0 = time.perf_counter()
+                voxels, gts, flows = next(it)
+                # augmentation draws stay here, in step order, with or without prefetch
+                if noise_std > 0:
+                    voxels = add_noise_to_voxel(voxels, generators["augment"], noise_std,
+                                                noise_fraction)
+                if hot_frac > 0:
+                    # one hot-pixel pattern per window, shared by its steps
+                    # (data_augmentation.py:48-59)
+                    voxels = torch.stack([
+                        add_hot_pixels_to_sequence(voxels[:, n], generators["augment"], hot_std,
+                                                   hot_frac)
+                        for n in range(voxels.shape[1])
+                    ], dim=1)
+                t_data = time.perf_counter() - t0
+                loss_dict = train_step(model, optimizer, comp, voxels, gts, flows,
+                                       generator=generators["droppath"], grad_clip=grad_clip,
+                                       scheduler=scheduler, dtype=dtype, remat=remat)
+                losses = dict(zip(loss_dict, torch.stack(list(loss_dict.values())).tolist()))
+                log.write(json.dumps({"step": i, **losses, "seconds": time.perf_counter() - t0,
+                                      "data_seconds": t_data}) + "\n")
+                log.flush()
+                if i % 20 == 0:
+                    rate = (i + 1 - start_step) / (time.perf_counter() - t_start)
+                    print(f"step {i}: loss={losses['loss']:.5f} ({rate:.2f} steps/s)", flush=True)
+                if validator is not None and ((i + 1) % args.val_every == 0 or i + 1 == steps):
+                    rec = validator.log_and_track(out_dir, i + 1, model)
+                    print(f"val step {i + 1}: mse={rec['mse']:.6f} ssim={rec['ssim']:.4f}"
+                          + (" (new best)" if rec["best"] else ""), flush=True)
+                if (i + 1) % ckpt_every == 0 or i + 1 == steps:
+                    path = os.path.join(out_dir, f"epoch_{i + 1}.pth")
+                    save_checkpoint(path, model, model_name, model_cfg)
+                    print(f"saved {path}", flush=True)
+                    if args.save_state:
+                        spath = os.path.join(out_dir, f"epoch_{i + 1}.state")
+                        save_train_state(spath, model, optimizer, scheduler, i + 1, generators,
+                                         model_name, model_cfg)
+                        print(f"saved {spath}", flush=True)
+    finally:
+        it.close()  # stops a prefetch thread
     return 0
 
 

@@ -14,16 +14,28 @@ Loss semantics follow the reference BDE2VID in-loop computation
 Images are (T, N, 1, H, W) and flows (T, N, 2, H, W), the port's layout. A
 Python loop over T is the whole computation: the JAX package's ``lax.scan``
 form exists only to bound its trace size.
+
+A sequence model (BDE2VID) takes the whole window in one call; a step model
+runs ``models/api.py::run_sequence`` from its ``initial_state``, and its
+train-mode BatchNorm moves the running statistics once per step, which
+compounds over T as the JAX step's carried ``batch_stats`` do.
+
+Checkpoints: ``epoch_N.pth`` holds the weights in the mmengine layout that
+both packages' eval CLIs load; ``epoch_N.state`` (``save_train_state``) is
+the full train state for an exact resume.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from bde2vid_tpu_torch.losses import build_loss
+from bde2vid_tpu_torch.models.api import run_sequence
+from bde2vid_tpu_torch.nn.remat import checkpoint_step
 
 
 class SequenceLossComputer:
@@ -92,20 +104,51 @@ class SequenceLossComputer:
         return total, loss_dict
 
 
+def _cast_state(state, dtype: torch.dtype):
+    """A step model's (nested) state with its float tensors in ``dtype``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(dtype) if state.is_floating_point() else state
+    if isinstance(state, (tuple, list)):
+        return type(state)(_cast_state(s, dtype) for s in state)
+    if isinstance(state, dict):
+        return {k: _cast_state(v, dtype) for k, v in state.items()}
+    return state
+
+
+def sequence_forward(model: torch.nn.Module, voxels: torch.Tensor,
+                     generator: Optional[torch.Generator] = None, remat: bool = False) -> torch.Tensor:
+    """Images (T, N, 1, H, W) of ``voxels`` (T, N, B, H, W) in the voxels'
+    type. A sequence model takes the window in one call, with ``generator``
+    for its DropPath (its ``remat`` is its own config). A step model runs
+    from its ``initial_state`` in the voxels' type; ``remat`` recomputes that
+    whole forward in the backward (JAX ``make_loss_fn``'s ``jax.checkpoint``)."""
+    if getattr(model, "is_sequence_model", False):
+        return model(voxels, generator=generator)["image"]
+    n, h, w = voxels.shape[1], voxels.shape[3], voxels.shape[4]
+    state = _cast_state(model.initial_state(n, h, w), voxels.dtype)
+
+    def run(v):
+        return run_sequence(model, v, state)[0]
+
+    return checkpoint_step(run, voxels) if remat else run(voxels)
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                loss_computer: SequenceLossComputer, voxels: torch.Tensor, frames: torch.Tensor,
                flows: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
                grad_clip: Optional[float] = None, scheduler=None,
-               dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+               dtype: torch.dtype = torch.float32, remat: bool = False) -> Dict[str, torch.Tensor]:
     """One step (counterpart of ``make_train_step``): forward in training
-    mode, sequence loss, backward, global-norm clip, optimizer and scheduler
-    step. voxels (T, N, B, H, W), frames (T, N, 1, H, W), flows (T, N, 2, H,
-    W) or None. ``dtype`` bfloat16 computes the model in bf16 over its f32
-    weights (the JAX CLI's ``"train": {"bf16": true}``): the gradients and
-    the optimizer stay f32, and the loss is taken in f32. Returns the
-    detached loss dict."""
+    mode (``sequence_forward``), sequence loss, backward, global-norm clip,
+    optimizer and scheduler step. voxels (T, N, B, H, W), frames (T, N, 1,
+    H, W), flows (T, N, 2, H, W) or None. ``dtype`` bfloat16 computes the
+    model in bf16 over its f32 weights (the JAX CLI's ``"train": {"bf16":
+    true}``): the gradients and the optimizer stay f32, and the loss is
+    taken in f32. ``remat``: a step model's whole forward is recomputed in
+    the backward (a sequence model rematerialises by its own config).
+    Returns the detached loss dict."""
     optimizer.zero_grad(set_to_none=True)
-    preds = model(voxels.to(dtype), generator=generator)["image"].float()
+    preds = sequence_forward(model, voxels.to(dtype), generator, remat).float()
     total, loss_dict = loss_computer(preds, frames, flows)
     total.backward()
     if grad_clip is not None:
@@ -124,3 +167,54 @@ def save_checkpoint(path: str, model: torch.nn.Module, model_name: str, config: 
     cfg_text = "model = " + repr({"type": model_name, **config}) + "\n"
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save({"meta": {"cfg": cfg_text}, "state_dict": state}, path)
+
+
+def save_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     scheduler, step: int, generators: Dict[str, torch.Generator],
+                     model_name: str, config: Dict) -> None:
+    """The full train state in one ``torch.save`` file, for an exact resume
+    (JAX ``save_train_state_orbax``): the model's state dict (BatchNorm
+    running statistics included), the optimizer's (Adam moments and step
+    counts), the scheduler's, the step, and the state of each generator the
+    loop draws from (the port's counterpart of JAX's saved PRNG key: a
+    ``torch.Generator`` carries its state where JAX splits a key). A
+    ``<path>.json`` sidecar ``{"model", "config", "train_state": true}``
+    tells it from a weights-only file (``is_train_state``)."""
+    torch.save({
+        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "optimizer": optimizer.state_dict(),
+        "scheduler": None if scheduler is None else scheduler.state_dict(),
+        "step": int(step),
+        "generators": {k: g.get_state() for k, g in generators.items()},
+    }, path)
+    with open(path + ".json", "w") as fp:
+        json.dump({"model": model_name, "config": config, "train_state": True}, fp)
+
+
+def is_train_state(path: str) -> bool:
+    """True if ``path`` is a full train state (its sidecar says so)."""
+    try:
+        with open(path + ".json") as fp:
+            return bool(json.load(fp).get("train_state"))
+    except (OSError, ValueError):
+        return False
+
+
+def restore_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                        scheduler, generators: Dict[str, torch.Generator]) -> int:
+    """Load a ``save_train_state`` file into the freshly built ``model``,
+    ``optimizer``, ``scheduler`` and ``generators`` of the same run config;
+    returns the step to continue from."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if (state["scheduler"] is None) != (scheduler is None):
+        raise ValueError(f"{path}: the saved run and this config disagree on the lr scheduler")
+    if set(state["generators"]) != set(generators):
+        raise ValueError(f"{path}: generators {sorted(state['generators'])}, "
+                         f"expected {sorted(generators)}")
+    model.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    if scheduler is not None:
+        scheduler.load_state_dict(state["scheduler"])
+    for k, g in generators.items():
+        g.set_state(state["generators"][k])
+    return int(state["step"])

@@ -85,12 +85,20 @@ reference's.
   train    the train CLI on the MMP sequence: the flagship for 6 steps
            (DropPath 0.2, pause, noise, hot pixels, Adam with gradient
            clipping; ms per step, peak memory, one profiled step's
-           device-idle share), the 8x8 config for 3 steps, and the flagship
-           with "train" bf16, remat and both for 6 steps each; finite
-           losses, exact launch counts, checkpoints the eval CLI scores;
-           then a remat train step of the flagship with 21 buffer frames and
-           of the 8x8 config with 17, kernel path (B2's long rows) vs
-           unfused path
+           device-idle share), validating every 3 steps on 2 windows of a
+           second sequence and writing its full train state, with
+           --prefetch 0 and 2 (data ms share), one timed validation round,
+           the 8x8 config for 3 steps, and the flagship with "train" bf16,
+           remat and both for 6 steps each; finite losses, exact launch
+           counts (validation's B1 launches too), checkpoints (best.pth
+           too) the eval CLI scores; under deterministic algorithms the
+           flagship for 6 steps, resumed from its epoch_3.state and run with
+           --prefetch 2, each bit-equal to it (losses, weights, train
+           state; the ops without a deterministic version listed); then
+           E2VIDRecurrent at the released widths, FireNet and EVSNN for 3
+           steps each through the CLI (no hand kernel); then a remat train
+           step of the flagship with 21 buffer frames and of the 8x8 config
+           with 17, kernel path (B2's long rows) vs unfused path
   key_tiles  the key-tiled variants of the attention forward and backward
            (ROADMAP C5) vs their twins: the bare core, the Swin block's and
            the WindowAttention3D body's attention stage and the backward at
@@ -165,6 +173,9 @@ PER_FRAME = {"flagship": {"fused_swin_block": 10},
              "8x8": {"fused_swin_block": 5, "fused_window_block": 5}}
 TRAIN_STEPS, TRAIN_SEQ_LEN = 6, 8
 TRAIN_STEPS_8X8 = 3
+# the flagship's train runs validate every VAL_EVERY steps on VAL_WINDOWS
+# held-out windows; the deterministic pair resumes from epoch_RESUME_AT.state
+VAL_EVERY, VAL_WINDOWS, RESUME_AT = 3, 2, 3
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
@@ -247,6 +258,9 @@ STEP_MODELS = {
 STEP_MODELS["EVSNN"] = ({"num_bins": 5}, (184, 240))
 STEP_MODELS["PAEVSNN"] = ({"num_bins": 5}, (184, 240))
 STEP_BF16 = ("E2VIDRecurrent", "FireNet", "SPADEE2VID", "EITR")
+# the step models the train phase trains through the CLI, STEP_TRAIN_STEPS steps each
+STEP_TRAIN = {"E2VIDRecurrent": E2VID_WIDTHS, "FireNet": FIRENET_WIDTHS, "EVSNN": {"num_bins": 5}}
+STEP_TRAIN_STEPS = 3
 # The spiking models fire where a membrane reaches the threshold, and a
 # membrane within float rounding of it fires on one device and not on the
 # other (cuDNN and oneDNN sum in other orders); one flipped spike then moves
@@ -2273,16 +2287,83 @@ def phase_variants(torch, launch_counts):
     emit({"phase": "variants", "T": T, "hw": [184, 240], "configs": rows})
 
 
+def val_steps(steps):
+    """The steps after which a run of ``steps`` steps validates: every
+    VAL_EVERY and at the end."""
+    return [s for s in range(1, steps + 1) if s % VAL_EVERY == 0 or s == steps]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside;
+    yields a set that holds, on leaving, the first line of each alert that an
+    op without a deterministic version raised."""
+    import warnings
+
+    alerts = set()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield alerts
+        finally:
+            torch.use_deterministic_algorithms(False)
+            alerts.update(str(w.message).strip().splitlines()[0][:240] for w in caught
+                          if "determinis" in str(w.message))
+
+
+def state_leaves(tree, prefix=""):
+    """Every tensor and number of a nested checkpoint or train state, by path."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(state_leaves(v, f"{prefix}/{k}"))
+    return out
+
+
+def compare_states(torch, what, a, b, alerts):
+    """Bit equality of two nested states; where ops without a deterministic
+    version ran (``alerts``), within 2e-4 instead. Returns the max abs diff."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if la.keys() != lb.keys():
+        raise AssertionError(f"{what}: keys differ: {sorted(la.keys() ^ lb.keys())[:8]}")
+    worst = 0.0
+    for k, x in la.items():
+        y = lb[k]
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                raise AssertionError(f"{what}: {k} {x.dtype}{tuple(x.shape)} vs {y.dtype}{tuple(y.shape)}")
+            if not torch.equal(x, y):
+                worst = max(worst, float((x.double() - y.double()).abs().max())
+                            if x.is_floating_point() else math.inf)
+        elif x != y:
+            worst = max(worst, abs(x - y) if isinstance(x, float) else math.inf)
+    if worst and (not alerts or worst > 2e-4):
+        raise AssertionError(f"{what}: not bit-equal (max abs diff {worst}), alerts {sorted(alerts)}")
+    return worst
+
+
 def phase_train(torch, launch_counts, card):
     """The training path: the train CLI on the MMP sequence for the flagship
-    (6 steps) and the 8x8 config (3 steps), each checkpoint scored by the
-    eval CLI, and one profiled flagship train step. Returns the flagship
-    run's launches of the attention-core backward."""
+    (6 steps, validating on a held-out sequence every 3 steps, full train
+    states) with --prefetch 0 and 2, the 8x8 config (3 steps), the
+    flagship's bf16, remat and both, each checkpoint scored by the eval CLI,
+    one timed validation round and one profiled flagship train step; then,
+    under deterministic algorithms, the flagship for 6 steps, resumed from
+    its epoch_3.state and run with --prefetch 2, each bit-equal to it; then
+    E2VIDRecurrent at the released widths, FireNet and EVSNN. Returns the
+    flagship run's launches of the attention-core backward."""
     from bde2vid_tpu_torch.eval.__main__ import main as eval_main
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.train import SequenceLossComputer, build_optimizer, train_step
     from bde2vid_tpu_torch.train.__main__ import iterate_training_windows
     from bde2vid_tpu_torch.train.__main__ import main as train_main
+    from bde2vid_tpu_torch.train.validate import Validator
 
     data_cfg = {"sequence_length": TRAIN_SEQ_LEN, "num_bins": 5,
                 "proba_pause_when_running": 0.05, "proba_pause_when_paused": 0.9,
@@ -2293,17 +2374,16 @@ def phase_train(torch, launch_counts, card):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         data = os.path.join(tmp, "data")
         items = write_mmp_sequence(os.path.join(data, "mmp", "SYN", "seq0"), np.random.default_rng(4))
-        for name, base, steps, flags in (
-                ("flagship", FLAGSHIP_CFG, TRAIN_STEPS, {}),
-                ("8x8", EIGHT_CFG, TRAIN_STEPS_8X8, {}),
-                ("flagship_bf16", FLAGSHIP_CFG, TRAIN_STEPS, {"bf16": True}),
-                ("flagship_remat", FLAGSHIP_CFG, TRAIN_STEPS, {"remat": True}),
-                ("flagship_bf16_remat", FLAGSHIP_CFG, TRAIN_STEPS, {"bf16": True, "remat": True})):
-            model_args = model_config(base)
-            model_args["generator"]["drop_path_rate"] = 0.2
-            cfg = {"name": name, "model": {"type": "BDE2VID", "args": model_args},
+        val = os.path.join(tmp, "val")
+        write_mmp_sequence(os.path.join(val, "mmp", "SYN", "seq1"), np.random.default_rng(5))
+        val_flags = ["--val_dir", val, "--val_every", str(VAL_EVERY), "--val_windows",
+                     str(VAL_WINDOWS), "--save_state"]
+
+        def train_run(name, model_type, model_args, steps, flags, cli=(), ckpt_every=1000):
+            """One train CLI run: its log, launches, wall seconds, peak GiB, out dir."""
+            cfg = {"name": name, "model": {"type": model_type, "args": model_args},
                    "losses": [{"type": "L1Loss"}], "optimizer": optimizer_cfg,
-                   "data": data_cfg, "train": {"steps": steps, "ckpt_every": 1000, **flags}}
+                   "data": data_cfg, "train": {"steps": steps, "ckpt_every": ckpt_every, **flags}}
             cfg_path = os.path.join(tmp, f"cfg_{name}.json")
             with open(cfg_path, "w") as fp:
                 json.dump(cfg, fp)
@@ -2313,47 +2393,102 @@ def phase_train(torch, launch_counts, card):
             launch_counts.clear()
             t0 = time.perf_counter()
             rc = train_main(["--config", cfg_path, "--data_dir", data, "--out_dir", out_dir,
-                             "--loader_type", "MMP"])
+                             "--loader_type", "MMP", *cli])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = dict(launch_counts)
             peak_gb = torch.cuda.max_memory_allocated() / 2**30
             with open(os.path.join(out_dir, "train_log.jsonl")) as fp:
                 log = [json.loads(line) for line in fp]
-            if rc != 0 or len(log) != steps or not all(math.isfinite(r["loss"]) for r in log):
+            first = int(log[0]["step"]) if log else -1
+            if rc != 0 or [r["step"] for r in log] != list(range(first, steps)) \
+                    or not all(math.isfinite(r["loss"]) for r in log):
                 raise AssertionError(f"train CLI ({name}): rc {rc}, log {log}")
-            # remat runs each block's forward twice: in the step and in its recompute
-            forwards = 2 if flags.get("remat") else 1
-            want = {k: forwards * n * steps * TRAIN_SEQ_LEN
-                    for k, n in PER_FRAME[name.split("_")[0]].items()}
-            want["attn_core_backward"] = 10 * steps * TRAIN_SEQ_LEN
-            expect_launches(f"train CLI ({name})", launches, want)
-            ckpt = os.path.join(out_dir, f"epoch_{steps}.pth")
-            if not os.path.exists(ckpt):
-                raise AssertionError(f"train CLI ({name}) wrote no {ckpt}")
+            return log, launches, seconds, peak_gb, out_dir
+
+        def score(name, out_dir, stems):
+            """The eval CLI over a run's checkpoints: each one's scores."""
             eval_out = os.path.join(tmp, "eval_" + name)
             rc = eval_main(["--weights_dir", out_dir, "--data_dir", data, "--datasets", "SYN",
                             "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", "8",
                             "--output_dir", eval_out])
-            with open(os.path.join(eval_out, f"epoch_{steps}_L8_org.txt")) as fp:
-                scored = json.load(fp)["SYN"]["seq0"]
-            if rc != 0 or not all(math.isfinite(v) for v in scored.values()):
-                raise AssertionError(f"eval CLI on the trained {name} checkpoint: rc {rc}, {scored}")
-            rows[name] = {
-                "train_flags": flags, "steps": steps, "losses": [r["loss"] for r in log],
+            scored = {}
+            for stem in stems:
+                with open(os.path.join(eval_out, f"{stem}_L8_org.txt")) as fp:
+                    scored[stem] = json.load(fp)["SYN"]["seq0"]
+            if rc != 0 or not all(math.isfinite(v) for sc in scored.values() for v in sc.values()):
+                raise AssertionError(f"eval CLI on the trained {name} checkpoints: rc {rc}, {scored}")
+            return scored
+
+        def row(log, launches, seconds, peak_gb, **extra):
+            return {
+                "steps": len(log), "losses": [r["loss"] for r in log],
                 "ms_per_step_after_first": 1e3 * float(np.mean([r["seconds"] for r in log[1:]])),
                 "ms_per_step": [1e3 * r["seconds"] for r in log],
                 "data_ms_per_step_after_first": 1e3 * float(np.mean([r["data_seconds"] for r in log[1:]])),
                 "cli_seconds": seconds, "max_memory_allocated_gib": peak_gb, "launches": launches,
-                "eval_of_checkpoint": scored,
+                **extra,
             }
+
+        for name, base, steps, flags, cli in (
+                ("flagship", FLAGSHIP_CFG, TRAIN_STEPS, {}, val_flags),
+                ("flagship_prefetch2", FLAGSHIP_CFG, TRAIN_STEPS, {}, val_flags + ["--prefetch", "2"]),
+                ("8x8", EIGHT_CFG, TRAIN_STEPS_8X8, {}, []),
+                ("flagship_bf16", FLAGSHIP_CFG, TRAIN_STEPS, {"bf16": True}, []),
+                ("flagship_remat", FLAGSHIP_CFG, TRAIN_STEPS, {"remat": True}, []),
+                ("flagship_bf16_remat", FLAGSHIP_CFG, TRAIN_STEPS, {"bf16": True, "remat": True}, [])):
+            model_args = model_config(base)
+            model_args["generator"]["drop_path_rate"] = 0.2
+            log, launches, seconds, peak_gb, out_dir = train_run(name, "BDE2VID", model_args, steps,
+                                                                 flags, cli)
+            # remat runs each block's forward twice: in the step and in its recompute
+            forwards = 2 if flags.get("remat") else 1
+            rounds = len(val_steps(steps)) if "--val_dir" in cli else 0
+            want = {k: n * TRAIN_SEQ_LEN * (forwards * steps + VAL_WINDOWS * rounds)
+                    for k, n in PER_FRAME[name.split("_")[0]].items()}
+            want["attn_core_backward"] = 10 * steps * TRAIN_SEQ_LEN
+            expect_launches(f"train CLI ({name})", launches, want)
+            stems = [f"epoch_{steps}"]
+            extra = {"train_flags": flags, "cli_flags": cli}
+            if rounds:
+                stems.append("best")
+                with open(os.path.join(out_dir, "val_log.jsonl")) as fp:
+                    recs = [json.loads(line) for line in fp]
+                if [r["step"] for r in recs] != val_steps(steps) \
+                        or not all(math.isfinite(r["mse"]) and math.isfinite(r["ssim"]) for r in recs):
+                    raise AssertionError(f"train CLI ({name}) validation log: {recs}")
+                extra["validation"] = recs
+                extra["state_file_bytes"] = os.path.getsize(os.path.join(out_dir, f"epoch_{steps}.state"))
+            extra["eval_of_checkpoints"] = score(name, out_dir, stems)
+            rows[name] = row(log, launches, seconds, peak_gb, **extra)
             if name == "flagship":
                 flagship_args = model_args
+        for name in ("flagship", "flagship_prefetch2"):
+            r = rows[name]
+            r["data_share"] = r["data_ms_per_step_after_first"] / r["ms_per_step_after_first"]
+        # the two runs differ in the voxelizer's float atomics only
+        rows["flagship_prefetch2"]["loss_max_abs_diff_vs_prefetch0"] = max(
+            abs(a - b) for a, b in zip(rows["flagship"]["losses"], rows["flagship_prefetch2"]["losses"]))
 
-        # one profiled step (warm) of the flagship configuration
+        # one validation round of the flagship (2 windows of 8 frames), timed
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             model = build_model("BDE2VID", flagship_args, train=True)
+        validator = Validator("BDE2VID", flagship_args, val, seq_len=TRAIN_SEQ_LEN, num_bins=5,
+                              windows=VAL_WINDOWS, multiple=8, ltype="MMP")
+        launch_counts.clear()
+        round_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            validator(model)
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+        expect_launches("validation rounds", dict(launch_counts),
+                        {"fused_swin_block": 3 * 10 * TRAIN_SEQ_LEN * VAL_WINDOWS})
+        validation_round = {"windows": VAL_WINDOWS, "T": TRAIN_SEQ_LEN, "seconds": round_s}
+
+        # one profiled step (warm) of the flagship configuration
         optimizer, _, clip, _ = build_optimizer(model.parameters(), optimizer_cfg)
         comp = SequenceLossComputer([{"type": "L1Loss"}])
         batch = next(iterate_training_windows(data, TRAIN_SEQ_LEN, 5, data_cfg, multiple=8,
@@ -2365,11 +2500,63 @@ def phase_train(torch, launch_counts, card):
 
         step()
         prof = device_profile(torch, step)
-        del model, optimizer
+        del model, optimizer, validator
+
+        # exact resume and prefetch under deterministic algorithms
+        det = {}
+        with deterministic_algorithms(torch) as alerts:
+            full = train_run("flagship_det", "BDE2VID", flagship_args, TRAIN_STEPS, {},
+                             ["--save_state"], ckpt_every=RESUME_AT)
+            state = os.path.join(full[4], f"epoch_{RESUME_AT}.state")
+            resumed = train_run("flagship_det_resumed", "BDE2VID", flagship_args, TRAIN_STEPS, {},
+                                ["--save_state", "--resume", state], ckpt_every=RESUME_AT)
+            prefetched = train_run("flagship_det_prefetch2", "BDE2VID", flagship_args, TRAIN_STEPS,
+                                   {}, ["--prefetch", "2"], ckpt_every=RESUME_AT)
+        for name, run, steps in (("flagship_det", full, TRAIN_STEPS),
+                                 ("flagship_det_resumed", resumed, TRAIN_STEPS - RESUME_AT),
+                                 ("flagship_det_prefetch2", prefetched, TRAIN_STEPS)):
+            expect_launches(f"train CLI ({name})", run[1],
+                            {"fused_swin_block": 10 * steps * TRAIN_SEQ_LEN,
+                             "attn_core_backward": 10 * steps * TRAIN_SEQ_LEN})
+            det[name] = row(*run[:4])
+        if [r["step"] for r in resumed[0]] != list(range(RESUME_AT, TRAIN_STEPS)):
+            raise AssertionError(f"resumed run: {resumed[0]}")
+        loss_keys = lambda log: [{k: v for k, v in r.items() if k.startswith("L") or k == "loss"}
+                                 for r in log]
+        load = lambda run, f: torch.load(os.path.join(run[4], f), map_location="cpu",
+                                         weights_only=False)
+        final = f"epoch_{TRAIN_STEPS}"
+        det["resume_max_abs_diff"] = {
+            "losses": compare_states(torch, "resumed losses", loss_keys(resumed[0]),
+                                     loss_keys(full[0][RESUME_AT:]), alerts),
+            "weights": compare_states(torch, "resumed weights", load(resumed, final + ".pth"),
+                                      load(full, final + ".pth"), alerts),
+            "train_state": compare_states(torch, "resumed train state", load(resumed, final + ".state"),
+                                          load(full, final + ".state"), alerts),
+        }
+        det["prefetch_max_abs_diff"] = {
+            "losses": compare_states(torch, "prefetched losses", loss_keys(prefetched[0]),
+                                     loss_keys(full[0]), alerts),
+            "weights": compare_states(torch, "prefetched weights", load(prefetched, final + ".pth"),
+                                      load(full, final + ".pth"), alerts),
+        }
+        det["alerts"] = sorted(alerts)
+        det["state_file_bytes"] = os.path.getsize(os.path.join(full[4], final + ".state"))
+
+        # the step models train through the same CLI, on no hand-written kernel
+        steps_rows = {}
+        for name, args in STEP_TRAIN.items():
+            log, launches, seconds, peak_gb, out_dir = train_run(name, name, dict(args),
+                                                                 STEP_TRAIN_STEPS, {})
+            expect_launches(f"train CLI ({name})", launches, {})
+            steps_rows[name] = row(log, launches, seconds, peak_gb, config=args,
+                                   eval_of_checkpoints=score(name, out_dir,
+                                                             [f"epoch_{STEP_TRAIN_STEPS}"]))
     long_rows = long_buffer_steps(torch, launch_counts)
     emit({"phase": "train", "card": card, "sequence_length": TRAIN_SEQ_LEN, "items": items,
-          "crop_hw": list(batch[0].shape[-2:]), "configs": rows, "flagship_profiled_step": prof,
-          "long_buffers": long_rows})
+          "crop_hw": list(batch[0].shape[-2:]), "configs": rows,
+          "validation_round": validation_round, "flagship_profiled_step": prof,
+          "deterministic": det, "step_models": steps_rows, "long_buffers": long_rows})
     return (rows["flagship"]["launches"]["attn_core_backward"],
             long_rows["flagship"]["launches"]["attn_core_backward_long_rows"])
 

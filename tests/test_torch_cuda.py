@@ -1151,3 +1151,32 @@ def test_cuda_four_head_block_at_c256_trains_on_the_kernel_path(cuda_device, dil
             gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
         rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
         assert rel <= 1e-3, (key, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_hands_over_finished_tensors(cuda_device):
+    """The prefetch thread assembles on its own stream, each item behind a
+    chain of GEMMs that keeps that stream busy: the consumer's stream waits
+    for the item's event, so it reads every item whole, and nothing of the
+    thread is left after the consumer stops early."""
+    import threading
+
+    from bde2vid_tpu_torch.data.prefetch import Prefetcher
+
+    eye = torch.eye(2048, device=cuda_device)
+
+    def items():
+        k = 0
+        while True:
+            x = torch.full((2048, 2048), float(k), device=cuda_device)
+            for _ in range(16):
+                x = x @ eye
+            yield x, {"k": torch.tensor(k, device=cuda_device)}
+            k += 1
+
+    with Prefetcher(items(), size=2, device=cuda_device) as pf:
+        for k in range(6):
+            x, extra = next(pf)
+            assert int(extra["k"]) == k
+            assert torch.equal(x, torch.full_like(x, float(k)))
+    assert not [t for t in threading.enumerate() if t.name == "prefetch"]

@@ -423,10 +423,10 @@ def test_train_cli_checkpoint_is_scored_and_loads_in_jax(h5_tree, tmp_path):
     np.testing.assert_allclose(nhwc(got), want, atol=2e-4, rtol=0)
 
 
-# --resume and --val_dir are still refused; bf16 and remat training run a step
+# the LPIPS flags are still refused (ROADMAP A9); bf16 and remat training run a step
 @pytest.mark.parametrize("flag,config", [
-    (["--resume", "x.pth"], {}),
-    (["--val_dir", "v"], {}),
+    (["--lpips_lin", "lin.pth"], {}),
+    (["--lpips_backbone", "alex.pth"], {}),
     ([], {"train": {"bf16": True}}),
     ([], {"train": {"remat": True}}),
     ([], {"train": {"bf16": True, "remat": True}}),
@@ -438,7 +438,7 @@ def test_train_cli_refuses_what_is_not_ported(h5_tree, tmp_path, flag, config):
     args = ["--config", str(cfg_path), "--data_dir", str(h5_tree), "--out_dir",
             str(tmp_path / "o"), "--device", "cpu", "--steps", "1", *flag]
     if flag:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="A9"):
             ttm.main(args)
         return
     assert ttm.main(args) == 0
