@@ -2,7 +2,8 @@
 the subset the BDE2VID, E2VID-family, SPADE, EITR and SNN eval paths need).
 
     python -m bde2vid_tpu_torch.eval --weights_dir W --data_dir D \\
-        --datasets HQF --loader_type MMP --metrics mse ssim --subseq_L 8
+        --datasets HQF --loader_type MMP --subseq_L 8 \\
+        [--metrics p_loss mse ssim] [--lpips_lin LIN.pth --lpips_backbone ALEX.pth]
 
 Scores every ``*.pth`` under ``--weights_dir``: BDE2VID, E2VID,
 E2VIDRecurrent, FireNet, FireNetOrg, FlowNet and EITR checkpoints in the
@@ -24,6 +25,13 @@ the sequence runs in one chunk), ``--eq`` (histogram-equalised scoring),
 ``--separate_polarity`` (2B-channel voxels, positive bins first, for a model
 that takes them), ``--saveim DIR`` (triptych PNGs), ``--show`` and
 ``--wait_time`` (a live viewer where cv2 and a display exist).
+
+``--metrics`` defaults to the paper's ``p_loss mse ssim``. ``p_loss`` is
+LPIPS (net-lin, AlexNet, v0.1): the lin heads come from ``--lpips_lin`` or,
+without it, from discovery (``$BDE2VID_LPIPS_LIN``, ``weights/lpips/alex.pth``),
+the torchvision backbone from ``--lpips_backbone``. Without lin weights
+``p_loss`` is dropped with a warning; without a backbone it is scored with
+a random one, with a warning on stderr.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--ed", default=-1, type=int)
     p.add_argument("--datatype", default="org")
     p.add_argument("--datasets", nargs="*", default=["HQF/", "ECD/", "MVSEC/"])
-    p.add_argument("--metrics", nargs="*", default=["mse", "ssim"], choices=["mse", "ssim", "psnr"])
+    p.add_argument("--metrics", nargs="*", default=["p_loss", "mse", "ssim"],
+                   choices=["p_loss", "mse", "ssim", "psnr"])
     p.add_argument("--subseq_L", default=1000, type=int)
     p.add_argument("--max_length", default=111200, type=int)
     p.add_argument("--pause_st", default=None, type=int)
@@ -65,7 +74,40 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="BDE2VID's attention blocks through the hand-written CUDA kernel "
                    "(default: on for CUDA, off for the CPU)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--lpips_lin", default=None, type=str,
+                   help="torch .pth with the LPIPS lin heads (v0.1 alex layout); discovered "
+                   "($BDE2VID_LPIPS_LIN, weights/lpips/alex.pth) when omitted")
+    p.add_argument("--lpips_backbone", default=None, type=str,
+                   help="torchvision alexnet state dict (features.*); without it p_loss uses a "
+                   "random backbone")
     return p
+
+
+def load_lpips_metric(metrics, lpips_lin, lpips_backbone, device):
+    """(metrics, LPIPS network or None) for the eval run: the lin heads from
+    ``lpips_lin`` or discovery, the backbone from ``lpips_backbone`` (random,
+    with a warning on stderr, when absent); ``p_loss`` dropped with a warning
+    when there are no lin weights."""
+    from bde2vid_tpu_torch.eval.checkpoint import load_torch_file
+    from bde2vid_tpu_torch.metrics.lpips import find_default_lpips_lin, load_lpips_state
+
+    if lpips_lin is None and "p_loss" in metrics:
+        lpips_lin = find_default_lpips_lin()
+        if lpips_lin:
+            print(f"lpips: using discovered lin weights {lpips_lin}")
+    net = None
+    if lpips_lin:
+        backbone = load_torch_file(lpips_backbone) if lpips_backbone else None
+        if backbone is None:
+            # the other metrics stay valid, so eval warns where training refuses
+            print("WARNING: p_loss will use a RANDOM LPIPS backbone — pass --lpips_backbone "
+                  "(torchvision alexnet weights) for real perceptual scores", file=sys.stderr)
+        net = load_lpips_state(load_torch_file(lpips_lin), backbone, device=device)
+    metrics = tuple(metrics)
+    if "p_loss" in metrics and net is None:
+        print("warning: dropping p_loss (no --lpips_lin provided)")
+        metrics = tuple(m for m in metrics if m != "p_loss")
+    return metrics, net
 
 
 def read_checkpoints(weights_dir: str, st: int, ed: int):
@@ -118,6 +160,7 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     use_kernel = device.type == "cuda" if args.pallas is None else args.pallas
+    metrics, lpips = load_lpips_metric(args.metrics, args.lpips_lin, args.lpips_backbone, device)
 
     datafiles, data_root = read_datafiles(args.data_dir, args.datasets, args.loader_type)
     if not datafiles:
@@ -159,7 +202,8 @@ def main(argv=None) -> int:
             filter_hot_events=args.filter_hot_events,
             normalize=args.normalize or spec.normalize,
             eq=args.eq,
-            metrics=tuple(args.metrics),
+            metrics=metrics,
+            lpips=lpips,
             # by the loaded family, not only the file name: a lowercase
             # evsnn_e10.pth is an SNN too
             robust_norm_output=spec.name in ("EVSNN", "PAEVSNN") or "SNN" in name,

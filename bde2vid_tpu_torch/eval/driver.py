@@ -27,6 +27,10 @@ floats. ``save_images_to`` writes one [events | prediction | ground truth]
 PNG a step, the event frame being the step's voxels summed over bins;
 ``show`` displays them (the JAX package's viewer, which warns and goes on
 where cv2 or a display is missing).
+``p_loss`` is LPIPS (``EvalConfig.lpips``, a network from
+``metrics.load_lpips_state``) per frame, as the reference's
+perceptual_loss(target, pred) on [-1, 1] inputs with gray replicated to 3
+channels, in chunks of ``LPIPS_CHUNK`` frames, in f32.
 Results keep the reference JSON schema: ``{dataset: {sequence: {metric: sum over steps / T}}}`` plus a
 per-step detail file and a table.
 """
@@ -44,12 +48,15 @@ import torch
 
 from bde2vid_tpu_torch.data.pipeline import EventSequence, load_sequence
 from bde2vid_tpu_torch.metrics.basic import mse, psnr, ssim
+from bde2vid_tpu_torch.metrics.lpips import LPIPS, to_pm1_3ch
 from bde2vid_tpu_torch.models.api import ModelSpec, run_sequence
 from bde2vid_tpu_torch.utils.norm import robust_norm
 from bde2vid_tpu_torch.utils.padding import CropParameters
 from bde2vid_tpu_torch.utils.png import write_gray_png
 
 _METRICS = {"mse": mse, "psnr": psnr, "ssim": ssim}
+# frames an LPIPS call scores at once (the JAX driver's lpips_chunk)
+LPIPS_CHUNK = 32
 
 
 @dataclasses.dataclass
@@ -66,6 +73,7 @@ class EvalConfig:
     normalize: bool = False
     eq: bool = False
     metrics: Tuple[str, ...] = ("mse", "ssim")
+    lpips: Optional[LPIPS] = None  # the network p_loss needs
     robust_norm_output: bool = False
     save_images_to: Optional[str] = None
     show: bool = False
@@ -117,9 +125,13 @@ def _check_pause(cfg: EvalConfig, length: int) -> None:
 def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
                       cfg: EvalConfig) -> Tuple[Dict[str, float], Dict[str, List[float]]]:
     """Evaluate one model on one sequence; returns (result, detail)."""
-    unknown = [m for m in cfg.metrics if m not in _METRICS]
+    unknown = [m for m in cfg.metrics if m not in _METRICS and m != "p_loss"]
     if unknown:
-        raise NotImplementedError(f"metrics {unknown} are not ported yet ({sorted(_METRICS)})")
+        raise NotImplementedError(f"metrics {unknown} are not ported yet "
+                                  f"({sorted(_METRICS) + ['p_loss']})")
+    if "p_loss" in cfg.metrics and cfg.lpips is None:
+        raise ValueError("p_loss requested but no LPIPS network configured (EvalConfig.lpips); "
+                         "pass --lpips_lin/--lpips_backbone or drop p_loss from metrics")
     _check_pause(cfg, len(seq))
     T = len(seq)
     pause = cfg.pause_st is not None
@@ -199,9 +211,23 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
         if cfg.show:
             _show_triptychs(ev, pred_np, gt_f32, cfg.wait_time)
 
-    detail = {n: _METRICS[n](preds, gts).cpu().numpy() for n in cfg.metrics}
+    detail = {n: (_p_loss(cfg.lpips, preds, gts) if n == "p_loss" else _METRICS[n](preds, gts))
+              .cpu().numpy() for n in cfg.metrics}
     result = {n: float(np.sum(vals) / T) for n, vals in detail.items()}
     return result, {n: [float(v) for v in vals] for n, vals in detail.items()}
+
+
+def _p_loss(net: LPIPS, preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
+    """LPIPS of each (T, H, W) frame pair, ``LPIPS_CHUNK`` frames a call: a
+    frame's ``lpips_distance(net, pred, gt)``, batched."""
+    net = net.to(preds.device)
+    chunks = []
+    with torch.no_grad():
+        for s in range(0, len(preds), LPIPS_CHUNK):
+            p = to_pm1_3ch(preds[s:s + LPIPS_CHUNK, None].float(), True)
+            g = to_pm1_3ch(gts[s:s + LPIPS_CHUNK, None].float(), True)
+            chunks.append(net(g, p))
+    return torch.cat(chunks)
 
 
 def _triptych(ev_i, pred_i, gt_i) -> np.ndarray:

@@ -2,10 +2,21 @@
 reference model/losses/losses.py).
 
 - L1Loss (:131-138).
+- PerceptualLoss (:141-162): the LPIPS net-lin distance, called as
+  (pred, target).
+- VIPLoss (:15-128): the sum over backbone slices of 1 - cosine similarity
+  between the raw backbone features (after the v0.1 shift and scale, not
+  unit-normalised), plus, once the previous step's features exist, the
+  temporal term 1 - cos(x - u, y - z) with (u, z) the previous step's
+  (pred, target) features. The reference caches those on the module; here
+  they are explicit state, passed in and returned.
 - TemporalConsistencyLoss (:165-231): Lai ECCV'18 warping error with an
   exponential visibility mask, through bilinear grid sampling.
-- PerceptualLoss and VIPLoss need an LPIPS network, which the port does not
-  have yet (ROADMAP A9); building them raises.
+
+PerceptualLoss and VIPLoss take a frozen LPIPS network with loaded backbone
+weights (``build_loss(cfg, lpips=...)``, from ``metrics.load_lpips_state``):
+it runs in f32, on the prediction's device, and gradient reaches the
+prediction only.
 
 Images are NCHW, the port's model layout: (N, 1, H, W) images and
 (N, 2, H, W) flows.
@@ -13,10 +24,11 @@ Images are NCHW, the port's model layout: (N, 1, H, W) images and
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from bde2vid_tpu_torch.metrics.lpips import LPIPS, cos_sim, to_pm1_3ch
 from bde2vid_tpu_torch.nn.sampling import warp_by_flow
 
 LOSS_REGISTRY: Dict[str, Callable] = {}
@@ -30,12 +42,17 @@ def register_loss(name):
     return deco
 
 
-def build_loss(cfg: Dict[str, Any]):
+def build_loss(cfg: Dict[str, Any], lpips: Optional[LPIPS] = None):
+    """The loss of ``cfg``; ``lpips`` is the network an LPIPS-backed loss
+    (PerceptualLoss, VIPLoss) takes, and is not passed to the others."""
     cfg = dict(cfg)
     name = cfg.pop("type")
     if name not in LOSS_REGISTRY:
         raise KeyError(f"unknown loss {name!r}; have {sorted(LOSS_REGISTRY)}")
-    return LOSS_REGISTRY[name](**cfg)
+    cls = LOSS_REGISTRY[name]
+    if issubclass(cls, _LPIPSLoss):
+        cfg["lpips"] = lpips
+    return cls(**cfg)
 
 
 @register_loss("L1Loss")
@@ -47,22 +64,75 @@ class L1Loss:
         return (pred - target).abs().mean() * self.weight
 
 
-class _NeedsLPIPS:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} needs an LPIPS network, which the port does not have yet "
-            "(ROADMAP A9, LPIPS)"
-        )
+class _LPIPSLoss:
+    """Holds the frozen LPIPS network of an LPIPS-backed loss."""
+
+    def __init__(self, net: str, lpips: Optional[LPIPS]):
+        name = type(self).__name__
+        if lpips is None:
+            raise ValueError(f"{name} needs an LPIPS network: build_loss(cfg, lpips=...) with "
+                             "metrics.load_lpips_state(lin, backbone)")
+        if lpips.net != net:
+            raise ValueError(f"{name}(net={net!r}) was given an LPIPS network of net {lpips.net!r}")
+        if not lpips.pretrained_backbone:
+            # random backbone features make a silently wrong loss
+            raise ValueError(f"{name} needs an LPIPS network with loaded backbone weights")
+        self.lpips = lpips.float().eval().requires_grad_(False)
+
+    def _network(self, device: torch.device) -> LPIPS:
+        if self.lpips.scaling.shift.device != device:
+            self.lpips.to(device)
+        return self.lpips
 
 
 @register_loss("PerceptualLoss")
-class PerceptualLoss(_NeedsLPIPS):
-    """LPIPS distance as a loss (reference :141-162); not ported yet."""
+class PerceptualLoss(_LPIPSLoss):
+    """LPIPS distance as a loss, called as (pred, target) (reference
+    losses.py:160; the metric calls it as (target, pred))."""
+
+    def __init__(self, net: str = "alex", weight: float = 1.0, lpips: Optional[LPIPS] = None):
+        super().__init__(net, lpips)
+        self.weight = weight
+
+    def __call__(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        net = self._network(pred.device)
+        dist = net(to_pm1_3ch(pred.float(), True), to_pm1_3ch(target.float(), True))
+        return dist.mean() * self.weight
+
+
+VIPState = Optional[Tuple[List[torch.Tensor], List[torch.Tensor]]]
 
 
 @register_loss("VIPLoss")
-class VIPLoss(_NeedsLPIPS):
-    """Video-consistency perceptual loss (reference :15-128); not ported yet."""
+class VIPLoss(_LPIPSLoss):
+    """Video-consistency perceptual loss. State: None (a sequence's first
+    evaluated step, or ``init_state()``) or the previous evaluated step's
+    (pred features, target features)."""
+
+    def __init__(self, net: str = "alex", normalize: bool = True, w: float = 1.0,
+                 lpips: Optional[LPIPS] = None):
+        super().__init__(net, lpips)
+        self.normalize = normalize
+        self.w = w
+
+    def init_state(self) -> VIPState:
+        return None
+
+    def _feats(self, net: LPIPS, x: torch.Tensor) -> List[torch.Tensor]:
+        return net.backbone(net.scaling(to_pm1_3ch(x.float(), self.normalize)))
+
+    def __call__(self, pred: torch.Tensor, target: torch.Tensor,
+                 state: VIPState = None) -> Tuple[torch.Tensor, VIPState]:
+        net = self._network(pred.device)
+        outsx, outsy = self._feats(net, pred), self._feats(net, target)
+        dist = 0.0
+        for kk in range(len(outsx)):
+            cur = 1.0 - cos_sim(outsx[kk], outsy[kk])
+            if state is not None:
+                outsu, outsz = state
+                cur = cur + (1.0 - cos_sim(outsx[kk] - outsu[kk], outsy[kk] - outsz[kk]))
+            dist = dist + cur
+        return dist.mean() * self.w, (outsx, outsy)
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:

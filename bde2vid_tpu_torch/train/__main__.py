@@ -3,7 +3,8 @@
     python -m bde2vid_tpu_torch.train --config cfg.json --data_dir D \\
         [--steps N] [--out_dir O] [--batch B] [--loader_type {H5,MMP}] [--device cpu] \\
         [--resume epoch_K.state | W.pth] [--save_state] [--prefetch P] \\
-        [--val_dir V --val_every E [--val_windows W]]
+        [--val_dir V --val_every E [--val_windows W]] \\
+        [--lpips_lin LIN.pth --lpips_backbone ALEX.pth]
 
 The json config has the JAX CLI's schema:
 
@@ -47,8 +48,11 @@ the part of them spent getting and augmenting the batch. ``--val_dir``
 scores held-out windows (``train/validate.py``) into ``val_log.jsonl`` and
 keeps the best-MSE weights as ``best.pth``.
 
-Not ported yet, and refused: ``--lpips_lin``/``--lpips_backbone`` (ROADMAP
-A9); one card per run.
+PerceptualLoss and VIPLoss entries need the LPIPS AlexNet: its lin heads
+(``--lpips_lin``, else ``metrics.lpips.find_default_lpips_lin``) and its
+torchvision backbone (``--lpips_backbone``); the CLI refuses such a config
+without either, since a random backbone is a silently wrong loss. The LPIPS
+weights are frozen and stay out of ``epoch_N.state``. One card per run.
 """
 
 from __future__ import annotations
@@ -230,10 +234,6 @@ def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, se
         yield torch.stack(vs, dim=1), frames, flows
 
 
-# flags of the JAX CLI that the port accepts and refuses until LPIPS is ported (A9)
-_NOT_PORTED = ("lpips_lin", "lpips_backbone")
-
-
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="train reconstruction models on event sequences")
     p.add_argument("--config", required=True)
@@ -258,16 +258,40 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="number of held-out windows scored per validation")
     p.add_argument("--prefetch", type=int, default=0,
                    help="batches assembled ahead by a background thread (0: none)")
-    for flag in _NOT_PORTED:
-        p.add_argument(f"--{flag}", help="not ported yet; refused")
+    p.add_argument("--lpips_lin", default=None,
+                   help="LPIPS lin heads (v0.1 alex .pth) for PerceptualLoss/VIPLoss; "
+                   "discovered ($BDE2VID_LPIPS_LIN, weights/lpips/alex.pth) when omitted")
+    p.add_argument("--lpips_backbone", default=None,
+                   help="torchvision alexnet state dict (features.*) for PerceptualLoss/VIPLoss")
     return p
+
+
+def load_lpips_for_losses(losses_cfg, lpips_lin, lpips_backbone, device):
+    """The frozen LPIPS network the config's PerceptualLoss / VIPLoss
+    entries need, or None when it has none. Refuses (SystemExit) without lin
+    weights after discovery, and without a backbone."""
+    names = {"PerceptualLoss", "VIPLoss"} & {c["type"] for c in losses_cfg}
+    if not names:
+        return None
+    from bde2vid_tpu_torch.eval.checkpoint import load_torch_file
+    from bde2vid_tpu_torch.metrics.lpips import find_default_lpips_lin, load_lpips_state
+
+    lpips_lin = lpips_lin or find_default_lpips_lin()
+    if not lpips_lin:
+        raise SystemExit(f"losses {sorted(names)} need LPIPS weights: pass --lpips_lin "
+                         "(and --lpips_backbone)")
+    if not lpips_backbone:
+        raise SystemExit(f"losses {sorted(names)} need a REAL feature backbone: pass "
+                         "--lpips_backbone (torchvision alexnet weights); lin heads alone leave "
+                         "the alexnet at random init")
+    net = load_lpips_state(load_torch_file(lpips_lin), load_torch_file(lpips_backbone),
+                           device=device)
+    print(f"lpips: lin {lpips_lin} backbone {lpips_backbone}")
+    return net
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    for flag in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP A9, LPIPS)")
 
     import torch
 
@@ -321,7 +345,8 @@ def main(argv=None) -> int:
 
     losses_cfg = cfg.get("losses", [{"type": "L1Loss"}])
     want_flows = any(c["type"] == "TemporalConsistencyLoss" for c in losses_cfg)
-    comp = SequenceLossComputer(losses_cfg, cfg.get("loss_inds"))
+    lpips = load_lpips_for_losses(losses_cfg, args.lpips_lin, args.lpips_backbone, device)
+    comp = SequenceLossComputer(losses_cfg, cfg.get("loss_inds"), lpips=lpips)
 
     # parameters from a fixed seed, without touching the caller's global RNG
     with torch.random.fork_rng(devices=[]):

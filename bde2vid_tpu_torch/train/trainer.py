@@ -6,8 +6,11 @@ Loss semantics follow the reference BDE2VID in-loop computation
 
 - losses are evaluated per step, optionally only at ``loss_inds`` (an int n
   means steps {0, n, 2n, ...} within the first 40, reference :40-43);
-- L1Loss takes (pred, gt); TemporalConsistencyLoss takes (prev_gt, cur_gt,
-  prev_pred, cur_pred, flow) and applies only for t > L0;
+- L1Loss and PerceptualLoss take (pred, gt); VIPLoss also takes the
+  previous evaluated step's (pred, gt) features, its state, which each
+  VIPLoss entry keeps for itself and which starts anew with each sequence;
+  TemporalConsistencyLoss takes (prev_gt, cur_gt, prev_pred, cur_pred,
+  flow) and applies only for t > L0;
 - total = mean over the evaluated steps per loss, summed over losses; the
   same loss type may appear twice and counts twice.
 
@@ -40,12 +43,14 @@ from bde2vid_tpu_torch.nn.remat import checkpoint_step
 
 class SequenceLossComputer:
     """Builds losses from a config list and evaluates them over an image
-    sequence."""
+    sequence. ``lpips`` is the frozen LPIPS network that PerceptualLoss and
+    VIPLoss entries take (``metrics.load_lpips_state``)."""
 
-    def __init__(self, losses_cfg: Sequence[Dict], loss_inds: Optional[Any] = None):
+    def __init__(self, losses_cfg: Sequence[Dict], loss_inds: Optional[Any] = None,
+                 lpips=None):
         # a list of (type, fn) pairs, not a dict keyed by type: two entries of
         # one type (two L1 terms at different weights) both count
-        self.losses = [(cfg["type"], build_loss(cfg)) for cfg in losses_cfg]
+        self.losses = [(cfg["type"], build_loss(cfg, lpips=lpips)) for cfg in losses_cfg]
         if loss_inds is not None and not isinstance(loss_inds, (list, tuple)):
             loss_inds = [t for t in range(40) if t % int(loss_inds) == 0]
         self.loss_inds = loss_inds
@@ -78,13 +83,16 @@ class SequenceLossComputer:
             raise ValueError("TemporalConsistencyLoss requires flows")
         sums = [preds.new_zeros(()) for _ in self.losses]
         counts = [0] * len(self.losses)
+        vip_states: Dict[int, Any] = {}  # each VIPLoss entry's feature state
         prev_gt = prev_pd = None
         for t in range(T):
             cur_pd, cur_gt = preds[t], gts[t]
             if gate[t]:
                 for j, (name, fn) in enumerate(self.losses):
-                    if name == "L1Loss":
+                    if name in ("L1Loss", "PerceptualLoss"):
                         v = fn(cur_pd, cur_gt)
+                    elif name == "VIPLoss":
+                        v, vip_states[j] = fn(cur_pd, cur_gt, vip_states.get(j))
                     elif name == "TemporalConsistencyLoss":
                         if t <= fn.L0 or prev_gt is None:
                             continue

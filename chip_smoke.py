@@ -122,6 +122,15 @@ reference's.
            unfused path (2e-4), one train step's loss and gradients
            (1e-3), exact launch counts (the key-tiled forward and the wide
            backward wherever head_dim is above 32)
+  lpips    LPIPS (ROADMAP A9) with seeded weights, alex, vgg and squeeze:
+           card vs CPU at 180x240 (1e-5 relative), one 32-frame chunk timed
+           beside its bound; on seeded alex.pth / lin.pth files the eval CLI
+           with p_loss on the flagship checkpoint (f32 and --bf16, beside the
+           runs without it; each frame's p_loss within 1e-5 of the port's
+           LPIPS on the same prediction, 230 B1 launches for 23 items) and
+           the train CLI on the flagship for 6 steps with [L1,
+           PerceptualLoss] at loss_inds 2, [L1, VIPLoss] and L1 alone (finite
+           losses, 480 B1 and 480 B2 launches each, ms per step, peak memory)
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -704,6 +713,20 @@ def write_mmp_sequence(path, rng, num_frames=24, events_per_frame=40000, hw=(180
     return num_frames - 1  # between-frames items
 
 
+def write_checkpoint(torch, folder, cfg, cfg_text, seed=1):
+    """``folder``/epoch_1.pth: a BDE2VID of ``cfg`` with weights from ``seed``,
+    in the mmengine layout the eval CLI loads; returns ``folder``."""
+    from bde2vid_tpu_torch.models import build_model
+
+    torch.manual_seed(seed)
+    model = build_model("BDE2VID", cfg)
+    os.makedirs(folder)
+    torch.save({"meta": {"cfg": cfg_text},
+                "state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
+               os.path.join(folder, "epoch_1.pth"))
+    return folder
+
+
 def phase_eval(torch, launch_counts, card):
     """The eval CLI on one synthetic sequence: a flagship checkpoint (f32 and
     --bf16, cold and warm, and one profiled f32 run) and an 8x8 checkpoint
@@ -712,7 +735,6 @@ def phase_eval(torch, launch_counts, card):
     memory (its HtoD copies by kind). Returns the launches of the f32 runs
     (the main path)."""
     from bde2vid_tpu_torch.eval.__main__ import main as eval_main
-    from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.native import pack_counts
 
     rows = {}
@@ -724,14 +746,7 @@ def phase_eval(torch, launch_counts, card):
                  ("f32", "f32_warm", "bf16", "bf16_warm", "f32_profiled")),
                 ("8x8", EIGHT_CFG, EIGHT_CFG_TEXT, ("f32", "bf16")))
         for name, cfg, cfg_text, runs in plan:
-            torch.manual_seed(1)
-            model = build_model("BDE2VID", cfg)
-            weights = os.path.join(tmp, "weights_" + name)
-            os.makedirs(weights)
-            torch.save({"meta": {"cfg": cfg_text},
-                        "state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
-                       os.path.join(weights, "epoch_1.pth"))
-            del model
+            weights = write_checkpoint(torch, os.path.join(tmp, "weights_" + name), cfg, cfg_text)
             for run in runs:
                 out_dir = os.path.join(tmp, f"out_{name}_{run}")
                 args = ["--weights_dir", weights,
@@ -965,15 +980,16 @@ def snn_card_vs_cpu(torch, name, card_model, model, vox, vox_d, h, w):
     return got, row
 
 
-def run_eval_cli(torch, launch_counts, weights, data, out_dir, subseq, stem, items, extra=()):
+def run_eval_cli(torch, launch_counts, weights, data, out_dir, subseq, stem, items, extra=(),
+                 metrics=("mse", "ssim")):
     """One eval CLI run (with ``extra`` arguments) over the MMP tree on the
     checkpoints in ``weights``: (seconds, result, detail, launches) of
-    checkpoint ``stem``, whose result must be finite with one detail entry
-    an item."""
+    checkpoint ``stem``, whose result must hold ``metrics``, finite, with one
+    detail entry an item."""
     from bde2vid_tpu_torch.eval.__main__ import main as eval_main
 
     args = ["--weights_dir", weights, "--data_dir", data, "--datasets", "SYN",
-            "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", str(subseq),
+            "--loader_type", "MMP", "--metrics", *metrics, "--subseq_L", str(subseq),
             "--output_dir", out_dir, *extra]
     torch.cuda.synchronize()
     launch_counts.clear()
@@ -989,7 +1005,7 @@ def run_eval_cli(torch, launch_counts, weights, data, out_dir, subseq, stem, ite
         result = json.load(fp)["SYN"]["seq0"]
     with open(base + "_detail.txt") as fp:
         detail = json.load(fp)["SYN"]["seq0"]
-    if not (os.path.exists(base + "_table.txt") and set(result) == {"mse", "ssim"}
+    if not (os.path.exists(base + "_table.txt") and set(result) == set(metrics)
             and all(math.isfinite(v) for v in result.values())
             and all(len(detail[k]) == items and all(map(math.isfinite, detail[k]))
                     for k in result)):
@@ -2348,6 +2364,58 @@ def compare_states(torch, what, a, b, alerts):
     return worst
 
 
+TRAIN_DATA_CFG = {"sequence_length": TRAIN_SEQ_LEN, "num_bins": 5,
+                  "proba_pause_when_running": 0.05, "proba_pause_when_paused": 0.9,
+                  "noise_std": 0.1, "noise_fraction": 0.05,
+                  "hot_pixel_std": 2.0, "max_hot_pixel_fraction": 0.001}
+TRAIN_OPTIMIZER_CFG = {"type": "Adam", "args": {"lr": 1e-4, "grad_clip": 1.0}}
+
+
+def train_cli_run(torch, launch_counts, tmp, data, name, model_type, model_args, steps, flags,
+                  cli=(), ckpt_every=1000, losses=({"type": "L1Loss"},), loss_inds=None):
+    """One train CLI run on the MMP tree ``data`` (TRAIN_DATA_CFG, Adam):
+    its log, launches, wall seconds, peak GiB and out dir; every logged loss
+    must be finite."""
+    from bde2vid_tpu_torch.train.__main__ import main as train_main
+
+    cfg = {"name": name, "model": {"type": model_type, "args": model_args},
+           "losses": list(losses), "loss_inds": loss_inds, "optimizer": TRAIN_OPTIMIZER_CFG,
+           "data": TRAIN_DATA_CFG, "train": {"steps": steps, "ckpt_every": ckpt_every, **flags}}
+    cfg_path = os.path.join(tmp, f"cfg_{name}.json")
+    with open(cfg_path, "w") as fp:
+        json.dump(cfg, fp)
+    out_dir = os.path.join(tmp, "run_" + name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    rc = train_main(["--config", cfg_path, "--data_dir", data, "--out_dir", out_dir,
+                     "--loader_type", "MMP", *cli])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(out_dir, "train_log.jsonl")) as fp:
+        log = [json.loads(line) for line in fp]
+    first = int(log[0]["step"]) if log else -1
+    if rc != 0 or [r["step"] for r in log] != list(range(first, steps)) \
+            or not all(math.isfinite(v) for r in log for k, v in r.items() if k.startswith("L")
+                       or k == "loss"):
+        raise AssertionError(f"train CLI ({name}): rc {rc}, log {log}")
+    return log, launches, seconds, peak_gb, out_dir
+
+
+def train_row(log, launches, seconds, peak_gb, **extra):
+    return {
+        "steps": len(log), "losses": [r["loss"] for r in log],
+        "ms_per_step_after_first": 1e3 * float(np.mean([r["seconds"] for r in log[1:]])),
+        "ms_per_step": [1e3 * r["seconds"] for r in log],
+        "data_ms_per_step_after_first": 1e3 * float(np.mean([r["data_seconds"] for r in log[1:]])),
+        "cli_seconds": seconds, "max_memory_allocated_gib": peak_gb, "launches": launches,
+        **extra,
+    }
+
+
 def phase_train(torch, launch_counts, card):
     """The training path: the train CLI on the MMP sequence for the flagship
     (6 steps, validating on a held-out sequence every 3 steps, full train
@@ -2362,14 +2430,9 @@ def phase_train(torch, launch_counts, card):
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.train import SequenceLossComputer, build_optimizer, train_step
     from bde2vid_tpu_torch.train.__main__ import iterate_training_windows
-    from bde2vid_tpu_torch.train.__main__ import main as train_main
     from bde2vid_tpu_torch.train.validate import Validator
 
-    data_cfg = {"sequence_length": TRAIN_SEQ_LEN, "num_bins": 5,
-                "proba_pause_when_running": 0.05, "proba_pause_when_paused": 0.9,
-                "noise_std": 0.1, "noise_fraction": 0.05,
-                "hot_pixel_std": 2.0, "max_hot_pixel_fraction": 0.001}
-    optimizer_cfg = {"type": "Adam", "args": {"lr": 1e-4, "grad_clip": 1.0}}
+    data_cfg, optimizer_cfg = TRAIN_DATA_CFG, TRAIN_OPTIMIZER_CFG
     rows = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         data = os.path.join(tmp, "data")
@@ -2380,31 +2443,8 @@ def phase_train(torch, launch_counts, card):
                      str(VAL_WINDOWS), "--save_state"]
 
         def train_run(name, model_type, model_args, steps, flags, cli=(), ckpt_every=1000):
-            """One train CLI run: its log, launches, wall seconds, peak GiB, out dir."""
-            cfg = {"name": name, "model": {"type": model_type, "args": model_args},
-                   "losses": [{"type": "L1Loss"}], "optimizer": optimizer_cfg,
-                   "data": data_cfg, "train": {"steps": steps, "ckpt_every": ckpt_every, **flags}}
-            cfg_path = os.path.join(tmp, f"cfg_{name}.json")
-            with open(cfg_path, "w") as fp:
-                json.dump(cfg, fp)
-            out_dir = os.path.join(tmp, "run_" + name)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            launch_counts.clear()
-            t0 = time.perf_counter()
-            rc = train_main(["--config", cfg_path, "--data_dir", data, "--out_dir", out_dir,
-                             "--loader_type", "MMP", *cli])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = dict(launch_counts)
-            peak_gb = torch.cuda.max_memory_allocated() / 2**30
-            with open(os.path.join(out_dir, "train_log.jsonl")) as fp:
-                log = [json.loads(line) for line in fp]
-            first = int(log[0]["step"]) if log else -1
-            if rc != 0 or [r["step"] for r in log] != list(range(first, steps)) \
-                    or not all(math.isfinite(r["loss"]) for r in log):
-                raise AssertionError(f"train CLI ({name}): rc {rc}, log {log}")
-            return log, launches, seconds, peak_gb, out_dir
+            return train_cli_run(torch, launch_counts, tmp, data, name, model_type, model_args,
+                                 steps, flags, cli, ckpt_every)
 
         def score(name, out_dir, stems):
             """The eval CLI over a run's checkpoints: each one's scores."""
@@ -2419,16 +2459,6 @@ def phase_train(torch, launch_counts, card):
             if rc != 0 or not all(math.isfinite(v) for sc in scored.values() for v in sc.values()):
                 raise AssertionError(f"eval CLI on the trained {name} checkpoints: rc {rc}, {scored}")
             return scored
-
-        def row(log, launches, seconds, peak_gb, **extra):
-            return {
-                "steps": len(log), "losses": [r["loss"] for r in log],
-                "ms_per_step_after_first": 1e3 * float(np.mean([r["seconds"] for r in log[1:]])),
-                "ms_per_step": [1e3 * r["seconds"] for r in log],
-                "data_ms_per_step_after_first": 1e3 * float(np.mean([r["data_seconds"] for r in log[1:]])),
-                "cli_seconds": seconds, "max_memory_allocated_gib": peak_gb, "launches": launches,
-                **extra,
-            }
 
         for name, base, steps, flags, cli in (
                 ("flagship", FLAGSHIP_CFG, TRAIN_STEPS, {}, val_flags),
@@ -2460,7 +2490,7 @@ def phase_train(torch, launch_counts, card):
                 extra["validation"] = recs
                 extra["state_file_bytes"] = os.path.getsize(os.path.join(out_dir, f"epoch_{steps}.state"))
             extra["eval_of_checkpoints"] = score(name, out_dir, stems)
-            rows[name] = row(log, launches, seconds, peak_gb, **extra)
+            rows[name] = train_row(log, launches, seconds, peak_gb, **extra)
             if name == "flagship":
                 flagship_args = model_args
         for name in ("flagship", "flagship_prefetch2"):
@@ -2518,7 +2548,7 @@ def phase_train(torch, launch_counts, card):
             expect_launches(f"train CLI ({name})", run[1],
                             {"fused_swin_block": 10 * steps * TRAIN_SEQ_LEN,
                              "attn_core_backward": 10 * steps * TRAIN_SEQ_LEN})
-            det[name] = row(*run[:4])
+            det[name] = train_row(*run[:4])
         if [r["step"] for r in resumed[0]] != list(range(RESUME_AT, TRAIN_STEPS)):
             raise AssertionError(f"resumed run: {resumed[0]}")
         loss_keys = lambda log: [{k: v for k, v in r.items() if k.startswith("L") or k == "loss"}
@@ -2549,7 +2579,7 @@ def phase_train(torch, launch_counts, card):
             log, launches, seconds, peak_gb, out_dir = train_run(name, name, dict(args),
                                                                  STEP_TRAIN_STEPS, {})
             expect_launches(f"train CLI ({name})", launches, {})
-            steps_rows[name] = row(log, launches, seconds, peak_gb, config=args,
+            steps_rows[name] = train_row(log, launches, seconds, peak_gb, config=args,
                                    eval_of_checkpoints=score(name, out_dir,
                                                              [f"epoch_{STEP_TRAIN_STEPS}"]))
     long_rows = long_buffer_steps(torch, launch_counts)
@@ -2609,6 +2639,151 @@ def long_buffer_steps(torch, launch_counts):
     return rows
 
 
+LPIPS_NETS = ("alex", "vgg", "squeeze")
+# frame pairs each net is held to card vs CPU on (the CPU's VGG at 180x240
+# costs ~3 s a pair), and the bound: max |card - CPU| over max |CPU|
+LPIPS_PAIRS, LPIPS_REL = 4, 1e-5
+
+
+def seeded_lpips_state(torch, net, seed):
+    """(lin, backbone) state dicts of seeded random LPIPS weights in the
+    LPIPS (``lin{k}.model.1.weight``) and torchvision (``features.*``)
+    layouts: fan-in-scaled normal kernels, small biases, heads in [0, 1]."""
+    from bde2vid_tpu_torch.metrics.lpips import LPIPS
+
+    rng = np.random.default_rng(seed)
+    module = LPIPS(net)
+    backbone = {}
+    for key, v in module.backbone.state_dict().items():
+        shape = tuple(v.shape)
+        scale = 1.0 / np.sqrt(np.prod(shape[1:])) if key.endswith("weight") else 0.05
+        backbone[key] = torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+    lin = {f"lin{k}.model.1.weight": torch.from_numpy(
+        rng.uniform(0, 1, (1, w.shape[1], 1, 1)).astype(np.float32))
+        for k, w in enumerate(module.lin_weights())}
+    return lin, backbone
+
+
+def lpips_chunk_cost(torch, net, g, p):
+    """(FLOPs, bytes) of one call of ``net`` on the pair: the convolutions'
+    FLOPs (torch's counter), each input read and each weight read once and
+    the distances written once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        out = net(g, p)
+    weights = sum(t.numel() * t.element_size() for t in net.parameters())
+    return counter.get_total_flops(), 2 * p.numel() * 4 + weights + out.numel() * 4
+
+
+def phase_lpips(torch, launch_counts, card):
+    """LPIPS and what rests on it (ROADMAP A9, A6's p_loss, A8 item 7). Each
+    net (alex, vgg, squeeze) with seeded weights on the card vs the CPU at
+    180x240 (LPIPS_PAIRS pairs, LPIPS_REL) and one 32-frame chunk timed
+    beside its bound; then seeded alex.pth (torchvision layout) and lin.pth
+    (LPIPS layout) files, and on the MMP sequence with a flagship checkpoint
+    the eval CLI with ``--metrics p_loss mse ssim --lpips_lin --lpips_backbone``
+    (f32 and --bf16) beside the same runs without p_loss: p_loss in the
+    result files, each frame's within 1e-5 of the port's LPIPS on the same
+    prediction and target, 230 B1 launches for 23 items; then the train CLI
+    on the flagship for 6 steps with [L1, PerceptualLoss] at loss_inds 2,
+    with [L1, VIPLoss] and with L1 alone: finite losses, exact B1 and B2
+    launches, ms per step and peak memory."""
+    from bde2vid_tpu_torch.eval import driver
+    from bde2vid_tpu_torch.metrics.lpips import load_lpips_state, lpips_distance, to_pm1_3ch
+
+    h, w, chunk = 180, 240, driver.LPIPS_CHUNK
+    rng = np.random.default_rng(9)
+    pred, gt = (torch.from_numpy(rng.uniform(size=(chunk, 1, h, w)).astype(np.float32))
+                for _ in range(2))
+    nets = {}
+    for i, name in enumerate(LPIPS_NETS):
+        lin, backbone = seeded_lpips_state(torch, name, seed=30 + i)
+        cpu_net = load_lpips_state(lin, backbone, name, device="cpu")
+        card_net = load_lpips_state(lin, backbone, name)
+        p3, g3 = to_pm1_3ch(pred.cuda(), True), to_pm1_3ch(gt.cuda(), True)
+        with torch.no_grad():
+            want = cpu_net(to_pm1_3ch(gt[:LPIPS_PAIRS], True), to_pm1_3ch(pred[:LPIPS_PAIRS], True))
+            got = card_net(g3[:LPIPS_PAIRS], p3[:LPIPS_PAIRS]).cpu()
+            rel = (got - want).abs().max().item() / want.abs().max().item()
+            ms = cuda_ms(torch, lambda: card_net(g3, p3), iters=10)
+        if not (torch.isfinite(got).all() and rel <= LPIPS_REL):
+            raise AssertionError(f"LPIPS {name}: card vs CPU relative {rel} (bound {LPIPS_REL})")
+        flops, nbytes = lpips_chunk_cost(torch, card_net, g3, p3)
+        nets[name] = {"card_vs_cpu_rel": rel, "pairs": LPIPS_PAIRS, "chunk_frames": chunk,
+                      "ms_per_chunk": ms, "ms_per_frame": ms / chunk,
+                      "gflop_per_frame": flops / chunk / 1e9,
+                      "bound_ms_per_chunk": 1e3 * max(flops / PEAK_FLOPS["float32"],
+                                                      nbytes / PEAK_BYTES),
+                      "bound_by": "operations" if flops / PEAK_FLOPS["float32"] >= nbytes / PEAK_BYTES
+                      else "bytes"}
+        del cpu_net, card_net
+
+    evals, trains = {}, {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        data = os.path.join(tmp, "data")
+        items = write_mmp_sequence(os.path.join(data, "mmp", "SYN", "seq0"), np.random.default_rng(1))
+        lin, backbone = seeded_lpips_state(torch, "alex", seed=30)
+        lin_path, backbone_path = os.path.join(tmp, "lin.pth"), os.path.join(tmp, "alex.pth")
+        torch.save(lin, lin_path)
+        torch.save(backbone, backbone_path)
+        weights = write_checkpoint(torch, os.path.join(tmp, "weights"), FLAGSHIP_CFG,
+                                   FLAGSHIP_CFG_TEXT)
+        net = load_lpips_state(lin, backbone)
+        lpips_flags = ["--lpips_lin", lin_path, "--lpips_backbone", backbone_path]
+        captured = []
+        p_loss = driver._p_loss
+
+        def recording_p_loss(lpips, preds, gts):
+            captured.append((preds.clone(), gts.clone()))
+            return p_loss(lpips, preds, gts)
+
+        driver._p_loss = recording_p_loss
+        try:
+            # the first run warms the path up; then without and with p_loss in turns
+            for run in ("f32_p_loss_first", "f32", "f32_p_loss", "f32_p_loss_2", "f32_2", "bf16",
+                        "bf16_p_loss"):
+                with_p = "p_loss" in run
+                extra = (["--bf16"] if run.startswith("bf16") else []) + (lpips_flags if with_p else [])
+                metrics = ("p_loss", "mse", "ssim") if with_p else ("mse", "ssim")
+                seconds, result, detail, launches = run_eval_cli(
+                    torch, launch_counts, weights, data, os.path.join(tmp, "eval_" + run), 8,
+                    "epoch_1", items, extra, metrics)
+                expect_launches(f"eval CLI ({run})", launches, {"fused_swin_block": 10 * items})
+                row = {"seconds": seconds, "frames_per_s": items / seconds, "launches": launches,
+                       **result}
+                if with_p:
+                    preds, gts = captured.pop()
+                    with torch.no_grad():
+                        alone = [lpips_distance(net, p[None, None], g[None, None]).item()
+                                 for p, g in zip(preds, gts)]
+                    diff = max(abs(a - b) for a, b in zip(alone, detail["p_loss"]))
+                    if not (len(alone) == items and diff <= 1e-5):
+                        raise AssertionError(f"eval CLI ({run}): p_loss {detail['p_loss']} vs "
+                                             f"LPIPS frame by frame {alone}: {diff}")
+                    row["p_loss_vs_lpips_max_abs_diff"] = diff
+                evals[run] = row
+        finally:
+            driver._p_loss = p_loss
+
+        model_args = model_config(FLAGSHIP_CFG)
+        model_args["generator"]["drop_path_rate"] = 0.2
+        for name, losses, loss_inds in (
+                ("l1", [{"type": "L1Loss"}], None),
+                ("perceptual", [{"type": "L1Loss"}, {"type": "PerceptualLoss"}], 2),
+                ("vip", [{"type": "L1Loss"}, {"type": "VIPLoss"}], None)):
+            log, launches, seconds, peak_gb, _ = train_cli_run(
+                torch, launch_counts, tmp, data, name, "BDE2VID", model_args, TRAIN_STEPS, {},
+                [] if name == "l1" else lpips_flags, losses=losses, loss_inds=loss_inds)
+            n = 10 * TRAIN_SEQ_LEN * TRAIN_STEPS
+            expect_launches(f"train CLI ({name})", launches,
+                            {"fused_swin_block": n, "attn_core_backward": n})
+            trains[name] = train_row(log, launches, seconds, peak_gb, losses_cfg=losses,
+                                     loss_inds=loss_inds, loss_terms=log[-1])
+    emit({"phase": "lpips", "card": card, "hw": [h, w], "nets": nets, "items": items,
+          "eval": evals, "train": trains})
+
+
 def main() -> int:
     import torch
 
@@ -2641,6 +2816,7 @@ def main() -> int:
     tiled_fwd_launches, tiled_bwd_launches = phase_key_tiles(torch, launch_counts)
     wide_cases = phase_kernels_head_dims(torch)
     wide_launches = phase_head_dims(torch, launch_counts)
+    phase_lpips(torch, launch_counts, card)
 
     def per_frame(cases, key, blocks):
         # f32, per frame of the configuration: ``blocks`` launches per level,

@@ -1180,3 +1180,89 @@ def test_cuda_prefetch_hands_over_finished_tensors(cuda_device):
             assert int(extra["k"]) == k
             assert torch.equal(x, torch.full_like(x, float(k)))
     assert not [t for t in threading.enumerate() if t.name == "prefetch"]
+
+
+def _seeded_lpips(net, seed):
+    """An LPIPS network on the CPU with seeded weights marked as loaded."""
+    from bde2vid_tpu_torch.metrics.lpips import LPIPS
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        module = LPIPS(net)
+        for w in module.lin_weights():
+            torch.nn.init.uniform_(w)
+    module.load_state_dict(module.state_dict())
+    return module.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["alex", "vgg", "squeeze"])
+def test_cuda_lpips_matches_cpu_at_180x240(cuda_device, net):
+    """LPIPS (cuDNN convolutions, no hand-written kernel) on the card vs the
+    CPU at 180x240: within 1e-5 relative (max |diff| over max |CPU|)."""
+    import copy
+
+    from bde2vid_tpu_torch.metrics.lpips import to_pm1_3ch
+
+    cpu = _seeded_lpips(net, 5)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(6)
+    pred, gt = (torch.from_numpy(rng.uniform(size=(3, 1, 180, 240)).astype(np.float32))
+                for _ in range(2))
+    before = dict(launch_counts)
+    with torch.no_grad():
+        want = cpu(to_pm1_3ch(gt, True), to_pm1_3ch(pred, True))
+        got = card(to_pm1_3ch(gt.to(cuda_device), True), to_pm1_3ch(pred.to(cuda_device), True))
+    assert _launched(before) == {}
+    assert got.shape == (3,) and torch.isfinite(got).all()
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_perceptual_loss_step_on_the_kernel_path(cuda_device):
+    """A flagship train step (base 32, depths [4, 0, 6], 16 heads, 7x7; T=3
+    at 184x240) with [L1, PerceptualLoss]: the kernel path's loss and
+    gradients within 1e-3 relative of the unfused path's, with exactly 10
+    B1 and 10 B2 launches a frame; LPIPS launches no kernel. (At 96x128 two
+    runs of one path gave the head conv's weight gradients 1.6e-3 to 2.0e-3
+    apart on an H100, L1 alone; at 184x240 5e-7.)"""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    gen = {"num_bins": 5, "basechannels": 32, "num_encoders": 3, "ks": 5, "num_res_blocks": 2,
+           "buffer_index": [-3, -2, -1, 0, 1, 2, 3], "depths": [4, 0, 6], "num_heads": 16,
+           "window_size": [7, 7], "drop_path_rate": 0.0}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        model = build_model("BDE2VID", {"generator": gen, "use_pallas_attention": True},
+                            device=cuda_device, train=True)
+    comp = SequenceLossComputer([{"type": "L1Loss"}, {"type": "PerceptualLoss"}],
+                                lpips=_seeded_lpips("alex", 7).to(cuda_device))
+    rng = np.random.default_rng(8)
+    t = 3
+    vox = torch.from_numpy(rng.normal(size=(t, 1, 5, 184, 240)).astype(np.float32)).to(cuda_device)
+    tgt = torch.from_numpy(rng.uniform(size=(t, 1, 1, 184, 240)).astype(np.float32)).to(cuda_device)
+    runs = []
+    for kernel in (True, False):
+        twa.set_attention_kernel(model, kernel)
+        model.zero_grad(set_to_none=True)
+        before = dict(launch_counts)
+        loss, parts = comp(model(vox)["image"], tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        want = {"fused_swin_block": 10 * t, "attn_core_backward": 10 * t} if kernel else {}
+        assert _launched(before) == want
+        assert parts["L_PL"].item() > 0
+        runs.append((loss.item(), {k: p.grad for k, p in model.named_parameters()
+                                   if p.grad is not None}))
+    (loss_k, grads_k), (loss_u, grads_u) = runs
+    assert abs(loss_k - loss_u) <= 1e-3 * abs(loss_u)
+    assert set(grads_k) == set(grads_u)
+    for key, gu in grads_u.items():
+        gk = grads_k[key]
+        if key.endswith("attn.kv.bias"):
+            c = gu.shape[0] // 2
+            assert max(gk[:c].abs().max().item(), gu[:c].abs().max().item()) <= 1e-5, key
+            gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
+        rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
+        assert rel <= 1e-3, (key, rel)

@@ -141,8 +141,20 @@ def test_l1_and_temporal_consistency_losses_match_jax(rng):
 
 @pytest.mark.parametrize("name", ["PerceptualLoss", "VIPLoss"])
 def test_lpips_losses_raise_until_lpips_is_ported(name):
-    with pytest.raises(NotImplementedError, match="A9"):
+    """An LPIPS-backed loss builds with an LPIPS network that holds backbone
+    weights, and raises without one (or with a random backbone)."""
+    from bde2vid_tpu_torch.metrics.lpips import LPIPS, load_lpips_state
+
+    with pytest.raises(ValueError, match="needs an LPIPS network"):
         build_loss({"type": name})
+    with pytest.raises(ValueError, match="loaded backbone"):
+        build_loss({"type": name}, lpips=load_lpips_state({}, None, device="cpu"))
+    net = LPIPS("alex")
+    net.load_state_dict(net.state_dict())  # the backbone's keys: weights loaded
+    loss = build_loss({"type": name}, lpips=net)
+    img = torch.rand(1, 1, 40, 40)
+    v = loss(img, img) if name == "PerceptualLoss" else loss(img, img)[0]
+    assert v.item() == pytest.approx(0.0, abs=1e-6)
 
 
 _LOSS_CASES = {
@@ -423,7 +435,8 @@ def test_train_cli_checkpoint_is_scored_and_loads_in_jax(h5_tree, tmp_path):
     np.testing.assert_allclose(nhwc(got), want, atol=2e-4, rtol=0)
 
 
-# the LPIPS flags are still refused (ROADMAP A9); bf16 and remat training run a step
+# the LPIPS flags are taken (and, as in JAX, not read without an LPIPS-backed
+# loss); bf16 and remat training run a step
 @pytest.mark.parametrize("flag,config", [
     (["--lpips_lin", "lin.pth"], {}),
     (["--lpips_backbone", "alex.pth"], {}),
@@ -437,10 +450,6 @@ def test_train_cli_refuses_what_is_not_ported(h5_tree, tmp_path, flag, config):
     cfg_path.write_text(json.dumps(cfg))
     args = ["--config", str(cfg_path), "--data_dir", str(h5_tree), "--out_dir",
             str(tmp_path / "o"), "--device", "cpu", "--steps", "1", *flag]
-    if flag:
-        with pytest.raises(NotImplementedError, match="A9"):
-            ttm.main(args)
-        return
     assert ttm.main(args) == 0
     log = [json.loads(line) for line in (tmp_path / "o" / "train_log.jsonl").read_text().splitlines()]
     assert len(log) == 1 and np.isfinite(log[0]["loss"])
