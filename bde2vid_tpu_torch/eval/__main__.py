@@ -5,7 +5,10 @@ the subset the BDE2VID, E2VID-family, SPADE, EITR and SNN eval paths need).
         --datasets HQF --loader_type MMP --subseq_L 8 \\
         [--metrics p_loss mse ssim] [--lpips_lin LIN.pth --lpips_backbone ALEX.pth]
 
-Scores every ``*.pth`` under ``--weights_dir``: BDE2VID, E2VID,
+Scores every ``*.pth`` and ``*.msgpack`` under ``--weights_dir``, in
+numeric ``epoch_`` order. A ``.msgpack`` is a checkpoint of the JAX
+package's train CLI (flax bytes and a ``.json`` sidecar), read without flax
+(``eval/msgpack_checkpoint.py``). The ``.pth`` dialects: BDE2VID, E2VID,
 E2VIDRecurrent, FireNet, FireNetOrg, FlowNet and EITR checkpoints in the
 mmengine, pytorch-template and ``firenet_1000.pth`` dialects, and bare
 SPADE state dicts (a file name with "SPADE"; on an H5 tree SPADE reads
@@ -25,6 +28,13 @@ the sequence runs in one chunk), ``--eq`` (histogram-equalised scoring),
 ``--separate_polarity`` (2B-channel voxels, positive bins first, for a model
 that takes them), ``--saveim DIR`` (triptych PNGs), ``--show`` and
 ``--wait_time`` (a live viewer where cv2 and a display exist).
+
+``--loader_type``: H5, SpadeH5 and H5VOX (the voxel cache that
+``events.tools.h5_precompute_voxels`` writes into an h5 file) read
+``<data_dir>/h5`` and need ``h5py``; MMP reads memmap directories under
+``<data_dir>/mmp``; ENPY (the raw-NPY event layout) and NPY (the
+pre-voxelized tree of ``events.tools.h5_to_prevoxelized_npy``) read
+directories under ``<data_dir>/npy``.
 
 ``--metrics`` defaults to the paper's ``p_loss mse ssim``. ``p_loss`` is
 LPIPS (net-lin, AlexNet, v0.1): the lin heads come from ``--lpips_lin`` or,
@@ -57,7 +67,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_length", default=111200, type=int)
     p.add_argument("--pause_st", default=None, type=int)
     p.add_argument("--pause_ed", default=None, type=int)
-    p.add_argument("--loader_type", default="H5", choices=["H5", "SpadeH5", "MMP"])
+    p.add_argument("--loader_type", default="H5",
+                   choices=["H5", "SpadeH5", "MMP", "NPY", "ENPY", "H5VOX"],
+                   help="dataset backend; H5VOX reads the in-h5 voxel cache written by "
+                   "h5_precompute_voxels")
     p.add_argument("--separate_polarity", action="store_true",
                    help="2B-channel pos/neg voxel grids instead of combined")
     p.add_argument("--filter_hot_events", action="store_true")
@@ -111,8 +124,9 @@ def load_lpips_metric(metrics, lpips_lin, lpips_backbone, device):
 
 
 def read_checkpoints(weights_dir: str, st: int, ed: int):
-    """Glob + sort checkpoints by epoch number (reference read_cps :346-360)."""
-    files = glob(os.path.join(weights_dir, "*.pth"))
+    """``*.pth`` and ``*.msgpack`` under ``weights_dir``, sorted by epoch
+number (reference read_cps :346-360)."""
+    files = glob(os.path.join(weights_dir, "*.pth")) + glob(os.path.join(weights_dir, "*.msgpack"))
 
     def parse_num(x):
         name = os.path.basename(x)
@@ -128,11 +142,26 @@ def read_checkpoints(weights_dir: str, st: int, ed: int):
     return files
 
 
+def result_names(checkpoints):
+    """{checkpoint: the stem of its result files}: the file name up to its
+    first dot, as the reference names them; where two checkpoints share a
+    stem (``epoch_1.pth`` beside ``epoch_1.msgpack``) each keeps its
+    extension, ``epoch_1_pth`` and ``epoch_1_msgpack``, so neither result
+    is skipped as already written."""
+    stems = {c: os.path.basename(c).split(".")[0] for c in checkpoints}
+    shared = {s for s in stems.values() if list(stems.values()).count(s) > 1}
+    return {c: f"{s}_{os.path.splitext(c)[1][1:]}" if s in shared else s
+            for c, s in stems.items()}
+
+
 def read_datafiles(data_dir: str, datasets, loader_type: str = "H5"):
-    """Sequences under ``data_dir/h5`` (H5, SpadeH5) or ``data_dir/mmp``
-    (MMP), from ``eval_data.txt`` when present, filtered by dataset name."""
-    h5 = loader_type in ("H5", "SpadeH5")
-    root = os.path.join(data_dir, "h5" if h5 else "mmp")
+    """Sequences under ``data_dir/h5`` (H5, SpadeH5, H5VOX), ``data_dir/npy``
+    (NPY, ENPY) or ``data_dir/mmp`` (MMP), from ``eval_data.txt`` when
+    present, filtered by dataset name. Without a listing an h5 backend takes
+    every ``*.h5`` below, a directory backend every directory holding a
+    ``t.npy``, else every ``<dataset>/<sequence>`` directory."""
+    h5 = loader_type in ("H5", "SpadeH5", "H5VOX")
+    root = os.path.join(data_dir, "h5" if h5 else "npy" if loader_type in ("NPY", "ENPY") else "mmp")
     listing = os.path.join(root, "eval_data.txt")
     if os.path.exists(listing):
         with open(listing) as f:
@@ -144,7 +173,8 @@ def read_datafiles(data_dir: str, datasets, loader_type: str = "H5"):
         files = sorted(
             os.path.relpath(os.path.dirname(p), root)
             for p in glob(os.path.join(root, "**", "t.npy"), recursive=True)
-        )
+        ) or sorted(os.path.relpath(d, root) for d in glob(os.path.join(root, "*", "*"))
+                    if os.path.isdir(d))
     return [f for f in files if any(d in f for d in datasets)], root
 
 
@@ -155,6 +185,7 @@ def main(argv=None) -> int:
 
     from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch
     from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_all
+    from bde2vid_tpu_torch.eval.msgpack_checkpoint import load_msgpack_checkpoint
     from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
     from bde2vid_tpu_torch.utils.device import resolve_device
 
@@ -173,8 +204,9 @@ def main(argv=None) -> int:
 
     out_dir = args.output_dir or args.weights_dir
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    names = result_names(checkpoints)
     for ckpt in checkpoints:
-        name = os.path.split(ckpt)[-1].split(".")[0]
+        name = names[ckpt]
         subseq = args.subseq_L or None
         if args.pause_st is not None:
             result_file = f"{name}_{args.datatype}_{args.pause_st}_{args.pause_ed}.txt"
@@ -188,7 +220,8 @@ def main(argv=None) -> int:
             print(f"skipping {ckpt} (result exists)")
             continue
         print(f"loading {ckpt} ...")
-        spec = load_model_from_torch(ckpt, device=device, dtype=dtype)
+        load = load_msgpack_checkpoint if ckpt.endswith(".msgpack") else load_model_from_torch
+        spec = load(ckpt, device=device, dtype=dtype)
         set_attention_kernel(spec.module, use_kernel)
         print(f"{spec.name}: {spec.num_params / 1e6:.2f}M parameters on {device}")
         cfg = EvalConfig(

@@ -1,7 +1,8 @@
 """Sequence evaluation driver (counterpart of ``bde2vid_tpu/eval/driver.py``;
 reference eval_models_seq.py:99-290).
 
-Per sequence: between-frames windows -> voxels on the device (LegacyNorm'd
+Per sequence: the backend's windows -> voxels on the device (or the stored
+voxels of an NPY or H5VOX sequence; LegacyNorm'd
 with ``normalize``), the model over ``subseq_L`` chunks, crop back to the
 sensor size, then per-step metrics. A sequence model (BDE2VID) runs each
 chunk as one forward with fresh recurrent state (the reference resets state

@@ -13,7 +13,9 @@ normalises the whole tensor once (the unbiased std over its nonzero
 entries), feeds the bins one at a time through the spiking network with its
 membranes carried across chunks, and writes one robust-normalised PNG per
 bin, ``<save_path>/<network>/result-idx{chunk:04d}{bin:04d}.png``. Runs on
-CUDA unless ``--device cpu``.
+CUDA unless ``--device cpu``. The weights are a reference ``.pth`` (bare,
+or under ``"model"``) or a ``.msgpack`` of the JAX package's train CLI,
+whose sidecar config builds the network.
 """
 
 from __future__ import annotations
@@ -61,12 +63,10 @@ def read_chunks(path: str, n_chunk: int):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.path_to_pretrain_models.endswith(".msgpack"):
-        raise NotImplementedError("msgpack checkpoints are not ported yet (ROADMAP A11)")
-
     import torch
 
     from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch
+    from bde2vid_tpu_torch.eval.msgpack_checkpoint import load_msgpack_checkpoint
     from bde2vid_tpu_torch.events.voxel import events_to_voxel
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.utils.device import resolve_device
@@ -79,13 +79,17 @@ def main(argv=None) -> int:
     n_chunk = int(h * w * args.num_events_per_pixel)
     crop = CropParameters(w, h, 3)
 
-    # the checkpoint's dialect is picked by "SNN" in its path, as the reference does
-    spec = load_model_from_torch(args.path_to_pretrain_models, device=device)
+    path = args.path_to_pretrain_models
+    # a .pth's dialect is picked by "SNN" in its path, as the reference does;
+    # a .msgpack's sidecar config builds the network
+    load = load_msgpack_checkpoint if path.endswith(".msgpack") else load_model_from_torch
+    spec = load(path, device=device)
     if spec.name != args.network:
         raise SystemExit(f"checkpoint is a {spec.name} model but -network says {args.network}; "
                          "pass the matching network name")
     # the CLI normalises the whole voxel itself and feeds one bin a call
-    model = build_model(args.network, {"normalize_input": False}, device=device)
+    model = build_model(args.network, {**spec.module.config, "normalize_input": False},
+                        device=device)
     model.load_state_dict(spec.module.state_dict())
 
     savepath = os.path.join(args.save_path, args.network)

@@ -2,7 +2,7 @@
 
     python -m bde2vid_tpu_torch.train --config cfg.json --data_dir D \\
         [--steps N] [--out_dir O] [--batch B] [--loader_type {H5,MMP}] [--device cpu] \\
-        [--resume epoch_K.state | W.pth] [--save_state] [--prefetch P] \\
+        [--resume epoch_K.state | W.pth | W.msgpack] [--save_state] [--prefetch P] \\
         [--val_dir V --val_every E [--val_windows W]] \\
         [--lpips_lin LIN.pth --lpips_backbone ALEX.pth]
 
@@ -42,7 +42,11 @@ time step of its sweeps, and a step model's whole forward, in the backward.
 Each checkpoint is ``epoch_N.pth`` in the mmengine layout that the port's and
 the JAX package's eval CLIs load; with ``--save_state`` ``epoch_N.state``
 beside it holds the full train state (``trainer.save_train_state``), which
-``--resume`` continues bit for bit. ``train_log.jsonl`` in the output
+``--resume`` continues bit for bit. ``--resume`` also takes a weights file
+(``.pth``, or a ``.msgpack`` the JAX package's train CLI wrote, read by
+``eval/msgpack_checkpoint.py``): its weights, with a fresh optimizer at step 0,
+as the JAX CLI resumes a ``.msgpack``; an orbax directory is refused.
+``train_log.jsonl`` in the output
 directory gets one line per step: the losses, the step's host seconds and
 the part of them spent getting and augmenting the batch. ``--val_dir``
 scores held-out windows (``train/validate.py``) into ``val_log.jsonl`` and
@@ -246,7 +250,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--resume", default=None,
                    help="an epoch_N.state (exact resume at step N: weights, optimizer, "
-                   "scheduler and generator states) or a weights .pth (fresh optimizer, step 0)")
+                   "scheduler and generator states), or a weights .pth or a .msgpack of the "
+                   "JAX package (fresh optimizer, step 0)")
     p.add_argument("--save_state", action="store_true",
                    help="also write the full train state epoch_N.state beside each epoch_N.pth")
     p.add_argument("--val_dir", default=None,
@@ -297,6 +302,7 @@ def main(argv=None) -> int:
 
     from bde2vid_tpu_torch.data.transforms import add_hot_pixels_to_sequence, add_noise_to_voxel
     from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, load_torch_file
+    from bde2vid_tpu_torch.eval.msgpack_checkpoint import check_not_orbax, read_msgpack_state_dict
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.train.optim import build_optimizer
     from bde2vid_tpu_torch.train.trainer import (SequenceLossComputer, is_train_state,
@@ -359,13 +365,21 @@ def main(argv=None) -> int:
     generators = {"augment": torch.Generator(device=device).manual_seed(42),
                   "droppath": torch.Generator(device=device).manual_seed(1)}
     start_step = 0
-    if args.resume and is_train_state(args.resume):
-        start_step = restore_train_state(args.resume, model, optimizer, scheduler, generators)
-        print(f"exact resume from {args.resume} at step {start_step}")
-    elif args.resume:
-        ckpt = load_torch_file(args.resume)
-        load_state_dict_checked(model, ckpt.get("state_dict", ckpt))
-        print(f"weights from {args.resume}; fresh optimizer at step 0")
+    if args.resume:
+        # an orbax directory's sidecar says train_state too: refuse it first
+        check_not_orbax(args.resume)
+        if is_train_state(args.resume):
+            start_step = restore_train_state(args.resume, model, optimizer, scheduler, generators)
+            print(f"exact resume from {args.resume} at step {start_step}")
+        else:
+            # a .msgpack of the JAX package gives its params only, as its CLI resumes it
+            if args.resume.endswith(".msgpack"):
+                sd = read_msgpack_state_dict(args.resume)
+            else:
+                sd = load_torch_file(args.resume)
+                sd = sd.get("state_dict", sd)
+            load_state_dict_checked(model, sd)
+            print(f"weights from {args.resume}; fresh optimizer at step 0")
 
     validator = None
     if args.val_dir and args.val_every > 0:

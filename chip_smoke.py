@@ -46,6 +46,21 @@ reference's.
            checkpoint (f32 and --bf16, cold and warm, one profiled run) and
            an 8x8 checkpoint (f32 and --bf16); result files finite, launch
            counts exact
+  backends the other event backends (ROADMAP A11) on one synthetic 180x240
+           recording written as MMP, ENPY (raw NPY) and NPY (pre-voxelized
+           by the NumPy oracle on the host): ENPY voxels bit-equal to MMP's
+           on the card under deterministic algorithms, NPY's within 1e-5 of
+           the card's; k_events (with and without a sliding window),
+           t_seconds and HFR windows (k_framerate 3) on the card within 1e-5
+           of the CPU, with their voxel ms; the eval CLI with the flagship
+           checkpoint (f32, subseq_L 8) over MMP, ENPY and NPY, frames/s and
+           exact launches (ENPY's scores within 1e-6 of MMP's on the chunks
+           both hold whole, NPY's within 1e-4); the flagship's weights as
+           epoch_1.pth and as the JAX package's epoch_1.msgpack in one
+           weights directory: equal state dicts, and one eval CLI call
+           scoring both bit-equal; then the train CLI resumed from each for
+           2 steps under deterministic algorithms, losses bit-equal, exact B1
+           and B2 launches
   step_models  E2VIDRecurrent (the released E2VID: base 32, 3 encoders, BN,
            transposed-conv decoders), E2VID and FlowNet at 184x240, FireNet
            and FireNetOrg (base 16, kernel 3) at 180x240, SPADE-E2VID and
@@ -797,6 +812,178 @@ def phase_eval(torch, launch_counts, card):
     emit({"phase": "eval", "items": items, "hw": [180, 240], "subseq_L": 8, "card": card,
           "runs": rows, "flagship_f32_profile": prof})
     return main_path_launches
+
+
+# the windowing policies the backends phase voxelizes on the card and the
+# CPU over the synthetic recording (24 frames of 40000 events, ~0.96 s)
+BACKEND_POLICIES = {
+    "k_events": {"voxel_method": {"method": "k_events", "k": 40000}},
+    "k_events_sliding": {"voxel_method": {"method": "k_events", "k": 40000,
+                                          "sliding_window_w": 20000}},
+    "t_seconds": {"voxel_method": {"method": "t_seconds", "t": 0.04}},
+    "hfr_k3": {"k_framerate": 3},
+}
+
+
+def write_enpy_sequence(path, mmp):
+    """The memmap recording ``mmp`` in the raw-NPY layout: the same events
+    (uint8 0/1 polarity) and frames, one explicit window a frame, the events
+    before it; returns its items (one a frame)."""
+    from bde2vid_tpu_torch.data.windowing import between_frames_windows
+    from bde2vid_tpu_torch.events.tools import MemMapEventReader
+
+    r = MemMapEventReader(mmp)
+    os.makedirs(os.path.join(path, "events"))
+    os.makedirs(os.path.join(path, "frames"))
+    for name, a in (("xs", r.xy[:, 0]), ("ys", r.xy[:, 1]), ("ts", r.t), ("ps", r.p)):
+        np.save(os.path.join(path, "events", f"{name}.npy"), np.asarray(a))
+    np.save(os.path.join(path, "frames", "frames.npy"), np.asarray(r.images)[..., 0])
+    np.savetxt(os.path.join(path, "frames", "frame_ts.txt"), r.frame_ts)
+    np.savetxt(os.path.join(path, "frames", "frame_event_idxes.txt"),
+               between_frames_windows(r.frame_event_indices), fmt="%d")
+    return r.num_frames
+
+
+def phase_backends(torch, launch_counts, card):
+    """The other event backends (ROADMAP A11) on one synthetic 180x240
+    recording written as MMP, ENPY and NPY (the NPY voxels made by the NumPy
+    oracle on the host): ENPY voxels on the card bit-equal to MMP's under
+    deterministic algorithms, NPY's within 1e-5 of the card's; k_events with
+    and without a sliding window, t_seconds and HFR windows on the card
+    within 1e-5 of the CPU; the eval CLI with the flagship checkpoint over
+    each layout (ENPY within 1e-6 of MMP on the chunks both hold whole, NPY
+    within 1e-4); the flagship's weights as epoch_1.pth beside
+    epoch_1.msgpack, loaded alike and scored bit-equal in one CLI call; and
+    2 train steps resumed from each, bit-equal. Launch counts exact."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.eval.__main__ import main as eval_main
+    from bde2vid_tpu_torch.eval.checkpoint import _DERIVED, load_model_from_torch, load_torch_file
+    from bde2vid_tpu_torch.eval.msgpack_checkpoint import load_msgpack_checkpoint, save_msgpack_checkpoint
+    from bde2vid_tpu_torch.events.tools import MemMapEventReader, write_prevoxelized_npy
+
+    voxels, layouts, msgpack, resume = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        data = os.path.join(tmp, "data")
+        paths = {"MMP": os.path.join(data, "mmp", "SYN", "seq0"),
+                 "ENPY": os.path.join(data, "npy", "SYN", "raw0"),
+                 "NPY": os.path.join(data, "npy", "SYN", "vox0")}
+        items = write_mmp_sequence(paths["MMP"], np.random.default_rng(1))
+        n_items = {"MMP": items, "ENPY": write_enpy_sequence(paths["ENPY"], paths["MMP"]),
+                   "NPY": items}
+        t0 = time.perf_counter()
+        write_prevoxelized_npy(MemMapEventReader(paths["MMP"]), paths["NPY"])
+        voxels["npy_oracle_host_seconds"] = time.perf_counter() - t0
+
+        # voxels: ENPY vs MMP bit for bit, NPY's oracle vs the card
+        with deterministic_algorithms(torch) as alerts:
+            got = {k: load_sequence(p, ltype=k).voxels() for k, p in paths.items()}
+        torch.cuda.synchronize()
+        if len(got["ENPY"]) != items + 1 or not torch.equal(got["ENPY"][:items], got["MMP"]):
+            raise AssertionError(f"ENPY voxels differ from MMP's on the card "
+                                 f"({len(got['ENPY'])} vs {items} items), alerts {sorted(alerts)}")
+        npy_diff = (got["NPY"] - got["MMP"]).abs().max().item()
+        if not npy_diff <= 1e-5:
+            raise AssertionError(f"NPY oracle voxels {npy_diff} from the card's, want <= 1e-5")
+        voxels.update({"enpy_vs_mmp_bit_equal": True, "npy_oracle_max_abs_diff": npy_diff,
+                       "deterministic_alerts": sorted(alerts)})
+        for name, kw in (("between_frames_mmp", {}), *BACKEND_POLICIES.items()):
+            seq = load_sequence(paths["MMP"], ltype="MMP", **kw)
+            card_v = seq.voxels()
+            diff = (card_v.cpu() - seq.voxels(device="cpu")).abs().max().item()
+            if not diff <= 1e-5:
+                raise AssertionError(f"{name} voxels: card {diff} from the CPU, want <= 1e-5")
+            ms = cuda_ms(torch, seq.voxels, iters=3, warmup=1)
+            voxels[name] = {"windows": len(seq.windows), "max_abs_diff_card_vs_cpu": diff,
+                            "overlapping": bool((seq.windows[1:, 0] < seq.windows[:-1, 1]).any()),
+                            "ms": ms, "ms_per_window": ms / len(seq.windows)}
+
+        # the eval CLI over each layout
+        weights = write_checkpoint(torch, os.path.join(tmp, "weights"), FLAGSHIP_CFG,
+                                   FLAGSHIP_CFG_TEXT)
+        detail = {}
+        for layout, path in paths.items():
+            out_dir = os.path.join(tmp, "out_" + layout)
+            seq_name = os.path.basename(path)
+            torch.cuda.synchronize()
+            launch_counts.clear()
+            t0 = time.perf_counter()
+            rc = eval_main(["--weights_dir", weights, "--data_dir", data, "--datasets", seq_name,
+                            "--loader_type", layout, "--metrics", "mse", "ssim",
+                            "--subseq_L", "8", "--output_dir", out_dir])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            n = n_items[layout]
+            expect_launches(f"eval CLI ({layout})", dict(launch_counts), {"fused_swin_block": 10 * n})
+            with open(os.path.join(out_dir, "epoch_1_L8_org_detail.txt")) as fp:
+                detail[layout] = json.load(fp)["SYN"][seq_name]
+            if rc != 0 or any(len(v) != n or not all(map(math.isfinite, v))
+                              for v in detail[layout].values()):
+                raise AssertionError(f"eval CLI ({layout}): rc {rc}, {detail[layout]}")
+            layouts[layout] = {"items": n, "seconds": seconds, "frames_per_s": n / seconds,
+                               "launches": dict(launch_counts)}
+        whole = min(n_items.values()) // 8 * 8  # the chunks of 8 both hold whole
+        for layout, bound, upto in (("ENPY", 1e-6, whole), ("NPY", 1e-4, items)):
+            diff = max(abs(a - b) for m in ("mse", "ssim")
+                       for a, b in zip(detail[layout][m][:upto], detail["MMP"][m][:upto]))
+            if not diff <= bound:
+                raise AssertionError(f"eval CLI ({layout}): scores {diff} from MMP's, want <= {bound}")
+            layouts[layout].update({"max_abs_diff_vs_mmp": diff, "items_compared": upto})
+
+        # the flagship's weights as .pth and .msgpack in one weights directory
+        both = os.path.join(tmp, "weights_both")
+        write_checkpoint(torch, both, FLAGSHIP_CFG, FLAGSHIP_CFG_TEXT)
+        save_msgpack_checkpoint(os.path.join(both, "epoch_1.msgpack"),
+                                load_torch_file(os.path.join(both, "epoch_1.pth"))["state_dict"],
+                                "BDE2VID", FLAGSHIP_CFG)
+        sd_pth = load_model_from_torch(os.path.join(both, "epoch_1.pth")).module.state_dict()
+        sd_msg = load_msgpack_checkpoint(os.path.join(both, "epoch_1.msgpack")).module.state_dict()
+        compared = [k for k in sd_pth if not any(p.search(k) for p in _DERIVED)]
+        if sd_pth.keys() != sd_msg.keys() or not all(torch.equal(sd_pth[k], sd_msg[k])
+                                                     for k in compared):
+            raise AssertionError("the .msgpack and the .pth load different state dicts")
+        out_dir = os.path.join(tmp, "out_both")
+        with deterministic_algorithms(torch) as alerts:
+            launch_counts.clear()
+            rc = eval_main(["--weights_dir", both, "--data_dir", data, "--datasets", "seq0",
+                            "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", "8",
+                            "--output_dir", out_dir])
+            torch.cuda.synchronize()
+        expect_launches("eval CLI (.pth and .msgpack)", dict(launch_counts),
+                        {"fused_swin_block": 2 * 10 * items})
+        scored = {}
+        for fmt in ("pth", "msgpack"):
+            for kind in ("", "_detail"):
+                with open(os.path.join(out_dir, f"epoch_1_{fmt}_L8_org{kind}.txt")) as fp:
+                    scored[fmt + kind] = json.load(fp)
+        if rc != 0 or scored["pth"] != scored["msgpack"] \
+                or scored["pth_detail"] != scored["msgpack_detail"]:
+            raise AssertionError(f"eval CLI: .msgpack and .pth scores differ: {scored}, "
+                                 f"alerts {sorted(alerts)}")
+        msgpack.update({"state_dict_tensors_equal": len(compared),
+                        "state_dict_tensors_derived": len(sd_pth) - len(compared),
+                        "file_bytes": os.path.getsize(os.path.join(both, "epoch_1.msgpack")),
+                        "scores": scored["pth"]["SYN"]["seq0"], "alerts": sorted(alerts)})
+
+        # 2 train steps resumed from each, under deterministic algorithms
+        logs = {}
+        with deterministic_algorithms(torch) as alerts:
+            for fmt in ("msgpack", "pth"):
+                log, launches, seconds, peak_gb, _ = train_cli_run(
+                    torch, launch_counts, tmp, data, "resume_" + fmt, "BDE2VID",
+                    model_config(FLAGSHIP_CFG), 2, {},
+                    ["--resume", os.path.join(both, f"epoch_1.{fmt}")])
+                expect_launches(f"train CLI (--resume .{fmt})", launches,
+                                {"fused_swin_block": 10 * 2 * TRAIN_SEQ_LEN,
+                                 "attn_core_backward": 10 * 2 * TRAIN_SEQ_LEN})
+                logs[fmt] = log
+                resume[fmt] = train_row(log, launches, seconds, peak_gb)
+        loss_keys = lambda log: [{k: v for k, v in r.items() if k.startswith("L") or k == "loss"}
+                                 for r in log]
+        compare_states(torch, "losses resumed from .msgpack and .pth", loss_keys(logs["msgpack"]),
+                       loss_keys(logs["pth"]), set())
+        resume["alerts"] = sorted(alerts)
+    emit({"phase": "backends", "card": card, "items": items, "hw": [180, 240], "subseq_L": 8,
+          "voxels": voxels, "eval_cli": layouts, "msgpack": msgpack, "train_resume": resume})
 
 
 def seeded_step_model(torch, name, cfg, seed):
@@ -2807,6 +2994,7 @@ def main() -> int:
     phase_model(torch, launch_counts)
     phase_parallel(torch, launch_counts)
     eval_launches = phase_eval(torch, launch_counts, card)
+    phase_backends(torch, launch_counts, card)
     phase_step_models(torch, launch_counts, card)
     phase_packing(torch, card)
     phase_grads(torch, launch_counts)

@@ -1224,8 +1224,10 @@ def test_cuda_flagship_perceptual_loss_step_on_the_kernel_path(cuda_device):
     at 184x240) with [L1, PerceptualLoss]: the kernel path's loss and
     gradients within 1e-3 relative of the unfused path's, with exactly 10
     B1 and 10 B2 launches a frame; LPIPS launches no kernel. (At 96x128 two
-    runs of one path gave the head conv's weight gradients 1.6e-3 to 2.0e-3
-    apart on an H100, L1 alone; at 184x240 5e-7.)"""
+    runs of one path gave the head conv's weight gradients 1.3e-3 to 2.0e-3
+    apart on an H100, L1 alone, without deterministic algorithms, and the
+    kernel path's 3.8e-3 from the unfused path's with them; at 184x240 5e-7
+    and 1.5e-5: ROADMAP Queue C, C11.)"""
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.train import SequenceLossComputer
 
@@ -1266,3 +1268,53 @@ def test_cuda_flagship_perceptual_loss_step_on_the_kernel_path(cuda_device):
             gk, gu = gk[c:], gu[c:]  # the key half is analytically zero
         rel = (gk - gu).abs().max().item() / max(gu.abs().max().item(), 1e-30)
         assert rel <= 1e-3, (key, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_step_repeats_bit_for_bit_at_96x128_deterministic(cuda_device, monkeypatch):
+    """The flagship train step of the test above at 96x128, T=3, [L1,
+    PerceptualLoss], under ``torch.use_deterministic_algorithms``
+    and ``cudnn.deterministic``: two runs of each path (kernel and unfused)
+    give bit-equal losses and gradients, with 30 B1 + 30 B2 launches a
+    kernel run. Without deterministic algorithms two runs of one path lie
+    1.3e-3 to 2.0e-3 apart (relative) in the head conv's weight gradient
+    there, whose terms cancel: library nondeterminism (ROADMAP Queue C,
+    C11)."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = {"num_bins": 5, "basechannels": 32, "num_encoders": 3, "ks": 5, "num_res_blocks": 2,
+           "buffer_index": [-3, -2, -1, 0, 1, 2, 3], "depths": [4, 0, 6], "num_heads": 16,
+           "window_size": [7, 7], "drop_path_rate": 0.0}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        model = build_model("BDE2VID", {"generator": gen, "use_pallas_attention": True},
+                            device=cuda_device, train=True)
+    comp = SequenceLossComputer([{"type": "L1Loss"}, {"type": "PerceptualLoss"}],
+                                lpips=_seeded_lpips("alex", 7).to(cuda_device))
+    rng = np.random.default_rng(8)
+    t = 3
+    vox = torch.from_numpy(rng.normal(size=(t, 1, 5, 96, 128)).astype(np.float32)).to(cuda_device)
+    tgt = torch.from_numpy(rng.uniform(size=(t, 1, 1, 96, 128)).astype(np.float32)).to(cuda_device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for kernel in (True, False):
+            twa.set_attention_kernel(model, kernel)
+            runs = []
+            for _ in range(2):
+                model.zero_grad(set_to_none=True)
+                before = dict(launch_counts)
+                loss, _ = comp(model(vox)["image"], tgt)
+                loss.backward()
+                torch.cuda.synchronize()
+                want = {"fused_swin_block": 10 * t, "attn_core_backward": 10 * t} if kernel else {}
+                assert _launched(before) == want
+                runs.append((loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()
+                                           if p.grad is not None}))
+            (loss_a, grads_a), (loss_b, grads_b) = runs
+            assert loss_a == loss_b and grads_a.keys() == grads_b.keys()
+            for key, g in grads_a.items():
+                assert torch.equal(g, grads_b[key]), (kernel, key)
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -10,9 +10,9 @@
   detail numbers within 1e-6 (the membranes carry across chunks).
 - ``rec_snn`` on a text stream with a 10-line header and epoch-scale
   timestamps (~1.6e9 s): the same PNG names as the JAX ``rec_snn``, pixels
-  within 1 level; a checkpoint of another family than ``-network`` and a
-  ``.msgpack`` are refused, and the entry point needs CUDA unless the CPU is
-  asked for.
+  within 1 level; a checkpoint of another family than ``-network``, a
+  ``.pth`` or a ``.msgpack``, is refused, and the entry point needs CUDA
+  unless the CPU is asked for.
 """
 
 import json
@@ -36,6 +36,7 @@ from bde2vid_tpu_torch.data.pipeline import load_sequence
 from bde2vid_tpu_torch.eval.__main__ import main as port_main
 from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch, state_dict_from_jax
 from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_sequence
+from bde2vid_tpu_torch.eval.msgpack_checkpoint import save_msgpack_checkpoint
 from bde2vid_tpu_torch.eval.rec_snn import main as port_rec_snn
 from tests.conftest import make_events
 from tests.test_torch_e2vid import seeded_tree
@@ -201,8 +202,11 @@ def test_rec_snn_refuses_another_family_and_msgpack(rec_inputs, tmp_path):
     ckpt, stream = rec_inputs
     with pytest.raises(SystemExit, match="checkpoint is a EVSNN model but -network says PAEVSNN"):
         port_rec_snn(_rec_args(ckpt, stream, tmp_path, "PAEVSNN") + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        port_rec_snn(_rec_args(tmp_path / "EVSNN.msgpack", stream, tmp_path) + ["--device", "cpu"])
+    msgpack = str(tmp_path / "EVSNN.msgpack")
+    save_msgpack_checkpoint(msgpack, load_model_from_torch(str(ckpt), device="cpu").module,
+                            "EVSNN", {})
+    with pytest.raises(SystemExit, match="checkpoint is a EVSNN model but -network says PAEVSNN"):
+        port_rec_snn(_rec_args(msgpack, stream, tmp_path, "PAEVSNN") + ["--device", "cpu"])
 
 
 def test_rec_snn_needs_cuda_unless_cpu_is_asked_for(rec_inputs, tmp_path, monkeypatch):
