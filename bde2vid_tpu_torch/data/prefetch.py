@@ -23,6 +23,7 @@ import queue
 import threading
 from typing import Any, Iterable, Iterator, Optional
 
+import numpy as np
 import torch
 
 _END = object()
@@ -125,3 +126,26 @@ class Prefetcher:
     def __exit__(self, *exc) -> None:
         self.close()
 
+
+
+def prefetch_to_device(iterable: Iterable, size: int = 2, device=None) -> Prefetcher:
+    """A :class:`Prefetcher` over ``iterable`` whose items' tensors and NumPy
+    arrays are moved to ``device`` (CUDA unless the CPU is asked for) by the
+    thread, so that the copies overlap the consumer's work (the JAX
+    package's ``prefetch_to_device``)."""
+    from bde2vid_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+
+    def put(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if isinstance(x, torch.Tensor):
+            return x.to(device, non_blocking=True)
+        if isinstance(x, (tuple, list)):
+            return type(x)(put(v) for v in x)
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        return x
+
+    return Prefetcher((put(item) for item in iterable), size=size, device=device)

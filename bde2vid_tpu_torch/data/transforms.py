@@ -19,6 +19,51 @@ import torch
 # ----------------------------- geometric (host) -----------------------------
 
 
+class Compose:
+    def __init__(self, transforms):
+        self.transforms = transforms
+
+    def __call__(self, x, is_flow: bool = False):
+        for t in self.transforms:
+            x = t(x, is_flow=is_flow)
+        return x
+
+
+class CenterCrop:
+    """Centre crop of (..., H, W) arrays or tensors (reference :90-124); the
+    offsets use Python's round(), which rounds a half to even."""
+
+    def __init__(self, size):
+        self.size = (size, size) if isinstance(size, int) else tuple(size)
+
+    def __call__(self, x, is_flow: bool = False):
+        h, w = x.shape[-2:]
+        th, tw = self.size
+        i = int(round((h - th) / 2.0))
+        j = int(round((w - tw) / 2.0))
+        return x[..., i : i + th, j : j + tw]
+
+
+class RandomCrop:
+    """Random crop; ``sample_params(h, w, rng)`` once per sequence, so that
+    every item crops the same way."""
+
+    def __init__(self, size):
+        self.size = (size, size) if isinstance(size, int) else tuple(size)
+        self._ij: Optional[Tuple[int, int]] = None
+
+    def sample_params(self, h: int, w: int, rng: np.random.Generator):
+        th, tw = self.size
+        self._ij = (int(rng.integers(0, h - th + 1)), int(rng.integers(0, w - tw + 1)))
+
+    def __call__(self, x, is_flow: bool = False):
+        if self._ij is None:
+            raise RuntimeError("call sample_params first")
+        i, j = self._ij
+        th, tw = self.size
+        return x[..., i : i + th, j : j + tw]
+
+
 def np_grid_sample_bilinear(img: np.ndarray, grid: np.ndarray) -> np.ndarray:
     """NumPy bilinear sampling (align_corners=False, zero padding): img
     (H, W, C), grid (H, W, 2) of normalized (x, y)."""
@@ -167,3 +212,33 @@ def sample_pause_mask(length: int, rng: np.random.Generator, proba_pause_when_ru
         idx[t] = k
         paused[t] = is_paused
     return idx, paused
+
+
+def normalize_image_sequence(frames: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """1-99 percentile rescale of a whole frame sequence, clamped to [0, 1]
+    (reference :30-37); the percentiles interpolate linearly between ranks,
+    as np.percentile does."""
+    flat = torch.sort(frames.reshape(-1).float()).values
+    n = flat.numel()
+
+    def perc(q):
+        pos = q / 100.0 * (n - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, n - 1)
+        frac = pos - lo
+        return flat[lo] * (1.0 - frac) + flat[hi] * frac
+
+    mini, maxi = perc(1.0), perc(99.0)
+    return torch.clamp((frames - mini) / (maxi - mini + eps), 0.0, 1.0)
+
+
+def subsample_events(xs, ys, ts, ps, rng: np.random.Generator, min_event_num: int):
+    """A window of more than ``min_event_num`` events keeps a random sorted
+    subset of a uniform size in [min_event_num, len] (reference
+    SynchronizedNPYDataset, dataset.py:309-314)."""
+    n = len(xs)
+    if n <= min_event_num:
+        return xs, ys, ts, ps
+    keep = int(rng.integers(min_event_num, n + 1))
+    idx = np.sort(rng.choice(n, keep, replace=False))
+    return xs[idx], ys[idx], ts[idx], ps[idx]

@@ -72,3 +72,24 @@ def structural_similarity(pred: torch.Tensor, target: torch.Tensor, data_range: 
     if pred.ndim != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(pred.shape)}")
     return ssim(pred, target, data_range, win_size).mean()
+
+
+class MseMetric:
+    """Streaming length-weighted MSE (reference mmengine MseMetric,
+    evaluate/metrics.py:14-39): each call's MSE over all its elements,
+    weighted by its number of steps."""
+
+    def __init__(self, prefix: str = "MSE"):
+        self.prefix = prefix
+        self.results = []
+
+    def process(self, preds: torch.Tensor, gts: torch.Tensor, seq_name: str = "unknown",
+                dataset: str = "unknown"):
+        d = preds.float() - gts.float()
+        self.results.append({self.prefix: float((d * d).mean()), "L": preds.shape[0],
+                             "seq_name": seq_name, "dataset": dataset})
+
+    def compute_metrics(self):
+        total = sum(r[self.prefix] * r["L"] for r in self.results)
+        n = sum(r["L"] for r in self.results)
+        return {self.prefix: total / max(n, 1)}

@@ -25,6 +25,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils._python_dispatch import _disable_current_modes
 
 from bde2vid_tpu_torch.models.api import register_model
 from bde2vid_tpu_torch.nn.layers import Conv2d, ConvLayer, UpsampleConvLayer
@@ -70,8 +71,13 @@ class EITR(nn.Module):
     def _position_table(self, n: int, like: torch.Tensor) -> torch.Tensor:
         key = (n, like.device, like.dtype)
         if key not in self._pos:
-            table = torch.from_numpy(sine_position_table(n, self.d_model))
-            self._pos[key] = table.to(device=like.device, dtype=like.dtype)[None]
+            # made outside every dispatch mode: under torch.export's fake
+            # tensors the table would be a fake one, which later eager calls
+            # would read from the cache (the C15 fault of the attention's
+            # index maps); a real one is a constant of the exported program
+            with _disable_current_modes():
+                table = torch.from_numpy(sine_position_table(n, self.d_model))
+                self._pos[key] = table.to(device=like.device, dtype=like.dtype)[None]
         return self._pos[key]
 
     def forward(self, voxel: torch.Tensor, state) -> Tuple[Dict[str, torch.Tensor], Tuple]:

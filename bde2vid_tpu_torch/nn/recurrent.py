@@ -78,6 +78,18 @@ def make_recurrent_cell(block_type: str, input_size: int, hidden_size: int,
     raise ValueError(f"unknown recurrent_block_type {block_type!r} (convlstm|convgru)")
 
 
+def lstm_initial_state(batch: int, h: int, w: int, hidden: int, dtype=torch.float32,
+                       device=None) -> LstmState:
+    """Zero (h, c) of shape (batch, hidden, h, w)."""
+    return recurrent_initial_state("convlstm", batch, h, w, hidden, dtype, device)
+
+
+def gru_initial_state(batch: int, h: int, w: int, hidden: int, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+    """Zero hidden map of shape (batch, hidden, h, w)."""
+    return recurrent_initial_state("convgru", batch, h, w, hidden, dtype, device)
+
+
 def recurrent_initial_state(block_type: str, batch: int, h: int, w: int, hidden: int,
                             dtype=torch.float32, device=None) -> State:
     """Zero state of shape (batch, hidden, h, w): (h, c) for convlstm, the

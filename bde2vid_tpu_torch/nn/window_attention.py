@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from bde2vid_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, get_activation
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
@@ -126,12 +127,27 @@ def _index(a: np.ndarray, device) -> torch.Tensor:
 
 # The gathers below index with static maps. Each map is uploaded once per
 # device and kept: a fresh host-to-device copy per call would stall the
-# stream behind every kernel queued before it.
+# stream behind every kernel queued before it. The upload runs outside every
+# dispatch mode, so the cache holds real tensors only: under torch.export's
+# fake-tensor mode a tensor made in place would be a fake one, which the
+# next eager call and the next export would read from the cache; a real one
+# is a constant of the exported program, already on its device.
+_UPLOADED: dict = {}
 
 
-@functools.lru_cache(maxsize=128)
+def _device_index(key: tuple, device, make) -> torch.Tensor:
+    """``make()``, the NumPy map named by ``key``, as an int64 tensor on ``device``."""
+    key = (*key, torch.device(device))
+    t = _UPLOADED.get(key)
+    if t is None:
+        with _disable_current_modes():
+            t = _UPLOADED[key] = _index(make(), device)
+    return t
+
+
 def _partition_index(h: int, w: int, wh: int, ww: int, device: torch.device) -> torch.Tensor:
-    return _index(_dilated_flat_index(h, w, wh, ww)[0], device)
+    return _device_index(("partition", h, w, wh, ww), device,
+                         lambda: _dilated_flat_index(h, w, wh, ww)[0])
 
 
 @functools.lru_cache(maxsize=64)
@@ -148,9 +164,8 @@ def _dilated_taps(h: int, w: int, wh: int, ww: int) -> np.ndarray:
     return taps
 
 
-@functools.lru_cache(maxsize=128)
 def _taps_index(h: int, w: int, wh: int, ww: int, device: torch.device) -> torch.Tensor:
-    return _index(_dilated_taps(h, w, wh, ww), device)
+    return _device_index(("taps", h, w, wh, ww), device, lambda: _dilated_taps(h, w, wh, ww))
 
 
 def _fold(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -193,17 +208,16 @@ class _DilatedFold(torch.autograd.Function):
         return g.index_select(-2, flat), None, None
 
 
-@functools.lru_cache(maxsize=128)
 def _bias_rows(wd: int, wh: int, ww: int, h: int, w: int, q_ind: int, n: int,
                device: torch.device) -> torch.Tensor:
     m = h * w
-    rows = relative_position_index(wd, wh, ww, h, w)[q_ind * m : (q_ind + 1) * m, :n]
-    return _index(rows.reshape(-1), device)
+    return _device_index(
+        ("bias_rows", wd, wh, ww, h, w, q_ind, n), device,
+        lambda: relative_position_index(wd, wh, ww, h, w)[q_ind * m : (q_ind + 1) * m, :n].reshape(-1))
 
 
-@functools.lru_cache(maxsize=128)
-def _blend_index(hp: int, wp: int, wh: int, ww: int, crop: Tuple[int, int, int, int],
-                 device: torch.device):
+@functools.lru_cache(maxsize=64)
+def _blend_maps(hp: int, wp: int, wh: int, ww: int, crop: Tuple[int, int, int, int]):
     """(uncovered positions or None, gather map) for the fused dilated block:
     covered pixels read their window token, uncovered pixels read rows
     appended after the n_el window tokens; the map is cropped by ``crop``."""
@@ -212,12 +226,20 @@ def _blend_index(hp: int, wp: int, wh: int, ww: int, crop: Tuple[int, int, int, 
     idx = inv.reshape(-1).copy()
     unc = None
     if not full:
-        flat_unc = np.flatnonzero(~mask.reshape(-1))
-        idx[flat_unc] = n_el + np.arange(flat_unc.size)
-        unc = _index(flat_unc, device)
+        unc = np.flatnonzero(~mask.reshape(-1))
+        idx[unc] = n_el + np.arange(unc.size)
     pt, pb, pl, pr = crop
-    idx = idx.reshape(hp, wp)[pt : hp - pb, pl : wp - pr]
-    return unc, _index(idx.reshape(-1), device)
+    return unc, idx.reshape(hp, wp)[pt : hp - pb, pl : wp - pr].reshape(-1)
+
+
+def _blend_index(hp: int, wp: int, wh: int, ww: int, crop: Tuple[int, int, int, int],
+                 device: torch.device):
+    """``_blend_maps`` on ``device``."""
+    args = (hp, wp, wh, ww, crop)
+    unc, idx = _blend_maps(*args)
+    if unc is not None:
+        unc = _device_index(("blend_unc", *args), device, lambda: unc)
+    return unc, _device_index(("blend_idx", *args), device, lambda: idx)
 
 
 def window_partition_dilated(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:

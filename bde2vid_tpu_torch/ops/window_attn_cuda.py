@@ -27,7 +27,11 @@ Each public function launches its kernel for CUDA tensors and runs its twin
 for CPU tensors; any other device raises. There is no fallback from a kernel
 to a twin. A kernel launch is invisible to autograd, so the launchers refuse
 inputs that require grad: the public functions route those through their
-Function whenever a gradient is wanted.
+Function whenever a gradient is wanted. The no-grad forwards of the two
+block kernels are the registered operators ``bde2vid_torch::swin_block``
+and ``bde2vid_torch::window_block`` (``swin_block_op``, ``window_block_op``:
+a fake implementation for tracing, a FLOP formula for ``FlopCounterMode``),
+so an eager call and a ``torch.export`` program run the same code.
 """
 
 from __future__ import annotations
@@ -35,9 +39,10 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from bde2vid_tpu_torch.nn.layers import get_activation
 
@@ -814,6 +819,75 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
 
 
 # ---------------------------------------------------------------------------
+# the no-grad forwards of B1 and B3 as PyTorch operators: eager calls and
+# programs of ``torch.export`` run the same code, and a trace sees one node
+# per block (the fake implementations give the output shapes; nothing is
+# launched or counted while tracing)
+# ---------------------------------------------------------------------------
+
+OP_NAMESPACE = "bde2vid_torch"
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::swin_block", mutates_args=())
+def swin_block_op(x: torch.Tensor, ctr: torch.Tensor, params: List[torch.Tensor],
+                  m1: Optional[torch.Tensor], m2: Optional[torch.Tensor], num_heads: int,
+                  q_ind: int, activation: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, acc) of the Swin block kernel on CUDA tensors, of
+    :func:`swin_block_reference` on CPU tensors; ``params`` in
+    ``SwinBlockParams`` order."""
+    p = SwinBlockParams(*params)
+    masks = None if m1 is None else (m1, m2)
+    if x.device.type == "cpu":
+        return swin_block_reference(x, ctr, p, num_heads, q_ind, activation, masks, True)
+    return _launch_swin_block(x, ctr, p, num_heads, q_ind, activation, masks)
+
+
+@swin_block_op.register_fake
+def _(x, ctr, params, m1, m2, num_heads, q_ind, activation):
+    return torch.empty_like(ctr), torch.empty_like(ctr, dtype=x.dtype)
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::window_block", mutates_args=())
+def window_block_op(x: torch.Tensor, params: List[torch.Tensor], num_heads: int,
+                    q_ind: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, acc) of the WindowAttention3D body kernel on CUDA tensors, of
+    :func:`window_block_reference` on CPU tensors; ``params`` in
+    ``WindowBlockParams`` order."""
+    p = WindowBlockParams(*params)
+    if x.device.type == "cpu":
+        return window_block_reference(x, p, num_heads, q_ind, with_acc=True)
+    return _launch_window_block(x, p, num_heads, q_ind)
+
+
+@window_block_op.register_fake
+def _(x, params, num_heads, q_ind):
+    return torch.empty_like(x[0]), torch.empty_like(x[0])
+
+
+def _block_flops(d: int, b_: int, m: int, c: int, hidden: int) -> int:
+    """Multiply-adds x 2 of the products of one block call over B_ windows of
+    M query rows and D*M keys: q (M x C x C), k|v (D*M x C x 2C), scores and
+    the value sum (2 x M x D*M x C), the out projection (M x C x C) and, with
+    ``hidden``, the MLP (2 x M x C x hidden); what ``FlopCounterMode``
+    counts for the same products in the unfused body."""
+    n = d * m
+    per_window = m * c * c + n * c * 2 * c + 2 * m * n * c + m * c * c + 2 * m * c * hidden
+    return 2 * b_ * per_window
+
+
+@register_flop_formula(torch.ops.bde2vid_torch.swin_block)
+def _swin_block_flops(x_shape, ctr_shape, params_shapes, *args, **kwargs) -> int:
+    d, b_, m, c = x_shape
+    return _block_flops(d, b_, m, c, params_shapes[SwinBlockParams._fields.index("fc1_w")][0])
+
+
+@register_flop_formula(torch.ops.bde2vid_torch.window_block)
+def _window_block_flops(x_shape, *args, **kwargs) -> int:
+    d, b_, m, c = x_shape
+    return _block_flops(d, b_, m, c, 0)
+
+
+# ---------------------------------------------------------------------------
 # autograd Functions and public entry points
 # ---------------------------------------------------------------------------
 
@@ -896,19 +970,18 @@ def fused_swin_block(
     (B_, M, C), and with ``with_acc`` also ``acc``. ``masks`` = (m1, m2), the
     per-window stochastic-depth multipliers, each (B_,) f32. CUDA tensors
     launch the hand-written kernel, CPU tensors run
-    :func:`swin_block_reference`; when grad mode is on and an input
-    requires grad, the call goes through :class:`SwinBlockFunction`."""
+    :func:`swin_block_reference`, both through :func:`swin_block_op`; when
+    grad mode is on and an input requires grad, the call goes through
+    :class:`SwinBlockFunction`."""
     _check_device(x, "fused_swin_block")
     if masks is not None and any(t.requires_grad for t in masks):
         raise ValueError("stochastic-depth masks are constants; they must not require grad")
+    m1, m2 = (None, None) if masks is None else masks
     if _wants_grad((x, ctr, *params)):
         if with_acc:
             raise ValueError("with_acc is an output of no-grad calls; the Function keeps acc itself")
-        m1, m2 = (None, None) if masks is None else masks
         return SwinBlockFunction.apply(num_heads, q_ind, activation, x, ctr, m1, m2, *params)
-    if x.device.type == "cpu":
-        return swin_block_reference(x, ctr, params, num_heads, q_ind, activation, masks, with_acc)
-    out, acc = _launch_swin_block(x, ctr, params, num_heads, q_ind, activation, masks)
+    out, acc = swin_block_op(x, ctr, list(params), m1, m2, num_heads, q_ind, activation)
     return (out, acc) if with_acc else out
 
 
@@ -1001,14 +1074,13 @@ def fused_window_block(x: torch.Tensor, params: WindowBlockParams, num_heads: in
     (LN_q on ``x[q_ind]``, LN_kv on all D frames, q and k|v projections,
     attention, out projection), and with ``with_acc`` also ``acc``. CUDA
     tensors launch the hand-written kernel, CPU tensors run
-    :func:`window_block_reference`; when grad mode is on and an input
-    requires grad, the call goes through :class:`WindowBlockFunction`."""
+    :func:`window_block_reference`, both through :func:`window_block_op`;
+    when grad mode is on and an input requires grad, the call goes through
+    :class:`WindowBlockFunction`."""
     _check_device(x, "fused_window_block")
     if _wants_grad((x, *params)):
         if with_acc:
             raise ValueError("with_acc is an output of no-grad calls; the Function keeps acc itself")
         return WindowBlockFunction.apply(num_heads, q_ind, x, *params)
-    if x.device.type == "cpu":
-        return window_block_reference(x, params, num_heads, q_ind, with_acc)
-    out, acc = _launch_window_block(x, params, num_heads, q_ind)
+    out, acc = window_block_op(x, list(params), num_heads, q_ind)
     return (out, acc) if with_acc else out

@@ -9,6 +9,16 @@ import time
 from typing import Dict, Optional
 
 
+def read_json(path: str) -> Dict:
+    with open(path) as fp:
+        return json.load(fp)
+
+
+def write_json(content, path: str) -> None:
+    with open(path, "w") as fp:
+        json.dump(content, fp, indent=4, sort_keys=False)
+
+
 class Config:
     """A dict wrapper: ``from_json``, and with ``make_run_dir`` a
     ``runs/<name>/<stamp>`` directory holding a copy of the config (reference

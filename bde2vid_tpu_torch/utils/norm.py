@@ -1,6 +1,6 @@
-"""Voxel and image normalisation (counterpart of ``bde2vid_tpu/utils/norm.py``
-``legacy_norm``, ``robust_norm`` and ``to_uint8_image``; reference
-utils_func/data_augmentation.py LegacyNorm :313-330, RobustNorm :30-68)."""
+"""Voxel and image normalisation (counterpart of ``bde2vid_tpu/utils/norm.py``;
+reference utils_func/data_augmentation.py LegacyNorm :313-330, RobustNorm
+:30-68, and inference_utils.py torch2cv2 / cv2torch :12-23)."""
 
 from __future__ import annotations
 
@@ -60,3 +60,24 @@ def to_uint8_image(img) -> np.ndarray:
         img = img.detach().float().cpu().numpy()
     arr = np.asarray(img).squeeze()
     return (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def quick_norm(x: torch.Tensor) -> torch.Tensor:
+    """(x - min) / (max - min + 1e-6)."""
+    return (x - x.min()) / (x.max() - x.min() + 1e-6)
+
+
+def abs_norm(x: torch.Tensor) -> torch.Tensor:
+    """x - min, divided by its maximum where that is not 0."""
+    y = x - x.min()
+    m = y.max()
+    return torch.where(m != 0, y / torch.where(m == 0, torch.ones_like(m), m), y)
+
+
+def from_uint8_image(img, device=None) -> torch.Tensor:
+    """A uint8 (H, W) image -> [0, 1] f32 (1, 1, H, W) on ``device`` (CUDA
+    unless the CPU is asked for; the reference's cv2torch)."""
+    from bde2vid_tpu_torch.utils.device import resolve_device
+
+    arr = np.asarray(img).astype(np.float32) / 255.0
+    return torch.from_numpy(arr)[None, None].to(resolve_device(device))

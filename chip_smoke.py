@@ -146,6 +146,18 @@ reference's.
            the train CLI on the flagship for 6 steps with [L1,
            PerceptualLoss] at loss_inds 2, [L1, VIPLoss] and L1 alone (finite
            losses, 480 B1 and 480 B2 launches each, ms per step, peak memory)
+  serving  the serving CLI (ROADMAP A12): a flagship checkpoint exported
+           at full width (180x240, padded to 184x240), f32, kernel path, at
+           --T 4 (the CLI's default 16 traces 136 frames at export: 16 for
+           the forward and 1..15 for the exact tails; 4 traces 10), and an
+           E2VIDRecurrent template checkpoint at the released widths; each
+           bundle runs the eval phase's 23-item recording through `serving
+           run` (BDE2VID: 5 chunks of 4 and a 3-frame tail), held to the eval
+           driver's forward at subseq_L 4 (step model: run_sequence) on the
+           same voxels (2e-4); 230 B1 launches for the flagship and none for
+           E2VIDRecurrent, 10 swin_block nodes a frame in each flagship
+           program; export seconds, bundle bytes and serving frames/s beside
+           the eval CLI's at subseq_L 4
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -154,6 +166,7 @@ convolutions, so f32 comparisons are exact-f32 on both sides.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -2971,6 +2984,144 @@ def phase_lpips(torch, launch_counts, card):
           "eval": evals, "train": trains})
 
 
+# the serving phase's --T (the CLI's default 16 traces 136 frames at export)
+SERVING_T = 4
+
+
+def op_nodes(torch, bundle):
+    """{program: {operator: nodes}} of the port's kernel operators."""
+    from bde2vid_tpu_torch.ops.window_attn_cuda import OP_NAMESPACE
+
+    out = {}
+    for name, ep in bundle.functions.items():
+        nodes = collections.Counter(
+            str(n.target).split(".")[1] for n in ep.graph.nodes
+            if n.op == "call_function" and str(n.target).startswith(OP_NAMESPACE + "."))
+        out[name] = dict(nodes)
+    return out
+
+
+def phase_serving(torch, launch_counts, card):
+    """The serving CLI: export a flagship checkpoint (kernel path, f32, --T
+    SERVING_T) and an E2VIDRecurrent one at the released widths, run each
+    bundle over the 23-item recording, hold the images to the eval driver's
+    forward at subseq_L SERVING_T (step model: ``run_sequence``) on the same
+    voxels, count launches and operator nodes, and time export, serving and
+    the eval CLI."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.eval.__main__ import main as eval_main
+    from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch
+    from bde2vid_tpu_torch.models import run_sequence
+    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+    from bde2vid_tpu_torch.serving import load_bundle
+    from bde2vid_tpu_torch.serving.__main__ import main as serving_main, serve
+    from bde2vid_tpu_torch.utils.padding import CropParameters
+
+    rows = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        seq_dir = os.path.join(tmp, "data", "mmp", "SYN", "seq0")
+        items = write_mmp_sequence(seq_dir, np.random.default_rng(1))
+        vox = load_sequence(seq_dir, ltype="MMP").voxels(device="cuda")  # (T, C, H, W)
+        vpath = os.path.join(tmp, "voxels.npy")
+        np.save(vpath, vox.permute(0, 2, 3, 1).cpu().numpy())  # the JAX CLI's (T, H, W, C)
+        weights = write_checkpoint(torch, os.path.join(tmp, "weights_BDE2VID"), FLAGSHIP_CFG,
+                                   FLAGSHIP_CFG_TEXT)
+        e2vid = os.path.join(tmp, "weights_E2VIDRecurrent")
+        os.makedirs(e2vid)
+        torch.save({"arch": "E2VIDRecurrent",
+                    "config": {"arch": {"args": {"unet_kwargs": E2VID_WIDTHS}}},
+                    "state_dict": seeded_step_model(torch, "E2VIDRecurrent", E2VID_WIDTHS,
+                                                    3).state_dict()},
+                   os.path.join(e2vid, "model.pth"))
+        plan = (("BDE2VID", os.path.join(weights, "epoch_1.pth"), {"fused_swin_block": 10}),
+                ("E2VIDRecurrent", os.path.join(e2vid, "model.pth"), {}))
+        for name, ckpt, per_frame in plan:
+            bundle_path = os.path.join(tmp, name + ".zip")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = serving_main(["export", "--weights", ckpt, "--out", bundle_path,
+                               "--hw", "180", "240", "--T", str(SERVING_T), "--pallas"])
+            export_s = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"serving export ({name}) returned {rc}")
+            bundle = load_bundle(bundle_path)
+            nodes = op_nodes(torch, bundle)
+            for prog, got in nodes.items():
+                frames = (SERVING_T if prog == "forward" else int(prog.rsplit("_", 1)[1])
+                          if prog.startswith("forward_tail_") else 0)
+                want = {"swin_block": 10 * frames} if per_frame else {}
+                if got != want:
+                    raise AssertionError(f"serving ({name}) program {prog}: operator nodes "
+                                         f"{got}, want {want}")
+            out_npy = os.path.join(tmp, name + "_images.npy")
+            runs = []
+            for _ in range(2):  # cold (the programs' first calls), then warm
+                torch.cuda.synchronize()
+                launch_counts.clear()
+                t0 = time.perf_counter()
+                rc = serving_main(["run", "--bundle", bundle_path, "--voxels", vpath,
+                                   "--out_npy", out_npy, "--out_dir", os.path.join(tmp, "png")])
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+                if rc != 0:
+                    raise AssertionError(f"serving run ({name}) returned {rc}")
+                expect_launches(f"serving run ({name})", launch_counts,
+                                {k: n * items for k, n in per_frame.items()})
+            t0 = time.perf_counter()
+            serve(bundle, vox[:, None])  # deserialises and builds the programs it calls
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            serve(bundle, vox[:, None])
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            # where a warm serve's time goes; its HtoD copies (the voxels are
+            # on the card already, the index maps are program constants)
+            profile = device_profile(torch, lambda: serve(bundle, vox[:, None]), top=8)
+            got = torch.from_numpy(np.load(out_npy)).cuda()  # (T, 1, 180, 240)
+
+            # the eval driver's forward on the same voxels: chunks of
+            # SERVING_T, padded with its CropParameters, cropped back
+            spec = load_model_from_torch(ckpt, device="cuda")
+            set_attention_kernel(spec.module, True)
+            crop = CropParameters(240, 180, spec.num_encoders)
+            x = crop.pad(vox[:, None])
+            with torch.no_grad():
+                if spec.is_sequence_model:
+                    want = torch.cat([spec.module(x[s:s + SERVING_T])["image"]
+                                      for s in range(0, items, SERVING_T)])
+                else:
+                    want = run_sequence(spec.module, x, spec.initial_state(
+                        1, crop.height_crop_size, crop.width_crop_size))[0]
+            diff = (got - crop.crop(want)[:, :, 0]).abs().max().item()
+            if not (torch.isfinite(got).all() and got.shape == (items, 1, 180, 240)
+                    and diff <= 2e-4):
+                raise AssertionError(f"serving ({name}): {tuple(got.shape)}, max diff {diff} "
+                                     "vs the eval driver's forward (bound 2e-4)")
+            out_dir = os.path.join(tmp, "eval_" + name)
+            t0 = time.perf_counter()
+            rc = eval_main(["--weights_dir", os.path.dirname(ckpt),
+                            "--data_dir", os.path.join(tmp, "data"), "--datasets", "SYN",
+                            "--loader_type", "MMP", "--metrics", "mse",
+                            "--subseq_L", str(SERVING_T), "--output_dir", out_dir])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"eval CLI ({name}) returned {rc}")
+            rows[name] = {
+                "export_seconds": export_s, "bundle_bytes": os.path.getsize(bundle_path),
+                "programs": sorted(bundle.functions), "operator_nodes": nodes,
+                "launches": {k: n * items for k, n in per_frame.items()},
+                "max_abs_diff_vs_eval_forward": diff,
+                "run_cli_seconds": runs, "run_cli_frames_per_s": [items / r for r in runs],
+                "serve_first_call_seconds": first_s, "serve_frames_per_s": items / serve_s,
+                "serve_profile": profile,
+                "eval_cli_seconds": eval_s, "eval_cli_frames_per_s": items / eval_s,
+            }
+    emit({"phase": "serving", "card": card, "items": items, "hw": [180, 240],
+          "exported_hw": [184, 240], "T": SERVING_T, "runs": rows})
+
+
 def main() -> int:
     import torch
 
@@ -3005,6 +3156,7 @@ def main() -> int:
     wide_cases = phase_kernels_head_dims(torch)
     wide_launches = phase_head_dims(torch, launch_counts)
     phase_lpips(torch, launch_counts, card)
+    phase_serving(torch, launch_counts, card)
 
     def per_frame(cases, key, blocks):
         # f32, per frame of the configuration: ``blocks`` launches per level,

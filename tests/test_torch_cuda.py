@@ -1318,3 +1318,74 @@ def test_cuda_flagship_step_repeats_bit_for_bit_at_96x128_deterministic(cuda_dev
                 assert torch.equal(g, grads_b[key]), (kernel, key)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+_BUNDLE_GEN = {"num_bins": 5, "basechannels": 32, "num_encoders": 3, "ks": 5, "num_res_blocks": 2,
+               "buffer_index": [-3, -2, -1, 0, 1, 2, 3], "depths": [4, 0, 6], "num_heads": 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win,per_frame", [((7, 7), {"fused_swin_block": 10}),
+                                           ((8, 8), {"fused_swin_block": 5,
+                                                     "fused_window_block": 5})])
+def test_cuda_kernel_path_bundle_matches_eager_and_launches_per_frame(cuda_device, tmp_path, win,
+                                                                      per_frame):
+    """A bundle of the flagship widths (and of its 8x8 config) exported on
+    the kernel path, saved and loaded, runs B1 (and B3 on the even dilated
+    blocks) through the registered operators: the launches a frame of the
+    eager forward, one operator node a block a frame, and the eager eval
+    forward's images within 2e-4 (they differ in the last bit at 96x128
+    even under deterministic algorithms: the exported graph's matmuls of
+    the uncovered pixels' MLP are not eager's), for the full chunk and the
+    1-frame tail (96x128, T=2)."""
+    from bde2vid_tpu_torch.models import ModelSpec, build_model
+    from bde2vid_tpu_torch.serving import export_spec_bundle, load_bundle, run_voxels, save_bundle
+
+    torch.manual_seed(0)
+    cfg = {"generator": dict(_BUNDLE_GEN, window_size=list(win)), "use_pallas_attention": True}
+    spec = ModelSpec("BDE2VID", build_model("BDE2VID", cfg, device=cuda_device), 5, 3, True)
+    path = str(tmp_path / "b.zip")
+    save_bundle(path, export_spec_bundle(spec, 96, 128, seq_len=2, platforms=("cuda",)))
+    bundle = load_bundle(path)
+    blocks = {"fused_swin_block": "swin_block", "fused_window_block": "window_block"}
+    for name, t in (("forward", 2), ("forward_tail_1", 1)):
+        targets = [str(n.target) for n in bundle.functions[name].graph.nodes]
+        for counter, op in blocks.items():
+            assert targets.count(f"bde2vid_torch.{op}.default") == per_frame.get(counter, 0) * t
+    vox = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 1, 5, 96, 128))
+                           .astype(np.float32)).to(cuda_device)
+    for t in (2, 1):
+        with torch.no_grad():
+            want = spec.module(vox[:t])["image"]
+        before = dict(launch_counts)
+        got = run_voxels(bundle, vox[:t])
+        torch.cuda.synchronize()
+        assert _launched(before) == {k: n * t for k, n in per_frame.items()}
+        np.testing.assert_allclose(got, want.cpu().numpy(), atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_bundle_refuses_a_process_without_cuda(cuda_device, tmp_path):
+    """A bundle exported on the card loads only where CUDA is: with the cards
+    hidden, ``load_bundle`` raises and nothing runs on the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    from bde2vid_tpu_torch.models import ModelSpec, build_model
+    from bde2vid_tpu_torch.serving import export_spec_bundle, save_bundle
+
+    cfg = {"generator": {"num_bins": 5, "basechannels": 8, "num_encoders": 2, "ks": 3,
+                         "buffer_index": [-1, 0, 1], "depths": [1, 1], "num_heads": 2,
+                         "window_size": [4, 4]}, "use_pallas_attention": True}
+    spec = ModelSpec("BDE2VID", build_model("BDE2VID", cfg, device=cuda_device), 5, 2, True)
+    path = str(tmp_path / "b.zip")
+    save_bundle(path, export_spec_bundle(spec, 32, 48, seq_len=2))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\nsys.path.insert(0, sys.argv[1])\n"
+            "from bde2vid_tpu_torch.serving import load_bundle\n"
+            "try:\n    load_bundle(sys.argv[2])\nexcept RuntimeError as e:\n"
+            "    print('refused:', e)\n    sys.exit(0)\nsys.exit(1)\n")
+    res = subprocess.run([sys.executable, "-c", code, root, path], capture_output=True, text=True,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 0 and "exported for cuda" in res.stdout, res.stdout + res.stderr
