@@ -129,7 +129,9 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     EITR's ``trans_encoderN/layersJ`` -> ``trans_encoderN.encoder.layers.J``
     and ``DownsampleConvN`` -> ``DownsampleConv.N``, SPADE's ``mlp_shared0``
     -> ``mlp_shared.0``, ...); an attention's ``in_proj_kernel`` (d, 3d) goes
-    to ``in_proj_weight`` (3d, d). A 4-D kernel directly on ``decoderN`` is a TransposedConvLayer's,
+    to ``in_proj_weight`` (3d, d). A deform conv's 4-D ``weight`` param (the
+    five modules of ``nn/deform.py``) goes HWIO -> OIHW under its own name.
+    A 4-D kernel directly on ``decoderN`` is a TransposedConvLayer's,
     kept flipped in correlation form (kh, kw, in, out): it goes to
     ``decoders.N.transposed_conv2d.weight`` as torch's (in, out, kh, kw),
     un-flipped. Load the result with :func:`load_state_dict_checked`."""
@@ -146,6 +148,8 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             val = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
         elif leaf == "scale":
             name = "weight"
+        elif leaf == "weight" and val.ndim == 4:  # a deform conv's own (kh, kw, C, O) weight
+            name, val = "weight", val.transpose(3, 2, 0, 1)
         else:
             name = leaf
         sd[".".join(mod + [name])] = torch.from_numpy(np.ascontiguousarray(val))

@@ -3,6 +3,7 @@
 
     events/xs int16[N]  events/ys int16[N]  events/ts float64[N]  events/ps bool[N]
     images/image{:09d}  uint8[H,W(,C)], attrs: size, timestamp, type, event_idx
+    flow/flow{:09d}     float32[2,H,W], attrs: size, timestamp, event_idx
     file attrs: num_events num_pos num_neg duration t0 tk num_imgs num_flow sensor_resolution
 
 ``h5py`` is imported when a reader or writer is made, so the rest of the
@@ -177,9 +178,9 @@ class H5EventReader:
 
 
 class H5EventWriter:
-    """Write the canonical schema. ``finalize`` writes the file attrs and
-    per-frame ``event_idx`` = max(0, searchsorted_left - 1) (reference
-    packager convention, :75-89)."""
+    """Write the canonical schema. ``finalize`` writes the file attrs and,
+    on every image and flow dataset, ``event_idx`` = max(0, searchsorted_left
+    - 1) (reference packager convention, :75-89)."""
 
     def __init__(self, path: str, sensor_size: Tuple[int, int] = (180, 240)):
         self.f = _h5py().File(path, "w")
@@ -192,6 +193,7 @@ class H5EventWriter:
         self.num_pos = 0
         self.num_neg = 0
         self.num_imgs = 0
+        self.num_flow = 0
 
     def append_events(self, xs, ys, ts, ps):
         """ps may be bool (True = positive) or +-1; stored as bool."""
@@ -212,6 +214,12 @@ class H5EventWriter:
         d.attrs["type"] = "greyscale" if image.ndim == 2 or image.shape[-1] == 1 else "color_bgr"
         self.num_imgs += 1
 
+    def add_flow(self, flow: np.ndarray, timestamp: float):
+        d = self.f.create_dataset(f"flow/flow{self.num_flow:09d}", data=flow.astype(np.float32))
+        d.attrs["size"] = flow.shape
+        d.attrs["timestamp"] = timestamp
+        self.num_flow += 1
+
     def finalize(self):
         ts = self.dt[:]
         t0 = float(ts[0]) if len(ts) else 0.0
@@ -224,12 +232,13 @@ class H5EventWriter:
         a["t0"] = t0
         a["tk"] = tk
         a["num_imgs"] = self.num_imgs
-        a["num_flow"] = 0
+        a["num_flow"] = self.num_flow
         a["sensor_resolution"] = self.sensor_size
-        if "images" in self.f:
-            for key in self.f["images"]:
-                idx = int(np.searchsorted(ts, self.f["images"][key].attrs["timestamp"]))
-                self.f["images"][key].attrs["event_idx"] = max(0, idx - 1)
+        for group in ("images", "flow"):
+            if group in self.f:
+                for key in self.f[group]:
+                    idx = int(np.searchsorted(ts, self.f[group][key].attrs["timestamp"]))
+                    self.f[group][key].attrs["event_idx"] = max(0, idx - 1)
         self.f.close()
 
     def __enter__(self):

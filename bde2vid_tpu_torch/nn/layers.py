@@ -201,6 +201,16 @@ def resize_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
 
+def resize_bilinear_half(x: torch.Tensor) -> torch.Tensor:
+    """0.5x bilinear downsample of (N, C, H, W), align_corners=False, no
+    antialias, to (H // 2, W // 2) given as the size: at odd sizes
+    ``scale_factor=0.5`` would map with the ratio 2 where the JAX package's
+    ``jax.image.resize`` maps with in / out."""
+    h, w = x.shape[-2:]
+    return F.interpolate(x, size=(h // 2, w // 2), mode="bilinear", align_corners=False,
+                         antialias=False)
+
+
 def resize_nearest_torch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Nearest resize of (N, C, H, W) with torch's floor rule, source index
     ``floor(dst * (in / out))``, the ratio and the product in f32 as the

@@ -1,7 +1,9 @@
 """Convolutional LSTM and GRU cells and the recurrent layers built on them
 (counterpart of ``bde2vid_tpu/nn/recurrent.py``; reference
 model/e2vid/submodules.py ConvLSTM :250-307, ConvGRU :309-348,
-RecurrentConvLayer :110-129, RecurrentResidualLayer :350-373).
+RecurrentConvLayer :110-129, RecurrentResidualLayer :350-373;
+model/submodules.py RecurrentUpConv :226-264, DownsampleRecurrentConvLayer
+:303-321).
 
 State is explicit: ``recurrent_initial_state`` (or a layer's
 ``initial_state``) makes it and the caller threads it through time;
@@ -16,7 +18,15 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
-from bde2vid_tpu_torch.nn.layers import Conv2d, ConvLayer, ResidualBlock
+from bde2vid_tpu_torch.nn.layers import (
+    Conv2d,
+    ConvLayer,
+    ResidualBlock,
+    get_activation,
+    make_norm,
+    resize_bilinear_2x,
+    resize_bilinear_half,
+)
 
 LstmState = Tuple[torch.Tensor, torch.Tensor]
 State = Union[LstmState, torch.Tensor]
@@ -148,5 +158,57 @@ class RecurrentResidualLayer(nn.Module):
 
     def initial_state(self, batch: int, height: int, width: int, dtype=torch.float32,
                       device=None) -> State:
+        return recurrent_initial_state(self.block_type, batch, height, width,
+                                       self.recurrent_block.hidden_size, dtype, device)
+
+
+class RecurrentUpConv(nn.Module):
+    """``recurrent_block`` (kernel 3) -> bilinear x2 -> ``conv2d`` ->
+    optional ``norm_layer`` -> activation; the conv has no bias under BN."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 5,
+                 padding: int = 0, recurrent_block_type: str = "convlstm",
+                 activation: Optional[str] = "relu", norm: Optional[str] = None):
+        super().__init__()
+        self.recurrent_block = make_recurrent_cell(recurrent_block_type, in_channels,
+                                                   out_channels, 3)
+        self.conv2d = Conv2d(out_channels, out_channels, kernel_size, padding=padding,
+                             bias=norm != "BN")
+        self.norm_layer = make_norm(norm, out_channels)
+        self.activation = get_activation(activation)
+        self.block_type = recurrent_block_type
+
+    def forward(self, x: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
+        y, new_state = self.recurrent_block(x, state)
+        y = self.conv2d(resize_bilinear_2x(y))
+        if self.norm_layer is not None:
+            y = self.norm_layer(y)
+        return self.activation(y), new_state
+
+    def initial_state(self, batch: int, height: int, width: int, dtype=torch.float32,
+                      device=None) -> State:
+        """Zero state at the input's size."""
+        return recurrent_initial_state(self.block_type, batch, height, width,
+                                       self.recurrent_block.hidden_size, dtype, device)
+
+
+class DownsampleRecurrentConvLayer(nn.Module):
+    """``recurrent_block`` -> bilinear x0.5 -> activation."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 recurrent_block_type: str = "convlstm", activation: Optional[str] = "relu"):
+        super().__init__()
+        self.recurrent_block = make_recurrent_cell(recurrent_block_type, in_channels,
+                                                   out_channels, kernel_size)
+        self.activation = get_activation(activation)
+        self.block_type = recurrent_block_type
+
+    def forward(self, x: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
+        y, new_state = self.recurrent_block(x, state)
+        return self.activation(resize_bilinear_half(y)), new_state
+
+    def initial_state(self, batch: int, height: int, width: int, dtype=torch.float32,
+                      device=None) -> State:
+        """Zero state at the input's size."""
         return recurrent_initial_state(self.block_type, batch, height, width,
                                        self.recurrent_block.hidden_size, dtype, device)

@@ -158,6 +158,17 @@ reference's.
            E2VIDRecurrent, 10 swin_block nodes a frame in each flagship
            program; export seconds, bundle bytes and serving frames/s beside
            the eval CLI's at subseq_L 4
+  events   the event side (ROADMAP A11) at 180x240 with 150 000 events:
+           the event images, drv planes, timestamp images, flow warp and
+           voxel helpers card vs CPU (1e-5 relative) with their ms; every
+           cmax objective's value and gradient card vs CPU (1e-4) on a
+           moving texture; one optimize_contrast on the card recovering the
+           texture's velocity within 2 px/s (seconds, evaluations); the rows
+           of bench_voxel; no hand-written kernel launches (rosbag and the
+           h5 paths need h5py, absent on a card's machine: CPU tests only)
+  deform   AlignAdd2 (ROADMAP A10) at C 64 on 92x120, the flagship's level-0
+           features: card vs CPU (1e-5), forward and forward+backward ms;
+           no hand-written kernel launches
 
 Then the kernel summary line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
@@ -3122,6 +3133,199 @@ def phase_serving(torch, launch_counts, card):
           "exported_hw": [184, 240], "T": SERVING_T, "runs": rows})
 
 
+EVENTS_HW = (180, 240)
+EVENTS_N = 150_000
+TEXTURE_V = (160.0, -100.0)  # px/s, the moving texture's planted velocity
+DEFORM_C, DEFORM_HW = 64, (92, 120)  # the flagship's level-0 width and feature size at 184x240
+
+
+def events_180x240(seed):
+    """EVENTS_N events over 180x240: float coordinates (some out of range),
+    sorted ts over 50 ms, +-1 polarity; numpy."""
+    rng = np.random.default_rng(seed)
+    h, w = EVENTS_HW
+    xs = rng.uniform(-2, w + 2, EVENTS_N).astype(np.float32)
+    ys = rng.uniform(-2, h + 2, EVENTS_N).astype(np.float32)
+    ts = np.sort(rng.uniform(0, 0.05, EVENTS_N)).astype(np.float32)
+    ps = rng.choice(np.array([-1.0, 1.0], np.float32), EVENTS_N)
+    return xs, ys, ts, ps
+
+
+def moving_texture(seed, points=1500, duration=0.05):
+    """EVENTS_N events of a texture of ``points`` dots translating at
+    TEXTURE_V over ``duration`` s (0.3 px of jitter), those inside the
+    sensor kept; positive polarity."""
+    rng = np.random.default_rng(seed)
+    h, w = EVENTS_HW
+    p0 = np.stack([rng.uniform(10, w - 10, points), rng.uniform(10, h - 10, points)], 1)
+    k = rng.integers(0, points, EVENTS_N)
+    ts = np.sort(rng.uniform(0, duration, EVENTS_N))
+    xs = p0[k, 0] + TEXTURE_V[0] * ts + rng.normal(0, 0.3, EVENTS_N)
+    ys = p0[k, 1] + TEXTURE_V[1] * ts + rng.normal(0, 0.3, EVENTS_N)
+    keep = (xs >= 0) & (xs < w - 1) & (ys >= 0) & (ys < h - 1)
+    return (xs[keep].astype(np.float32), ys[keep].astype(np.float32), ts[keep].astype(np.float32),
+            np.ones(int(keep.sum()), np.float32))
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, tensors or tuples of them."""
+    if isinstance(want, (tuple, list)):
+        return max(rel_err(g, w) for g, w in zip(got, want))
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def phase_events(torch, launch_counts, card):
+    """The event side (ROADMAP A11) at 180x240 with EVENTS_N events: each
+    event image and voxel helper on the card vs the CPU (1e-5 relative;
+    ``index_add`` adds in no fixed order on the card) with its CUDA-event
+    ms; each cmax objective's value and gradient on the card vs the CPU
+    (1e-4 relative) with the ms of one value and gradient; one
+    ``optimize_contrast`` (variance, blur 1) on the card from (0, 0) on a
+    moving texture, within 2 px/s of TEXTURE_V, with its seconds and
+    evaluations; and bench_voxel's rows. No hand-written kernel may launch.
+    rosbag and the h5 paths need h5py and stay in the CPU tests."""
+    from bde2vid_tpu_torch.events import bench_voxel, cmax
+    from bde2vid_tpu_torch.events import voxel as tv
+
+    launch_counts.clear()
+    xs, ys, ts, ps = events_180x240(40)
+    *bufs, n = tv.pad_events(xs, ys, ts, ps)
+    rng = np.random.default_rng(41)
+    cpu = {k: torch.from_numpy(v) for k, v in zip(("xs", "ys", "ts", "ps"), bufs)}
+    cpu.update(ix=cpu["xs"].floor().int(), iy=cpu["ys"].floor().int(),
+               jx=torch.from_numpy(rng.normal(size=(2, len(bufs[0]))).astype(np.float32)),
+               jy=torch.from_numpy(rng.normal(size=(2, len(bufs[0]))).astype(np.float32)),
+               flow=torch.from_numpy(rng.normal(size=EVENTS_HW + (2,)).astype(np.float32) * 50))
+    card_in = {k: v.cuda() for k, v in cpu.items()}
+    images = {
+        "events_to_image": lambda a: tv.events_to_image(a["ix"], a["iy"], a["ps"], n,
+                                                        sensor_size=EVENTS_HW),
+        "events_to_image_bilinear": lambda a: tv.events_to_image_bilinear(
+            a["xs"], a["ys"], a["ps"], n, sensor_size=EVENTS_HW),
+        "events_to_image_drv": lambda a: tv.events_to_image_drv(
+            a["xs"], a["ys"], a["ps"], a["jx"], a["jy"], n, sensor_size=EVENTS_HW),
+        "events_to_timestamp_image": lambda a: tv.events_to_timestamp_image(
+            a["xs"], a["ys"], a["ts"], a["ps"], n, sensor_size=EVENTS_HW),
+        "warp_events_by_flow": lambda a: tv.warp_events_by_flow(
+            a["xs"].clamp(0, EVENTS_HW[1] - 1), a["ys"].clamp(0, EVENTS_HW[0] - 1), a["ts"],
+            a["flow"], n_events=n),
+        "events_to_voxel_accumulate": lambda a: tv.events_to_voxel_accumulate(
+            a["ix"], a["iy"], a["ts"], a["ps"], n, sensor_size=EVENTS_HW),
+    }
+    stream = (np.clip(xs, 0, EVENTS_HW[1] - 1).astype(np.int32),
+              np.clip(ys, 0, EVENTS_HW[0] - 1).astype(np.int32), ts.astype(np.float64), ps)
+    host = {
+        "voxel_grids_fixed_n": lambda d: tv.voxel_grids_fixed_n(*stream, num_bins=5, n=16384,
+                                                                sensor_size=EVENTS_HW, device=d),
+        "voxel_grids_fixed_t": lambda d: tv.voxel_grids_fixed_t(*stream, num_bins=5, t=0.005,
+                                                                sensor_size=EVENTS_HW, device=d),
+        "events_to_voxel_timesync": lambda d: tv.events_to_voxel_timesync(
+            *stream, num_bins=5, t0=0.01, t1=0.03, sensor_size=EVENTS_HW, device=d),
+    }
+    rows = {}
+    for name, fn in images.items():
+        err = rel_err(fn(card_in), fn(cpu))
+        if not err <= 1e-5:
+            raise AssertionError(f"events: {name} card vs CPU {err}")
+        rows[name] = {"rel_err": err, "ms": cuda_ms(torch, lambda: fn(card_in), iters=10)}
+    for name, fn in host.items():
+        got, want = fn("cuda"), fn("cpu")
+        if isinstance(got, list) and len(got) != len(want):
+            raise AssertionError(f"events: {name} made {len(got)} grids, the CPU {len(want)}")
+        err = rel_err(got, want)
+        if not err <= 1e-5:
+            raise AssertionError(f"events: {name} card vs CPU {err}")
+        rows[name] = {"rel_err": err, "ms_from_numpy": cuda_ms(torch, lambda: fn("cuda"), iters=3),
+                      "grids": len(got) if isinstance(got, list) else 1}
+
+    tex = moving_texture(42)
+    *tbufs, tn = tv.pad_events(*tex)
+    tcpu = [torch.from_numpy(b) for b in tbufs]
+    tcard = [b.cuda() for b in tcpu]
+    objectives = {}
+    for name in list(cmax.OBJECTIVES) + ["zhu"]:
+        f = cmax.objective_fn(name, EVENTS_HW, True, None if name == "zhu" else 1.0)
+
+        def value_and_grad(ev, dev):
+            p = torch.tensor([0.8 * TEXTURE_V[0], 0.8 * TEXTURE_V[1]], device=dev,
+                             requires_grad=True)
+            v = f(p, *ev, tn)
+            return (v,) + torch.autograd.grad(v, p)
+
+        got, want = value_and_grad(tcard, "cuda"), value_and_grad(tcpu, "cpu")
+        err = rel_err(got, want)
+        if not err <= 1e-4:
+            raise AssertionError(f"events: cmax {name} card vs CPU {err}")
+        objectives[name] = {"rel_err": err, "value": want[0].item(),
+                            "ms": cuda_ms(torch, lambda: value_and_grad(tcard, "cuda"), iters=5)}
+    t0 = time.perf_counter()
+    out = cmax.optimize_contrast(*tex, objective="variance", img_size=EVENTS_HW, blur_sigma=1.0,
+                                 device="cuda", full_output=True)
+    seconds = time.perf_counter() - t0
+    est = [float(v) for v in out[0]]
+    if not max(abs(e - v) for e, v in zip(est, TEXTURE_V)) <= 2.0:
+        raise AssertionError(f"events: optimize_contrast found {est}, planted {TEXTURE_V}")
+    optimize = {"estimate": est, "planted": list(TEXTURE_V), "seconds": seconds,
+                "function_evaluations": int(out[4]), "gradient_evaluations": int(out[5]),
+                "warnflag": int(out[6]), "events": int(tn)}
+    bench = bench_voxel.run(*bench_voxel.synthetic_events(EVENTS_N, EVENTS_HW), EVENTS_HW, 5, 20,
+                            torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts.items() if v}
+    if launches:
+        raise AssertionError(f"events: hand-written kernels launched: {launches}")
+    emit({"phase": "events", "card": card, "hw": list(EVENTS_HW), "events": EVENTS_N,
+          "functions": rows, "cmax": objectives, "optimize_contrast": optimize,
+          "bench_voxel": bench, "launches": launches})
+
+
+def phase_deform(torch, launch_counts, card):
+    """AlignAdd2 (ROADMAP A10) at C DEFORM_C on DEFORM_HW, 2 deform groups,
+    seeded weights with offsets of about a pixel: card vs CPU (1e-5
+    relative, TF32 off), forward ms and a forward and backward's ms on the
+    card, peak memory; no hand-written kernel may launch."""
+    import copy
+
+    from bde2vid_tpu_torch.nn.deform import AlignAdd2
+
+    launch_counts.clear()
+    torch.manual_seed(50)
+    model = AlignAdd2(2 * DEFORM_C, DEFORM_C, deform_groups=2)
+    for prm in model.parameters():
+        torch.nn.init.normal_(prm, std=0.02)
+    feats = torch.from_numpy(np.random.default_rng(51).normal(
+        size=(1, 2 * DEFORM_C) + DEFORM_HW).astype(np.float32))
+    card_model = copy.deepcopy(model).cuda()
+    fd = feats.cuda()
+    with torch.no_grad():
+        want, got = model(feats), card_model(fd)
+        offsets = model.pack.conv_offset(feats)
+    err = rel_err(got, want)
+    if not (err <= 1e-5 and torch.isfinite(got).all()):
+        raise AssertionError(f"deform: AlignAdd2 card vs CPU {err}")
+
+    def forward():
+        with torch.no_grad():
+            return card_model(fd)
+
+    def train_step():
+        card_model.zero_grad(set_to_none=True)
+        card_model(fd.requires_grad_()).square().mean().backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    row = {"C": DEFORM_C, "hw": list(DEFORM_HW), "deform_groups": 2, "rel_err": err,
+           "offset_abs_mean": offsets.abs().mean().item(),
+           "forward_ms": cuda_ms(torch, forward, iters=10),
+           "forward_backward_ms": cuda_ms(torch, train_step, iters=5)}
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts.items() if v}
+    if launches:
+        raise AssertionError(f"deform: hand-written kernels launched: {launches}")
+    emit({"phase": "deform", "card": card, **row, "launches": launches})
+
+
 def main() -> int:
     import torch
 
@@ -3157,6 +3361,8 @@ def main() -> int:
     wide_launches = phase_head_dims(torch, launch_counts)
     phase_lpips(torch, launch_counts, card)
     phase_serving(torch, launch_counts, card)
+    phase_events(torch, launch_counts, card)
+    phase_deform(torch, launch_counts, card)
 
     def per_frame(cases, key, blocks):
         # f32, per frame of the configuration: ``blocks`` launches per level,

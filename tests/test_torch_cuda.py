@@ -1389,3 +1389,139 @@ def test_cuda_bundle_refuses_a_process_without_cuda(cuda_device, tmp_path):
     res = subprocess.run([sys.executable, "-c", code, root, path], capture_output=True, text=True,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode == 0 and "exported for cuda" in res.stdout, res.stdout + res.stderr
+
+
+def _events_180x240(seed, n=150_000, capacity=None):
+    """``n`` events over 180x240 (float coordinates, a few out of range),
+    sorted ts, +-1 polarity, padded past ``n``; CPU tensors."""
+    from bde2vid_tpu_torch.events.voxel import pad_events
+
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-2, 242, n).astype(np.float32)
+    ys = rng.uniform(-2, 182, n).astype(np.float32)
+    ts = np.sort(rng.uniform(0, 0.05, n)).astype(np.float32)
+    ps = rng.choice(np.array([-1.0, 1.0], np.float32), n)
+    *bufs, nv = pad_events(xs, ys, ts, ps, capacity=capacity)
+    return [torch.from_numpy(b) for b in bufs], nv
+
+
+def _rel_close(got, want, rel):
+    got, want = got.detach().float().cpu(), want.detach().float()
+    return (got - want).abs().max().item() <= rel * max(want.abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_event_images_match_cpu_at_180x240(cuda_device):
+    """Every event image, the drv planes, the timestamp images and the
+    hard-binned voxels on the card vs the CPU, 150 000 events at 180x240,
+    within 1e-5 relative (``index_add`` adds in no fixed order on the card);
+    no hand-written kernel launches."""
+    from bde2vid_tpu_torch.events import voxel as tv
+
+    (xs, ys, ts, ps), n = _events_180x240(0)
+    jx, jy = (torch.from_numpy(np.random.default_rng(s).normal(size=(2, len(xs))).astype(np.float32))
+              for s in (1, 2))
+    flow = torch.from_numpy(np.random.default_rng(3).normal(size=(180, 240, 2)).astype(np.float32))
+    ix, iy = xs.floor().int(), ys.floor().int()
+    calls = {
+        "image": lambda a: tv.events_to_image(a["ix"], a["iy"], a["ps"], n),
+        "bilinear": lambda a: tv.events_to_image_bilinear(a["xs"], a["ys"], a["ps"], n),
+        "bilinear_unclipped": lambda a: tv.events_to_image_bilinear(a["xs"], a["ys"], a["ps"], n,
+                                                                    clip_weights=False),
+        "drv": lambda a: tv.events_to_image_drv(a["xs"], a["ys"], a["ps"], a["jx"], a["jy"], n),
+        "timestamp": lambda a: tv.events_to_timestamp_image(a["xs"], a["ys"], a["ts"], a["ps"], n),
+        "accumulate": lambda a: tv.events_to_voxel_accumulate(a["ix"], a["iy"], a["ts"], a["ps"], n),
+        "warp": lambda a: tv.warp_events_by_flow(a["xs"].clamp(0, 239), a["ys"].clamp(0, 179),
+                                                 a["ts"], a["flow"], n_events=n),
+    }
+    cpu = dict(xs=xs, ys=ys, ts=ts, ps=ps, ix=ix, iy=iy, jx=jx, jy=jy, flow=flow)
+    card = {k: v.to(cuda_device) for k, v in cpu.items()}
+    before = dict(launch_counts)
+    for name, fn in calls.items():
+        want, got = fn(cpu), fn(card)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.is_cuda and g.shape == w.shape
+            assert _rel_close(g, w, 1e-5), name
+    torch.cuda.synchronize()
+    assert _launched(before) == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["variance", "rms", "sos", "soe", "moa", "isoa", "sosa", "zhu"])
+def test_cuda_cmax_objective_matches_cpu(cuda_device, objective):
+    """Each objective's value and gradient on the card vs the CPU at 180x240
+    with 150 000 events, within 1e-4 relative."""
+    from bde2vid_tpu_torch.events import cmax
+
+    events, n = _events_180x240(4)
+    f = cmax.objective_fn(objective, (180, 240), True, None if objective == "zhu" else 1.0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = torch.tensor([40.0, -25.0], device=dev, requires_grad=True)
+        v = f(params, *(e.to(dev) for e in events), n)
+        (g,) = torch.autograd.grad(v, params)
+        out[str(dev)] = (v, g)
+    (v_cpu, g_cpu), (v_card, g_card) = out["cpu"], out[str(cuda_device)]
+    assert _rel_close(v_card, v_cpu, 1e-4) and _rel_close(g_card, g_cpu, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_blur_holds_f32_with_tf32_on(cuda_device):
+    """The blur is explicit f32 multiply-adds: with cuDNN's TF32 switched on
+    it stays within 1e-6 x max(1, max |CPU|) of the CPU, where a TF32
+    convolution would drift by ~1e-3 relative."""
+    from bde2vid_tpu_torch.events.cmax import gaussian_blur
+
+    img = torch.from_numpy(np.random.default_rng(5).uniform(0, 8, (181, 241)).astype(np.float32))
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for sigma in (1.0, 2.0):
+            want = gaussian_blur(img, sigma)
+            got = gaussian_blur(img.to(cuda_device), sigma).cpu()
+            assert (got - want).abs().max().item() <= 1e-6 * max(1.0, want.abs().max().item())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.cuda
+def test_cuda_deform_conv2d_and_align_add2_match_cpu(cuda_device):
+    """deform_conv2d (offsets sampling outside the image too) and AlignAdd2
+    at C 64, forward and gradients, on the card vs the CPU with TF32 off,
+    within 1e-5 relative (forward) and 1e-4 (gradients)."""
+    import copy
+
+    from bde2vid_tpu_torch.nn.deform import AlignAdd2, deform_conv2d
+
+    rng = np.random.default_rng(6)
+    f = lambda *s, scale=1.0: torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32))
+    x, off, w = f(2, 16, 23, 31), f(2, 2 * 2 * 9, 12, 16, scale=4.0), f(24, 16, 3, 3, scale=0.1)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        xs = [t.detach().to(dev).requires_grad_() for t in (x, off, w)]
+        y = deform_conv2d(*xs, stride=2, padding=1, deform_groups=2)
+        y.square().sum().backward()
+        grads[str(dev)] = [y] + [t.grad for t in xs]
+    for i, (g, c) in enumerate(zip(grads[str(cuda_device)], grads["cpu"])):
+        assert _rel_close(g, c, 1e-5 if i == 0 else 1e-4), i
+
+    torch.manual_seed(7)
+    cpu = AlignAdd2(128, 64)
+    for p in cpu.parameters():
+        torch.nn.init.normal_(p, std=0.02)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    feats = f(1, 128, 46, 60)
+    with torch.no_grad():
+        want, got = cpu(feats), card(feats.to(cuda_device))
+    assert _rel_close(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_bench_voxel_runs_on_the_card(cuda_device, capsys):
+    from bde2vid_tpu_torch.events import bench_voxel
+
+    assert bench_voxel.main(["--n_events", "20000", "--iters", "4"]) == 0
+    out = capsys.readouterr().out
+    assert torch.cuda.get_device_name(0) in out
+    assert out.count("Mev/s") == 8

@@ -257,20 +257,13 @@ def test_prefetch_to_device_yields_jax_s_items():
 # JAX names with no counterpart: the TPU compiler's cache, and the data-
 # parallel serving mesh (ROADMAP A12, scale-out)
 TPU_ONLY = {"utils": {"enable_compilation_cache"}, "serving": {"serving_mesh"}}
-# the JAX names of modules still to port: the rest of events/voxel.py
-# (ROADMAP A11, second part)
-STILL_TO_PORT = {"events": {"events_to_image", "events_to_image_bilinear",
-                            "events_to_voxel_accumulate", "events_to_voxel_timesync",
-                            "events_to_timestamp_image", "events_to_zhu_timestamp_image",
-                            "events_to_image_drv", "pad_events", "unpack_batched_events",
-                            "warp_events_by_flow"}}
 
 
 @pytest.mark.parametrize("package", ["utils", "data", "events", "nn", "eval", "serving"])
 def test_public_names_are_the_jax_package_s(package):
     ours = importlib.import_module(f"bde2vid_tpu_torch.{package}")
     theirs = importlib.import_module(f"bde2vid_tpu.{package}")
-    left_out = TPU_ONLY.get(package, set()) | STILL_TO_PORT.get(package, set())
+    left_out = TPU_ONLY.get(package, set())
     assert left_out <= set(theirs.__all__)
     assert set(ours.__all__) == set(theirs.__all__) - left_out
     assert all(hasattr(ours, name) for name in ours.__all__)
