@@ -245,6 +245,13 @@ class EventSequence:
         stop = self.length if stop is None else min(stop, self.length)
         return np.stack([self.reader.frame(i) for i in range(start, stop)])
 
+    def has_flows(self, stop: Optional[int] = None) -> bool:
+        """Whether ``flows`` returns flows for windows up to ``stop``, read
+        from the file's counts alone."""
+        stop = self.length if stop is None else min(stop, self.length)
+        return (self.has_frames and self.item_last is None
+                and getattr(self.reader, "num_flow", 0) >= stop)
+
     def flows(self, start: int = 0, stop: Optional[int] = None) -> Optional[np.ndarray]:
         """(T, 2, H, W) f32 displacement flows of windows [start, stop): the
         stored flow times the window's duration (reference
@@ -252,8 +259,7 @@ class EventSequence:
         range (the MMP backend holds none), the sequence has no frames, or
         the windows are event-rate sub-windows, which pair with no flow."""
         stop = self.length if stop is None else min(stop, self.length)
-        if (not self.has_frames or self.item_last is not None
-                or getattr(self.reader, "num_flow", 0) < stop):
+        if not self.has_flows(stop):
             return None
         out = []
         for i in range(start, stop):

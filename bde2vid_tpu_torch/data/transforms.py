@@ -183,13 +183,23 @@ def add_hot_pixels_to_sequence(voxels: torch.Tensor, generator: torch.Generator,
     """Persistent hot pixels, the same pixels and values at every step of a
     (T, ..., H, W) voxel window (reference :48-59)."""
     h, w = voxels.shape[-2:]
-    kw = dict(generator=generator, device=voxels.device)
+    draws = draw_hot_pixels(generator, h, w, voxels.device, hot_pixel_std, max_hot_pixel_fraction)
+    return hot_pixels_from_draws(voxels, *draws)
+
+
+def draw_hot_pixels(generator: torch.Generator, h: int, w: int, device,
+                    hot_pixel_std: float = 1.0, max_hot_pixel_fraction: float = 0.001):
+    """The draws of one window's hot pixels at an (h, w) sensor: (fraction,
+    xs, ys, vals), for ``hot_pixels_from_draws``. They depend on the shape
+    alone, so a data-parallel rank replays the draws of the windows it does
+    not hold."""
+    kw = dict(generator=generator, device=device)
     max_n = max(int(max_hot_pixel_fraction * h * w), 1)
     fraction = torch.rand((), **kw) * max_hot_pixel_fraction
     xs = torch.randint(0, w, (max_n,), **kw)
     ys = torch.randint(0, h, (max_n,), **kw)
     vals = torch.randn((max_n,), **kw) * hot_pixel_std
-    return hot_pixels_from_draws(voxels, fraction, xs, ys, vals)
+    return fraction, xs, ys, vals
 
 
 # --------------------------- training sequences ------------------------------

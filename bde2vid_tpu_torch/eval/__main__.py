@@ -29,6 +29,11 @@ the sequence runs in one chunk), ``--eq`` (histogram-equalised scoring),
 that takes them), ``--saveim DIR`` (triptych PNGs), ``--show`` and
 ``--wait_time`` (a live viewer where cv2 and a display exist).
 
+Several cards: ``torchrun --nproc_per_node N -m bde2vid_tpu_torch.eval ...
+--shard_data`` shards each sequence's ``subseq_L`` chunks over the N ranks
+(one card each; a gloo group of CPU ranks with ``--device cpu``). Rank 0
+scores and writes the files; without ``--shard_data`` it evaluates alone.
+
 ``--loader_type``: H5, SpadeH5 and H5VOX (the voxel cache that
 ``events.tools.h5_precompute_voxels`` writes into an h5 file) read
 ``<data_dir>/h5`` and need ``h5py``; MMP reads memmap directories under
@@ -82,6 +87,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--wait_time", default=1, type=int, help="cv2.waitKey ms per frame for --show")
     p.add_argument("--output_dir", default=None, type=str,
                    help="where result files go (default: weights_dir)")
+    p.add_argument("--shard_data", action="store_true",
+                   help="shard the subseq_L chunks over the ranks of a torchrun group "
+                   "(exact: chunk state resets make them independent)")
     p.add_argument("--bf16", action="store_true", help="run the model in bfloat16")
     p.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
                    help="BDE2VID's attention blocks through the hand-written CUDA kernel "
@@ -183,13 +191,26 @@ def main(argv=None) -> int:
 
     import torch
 
+    from bde2vid_tpu_torch.parallel.mesh import init_distributed
+    from bde2vid_tpu_torch.utils.device import resolve_device
+
+    owns_group = init_distributed(args.device)
+    try:
+        return _run(args, resolve_device(args.device))
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device) -> int:
+    import torch
+
     from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch
     from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_all
     from bde2vid_tpu_torch.eval.msgpack_checkpoint import load_msgpack_checkpoint
     from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
-    from bde2vid_tpu_torch.utils.device import resolve_device
+    from bde2vid_tpu_torch.parallel.mesh import barrier
 
-    device = resolve_device(args.device)
     use_kernel = device.type == "cuda" if args.pallas is None else args.pallas
     metrics, lpips = load_lpips_metric(args.metrics, args.lpips_lin, args.lpips_backbone, device)
 
@@ -243,8 +264,10 @@ def main(argv=None) -> int:
             save_images_to=args.saveim,
             show=args.show,
             wait_time=args.wait_time,
+            shard_data=args.shard_data,
         )
         evaluate_all(spec, datafiles, data_root, result_file, cfg)
+        barrier()  # every rank returns once rank 0 has written the files
     return 0
 
 

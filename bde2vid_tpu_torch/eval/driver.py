@@ -32,6 +32,13 @@ where cv2 or a display is missing).
 ``metrics.load_lpips_state``) per frame, as the reference's
 perceptual_loss(target, pred) on [-1, 1] inputs with gray replicated to 3
 channels, in chunks of ``LPIPS_CHUNK`` frames, in f32.
+``shard_data`` (the CLI's ``--shard_data``) under a process group of more
+than one rank shards the ``subseq_L`` chunks over the ranks
+(``parallel/sharded_eval.py``), where the JAX driver would: ``subseq_L``
+set, more than one chunk, no event-rate split. Each rank voxelizes only its
+own chunks; a step model's state then resets at every chunk, as in JAX.
+Rank 0 alone reads the frames, scores them and writes the files, and it
+alone evaluates a sequence that does not shard.
 Results keep the reference JSON schema: ``{dataset: {sequence: {metric: sum over steps / T}}}`` plus a
 per-step detail file and a table.
 """
@@ -51,6 +58,8 @@ from bde2vid_tpu_torch.data.pipeline import EventSequence, load_sequence
 from bde2vid_tpu_torch.metrics.basic import mse, psnr, ssim
 from bde2vid_tpu_torch.metrics.lpips import LPIPS, to_pm1_3ch
 from bde2vid_tpu_torch.models.api import ModelSpec, run_sequence
+from bde2vid_tpu_torch.parallel.mesh import rank, world_size
+from bde2vid_tpu_torch.parallel.sharded_eval import ChunkPlan, gather_blocks, run_chunks_sharded
 from bde2vid_tpu_torch.utils.norm import robust_norm
 from bde2vid_tpu_torch.utils.padding import CropParameters
 from bde2vid_tpu_torch.utils.png import write_gray_png
@@ -79,6 +88,7 @@ class EvalConfig:
     save_images_to: Optional[str] = None
     show: bool = False
     wait_time: int = 1  # cv2.waitKey ms a frame under show; ESC ends the run
+    shard_data: bool = False  # shard the subseq_L chunks over the process group's ranks
 
 
 def _equalize_hist(img: np.ndarray) -> np.ndarray:
@@ -124,8 +134,10 @@ def _check_pause(cfg: EvalConfig, length: int) -> None:
 
 
 def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
-                      cfg: EvalConfig) -> Tuple[Dict[str, float], Dict[str, List[float]]]:
-    """Evaluate one model on one sequence; returns (result, detail)."""
+                      cfg: EvalConfig) -> Optional[Tuple[Dict[str, float], Dict[str, List[float]]]]:
+    """Evaluate one model on one sequence; returns (result, detail) on rank
+    0 and None on the other ranks of a process group, which take part only
+    in a sharded forward (``shard_data``)."""
     unknown = [m for m in cfg.metrics if m not in _METRICS and m != "p_loss"]
     if unknown:
         raise NotImplementedError(f"metrics {unknown} are not ported yet "
@@ -154,32 +166,70 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
                              "sequences — the reference never combines them")
         item_idx, paused = _pause_item_map(T, cfg.pause_st, cfg.pause_ed)
         n_real = int(item_idx[-1]) + 1 if T else 0
+        frame_items, n_steps = item_idx, T
+    else:
+        frame_items, n_real = np.arange(T), T
+        n_steps = T if seq.item_last is None else int(seq.item_last[T - 1]) + 1
+    chunk = cfg.subseq_L or n_steps
+    ranks, index = world_size(), rank()
+    use_shard = (cfg.shard_data and ranks > 1 and seq.item_last is None
+                 and cfg.subseq_L is not None and n_steps > chunk)
+    if cfg.shard_data and not use_shard and index == 0:
+        print("note: --shard_data inactive (needs >1 rank, subseq_L chunking with multiple "
+              "chunks, and no ev_rate splitting)")
+    if ranks > 1 and not use_shard and index != 0:
+        return None  # rank 0 evaluates this sequence alone
+
+    if pause:
         real = seq.voxels(0, n_real, device=device, batch=cfg.voxel_batch)
         paused_voxels = torch.where(torch.from_numpy(paused).to(real.device)[:, None, None, None],
                                     torch.zeros((), device=real.device),
                                     real[torch.from_numpy(item_idx).to(real.device)])
         steps = lambda a, b: paused_voxels[a:b]
-        frame_items, n_steps = item_idx, T
     else:
         steps = lambda a, b: seq.voxels(a, b, device=device, batch=cfg.voxel_batch)
-        frame_items, n_real = np.arange(T), T
-        n_steps = T if seq.item_last is None else int(seq.item_last[T - 1]) + 1
 
+    viz = bool(cfg.save_images_to or cfg.show)
     preds, ev_frames = [], []
-    chunk = cfg.subseq_L or n_steps
-    if not spec.is_sequence_model:
-        state = spec.initial_state(1, crop.height_crop_size, crop.width_crop_size)
-    for s in range(0, n_steps, chunk):
-        v = steps(s, min(s + chunk, n_steps))
-        if cfg.save_images_to or cfg.show:
-            ev_frames.append(v.sum(1))
-        x = crop.pad(v[:, None]).to(dtype)  # (L, 1, B, H', W')
-        with torch.no_grad():
-            if spec.is_sequence_model:
-                images = spec.module(x)["image"]
-            else:
-                images, state = run_sequence(spec.module, x, state)
-        preds.append(images.float())
+    if use_shard:
+        # chunks shard over the ranks; each voxelizes only its own. For step
+        # models sharding resets the state at every chunk, a documented
+        # divergence from the sequential default (which carries it)
+        if not spec.is_sequence_model and index == 0:
+            print(f"note: --shard_data resets recurrent state every {chunk} steps (chunk "
+                  "independence is what shards)")
+        own_ev = {}
+
+        def voxels_of(a, b):
+            v = steps(a, b)
+            if viz:
+                own_ev[a] = v.sum(1)
+            return crop.pad(v[:, None]).to(dtype)
+
+        hw = (crop.height_crop_size, crop.width_crop_size)
+        preds.append(run_chunks_sharded(spec, voxels_of, n_steps, chunk, hw))
+        if viz:
+            plan = ChunkPlan(n_steps, chunk, ranks, spec.is_sequence_model)
+            own = [own_ev[a] for a, _ in plan.chunks(index)]
+            tail = own_ev[plan.tail[0]] if plan.tail and index == plan.tail_rank else None
+            ev_frames.append(gather_blocks(plan, torch.cat(own) if own else None, (h, w),
+                                           tail=tail, device=device))
+        if index != 0:
+            return None  # rank 0 reads the frames and scores
+    else:
+        if not spec.is_sequence_model:
+            state = spec.initial_state(1, crop.height_crop_size, crop.width_crop_size)
+        for s in range(0, n_steps, chunk):
+            v = steps(s, min(s + chunk, n_steps))
+            if viz:
+                ev_frames.append(v.sum(1))
+            x = crop.pad(v[:, None]).to(dtype)  # (L, 1, B, H', W')
+            with torch.no_grad():
+                if spec.is_sequence_model:
+                    images = spec.module(x)["image"]
+                else:
+                    images, state = run_sequence(spec.module, x, state)
+            preds.append(images.float())
     preds = torch.cat(preds)
     if seq.item_last is not None:
         preds = preds[torch.from_numpy(seq.item_last[:T]).to(preds.device)]
@@ -199,7 +249,7 @@ def evaluate_sequence(spec: ModelSpec, seq: EventSequence,
     else:
         gts = torch.from_numpy(frames).to(device)
 
-    if cfg.save_images_to or cfg.show:
+    if viz:
         ev = torch.cat(ev_frames)
         if seq.item_last is not None:  # the sub-window of each item's prediction
             ev = ev[torch.from_numpy(seq.item_last[:T]).to(ev.device)]
@@ -294,12 +344,15 @@ def evaluate_all(spec: ModelSpec, datafiles: Sequence[str], data_dir: str, resul
                             combined_voxel_channels=cfg.combined_voxel_channels,
                             hot_filter=cfg.filter_hot_events)
         try:
-            result, detail = evaluate_sequence(spec, seq, cfg)
+            scored = evaluate_sequence(spec, seq, cfg)
         finally:
             seq.reader.close()
-        results[dataset_name][filename] = result
-        details[dataset_name][filename] = detail
+        if scored is None:
+            continue  # another rank than 0 under a process group
+        results[dataset_name][filename], details[dataset_name][filename] = scored
 
+    if rank() != 0:
+        return {}  # rank 0 writes the files
     os.makedirs(os.path.dirname(result_file) or ".", exist_ok=True)
     with open(result_file, "w") as fp:
         json.dump(results, fp)

@@ -5,8 +5,10 @@ One :class:`ServingBundle` (a zip file) holds the exported programs
 (``forward`` and its tails for sequence models; ``step`` + ``init_state``
 for streaming recurrent models), the weights they take, stored once, and
 JSON metadata (model name and config, input shapes, platform, torch
-version). A server runs it with torch and the port's ``ops`` package: no
-model source, no checkpoint parsing.
+version, data parallelism). A data-parallel bundle serves its batch in
+shards over the ranks of a ``torch.distributed`` group (``serving_mesh``).
+A server runs it with torch and the port's ``ops`` package: no model
+source, no checkpoint parsing.
 """
 
 from bde2vid_tpu_torch.serving.export import (
@@ -16,6 +18,7 @@ from bde2vid_tpu_torch.serving.export import (
     load_bundle,
     run_voxels,
     save_bundle,
+    serving_mesh,
 )
 
 __all__ = [
@@ -25,4 +28,5 @@ __all__ = [
     "load_bundle",
     "run_voxels",
     "save_bundle",
+    "serving_mesh",
 ]

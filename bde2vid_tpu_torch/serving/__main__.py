@@ -18,6 +18,12 @@ JAX CLI's layout, transposed here to the port's (T, N, C, H, W)), or
 voxelizes an event h5 through the standard pipeline with ``--h5``; pads to
 the bundle's exported shape (the eval driver's ``CropParameters``), runs in
 ``--T`` chunks with the exact tail, crops back and writes PNGs.
+
+``export --batch N --dp D`` writes a data-parallel bundle whose programs take
+N / D rows; ``torchrun --nproc_per_node D -m bde2vid_tpu_torch.serving run
+...`` serves its (T, N, H, W, C) voxels in D shards, one a rank and card
+(gloo CPU ranks for a ``--platforms cpu`` bundle), and rank 0 writes the
+outputs.
 """
 
 from __future__ import annotations
@@ -65,9 +71,6 @@ def cmd_export(args) -> int:
     from bde2vid_tpu_torch.utils.padding import optimal_crop_size
 
     platforms = _platforms(args.platforms)
-    if args.dp != 1:
-        raise ValueError(f"--dp {args.dp}: data-parallel bundles come with the port's scale-out "
-                         "(ROADMAP A12, with torch.distributed); export with --dp 1")
     spec = _load_spec(args.weights, args.bf16, args.pallas, resolve_device(platforms[0]))
     h, w = args.hw
     # the raw num_encoders (2^0 = 1: no padding for FireNet-class models);
@@ -121,18 +124,32 @@ def serve(bundle, voxels) -> np.ndarray:
             f"bundle was exported at {ph}x{pw} (sensor {meta.get('sensor_height')}x"
             f"{meta.get('sensor_width')})")
     voxels = F.pad(voxels, (cp.padding_left, cp.padding_right, cp.padding_top, cp.padding_bottom))
-    if meta["kind"] == "sequence":
-        # chunks of the exported length (the eval driver's subseq_L: each
-        # chunk starts from fresh state), the final partial chunk at its
-        # true length: zero-padding it is not exact for a bidirectional model
-        L = meta["seq_len"]
-        images = np.concatenate([run_voxels(bundle, voxels[s:s + L]) for s in range(0, t, L)])
-    else:
-        images = run_voxels(bundle, voxels)
+    # a sequence bundle: chunks of the exported length (the eval driver's
+    # subseq_L: each chunk starts from fresh state), the final partial chunk
+    # at its true length: zero-padding it is not exact for a bidirectional model
+    images = run_voxels(bundle, voxels, chunked=True)
     return images[:, :, 0, cp.iy0:cp.iy1, cp.ix0:cp.ix1]
 
 
 def cmd_run(args) -> int:
+    import zipfile
+
+    import torch
+
+    from bde2vid_tpu_torch.parallel.mesh import init_distributed
+
+    with zipfile.ZipFile(args.bundle) as zf:  # the platform, before anything is allocated
+        platform = json.loads(zf.read("meta.json"))["platforms"][0]
+    owns_group = init_distributed(platform)
+    try:
+        return _run(args)
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args) -> int:
+    from bde2vid_tpu_torch.parallel.mesh import rank
     from bde2vid_tpu_torch.serving.export import load_bundle
 
     bundle = load_bundle(args.bundle)
@@ -150,6 +167,8 @@ def cmd_run(args) -> int:
             voxels = voxels[:, None]
         voxels = np.ascontiguousarray(np.moveaxis(voxels, -1, 2))  # (T, N, H, W, C) -> NCHW
     images = serve(bundle, voxels)
+    if rank() != 0:
+        return 0  # rank 0 writes the outputs
     t = images.shape[0]
     print(f"ran {t} frames: image range [{images.min():.4f}, {images.max():.4f}]")
     if args.out_npy:
@@ -180,7 +199,8 @@ def build_argparser() -> argparse.ArgumentParser:
     pe.add_argument("--platforms", default="cuda",
                     help="cuda (default) or cpu: the device the bundle is exported on and runs on")
     pe.add_argument("--dp", type=int, default=1,
-                    help="data-parallel devices; 1 only until the port's scale-out")
+                    help="data-parallel ranks: the programs take --batch / D rows, and `run` "
+                    "serves under torchrun --nproc_per_node D (at least D ranks)")
     pe.add_argument("--bf16", action="store_true")
     pe.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
                     help="BDE2VID's attention blocks as the hand-written CUDA kernels' "

@@ -24,8 +24,17 @@ On the kernel path BDE2VID's attention blocks are the registered operators
 ``bde2vid_torch::swin_block`` and ``bde2vid_torch::window_block``
 (``ops/window_attn_cuda.py``): a program holds one node per block call, and
 running it launches the CUDA kernels on the card (their plain twins on the
-CPU). The programs run where they were exported (``meta["platforms"]``,
-``["cuda"]`` or ``["cpu"]``). Data-parallel bundles are not ported yet.
+CPU). The programs run on the platform they were exported on
+(``meta["platforms"]``, ``["cuda"]`` or ``["cpu"]``); on another card than
+the one they were exported on (``meta["device"]``) their constants, the
+window-attention index maps among them, move to the loading rank's card.
+
+Data-parallel bundles (``data_parallel=D``): the programs take the batch's
+shard, ``batch // D`` rows, and :func:`run_voxels` runs a batch of
+``batch`` in D shards over the first D ranks of a ``torch.distributed``
+group (``torchrun --nproc_per_node D``), one shard a rank, and gathers the
+whole batch on every rank. :func:`serving_mesh` gives the 1-D "data" mesh
+of those ranks.
 """
 
 from __future__ import annotations
@@ -96,6 +105,47 @@ def _platform(spec, platforms: Optional[Sequence[str]]) -> str:
     return device
 
 
+def _exact(device: torch.device) -> torch.device:
+    """``device`` with its index: a bare "cuda" is the current card."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _data_parallel(bundle_or_dp) -> int:
+    if isinstance(bundle_or_dp, int):
+        return bundle_or_dp
+    return int(bundle_or_dp.meta.get("data_parallel") or 1)
+
+
+def _check_ranks(dp: int) -> int:
+    """The number of ranks, which must be at least ``dp``."""
+    from bde2vid_tpu_torch.parallel.mesh import world_size
+
+    ranks = world_size()
+    if ranks < dp:
+        raise ValueError(f"bundle exported for {dp}-way data parallelism but only {ranks} "
+                         f"rank(s) are in the process group: start it with torchrun "
+                         f"--nproc_per_node {dp}")
+    return ranks
+
+
+def serving_mesh(bundle_or_dp):
+    """The 1-D "data" ``DeviceMesh`` of the first ``data_parallel`` ranks
+    that serve a data-parallel bundle (or a count); every rank of the group
+    must call it. Raises ValueError when fewer ranks are there; None for
+    one rank outside a process group."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from bde2vid_tpu_torch.parallel.mesh import is_distributed, mesh_device_type
+
+    dp = _data_parallel(bundle_or_dp)
+    _check_ranks(dp)
+    if not is_distributed():
+        return None
+    return DeviceMesh(mesh_device_type(), torch.arange(dp), mesh_dim_names=("data",))
+
+
 def _export(module: torch.nn.Module, args: tuple) -> torch.export.ExportedProgram:
     ep = torch.export.export(module, args)
     # dropped, or torch.export.save would store the inputs the trace ran on:
@@ -116,12 +166,13 @@ def export_forward(spec, height: int, width: int, *, seq_len: int = 16, batch: i
     (out, state)``, voxel (N, B, H, W); ``init_state()``). (H, W) must
     already be padded to the model's stride. The model is traced in eval
     mode under ``torch.no_grad()``, on its own device (``platforms``, when
-    given, must name it)."""
+    given, must name it). ``data_parallel=D`` traces the shard a rank runs,
+    N = ``batch // D``; the batch must divide over D. Exporting needs no
+    process group."""
     _platform(spec, platforms)
-    if data_parallel != 1:
-        raise ValueError(
-            f"data_parallel={data_parallel}: data-parallel bundles come with the port's "
-            "scale-out (ROADMAP A12, with torch.distributed); export with data_parallel=1")
+    if data_parallel < 1 or batch % data_parallel:
+        raise ValueError(f"batch={batch} does not divide over data_parallel={data_parallel}")
+    batch //= data_parallel
     module = spec.module
     weights = _weights(module)
     names = list(weights)
@@ -156,13 +207,19 @@ class _Programs(collections.abc.Mapping):
     """Program name -> ExportedProgram, each deserialised at its first use:
     a chunked run takes the forward and one tail of the bundle's programs."""
 
-    def __init__(self, archives: Dict[str, bytes]):
+    def __init__(self, archives: Dict[str, bytes], moves: Optional[Dict[str, str]] = None):
         self._archives = archives
+        self._moves = moves  # {exported device: this rank's} where they differ
         self._loaded: Dict[str, torch.export.ExportedProgram] = {}
 
     def __getitem__(self, name: str) -> torch.export.ExportedProgram:
         if name not in self._loaded:
-            self._loaded[name] = torch.export.load(io.BytesIO(self._archives[name]))
+            ep = torch.export.load(io.BytesIO(self._archives[name]))
+            if self._moves:
+                from torch.export.passes import move_to_device_pass
+
+                ep = move_to_device_pass(ep, self._moves)
+            self._loaded[name] = ep
         return self._loaded[name]
 
     def __iter__(self):
@@ -215,11 +272,12 @@ def export_spec_bundle(spec, height: int, width: int, *, seq_len: int = 16, batc
         "batch": batch,
         "seq_len": seq_len if spec.is_sequence_model else None,
         "platforms": [platform],
+        "device": str(_exact(spec.device)),
         "data_parallel": data_parallel,
         # how partial chunks run: "exact" = the tail program of the chunk's
         # own length (module docstring)
         "tail": "exact" if spec.is_sequence_model else None,
-        "dp_impl": None,
+        "dp_impl": "torch.distributed" if data_parallel > 1 else None,
         "torch_version": torch.__version__,
         "config": getattr(spec.module, "config", None),
         # SNN/SPADE checkpoints take LegacyNorm'd voxels; recorded so that
@@ -254,7 +312,8 @@ def load_bundle(path: str) -> ServingBundle:
     kernel-path program calls; model source and checkpoints are not
     consulted. A ``cuda`` bundle needs a card, and a kernel-path one builds
     its kernels with ``nvcc`` at first use; it never runs on the CPU. Each
-    program is deserialised at its first call."""
+    program is deserialised at its first call, and moved to the current
+    card where it was exported on another."""
     import bde2vid_tpu_torch.ops  # noqa: F401  (registers the kernel operators)
 
     with zipfile.ZipFile(path) as zf:
@@ -263,27 +322,69 @@ def load_bundle(path: str) -> ServingBundle:
         if platform == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{path} was exported for cuda and CUDA is not available; "
                                "a bundle runs only on the platform it was exported on")
-        tensors = torch.load(io.BytesIO(zf.read(_WEIGHTS)), map_location=platform,
+        here = str(_exact(torch.device(platform)))
+        exported = meta.get("device", here)
+        tensors = torch.load(io.BytesIO(zf.read(_WEIGHTS)), map_location=here,
                              weights_only=True)
         weights = dict(zip(meta["weights"], tensors))
-        fns = _Programs({name: zf.read(f"fn/{name}.pt2") for name in meta["functions"]})
+        fns = _Programs({name: zf.read(f"fn/{name}.pt2") for name in meta["functions"]},
+                        {exported: here} if exported != here else None)
     return ServingBundle(functions=fns, meta=meta, weights=weights)
 
 
-def run_voxels(bundle: ServingBundle, voxels) -> np.ndarray:
+def run_voxels(bundle: ServingBundle, voxels, chunked: bool = False) -> np.ndarray:
     """Run a loaded bundle over a voxel sequence.
 
     ``voxels``: (T, B, H, W) or (T, N, B, H, W) floats (NumPy or torch),
     already padded to the bundle's (height, width). Returns the images
     (T, N, 1, H, W) as f32 NumPy. Sequence bundles call ``forward`` when T
     is the exported seq_len and ``forward_tail_<T>`` when it is shorter;
-    step bundles step from ``init_state``."""
+    with ``chunked`` they run any T in chunks of seq_len (each from fresh
+    state), the last through the tail program of its own length. Step
+    bundles step from ``init_state``. A data-parallel bundle needs a
+    process group of at least ``data_parallel`` ranks (ValueError
+    otherwise) and the exported batch: every rank calls it with the whole
+    batch, rank r < D runs rows [r N/D, (r+1) N/D), and every rank returns
+    all N."""
     voxels = torch.as_tensor(np.asarray(voxels) if not torch.is_tensor(voxels) else voxels)
     voxels = voxels.to(device=bundle.device, dtype=torch.float32)
     if voxels.ndim == 4:
         voxels = voxels[:, None]
     if voxels.ndim != 5:
         raise ValueError(f"expected (T,[N,]B,H,W) voxels, got {tuple(voxels.shape)}")
+    dp = _data_parallel(bundle)
+    if dp == 1:
+        return _run_local(bundle, voxels, chunked).float().cpu().numpy()
+    import torch.distributed as dist
+
+    from bde2vid_tpu_torch.parallel.mesh import rank
+
+    ranks, index = _check_ranks(dp), rank()
+    n = voxels.shape[1]
+    if n != bundle.meta["batch"]:
+        raise ValueError(f"data-parallel bundle exported at batch={bundle.meta['batch']}, got "
+                         f"N={n}")
+    per = n // dp
+    if index < dp:  # one gather at the end, not one a chunk
+        local = _run_local(bundle, voxels[:, index * per:(index + 1) * per], chunked).float()
+    else:  # a rank past the mesh serves no shard
+        local = voxels.new_zeros((voxels.shape[0], per, 1, *voxels.shape[-2:]))
+    parts = [torch.empty_like(local) for _ in range(ranks)]
+    dist.all_gather(parts, local.contiguous())
+    return torch.cat(parts[:dp], dim=1).cpu().numpy()
+
+
+def _run_local(bundle: ServingBundle, voxels: torch.Tensor, chunked: bool) -> torch.Tensor:
+    if chunked and bundle.meta["kind"] == "sequence":
+        size = bundle.meta["seq_len"]
+        return torch.cat([_run_shard(bundle, voxels[s:s + size])
+                          for s in range(0, voxels.shape[0], size)])
+    return _run_shard(bundle, voxels)
+
+
+def _run_shard(bundle: ServingBundle, voxels: torch.Tensor) -> torch.Tensor:
+    """The programs over (T, n, B, H, W) voxels at their exported batch:
+    the images (T, n, 1, H, W) on the bundle's device."""
     if bundle.meta["kind"] == "sequence":
         t, seq_len = voxels.shape[0], bundle.meta["seq_len"]
         name = "forward" if t == seq_len else f"forward_tail_{t}"
@@ -298,4 +399,4 @@ def run_voxels(bundle: ServingBundle, voxels) -> np.ndarray:
             out, state = bundle.call("step", voxel, state)
             frames.append(out["image"])
         images = torch.stack(frames)
-    return images.float().cpu().numpy()
+    return images

@@ -125,11 +125,15 @@ def _rotate_voxels(v, fwd):
 
 
 def _one_window(files, rng, seq_len, open_sequence, pause_cfg, crop_size=None, want_flows=False,
-                rot_cfg=None, device=None):
+                rot_cfg=None, device=None, load=True):
     """One training window from ``files``, opened through ``open_sequence``
     (a SequenceCache): voxels (L, B, ch, cw) on ``device``, frames
     (L, 1, ch, cw) on the host (uint8 where stored so, else f32 in [0, 1]),
-    flows (L, 2, ch, cw) or None. Draws from ``rng`` in the JAX CLI's order."""
+    flows (L, 2, ch, cw) or None. Draws from ``rng`` in the JAX CLI's order.
+    ``load=False`` makes the same draws and returns None, reading no events
+    and no frames (a data-parallel rank skips the windows of other ranks):
+    they depend only on the sequences' lengths and sensor sizes, and on
+    which of them hold flow."""
     import torch
 
     from bde2vid_tpu_torch.data.transforms import RandomRotationFlip, sample_pause_mask
@@ -148,13 +152,17 @@ def _one_window(files, rng, seq_len, open_sequence, pause_cfg, crop_size=None, w
         if len(seq) < seq_len:
             continue
         start = int(rng.integers(0, len(seq) - seq_len + 1))
-        flows = None
-        if want_flows:
-            flows = seq.flows(start, start + seq_len)
-            if flows is None:
-                continue  # this file holds no flow: try another
+        if want_flows and not seq.has_flows(start + seq_len):
+            continue  # this file holds no flow: try another
         idx, paused = sample_pause_mask(seq_len, rng, pause_cfg.get("proba_pause_when_running", 0.0),
                                         pause_cfg.get("proba_pause_when_paused", 0.0))
+        if not load:
+            h, w = seq.sensor_size
+            ch, cw = _crop_shape((h, w), crop_size, 1)
+            rng.integers(0, h - ch + 1)
+            rng.integers(0, w - cw + 1)
+            return None
+        flows = seq.flows(start, start + seq_len) if want_flows else None
         vox = seq.voxels(start, start + seq_len, device=device)  # (L, B, H, W)
         frames = seq.frames_u8(start, start + seq_len)
         if frames is None:
@@ -200,13 +208,15 @@ def _discover(data_dir: str, ltype: str):
 
 def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, seed=0, multiple=1,
                              crop_size=None, want_flows=False, rot_cfg=None, ltype="H5",
-                             device=None, start_step=0):
+                             device=None, start_step=0, rows=None):
     """Yield (voxels (L, N, B, H, W), frames (L, N, 1, H, W), flows
     (L, N, 2, H, W) or None) batches of ``batch`` independent windows on
     ``device``, one run-wide crop shape (from the smallest sensor, rounded
     down to ``multiple``), from step ``start_step`` on. Step k draws from
     ``default_rng([seed, k])``, so a run resumed at step k draws what the
-    uninterrupted run drew there."""
+    uninterrupted run drew there. ``rows`` (lo, hi) keeps windows [lo, hi)
+    of each batch, a data-parallel rank's rows: the others' draws are
+    replayed without loading them."""
     import torch
 
     from bde2vid_tpu_torch.utils.device import resolve_device
@@ -219,15 +229,14 @@ def iterate_training_windows(data_dir, seq_len, num_bins, pause_cfg, batch=1, se
     sensors = [open_sequence(p).sensor_size for p in files]
     min_hw = (min(s[0] for s in sensors), min(s[1] for s in sensors))
     crop_hw = _crop_shape(min_hw, crop_size, multiple)
+    lo, hi = (0, batch) if rows is None else rows
     step = int(start_step)
     while True:
         rng = np.random.default_rng([int(seed), step])
         step += 1
-        vs, fs, fls = zip(*(
-            _one_window(files, rng, seq_len, open_sequence, pause_cfg, crop_hw, want_flows, rot_cfg,
-                        device)
-            for _ in range(batch)
-        ))
+        windows = [_one_window(files, rng, seq_len, open_sequence, pause_cfg, crop_hw, want_flows,
+                               rot_cfg, device, load=lo <= n < hi) for n in range(batch)]
+        vs, fs, fls = zip(*windows[lo:hi])
         # a batch mixing uint8- and float-stored files scales before stacking
         if len({f.dtype for f in fs}) > 1:
             fs = tuple(f.astype(np.float32) / 255.0 if f.dtype == np.uint8 else f for f in fs)
@@ -244,7 +253,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", default="data/train")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--out_dir", default=None)
-    p.add_argument("--batch", type=int, default=1, help="independent windows per step, on one card")
+    p.add_argument("--batch", type=int, default=1,
+                   help="independent windows per step; under torchrun split over the ranks")
     p.add_argument("--loader_type", default="H5", choices=["H5", "MMP"],
                    help="H5 event files (default) or memmap directories")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -300,21 +310,60 @@ def main(argv=None) -> int:
 
     import torch
 
-    from bde2vid_tpu_torch.data.transforms import add_hot_pixels_to_sequence, add_noise_to_voxel
+    from bde2vid_tpu_torch.parallel.mesh import init_distributed
+
+    owns_group = init_distributed(args.device)
+    try:
+        return _train(args)
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def _gather_generator_states(generators):
+    """Every rank's {name: state} of ``generators``, in rank order."""
+    import torch
+
+    from bde2vid_tpu_torch.parallel.mesh import world_size
+
+    states = {k: g.get_state() for k, g in generators.items()}
+    if world_size() == 1:
+        return [states]
+    out = [None] * world_size()
+    torch.distributed.all_gather_object(out, states)
+    return out
+
+
+def _train(args) -> int:
+    import torch
+
+    from bde2vid_tpu_torch.data.transforms import (draw_hot_pixels, hot_pixels_from_draws,
+                                                   noise_from_draws)
     from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, load_torch_file
     from bde2vid_tpu_torch.eval.msgpack_checkpoint import check_not_orbax, read_msgpack_state_dict
     from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.parallel.mesh import barrier, rank, row_block, world_size
+    from bde2vid_tpu_torch.parallel.sharded_train import (broadcast_state, make_dp_train_step,
+                                                          rank_seed)
     from bde2vid_tpu_torch.train.optim import build_optimizer
     from bde2vid_tpu_torch.train.trainer import (SequenceLossComputer, is_train_state,
                                                  restore_train_state, save_checkpoint,
-                                                 save_train_state, train_step)
+                                                 save_train_state)
     from bde2vid_tpu_torch.utils.config import Config
     from bde2vid_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    cfg = Config.from_json(args.config, make_run_dir=args.out_dir is None)
+    ranks, index = world_size(), rank()
+    lead = index == 0  # rank 0 writes the logs, checkpoints and validation results
+    if ranks > 1 and not (args.batch > 1 and args.batch % ranks == 0):
+        raise SystemExit(f"--batch {args.batch} over {ranks} ranks: a data-parallel run needs a "
+                         "batch larger than 1 that divides over the ranks (the JAX CLI trains "
+                         "any other batch unsharded on one device)")
+    lo, hi = row_block(args.batch, ranks, index)
+    cfg = Config.from_json(args.config, make_run_dir=args.out_dir is None and lead)
     out_dir = args.out_dir or cfg.run_dir
-    os.makedirs(out_dir, exist_ok=True)
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
 
     model_cfg = dict(cfg["model"].get("args", {}))
     model_name = cfg["model"]["type"]
@@ -361,15 +410,17 @@ def main(argv=None) -> int:
     optimizer, scheduler, grad_clip, desc = build_optimizer(
         model.parameters(), cfg.get("optimizer"), cfg.get("lr_scheduler"))
     print(f"optimizer: {desc}")
-    # noise and hot pixels draw from "augment", DropPath from "droppath"
+    # noise and hot pixels draw from "augment", over the whole batch on every
+    # rank; DropPath from "droppath", a stream of each rank's own
     generators = {"augment": torch.Generator(device=device).manual_seed(42),
-                  "droppath": torch.Generator(device=device).manual_seed(1)}
+                  "droppath": torch.Generator(device=device).manual_seed(rank_seed(1, index, ranks))}
     start_step = 0
     if args.resume:
         # an orbax directory's sidecar says train_state too: refuse it first
         check_not_orbax(args.resume)
         if is_train_state(args.resume):
-            start_step = restore_train_state(args.resume, model, optimizer, scheduler, generators)
+            start_step = restore_train_state(args.resume, model, optimizer, scheduler, generators,
+                                             rank=index, ranks=ranks)
             print(f"exact resume from {args.resume} at step {start_step}")
         else:
             # a .msgpack of the JAX package gives its params only, as its CLI resumes it
@@ -381,8 +432,14 @@ def main(argv=None) -> int:
             load_state_dict_checked(model, sd)
             print(f"weights from {args.resume}; fresh optimizer at step 0")
 
+    broadcast_state(model)  # every rank starts from rank 0's weights
+    step_fn = make_dp_train_step(model, optimizer, comp, grad_clip=grad_clip,
+                                 scheduler=scheduler, dtype=dtype, remat=remat)
+    if ranks > 1 and lead:
+        print(f"sharding batch {args.batch} over {ranks} ranks")
+
     validator = None
-    if args.val_dir and args.val_every > 0:
+    if args.val_dir and args.val_every > 0 and lead:
         from bde2vid_tpu_torch.train.validate import Validator
 
         validator = Validator(model_name, model_cfg, args.val_dir, seq_len=seq_len,
@@ -393,7 +450,7 @@ def main(argv=None) -> int:
     it = iterate_training_windows(
         args.data_dir, seq_len, num_bins, data_cfg, batch=args.batch, multiple=2**num_encoders,
         crop_size=crop_size, want_flows=want_flows, rot_cfg=rot_cfg, ltype=args.loader_type,
-        device=device, start_step=start_step,
+        device=device, start_step=start_step, rows=(lo, hi),
     )
     if args.prefetch > 0:
         from bde2vid_tpu_torch.data.prefetch import Prefetcher
@@ -401,51 +458,62 @@ def main(argv=None) -> int:
         it = Prefetcher(it, size=args.prefetch, device=device)
     steps = args.steps or int(train_cfg.get("steps", 1000))
     ckpt_every = int(train_cfg.get("ckpt_every", 200))
-    log_path = os.path.join(out_dir, "train_log.jsonl")
     t_start = time.perf_counter()
+    log = open(os.path.join(out_dir, "train_log.jsonl"), "a") if lead else None
     try:
-        with open(log_path, "a") as log:
-            for i in range(start_step, steps):
-                t0 = time.perf_counter()
-                voxels, gts, flows = next(it)
-                # augmentation draws stay here, in step order, with or without prefetch
-                if noise_std > 0:
-                    voxels = add_noise_to_voxel(voxels, generators["augment"], noise_std,
-                                                noise_fraction)
-                if hot_frac > 0:
-                    # one hot-pixel pattern per window, shared by its steps
-                    # (data_augmentation.py:48-59)
-                    voxels = torch.stack([
-                        add_hot_pixels_to_sequence(voxels[:, n], generators["augment"], hot_std,
-                                                   hot_frac)
-                        for n in range(voxels.shape[1])
-                    ], dim=1)
-                t_data = time.perf_counter() - t0
-                loss_dict = train_step(model, optimizer, comp, voxels, gts, flows,
-                                       generator=generators["droppath"], grad_clip=grad_clip,
-                                       scheduler=scheduler, dtype=dtype, remat=remat)
-                losses = dict(zip(loss_dict, torch.stack(list(loss_dict.values())).tolist()))
+        for i in range(start_step, steps):
+            t0 = time.perf_counter()
+            voxels, gts, flows = next(it)
+            # augmentation draws stay here, in step order, with or without
+            # prefetch, over the whole batch: each rank keeps its own rows
+            full = (voxels.shape[0], args.batch, *voxels.shape[2:])
+            g = generators["augment"]
+            if noise_std > 0:
+                normal = torch.randn(full, dtype=voxels.dtype, generator=g, device=voxels.device)
+                uniform = torch.rand(full, generator=g, device=voxels.device)
+                voxels = noise_from_draws(voxels, normal[:, lo:hi], uniform[:, lo:hi], noise_std,
+                                          noise_fraction)
+            if hot_frac > 0:
+                # one hot-pixel pattern per window, shared by its steps
+                # (data_augmentation.py:48-59)
+                draws = [draw_hot_pixels(g, full[-2], full[-1], voxels.device, hot_std, hot_frac)
+                         for _ in range(args.batch)]
+                voxels = torch.stack([hot_pixels_from_draws(voxels[:, n - lo], *draws[n])
+                                      for n in range(lo, hi)], dim=1)
+            t_data = time.perf_counter() - t0
+            loss_dict = step_fn(voxels, gts, flows, generator=generators["droppath"])
+            losses = dict(zip(loss_dict, torch.stack(list(loss_dict.values())).tolist()))
+            if lead:
                 log.write(json.dumps({"step": i, **losses, "seconds": time.perf_counter() - t0,
                                       "data_seconds": t_data}) + "\n")
                 log.flush()
                 if i % 20 == 0:
                     rate = (i + 1 - start_step) / (time.perf_counter() - t_start)
                     print(f"step {i}: loss={losses['loss']:.5f} ({rate:.2f} steps/s)", flush=True)
-                if validator is not None and ((i + 1) % args.val_every == 0 or i + 1 == steps):
+            if args.val_dir and args.val_every > 0 and ((i + 1) % args.val_every == 0
+                                                        or i + 1 == steps):
+                if validator is not None:
                     rec = validator.log_and_track(out_dir, i + 1, model)
                     print(f"val step {i + 1}: mse={rec['mse']:.6f} ssim={rec['ssim']:.4f}"
                           + (" (new best)" if rec["best"] else ""), flush=True)
-                if (i + 1) % ckpt_every == 0 or i + 1 == steps:
+                barrier()
+            if (i + 1) % ckpt_every == 0 or i + 1 == steps:
+                rank_states = _gather_generator_states(generators) if args.save_state else None
+                if lead:
                     path = os.path.join(out_dir, f"epoch_{i + 1}.pth")
                     save_checkpoint(path, model, model_name, model_cfg)
                     print(f"saved {path}", flush=True)
                     if args.save_state:
                         spath = os.path.join(out_dir, f"epoch_{i + 1}.state")
                         save_train_state(spath, model, optimizer, scheduler, i + 1, generators,
-                                         model_name, model_cfg)
+                                         model_name, model_cfg,
+                                         rank_generators=rank_states if ranks > 1 else None)
                         print(f"saved {spath}", flush=True)
+                barrier()
     finally:
         it.close()  # stops a prefetch thread
+        if log is not None:
+            log.close()
     return 0
 
 

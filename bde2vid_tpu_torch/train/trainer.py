@@ -145,7 +145,8 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                loss_computer: SequenceLossComputer, voxels: torch.Tensor, frames: torch.Tensor,
                flows: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
                grad_clip: Optional[float] = None, scheduler=None,
-               dtype: torch.dtype = torch.float32, remat: bool = False) -> Dict[str, torch.Tensor]:
+               dtype: torch.dtype = torch.float32, remat: bool = False,
+               ranks=None) -> Dict[str, torch.Tensor]:
     """One step (counterpart of ``make_train_step``): forward in training
     mode (``sequence_forward``), sequence loss, backward, global-norm clip,
     optimizer and scheduler step. voxels (T, N, B, H, W), frames (T, N, 1,
@@ -154,17 +155,25 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     true}``): the gradients and the optimizer stay f32, and the loss is
     taken in f32. ``remat``: a step model's whole forward is recomputed in
     the backward (a sequence model rematerialises by its own config).
-    Returns the detached loss dict."""
+    ``ranks``: in a data-parallel step (``parallel.make_dp_train_step``),
+    the ``RankMean`` that averages the gradients and losses over the ranks
+    before the clip and the running statistics after the step; None in one
+    process. Returns the detached loss dict."""
     optimizer.zero_grad(set_to_none=True)
     preds = sequence_forward(model, voxels.to(dtype), generator, remat).float()
     total, loss_dict = loss_computer(preds, frames, flows)
     total.backward()
+    losses = {k: v.detach() for k, v in loss_dict.items()}
+    if ranks is not None:
+        losses = ranks.mean_gradients(losses)
     if grad_clip is not None:
         torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
-    return {k: v.detach() for k, v in loss_dict.items()}
+    if ranks is not None:
+        ranks.mean_statistics()
+    return losses
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, model_name: str, config: Dict) -> None:
@@ -179,7 +188,8 @@ def save_checkpoint(path: str, model: torch.nn.Module, model_name: str, config: 
 
 def save_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                      scheduler, step: int, generators: Dict[str, torch.Generator],
-                     model_name: str, config: Dict) -> None:
+                     model_name: str, config: Dict,
+                     rank_generators: Optional[Sequence[Dict[str, torch.Tensor]]] = None) -> None:
     """The full train state in one ``torch.save`` file, for an exact resume
     (JAX ``save_train_state_orbax``): the model's state dict (BatchNorm
     running statistics included), the optimizer's (Adam moments and step
@@ -187,14 +197,19 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.O
     loop draws from (the port's counterpart of JAX's saved PRNG key: a
     ``torch.Generator`` carries its state where JAX splits a key). A
     ``<path>.json`` sidecar ``{"model", "config", "train_state": true}``
-    tells it from a weights-only file (``is_train_state``)."""
-    torch.save({
+    tells it from a weights-only file (``is_train_state``). A data-parallel
+    run passes ``rank_generators``, every rank's generator states in rank
+    order, so that each rank of a resumed run continues its own draws."""
+    state = {
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
         "optimizer": optimizer.state_dict(),
         "scheduler": None if scheduler is None else scheduler.state_dict(),
         "step": int(step),
         "generators": {k: g.get_state() for k, g in generators.items()},
-    }, path)
+    }
+    if rank_generators is not None:
+        state["rank_generators"] = list(rank_generators)
+    torch.save(state, path)
     with open(path + ".json", "w") as fp:
         json.dump({"model": model_name, "config": config, "train_state": True}, fp)
 
@@ -209,13 +224,21 @@ def is_train_state(path: str) -> bool:
 
 
 def restore_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                        scheduler, generators: Dict[str, torch.Generator]) -> int:
+                        scheduler, generators: Dict[str, torch.Generator], rank: int = 0,
+                        ranks: int = 1) -> int:
     """Load a ``save_train_state`` file into the freshly built ``model``,
-    ``optimizer``, ``scheduler`` and ``generators`` of the same run config;
-    returns the step to continue from."""
+    ``optimizer``, ``scheduler`` and ``generators`` of the same run config,
+    the generators of rank ``rank`` of ``ranks``: a data-parallel state
+    resumes only at the world size it was saved at, and a one-process
+    state only in one process. Returns the step to continue from."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     if (state["scheduler"] is None) != (scheduler is None):
         raise ValueError(f"{path}: the saved run and this config disagree on the lr scheduler")
+    saved = state.get("rank_generators", [state["generators"]])
+    if len(saved) != ranks:
+        raise ValueError(f"{path}: saved by {len(saved)} rank(s), resumed by {ranks}: a resumed "
+                         "run draws exactly only at the world size it was saved at")
+    state["generators"] = saved[rank]
     if set(state["generators"]) != set(generators):
         raise ValueError(f"{path}: generators {sorted(state['generators'])}, "
                          f"expected {sorted(generators)}")

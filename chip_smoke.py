@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (bde2vid_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only scale_out|scale_out_torchrun]
 
 Phases, one JSON line each; a failure in any phase raises and the script
 exits non-zero without a result line. Two configurations run at full
@@ -158,6 +158,22 @@ reference's.
            E2VIDRecurrent, 10 swin_block nodes a frame in each flagship
            program; export seconds, bundle bytes and serving frames/s beside
            the eval CLI's at subseq_L 4
+  scale_out  data-parallel training, chunk-sharded eval and data-parallel
+           serving (ROADMAP A8 item 6, A12) over torch.distributed: two
+           spawned ranks on one gloo group on the one card (one NCCL rank a
+           card where there are several, `--only scale_out`, and then the
+           three CLIs as `torchrun` starts them, each held to one process),
+           after the collectives on CUDA tensors are checked: the flagship's
+           data-parallel train step (T=8, 176x240, batch 2, one window a
+           rank, no clip) held to one process's step on the same batch on
+           rank 0 and the last rank (loss 1e-6; by the relative L2 of all
+           of them, weights 1e-5 and Adam's first moments 1e-2); the eval CLI
+           with --shard_data on a flagship checkpoint over a 23-item
+           recording at subseq_L 8 (two chunks and a 7-item tail) held to
+           the one-process CLI's files (1e-6), and the eval driver timed
+           alone; a --dp 2 flagship bundle at batch 2 (--T 4) held to a
+           --dp 1 bundle (1e-6); exact B1 and B2 launches on every rank;
+           step ms, the gradient all_reduce's ms, frames/s of both
   events   the event side (ROADMAP A11) at 180x240 with 150 000 events:
            the event images, drv planes, timestamp images, flow warp and
            voxel helpers card vs CPU (1e-5 relative) with their ms; every
@@ -3326,7 +3342,569 @@ def phase_deform(torch, launch_counts, card):
     emit({"phase": "deform", "card": card, **row, "launches": launches})
 
 
-def main() -> int:
+# --------------------------------------------------------------- scale_out
+
+SCALE_OUT_T, SCALE_OUT_HW, SCALE_OUT_L, SCALE_OUT_STEPS = 8, (176, 240), 8, 3
+
+
+def scale_out_layout(torch):
+    """(ranks, backend, items) of the scale_out phase: two ranks on one gloo
+    group on the one card (NCCL refuses two ranks on one device), or one rank
+    a card on NCCL where there are several; 23 items (two full chunks of 8
+    and a 7-item tail) for two ranks, else two chunks a rank and the tail."""
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        return cards, "nccl", 2 * SCALE_OUT_L * cards + 7
+    return 2, "gloo", 23
+
+
+def scale_out_batch(torch, ranks, seed=3):
+    """The train batch: voxels (T, ranks, 5, H, W) and targets, on the host."""
+    rng = np.random.default_rng(seed)
+    h, w = SCALE_OUT_HW
+    vox = rng.normal(size=(SCALE_OUT_T, ranks, 5, h, w)).astype(np.float32)
+    tgt = rng.uniform(size=(SCALE_OUT_T, ranks, 1, h, w)).astype(np.float32)
+    return torch.from_numpy(vox), torch.from_numpy(tgt)
+
+
+def scale_out_model(torch):
+    """The flagship in training mode, kernel path, DropPath off (the ranks'
+    own DropPath streams would differ from one process's)."""
+    from bde2vid_tpu_torch.models import build_model
+
+    cfg = model_config(FLAGSHIP_CFG)
+    cfg["generator"]["drop_path_rate"] = 0.0
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        return build_model("BDE2VID", cfg, train=True)
+
+
+def scale_out_train_state(torch, model, opt):
+    """The weights and Adam's first moments (``exp_avg``, (1 - b1) g after
+    one step) by name, on the host."""
+    return {"weights": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "moments": {k: opt.state[p]["exp_avg"].cpu() for k, p in model.named_parameters()
+                        if p in opt.state}}
+
+
+def rel_l2(torch, got, want):
+    """(relative L2 of all of ``want``'s float tensors, the tensor furthest
+    apart by its own relative L2, that distance)."""
+    norms = {k: ((got[k].float() - v.float()).norm().item(), v.float().norm().item())
+             for k, v in want.items() if v.is_floating_point()}
+    total = math.sqrt(sum(d * d for d, _ in norms.values())
+                      / sum(n * n for _, n in norms.values()))
+    worst = max(norms, key=lambda k: norms[k][0] / max(norms[k][1], 1e-12))
+    return total, worst, norms[worst][0] / max(norms[worst][1], 1e-12)
+
+
+def timed_steps(torch, step, n):
+    """Host ms of ``n`` calls of ``step()``, each synchronised."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def chunk_frames(items, chunk, ranks, index):
+    """Frames that rank ``index`` runs in a sharded eval of a sequence model
+    (``parallel.sharded_eval.ChunkPlan``: contiguous blocks of chunks, the
+    ragged tail on the last rank)."""
+    from bde2vid_tpu_torch.parallel.sharded_eval import ChunkPlan
+
+    plan = ChunkPlan(items, chunk, ranks, True)
+    tail = plan.t - plan.t_full if index == plan.tail_rank else 0
+    return sum(b - a for a, b in plan.chunks(index)) + tail
+
+
+def scale_out_rank(index, ranks, backend, tmp):
+    """One rank of the scale_out phase (a spawned process): the collectives
+    on CUDA tensors, a data-parallel train step, the eval CLI with
+    --shard_data and the data-parallel bundle; writes rank<index>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = index if backend == "nccl" else 0
+    torch.cuda.set_device(card)
+    kw = {"device_id": torch.device("cuda", card)} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), ranks),
+                            rank=index, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=600), **kw)
+    try:
+        out = {"rank": index, "card": card,
+               "collectives": scale_out_collectives(torch, dist, index, ranks)}
+        out["train"] = scale_out_rank_train(torch, dist, index, ranks, tmp)
+        out["eval"] = scale_out_rank_eval(torch, index, tmp)
+        out["serving"] = scale_out_rank_serving(torch, index, ranks, tmp)
+        with open(os.path.join(tmp, f"rank{index}.json"), "w") as fp:
+            json.dump(out, fp)
+    finally:
+        dist.destroy_process_group()
+
+
+def scale_out_collectives(torch, dist, index, ranks):
+    """all_reduce, broadcast and all_gather on CUDA tensors (the three the
+    port's scale-out calls; gloo runs them on CUDA tensors too), checked."""
+    x = torch.full((5,), float(index + 1), device="cuda")
+    dist.all_reduce(x)
+    b = torch.arange(5, device="cuda", dtype=torch.float32) * (index + 1)
+    dist.broadcast(b, src=ranks - 1)
+    parts = [torch.empty(3, device="cuda") for _ in range(ranks)]
+    dist.all_gather(parts, torch.full((3,), float(index), device="cuda"))
+    ok = (x.eq(ranks * (ranks + 1) / 2).all().item()
+          and b.eq(torch.arange(5, device="cuda") * ranks).all().item()
+          and all(p.eq(r).all().item() for r, p in enumerate(parts)))
+    if not ok:
+        raise AssertionError(f"rank {index}: collectives on CUDA tensors gave {x}, {b}, {parts}")
+    return ["all_reduce", "broadcast", "all_gather"]
+
+
+def scale_out_rank_train(torch, dist, index, ranks, tmp):
+    from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
+    from bde2vid_tpu_torch.parallel import make_dp_train_step, shard_batch
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    model = scale_out_model(torch)
+    model.load_state_dict(torch.load(os.path.join(tmp, "init.pt"), map_location="cpu",
+                                     weights_only=True))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    step = make_dp_train_step(model, opt, SequenceLossComputer([{"type": "L1Loss"}]))
+    vox, tgt = (t.cuda() for t in shard_batch(None, scale_out_batch(torch, ranks), batch_axis=1))
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    loss = step(vox, tgt)["loss"].item()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts.items() if v}
+    if index in (0, ranks - 1):
+        torch.save(scale_out_train_state(torch, model, opt),
+                   os.path.join(tmp, f"dp_state{index}.pt"))
+    ms = timed_steps(torch, lambda: step(vox, tgt), SCALE_OUT_STEPS)
+    # the gradient all_reduce alone: one flat f32 buffer of every parameter
+    flat = torch.ones(sum(p.numel() for p in model.parameters()), device="cuda")
+    dist.all_reduce(flat)
+    allreduce_ms = timed_steps(torch, lambda: dist.all_reduce(flat), 5)
+    return {"loss": loss, "launches": launches, "step_ms": ms, "allreduce_ms": allreduce_ms,
+            "grad_bytes": 4 * flat.numel(), "rows": int(vox.shape[1])}
+
+
+def scale_out_rank_eval(torch, index, tmp):
+    from bde2vid_tpu_torch.eval.__main__ import main as eval_main
+    from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
+
+    runs = []
+    for run in ("cold", "warm"):
+        args = ["--weights_dir", os.path.join(tmp, "weights"), "--data_dir",
+                os.path.join(tmp, "data"), "--datasets", "SYN", "--loader_type", "MMP",
+                "--metrics", "mse", "ssim", "--subseq_L", str(SCALE_OUT_L), "--output_dir",
+                os.path.join(tmp, f"sharded_{run}"), "--shard_data"]
+        torch.cuda.synchronize()
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        if eval_main(args) != 0:
+            raise AssertionError(f"rank {index}: eval CLI --shard_data failed")
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "launches": {k: v for k, v in launch_counts.items() if v}})
+    return {"cli": runs, "driver_seconds": scale_out_driver_seconds(torch, tmp, True)}
+
+
+def scale_out_driver_seconds(torch, tmp, shard):
+    """Seconds of the eval driver's evaluate_sequence on the recording (the
+    model loaded once, the second of two runs): the forward, the gathers
+    and rank 0's scoring, without the CLI's checkpoint load."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+    from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch
+    from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_sequence
+    from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+    from bde2vid_tpu_torch.parallel.mesh import barrier
+
+    spec = load_model_from_torch(os.path.join(tmp, "weights", "epoch_1.pth"), device="cuda")
+    set_attention_kernel(spec.module, True)
+    seq = load_sequence(os.path.join(tmp, "data", "mmp", "SYN", "seq0"), ltype="MMP")
+    cfg = EvalConfig(ltype="MMP", num_bins=spec.num_bins, subseq_L=SCALE_OUT_L,
+                     metrics=("mse", "ssim"), shard_data=shard)
+    seconds = []
+    for _ in range(2):
+        barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_sequence(spec, seq, cfg)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    seq.reader.close()
+    return seconds
+
+
+def scale_out_rank_serving(torch, index, ranks, tmp):
+    from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
+    from bde2vid_tpu_torch.serving import load_bundle
+    from bde2vid_tpu_torch.serving.__main__ import main as serving_main, serve
+
+    path = os.path.join(tmp, f"dp{ranks}.zip")
+    t0 = time.perf_counter()
+    if serving_main(["run", "--bundle", path, "--voxels", os.path.join(tmp, "serve_vox.npy"),
+                     "--out_npy", os.path.join(tmp, "serve_dp.npy")]) != 0:
+        raise AssertionError(f"rank {index}: serving run failed")
+    cli_s = time.perf_counter() - t0
+    bundle = load_bundle(path)
+    vox = torch.load(os.path.join(tmp, "serve_vox.pt"), weights_only=True).cuda()
+    serve(bundle, vox)  # deserialises the programs it calls
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    ms = timed_steps(torch, lambda: serve(bundle, vox), 1)
+    return {"cli_seconds": cli_s, "serve_ms": ms,
+            "launches": {k: v for k, v in launch_counts.items() if v}}
+
+
+def scale_out_inputs(torch, tmp, ranks, items):
+    """The phase's recording (``items`` + 1 frames) and flagship checkpoint
+    under ``tmp``, and the --dp 1 and --dp ``ranks`` bundles at batch
+    ``ranks`` exporting in the background: (weights folder, exports)."""
+    write_mmp_sequence(os.path.join(tmp, "data", "mmp", "SYN", "seq0"),
+                       np.random.default_rng(5), num_frames=items + 1)
+    weights = write_checkpoint(torch, os.path.join(tmp, "weights"), FLAGSHIP_CFG,
+                               FLAGSHIP_CFG_TEXT)
+    exports = {}
+    for dp in (1, ranks):
+        log = open(os.path.join(tmp, f"export_dp{dp}.log"), "w")
+        cmd = [sys.executable, "-m", "bde2vid_tpu_torch.serving", "export", "--weights",
+               os.path.join(weights, "epoch_1.pth"), "--out", os.path.join(tmp, f"dp{dp}.zip"),
+               "--hw", "180", "240", "--T", str(SERVING_T), "--batch", str(ranks), "--dp",
+               str(dp), "--pallas"]
+        exports[dp] = (subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT),
+                       time.perf_counter(), log)
+    return weights, exports
+
+
+def scale_out_serve_voxels(torch, tmp, ranks):
+    """The serving batch, the recording and its mirror images, (T, ranks, C,
+    H, W) on the card; saved as serve_vox.pt and (T, N, H, W, C) .npy."""
+    from bde2vid_tpu_torch.data.pipeline import load_sequence
+
+    one = load_sequence(os.path.join(tmp, "data", "mmp", "SYN", "seq0"),
+                        ltype="MMP").voxels(device="cuda")  # (T, C, H, W)
+    serve_vox = torch.stack([one.flip(-1) if n % 2 else one for n in range(ranks)], dim=1)
+    torch.save(serve_vox.cpu(), os.path.join(tmp, "serve_vox.pt"))
+    np.save(os.path.join(tmp, "serve_vox.npy"), serve_vox.permute(0, 1, 3, 4, 2).cpu().numpy())
+    return serve_vox
+
+
+def wait_exports(exports):
+    """Wait for scale_out_inputs' exports: {dp: seconds}; raises on a failed one."""
+    seconds = {}
+    for dp, (proc, t0, log) in exports.items():
+        rc = proc.wait()
+        seconds[dp] = time.perf_counter() - t0
+        log.close()
+        if rc != 0:
+            with open(log.name) as fp:
+                raise AssertionError(f"scale_out: export --dp {dp} returned {rc}:\n{fp.read()}")
+    return seconds
+
+
+def scale_out_torchrun(torch, launch_counts, tmp, ranks, want_eval, want_images):
+    """The documented launch on several cards: `torchrun --nproc_per_node
+    ranks` starts NCCL ranks of each CLI, which join their group from the
+    environment (`parallel.init_distributed`, a card a rank): the eval CLI
+    with --shard_data held to the one-process files, the train CLI at
+    --batch `ranks` for 2 steps held to the one-process CLI (weights by
+    relative L2 1e-5, logged losses 1e-6 relative), and `serving run` of
+    the --dp bundle held to --dp 1's images (``want_images()``, called
+    last). Returns (row, failures)."""
+    def torchrun(module, args):
+        # the CLIs leave cuDNN's TF32 default (on); the references here run
+        # with TF32 off, so the children get it off too
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc_per_node", str(ranks), "-m", module, *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600,
+                             env={**os.environ, "NVIDIA_TF32_OVERRIDE": "0"})
+        if res.returncode != 0:
+            raise AssertionError(f"torchrun {module} returned {res.returncode}:\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        return time.perf_counter() - t0
+
+    failures, row = [], {}
+    data = os.path.join(tmp, "data")
+    out = os.path.join(tmp, "torchrun_eval")
+    row["eval_seconds"] = torchrun("bde2vid_tpu_torch.eval", [
+        "--weights_dir", os.path.join(tmp, "weights"), "--data_dir", data, "--datasets", "SYN",
+        "--loader_type", "MMP", "--metrics", "mse", "ssim", "--subseq_L", str(SCALE_OUT_L),
+        "--output_dir", out, "--shard_data"])
+    base = os.path.join(out, f"epoch_1_L{SCALE_OUT_L}_org")
+    with open(base + "_detail.txt") as fp:
+        row["eval_max_diff"] = max_detail_diff(json.load(fp)["SYN"]["seq0"], want_eval)
+    if not row["eval_max_diff"] <= 1e-6:
+        failures.append(f"torchrun eval: {row['eval_max_diff']} from one process (bound 1e-6)")
+
+    cfg = model_config(FLAGSHIP_CFG)
+    cfg["generator"]["drop_path_rate"] = 0.0
+    log, _, one_s, _, one_dir = train_cli_run(torch, launch_counts, tmp, data, "dp_one", "BDE2VID",
+                                              cfg, 2, {}, cli=["--batch", str(ranks)])
+    dp_dir = os.path.join(tmp, "run_dp_torchrun")
+    row["train_seconds"] = torchrun("bde2vid_tpu_torch.train", [
+        "--config", os.path.join(tmp, "cfg_dp_one.json"), "--data_dir", data, "--out_dir", dp_dir,
+        "--loader_type", "MMP", "--batch", str(ranks)])
+    row["train_one_process_seconds"] = one_s
+    with open(os.path.join(dp_dir, "train_log.jsonl")) as fp:
+        dp_log = [json.loads(line) for line in fp]
+    row["train_loss_rel_diff"] = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                     for a, b in zip(dp_log, log))
+    got, want = (torch.load(os.path.join(d, "epoch_2.pth"), weights_only=True)["state_dict"]
+                 for d in (dp_dir, one_dir))
+    keys = [k for k, v in want.items() if v.is_floating_point()]
+    row["train_weight_rel_l2"] = math.sqrt(
+        sum((got[k].float() - want[k].float()).norm().item() ** 2 for k in keys)
+        / sum(want[k].float().norm().item() ** 2 for k in keys))
+    if not (len(dp_log) == len(log) == 2 and row["train_loss_rel_diff"] <= 1e-6
+            and row["train_weight_rel_l2"] <= 1e-5):
+        failures.append(f"torchrun train: losses {row['train_loss_rel_diff']:.3g} (1e-6), weights "
+                        f"{row['train_weight_rel_l2']:.3g} (1e-5) relative to one process")
+
+    want = want_images()
+    npy = os.path.join(tmp, "torchrun_serve.npy")
+    row["serve_seconds"] = torchrun("bde2vid_tpu_torch.serving", [
+        "run", "--bundle", os.path.join(tmp, f"dp{ranks}.zip"), "--voxels",
+        os.path.join(tmp, "serve_vox.npy"), "--out_npy", npy])
+    row["serve_max_diff"] = (torch.from_numpy(np.load(npy)) - want).abs().max().item()
+    if not row["serve_max_diff"] <= 1e-6:
+        failures.append(f"torchrun serving: {row['serve_max_diff']} from --dp 1 (bound 1e-6)")
+    return row, failures
+
+
+def phase_scale_out_torchrun(torch, launch_counts, card):
+    """`--only scale_out_torchrun`, on several cards: the three CLIs as
+    `torchrun` starts them (scale_out_torchrun) and the one-process runs
+    they are held to, without the spawned ranks of phase_scale_out."""
+    from bde2vid_tpu_torch.serving import load_bundle
+    from bde2vid_tpu_torch.serving.__main__ import serve
+
+    ranks, backend, items = scale_out_layout(torch)
+    if backend != "nccl":
+        raise SystemExit("--only scale_out_torchrun needs several cards")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        weights, exports = scale_out_inputs(torch, tmp, ranks, items)
+        want_eval = run_eval_cli(torch, launch_counts, weights, os.path.join(tmp, "data"),
+                                 os.path.join(tmp, "one"), SCALE_OUT_L, "epoch_1", items)[2]
+
+        def want_images():
+            serve_vox = scale_out_serve_voxels(torch, tmp, ranks)
+            wait_exports(exports)
+            return torch.from_numpy(serve(load_bundle(os.path.join(tmp, "dp1.zip")), serve_vox))
+
+        row, failures = scale_out_torchrun(torch, launch_counts, tmp, ranks, want_eval,
+                                           want_images)
+    emit({"phase": "scale_out_torchrun", "card": card, "cards": torch.cuda.device_count(),
+          "ranks": ranks, "backend": backend, "items": items,
+          "seconds": time.perf_counter() - t_phase, "torchrun": row, "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_scale_out(torch, launch_counts, card):
+    """Data-parallel training, chunk-sharded eval and data-parallel serving
+    (ROADMAP A8 item 6, A12) over a torch.distributed group of spawned ranks,
+    each held to one process on the same inputs, with exact launch counts a
+    rank; see scale_out_layout for the ranks."""
+    import torch.multiprocessing as mp
+
+    from bde2vid_tpu_torch.serving import load_bundle
+    from bde2vid_tpu_torch.serving.__main__ import serve
+    from bde2vid_tpu_torch.train import SequenceLossComputer, train_step
+
+    ranks, backend, items = scale_out_layout(torch)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        weights, exports = scale_out_inputs(torch, tmp, ranks, items)
+
+        # one process, while the exports run: the train step at batch `ranks`
+        # and the eval CLI (held); nothing is timed before the exports end.
+        # The held step takes no clip: a clip to norm 1 would give a gradient
+        # that is wrong by a factor the right norm again
+        model = scale_out_model(torch)
+        torch.save(model.state_dict(), os.path.join(tmp, "init.pt"))
+        vox, tgt = (t.cuda() for t in scale_out_batch(torch, ranks))
+        comp = SequenceLossComputer([{"type": "L1Loss"}])
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        torch.cuda.synchronize()
+        launch_counts.clear()
+        ref_loss = train_step(model, opt, comp, vox, tgt)["loss"].item()
+        torch.cuda.synchronize()
+        expect_launches("scale_out one-process step", launch_counts,
+                        {"fused_swin_block": 10 * SCALE_OUT_T, "attn_core_backward": 10 * SCALE_OUT_T})
+        ref_state = scale_out_train_state(torch, model, opt)
+        ref_eval = [run_eval_cli(torch, launch_counts, weights, os.path.join(tmp, "data"),
+                                 os.path.join(tmp, "one_cold"), SCALE_OUT_L, "epoch_1", items)]
+        serve_vox = scale_out_serve_voxels(torch, tmp, ranks)
+        export_s = wait_exports(exports)
+
+        # one process, timed: train steps at batch `ranks` and 1, the eval CLI
+        # warm and the driver's evaluate_sequence warm, then the --dp 1 bundle
+        ref_ms = {}
+        for n in sorted({1, ranks}):
+            v, t = vox[:, :n].contiguous(), tgt[:, :n].contiguous()
+            ref_ms[n] = timed_steps(torch, lambda: train_step(model, opt, comp, v, t),
+                                    SCALE_OUT_STEPS)
+        del model, opt
+        ref_eval.append(run_eval_cli(torch, launch_counts, weights, os.path.join(tmp, "data"),
+                                     os.path.join(tmp, "one_warm"), SCALE_OUT_L, "epoch_1", items))
+        for _, _, _, launches in ref_eval:
+            expect_launches("scale_out one-process eval", launches,
+                            {"fused_swin_block": 10 * items})
+        ref_driver_s = scale_out_driver_seconds(torch, tmp, False)
+        bundle = load_bundle(os.path.join(tmp, "dp1.zip"))
+        want_images = torch.from_numpy(serve(bundle, serve_vox))  # (T, N, h, w)
+        torch.cuda.synchronize()
+        launch_counts.clear()
+        ref_serve_ms = timed_steps(torch, lambda: serve(bundle, serve_vox), 1)
+        expect_launches("scale_out one-process serving", launch_counts,
+                        {"fused_swin_block": 10 * items})
+        del bundle
+
+        t_ranks = time.perf_counter()
+        mp.start_processes(scale_out_rank, args=(ranks, backend, tmp), nprocs=ranks, join=True,
+                           start_method="spawn")
+        ranks_s = time.perf_counter() - t_ranks
+        got = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fp:
+                got.append(json.load(fp))
+
+        # every gate is checked and the figures written before any failure raises
+        failures = []
+
+        def gate(what, fn):
+            try:
+                fn()
+            except AssertionError as err:
+                failures.append(f"{what}: {err}")
+
+        # the train step, on rank 0 and the last rank: the loss, Adam's first
+        # moments (0.1 g: a gradient averaged wrongly, or a rank's rows
+        # missing, is off by 0.5 or more; the reduction orders and the
+        # library's atomics move some tensors by ~1e-3) and the weights
+        # (relative L2 of all of them: Adam's first step is about lr sign(g),
+        # blind to the gradient's scale; a component near zero rounded to
+        # the other sign moves its weight by 2 lr, most of a zero-initialised
+        # bias's norm, so the tensor furthest apart is named beside them;
+        # 1.65e-6 and 1.86e-6 measured), each against the one process's
+        loss_rel = max(abs(g["train"]["loss"] - ref_loss) / abs(ref_loss) for g in got)
+        train_rel = {}
+        for r in sorted({0, ranks - 1}):
+            dp_state = torch.load(os.path.join(tmp, f"dp_state{r}.pt"), weights_only=True)
+            train_rel[r] = {what: rel_l2(torch, dp_state[what], ref_state[what])
+                            for what in ("weights", "moments")}
+
+        def train_gate():
+            bad = {r: {what: rel[what][0] for what in rel} for r, rel in train_rel.items()
+                   if not (rel["weights"][0] <= 1e-5 and rel["moments"][0] <= 1e-2)}
+            if not loss_rel <= 1e-6 or bad:
+                raise AssertionError(f"loss {loss_rel:.3g} (bound 1e-6); relative L2 by rank "
+                                     f"{bad} (weights 1e-5, Adam moments 1e-2) from one process")
+
+        gate("scale_out train", train_gate)
+        for g in got:
+            gate("scale_out train", lambda: expect_launches(
+                f"rank {g['rank']}", g["train"]["launches"],
+                {"fused_swin_block": 10 * SCALE_OUT_T, "attn_core_backward": 10 * SCALE_OUT_T}))
+
+        # the sharded eval CLI: rank 0's files against the one process's
+        eval_diffs = []
+        for run in ("cold", "warm"):
+            base = os.path.join(tmp, f"sharded_{run}", f"epoch_1_L{SCALE_OUT_L}_org")
+            with open(base + ".txt") as fp:
+                result = json.load(fp)["SYN"]["seq0"]
+            with open(base + "_detail.txt") as fp:
+                detail = json.load(fp)["SYN"]["seq0"]
+            _, want_result, want_detail, _ = ref_eval[0]
+            eval_diffs.append(max(max_detail_diff(detail, want_detail),
+                                  max(abs(result[k] - want_result[k]) for k in want_result)))
+        if not max(eval_diffs) <= 1e-6:
+            failures.append(f"scale_out eval: --shard_data files {eval_diffs} from the one "
+                            "process's (bound 1e-6)")
+        for g in got:
+            frames = chunk_frames(items, SCALE_OUT_L, ranks, g["rank"])
+            for run in g["eval"]["cli"]:
+                gate("scale_out eval", lambda: expect_launches(
+                    f"rank {g['rank']}", run["launches"],
+                    {"fused_swin_block": 10 * frames} if frames else {}))
+
+        # the data-parallel bundle against --dp 1
+        got_images = torch.from_numpy(np.load(os.path.join(tmp, "serve_dp.npy")))
+        serve_diff = (got_images - want_images).abs().max().item()
+        if not (got_images.shape == want_images.shape and serve_diff <= 1e-6):
+            failures.append(f"scale_out serving: --dp {ranks} {tuple(got_images.shape)} max "
+                            f"diff {serve_diff} from --dp 1 (bound 1e-6)")
+        for g in got:
+            gate("scale_out serving", lambda: expect_launches(
+                f"rank {g['rank']}", g["serving"]["launches"], {"fused_swin_block": 10 * items}))
+        torchrun_row = None
+        if backend == "nccl":  # the CLIs as torchrun starts them, a card a rank
+            torchrun_row, more = scale_out_torchrun(torch, launch_counts, tmp, ranks,
+                                                    ref_eval[0][2], lambda: want_images)
+            failures += more
+
+    rank0 = got[0]
+    dp_ms = float(np.mean(rank0["train"]["step_ms"]))
+    emit({"phase": "scale_out", "card": card, "cards": torch.cuda.device_count(), "ranks": ranks,
+          "backend": backend, "hw": list(SCALE_OUT_HW), "T": SCALE_OUT_T,
+          "seconds": time.perf_counter() - t_phase, "ranks_seconds": ranks_s,
+          "collectives": rank0["collectives"],
+          "train": {"batch": ranks, "rows_a_rank": rank0["train"]["rows"],
+                    "loss_rel_diff": loss_rel,
+                    "rel_l2": {str(r): {what: {"all": v[0], "worst_tensor": [v[1], v[2]]}
+                                        for what, v in rel.items()}
+                               for r, rel in train_rel.items()},
+                    "dp_step_ms": [g["train"]["step_ms"] for g in got],
+                    "one_process_step_ms": {str(n): v for n, v in ref_ms.items()},
+                    "allreduce_ms": rank0["train"]["allreduce_ms"],
+                    "grad_bytes": rank0["train"]["grad_bytes"],
+                    "allreduce_share": float(np.mean(rank0["train"]["allreduce_ms"])) / dp_ms,
+                    "launches_a_rank": rank0["train"]["launches"]},
+          "eval": {"items": items, "subseq_L": SCALE_OUT_L, "max_diff": max(eval_diffs),
+                   "one_process_seconds": [r[0] for r in ref_eval],
+                   "one_process_frames_per_s": items / ref_eval[1][0],
+                   "sharded_seconds": [[run["seconds"] for run in g["eval"]["cli"]] for g in got],
+                   "sharded_frames_per_s": items / max(g["eval"]["cli"][1]["seconds"] for g in got),
+                   "one_process_driver_seconds": ref_driver_s,
+                   "one_process_driver_frames_per_s": items / ref_driver_s[1],
+                   "sharded_driver_seconds": [g["eval"]["driver_seconds"] for g in got],
+                   "sharded_driver_frames_per_s": items / max(g["eval"]["driver_seconds"][1]
+                                                              for g in got),
+                   "launches": [g["eval"]["cli"][1]["launches"] for g in got]},
+          "serving": {"batch": ranks, "T": SERVING_T, "max_diff": serve_diff,
+                      "export_seconds": {str(k): v for k, v in export_s.items()},
+                      "dp1_frames_per_s": ranks * items / (ref_serve_ms[0] / 1e3),
+                      "dp_frames_per_s": ranks * items / (max(g["serving"]["serve_ms"][0]
+                                                              for g in got) / 1e3),
+                      "dp_cli_seconds": [g["serving"]["cli_seconds"] for g in got],
+                      "launches": [g["serving"]["launches"] for g in got]},
+          "torchrun": torchrun_row, "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="drive the port on the card and check it")
+    parser.add_argument("--only", choices=["scale_out", "scale_out_torchrun"], default=None,
+                        help="build the kernels and run this phase alone (on every visible "
+                        "card: one NCCL rank a card where there are several); "
+                        "scale_out_torchrun, on several cards: only the CLIs under torchrun "
+                        "and their one-process references")
+    args = parser.parse_args(argv)
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3341,6 +3919,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     phase_build()
+    if args.only is not None:
+        {"scale_out": phase_scale_out,
+         "scale_out_torchrun": phase_scale_out_torchrun}[args.only](torch, launch_counts, card)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     cases = phase_kernels(torch)
     bwd_cases = phase_kernels_training(torch)
     long_cases = phase_kernels_long_rows(torch)
@@ -3361,6 +3946,7 @@ def main() -> int:
     wide_launches = phase_head_dims(torch, launch_counts)
     phase_lpips(torch, launch_counts, card)
     phase_serving(torch, launch_counts, card)
+    phase_scale_out(torch, launch_counts, card)
     phase_events(torch, launch_counts, card)
     phase_deform(torch, launch_counts, card)
 

@@ -27,6 +27,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     fused_swin_block,
     launch_counts,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 T = torch.from_numpy
 

@@ -26,6 +26,7 @@ from bde2vid_tpu_torch.eval.checkpoint import (
 )
 from bde2vid_tpu_torch.models import build_model
 from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 FLAGSHIP = dict(BASE=32, ENC=3, KS=5, NRES=2, BUF=[-3, -2, -1, 0, 1, 2, 3], DEPTHS=[4, 0, 6],
                 HEADS=16, WIN=(7, 7))

@@ -27,6 +27,7 @@ from bde2vid_tpu.eval.checkpoint import load_model_from_torch as jax_load
 from bde2vid_tpu.models.api import run_sequence as jax_run_sequence
 from bde2vid_tpu_torch.eval.checkpoint import load_model_from_torch
 from bde2vid_tpu_torch.models import build_model, run_sequence
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 SMALL = {"num_bins": 5, "num_encoders": 2, "base_num_channels": 8, "num_residual_blocks": 1}
 FIRE = {"num_bins": 5, "base_num_channels": 8, "num_residual_blocks": 2}

@@ -46,6 +46,7 @@ from bde2vid_tpu_torch.models import build_model
 from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
 from bde2vid_tpu_torch.train import SequenceLossComputer, save_checkpoint
 from tests.test_torch_parallel_nwindow import concrete_gathers  # noqa: F401  (a fixture)
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 BASE = dict(num_bins=5, basechannels=8, num_encoders=2, ks=3, num_res_blocks=1,
             buffer_index=[-1, 0, 1], depths=[2, 0], num_heads=4, window_size=[7, 7],

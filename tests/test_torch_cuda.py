@@ -1391,6 +1391,96 @@ def test_cuda_bundle_refuses_a_process_without_cuda(cuda_device, tmp_path):
     assert res.returncode == 0 and "exported for cuda" in res.stdout, res.stdout + res.stderr
 
 
+_SCALE_OUT_CFG = {"generator": {"num_bins": 5, "basechannels": 8, "num_encoders": 2, "ks": 3,
+                                 "num_res_blocks": 1, "buffer_index": [-1, 0, 1],
+                                 "depths": [2, 2], "num_heads": 4, "window_size": [7, 7],
+                                 "drop_path_rate": 0.0},
+                   "use_pallas_attention": True}
+
+
+def _scale_out_folder(tmp_path, case, model):
+    import json
+
+    folder = tmp_path / case
+    folder.mkdir()
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, folder / "model.pt")
+    (folder / "model.json").write_text(json.dumps({"name": "BDE2VID", "config": _SCALE_OUT_CFG,
+                                                   "train": True}))
+    return folder
+
+
+@pytest.mark.cuda
+def test_cuda_scale_out_dp_train_step_matches_one_process(cuda_device, tmp_path):
+    """Two ranks on one gloo group on the card, a row of a batch of 2 each,
+    run ``make_dp_train_step`` (no clip) through B1 and B2: the loss within
+    1e-6, Adam's first moments (0.1 g: a gradient averaged wrongly is off
+    by 0.5 or more) within 1e-2 and the weights within 1e-3 (the relative
+    L2 of all of them) of one process's step on the whole batch, and each
+    rank's launches those of the one-process step."""
+    from bde2vid_tpu_torch.models import build_model
+    from bde2vid_tpu_torch.train import SequenceLossComputer, train_step
+    from tests.torch_scale_out_ranks import spawn_group
+
+    torch.manual_seed(0)
+    model = build_model("BDE2VID", _SCALE_OUT_CFG, device=cuda_device, train=True)
+    folder = _scale_out_folder(tmp_path, "cuda_dp_step", model)
+    rng = np.random.default_rng(2)
+    vox = torch.from_numpy(rng.normal(size=(3, 2, 5, 56, 56)).astype(np.float32))
+    tgt = torch.from_numpy(rng.uniform(size=(3, 2, 1, 56, 56)).astype(np.float32))
+    torch.save({"voxels": vox, "frames": tgt}, folder / "batch.pt")
+    spawn_group(tmp_path, ["cuda_dp_step"], ranks=2)
+
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    before = dict(launch_counts)
+    want = train_step(model, opt, SequenceLossComputer([{"type": "L1Loss"}]), vox.cuda(),
+                      tgt.cuda())
+    torch.cuda.synchronize()
+    moments = {k: opt.state[p]["exp_avg"].cpu() for k, p in model.named_parameters()
+               if p in opt.state}
+    launched = _launched(before)
+    assert launched == {"fused_swin_block": 12, "attn_core_backward": 12}
+    for r in range(2):
+        got = torch.load(folder / f"rank{r}.pt")
+        assert {k: v for k, v in got["launches"].items() if v} == launched
+        assert abs(got["loss"] - want["loss"].item()) <= 1e-6 * abs(want["loss"].item())
+        keys = [k for k, v in model.state_dict().items() if v.is_floating_point()]
+        diff = torch.cat([(got["state"][k] - model.state_dict()[k].cpu()).flatten() for k in keys])
+        norm = torch.cat([model.state_dict()[k].cpu().flatten() for k in keys]).norm()
+        assert diff.norm() <= 1e-3 * norm
+        assert got["moments"].keys() == moments.keys()
+        diff = torch.cat([(got["moments"][k] - v).flatten() for k, v in moments.items()])
+        assert diff.norm() <= 1e-2 * torch.cat([v.flatten() for v in moments.values()]).norm()
+
+
+@pytest.mark.cuda
+def test_cuda_scale_out_dp_bundle_matches_the_live_forward(cuda_device, tmp_path):
+    """A kernel-path bundle exported at batch 2 with ``data_parallel`` 2,
+    run by two ranks on one gloo group on the card: every rank returns the
+    whole batch, within 2e-4 of the eager forward (the tolerance of the
+    one-card bundle test), each rank launching B1 for its own row."""
+    from bde2vid_tpu_torch.models import ModelSpec, build_model
+    from bde2vid_tpu_torch.serving import export_spec_bundle, save_bundle
+    from tests.torch_scale_out_ranks import spawn_group
+
+    torch.manual_seed(1)
+    model = build_model("BDE2VID", _SCALE_OUT_CFG, device=cuda_device).eval()
+    folder = tmp_path / "cuda_serving"
+    folder.mkdir()
+    spec = ModelSpec("BDE2VID", model, 5, 2, True)
+    save_bundle(str(folder / "bundle.zip"),
+                export_spec_bundle(spec, 56, 56, seq_len=2, batch=2, data_parallel=2))
+    vox = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 2, 5, 56, 56))
+                           .astype(np.float32))
+    torch.save(vox, folder / "voxels.pt")
+    spawn_group(tmp_path, ["cuda_serving"], ranks=2)
+    with torch.no_grad():
+        want = model(vox.cuda())["image"].cpu()
+    for r in range(2):
+        got = torch.load(folder / f"rank{r}.pt")
+        assert {k: v for k, v in got["launches"].items() if v} == {"fused_swin_block": 8}
+        np.testing.assert_allclose(got["images"].numpy(), want.numpy(), atol=2e-4, rtol=0)
+
+
 def _events_180x240(seed, n=150_000, capacity=None):
     """``n`` events over 180x240 (float coordinates, a few out of range),
     sorted ts, +-1 polarity, padded past ``n``; CPU tensors."""

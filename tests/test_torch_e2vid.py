@@ -29,6 +29,7 @@ from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, state_dic
 from bde2vid_tpu_torch.models import ModelSpec, build_model, run_sequence, run_sequence_chunked
 from bde2vid_tpu_torch.nn.layers import ResidualBlock, TransposedConvLayer
 from bde2vid_tpu_torch.utils.norm import legacy_norm
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 ATOL = 2e-4
 T, B = 3, 5

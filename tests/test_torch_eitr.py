@@ -32,6 +32,7 @@ from bde2vid_tpu_torch.models import build_model, run_sequence
 from bde2vid_tpu_torch.nn import transformer as ttr
 from tests.test_torch_checkpoint_dialects import seeded_state_dict
 from tests.test_torch_e2vid import nchw, seeded_tree
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 ATOL = 2e-4
 D, HEADS, FF = 32, 4, 64

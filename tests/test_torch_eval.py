@@ -26,6 +26,7 @@ from bde2vid_tpu_torch.events.voxel import events_to_voxel, events_to_voxel_batc
 from bde2vid_tpu_torch.metrics import basic as tm
 from bde2vid_tpu_torch.models import build_model
 from tests.conftest import make_events
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 SENSOR = (36, 44)
 

@@ -41,6 +41,7 @@ from bde2vid_tpu_torch.eval.driver import EvalConfig, evaluate_all, evaluate_seq
 from bde2vid_tpu_torch.events.voxel import hot_event_mask
 from bde2vid_tpu_torch.models import build_model
 from tests.test_torch_checkpoint_dialects import seeded_state_dict
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 cv2 = pytest.importorskip("cv2")
 

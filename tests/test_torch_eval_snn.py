@@ -41,6 +41,7 @@ from bde2vid_tpu_torch.eval.rec_snn import main as port_rec_snn
 from tests.conftest import make_events
 from tests.test_torch_e2vid import seeded_tree
 from tests.test_torch_evsnn import dead_tensors
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 SENSOR = (35, 45)  # pads to 40x48 for 3 encoders
 CKPTS = {"PAEVSNN_seeded": ("PAEVSNN", False), "evsnn_e10": ("EVSNN", True)}  # (family, wrapped)

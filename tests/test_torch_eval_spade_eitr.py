@@ -28,6 +28,7 @@ from bde2vid_tpu_torch.eval.__main__ import main as port_main
 from bde2vid_tpu_torch.models import build_model
 from tests.test_torch_checkpoint_dialects import seeded_state_dict
 from tests.test_torch_eval_step_models import _table_numbers, _write_h5
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 EITR_CFG = {"num_bins": 5, "norm": None, "d_model": 32, "dim_feedforward": 64, "nhead": 4,
             "channels": [8, 16, 32, 32]}

@@ -26,6 +26,7 @@ from bde2vid_tpu_torch.eval.__main__ import main as port_main
 from bde2vid_tpu_torch.models import build_model
 from tests.conftest import make_events
 from tests.test_torch_checkpoint_dialects import seeded_state_dict
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 SENSOR = (35, 45)  # pads to 36x48 for 2 encoders
 E2VID_CFG = {"num_bins": 5, "num_encoders": 2, "base_num_channels": 8, "num_residual_blocks": 1}

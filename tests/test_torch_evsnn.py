@@ -44,6 +44,7 @@ from bde2vid_tpu_torch.nn import spiking as tsp
 from bde2vid_tpu_torch.utils.norm import robust_1_99, robust_norm, to_uint8_image
 from bde2vid_tpu_torch.utils.png import write_gray_png, write_png
 from tests.test_torch_e2vid import nchw, seeded_tree
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 ATOL = 2e-4
 H, W, N, B = 32, 40, 2, 5

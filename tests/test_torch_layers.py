@@ -16,6 +16,7 @@ from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, state_dic
 from bde2vid_tpu_torch.nn import layers as tl
 from bde2vid_tpu_torch.nn import recurrent as tr
 from bde2vid_tpu_torch.utils.padding import CropParameters
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 nchw = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
 nhwc = lambda t: t.detach().numpy().transpose(0, 2, 3, 1)

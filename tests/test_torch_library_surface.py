@@ -254,12 +254,11 @@ def test_prefetch_to_device_yields_jax_s_items():
 
 # ---------------------------------------------------------------- public names
 
-# JAX names with no counterpart: the TPU compiler's cache, and the data-
-# parallel serving mesh (ROADMAP A12, scale-out)
-TPU_ONLY = {"utils": {"enable_compilation_cache"}, "serving": {"serving_mesh"}}
+# JAX names with no counterpart: the TPU compiler's cache
+TPU_ONLY = {"utils": {"enable_compilation_cache"}}
 
 
-@pytest.mark.parametrize("package", ["utils", "data", "events", "nn", "eval", "serving"])
+@pytest.mark.parametrize("package", ["utils", "data", "events", "nn", "eval", "serving", "parallel"])
 def test_public_names_are_the_jax_package_s(package):
     ours = importlib.import_module(f"bde2vid_tpu_torch.{package}")
     theirs = importlib.import_module(f"bde2vid_tpu.{package}")

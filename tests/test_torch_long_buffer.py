@@ -19,6 +19,7 @@ from bde2vid_tpu.models import build_model as jax_build
 from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
 from tests.test_torch_config_surface import BASE, _inputs, _port, nchw, seeded_variables
 from tests.test_torch_parallel_nwindow import concrete_gathers  # noqa: F401  (a fixture)
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 BUFFER = list(range(-15, 16))
 

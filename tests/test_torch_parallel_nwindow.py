@@ -27,6 +27,7 @@ from bde2vid_tpu_torch.models import build_model
 from bde2vid_tpu_torch.nn.window_attention import SwinTransformerBlock3D, set_attention_kernel
 from bde2vid_tpu_torch.train import SequenceLossComputer
 from tests.test_torch_window_block import seeded_params
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 T = torch.from_numpy
 

@@ -387,18 +387,18 @@ def test_cli_serves_long_sequences_in_chunks_with_the_exact_tail(bde2vid, seq_bu
 
 
 def test_refusals(e2vid_msgpack, tmp_path):
-    """Data parallelism above 1 (ROADMAP A12's scale-out), the TPU, two
-    platforms at once and an orbax checkpoint directory raise ValueError,
-    in the library and the CLI."""
+    """A batch that does not divide over the data parallelism (JAX's
+    refusal), the TPU, two platforms at once and an orbax checkpoint
+    directory raise ValueError, in the library and the CLI."""
     ckpt, model = e2vid_msgpack
     spec = _spec(model, "E2VIDRecurrent")
-    with pytest.raises(ValueError, match="scale-out"):
+    with pytest.raises(ValueError, match="batch=1 does not divide over data_parallel=2"):
         export_forward(spec, H, W, data_parallel=2)
     for plats in (("tpu",), ("tpu", "cpu"), ("cuda",)):
         with pytest.raises(ValueError):
             export_spec_bundle(spec, H, W, platforms=plats)
     args = ["export", "--weights", ckpt, "--out", str(tmp_path / "b.zip"), "--hw", "32", "48"]
-    with pytest.raises(ValueError, match="scale-out"):
+    with pytest.raises(ValueError, match="does not divide over data_parallel=2"):
         port_cli(args + ["--platforms", "cpu", "--dp", "2"])
     for plat in ("tpu", "tpu,cpu"):
         with pytest.raises(ValueError, match="--platforms"):

@@ -31,6 +31,7 @@ from bde2vid_tpu_torch.models import spade_e2vid as tspade
 from bde2vid_tpu_torch.nn.layers import PixelShufflePack, pixel_shuffle, resize_nearest_torch
 from tests.test_torch_checkpoint_dialects import seeded_state_dict
 from tests.test_torch_e2vid import nchw, seeded_tree
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 ATOL = 2e-4
 H, W, B = 32, 40, 5

@@ -19,6 +19,7 @@ from bde2vid_tpu_torch.nn import layers as tlayers
 from bde2vid_tpu_torch.nn import window_attention as twa
 from bde2vid_tpu_torch.ops import window_attn_cuda as wac
 from tests.test_torch_window_attention import _block_inputs, _torch_params
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 NAMES = sorted(tlayers._ACTIVATIONS)
 

@@ -38,6 +38,7 @@ from bde2vid_tpu_torch.nn import sampling as tsm
 from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
 from bde2vid_tpu_torch.train import SequenceLossComputer, build_optimizer
 from tests.conftest import make_events
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 T = torch.from_numpy
 

@@ -48,6 +48,7 @@ from tests.test_torch_config_surface import (
     state_dict_from_jax,
 )
 from tests.test_torch_parallel_nwindow import concrete_gathers  # noqa: F401  (a fixture)
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 @pytest.fixture(autouse=True)

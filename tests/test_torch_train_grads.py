@@ -21,6 +21,7 @@ from bde2vid_tpu_torch.eval.checkpoint import load_state_dict_checked, state_dic
 from bde2vid_tpu_torch.models import build_model
 from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
 from bde2vid_tpu_torch.train import SequenceLossComputer
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 CONFIGS = {
     # the config of tests/test_pallas_attn.py::test_fused_path_gradients_match_xla_path

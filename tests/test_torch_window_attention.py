@@ -21,6 +21,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     launch_counts,
     swin_block_reference,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 T = torch.from_numpy
 

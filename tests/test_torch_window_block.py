@@ -32,6 +32,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     window_attention_reference,
     window_block_reference,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 T = torch.from_numpy
 TOLS = {"float32": 1e-5, "bfloat16": 2e-2}
