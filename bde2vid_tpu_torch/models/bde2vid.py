@@ -52,6 +52,7 @@ from bde2vid_tpu_torch.nn.layers import (
 from bde2vid_tpu_torch.nn.recurrent import make_recurrent_cell, recurrent_initial_state
 from bde2vid_tpu_torch.nn.remat import checkpoint_step
 from bde2vid_tpu_torch.nn.window_attention import DFrameAttention
+from bde2vid_tpu_torch.parallel import spatial
 
 # frames per batch of the parallel attention (JAX ``_AttnParallel``'s slab)
 _PARALLEL_SLAB = 128
@@ -105,8 +106,9 @@ class RecurrentConv(nn.Module):
             return torch.stack(outs)
         else:
             conv = self.conv.conv2d
-            h, w = ((size + 2 * pad - k) // stride + 1 for size, pad, k, stride in
-                    zip(x.shape[3:], conv.padding, conv.kernel_size, conv.stride))
+            (k, kw), (s, sw), (p, pw) = conv.kernel_size, conv.stride, conv.padding
+            # row-sharded, the state is at this rank's band of the output
+            h, w = spatial.output_rows(x.shape[3], k, s, p), (x.shape[4] + 2 * pw - kw) // sw + 1
             step, inputs, c = self._step, x, conv.out_channels
         state = recurrent_initial_state(self.block_type, n, h, w, c, dtype=x.dtype, device=x.device)
         state = state if isinstance(state, tuple) else (state,)

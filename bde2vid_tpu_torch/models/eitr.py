@@ -35,6 +35,7 @@ from bde2vid_tpu_torch.nn.transformer import (
     TransformerEncoder,
     sine_position_table,
 )
+from bde2vid_tpu_torch.parallel import spatial
 from bde2vid_tpu_torch.utils.padding import CropParameters
 
 
@@ -81,6 +82,7 @@ class EITR(nn.Module):
         return self._pos[key]
 
     def forward(self, voxel: torch.Tensor, state) -> Tuple[Dict[str, torch.Tensor], Tuple]:
+        spatial.refuse("EITR")
         crop = CropParameters(voxel.shape[-1], voxel.shape[-2], 3)
         x = self.head(crop.pad(voxel))
         head = x

@@ -33,6 +33,7 @@ import torch.nn as nn
 from bde2vid_tpu_torch.models.api import register_model
 from bde2vid_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Linear, resize_bilinear_2x
 from bde2vid_tpu_torch.nn.spiking import lif_step, mp_ada_lif_step, mp_lif_step
+from bde2vid_tpu_torch.parallel import spatial
 from bde2vid_tpu_torch.utils.norm import legacy_norm
 
 TAU = 2.0
@@ -221,6 +222,7 @@ class _SNNBase(nn.Module):
         return (x_in, x1, x2, x3, r1, u1, u2, u3), new
 
     def forward(self, voxel: torch.Tensor, state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        spatial.refuse(type(self).__name__)
         if self.normalize_input:
             # per sample: one batch-wide mean and std would let one sample's
             # event density shift another's input

@@ -29,6 +29,7 @@ import torch.nn as nn
 from bde2vid_tpu_torch.models.api import register_model
 from bde2vid_tpu_torch.nn.layers import BatchNorm2d, Conv2d, pixel_shuffle, resize_nearest_torch
 from bde2vid_tpu_torch.nn.recurrent import ConvLSTMCell, LstmState, recurrent_initial_state
+from bde2vid_tpu_torch.parallel import spatial
 
 
 class SPADE(nn.Module):
@@ -157,6 +158,7 @@ class SPADEE2VID(nn.Module):
         self.generator = Unet6(int(config.get("num_bins", 5)))
 
     def forward(self, voxel: torch.Tensor, state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        spatial.refuse("SPADE-E2VID")
         first3 = voxel[:, :3]
         shifted = first3 - first3.min()
         mx = shifted.max()

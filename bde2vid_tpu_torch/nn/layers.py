@@ -10,6 +10,12 @@ their gradients in f32 (bf16 training). With weights already in the input's
 type (f32, or a model cast to bf16 for eval) the cast is a no-op. Norms take
 their statistics and affine in f32 and return the input's type, as flax's
 do.
+
+Under ``parallel.spatial.row_sharded`` (the spatially sharded forward) the
+input holds this rank's band of rows: convs, transposed convs and resizes
+first fetch the rows their kernel reaches past the band, and the norms sum
+their statistics over the "spatial" group, so each band gets what the
+whole map gives it.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bde2vid_tpu_torch.nn.remat import recomputing
+from bde2vid_tpu_torch.parallel import spatial
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -57,7 +64,12 @@ class Conv2d(nn.Conv2d):
     """nn.Conv2d with its weight and bias cast to the input's type at use."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x.dtype)
+        (kh, _), (sh, _), (ph, pw) = self.kernel_size, self.stride, self.padding
+        if spatial.current() is None or (kh, sh, ph) == (1, 1, 0):
+            return self._conv_forward(x, w, b)
+        x = spatial.conv_input(x, kh, sh, ph, self.dilation[0])
+        return F.conv2d(x, w, b, self.stride, (0, pw), self.dilation, self.groups)
 
 
 class Linear(nn.Linear):
@@ -93,8 +105,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
-            mean = x32.mean((0, 2, 3))
-            var = x32.var((0, 2, 3), unbiased=False)
+            if spatial.current() is None:
+                mean = x32.mean((0, 2, 3))
+                var = x32.var((0, 2, 3), unbiased=False)
+            else:  # the whole map's statistics
+                mean, var, _ = spatial.moments(x32, (0, 2, 3))
             if not recomputing():
                 with torch.no_grad():
                     self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
@@ -133,10 +148,13 @@ class InstanceNorm2d(nn.InstanceNorm2d):
             mean = self.running_mean.float()[:, None, None]
             var = self.running_var.float()[:, None, None]
         else:
-            mean = x32.mean((2, 3), keepdim=True)
-            var = x32.var((2, 3), unbiased=False, keepdim=True)
-            if self.track_running_stats and not recomputing():
+            if spatial.current() is None:
+                mean = x32.mean((2, 3), keepdim=True)
+                var = x32.var((2, 3), unbiased=False, keepdim=True)
                 n = x.shape[2] * x.shape[3]
+            else:  # the whole map's statistics
+                mean, var, n = spatial.moments(x32, (2, 3), keepdim=True)
+            if self.track_running_stats and not recomputing():
                 with torch.no_grad():
                     self.running_mean.lerp_(mean.mean((0, 2, 3)).to(self.running_mean.dtype),
                                             self.momentum)
@@ -197,15 +215,24 @@ class UpsampleConvLayer(nn.Module):
 
 
 def resize_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
-    """x2 bilinear upsample of (N, C, H, W), align_corners=False."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    """x2 bilinear upsample of (N, C, H, W), align_corners=False. Row-sharded,
+    the band is resized with a row beyond each edge and cropped: output row
+    2i + j reads rows i and i -+ 1, clamped only at the map's borders."""
+    if spatial.current() is None:
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    y = F.interpolate(spatial.upsample_input(x), scale_factor=2, mode="bilinear",
+                      align_corners=False)
+    return y[..., 2:y.shape[-2] - 2, :]
 
 
 def resize_bilinear_half(x: torch.Tensor) -> torch.Tensor:
     """0.5x bilinear downsample of (N, C, H, W), align_corners=False, no
     antialias, to (H // 2, W // 2) given as the size: at odd sizes
     ``scale_factor=0.5`` would map with the ratio 2 where the JAX package's
-    ``jax.image.resize`` maps with in / out."""
+    ``jax.image.resize`` maps with in / out. Row-sharded, a band of even
+    rows from an even row resizes alone."""
+    if spatial.current() is not None:
+        spatial.check_halving(x)
     h, w = x.shape[-2:]
     return F.interpolate(x, size=(h // 2, w // 2), mode="bilinear", align_corners=False,
                          antialias=False)
@@ -275,9 +302,16 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     """nn.ConvTranspose2d with its weight and bias cast to the input's type at use."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
-                                  self.stride, self.padding, self.output_padding, self.groups,
-                                  self.dilation)
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x.dtype)
+        if spatial.current() is None:
+            return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
+                                      self.groups, self.dilation)
+        x, first, rows = spatial.transposed_conv_input(
+            x, self.kernel_size[0], self.stride[0], self.padding[0], self.output_padding[0],
+            self.dilation[0])
+        y = F.conv_transpose2d(x, w, b, self.stride, (0, self.padding[1]),
+                               (0, self.output_padding[1]), self.groups, self.dilation)
+        return y[..., first:first + rows, :]
 
 
 class TransposedConvLayer(nn.Module):

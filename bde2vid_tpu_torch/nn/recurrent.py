@@ -8,7 +8,9 @@ model/submodules.py RecurrentUpConv :226-264, DownsampleRecurrentConvLayer
 State is explicit: ``recurrent_initial_state`` (or a layer's
 ``initial_state``) makes it and the caller threads it through time;
 ``make_recurrent_cell`` picks the cell by the config's
-``recurrent_block_type``.
+``recurrent_block_type``. Under ``parallel.spatial.row_sharded`` a state
+is made at this rank's band of rows (the band height is the ``height`` the
+caller passes, and a strided conv's output band comes from the plan).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from bde2vid_tpu_torch.nn.layers import (
     resize_bilinear_2x,
     resize_bilinear_half,
 )
+from bde2vid_tpu_torch.parallel import spatial
 
 LstmState = Tuple[torch.Tensor, torch.Tensor]
 State = Union[LstmState, torch.Tensor]
@@ -131,9 +134,10 @@ class RecurrentConvLayer(nn.Module):
         return self.recurrent_block(self.conv(x), state)
 
     def out_size(self, height: int, width: int) -> Tuple[int, int]:
-        """The conv's output size, (h + 2p - k) // stride + 1."""
+        """The conv's output size, (h + 2p - k) // stride + 1; row-sharded,
+        the rows of this rank's band at the output's level."""
         k, stride, p = self.geometry
-        return (height + 2 * p - k) // stride + 1, (width + 2 * p - k) // stride + 1
+        return spatial.output_rows(height, k, stride, p), (width + 2 * p - k) // stride + 1
 
     def initial_state(self, batch: int, height: int, width: int, dtype=torch.float32,
                       device=None) -> State:

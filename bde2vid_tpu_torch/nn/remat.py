@@ -17,6 +17,9 @@ are not functions of its inputs:
 - Train-mode BatchNorm/InstanceNorm layers move their running statistics
   once per call. During a recompute ``recomputing()`` is true and they
   leave them alone, so a remat step updates them once, as in the forward.
+
+A row-sharded forward (``parallel.spatial``) is recomputed under the same
+row context, so the recompute makes the forward's halo exchanges again.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from bde2vid_tpu_torch.parallel import spatial
+
 _depth = 0  # recomputes in progress
 
 
@@ -36,14 +41,15 @@ def recomputing() -> bool:
 
 
 @contextlib.contextmanager
-def _recompute(generator: Optional[torch.Generator], state: Optional[torch.Tensor]):
+def _recompute(generator: Optional[torch.Generator], state: Optional[torch.Tensor], rows):
     global _depth
     now = None if generator is None else generator.get_state()
     if generator is not None:
         generator.set_state(state)
     _depth += 1
     try:
-        yield
+        with spatial.entered(rows):
+            yield
     finally:
         _depth -= 1
         if generator is not None:
@@ -54,7 +60,8 @@ def checkpoint_step(fn: Callable, *args, generator: Optional[torch.Generator] = 
     """``fn(*args)``, rematerialised in the backward. ``generator``: the
     DropPath generator ``fn`` draws from, if any."""
     state = None if generator is None else generator.get_state()
+    rows = spatial.current()
     return checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _recompute(generator, state)),
+        context_fn=lambda: (contextlib.nullcontext(), _recompute(generator, state, rows)),
     )

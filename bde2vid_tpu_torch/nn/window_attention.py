@@ -33,7 +33,7 @@ same two masks, so with one generator seed they give the same result.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,7 @@ from bde2vid_tpu_torch.ops.window_attn_cuda import (
     fused_swin_block,
     fused_window_block,
 )
+from bde2vid_tpu_torch.parallel import spatial
 
 # ---------------------------------------------------------------------------
 # window partition / reverse
@@ -156,9 +157,15 @@ def _dilated_taps(h: int, w: int, wh: int, ww: int) -> np.ndarray:
     ascending order, filled with n_el (a zero row): the fold's taps. K is 1
     for odd windows; even windows overlap, up to 2 x 2 of them per pixel."""
     flat, hp, wp, _, _ = _dilated_flat_index(h, w, wh, ww)
+    return _taps_of(flat, hp * wp)
+
+
+def _taps_of(flat: np.ndarray, positions: int) -> np.ndarray:
+    """(positions, K): the indices i with ``flat[i]`` = each position, in
+    ascending order, filled with ``flat.size``."""
     order = np.argsort(flat, kind="stable")
-    counts = np.bincount(flat, minlength=hp * wp)
-    taps = np.full((hp * wp, counts.max()), flat.size, np.int64)
+    counts = np.bincount(flat, minlength=positions)
+    taps = np.full((positions, max(int(counts.max(initial=0)), 1)), flat.size, np.int64)
     rank = np.arange(flat.size) - (np.cumsum(counts) - counts)[flat[order]]
     taps[flat[order], rank] = order
     return taps
@@ -206,6 +213,75 @@ class _DilatedFold(torch.autograd.Function):
     def backward(ctx, g):
         (flat,) = ctx.saved_tensors
         return g.index_select(-2, flat), None, None
+
+
+class _BandFold(torch.autograd.Function):
+    """Reverse onto a band of rows: (..., n_el, C) window tokens -> (..., P, C)
+    band pixels, each summing its taps; the backward hands each token its
+    pixel's gradient, zero for a token whose pixel lies outside the band."""
+
+    @staticmethod
+    def forward(ctx, x, taps, owner):
+        ctx.save_for_backward(owner)
+        return _fold(x, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (owner,) = ctx.saved_tensors
+        return _fold(g, owner[:, None]), None, None
+
+
+class BandWindows(NamedTuple):
+    """The windows of an (h, w) map's global window grid that meet rows
+    [lo, hi), on a slab of padded rows (see ``band_windows``)."""
+
+    need: Tuple[int, int]  # slab rows before lo and after hi (negative: inside)
+    left: int  # the map's centred left pad
+    slab_w: int  # padded columns of the slab
+    windows: int  # windows a sample
+    flat: np.ndarray  # (n_el,) slab position of each window token
+    taps: np.ndarray  # (slab positions, K) tokens sampling each, n_el-filled
+    band_taps: np.ndarray  # (P, K) tokens that write each band pixel
+    owner: np.ndarray  # (n_el,) band pixel each token writes, P for none
+    uncovered: np.ndarray  # band pixels no window samples (often none)
+    blend: np.ndarray  # (P,) token of each band pixel, n_el + k for uncovered k
+
+
+@functools.lru_cache(maxsize=256)
+def band_windows(h: int, w: int, wh: int, ww: int, dilate: bool, lo: int, hi: int) -> BandWindows:
+    """The windows a row-sharded Swin block runs for rows [lo, hi) of an
+    (h, w) map: the map's own centred pads and window grid (dilation-2
+    windows every ``wh`` rows when ``dilate``), the consecutive window rows
+    that sample any row of the band, and the slab of padded rows they span.
+    A band pixel reads the tokens of the windows that sample it, and a pixel
+    no window samples is uncovered, exactly as on the whole map."""
+    pt, pb, pl, pr = _window_pads(h, w, (wh, ww))
+    hp, wp = h + pt + pb, w + pl + pr
+    if dilate:
+        rows, cols, gh, gw, _, _ = _dilated_indices(hp, wp, wh, ww)
+    else:
+        rows = np.arange(hp // wh)[:, None] * wh + np.arange(wh)[None]
+        cols = np.arange(wp // ww)[:, None] * ww + np.arange(ww)[None]
+        gw = wp
+    meets = np.flatnonzero(((rows >= lo + pt) & (rows < hi + pt)).any(1))
+    sel = rows[meets[0]:meets[-1] + 1] if meets.size else rows[:0]
+    r0, r1 = (int(sel.min()), int(sel.max()) + 1) if meets.size else (lo + pt, hi + pt)
+    flat = ((sel - r0)[:, None, :, None] * gw + cols[None, :, None, :]).reshape(-1)
+    taps = _taps_of(flat, (r1 - r0) * gw)
+    n_el, band_rows = flat.size, np.arange(lo, hi) + pt - r0
+    inside = (band_rows >= 0) & (band_rows < r1 - r0)
+    pos = (np.clip(band_rows, 0, r1 - r0 - 1)[:, None] * gw + np.arange(w)[None] + pl)
+    band_taps = np.where(inside[:, None, None], taps[pos], n_el).reshape((hi - lo) * w, -1)
+    p = band_taps.shape[0]
+    owner = np.full(n_el, p, np.int64)
+    hit = band_taps < n_el
+    owner[band_taps[hit]] = np.nonzero(hit)[0]
+    covered = hit[:, 0]
+    unc = np.flatnonzero(~covered)
+    blend = band_taps[:, 0].copy()
+    blend[unc] = n_el + np.arange(unc.size)
+    return BandWindows((lo - (r0 - pt), (r1 - pt) - hi), pl, gw, len(sel) * cols.shape[0], flat,
+                       taps, band_taps, owner, unc, blend)
 
 
 def _bias_rows(wd: int, wh: int, ww: int, h: int, w: int, q_ind: int, n: int,
@@ -442,17 +518,21 @@ class SwinTransformerBlock3D(nn.Module):
         centre (B, H, W, C). ``generator`` draws the DropPath masks in
         training mode."""
         d, b, h, w, c = x.shape
-        win = get_window_size((h, w), self.window_size[-2:])
+        rows = spatial.current()
+        # the window grid is the whole map's: row-sharded, its rows are the plan's
+        height = h if rows is None else rows.geometry(h)[1]
+        win = get_window_size((height, w), self.window_size[-2:])
         masks = self.keep_masks(b, x.device, generator)
         kernel = self.use_kernel and self.attn.nwin_size is None
         # even dilated windows overlap: the fold sums their attention outputs
         # before the residual, so the whole block cannot run per window
-        even_dilated = self.dilate_win and (win[0] % 2 == 0 or win[1] % 2 == 0)
-        if kernel and not even_dilated:
-            return self._fused_full(x, x[self.q_ind] if center is None else center, win, masks)
-        if center is not None:
-            x = torch.cat([x[: self.q_ind], center[None], x[self.q_ind + 1 :]])
-        shortcut = x[self.q_ind]
+        fused = kernel and not (self.dilate_win and (win[0] % 2 == 0 or win[1] % 2 == 0))
+        center = x[self.q_ind] if center is None else center
+        if rows is not None:
+            return self._band_forward(x, center, win, masks, fused, kernel, rows)
+        if fused:
+            return self._fused_full(x, center, win, masks)
+        x = torch.cat([x[: self.q_ind], center[None], x[self.q_ind + 1 :]])
         pt, pb, pl, pr = _window_pads(h, w, win)
         xp = F.pad(x, (0, 0, pl, pr, pt, pb))
         hp, wp = h + pt + pb, w + pl + pr
@@ -462,13 +542,80 @@ class SwinTransformerBlock3D(nn.Module):
             y = window_reverse_dilated(attn, b, hp, wp)
         else:
             y = window_reverse(attn, b, hp, wp)
-        y = y[:, pt : hp - pb, pl : wp - pr]
+        return self._residual_mlp(center, y[:, pt : hp - pb, pl : wp - pr], masks)
+
+    def _residual_mlp(self, shortcut: torch.Tensor, y: torch.Tensor, masks) -> torch.Tensor:
+        """shortcut + attention, then the MLP residual, each branch under its
+        DropPath mask."""
         if masks is None:
             y = shortcut + y
             return y + self.mlp(self.norm2(y))
-        m1, m2 = (mk.to(y.dtype).view(b, 1, 1, 1) for mk in masks)
+        m1, m2 = (mk.to(y.dtype).view(-1, 1, 1, 1) for mk in masks)
         y = shortcut + m1 * y
         return y + m2 * self.mlp(self.norm2(y))
+
+    def _band_forward(self, x: torch.Tensor, center: torch.Tensor, win, masks, fused: bool,
+                      kernel: bool, rows) -> torch.Tensor:
+        """The block on this rank's band of rows (``parallel.spatial``): the
+        windows of the whole map's grid that meet the band (``band_windows``)
+        run on a slab of rows fetched from their owners, and only the band's
+        pixels are folded back. A window that meets two bands runs on both
+        ranks, each keeping its own pixels."""
+        d, b, h, w, c = x.shape
+        level, height, lo, hi = rows.geometry(h)
+        every = [band_windows(height, w, *win, self.dilate_win, *band)
+                 for band in rows.bands(level)]
+        maps = every[rows.index]
+        if not all(m.windows for m in every):
+            raise ValueError(f"a band of the {height}-row map meets no window of its grid: run "
+                             f"the map on fewer ranks (ROADMAP A16)")
+
+        def index(name: str) -> torch.Tensor:
+            key = ("band_" + name, height, w, *win, self.dilate_win, lo, hi)
+            return _device_index(key, x.device, lambda: getattr(maps, name))
+
+        frames = (torch.cat([x, center[None]]) if fused
+                  else torch.cat([x[: self.q_ind], center[None], x[self.q_ind + 1 :]]))
+        slab = spatial.halo_rows(frames, *zip(*(m.need for m in every)), dim=2)
+        slab = F.pad(slab, (0, 0, maps.left, maps.slab_w - w - maps.left))
+        tok = _DilatedGather.apply(slab.reshape(slab.shape[0], b, -1, c), index("flat"),
+                                   index("taps"))
+        nw = maps.windows
+        if fused:
+            win_masks = None if masks is None else tuple(mk.repeat_interleave(nw) for mk in masks)
+            out = fused_swin_block(
+                tok[:d].reshape(d, b * nw, -1, c), tok[d].reshape(b * nw, -1, c),
+                self.kernel_params(win[0], win[1], d), self.attn.num_heads, self.q_ind,
+                self.activation, masks=win_masks)
+            src = out.reshape(b, -1, c)
+            # every rank runs the same operations (a band without uncovered
+            # pixels an empty gather), so that the backward's exchanges and
+            # sums meet in the same order on every rank
+            if any(band.uncovered.size for band in every):
+                unc = center.reshape(b, h * w, c)[:, index("uncovered")]
+                src = torch.cat([src, self._uncovered(unc, masks).to(src.dtype)], dim=1)
+            return src[:, index("blend")].reshape(b, h, w, c)
+        with spatial.suspended():  # the KV token reduction conv works on whole windows
+            attn = self.attn(tok.reshape(d, b * nw, *win, c), use_kernel=kernel)
+        y = _BandFold.apply(attn.reshape(b, -1, c), index("band_taps"), index("owner"))
+        return self._residual_mlp(center, y.reshape(b, h, w, c), masks)
+
+    def _uncovered(self, center: torch.Tensor, masks) -> torch.Tensor:
+        """The block at pixels no dilated window samples, f32: the fold writes
+        zeros there (DTransformer.py:80-85), so they pass as center +
+        MLP(LN2(center)), the MLP branch still under its DropPath mask.
+        ``center`` (B, P, C)."""
+        cf = center.float()
+        c = cf.shape[-1]
+        z = F.layer_norm(cf, (c,), self.norm2.weight.float(), self.norm2.bias.float(), 1e-5)
+        dt = center.dtype
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        hid = get_activation(self.activation)(F.linear(z.to(dt), fc1.weight.to(dt)).float()
+                                              + fc1.bias.float())
+        mlp_out = F.linear(hid.to(dt), fc2.weight.to(dt)).float() + fc2.bias.float()
+        if masks is not None:
+            mlp_out = masks[1][:, None, None] * mlp_out
+        return cf + mlp_out
 
     def kernel_params(self, h: int, w: int, d: int) -> SwinBlockParams:
         p = self.attn.kernel_params(h, w, d)
@@ -509,19 +656,8 @@ class SwinTransformerBlock3D(nn.Module):
         unc, idx = _blend_index(hp, wp, win[0], win[1], (pt, pb, pl, pr), x.device)
         src = out.reshape(b, -1, c)
         if unc is not None:
-            cf = cp[0].reshape(b, hp * wp, c)[:, unc].float()
-            z = F.layer_norm(cf, (c,), self.norm2.weight.float(), self.norm2.bias.float(), 1e-5)
-            dt = x.dtype
-            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-            hid = get_activation(self.activation)(
-                F.linear(z.to(dt), fc1.weight.to(dt)).float() + fc1.bias.float()
-            )
-            mlp_out = F.linear(hid.to(dt), fc2.weight.to(dt)).float() + fc2.bias.float()
-            if masks is not None:
-                # no attention reaches these pixels (the fold writes zeros),
-                # but their MLP branch still carries the DropPath mask
-                mlp_out = masks[1][:, None, None] * mlp_out
-            src = torch.cat([src, (cf + mlp_out).to(src.dtype)], dim=1)
+            cf = cp[0].reshape(b, hp * wp, c)[:, unc]
+            src = torch.cat([src, self._uncovered(cf, masks).to(src.dtype)], dim=1)
         return src[:, idx].reshape(b, h, w, c)
 
 

@@ -11,8 +11,9 @@ environment; without it (world size 1) nothing changes.
 
 - ``data`` axis: independent sequences (eval chunks, serving batches) or
   the training batch; each rank holds its contiguous block of rows.
-- ``spatial`` axis: the sensor rows. Only its placement helper is here;
-  the spatially sharded forward is not ported (ROADMAP A16).
+- ``spatial`` axis: the sensor rows. Its placements are here; the
+  row-sharded forward and train step, with their halo exchanges, are in
+  ``parallel/spatial.py`` and ``parallel/sharded_train.py``.
 """
 
 from __future__ import annotations
@@ -95,6 +96,9 @@ def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1):
 
     ranks = world_size()
     if n_data is None:
+        if n_spatial < 1 or ranks % n_spatial:
+            raise ValueError(f"{ranks} ranks do not divide into rows of n_spatial={n_spatial}: "
+                             "give n_data, or start a multiple of n_spatial ranks")
         n_data = ranks // n_spatial
     need = n_data * n_spatial
     if need <= 0 or ranks < need:

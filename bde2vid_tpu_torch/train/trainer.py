@@ -146,7 +146,7 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                flows: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
                grad_clip: Optional[float] = None, scheduler=None,
                dtype: torch.dtype = torch.float32, remat: bool = False,
-               ranks=None) -> Dict[str, torch.Tensor]:
+               ranks=None, rows=None) -> Dict[str, torch.Tensor]:
     """One step (counterpart of ``make_train_step``): forward in training
     mode (``sequence_forward``), sequence loss, backward, global-norm clip,
     optimizer and scheduler step. voxels (T, N, B, H, W), frames (T, N, 1,
@@ -158,9 +158,15 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``ranks``: in a data-parallel step (``parallel.make_dp_train_step``),
     the ``RankMean`` that averages the gradients and losses over the ranks
     before the clip and the running statistics after the step; None in one
-    process. Returns the detached loss dict."""
+    process. ``rows``: in a row-sharded step, ``rows(forward, voxels)`` runs
+    ``forward`` on this rank's band of the voxels' rows and gathers the
+    images (``parallel.sharded_train``). Returns the detached loss dict."""
     optimizer.zero_grad(set_to_none=True)
-    preds = sequence_forward(model, voxels.to(dtype), generator, remat).float()
+
+    def forward(v):
+        return sequence_forward(model, v, generator, remat)
+
+    preds = (forward(voxels.to(dtype)) if rows is None else rows(forward, voxels.to(dtype))).float()
     total, loss_dict = loss_computer(preds, frames, flows)
     total.backward()
     losses = {k: v.detach() for k, v in loss_dict.items()}

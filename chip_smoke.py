@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (bde2vid_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--only scale_out|scale_out_torchrun]
+    python3 chip_smoke.py [--only scale_out|scale_out_torchrun|spatial]
 
 Phases, one JSON line each; a failure in any phase raises and the script
 exits non-zero without a result line. Two configurations run at full
@@ -174,6 +174,19 @@ reference's.
            alone; a --dp 2 flagship bundle at batch 2 (--T 4) held to a
            --dp 1 bundle (1e-6); exact B1 and B2 launches on every rank;
            step ms, the gradient all_reduce's ms, frames/s of both
+  spatial  the row-sharded forward and train step (ROADMAP A16) over
+           spawned ranks on a (1, ranks) mesh: two gloo ranks on the one
+           card (halos staged through host memory; one NCCL rank a card
+           where there are several, `--only spatial`), after the halo
+           exchange on CUDA tensors is checked: spatial_forward of the
+           flagship and the 8x8 config at 184x240 and of the flagship at
+           720x1280 (a 1280x720 camera), T=8, held to one process's forward
+           (1e-5), and one flagship train step at T=4 (loss 1e-6 relative;
+           by relative L2, gradients 1e-3 and the weights after Adam's step
+           1e-5); exact B1 / B3 / B2 launches a rank;
+           forward and step ms, peak memory, halo exchanges and bytes of
+           each rank beside one process's, and the B1 / B3 windows a launch
+           of each rank's band
   events   the event side (ROADMAP A11) at 180x240 with 150 000 events:
            the event images, drv planes, timestamp images, flow warp and
            voxel helpers card vs CPU (1e-5 relative) with their ms; every
@@ -3344,7 +3357,7 @@ def phase_deform(torch, launch_counts, card):
 
 # --------------------------------------------------------------- scale_out
 
-SCALE_OUT_T, SCALE_OUT_HW, SCALE_OUT_L, SCALE_OUT_STEPS = 8, (176, 240), 8, 3
+SCALE_OUT_T, SCALE_OUT_HW, SCALE_OUT_L, SCALE_OUT_STEPS = 8, (176, 240), 8, 2
 
 
 def scale_out_layout(torch):
@@ -3894,11 +3907,306 @@ def phase_scale_out(torch, launch_counts, card):
         raise AssertionError("; ".join(failures))
 
 
+SPATIAL_T, SPATIAL_TRAIN_T = 8, 4
+SPATIAL_HW, SPATIAL_LARGE_HW = (184, 240), (720, 1280)  # the flagship's, a 1280x720 camera's
+SPATIAL_CONFIGS = {"flagship": FLAGSHIP_CFG, "8x8": EIGHT_CFG}
+# Adam's rate in the held train step: its first step moves each weight by
+# about lr sign(g), so a near-zero gradient component that the sharded and
+# the one-process sums round to opposite signs moves a weight by 2 lr; the
+# weights' relative L2 gate (1e-5) then counts such flips (9.8e-6 at 1e-4)
+SPATIAL_LR = 1e-5
+
+
+def spatial_layout(torch):
+    """(ranks, backend) of the spatial phase: two ranks on one gloo group on
+    the one card, or one NCCL rank a card where there are several."""
+    cards = torch.cuda.device_count()
+    return (cards, "nccl") if cards > 1 else (2, "gloo")
+
+
+def spatial_model(torch, name, train=False):
+    """The configuration on the kernel path (DropPath off in training: the
+    one-process and the sharded step must draw alike), seeded."""
+    from bde2vid_tpu_torch.models import build_model
+
+    cfg = model_config(SPATIAL_CONFIGS[name])
+    cfg["generator"]["drop_path_rate"] = 0.0
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(25)
+        return build_model("BDE2VID", cfg, train=train)
+
+
+def spatial_inputs(tmp):
+    """Voxels at both sizes and the train targets, on the host and on disk."""
+    rng = np.random.default_rng(25)
+    arrays = {"vox": rng.normal(size=(SPATIAL_T, 1, 5, *SPATIAL_HW)),
+              "large": rng.normal(size=(SPATIAL_T, 1, 5, *SPATIAL_LARGE_HW)),
+              "tgt": rng.uniform(size=(SPATIAL_TRAIN_T, 1, 1, *SPATIAL_HW))}
+    for k, a in arrays.items():
+        np.save(os.path.join(tmp, f"{k}.npy"), a.astype(np.float32))
+    return {k: a.astype(np.float32) for k, a in arrays.items()}
+
+
+def spatial_run(torch, fn, launch_counts):
+    """(result, host ms, launches, exchanges, peak GB) of one synchronised
+    call of ``fn`` from zeroed counts and peak."""
+    from bde2vid_tpu_torch.parallel.spatial import exchange_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
+    exchange_counts.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return (out, ms, {k: v for k, v in launch_counts.items() if v}, dict(exchange_counts),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def spatial_rank(index, ranks, backend, tmp):
+    """One rank of the spatial phase (a spawned process): the transport's
+    check, then spatial_forward of both configurations at 184x240 and of the
+    flagship at 720x1280, and one row-sharded train step, on a (1, ranks)
+    mesh; writes rank<index>.json and rank 0's images."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = index if backend == "nccl" else 0
+    torch.cuda.set_device(card)
+    kw = {"device_id": torch.device("cuda", card)} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), ranks),
+                            rank=index, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=600), **kw)
+    try:
+        from bde2vid_tpu_torch.ops.window_attn_cuda import launch_counts
+        from bde2vid_tpu_torch.parallel import make_dp_train_step, make_mesh, spatial_forward
+        from bde2vid_tpu_torch.train import SequenceLossComputer
+
+        out = {"rank": index, "card": card, "transport": spatial_transport(torch, index, ranks)}
+        mesh = make_mesh(1, ranks)
+        arrays = {k: torch.from_numpy(np.load(os.path.join(tmp, f"{k}.npy"))).cuda()
+                  for k in ("vox", "large", "tgt")}
+        for name, key in (("flagship", "vox"), ("8x8", "vox"), ("flagship", "large")):
+            model = spatial_model(torch, name)
+            model.load_state_dict(torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=True))
+            fwd = lambda: spatial_forward(model, arrays[key], mesh)  # noqa: E731
+            with torch.no_grad():
+                fwd()  # warm-up
+                images, ms, launches, exchanges, peak = spatial_run(torch, fwd, launch_counts)
+            row = f"{name}_{key}"
+            out[row] = {"ms": ms, "launches": launches, "exchanges": exchanges, "peak_gb": peak}
+            if index == 0:
+                torch.save(images.cpu(), os.path.join(tmp, f"images_{row}.pt"))
+            del model, images
+        model = spatial_model(torch, "flagship", train=True)
+        model.load_state_dict(torch.load(os.path.join(tmp, "flagship.pt"), weights_only=True))
+        opt = torch.optim.Adam(model.parameters(), lr=SPATIAL_LR)
+        step = make_dp_train_step(model, opt, SequenceLossComputer([{"type": "L1Loss"}]), mesh)
+        vox = arrays["vox"][:SPATIAL_TRAIN_T]
+        loss, ms, launches, exchanges, peak = spatial_run(
+            torch, lambda: step(vox, arrays["tgt"])["loss"].item(), launch_counts)
+        if index in (0, ranks - 1):
+            torch.save(spatial_train_state(model), os.path.join(tmp, f"train_state{index}.pt"))
+        out["train"] = {"loss": loss, "ms": ms, "launches": launches, "exchanges": exchanges,
+                        "peak_gb": peak,
+                        "next_ms": timed_steps(torch, lambda: step(vox, arrays["tgt"]), 1)[0]}
+        with open(os.path.join(tmp, f"rank{index}.json"), "w") as fp:
+            json.dump(out, fp)
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_train_state(model):
+    """The weights and the gradients of a step, by name, on the host."""
+    return {"weights": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "grads": {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}}
+
+
+def spatial_transport(torch, index, ranks):
+    """The halo exchange on CUDA tensors, checked: each rank's band of a
+    known map with two rows beyond each edge, from its neighbours (staged
+    through host memory under gloo, on the device under NCCL), and the
+    gradient sent back."""
+    from bde2vid_tpu_torch.parallel.spatial import RowPlan, halo_rows, row_sharded
+
+    plan = RowPlan(4 * ranks, 0, ranks)
+    whole = torch.arange(4 * ranks * 3, dtype=torch.float32, device="cuda").reshape(4 * ranks, 3)
+    lo, hi = plan.band(index, 0)
+    x = whole[lo:hi].clone().requires_grad_()
+    with row_sharded(plan):
+        got = halo_rows(x, 2, 2, dim=0)
+    got.sum().backward()
+    want = torch.nn.functional.pad(whole, (0, 0, 2, 2))[lo:hi + 4]
+    reads = torch.zeros(4 * ranks, device="cuda")  # the ranks that read each row
+    for r in range(ranks):
+        a, b = plan.band(r, 0)
+        reads[max(a - 2, 0):b + 2] += 1
+    if not (torch.equal(got, want) and torch.equal(x.grad[:, 0], reads[lo:hi])):
+        raise AssertionError(f"rank {index}: halo rows {got.tolist()}, gradient "
+                             f"{x.grad[:, 0].tolist()}")
+    return "staged through host memory" if torch.distributed.get_backend() == "gloo" else "device"
+
+
+def spatial_windows():
+    """B1 / B3 windows a launch of each rank against the whole map's, at
+    both attention levels of both configurations at 184x240, two and four
+    ranks: {config: {ranks: {level: {plain|dilated: [rank windows...,
+    whole]}}}} (a frame of a batch of one: a launch runs every frame's
+    windows of one block)."""
+    from bde2vid_tpu_torch.nn.window_attention import band_windows
+    from bde2vid_tpu_torch.parallel.spatial import RowPlan
+
+    out = {}
+    for name, cfg in SPATIAL_CONFIGS.items():
+        win = cfg["generator"]["window_size"]
+        out[name] = {}
+        for ranks in (2, 4):
+            plan = RowPlan(SPATIAL_HW[0], 3, ranks)
+            levels = {}
+            for lvl in (0, 2):
+                h, w = plan.height(lvl + 1), SPATIAL_HW[1] >> (lvl + 1)
+                levels[f"level{lvl}"] = {
+                    kind: [band_windows(h, w, *win, dilate, *plan.band(r, lvl + 1)).windows
+                           for r in range(ranks)] + [band_windows(h, w, *win, dilate, 0, h).windows]
+                    for kind, dilate in (("plain", False), ("dilated", True))}
+            out[name][str(ranks)] = levels
+    return out
+
+
+def phase_spatial(torch, launch_counts, card):
+    """The row-sharded forward and train step (ROADMAP A16) over spawned
+    ranks (see spatial_layout), each held to one process on the same inputs:
+    the flagship and the 8x8 config at 184x240 and the flagship at 720x1280,
+    T=8, eval forward (images within 1e-5), and one flagship train step at
+    T=4 (loss 1e-6 relative; by relative L2, gradients 1e-3 and weights
+    1e-5), with exact launch counts a rank; times, peak memory and halo
+    exchanges of both sides."""
+    import torch.multiprocessing as mp
+
+    from bde2vid_tpu_torch.parallel.spatial import RowPlan
+    from bde2vid_tpu_torch.train import SequenceLossComputer, train_step
+
+    ranks, backend = spatial_layout(torch)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        arrays = {k: torch.from_numpy(a) for k, a in spatial_inputs(tmp).items()}
+        ref = {}
+        for name, key in (("flagship", "vox"), ("8x8", "vox"), ("flagship", "large")):
+            model = spatial_model(torch, name)
+            torch.save(model.state_dict(), os.path.join(tmp, f"{name}.pt"))
+            vox = arrays[key].cuda()
+            with torch.no_grad():
+                model(vox)  # warm-up
+                images, ms, launches, _, peak = spatial_run(
+                    torch, lambda: model(vox)["image"], launch_counts)
+            ref[f"{name}_{key}"] = {"images": images.cpu(), "ms": ms, "launches": launches,
+                                    "peak_gb": peak}
+            del model, vox, images
+        model = spatial_model(torch, "flagship", train=True)
+        opt = torch.optim.Adam(model.parameters(), lr=SPATIAL_LR)
+        vox, tgt = arrays["vox"][:SPATIAL_TRAIN_T].cuda(), arrays["tgt"].cuda()
+        comp = SequenceLossComputer([{"type": "L1Loss"}])
+        loss, ms, launches, _, peak = spatial_run(
+            torch, lambda: train_step(model, opt, comp, vox, tgt)["loss"].item(), launch_counts)
+        ref["train"] = {"loss": loss, "ms": ms, "launches": launches, "peak_gb": peak,
+                        "state": spatial_train_state(model),
+                        "next_ms": timed_steps(torch, lambda: train_step(model, opt, comp, vox, tgt),
+                                               1)[0]}
+        del model, opt, vox, tgt
+        torch.cuda.empty_cache()
+
+        t_ranks = time.perf_counter()
+        mp.start_processes(spatial_rank, args=(ranks, backend, tmp), nprocs=ranks, join=True,
+                           start_method="spawn")
+        ranks_s = time.perf_counter() - t_ranks
+        got = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fp:
+                got.append(json.load(fp))
+
+        # every gate is checked and the figures written before any failure raises
+        failures = []
+        per_frame = {"flagship": {"fused_swin_block": 10},
+                     "8x8": {"fused_swin_block": 5, "fused_window_block": 5}}
+        diffs = {}
+        for row in ("flagship_vox", "8x8_vox", "flagship_large"):
+            name = row.split("_")[0]
+            want = {k: n * SPATIAL_T for k, n in per_frame[name].items()}
+            images = torch.load(os.path.join(tmp, f"images_{row}.pt"), weights_only=True)
+            diffs[row] = (images - ref[row]["images"]).abs().max().item()
+            if not (images.shape == ref[row]["images"].shape and torch.isfinite(images).all()
+                    and diffs[row] <= 1e-5):
+                failures.append(f"spatial {row}: images {tuple(images.shape)} max diff "
+                                f"{diffs[row]} from one process's (bound 1e-5)")
+            sides = [("one process", ref[row]["launches"])] + [
+                (f"rank {g['rank']}", g[row]["launches"]) for g in got]
+            for who, launches in sides:
+                if launches != want:
+                    failures.append(f"spatial {row}: {who} launched {launches}, want {want}")
+        want = {k: 10 * SPATIAL_TRAIN_T for k in ("fused_swin_block", "attn_core_backward")}
+        loss_rel = max(abs(g["train"]["loss"] - ref["train"]["loss"]) / abs(ref["train"]["loss"])
+                       for g in got)
+        # the loss; the reduced gradients (a rank's rows counted twice or
+        # missing moves them by 0.5 or more; reduction orders and cuDNN's
+        # algorithms for the slabs' shapes by 9.8e-5 over four ranks, most of
+        # it the head conv's weight, whose terms cancel, C11); the weights
+        # after Adam's first step, about lr sign(g), blind to the gradient's
+        # scale but not to its sign (by the relative L2 of all of them: a
+        # near-zero component rounded to the other sign moves its weight by
+        # 2 lr)
+        train_rel = {}
+        for r in sorted({0, ranks - 1}):
+            state = torch.load(os.path.join(tmp, f"train_state{r}.pt"), weights_only=True)
+            train_rel[r] = {what: rel_l2(torch, state[what], ref["train"]["state"][what])
+                            for what in ("grads", "weights")}
+        if not (loss_rel <= 1e-6 and all(v["grads"][0] <= 1e-3 and v["weights"][0] <= 1e-5
+                                         for v in train_rel.values())):
+            rel = {r: {w: x[0] for w, x in v.items()} for r, v in train_rel.items()}
+            failures.append(f"spatial train: loss {loss_rel:.3g} (bound 1e-6 relative); relative "
+                            f"L2 by rank {rel} (gradients 1e-3, weights 1e-5) from one process")
+        for who, g in [("one process", ref["train"])] + [(f"rank {g['rank']}", g["train"])
+                                                          for g in got]:
+            if g["launches"] != want:
+                failures.append(f"spatial train: {who} launched {g['launches']}, want {want}")
+
+    def side(row):
+        return {"one_process": {k: ref[row][k] for k in ("ms", "peak_gb", "launches")},
+                "ranks": [{k: g[row][k] for k in ("ms", "peak_gb", "launches", "exchanges")}
+                          for g in got]}
+
+    emit({"phase": "spatial", "card": card, "cards": torch.cuda.device_count(), "ranks": ranks,
+          "backend": backend, "transport": got[0]["transport"],
+          "rows_a_rank": {str(h): RowPlan(h, 3, ranks).rows(0)
+                          for h in (SPATIAL_HW[0], SPATIAL_LARGE_HW[0])},
+          "T": SPATIAL_T, "train_T": SPATIAL_TRAIN_T,
+          "seconds": time.perf_counter() - t_phase, "ranks_seconds": ranks_s,
+          "max_diff": diffs,
+          "forward": {"flagship_184x240": side("flagship_vox"), "8x8_184x240": side("8x8_vox"),
+                      "flagship_720x1280": side("flagship_large")},
+          "train": {"loss_rel_diff": loss_rel,
+                    "rel_l2": {str(r): {what: {"all": v[0], "worst_tensor": [v[1], v[2]]}
+                                        for what, v in rel.items()}
+                               for r, rel in train_rel.items()},
+                    "one_process": {k: ref["train"][k]
+                                    for k in ("ms", "next_ms", "peak_gb", "launches")},
+                    "ranks": [g["train"] for g in got]},
+          "windows_a_launch": spatial_windows(), "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="drive the port on the card and check it")
-    parser.add_argument("--only", choices=["scale_out", "scale_out_torchrun"], default=None,
+    parser.add_argument("--only", choices=["scale_out", "scale_out_torchrun", "spatial"],
+                        default=None,
                         help="build the kernels and run this phase alone (on every visible "
                         "card: one NCCL rank a card where there are several); "
                         "scale_out_torchrun, on several cards: only the CLIs under torchrun "
@@ -3920,8 +4228,8 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     phase_build()
     if args.only is not None:
-        {"scale_out": phase_scale_out,
-         "scale_out_torchrun": phase_scale_out_torchrun}[args.only](torch, launch_counts, card)
+        {"scale_out": phase_scale_out, "scale_out_torchrun": phase_scale_out_torchrun,
+         "spatial": phase_spatial}[args.only](torch, launch_counts, card)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -3947,6 +4255,7 @@ def main(argv=None) -> int:
     phase_lpips(torch, launch_counts, card)
     phase_serving(torch, launch_counts, card)
     phase_scale_out(torch, launch_counts, card)
+    phase_spatial(torch, launch_counts, card)
     phase_events(torch, launch_counts, card)
     phase_deform(torch, launch_counts, card)
 
