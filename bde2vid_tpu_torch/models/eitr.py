@@ -13,7 +13,10 @@ The input is padded to /8 inside the model and the image cropped back, so
 the state lives at the padded size.
 
 Tokens are the (h, w) grid in row-major order; ``d_model`` must equal
-``channels[3]``. Module names are the reference's (``head``,
+``channels[3]``. Row-sharded (``parallel.spatial``), a rank's queries are
+its band's tokens and every attention reads the whole map's keys and values
+(``spatial.all_tokens``); the position table is sliced at the band's first
+token. Module names are the reference's (``head``,
 ``DownsampleConv.N``, ``split1``, ``split2``,
 ``trans_encoderN.encoder.layers.J``, ``trans_decoderN.decoder.layers.J``,
 ``UpsampleConv.N``, ``pred``).
@@ -41,6 +44,8 @@ from bde2vid_tpu_torch.utils.padding import CropParameters
 
 @register_model("EITR")
 class EITR(nn.Module):
+    row_levels = 3  # stride-2 levels (DownsampleConv), read by parallel.spatial.model_levels
+
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
         self.config = dict(config)
@@ -82,7 +87,9 @@ class EITR(nn.Module):
         return self._pos[key]
 
     def forward(self, voxel: torch.Tensor, state) -> Tuple[Dict[str, torch.Tensor], Tuple]:
-        spatial.refuse("EITR")
+        # row-sharded, the band's rows are a multiple of 8 (the plan's bands
+        # at 3 levels), so the pad and the crop leave the rows alone and act
+        # on the width only, as on the whole map
         crop = CropParameters(voxel.shape[-1], voxel.shape[-2], 3)
         x = self.head(crop.pad(voxel))
         head = x
@@ -94,8 +101,14 @@ class EITR(nn.Module):
 
         nb, _, h8, w8 = blocks[2].shape
         tokens = lambda t: t.flatten(2).transpose(1, 2)  # (N, h8 w8, d), row-major (h, w)
+        # split1 (k2s2) and split2 (k4s4) map band onto band with no exchange
         words = (tokens(blocks[2]), tokens(self.split1(blocks[1])), tokens(self.split2(blocks[0])))
-        pos = self._position_table(h8 * w8, words[0])
+        rows = spatial.current()
+        if rows is None:
+            pos = self._position_table(h8 * w8, words[0])
+        else:  # the band's tokens are the whole map's from row lo on
+            _, height, lo, hi = rows.geometry(h8)
+            pos = self._position_table(height * w8, words[0])[:, lo * w8:hi * w8]
         hs0, hs1, hs2 = (getattr(self, f"trans_encoder{i}")(w, pos) for i, w in enumerate(words))
         if self.use_trans_decoder:
             hc0 = self.trans_decoder0(hs0, hs0)

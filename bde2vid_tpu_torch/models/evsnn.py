@@ -16,6 +16,11 @@ last bin's output membrane; the eval driver robust-normalises it. Every
 firing LIF membrane persists across bins and calls; the residual block
 fires ONE membrane twice a bin. Downsampled sizes are ``(h + 1) // 2``.
 
+Row-sharded (``parallel.spatial``), the input norm and the adaptive leaks
+take the whole map's statistics over the group, and the state lives at the
+band's rows: the plan's bands halve exactly, so ``(h + 1) // 2`` is the
+band at the next level.
+
 The module names are the reference's (``static_conv.0``, ``down1.conv.conv2d``,
 ``residualBlock.0.bn1``, ``up1.norm_layer``, ``skip0.conv.get_theta.fc3``,
 ``aggregation1``, ``temporalflat``, ``final.0``), so a reference state dict
@@ -135,7 +140,8 @@ class GetThetaSimMP(nn.Module):
         self.fc2 = Linear(cout // 4, 1)
 
     def forward(self, x, out):
-        theta = torch.cat([out.amax((2, 3)), x.mean((2, 3))], 1)
+        # the whole map's max and mean (over the "spatial" group when row-sharded)
+        theta = torch.cat([spatial.group_max(out, (2, 3)), spatial.group_mean(x, (2, 3))], 1)
         return self.fc2(torch.relu(self.fc3(theta)))
 
 
@@ -196,6 +202,8 @@ class TemporalFlatLayerAdaSimMPConcat(nn.Module):
 class _SNNBase(nn.Module):
     """The shared spiking UNet trunk and the bin fold."""
 
+    row_levels = 3  # stride-2 levels (down1..3), read by parallel.spatial.model_levels
+
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
         self.config = dict(config or {})
@@ -222,7 +230,6 @@ class _SNNBase(nn.Module):
         return (x_in, x1, x2, x3, r1, u1, u2, u3), new
 
     def forward(self, voxel: torch.Tensor, state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-        spatial.refuse(type(self).__name__)
         if self.normalize_input:
             # per sample: one batch-wide mean and std would let one sample's
             # event density shift another's input

@@ -150,7 +150,14 @@ class SPADEE2VID(nn.Module):
     SPADE; the first step bootstraps it from the first three voxel channels.
     The gate is on their RAW max over the whole tensor, batch included: a
     max of exactly 0 keeps the raw channels; otherwise they are shifted by
-    their min and divided by the max after the shift."""
+    their min and divided by the max after the shift.
+
+    Row-sharded (``parallel.spatial``) those extremes are the group's, and
+    the two stride-2 levels map band onto band: the previous prediction's
+    nearest resize to a level-1 band reads rows 2i of the level-0 band
+    (ratio exactly 2), the pixel shuffles double a band's rows."""
+
+    row_levels = 2  # stride-2 levels (rec1, rec2), read by parallel.spatial.model_levels
 
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
@@ -158,11 +165,11 @@ class SPADEE2VID(nn.Module):
         self.generator = Unet6(int(config.get("num_bins", 5)))
 
     def forward(self, voxel: torch.Tensor, state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-        spatial.refuse("SPADE-E2VID")
+        # the whole tensor's extremes (over the "spatial" group when row-sharded)
         first3 = voxel[:, :3]
-        shifted = first3 - first3.min()
-        mx = shifted.max()
-        boot = torch.where(first3.max() != 0,
+        shifted = first3 - spatial.group_min(first3)
+        mx = spatial.group_max(shifted)
+        boot = torch.where(spatial.group_max(first3) != 0,
                            shifted / torch.where(mx == 0, torch.ones_like(mx), mx), first3)
         pred = torch.where(state["initialized"], state["pred"].to(voxel.dtype), boot)
         out, new_states = self.generator(voxel, state["states"], pred)

@@ -10,6 +10,10 @@ with ``torch.matmul``. Dropout is off (evaluation). The pre-norm stacks
 that EITR runs nest their layers one level down (``encoder.layers.J``,
 ``decoder.layers.J``), as the reference's wrappers do; positions are added
 once, at the encoder's input.
+
+Under ``parallel.spatial.row_sharded`` the pre-norm layers' tokens are a
+band of the map: the queries stay the band's, the keys and values are the
+whole map's (``spatial.all_tokens``); norms and FFNs act per token.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bde2vid_tpu_torch.nn.layers import LayerNorm, Linear
+from bde2vid_tpu_torch.parallel import spatial
 
 
 class MultiheadAttention(nn.Module):
@@ -72,7 +77,8 @@ class TransformerEncoderLayer(_FeedForward):
 
     def forward(self, src: torch.Tensor) -> torch.Tensor:
         q = self.norm1(src)
-        src = src + self.self_attn(q, q, q)
+        kv = spatial.all_tokens(q)
+        src = src + self.self_attn(q, kv, kv)
         return src + self.ffn(self.norm2(src))
 
 
@@ -89,8 +95,9 @@ class TransformerDecoderLayer(_FeedForward):
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         q = self.norm1(tgt)
-        tgt = tgt + self.self_attn(q, q, q)
-        kv = self.norm22(memory)
+        kv = spatial.all_tokens(q)
+        tgt = tgt + self.self_attn(q, kv, kv)
+        kv = spatial.all_tokens(self.norm22(memory))
         tgt = tgt + self.cross_attn(self.norm21(tgt), kv, kv)
         return tgt + self.ffn(self.norm3(tgt))
 

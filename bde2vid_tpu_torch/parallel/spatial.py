@@ -23,10 +23,16 @@ rows and the layers exchange the rows their global geometry reads.
   receives the rows a rank needs from their owners (zeros outside the
   global map, where the unsharded layer pads with zeros); its backward
   sends each received row's gradient back and adds it into the owner's.
-  ``group_sum`` sums over the group, differentiably.
+- The whole map's reductions, differentiably: ``group_sum`` sums over the
+  group; ``group_max`` / ``group_min`` / ``group_mean`` reduce over dims
+  that include the rows (SPADE-E2VID's segmap bootstrap, the SNNs' adaptive
+  leaks); ``all_tokens`` gives every rank every band's tokens (EITR's keys
+  and values), its backward a reduce-scatter.
 - ``shard_rows`` / ``gather_rows``: this rank's band of a whole tensor, and
   every rank's bands collected back (differentiable).
-- ``spatial_forward``: a model's forward on a ("data", "spatial") mesh.
+- ``model_levels``: the stride-2 levels a model declares; ``spatial_forward``:
+  a model's forward on a ("data", "spatial") mesh. Every model family takes
+  it.
 
 Transport: point-to-point with the ranks that hold or need the rows
 (``dist.batch_isend_irecv``), on the device under NCCL. Gloo is a host
@@ -47,8 +53,10 @@ A16 = "ROADMAP A16"
 _CURRENT: Optional["RowContext"] = None
 
 # what this process exchanged: "halo_exchanges" (forward and backward calls
-# that moved rows), "halo_bytes" (bytes it sent) and "group_sums" (norm
-# statistics); callers clear and read it, as the kernels' launch counts
+# that moved rows), "halo_bytes" (bytes it sent), "group_sums" (norm and
+# input statistics), "group_extremes" (group_max / group_min) and
+# "token_gathers" (all_tokens), each a forward's collective; callers clear
+# and read it, as the kernels' launch counts
 exchange_counts: collections.Counter = collections.Counter()
 
 
@@ -155,14 +163,6 @@ def suspended():
     """Run a part of a sharded forward that works on whole windows, not on
     bands of the map (the KV token reduction conv inside each window)."""
     return entered(None)
-
-
-def refuse(family: str) -> None:
-    """Raise if a forward of ``family``, which the row-sharded path does not
-    take, runs under the context."""
-    if _CURRENT is not None:
-        raise ValueError(f"{family} does not run row-sharded (the spatially sharded forward "
-                         f"covers BDE2VID and the E2VID family, {A16})")
 
 
 # ----------------------------------------------------------------- exchange
@@ -330,20 +330,88 @@ def group_sum(x: torch.Tensor) -> torch.Tensor:
     return _GroupSum.apply(x, current())
 
 
+def _map_count(x: torch.Tensor, dims: Tuple[int, ...]) -> int:
+    """The entries of the whole map that a reduction of the band ``x``
+    (N, C, rows, W) over ``dims``, which include the rows, covers."""
+    _, height, _, _ = current().geometry(x.shape[2])
+    count = height
+    for d in dims:
+        if d % x.dim() != 2:
+            count *= x.shape[d]
+    return count
+
+
 def moments(x32: torch.Tensor, dims: Tuple[int, ...], keepdim: bool = False):
     """(mean, biased variance, count) of f32 ``x32`` over ``dims``, which
     include the rows: the whole map's, summed over the group in two passes
     as ``Tensor.var`` takes them."""
-    _, height, _, _ = current().geometry(x32.shape[2])
-    count = height
-    for d in dims:
-        if d != 2:
-            count *= x32.shape[d]
+    count = _map_count(x32, dims)
     mean = group_sum(x32.sum(dims, keepdim=True)) / count
     var = group_sum((x32 - mean).square().sum(dims, keepdim=True)) / count
     if not keepdim:
         mean, var = mean.reshape(-1), var.reshape(-1)
     return mean, var, count
+
+
+def group_mean(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """``x.mean(dims)`` of the whole map: under ``row_sharded`` ``x`` is a
+    band (N, C, rows, W) and ``dims`` include the rows (2); the band's sums
+    summed over the group, over the whole map's count."""
+    if current() is None:
+        return x.mean(dims)
+    return group_sum(x.sum(dims)) / _map_count(x, dims)
+
+
+_EXTREMES = {"max": (torch.amax, dist.ReduceOp.MAX), "min": (torch.amin, dist.ReduceOp.MIN)}
+
+
+class _GroupExtreme(torch.autograd.Function):
+    """The max or min of the band ``x`` over ``dims`` (keepdim) taken over
+    the group. Its gradient is ``torch.amax``'s on the whole map: the ranks'
+    gradients of the result summed (each rank's copy feeds that rank's own
+    rows onwards), then split evenly over every extreme entry of the whole
+    map, the tie count summed over the group too (as JAX's ``jnp.max``
+    splits it). Every rank issues both collectives, also one whose band
+    holds no extreme entry."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, dims, kind):
+        reduce, op = _EXTREMES[kind]
+        y = reduce(x, dims, keepdim=True)
+        dist.all_reduce(y, op=op, group=ctx.group)
+        exchange_counts["group_extremes"] += 1
+        fctx.ctx, fctx.dims = ctx, dims
+        fctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(fctx, g):
+        x, y = fctx.saved_tensors
+        hit = x == y
+        # one all_reduce of the gradient and the tie count together
+        both = torch.stack([g, hit.sum(fctx.dims, keepdim=True).to(g.dtype)])
+        dist.all_reduce(both, group=fctx.ctx.group)
+        return hit * (both[0] / both[1]), None, None, None
+
+
+def _group_extreme(x: torch.Tensor, dims, kind: str) -> torch.Tensor:
+    dims = tuple(range(x.dim())) if dims is None else tuple(d % x.dim() for d in dims)
+    ctx = current()
+    if ctx is None:
+        return _EXTREMES[kind][0](x, dims)
+    return _GroupExtreme.apply(x, ctx, dims, kind).squeeze(dims)
+
+
+def group_max(x: torch.Tensor, dims: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """``torch.amax(x, dims)`` of the whole map (every dim by default), its
+    gradient included: under ``row_sharded`` ``x`` is a band and ``dims``
+    include the rows."""
+    return _group_extreme(x, dims, "max")
+
+
+def group_min(x: torch.Tensor, dims: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """``torch.amin(x, dims)`` of the whole map, as ``group_max``."""
+    return _group_extreme(x, dims, "min")
 
 
 # ------------------------------------------------------------ the layers' rows
@@ -459,9 +527,55 @@ def gather_rows(x: torch.Tensor, plan: RowPlan, group=None, level: int = 0,
     return _GatherRows.apply(x, plan, group, dist.get_rank(group), level, dim % x.dim())
 
 
+class _AllTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, counts):
+        fctx.args = (ctx, counts)
+        buf = x.new_zeros((x.shape[0], max(counts), *x.shape[2:]))
+        buf.narrow(1, 0, x.shape[1]).copy_(x)
+        parts = [torch.empty_like(buf) for _ in counts]
+        dist.all_gather(parts, buf, group=ctx.group)
+        exchange_counts["token_gathers"] += 1
+        return torch.cat([p.narrow(1, 0, n) for p, n in zip(parts, counts)], dim=1)
+
+    @staticmethod
+    def backward(fctx, g):
+        # each rank's loss reads every rank's tokens (through attention), so
+        # a token's gradient is the sum of every rank's gradient of it: a
+        # reduce-scatter, taken as an all_reduce of the whole (the bands'
+        # lengths differ) and this rank's slice of it
+        ctx, counts = fctx.args
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(1, sum(counts[:ctx.index]), counts[ctx.index]).contiguous(), None, None
+
+
+def all_tokens(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's tokens on every rank: ``x`` (N, S, C) is this rank's
+    band of the deepest level's map as tokens in row-major (h, w) order,
+    S = its rows times the map's width, and the result the whole map's
+    tokens (N, rows x width, C) in that order. Without the context ``x``
+    itself. Differentiable mid-network: the gradient of a rank's tokens is
+    the sum of every rank's gradient of them (unlike ``gather_rows``, whose
+    ranks all compute the same function of the result)."""
+    ctx = current()
+    if ctx is None:
+        return x
+    rows = ctx.plan.deep_rows
+    width, rest = divmod(x.shape[1], rows[ctx.index])
+    if rest:
+        raise ValueError(f"{x.shape[1]} tokens are no band of {rows[ctx.index]} rows of the "
+                         f"deepest level")
+    return _AllTokens.apply(x, ctx, [r * width for r in rows])
+
+
 def model_levels(model: torch.nn.Module) -> int:
-    """The stride-2 levels of a model: its encoders (BDE2VID and the
+    """The stride-2 levels of a model: the ``row_levels`` it declares
+    (SPADE-E2VID 2, EITR and the SNNs 3), else its encoders (BDE2VID and the
     UNets), 0 for the FireNets."""
+    declared = getattr(model, "row_levels", None)
+    if declared is not None:
+        return int(declared)
     return max((int(m.num_encoders) for m in model.modules() if hasattr(m, "num_encoders")),
                default=0)
 

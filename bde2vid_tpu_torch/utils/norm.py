@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bde2vid_tpu_torch.parallel import spatial
+
 
 def legacy_norm(x: torch.Tensor, unbiased: bool = False, batched: bool = False) -> torch.Tensor:
     """Mean/std-normalise the nonzero entries of ``x``; zeros stay zero.
@@ -15,13 +17,19 @@ def legacy_norm(x: torch.Tensor, unbiased: bool = False, batched: bool = False) 
     over n nonzero entries); ``unbiased=True`` divides by n - 1, as the SNN
     runner's ``tensor.std()`` does. An all-zero input, or one whose std is
     0, comes back unchanged. ``batched``: each entry of the first dimension
-    is normalised on its own."""
+    is normalised on its own. Under ``parallel.spatial.row_sharded`` ``x``
+    is a band of the map's rows, and the count, sum and sum of squares are
+    the whole map's (summed over the group; the same one-pass formula)."""
     flat = x.reshape(x.shape[0] if batched else 1, -1)
     nonzero = (flat != 0).to(flat.dtype)
-    num = nonzero.sum(1, keepdim=True)
+    sums = torch.cat([nonzero.sum(1, keepdim=True), flat.sum(1, keepdim=True),
+                      (flat * flat).sum(1, keepdim=True)], 1)
+    if spatial.current() is not None:
+        sums = spatial.group_sum(sums)
+    num, total, squares = sums.split(1, 1)
     safe_num = num.clamp(min=1.0)
-    mean = flat.sum(1, keepdim=True) / safe_num
-    sq = (flat * flat).sum(1, keepdim=True) - safe_num * mean * mean
+    mean = total / safe_num
+    sq = squares - safe_num * mean * mean
     denom = (num - 1.0).clamp(min=1.0) if unbiased else safe_num
     std = (sq / denom).clamp(min=0.0).sqrt()
     normed = nonzero * (flat - mean) / torch.where(std == 0, torch.ones_like(std), std)

@@ -174,7 +174,7 @@ reference's.
            alone; a --dp 2 flagship bundle at batch 2 (--T 4) held to a
            --dp 1 bundle (1e-6); exact B1 and B2 launches on every rank;
            step ms, the gradient all_reduce's ms, frames/s of both
-  spatial  the row-sharded forward and train step (ROADMAP A16) over
+  spatial  the row-sharded forward and train step (ROADMAP A16, A17) over
            spawned ranks on a (1, ranks) mesh: two gloo ranks on the one
            card (halos staged through host memory; one NCCL rank a card
            where there are several, `--only spatial`), after the halo
@@ -183,10 +183,17 @@ reference's.
            720x1280 (a 1280x720 camera), T=8, held to one process's forward
            (1e-5), and one flagship train step at T=4 (loss 1e-6 relative;
            by relative L2, gradients 1e-3 and the weights after Adam's step
-           1e-5); exact B1 / B3 / B2 launches a rank;
-           forward and step ms, peak memory, halo exchanges and bytes of
-           each rank beside one process's, and the B1 / B3 windows a launch
-           of each rank's band
+           1e-5); exact B1 / B3 / B2 launches a rank; then SPADE-E2VID,
+           EITR, EVSNN and PAEVSNN at their published widths, T=2: the
+           forward at both sizes and one train step at 184x240, held to one
+           process (EVSNN and PAEVSNN by the SNN gate of step_models, with
+           the flipped spikes of every rank's bands counted, and their step
+           within its relative L2 bound; EITR by the flagship's bars,
+           SPADE-E2VID's ill-conditioned step by gradients 1e-2 and weights
+           5e-5, its one-process spread printed beside them); forward and
+           step ms, peak memory, halo exchanges and bytes, group reductions
+           and token gathers of each rank beside one process's, and the
+           B1 / B3 windows a launch of each rank's band
   events   the event side (ROADMAP A11) at 180x240 with 150 000 events:
            the event images, drv planes, timestamp images, flow warp and
            voxel helpers card vs CPU (1e-5 relative) with their ms; every
@@ -1177,6 +1184,15 @@ def step_card_vs_cpu(torch, name, card_model, model, vox, vox_d, h, w):
                  "max_abs_diff_images": img_diff, "max_abs_diff_state": state_diff}
 
 
+def lif_fired_share(torch, spikes):
+    """The share of LIF units that fired at least once in ``spikes``, the
+    firings of whole bins in call order (``SNN_LIF_CALLS`` a bin)."""
+    fired = [torch.zeros_like(spikes[k]) for k in range(SNN_LIF_CALLS)]
+    for k, spike in enumerate(spikes):
+        fired[k % SNN_LIF_CALLS] |= spike
+    return sum(int(f.sum()) for f in fired) / sum(f.numel() for f in fired)
+
+
 def snn_card_vs_cpu(torch, name, card_model, model, vox, vox_d, h, w):
     """A spiking model's T frames on the card and on the CPU, held to the SNN
     gate (``SNN_PIXEL_SHARE``): the first bin's pre-spike drive, the share of
@@ -1199,10 +1215,7 @@ def snn_card_vs_cpu(torch, name, card_model, model, vox, vox_d, h, w):
     if len(card_spikes) != len(cpu_spikes) or len(cpu_spikes) != STEP_T * 5 * SNN_LIF_CALLS:
         raise AssertionError(f"{name}: {len(card_spikes)} / {len(cpu_spikes)} LIF firings")
     flips = sum(int((a.cpu() != b).sum()) for a, b in zip(card_spikes, cpu_spikes))
-    fired = [torch.zeros_like(cpu_spikes[k]) for k in range(SNN_LIF_CALLS)]
-    for k, spike in enumerate(cpu_spikes):
-        fired[k % SNN_LIF_CALLS] |= spike
-    fire_share = sum(int(f.sum()) for f in fired) / sum(f.numel() for f in fired)
+    fire_share = lif_fired_share(torch, cpu_spikes)
     spike_rate = sum(int(sp.sum()) for sp in cpu_spikes) / sum(sp.numel() for sp in cpu_spikes)
     diff = (got.cpu() - want).abs()
     close_share = (diff <= 2e-4).double().mean().item()
@@ -3915,6 +3928,23 @@ SPATIAL_CONFIGS = {"flagship": FLAGSHIP_CFG, "8x8": EIGHT_CFG}
 # the one-process sums round to opposite signs moves a weight by 2 lr; the
 # weights' relative L2 gate (1e-5) then counts such flips (9.8e-6 at 1e-4)
 SPATIAL_LR = 1e-5
+# the step families on the row-sharded path (PR 26) at their published
+# widths (SPADE-E2VID's and the SNNs' fixed, EITR_WIDTHS), over
+# SPATIAL_FAMILY_T steps a forward and a train step (the SNNs run 5 bins a
+# step); the SNNs are held to their gate (SNN_PIXEL_SHARE), the others to
+# the flagship's bars
+SPATIAL_FAMILIES = ("SPADEE2VID", "EITR", "EVSNN", "PAEVSNN")
+SPATIAL_FAMILY_T = 2
+# (loss, gradients, weights) bars of a family's row-sharded step where they
+# are not the flagship's. SPADE-E2VID's step is ill-conditioned on the card:
+# voxels moved by a relative 1e-7 move the one-process step's gradients by
+# 3.40e-3 and its weights after Adam's step by 1.91e-5 by relative L2 (the
+# same step repeated: 2.3e-5 and 1.8e-7; one H100 at 700 W), spread over its
+# encoder convs and LSTM gates, which feed its train-mode BNs; the sharded
+# step lies 3.77e-3 and 1.96e-5 from it. A missing or doubled row sum
+# misses by O(0.5). Every run prints that spread ("spread") beside the
+# sharded step's distance.
+SPATIAL_FAMILY_BARS = {"SPADEE2VID": (1e-6, 1e-2, 5e-5)}
 
 
 def spatial_layout(torch):
@@ -3934,6 +3964,35 @@ def spatial_model(torch, name, train=False):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(25)
         return build_model("BDE2VID", cfg, train=train)
+
+
+def spatial_family_model(torch, name, train=False):
+    """A family of ``SPATIAL_FAMILIES`` on the card, seeded (the SNNs so
+    that their units fire)."""
+    if name in SNN_MODELS:
+        model = seeded_snn(torch, name, 26)
+    else:
+        model = seeded_step_model(torch, name, STEP_MODELS[name][0], 26)
+    return model.cuda().train(train)
+
+
+def family_forward(torch, model, vox):
+    """A step family's images of ``vox`` (T, N, B, H, W) from its initial state."""
+    from bde2vid_tpu_torch.models import run_sequence
+
+    return run_sequence(model, vox, model.initial_state(vox.shape[1], *vox.shape[-2:]))[0]
+
+
+def band_flips(torch, spikes, whole, plan, index):
+    """The spikes of rank ``index``'s bands that differ from one process's
+    whole-map spikes of the same firings."""
+    if len(spikes) != len(whole):
+        raise AssertionError(f"rank {index}: {len(spikes)} LIF firings, one process {len(whole)}")
+    flips = 0
+    for band, full in zip(spikes, whole):
+        lo, hi = plan.band(index, plan.level_of(index, band.shape[2]))
+        flips += int((band.cpu() != full[:, :, lo:hi]).sum())
+    return flips
 
 
 def spatial_inputs(tmp):
@@ -3968,7 +4027,8 @@ def spatial_rank(index, ranks, backend, tmp):
     """One rank of the spatial phase (a spawned process): the transport's
     check, then spatial_forward of both configurations at 184x240 and of the
     flagship at 720x1280, and one row-sharded train step, on a (1, ranks)
-    mesh; writes rank<index>.json and rank 0's images."""
+    mesh, then each of ``SPATIAL_FAMILIES`` (spatial_rank_family); writes
+    rank<index>.json and rank 0's images."""
     import datetime
 
     import torch
@@ -4016,10 +4076,208 @@ def spatial_rank(index, ranks, backend, tmp):
         out["train"] = {"loss": loss, "ms": ms, "launches": launches, "exchanges": exchanges,
                         "peak_gb": peak,
                         "next_ms": timed_steps(torch, lambda: step(vox, arrays["tgt"]), 1)[0]}
+        del model, opt, step
+        for name in SPATIAL_FAMILIES:
+            out[name] = spatial_rank_family(torch, name, index, ranks, mesh, arrays, tmp,
+                                            launch_counts)
         with open(os.path.join(tmp, f"rank{index}.json"), "w") as fp:
             json.dump(out, fp)
     finally:
         dist.destroy_process_group()
+
+
+def spatial_rank_family(torch, name, index, ranks, mesh, arrays, tmp, launch_counts):
+    """A rank's part of one family of ``SPATIAL_FAMILIES``: spatial_forward
+    at both sizes (the first at 184x240 recording its spikes, held to one
+    process's spikes of its bands) and one row-sharded train step, T =
+    SPATIAL_FAMILY_T; saves rank 0's images and rank 0's and the last
+    rank's train state."""
+    from bde2vid_tpu_torch.models import evsnn
+    from bde2vid_tpu_torch.parallel import make_dp_train_step, spatial_forward
+    from bde2vid_tpu_torch.parallel.spatial import RowPlan, model_levels
+    from bde2vid_tpu_torch.train import SequenceLossComputer
+
+    t = SPATIAL_FAMILY_T
+    snn = name in SNN_MODELS
+    weights = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=True)
+    model = spatial_family_model(torch, name)
+    model.load_state_dict(weights)
+    out = {}
+    for key in ("vox", "large"):
+        vox = arrays[key][:t]
+        fwd = lambda: spatial_forward(model, vox, mesh)  # noqa: E731
+        record = snn and key == "vox"
+        with (record_spikes(evsnn) if record else contextlib.nullcontext()) as spikes:
+            with torch.no_grad():
+                fwd()  # warm-up, its spikes recorded
+        with torch.no_grad():
+            images, ms, launches, exchanges, peak = spatial_run(torch, fwd, launch_counts)
+        out[key] = {"ms": ms, "launches": launches, "exchanges": exchanges, "peak_gb": peak}
+        if record:
+            plan = RowPlan(vox.shape[-2], model_levels(model), ranks)
+            whole = torch.load(os.path.join(tmp, f"spikes_{name}_forward.pt"), weights_only=True)
+            out[key]["flipped_spikes"] = band_flips(torch, spikes, whole, plan, index)
+        if index == 0:
+            torch.save(images.cpu(), os.path.join(tmp, f"images_{name}_{key}.pt"))
+        del images
+    del model
+    model = spatial_family_model(torch, name, train=True)
+    model.load_state_dict(weights)
+    opt = torch.optim.Adam(model.parameters(), lr=SPATIAL_LR)
+    step = make_dp_train_step(model, opt, SequenceLossComputer([{"type": "L1Loss"}]), mesh)
+    vox, tgt = arrays["vox"][:t], arrays["tgt"][:t]
+    with record_spikes(evsnn) as spikes:
+        loss, ms, launches, exchanges, peak = spatial_run(
+            torch, lambda: step(vox, tgt)["loss"].item(), launch_counts)
+    out["train"] = {"loss": loss, "ms": ms, "launches": launches, "exchanges": exchanges,
+                    "peak_gb": peak}
+    if snn:
+        plan = RowPlan(vox.shape[-2], model_levels(model), ranks)
+        whole = torch.load(os.path.join(tmp, f"spikes_{name}_train.pt"), weights_only=True)
+        out["train"]["flipped_spikes"] = band_flips(torch, spikes, whole, plan, index)
+    if index in (0, ranks - 1):
+        torch.save(spatial_train_state(model), os.path.join(tmp, f"train_state_{name}{index}.pt"))
+    return out
+
+
+def spatial_family_refs(torch, launch_counts, tmp, arrays):
+    """One process's side of ``SPATIAL_FAMILIES``: each family's weights
+    written for the ranks, its forward at both sizes (ms, peak, images; the
+    SNNs' spikes at 184x240 written for the ranks) and one train step
+    (loss, state; the SNNs' spikes written)."""
+    from bde2vid_tpu_torch.models import evsnn
+    from bde2vid_tpu_torch.parallel.spatial import model_levels
+    from bde2vid_tpu_torch.train import SequenceLossComputer, train_step
+
+    t = SPATIAL_FAMILY_T
+    comp = SequenceLossComputer([{"type": "L1Loss"}])
+    ref = {}
+    for name in SPATIAL_FAMILIES:
+        model = spatial_family_model(torch, name)
+        torch.save(model.state_dict(), os.path.join(tmp, f"{name}.pt"))
+        ref[f"{name}_levels"] = model_levels(model)
+        for key in ("vox", "large"):
+            vox = arrays[key][:t].cuda()
+            record = name in SNN_MODELS and key == "vox"
+            with (record_spikes(evsnn) if record else contextlib.nullcontext()) as spikes:
+                with torch.no_grad():
+                    family_forward(torch, model, vox)  # warm-up, its spikes recorded
+            with torch.no_grad():
+                images, ms, launches, _, peak = spatial_run(
+                    torch, lambda: family_forward(torch, model, vox), launch_counts)
+            ref[f"{name}_{key}"] = {"images": images.cpu(), "ms": ms, "launches": launches,
+                                    "peak_gb": peak}
+            if record:
+                spikes = [sp.cpu() for sp in spikes]
+                torch.save(spikes, os.path.join(tmp, f"spikes_{name}_forward.pt"))
+                ref[f"{name}_{key}"]["lif_fired_share"] = lif_fired_share(torch, spikes)
+            del vox, images
+        model = spatial_family_model(torch, name, train=True)
+        opt = torch.optim.Adam(model.parameters(), lr=SPATIAL_LR)
+        vox, tgt = arrays["vox"][:t].cuda(), arrays["tgt"][:t].cuda()
+        with record_spikes(evsnn) as spikes:
+            loss, ms, launches, _, peak = spatial_run(
+                torch, lambda: train_step(model, opt, comp, vox, tgt)["loss"].item(), launch_counts)
+        if name in SNN_MODELS:
+            torch.save([sp.cpu() for sp in spikes], os.path.join(tmp, f"spikes_{name}_train.pt"))
+        state = spatial_train_state(model)
+        # the one-process step's own spread, beside which the sharded step's
+        # distance reads: the same step again ("repeat": the libraries'
+        # nondeterminism) and on voxels moved by a relative 1e-7 ("perturbed":
+        # how far rounding-size changes carry through the step)
+        gen = torch.Generator(device=vox.device).manual_seed(26)
+        noise = torch.randn(vox.shape, generator=gen, device=vox.device)
+        spread = {}
+        for what, v in (("repeat", vox), ("perturbed", vox * (1 + 1e-7 * noise))):
+            again = spatial_family_model(torch, name, train=True)
+            train_step(again, torch.optim.Adam(again.parameters(), lr=SPATIAL_LR), comp, v, tgt)
+            other = spatial_train_state(again)
+            spread[what] = {w: rel_l2(torch, other[w], state[w])[0] for w in ("grads", "weights")}
+            del again
+        ref[f"{name}_train"] = {"loss": loss, "ms": ms, "launches": launches, "peak_gb": peak,
+                                "state": state, "spread": spread}
+        del model, opt, vox, tgt, spikes, noise
+        torch.cuda.empty_cache()
+    return ref
+
+
+def largest_diffs(torch, got, want, k=3):
+    """The ``k`` float tensors of ``want`` farthest from ``got`` by L2
+    distance: [name, distance, its relative L2]."""
+    dist = {n: ((got[n].float() - v.float()).norm().item(), v.float().norm().item())
+            for n, v in want.items() if v.is_floating_point()}
+    top = sorted(dist, key=lambda n: -dist[n][0])[:k]
+    return [[n, dist[n][0], dist[n][0] / max(dist[n][1], 1e-12)] for n in top]
+
+
+def spatial_family_gates(torch, tmp, ref, got, ranks):
+    """Each family's readings and its failures: images at both sizes (the
+    SNNs by their gate, with the flipped spikes of every rank's bands
+    counted at 184x240; the others within 1e-5), the train step's loss,
+    reduced gradients and weights on rank 0 and the last rank (the SNNs
+    within SNN_REL_L2, relative and by relative L2; SPADE-E2VID at
+    SPATIAL_FAMILY_BARS; EITR at 1e-6, 1e-3 and 1e-5, the flagship's bars),
+    ms and peak memory of both sides."""
+    from bde2vid_tpu_torch.parallel.spatial import RowPlan
+
+    rows, failures = {}, []
+    for name in SPATIAL_FAMILIES:
+        snn = name in SNN_MODELS
+        levels = ref[f"{name}_levels"]
+        row = {"levels": levels, "rows_a_rank": {str(h): RowPlan(h, levels, ranks).rows(0)
+                               for h in (SPATIAL_HW[0], SPATIAL_LARGE_HW[0])}}
+        for key, hw in (("vox", SPATIAL_HW), ("large", SPATIAL_LARGE_HW)):
+            want = ref[f"{name}_{key}"]
+            images = torch.load(os.path.join(tmp, f"images_{name}_{key}.pt"), weights_only=True)
+            diff = (images - want["images"]).abs()
+            gate = {"max_abs_diff": diff.max().item()}
+            ok = (images.shape == (SPATIAL_FAMILY_T, 1, 1, *hw) and torch.isfinite(images).all())
+            if snn:
+                gate.update({"share_of_pixels_within_2e-4": (diff <= 2e-4).double().mean().item(),
+                             "relative_l2_images": (diff.norm() / want["images"].norm()).item()})
+                ok = (ok and gate["share_of_pixels_within_2e-4"] >= SNN_PIXEL_SHARE
+                      and gate["relative_l2_images"] <= SNN_REL_L2)
+                if key == "vox":
+                    gate["flipped_spikes"] = sum(g[name][key]["flipped_spikes"] for g in got)
+                    gate["lif_fired_share"] = want["lif_fired_share"]
+                    ok = ok and gate["lif_fired_share"] >= SNN_MIN_FIRE
+            else:
+                ok = ok and gate["max_abs_diff"] <= 1e-5
+            if not ok:
+                failures.append(f"spatial {name} {hw[0]}x{hw[1]}: images {tuple(images.shape)}, "
+                                f"{gate} from one process's")
+            row[f"{hw[0]}x{hw[1]}"] = {
+                "gate": gate,
+                "one_process": {k: want[k] for k in ("ms", "peak_gb", "launches")},
+                "ranks": [{k: g[name][key][k] for k in ("ms", "peak_gb", "launches", "exchanges")}
+                          for g in got]}
+        want = ref[f"{name}_train"]
+        loss_rel = max(abs(g[name]["train"]["loss"] - want["loss"]) / abs(want["loss"])
+                       for g in got)
+        rel, largest = {}, {}
+        for r in sorted({0, ranks - 1}):
+            state = torch.load(os.path.join(tmp, f"train_state_{name}{r}.pt"), weights_only=True)
+            rel[r] = {what: rel_l2(torch, state[what], want["state"][what])
+                      for what in ("grads", "weights")}
+            largest[r] = {what: largest_diffs(torch, state[what], want["state"][what])
+                          for what in ("grads", "weights")}
+        bars = (SNN_REL_L2,) * 3 if snn else SPATIAL_FAMILY_BARS.get(name, (1e-6, 1e-3, 1e-5))
+        if not (loss_rel <= bars[0] and all(v["grads"][0] <= bars[1] and v["weights"][0] <= bars[2]
+                                            for v in rel.values())):
+            failures.append(f"spatial {name} train: loss {loss_rel:.3g}, relative L2 by rank "
+                            f"{ {r: {w: x[0] for w, x in v.items()} for r, v in rel.items()} } "
+                            f"(bounds {bars}) from one process")
+        row["train"] = {
+            "loss_rel_diff": loss_rel,
+            "rel_l2": {str(r): {what: {"all": v[0], "worst_tensor": [v[1], v[2]]}
+                                for what, v in x.items()} for r, x in rel.items()},
+            "largest_diffs": {str(r): v for r, v in largest.items()},
+            "one_process": {k: want[k] for k in ("ms", "peak_gb", "launches", "spread")},
+            "ranks": [g[name]["train"] for g in got]}
+        if snn:
+            row["train"]["flipped_spikes"] = sum(g[name]["train"]["flipped_spikes"] for g in got)
+        rows[name] = row
+    return rows, failures
 
 
 def spatial_train_state(model):
@@ -4080,13 +4338,19 @@ def spatial_windows():
 
 
 def phase_spatial(torch, launch_counts, card):
-    """The row-sharded forward and train step (ROADMAP A16) over spawned
-    ranks (see spatial_layout), each held to one process on the same inputs:
-    the flagship and the 8x8 config at 184x240 and the flagship at 720x1280,
-    T=8, eval forward (images within 1e-5), and one flagship train step at
-    T=4 (loss 1e-6 relative; by relative L2, gradients 1e-3 and weights
-    1e-5), with exact launch counts a rank; times, peak memory and halo
-    exchanges of both sides."""
+    """The row-sharded forward and train step (ROADMAP A16, A17) over
+    spawned ranks (see spatial_layout), each held to one process on the same
+    inputs: the flagship and the 8x8 config at 184x240 and the flagship at
+    720x1280, T=8, eval forward (images within 1e-5), and one flagship train
+    step at T=4 (loss 1e-6 relative; by relative L2, gradients 1e-3 and
+    weights 1e-5), with exact launch counts a rank; then SPADE-E2VID, EITR
+    (EITR_WIDTHS), EVSNN and PAEVSNN at their published widths, T=2, forward
+    at both sizes and one train step at 184x240, EVSNN and PAEVSNN held to
+    the SNN gate (SNN_PIXEL_SHARE, SNN_REL_L2, SNN_MIN_FIRE; flipped spikes
+    of every rank's bands counted; the step within SNN_REL_L2), EITR to the
+    flagship's bars, SPADE-E2VID's step to SPATIAL_FAMILY_BARS
+    (spatial_family_gates); times, peak memory, halo exchanges and group
+    collectives of both sides."""
     import torch.multiprocessing as mp
 
     from bde2vid_tpu_torch.parallel.spatial import RowPlan
@@ -4120,6 +4384,7 @@ def phase_spatial(torch, launch_counts, card):
                                                1)[0]}
         del model, opt, vox, tgt
         torch.cuda.empty_cache()
+        ref.update(spatial_family_refs(torch, launch_counts, tmp, arrays))
 
         t_ranks = time.perf_counter()
         mp.start_processes(spatial_rank, args=(ranks, backend, tmp), nprocs=ranks, join=True,
@@ -4174,6 +4439,8 @@ def phase_spatial(torch, launch_counts, card):
                                                           for g in got]:
             if g["launches"] != want:
                 failures.append(f"spatial train: {who} launched {g['launches']}, want {want}")
+        families, family_failures = spatial_family_gates(torch, tmp, ref, got, ranks)
+        failures += family_failures
 
     def side(row):
         return {"one_process": {k: ref[row][k] for k in ("ms", "peak_gb", "launches")},
@@ -4196,6 +4463,7 @@ def phase_spatial(torch, launch_counts, card):
                     "one_process": {k: ref["train"][k]
                                     for k in ("ms", "next_ms", "peak_gb", "launches")},
                     "ranks": [g["train"] for g in got]},
+          "families_T": SPATIAL_FAMILY_T, "families": families,
           "windows_a_launch": spatial_windows(), "failures": failures})
     if failures:
         raise AssertionError("; ".join(failures))

@@ -7,9 +7,10 @@ One group (``tests/torch_spatial_ranks.py``) runs every case: ``halo_rows``
 on three of the ranks; ``spatial_forward`` of an E2VIDRecurrent over 4 row
 bands (the config of ``tests/test_sharded_eval.py:83``), of a BDE2VID with
 plain and dilated 7x7 blocks on 2 bands and on 4 uneven ones (``:110``), of
-the 8x8 config on 2, and of the other configurations the path takes; the
-families it refuses; and ``make_dp_train_step`` on a (2, 2) mesh (the
-configs of ``tests/test_sharded_train.py:109, :140``). The JAX references
+the 8x8 config on 2, and of the other configurations the path takes; and
+``make_dp_train_step`` on a (2, 2) mesh (the configs of
+``tests/test_sharded_train.py:109, :140``). SPADE-E2VID, EITR and the SNNs
+are ``tests/test_torch_spatial_families.py``'s. The JAX references
 run in this process while the ranks run. The weights come from a numpy seed
 in the JAX package's layout and reach the port through
 ``state_dict_from_jax``.
@@ -104,10 +105,6 @@ TRAIN = {
 # this case's sharded gradients lie 1.66e-3 from the unsharded ones, the
 # other seeds' ~2e-6. A missing or doubled row sum misses by O(1).
 GRAD_L2 = {"BDE2VID-3-IN-remat-kernel": 5e-3}
-REFUSED = {"SPADE-E2VID": ("SPADEE2VID", {"num_bins": B}),
-           "EITR": ("EITR", {"num_bins": B}),
-           "EVSNN": ("EVSNN", {"num_bins": B}),
-           "PAEVSNN": ("PAEVSNN", {"num_bins": B})}
 HALO = {"ranks": 3, "height": 24, "levels": 1, "level": 1, "above": [0, 3, 6], "below": [5, 4, 0]}
 
 
@@ -179,10 +176,6 @@ def _inputs(work, rng):
         kept["forward"][key] = shared[ref]
     (folder / "keys.json").write_text(json.dumps(
         {k: {"name": v[0], "mesh": v[3]} for k, v in FORWARD.items()}))
-
-    (work / "refusals" / "keys.json").write_text(json.dumps(
-        {k: {"name": name, "config": cfg, "bins": B, "hw": [32, 32]}
-         for k, (name, cfg) in REFUSED.items()}))
 
     folder = work / "train"
     for seed, (key, (name, cfg, (t, n, h, w), opt, held)) in enumerate(TRAIN.items()):
@@ -340,12 +333,6 @@ def test_spatial_forward_matches_the_unsharded_forward_and_jax(group, key):
     if key == "E2VIDRecurrent":  # and JAX's own row-sharded run
         jax_sharded = np.moveaxis(group["jax"]["forward"]["E2VIDRecurrent-sharded"], -1, 2)
         np.testing.assert_allclose(got.numpy(), jax_sharded, atol=2e-4, rtol=0)
-
-
-@pytest.mark.parametrize("family", list(REFUSED))
-def test_families_the_row_sharded_path_does_not_take_refuse_by_name(group, family):
-    for g in group["got"]["refusals"]:
-        assert family in g[family] and "ROADMAP A16" in g[family]
 
 
 def _port_step(group, key):
