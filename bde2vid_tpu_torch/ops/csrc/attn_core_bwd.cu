@@ -837,20 +837,11 @@ bool tiled_vec_ok(const BwdArgs& a, int hd_inst) {
 // (M, N) plane stays in shared memory across launches.
 // ---------------------------------------------------------------------------
 
-constexpr int kWideThreads = 128;
 constexpr int kWideKeys = 32;   // keys of a scores tile and of a dk/dv block
 constexpr int kWideRows = 64;   // rows of a scores tile; rows a dk/dv block takes at a time
-constexpr int kWideCols = 64;   // head_dim columns of one chunk
 constexpr int kWideQRows = 32;  // rows of a dq block
 constexpr int kWideQKeys = 64;  // keys a dq block takes at a time
 static_assert(kWideKeys == 32, "a lane per key of a scores tile");
-
-// Row stride (elements) of a staged tile of `cols` columns: an odd number of
-// 16-byte chunks, so eight rows read at one column fall in distinct banks.
-template <typename T>
-__host__ __device__ constexpr int wide_ld(int cols) {
-  return cols + 16 / (int)sizeof(T);
-}
 
 // Shared memory of each wide launch (bytes): the scores tile's q, g, k and v
 // chunks (its f32 (64, 33) s and dp planes alias them after the products);
@@ -871,98 +862,6 @@ constexpr size_t wide_dq_smem() {
 }
 static_assert(wide_scores_smem<__nv_bfloat16>() >= sizeof(float) * 2 * kWideRows * (kWideKeys + 1),
               "the s and dp planes fit over the staged chunks");
-
-// Rows [0, nrows) x columns [0, COLS) of dst (row stride ldd) from src row r
-// at src + r * lds, zero past `rows` rows and `cols` columns. vec: 16-byte
-// cp.async (src rows 16-byte aligned, cols a multiple of 16 bytes), which
-// the caller commits and waits for; else plain loads.
-template <typename T, int COLS>
-__device__ __forceinline__ void wide_stage(T* dst, int ldd, const T* src, size_t lds, int nrows,
-                                           int rows, int cols, bool vec) {
-  constexpr int CH = 16 / (int)sizeof(T), PER = COLS / CH;
-  if (vec) {
-    for (int e = threadIdx.x; e < nrows * PER; e += kWideThreads) {
-      const int r = e / PER, col = (e - r * PER) * CH;
-      const bool in = r < rows && col < cols;
-      cp_async16(dst + r * ldd + col, in ? src + r * lds + col : src, in ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < nrows * COLS; e += kWideThreads) {
-      const int r = e / COLS, col = e - r * COLS;
-      dst[r * ldd + col] = r < rows && col < cols ? src[r * lds + col] : store_cast<T>(0.f);
-    }
-  }
-}
-
-// The three products of the wide backward, each into acc[4][4] of a
-// 128-thread block, and where each accumulator lands (row, column of the
-// block's tile). f32: thread tiles of 4 x 4 by FMA; bf16: warp tiles of 16 x
-// 32 by mma.sync (acc[j] is the 16 x 8 fragment j: rows lane / 4 and 8
-// below, columns 2 (lane % 4) and the next).
-//
-// NT: acc (64 x 32) += a (64 x K) b (32 x K)^T, a and b row-major.
-template <int K>
-__device__ __forceinline__ void wide_nt(float (&acc)[4][4], const float* as, const float* bs,
-                                        int ld) {
-  // thread (tr, tc): rows tr + 16 i, columns tc + 8 j; a warp reads eight
-  // rows of a and four of b at each k, one 128-byte wavefront each
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tr = (lane & 7) + 8 * (warp & 1), tc = (lane >> 3) + 4 * (warp >> 1);
-#pragma unroll 4
-  for (int k = 0; k < K; k += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float4*>(as + (tr + 16 * i) * ld + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(bs + (tc + 8 * j) * ld + k);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
-      }
-  }
-}
-template <int K>
-__device__ __forceinline__ void wide_nt(float (&acc)[4][4], const __nv_bfloat16* as,
-                                        const __nv_bfloat16* bs, int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, as + (16 * warp + (lane & 15)) * ld + k + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      uint32_t r[4];
-      ldmatrix_x4(r, bs + (8 * j + (lane >> 4) * 8 + (lane & 7)) * ld + k + ((lane >> 3) & 1) * 8);
-      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(acc[j], a, b0);
-      mma_bf16(acc[j + 1], a, b1);
-    }
-  }
-}
-template <typename T, class F>
-__device__ __forceinline__ void wide_nt_each(const float (&acc)[4][4], F&& f) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f(16 * warp + (lane >> 2) + 8 * (e >> 1), 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
-  } else {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int tr = (lane & 7) + 8 * (warp & 1), tc = (lane >> 3) + 4 * (warp >> 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f(tr + 16 * i, tc + 8 * j, acc[i][j]);
-  }
-}
 
 // TN: acc (32 x 64) += a^T b over R rows, a (R x 32) and b (R x 64)
 // row-major: dv = p^T g and dk = dsc^T q for a key tile.
@@ -1003,80 +902,6 @@ __device__ __forceinline__ void wide_tn(float (&acc)[4][4], const __nv_bfloat16*
       mma_bf16(acc[j], a, b0);
       mma_bf16(acc[j + 1], a, b1);
     }
-  }
-}
-
-// NN: acc (32 x 64) += a (32 x K) b (K x 64), a and b row-major: dq = dsc k.
-template <int K>
-__device__ __forceinline__ void wide_nn(float (&acc)[4][4], const float* as, int lda,
-                                        const float* bs, int ldb) {
-  // thread (tr, td): rows tr + 8 i, columns 4 td ..
-  const int tr = threadIdx.x & 7, td = threadIdx.x >> 3;
-#pragma unroll 4
-  for (int k = 0; k < K; k += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float4*>(as + (tr + 8 * i) * lda + k);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      y[e] = *reinterpret_cast<const float4*>(bs + (k + e) * ldb + 4 * td);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][0] = fmaf(xs[e], y[e].x, acc[i][0]);
-        acc[i][1] = fmaf(xs[e], y[e].y, acc[i][1]);
-        acc[i][2] = fmaf(xs[e], y[e].z, acc[i][2]);
-        acc[i][3] = fmaf(xs[e], y[e].w, acc[i][3]);
-      }
-    }
-  }
-}
-template <int K>
-__device__ __forceinline__ void wide_nn(float (&acc)[4][4], const __nv_bfloat16* as, int lda,
-                                        const __nv_bfloat16* bs, int ldb) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp & 1, wd = warp >> 1;
-#pragma unroll
-  for (int k = 0; k < K; k += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, as + (16 * wr + (lane & 15)) * lda + k + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, bs + (k + (lane & 15)) * ldb + 32 * wd + 8 * j + (lane >> 4) * 8);
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma_bf16(acc[j], a, b0);
-      mma_bf16(acc[j + 1], a, b1);
-    }
-  }
-}
-
-// Where the TN (tn = true) or NN accumulators land in the 32 x 64 result.
-template <typename T, bool kTn, class F>
-__device__ __forceinline__ void wide_out_each(const float (&acc)[4][4], F&& f) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r0 = 16 * (warp & 1), c0 = 32 * (warp >> 1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f(r0 + (lane >> 2) + 8 * (e >> 1), c0 + 8 * j + 2 * (lane & 3) + (e & 1), acc[j][e]);
-  } else if constexpr (kTn) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int td = (lane & 7) + 8 * (warp & 1), tk = (lane >> 3) + 4 * (warp >> 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f(4 * tk + i, 4 * td + j, acc[i][j]);
-  } else {
-    const int tr = threadIdx.x & 7, td = threadIdx.x >> 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f(tr + 8 * i, 4 * td + j, acc[i][j]);
   }
 }
 

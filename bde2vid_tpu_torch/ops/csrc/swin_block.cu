@@ -37,8 +37,10 @@
 //       which does not fit in 227 KB), so head_dim 4 (below an MMA's K)
 //       runs as FMA dot products; bf16 at head_dim 16 takes 16-row tiles on
 //       the tensor cores (attn_kernel_mma); windows whose k and v rows do
-//       not fit in one block, and every head_dim above 32, take the
-//       one-sweep key-tiled variant (attn_flash_kernel);
+//       not fit in one block, and every head_dim from 33 to 256, take the
+//       one-sweep key-tiled variant (attn_flash_kernel), every head_dim
+//       above 256 the two launches of the wide forward over the attention
+//       scratch;
 //   (c1) y = ctr + m1 (acc @ Wp^T + bp), y into an f32 scratch;
 //   (c2) h = round(act(LN2(y) @ W1^T + b1)): the LN prologue on y (resident
 //        or streamed as in (a)) and the activation in the epilogue, h into a
@@ -102,11 +104,12 @@ cudaError_t launch_mlp(const BlockArgs& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const BlockArgs& a, const float* bias, int heads,
-                       int attn_tiles, int attn_key_tiled, float scale, cudaStream_t stream) {
+                       int attn_tiles, int attn_key_tiled, float* attn_scratch, float scale,
+                       cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
   err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tiled, bias,
-                             const_cast<void*>(a.acc), scale, stream);
+                             const_cast<void*>(a.acc), attn_scratch, scale, stream);
   if (err != cudaSuccess) return err;
   return launch_mlp<T>(a, stream);
 }
@@ -143,13 +146,15 @@ int swin_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int k
   return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tiled, info);
 }
 
-// Launches the five kernels on `stream`, the attention with each window's
-// rows in attn_tiles tiles, by the key-tiled kernel (attn_key_tiled 1)
-// or all keys at once (0); returns the first CUDA error code (0 on
-// success). Pointers are device pointers; vectors, the bias, the masks
-// and the y scratch are f32, x/ctr/weights/kv/q/acc/h/out are f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1). m1 and m2 are both null or both (B_,)
-// arrays. act: an Act code.
+// Launches the five kernels on `stream` (six above head_dim 256, where the
+// attention is the wide forward's two over attn_scratch, which holds
+// attn_scratch_floats floats and is null below), the attention with each
+// window's rows in attn_tiles tiles, by the key-tiled kernel
+// (attn_key_tiled 1) or all keys at once (0); returns the first CUDA error
+// code (0 on success). Pointers are device pointers; vectors, the bias, the
+// masks, the y scratch and attn_scratch are f32, x/ctr/weights/kv/q/acc/h/out
+// are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). m1 and m2 are both null or
+// both (B_,) arrays. act: an Act code.
 int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int heads, int hidden,
                        int q_ind, int attn_tiles, int attn_key_tiled, float scale, const void* x,
                        const void* ctr, const float* g_q,
@@ -158,7 +163,8 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
                        const void* w_p, const float* b_p, const float* g_2, const float* b_2_ln,
                        const void* w_1, const float* b_1, const void* w_2, const float* b_2,
                        const float* bias, void* kv, void* q, void* acc, void* out, float* y,
-                       void* h, const float* m1, const float* m2, void* stream) {
+                       void* h, const float* m1, const float* m2, float* attn_scratch,
+                       void* stream) {
   LnProjArgs p;
   p.d = d;
   p.b = b;
@@ -200,8 +206,10 @@ int swin_block_forward(int is_bf16, int act, int d, int b, int m, int c, int hea
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, attn_tiles, attn_key_tiled, scale, s)
-              : launch_all<float>(p, a, bias, heads, attn_tiles, attn_key_tiled, scale, s);
+      is_bf16 ? launch_all<__nv_bfloat16>(p, a, bias, heads, attn_tiles, attn_key_tiled,
+                                          attn_scratch, scale, s)
+              : launch_all<float>(p, a, bias, heads, attn_tiles, attn_key_tiled, attn_scratch,
+                                  scale, s);
   return (int)err;
 }
 

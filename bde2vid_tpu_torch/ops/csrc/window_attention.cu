@@ -26,10 +26,13 @@
 // device memory. The wrapper's plan (attn_forward_plan) splits a window's
 // rows into tiles where there are too few windows to fill the card, and
 // sends windows whose k and v rows do not fit in one block's shared memory,
-// and every head_dim above 32, to the key-tiled variant (attn_flash_kernel),
-// which sweeps the keys once, a tile at a time, with an online softmax. A
-// head_dim between the instantiated ones (1, 2, 4, ..., 256) runs at the
-// next one up with zero columns past it.
+// and every head_dim from 33 to 256, to the key-tiled variant
+// (attn_flash_kernel), which sweeps the keys once, a tile at a time, with
+// an online softmax. A head_dim between the instantiated ones (1, 2, 4,
+// ..., 256) runs at the next one up with zero columns past it. Above head_dim
+// 256 the wide forward runs (attn_wide_scores_kernel, attn_wide_out_kernel):
+// q k^T once per (window, head, row, key) into an f32 score plane in the
+// wrapper's scratch, then p v per 64-column chunk of head_dim.
 
 #include "window_common.cuh"
 
@@ -52,13 +55,22 @@ int window_attention_occupancy(int is_bf16, int m, int n, int c, int heads, int 
   return attn_occupancy<false>(is_bf16, m, n, c, heads, key_tiled, info);
 }
 
+// Floats of f32 scratch a launch at these shapes needs: the wide
+// forward's score plane and row statistics above head_dim 256, else 0.
+long long window_attention_scratch_floats(int b, int m, int n, int c, int heads) {
+  return heads < 1 ? 0 : (long long)attn_scratch_floats(b, m, n, c / heads, heads);
+}
+
 // Launches the kernel on `stream`, each window's rows in `tiles` tiles, by
-// the key-tiled kernel (key_tiled 1) or all keys at once (0); returns the
-// CUDA error code (0 on success). q, k, v, out are f32 (is_bf16 = 0) or
-// bf16 (is_bf16 = 1) device arrays, bias is f32.
+// the key-tiled kernel (key_tiled 1) or all keys at once (0), or above
+// head_dim 256 the wide forward over `scratch`
+// (window_attention_scratch_floats floats; null where that is 0); returns
+// the CUDA error code (0 on success). q, k, v, out are f32 (is_bf16 = 0) or
+// bf16 (is_bf16 = 1) device arrays, bias and scratch are f32.
 int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads, int tiles,
                              int key_tiled, float scale, const void* q, const void* k,
-                             const void* v, const float* bias, void* out, void* stream) {
+                             const void* v, const float* bias, void* out, float* scratch,
+                             void* stream) {
   AttnArgs a{};
   a.b = b;
   a.m = m;
@@ -72,6 +84,7 @@ int window_attention_forward(int is_bf16, int b, int m, int n, int c, int heads,
   a.v = v;
   a.bias = bias;
   a.out = out;
+  a.scratch = scratch;
   return (int)launch_attn<false>(is_bf16, a, scale, static_cast<cudaStream_t>(stream));
 }
 

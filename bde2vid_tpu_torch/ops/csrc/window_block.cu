@@ -23,7 +23,8 @@
 // What the design does about it: B1's launches without the tail
 // (window_common.cuh): the LN + q and k|v projection GEMM, fed the query
 // frame x[q_ind] as the centre, the per-(window, head) attention (key-tiled
-// where a window's k and v rows do not fit in one block), then the
+// where a window's k and v rows do not fit in one block; above head_dim 256
+// the wide forward's two launches over the attention scratch), then the
 // out projection on the same GEMM core with a plain prologue and a bias
 // epilogue (register-blocked FMA tiles in f32, mma.sync tensor-core tiles in
 // bf16). Fusing the three launches is later work.
@@ -36,10 +37,11 @@ namespace {
 template <typename T>
 cudaError_t launch_all(const LnProjArgs& p, const void* w_p, const float* b_p, void* acc,
                        void* out, const float* bias, int heads, int attn_tiles,
-                       int attn_key_tiled, float scale, cudaStream_t stream) {
+                       int attn_key_tiled, float* attn_scratch, float scale, cudaStream_t stream) {
   cudaError_t err = launch_ln_proj<T>(p, stream);
   if (err != cudaSuccess) return err;
-  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tiled, bias, acc, scale, stream);
+  err = launch_block_attn<T>(p, heads, attn_tiles, attn_key_tiled, bias, acc, attn_scratch, scale,
+                             stream);
   if (err != cudaSuccess) return err;
   const int rows = p.b * p.m;
   const GemmArgs g{rows, p.c, p.c, acc, w_p, vec_ok(p.c, {acc, w_p}), bias_epilogue(b_p, out, p.c)};
@@ -77,19 +79,21 @@ int window_block_attn_occupancy(int is_bf16, int m, int n, int c, int heads, int
   return attn_occupancy<true>(is_bf16, m, n, c, heads, key_tiled, info);
 }
 
-// Launches the three kernels on `stream`, the attention with each window's
-// rows in attn_tiles tiles, by the key-tiled kernel (attn_key_tiled 1)
-// or all keys at once (0); returns the first CUDA error code (0 on
-// success). Pointers are device pointers; the LN affines, biases and
-// the attention bias are f32, x/weights/scratch/acc/out are f32 (is_bf16 =
-// 0) or bf16 (is_bf16 = 1).
+// Launches the three kernels on `stream` (four above head_dim 256, where
+// the attention is the wide forward's two over attn_scratch, which holds
+// attn_scratch_floats floats and is null below), the attention with each
+// window's rows in attn_tiles tiles, by the key-tiled kernel
+// (attn_key_tiled 1) or all keys at once (0); returns the first CUDA error
+// code (0 on success). Pointers are device pointers; the LN affines,
+// biases, the attention bias and attn_scratch are f32, x/weights/kv/q/acc/out
+// are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int q_ind,
                          int attn_tiles, int attn_key_tiled, float scale, const void* x,
                          const float* g_q, const float* b_q_ln,
                          const float* g_kv, const float* b_kv_ln, const void* w_q,
                          const float* b_q, const void* w_kv, const float* b_kv, const void* w_p,
                          const float* b_p, const float* bias, void* kv, void* q, void* acc,
-                         void* out, void* stream) {
+                         void* out, float* attn_scratch, void* stream) {
   const size_t elem = is_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   LnProjArgs p;
   p.d = d;
@@ -113,9 +117,9 @@ int window_block_forward(int is_bf16, int d, int b, int m, int c, int heads, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_all<__nv_bfloat16>(p, w_p, b_p, acc, out, bias, heads, attn_tiles,
-                                          attn_key_tiled, scale, s)
+                                          attn_key_tiled, attn_scratch, scale, s)
               : launch_all<float>(p, w_p, b_p, acc, out, bias, heads, attn_tiles, attn_key_tiled,
-                                  scale, s);
+                                  attn_scratch, scale, s);
   return (int)err;
 }
 

@@ -857,12 +857,13 @@ size_t ln_proj_smem_bytes(int c) {
 // running max and sum, a second for p v. head_dim 4 is below an MMA's K,
 // so every product is an FMA; bf16 at head_dim >= 16 takes the tensor
 // cores (attn_kernel_mma). Windows whose k and v rows do not fit in one
-// block's shared memory, and every head_dim above 32, take the key-tiled
-// variant (attn_flash_kernel). A head_dim between the instantiated ones (1,
-// 2, 4, ..., 256) runs at the next one up with zero columns past it.
-// The wrapper picks the tiles and whether the keys are tiled
-// (attn_forward_plan in ops/window_attn_cuda.py); the launchers take both
-// from its plan.
+// block's shared memory, and every head_dim from 33 to 256, take the
+// key-tiled variant (attn_flash_kernel); every head_dim above 256 the wide
+// forward (attn_wide_scores_kernel, attn_wide_out_kernel). A head_dim
+// between the instantiated ones (1, 2, 4, ..., 256) runs at the next one
+// up with zero columns past it. The wrapper picks the tiles and whether the
+// keys are tiled (attn_forward_plan in ops/window_attn_cuda.py); the
+// launchers take both from its plan.
 // ---------------------------------------------------------------------------
 
 // 8 warps a block. A warp takes one query row at a time (attn_kernel) or,
@@ -886,6 +887,7 @@ struct AttnArgs {
   const void* v;  // (B_, N, C) (unused with kKvScratch)
   const float* bias;  // (H, M, N) f32
   void* out;          // (B_, M, C)
+  float* scratch;     // the wide forward's planes (head_dim > 256; WideFwdPlanes), else null
   bool vec;           // q, k and v are aligned for kChunk-element loads (and hd == HD)
 };
 
@@ -1453,25 +1455,26 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
   return cudaSuccess;
 }
 
+
 // ---------------------------------------------------------------------------
 // Key-tiled variant (attn_flash_kernel), for windows whose k and v rows do
 // not fit in one block's shared memory (the JAX kernel stages them whole in
-// VMEM, which caps it only at 96 MB) and for every head_dim above 32. One
-// sweep over the keys with an online softmax: a warp takes 16 query rows,
-// laid out as an mma.sync m16n8 accumulator (a lane holds rows lane / 4 and
-// lane / 4 + 8, columns 2 (lane % 4) and the next of each 8), and keeps each
-// row's running max, its lane's share of the running sum of exp, and its
-// (16, HD) output sums in registers. A tile's scores raise the max; the sums
-// and outputs are rescaled by exp(old max - new max), p = exp(s - max) is
-// added into the outputs, and the division by the row's sum comes once, at
-// the end. The block's four warps (64 rows) share each tile of KT keys,
-// which cp.async double-buffers in shared memory in the operand type, so
-// the next tile loads while this one computes; in f32 the tile's (64, KT)
-// bias columns come with it, so that no score waits on a load from L2. In
-// bf16, where a tile costs a few mma, the 4-byte copies cost more than the
-// loads they hide, and each score reads its bias element from L2 where it
-// is added (one load of the lane's pair before the pair's scores took 40 %
-// more time on the H100: PERF.md, section 6).
+// VMEM, which caps it only at 96 MB) and for every head_dim from 33 to 256.
+// One sweep over the keys with an online softmax: a warp takes 16 query
+// rows, laid out as an mma.sync m16n8 accumulator (a lane holds rows lane /
+// 4 and lane / 4 + 8, columns 2 (lane % 4) and the next of each 8), and
+// keeps each row's running max, its lane's share of the running sum of exp,
+// and its (16, HD) output sums in registers. A tile's scores raise the max;
+// the sums and outputs are rescaled by exp(old max - new max), p = exp(s -
+// max) is added into the outputs, and the division by the row's sum comes
+// once, at the end. The block's four warps (64 rows) share each tile of KT
+// keys, which cp.async double-buffers in shared memory in the operand type,
+// so the next tile loads while this one computes; in f32 the tile's (64,
+// KT) bias columns come with it, so that no score waits on a load from L2.
+// In bf16, where a tile costs a few mma, the 4-byte copies cost more than
+// the loads they hide, and each score reads its bias element from L2 where
+// it is added (one load of the lane's pair before the pair's scores took 40
+// % more time on the H100: PERF.md, section 6).
 //   bf16: q k^T and p v on the tensor cores (m16n8k16, f32 accumulators):
 //         q's A fragments stay in registers, k rows are the B operand as
 //         they are, v rows reach p v's B operand through ldmatrix.trans;
@@ -1484,18 +1487,8 @@ cudaError_t attn_run(const AttnArgs& a, float scale, long long* info, cudaStream
 // head_dim is padded to the instantiated HD (f32 >= 8, bf16 >= 16) with
 // zeros in the staged rows. The wrapper's plan picks this kernel
 // (attn_key_tiled in ops/window_attn_cuda.py); its tile is flash_key_tile's,
-// which the occupancy query reports.
-// Above head_dim 256 (HD 512, 1024) a warp's (16, HD) outputs would not fit
-// in registers, so the output columns split into chunks of 256, an extra
-// grid dimension (y = head x chunk): each block computes its rows' scores
-// over the whole head_dim and keeps only its chunk of p v, so its v tiles
-// hold only those columns. Chunks rather than two warps a head: the kernel
-// and its accumulators stay as they are at 256, and the chunks of one head
-// run as independent blocks that fill the card. The scores cost each chunk
-// again (HD / 256 times). q no longer fits in registers (bf16: HD / 4 a
-// lane) nor, in f32, in shared memory beside the k tiles (64 rows x 1028
-// floats at 1024): bf16 stages the block's q rows in shared memory and
-// reads each A fragment by ldmatrix; f32 reads q's float4 from L1/L2.
+// which the occupancy query reports. Above head_dim 256 the wide forward
+// below runs instead.
 // ---------------------------------------------------------------------------
 
 constexpr int kFlashWarps = 4;  // 16-row tiles a block, sharing each key tile
@@ -1522,21 +1515,13 @@ __host__ __device__ constexpr int flash_stride(int hd) {
 // column fall in distinct bank pairs but for one 2-way conflict.
 __host__ __device__ constexpr int flash_bias_stride(int hd) { return flash_key_tile(hd) + 4; }
 
-// Output columns a block keeps: the whole head up to 256, else a chunk of
-// 256 (the grid's y takes head x chunk).
-__host__ __device__ constexpr int flash_out_cols(int hd) { return hd > 256 ? 256 : hd; }
-
-// Two stages of k tiles (HD columns) and v tiles (the block's output
-// columns) in T; for f32 two stages of the (64, KT) bias tile and, up to
-// head_dim 256, the block's 64 q rows; for bf16 above 256 the q rows.
+// Two stages of k and v tiles in T; for f32 two stages of the (64, KT) bias
+// tile and the block's 64 q rows.
 template <typename T>
 constexpr size_t flash_smem_bytes(int hd) {
-  const size_t kv = sizeof(T) * 2 * (size_t)flash_key_tile(hd) *
-                    (flash_stride<T>(hd) + flash_stride<T>(flash_out_cols(hd)));
-  if (std::is_same<T, __nv_bfloat16>::value)
-    return kv + (hd > 256 ? sizeof(T) * 16 * kFlashWarps * (size_t)mma_k_stride(hd) : 0);
-  return kv + sizeof(float) * 16 * kFlashWarps *
-                  (2 * flash_bias_stride(hd) + (hd > 256 ? 0 : key_stride(hd)));
+  const size_t kv = sizeof(T) * 2 * (size_t)flash_key_tile(hd) * 2 * flash_stride<T>(hd);
+  if (std::is_same<T, __nv_bfloat16>::value) return kv;
+  return kv + sizeof(float) * 16 * kFlashWarps * (2 * flash_bias_stride(hd) + key_stride(hd));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
@@ -1575,31 +1560,20 @@ __device__ __forceinline__ void flash_copy16(T* dst, const T* src, const AttnArg
   }
 }
 
-// Keys t0 .. t0 + KT - 1 of window w's k columns of head h into kd ((KT,
-// KST)) and its v columns oc0 .. oc0 + OC - 1 (the block's output chunk;
-// the whole head up to 256) into vd ((KT, KSV)): 16-byte cp.async when vec
-// (rows aligned and hd a multiple of 16 bytes), plain loads otherwise; zero
-// past N and past hd.
+// Keys t0 .. t0 + KT - 1 of window w's k and v columns of head h into kd
+// and vd ((KT, KST) each): 16-byte cp.async when vec (rows aligned and hd a
+// multiple of 16 bytes), plain loads otherwise; zero past N and past hd.
 template <typename T, int HD, bool kKvScratch>
-__device__ __forceinline__ void flash_stage(T* kd, T* vd, const AttnArgs& a, int w, int h, int t0,
-                                            int oc0) {
+__device__ __forceinline__ void flash_stage(T* kd, T* vd, const AttnArgs& a, int w, int h, int t0) {
   constexpr int KT = flash_key_tile(HD), KST = flash_stride<T>(HD);
-  constexpr int OC = flash_out_cols(HD), KSV = flash_stride<T>(OC);
-  constexpr int CH = 16 / (int)sizeof(T), PER = HD / CH, PERV = OC / CH;
+  constexpr int CH = 16 / (int)sizeof(T), PER = HD / CH;
   const T* kg = static_cast<const T*>(a.k);
   const T* vg = kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
   for (int e = threadIdx.x; e < KT * PER; e += kFlashThreads) {
     const int nn = e / PER, d0 = (e - nn * PER) * CH, key = t0 + nn;
     const size_t off = key < a.n ? kv_offset<kKvScratch>(a, w, key) + h * a.hd + d0 : 0;
     flash_copy16(kd + nn * KST + d0, kg + off, a, key, d0);
-    if constexpr (OC == HD) flash_copy16(vd + nn * KSV + d0, vg + off, a, key, d0);
-  }
-  if constexpr (OC < HD) {
-    for (int e = threadIdx.x; e < KT * PERV; e += kFlashThreads) {
-      const int nn = e / PERV, d0 = (e - nn * PERV) * CH, key = t0 + nn;
-      const size_t off = key < a.n ? kv_offset<kKvScratch>(a, w, key) + h * a.hd + oc0 + d0 : 0;
-      flash_copy16(vd + nn * KSV + d0, vg + off, a, key, oc0 + d0);
-    }
+    flash_copy16(vd + nn * KST + d0, vg + off, a, key, d0);
   }
 }
 
@@ -1623,40 +1597,14 @@ __device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const uint32
   }
 }
 
-// bf16 above head_dim 256: the same scores with q's A fragments read from
-// the warp's 16 staged q rows (qs, row stride mma_k_stride(HD)) by ldmatrix.
-template <int HD, int KT>
-__device__ __forceinline__ void flash_scores_smem_q(float (&s)[KT / 8][4], const __nv_bfloat16* qs,
-                                                    const __nv_bfloat16* ks, int lane) {
-  constexpr int KST = mma_k_stride(HD);
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t qa[4];
-    ldmatrix_x4(qa, qs + (lane & 15) * KST + 16 * kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      const __nv_bfloat16* kr = ks + (8 * j + g) * KST + 16 * kk + 2 * t4;
-      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                             *reinterpret_cast<const uint32_t*>(kr + 8)};
-      mma_bf16(s[j], qa, b);
-    }
-  }
-}
-
 // The f32 q rows a lane scores with: up to head_dim 16 in registers
-// (loaded once a row group), above it read from the staged rows each time,
-// and above 256 read from device memory (L1/L2) each time, zero past hd.
-template <int HD, bool kGlobal_ = (HD > 256)>
+// (loaded once a row group), above it read from the staged rows each time.
+template <int HD>
 struct FlashQ {
-  static constexpr bool kRegs = HD <= 16 && !kGlobal_, kGlobal = kGlobal_;
+  static constexpr bool kRegs = HD <= 16;
   float4 r[kRegs ? 2 : 1][kRegs ? HD / 4 : 1];
   const float* q0;
   const float* q1;
-  int hd;    // kGlobal: the head's columns
-  bool vec;  // kGlobal: 16-byte loads (rows 16-byte aligned, hd a multiple of 4)
 
   __device__ __forceinline__ void init(const float* row0, const float* row1) {
     q0 = row0;
@@ -1671,21 +1619,14 @@ struct FlashQ {
   }
   __device__ __forceinline__ float4 get(int row, int d) const {
     if constexpr (kRegs) return r[row][d / 4];
-    const float* p = (row ? q1 : q0) + d;
-    if constexpr (kGlobal) {
-      if (vec)
-        return d < hd ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
-      return make_float4(d < hd ? __ldg(p) : 0.f, d + 1 < hd ? __ldg(p + 1) : 0.f,
-                         d + 2 < hd ? __ldg(p + 2) : 0.f, d + 3 < hd ? __ldg(p + 3) : 0.f);
-    }
-    return *reinterpret_cast<const float4*>(p);
+    return *reinterpret_cast<const float4*>((row ? q1 : q0) + d);
   }
 };
 
 // f32: the same scores by FMA from the warp's q rows (row lane / 4 and 8
 // below it) and the staged k rows.
-template <int HD, int KT, bool kGlobalQ>
-__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const FlashQ<HD, kGlobalQ>& q,
+template <int HD, int KT>
+__device__ __forceinline__ void flash_scores(float (&s)[KT / 8][4], const FlashQ<HD>& q,
                                              const float* ks, int lane) {
   constexpr int KS = key_stride(HD);
   const int t4 = lane & 3;
@@ -1774,9 +1715,9 @@ __device__ __forceinline__ void flash_pv(float (&o)[HD / 8][4], const float (&p)
 // exp(old max - new max), and s becomes p = exp(s - max). The bias comes
 // from the staged f32 tile bs (row lane / 4, 8 below it at 8 KBS) or, in
 // bf16, from L2 (brow: the rows' bias rows, null past M).
-template <typename T, int KT, int KBS, int OC>
+template <typename T, int KT, int KBS, int HD>
 __device__ __forceinline__ void flash_softmax_tile(float (&s)[KT / 8][4], float (&mx)[2], float (&sum)[2],
-                                                   float (&o)[OC / 8][4], const float* bs,
+                                                   float (&o)[HD / 8][4], const float* bs,
                                                    const float* const (&brow)[2], int t0, int n,
                                                    float scale, int t4) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -1814,7 +1755,7 @@ __device__ __forceinline__ void flash_softmax_tile(float (&s)[KT / 8][4], float 
     }
     sum[hr] = fmaf(sum[hr], alpha, ts);
 #pragma unroll
-    for (int dt = 0; dt < OC / 8; ++dt) {
+    for (int dt = 0; dt < HD / 8; ++dt) {
       o[dt][2 * hr] *= alpha;
       o[dt][2 * hr + 1] *= alpha;
     }
@@ -1822,10 +1763,10 @@ __device__ __forceinline__ void flash_softmax_tile(float (&s)[KT / 8][4], float 
 }
 
 // The lane's two rows' outputs o / (their sums over the row's four lanes)
-// into out (row r of window w at rows[r]; nothing past M), columns oc0 + ...
-template <typename T, int OC>
-__device__ __forceinline__ void flash_store(const AttnArgs& a, const float (&o)[OC / 8][4], const float (&sum)[2],
-                                            const int (&rows)[2], int w, int h, int oc0, int t4) {
+// into out (row r of window w at rows[r]; nothing past M).
+template <typename T, int HD>
+__device__ __forceinline__ void flash_store(const AttnArgs& a, const float (&o)[HD / 8][4], const float (&sum)[2],
+                                            const int (&rows)[2], int w, int h, int t4) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float l = sum[hr];
@@ -1835,25 +1776,22 @@ __device__ __forceinline__ void flash_store(const AttnArgs& a, const float (&o)[
     const float inv = 1.f / l;
     T* out = static_cast<T*>(a.out) + ((size_t)w * a.m + rows[hr]) * a.c + h * a.hd;
 #pragma unroll
-    for (int dt = 0; dt < OC / 8; ++dt)
-      store_pair(out, oc0 + 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
+    for (int dt = 0; dt < HD / 8; ++dt)
+      store_pair(out, 8 * dt + 2 * t4, a.hd, a.vec, o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
   }
 }
 
 template <typename T, int HD, bool kKvScratch>
 __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, float scale) {
   constexpr int KT = flash_key_tile(HD), KST = flash_stride<T>(HD), KS = key_stride(HD);
-  constexpr int OC = flash_out_cols(HD), CHUNKS = HD / OC, KSV = flash_stride<T>(OC);
   constexpr int KBS = flash_bias_stride(HD), BT = 16 * kFlashWarps * KBS;
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value, kWideQ = HD > 256;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char flash_smem[];
   T* kbuf = reinterpret_cast<T*>(flash_smem);  // 2 stages of (KT, KST)
-  T* vbuf = kbuf + 2 * KT * KST;               // 2 stages of (KT, KSV): the block's output columns
-  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KSV);  // f32: 2 stages of (64, KBS) bias
-  float* qs = bbuf + 2 * BT;  // f32 up to head_dim 256: the block's (64, KS) q rows
-  // bf16 above head_dim 256: the block's (64, mma_k_stride(HD)) q rows
-  __nv_bfloat16* qsb = reinterpret_cast<__nv_bfloat16*>(vbuf + 2 * KT * KSV);
-  const int w = blockIdx.x, h = blockIdx.y / CHUNKS, oc0 = (blockIdx.y % CHUNKS) * OC;
+  T* vbuf = kbuf + 2 * KT * KST;               // 2 stages of (KT, KST)
+  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KST);  // f32: 2 stages of (64, KBS) bias
+  float* qs = bbuf + 2 * BT;                                     // f32: the block's (64, KS) q rows
+  const int w = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int tiles16 = cdiv(a.m, 16), ntiles = cdiv(a.n, KT);
@@ -1865,16 +1803,8 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
     const int rows[2] = {r0 + g, r0 + g + 8};
     const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * a.n : nullptr,
                                   rows[1] < a.m ? bias_h + (size_t)rows[1] * a.n : nullptr};
-    uint32_t qa[kBf16 && !kWideQ ? HD / 16 : 1][4];
-    if constexpr (kBf16 && kWideQ) {
-      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-      constexpr int KQ = mma_k_stride(HD);
-      for (int e = threadIdx.x; e < 16 * kFlashWarps * HD; e += kFlashThreads) {
-        const int r = e / HD, d = e - r * HD, row = 16 * rg * kFlashWarps + r;
-        qsb[r * KQ + d] = row < a.m && d < a.hd ? q[((size_t)w * a.m + row) * a.c + h * a.hd + d]
-                                                : __float2bfloat16_rn(0.f);
-      }
-    } else if constexpr (kBf16) {
+    uint32_t qa[kBf16 ? HD / 16 : 1][4];
+    if constexpr (kBf16) {
       const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
@@ -1886,7 +1816,7 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
                                 : 0u;
         }
       }
-    } else if constexpr (!kWideQ) {
+    } else {
       const float* q = static_cast<const float*>(a.q);
       for (int e = threadIdx.x; e < 16 * kFlashWarps * HD; e += kFlashThreads) {
         const int r = e / HD, d = e - r * HD, row = 16 * rg * kFlashWarps + r;
@@ -1894,68 +1824,57 @@ __global__ void __launch_bounds__(kFlashThreads) attn_flash_kernel(AttnArgs a, f
       }
     }
     float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
-    float o[OC / 8][4];
+    float o[HD / 8][4];
 #pragma unroll
-    for (int dt = 0; dt < OC / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
     FlashQ<HD> fq;
-    if constexpr (!kBf16 && kWideQ) {
-      // rows past M read row M - 1 (finite; their outputs are not written)
-      const float* q = static_cast<const float*>(a.q) + ((size_t)w * a.m) * a.c + h * a.hd;
-      fq.init(q + (size_t)min(rows[0], a.m - 1) * a.c, q + (size_t)min(rows[1], a.m - 1) * a.c);
-      fq.hd = a.hd;
-      fq.vec = a.vec;
-    }
 
-    flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0, oc0);
+    flash_stage<T, HD, kKvScratch>(kbuf, vbuf, a, w, h, 0);
     if constexpr (!kBf16) flash_stage_bias<HD>(bbuf, bias_h, a, rb, 0);
     cp_async_commit();
     for (int it = 0; it < ntiles; ++it) {
       const int buf = it & 1, t0 = it * KT;
       if (it + 1 < ntiles) {
-        flash_stage<T, HD, kKvScratch>(kbuf + (buf ^ 1) * KT * KST, vbuf + (buf ^ 1) * KT * KSV, a, w,
-                                       h, t0 + KT, oc0);
+        flash_stage<T, HD, kKvScratch>(kbuf + (buf ^ 1) * KT * KST, vbuf + (buf ^ 1) * KT * KST, a, w,
+                                       h, t0 + KT);
         if constexpr (!kBf16) flash_stage_bias<HD>(bbuf + (buf ^ 1) * BT, bias_h, a, rb, t0 + KT);
       }
       cp_async_commit();
       cp_async_wait<1>();  // this tile's copies have landed
       __syncthreads();
       const T* ks = kbuf + buf * KT * KST;
-      const T* vs = vbuf + buf * KT * KSV;
+      const T* vs = vbuf + buf * KT * KST;
       const float* bs = bbuf + buf * BT + (16 * warp + g) * KBS + 2 * t4;  // row lane / 4
       float s[KT / 8][4];
-      if constexpr (kBf16 && kWideQ) {
-        flash_scores_smem_q<HD, KT>(s, qsb + 16 * warp * mma_k_stride(HD), ks, lane);
-      } else if constexpr (kBf16) {
+      if constexpr (kBf16) {
         flash_scores<HD, KT>(s, qa, ks, lane);
       } else {
-        if (!kWideQ && it == 0) fq.init(qs + (16 * warp + g) * KS, qs + (16 * warp + g + 8) * KS);
+        if (it == 0) fq.init(qs + (16 * warp + g) * KS, qs + (16 * warp + g + 8) * KS);
         flash_scores<HD, KT>(s, fq, ks, lane);
       }
-      flash_softmax_tile<T, KT, KBS, OC>(s, mx, sum, o, bs, brow, t0, a.n, scale, t4);
-      flash_pv<OC, KT>(o, s, vs, lane);
+      flash_softmax_tile<T, KT, KBS, HD>(s, mx, sum, o, bs, brow, t0, a.n, scale, t4);
+      flash_pv<HD, KT>(o, s, vs, lane);
       __syncthreads();  // every warp is done with this stage before it is refilled
     }
-    flash_store<T, OC>(a, o, sum, rows, w, h, oc0, t4);
+    flash_store<T, HD>(a, o, sum, rows, w, h, t4);
   }
 }
 
-// A key-tiled kernel's occupancy at smem bytes (attn_run's info, then J 0:
-// a warp's scores are 16-row fragments, and the key tile).
+// Registers, local (spill) bytes per thread, dynamic shared memory, threads
+// and resident blocks per SM of `kernel` at smem bytes, into info[0..4].
 template <class K>
-cudaError_t flash_occupancy(K kernel, size_t smem, int key_tile, long long* info) {
+cudaError_t block_occupancy(K kernel, int threads, size_t smem, long long* info) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFlashThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   info[0] = attr.numRegs;
   info[1] = (long long)attr.localSizeBytes;
   info[2] = (long long)smem;
-  info[3] = kFlashThreads;
+  info[3] = threads;
   info[4] = blocks;
-  info[5] = 0;
-  info[6] = key_tile;
   return cudaSuccess;
 }
 
@@ -1968,180 +1887,307 @@ cudaError_t attn_flash_run(const AttnArgs& a, float scale, long long* info, cuda
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info == nullptr) {
-    kernel<<<dim3(a.b, a.heads * (HD / flash_out_cols(HD)), a.tiles), kFlashThreads, smem, stream>>>(
-        a, scale);
+    kernel<<<dim3(a.b, a.heads, a.tiles), kFlashThreads, smem, stream>>>(a, scale);
     return cudaGetLastError();
   }
-  return flash_occupancy(kernel, smem, flash_key_tile(HD), info);
+  err = block_occupancy(kernel, kFlashThreads, smem, info);
+  info[5] = 0;  // a warp's scores are 16-row fragments
+  info[6] = flash_key_tile(HD);
+  return err;
 }
 
 // ---------------------------------------------------------------------------
-// Above head_dim 1024 (attn_flash_chunked_kernel): the key-tiled kernel with
-// the scores, too, summed over head_dim chunks of 256 columns staged one
-// after another, so that a block's shared memory and registers do not grow
-// with head_dim and one instantiation takes every head_dim above 1024
-// (padded_hd rounds it up to a multiple of 256). As above 256, the grid's y
-// takes head x output chunk. A block walks (key tile, score chunk) steps and
-// cp.async double-buffers each step's k chunk (16 keys x 256 columns) and,
-// with a tile's first step, the tile's v columns of its output chunk (f32:
-// and its bias tile), so the next step's copies overlap this one's
-// products. q comes from device memory (L1/L2) at each step: f32 as float4,
-// bf16 as the mma's A fragments; rows past M read row M - 1 (finite, never
-// written). The scores cost each output chunk again (HD / 256 times).
+// Above head_dim 256 (the wide forward): two launches of 128-thread blocks
+// that split each (window, head) over key tiles, row tiles and 64-column
+// chunks of head_dim, as the wide backward does (attn_core_bwd.cu), so that
+// any head_dim runs as itself (zero columns past it within its last chunk,
+// no padding to a power of two) and the grid fills the card (B_ 20 with one
+// head at M 49, N 343: 220 score blocks, and 200 or more output blocks from
+// head_dim 257 on). q k^T is computed once per (window, head, row, key),
+// whatever the head_dim: no launch repeats it for its output columns.
+//   1. attn_wide_scores_kernel, block (key tile of 32, row tile of 64,
+//      window x head): s = q k^T summed over the head_dim chunks, each
+//      chunk's q and k rows in flight by cp.async (two stages) while the
+//      previous chunk multiplies; then s scale + bias to an f32 (B_ H, M,
+//      np) plane in device memory, and for each row the tile's max and sum
+//      of exp (a warp per row, a lane per key).
+//   2. attn_wide_out_kernel, block (row tile of 32, head_dim chunk of 64,
+//      window x head): its rows' tile statistics merged in tile order, then
+//      for each key tile of 64 (s rows and v rows in flight by cp.async,
+//      two stages) p = exp(s - max) / sum, rounded to the operand type
+//      after the division as the twin rounds, and out += round(p) v; its
+//      (32, 64) block of out written once.
+// What bounds it on the H100: 4 B_ H M N hd operations against the q, k, v
+// and out rows and the bias (at head_dim 384-2048 operations in f32, bytes
+// in bf16); the f32 s plane and the statistics (B_ H M (np + 2 tiles)
+// floats, 1.5 MB at B_ 20, M 49, N 343) are written once and read hd / 64
+// times from L2. Products: f32 by FMA with no TF32, each thread a 4 x 4
+// register tile from float4 rows in shared memory; bf16 on the tensor cores
+// (mma.sync m16n8k16 from ldmatrix fragments, f32 accumulators). Every
+// output element and every statistic has one owner and sums in a fixed
+// order, so two runs are bit-identical, with no float atomics. The planes
+// live in scratch that the wrapper allocates (attn_forward_scratch_floats in
+// ops/window_attn_cuda.py mirrors WideFwdPlanes::floats).
 // ---------------------------------------------------------------------------
 
-constexpr int kFlashChunk = 256;
+// The wide forward takes every head_dim above this; the key-tiled kernel
+// stays below it, where it was faster in bf16 (PERF.md, section 6).
+constexpr int kWideFwdMinHd = 256;
+constexpr int kWideFwdKeys = 32;    // keys of a scores tile (a lane per key in its epilogue)
+constexpr int kWideFwdRows = 64;    // rows of a scores tile
+constexpr int kWideOutRows = 32;    // rows of an output block
+constexpr int kWideOutKeys = 64;    // keys an output block takes at a time
+constexpr int kWideOutLs = kWideOutKeys + 4;  // row stride (floats) of a staged s tile
 
-// Two stages each of the k chunk and the v chunk; f32: two of the bias tile.
+// The wide forward's scratch (f32, 16-byte aligned): the s plane (B_ H, M,
+// np), rows padded to np = tiles x 32 keys (-inf past N) so that whole
+// 16-byte chunks copy; the key tiles' row max (times log2 e) and sum of exp
+// (B_ H, tiles, M) each.
+struct WideFwdPlanes {
+  float *s, *tmx, *tsum;
+  int tiles, np;
+  __host__ __device__ WideFwdPlanes(const AttnArgs& a) {
+    tiles = cdiv(a.n, kWideFwdKeys);
+    np = tiles * kWideFwdKeys;
+    const size_t rows = (size_t)a.b * a.heads * a.m;
+    s = a.scratch;
+    tmx = s + rows * np;
+    tsum = tmx + rows * tiles;
+  }
+  static size_t floats(int b, int m, int n, int heads) {
+    const int t = cdiv(n, kWideFwdKeys);
+    return (size_t)b * heads * m * ((size_t)t * kWideFwdKeys + 2 * (size_t)t);
+  }
+};
+
+// Shared memory (bytes): two stages of the scores tile's q chunk (64 rows)
+// and k chunk (32 keys), its f32 (64, 33) s tile over them after the
+// products; two stages of the output block's f32 s tile (32, 68) and v
+// chunk (64 keys), its round(p) tile and its rows' statistics.
 template <typename T>
-constexpr size_t flash_chunked_smem_bytes() {
-  const size_t kv = sizeof(T) * 2 * 2 * (size_t)flash_key_tile(kFlashChunk) * flash_stride<T>(kFlashChunk);
-  if (std::is_same<T, __nv_bfloat16>::value) return kv;
-  return kv + sizeof(float) * 2 * 16 * kFlashWarps * (size_t)flash_bias_stride(kFlashChunk);
+constexpr size_t wide_fwd_scores_smem() {
+  return sizeof(T) * 2 * (size_t)(kWideFwdRows + kWideFwdKeys) * wide_ld<T>(kWideCols);
+}
+template <typename T>
+__host__ __device__ constexpr size_t wide_fwd_out_stage() {
+  return sizeof(float) * (size_t)kWideOutRows * kWideOutLs +
+         sizeof(T) * (size_t)kWideOutKeys * wide_ld<T>(kWideCols);
+}
+template <typename T>
+constexpr size_t wide_fwd_out_smem() {
+  return 2 * wide_fwd_out_stage<T>() + sizeof(T) * (size_t)kWideOutRows * wide_ld<T>(kWideOutKeys) +
+         sizeof(float) * 2 * kWideOutRows;
+}
+static_assert(wide_fwd_scores_smem<__nv_bfloat16>() >= sizeof(float) * kWideFwdRows * (kWideFwdKeys + 1),
+              "the s tile fits over the staged chunks");
+static_assert(wide_fwd_out_stage<__nv_bfloat16>() % 16 == 0 && wide_fwd_out_stage<float>() % 16 == 0,
+              "stages start on 16-byte boundaries");
+
+// Keys n0 .. n0 + nrows - 1 of window w's columns d0 .. d0 + COLS - 1 of
+// head h from src (k, or v: the k|v scratch's v half or the separate v)
+// into dst (row stride ldd), zero past N and past hd: 16-byte cp.async when
+// a.vec, which the caller commits and waits for; else plain loads.
+template <typename T, bool kKvScratch, int COLS>
+__device__ __forceinline__ void wide_stage_keys(T* dst, int ldd, const AttnArgs& a, const T* src, int w,
+                                                int h, int n0, int nrows, int d0) {
+  constexpr int CH = 16 / (int)sizeof(T), PER = COLS / CH;
+  const int rows = a.n - n0, cols = a.hd - d0;
+  if (a.vec) {
+    for (int e = threadIdx.x; e < nrows * PER; e += kWideThreads) {
+      const int r = e / PER, col = (e - r * PER) * CH;
+      const bool in = r < rows && col < cols;
+      const T* p = in ? src + kv_offset<kKvScratch>(a, w, n0 + r) + h * a.hd + d0 + col : src;
+      cp_async16(dst + r * ldd + col, p, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nrows * COLS; e += kWideThreads) {
+      const int r = e / COLS, col = e - r * COLS;
+      dst[r * ldd + col] = r < rows && col < cols
+                               ? src[kv_offset<kKvScratch>(a, w, n0 + r) + h * a.hd + d0 + col]
+                               : store_cast<T>(0.f);
+    }
+  }
 }
 
-// Keys t0 .. t0 + KT - 1 of window w's columns col0 .. col0 + 255 of head h,
-// of k (or of v with kV), into dst ((KT, flash_stride(256))): zero past N
-// and past hd.
-template <typename T, bool kKvScratch, bool kV>
-__device__ __forceinline__ void flash_stage_chunk(T* dst, const AttnArgs& a, int w, int h, int t0,
-                                                  int col0) {
-  constexpr int KT = flash_key_tile(kFlashChunk), KS = flash_stride<T>(kFlashChunk);
-  constexpr int CH = 16 / (int)sizeof(T), PER = kFlashChunk / CH;
+template <typename T, bool kKvScratch>
+__global__ void __launch_bounds__(kWideThreads) attn_wide_scores_kernel(AttnArgs a, float scale) {
+  constexpr int LD = wide_ld<T>(kWideCols), SP = kWideFwdKeys + 1;
+  constexpr int STAGE = (kWideFwdRows + kWideFwdKeys) * LD;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  T* smem = reinterpret_cast<T*>(wide_smem);        // two stages of (64, LD) q, then (32, LD) k
+  float* sp = reinterpret_cast<float*>(wide_smem);  // after the products: (64, SP) q k^T
+  const int kt = blockIdx.x, r0 = blockIdx.y * kWideFwdRows, bh = blockIdx.z;
+  const int m = a.m, n = a.n, hd = a.hd, n0 = kt * kWideFwdKeys;
+  const int w = bh / a.heads, h = bh - w * a.heads;
+  const T* q = static_cast<const T*>(a.q) + ((size_t)w * m + r0) * a.c + h * hd;
   const T* kg = static_cast<const T*>(a.k);
-  const T* src = !kV ? kg : kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
-  for (int e = threadIdx.x; e < KT * PER; e += kFlashThreads) {
-    const int nn = e / PER, d0 = (e - nn * PER) * CH, key = t0 + nn;
-    const size_t off = key < a.n ? kv_offset<kKvScratch>(a, w, key) + h * a.hd + col0 + d0 : 0;
-    flash_copy16(dst + nn * KS + d0, src + off, a, key, col0 + d0);
-  }
-}
-
-// bf16: s += q k^T of one 256-column chunk, q's A fragments read from the
-// warp's two rows q[0], q[1] (at the chunk's first column; hd: the head's
-// columns from there).
-template <int KT>
-__device__ __forceinline__ void flash_scores_global_q(float (&s)[KT / 8][4], const __nv_bfloat16* const (&q)[2],
-                                                      int hd, bool vec, const __nv_bfloat16* ks, int lane) {
-  constexpr int KST = mma_k_stride(kFlashChunk);
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll 4
-  for (int kk = 0; kk < kFlashChunk / 16; ++kk) {
-    uint32_t qa[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int col = 16 * kk + 2 * t4 + 8 * (r >> 1);
-      qa[r] = load_pair(q[r & 1] + col, vec, col, hd);
-    }
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      const __nv_bfloat16* kr = ks + (8 * j + g) * KST + 16 * kk + 2 * t4;
-      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                             *reinterpret_cast<const uint32_t*>(kr + 8)};
-      mma_bf16(s[j], qa, b);
-    }
-  }
-}
-
-template <typename T, bool kKvScratch>
-__global__ void __launch_bounds__(kFlashThreads) attn_flash_chunked_kernel(AttnArgs a, float scale) {
-  constexpr int HD = kFlashChunk, KT = flash_key_tile(HD), KS = flash_stride<T>(HD);
-  constexpr int KBS = flash_bias_stride(HD), BT = 16 * kFlashWarps * KBS;
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  extern __shared__ __align__(16) unsigned char flash_smem[];
-  T* kbuf = reinterpret_cast<T*>(flash_smem);  // 2 stages of (KT, KS): a step's k chunk
-  T* vbuf = kbuf + 2 * KT * KS;                // 2 stages of (KT, KS): a tile's v chunk
-  float* bbuf = reinterpret_cast<float*>(vbuf + 2 * KT * KS);  // f32: 2 stages of (64, KBS) bias
-  const int nd = cdiv(a.hd, HD);
-  const int w = blockIdx.x, h = blockIdx.y / nd, oc0 = (blockIdx.y % nd) * HD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int tiles16 = cdiv(a.m, 16), steps = cdiv(a.n, KT) * nd;
-  const float* bias_h = a.bias + (size_t)h * a.m * a.n;
-  for (int rg = blockIdx.z; rg * kFlashWarps < tiles16; rg += a.tiles) {
-    const int r0 = 16 * (rg * kFlashWarps + warp), rb = 16 * rg * kFlashWarps;
-    const int rows[2] = {r0 + g, r0 + g + 8};
-    const float* const brow[2] = {rows[0] < a.m ? bias_h + (size_t)rows[0] * a.n : nullptr,
-                                  rows[1] < a.m ? bias_h + (size_t)rows[1] * a.n : nullptr};
-    const T* q = static_cast<const T*>(a.q) + (size_t)w * a.m * a.c + h * a.hd;
-    const T* const qrow[2] = {q + (size_t)min(rows[0], a.m - 1) * a.c, q + (size_t)min(rows[1], a.m - 1) * a.c};
-    float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
-    float o[HD / 8][4], s[KT / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-    // step st: k chunk st % nd of key tile st / nd; a tile's first step also
-    // brings its v chunk and (f32) bias tile
-    auto fetch = [&](int st) {
-      const int it = st / nd, d = st - it * nd, t0 = it * KT;
-      flash_stage_chunk<T, kKvScratch, false>(kbuf + (st & 1) * KT * KS, a, w, h, t0, d * HD);
-      if (d == 0) {
-        flash_stage_chunk<T, kKvScratch, true>(vbuf + (it & 1) * KT * KS, a, w, h, t0, oc0);
-        if constexpr (!kBf16) flash_stage_bias<HD>(bbuf + (it & 1) * BT, bias_h, a, rb, t0);
-      }
-    };
-    fetch(0);
+  auto stage = [&](T* st, int d0) {
+    wide_stage<T, kWideCols>(st, LD, q + d0, a.c, kWideFwdRows, m - r0, hd - d0, a.vec);
+    wide_stage_keys<T, kKvScratch, kWideCols>(st + kWideFwdRows * LD, LD, a, kg, w, h, n0,
+                                              kWideFwdKeys, d0);
+  };
+  float s[4][4] = {};
+  stage(smem, 0);
+  cp_async_commit();
+  for (int d0 = 0, it = 0; d0 < hd; d0 += kWideCols, ++it) {
+    const T* cur = smem + (it & 1) * STAGE;
+    if (d0 + kWideCols < hd) stage(smem + ((it + 1) & 1) * STAGE, d0 + kWideCols);
     cp_async_commit();
-    for (int st = 0; st < steps; ++st) {
-      const int it = st / nd, d = st - it * nd, t0 = it * KT;
-      if (st + 1 < steps) fetch(st + 1);
-      cp_async_commit();
-      cp_async_wait<1>();  // this step's copies have landed
-      __syncthreads();
-      if (d == 0) {
-#pragma unroll
-        for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      }
-      const T* ks = kbuf + (st & 1) * KT * KS;
-      if constexpr (kBf16) {
-        const __nv_bfloat16* const qc[2] = {qrow[0] + d * HD, qrow[1] + d * HD};
-        flash_scores_global_q<KT>(s, qc, a.hd - d * HD, a.vec, ks, lane);
-      } else {
-        FlashQ<HD, true> fq;
-        fq.init(qrow[0] + d * HD, qrow[1] + d * HD);
-        fq.hd = a.hd - d * HD;
-        fq.vec = a.vec;
-        float t[KT / 8][4];
-        flash_scores<HD, KT>(t, fq, ks, lane);
-#pragma unroll
-        for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += t[j][e];
-      }
-      if (d == nd - 1) {
-        const float* bs = bbuf + (it & 1) * BT + (16 * warp + g) * KBS + 2 * t4;  // row lane / 4
-        flash_softmax_tile<T, KT, KBS, HD>(s, mx, sum, o, bs, brow, t0, a.n, scale, t4);
-        flash_pv<HD, KT>(o, s, vbuf + (it & 1) * KT * KS, lane);
-      }
-      __syncthreads();  // every warp is done with this step's stages before they are refilled
+    cp_async_wait<1>();  // this chunk's copies have landed
+    __syncthreads();
+    wide_nt<kWideCols>(s, cur, cur + kWideFwdRows * LD, LD);
+    __syncthreads();  // every warp is done with this stage before it is refilled (or overlaid)
+  }
+  wide_nt_each<T>(s, [&](int r, int col, float x) { sp[r * SP + col] = x; });
+  __syncthreads();
+  // a warp per row, a lane per key: scale and bias, the plane out (-inf
+  // past N), and the tile's max and sum of exp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, key = n0 + lane;
+  const WideFwdPlanes pl(a);
+  const float* bias_h = a.bias + (size_t)h * m * n;
+  for (int r = warp; r < kWideFwdRows && r0 + r < m; r += kWideThreads / 32) {
+    const int row = r0 + r;
+    const bool in = key < n;
+    const float sv = in ? fmaf(sp[r * SP + lane], scale, __ldg(bias_h + (size_t)row * n + key))
+                        : __int_as_float(0xff800000);  // -inf
+    pl.s[((size_t)bh * m + row) * pl.np + key] = sv;
+    const float mxl = warp_max(sv) * kLog2e;
+    const float e = in ? fast_exp2(fmaf(sv, kLog2e, -mxl)) : 0.f;
+    const float sum = warp_sum(e);
+    if (lane == 0) {
+      const size_t o = ((size_t)bh * pl.tiles + kt) * m + row;
+      pl.tmx[o] = mxl;
+      pl.tsum[o] = sum;
     }
-    flash_store<T, HD>(a, o, sum, rows, w, h, oc0, t4);
   }
 }
 
 template <typename T, bool kKvScratch>
-cudaError_t attn_flash_chunked_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
-  auto kernel = attn_flash_chunked_kernel<T, kKvScratch>;
-  constexpr size_t smem = flash_chunked_smem_bytes<T>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (info == nullptr) {
-    kernel<<<dim3(a.b, a.heads * cdiv(a.hd, kFlashChunk), a.tiles), kFlashThreads, smem, stream>>>(a, scale);
-    return cudaGetLastError();
+__global__ void __launch_bounds__(kWideThreads) attn_wide_out_kernel(AttnArgs a) {
+  constexpr int LS = kWideOutLs, LD = wide_ld<T>(kWideCols), LA = wide_ld<T>(kWideOutKeys);
+  constexpr size_t STAGE = wide_fwd_out_stage<T>();
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  // two stages of: (32, LS) f32 s rows against one key tile, then (64, LD)
+  // the tile's v rows, the block's chunk; then (32, LA) round(p) and the
+  // rows' merged max (times log2 e) and sum of exp
+  T* ps = reinterpret_cast<T*>(wide_smem + 2 * STAGE);
+  float* rmx = reinterpret_cast<float*>(ps + kWideOutRows * LA);
+  float* rsum = rmx + kWideOutRows;
+  const int r0 = blockIdx.x * kWideOutRows, d0 = blockIdx.y * kWideCols, bh = blockIdx.z;
+  const int m = a.m, n = a.n, hd = a.hd;
+  const int w = bh / a.heads, h = bh - w * a.heads;
+  const WideFwdPlanes pl(a);
+  const float* srows = pl.s + ((size_t)bh * m + r0) * pl.np;
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = kKvScratch ? kg + a.c : static_cast<const T*>(a.v);
+  // the padded s rows copy in whole 16-byte chunks (zeros past np)
+  auto stage = [&](unsigned char* st, int n0) {
+    wide_stage<float, kWideOutKeys>(reinterpret_cast<float*>(st), LS, srows + n0, pl.np, kWideOutRows,
+                                    m - r0, pl.np - n0, true);
+    wide_stage_keys<T, kKvScratch, kWideCols>(
+        reinterpret_cast<T*>(st + sizeof(float) * kWideOutRows * LS), LD, a, vg, w, h, n0,
+        kWideOutKeys, d0);
+  };
+  stage(wide_smem, 0);
+  cp_async_commit();
+  if (threadIdx.x < kWideOutRows) {
+    // the row's statistics merged over the key tiles in order (rows past M
+    // keep 0 and 1: their p is 0 and never written)
+    const int row = r0 + threadIdx.x;
+    float mx = 0.f, sum = 1.f;
+    if (row < m) {
+      const size_t o = (size_t)bh * pl.tiles * m + row;
+      mx = __int_as_float(0xff800000);  // -inf
+      for (int t = 0; t < pl.tiles; ++t) mx = fmaxf(mx, pl.tmx[o + (size_t)t * m]);
+      sum = 0.f;
+      for (int t = 0; t < pl.tiles; ++t)
+        sum = fmaf(pl.tsum[o + (size_t)t * m], fast_exp2(pl.tmx[o + (size_t)t * m] - mx), sum);
+    }
+    rmx[threadIdx.x] = mx;
+    rsum[threadIdx.x] = sum;
   }
-  return flash_occupancy(kernel, smem, flash_key_tile(kFlashChunk), info);
+  float acc[4][4] = {};
+  for (int n0 = 0, it = 0; n0 < n; n0 += kWideOutKeys, ++it) {
+    unsigned char* cur = wide_smem + (it & 1) * STAGE;
+    if (n0 + kWideOutKeys < n) stage(wide_smem + ((it + 1) & 1) * STAGE, n0 + kWideOutKeys);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const float* ss = reinterpret_cast<const float*>(cur);
+    for (int e = threadIdx.x; e < kWideOutRows * kWideOutKeys; e += kWideThreads) {
+      const int r = e / kWideOutKeys, key = e - r * kWideOutKeys;
+      float p = 0.f;
+      if (r0 + r < m && n0 + key < n)
+        p = fast_exp2(fmaf(ss[r * LS + key], kLog2e, -rmx[r])) / rsum[r];
+      ps[r * LA + key] = store_cast<T>(p);
+    }
+    __syncthreads();
+    wide_nn<kWideOutKeys>(acc, ps, LA, reinterpret_cast<const T*>(cur + sizeof(float) * kWideOutRows * LS),
+                          LD);
+    __syncthreads();  // every warp is done with this stage and with ps before they are refilled
+  }
+  T* out = static_cast<T*>(a.out) + ((size_t)w * m + r0) * a.c + h * hd + d0;
+  wide_out_each<T, false>(acc, [&](int r, int col, float x) {
+    if (r0 + r < m && d0 + col < hd) out[(size_t)r * a.c + col] = store_cast<T>(x);
+  });
 }
 
-// Shared memory of the kernel a launch takes, key-tiled or untiled
-// (attn_smem_bytes in ops/window_attn_cuda.py for the untiled kernels).
+// The wide forward's two launches with a's scratch, or, with info, the
+// occupancy of its two kernels: the most registers, spill bytes and shared
+// memory, their threads, the fewest resident blocks per SM, J 0 and the
+// scores tile's keys.
+template <typename T, bool kKvScratch>
+cudaError_t attn_wide_run(const AttnArgs& a, float scale, long long* info, cudaStream_t stream) {
+  constexpr size_t smem_s = wide_fwd_scores_smem<T>(), smem_o = wide_fwd_out_smem<T>();
+  static_assert(smem_s <= kMaxSmem && smem_o <= kMaxSmem, "wide forward blocks fit");
+  auto scores = attn_wide_scores_kernel<T, kKvScratch>;
+  auto outk = attn_wide_out_kernel<T, kKvScratch>;
+  cudaError_t err = cudaFuncSetAttribute(scores, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_s);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(outk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_o);
+  if (err != cudaSuccess) return err;
+  if (info != nullptr) {
+    long long other[5];
+    err = block_occupancy(scores, kWideThreads, smem_s, info);
+    if (err != cudaSuccess) return err;
+    err = block_occupancy(outk, kWideThreads, smem_o, other);
+    if (err != cudaSuccess) return err;
+    for (int f = 0; f < 3; ++f) info[f] = std::max(info[f], other[f]);
+    info[4] = std::min(info[4], other[4]);
+    info[5] = 0;
+    info[6] = kWideFwdKeys;
+    return cudaSuccess;
+  }
+  const int bh = a.b * a.heads;
+  if (a.scratch == nullptr || bh > 65535 || cdiv(a.m, kWideFwdRows) > 65535 ||
+      cdiv(a.hd, kWideCols) > 65535)
+    return cudaErrorInvalidValue;
+  scores<<<dim3(cdiv(a.n, kWideFwdKeys), cdiv(a.m, kWideFwdRows), bh), kWideThreads, smem_s, stream>>>(
+      a, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  outk<<<dim3(cdiv(a.m, kWideOutRows), cdiv(a.hd, kWideCols), bh), kWideThreads, smem_o, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Shared memory of the kernel a launch takes: the wide forward's larger
+// block above head_dim 256, else key-tiled or untiled (attn_smem_bytes in
+// ops/window_attn_cuda.py for the untiled kernels).
 size_t attn_launch_smem_bytes(int is_bf16, int m, int n, int hd, int key_tiled) {
+  if (hd > kWideFwdMinHd)
+    return is_bf16 ? std::max(wide_fwd_scores_smem<__nv_bfloat16>(), wide_fwd_out_smem<__nv_bfloat16>())
+                   : std::max(wide_fwd_scores_smem<float>(), wide_fwd_out_smem<float>());
   const int p = padded_hd(hd);
-  if (key_tiled && p > 1024)
-    return is_bf16 ? flash_chunked_smem_bytes<__nv_bfloat16>() : flash_chunked_smem_bytes<float>();
   if (key_tiled)
     return is_bf16 ? flash_smem_bytes<__nv_bfloat16>(flash_hd<__nv_bfloat16>(p))
                    : flash_smem_bytes<float>(flash_hd<float>(p));
   return is_bf16 && p >= 16 ? attn_mma_smem_bytes(n, p) : attn_smem_bytes(n, p);
+}
+
+// Floats of scratch a launch at these shapes needs: the wide forward's
+// planes above head_dim 256, else none.
+size_t attn_scratch_floats(int b, int m, int n, int hd, int heads) {
+  return hd > kWideFwdMinHd ? WideFwdPlanes::floats(b, m, n, heads) : 0;
 }
 
 // q, k and v start on kChunk-element boundaries (the head offsets and row
@@ -2156,8 +2202,9 @@ bool attn_vec_ok(const AttnArgs& a, bool kv_scratch) {
   return true;
 }
 
-// The key-tiled kernel's 16-byte copies: every row starts on a 16-byte
-// boundary (q, k, v, C and the head offsets) and hd fills whole chunks.
+// The key-tiled and the wide forward's 16-byte copies: every row starts on
+// a 16-byte boundary (q, k, v, C and the head offsets) and hd fills whole
+// chunks.
 template <typename T>
 bool flash_vec_ok(const AttnArgs& a, bool kv_scratch) {
   constexpr int CH = 16 / (int)sizeof(T);
@@ -2197,10 +2244,9 @@ cudaError_t attn_run_t(AttnArgs a, float scale, long long* info, cudaStream_t st
   if (a.heads < 1 || a.c % a.heads || a.tiles < 1 || a.tiles > 65535)
     return cudaErrorInvalidValue;
   a.hd = a.c / a.heads;
-  if (padded_hd(a.hd) > 1024) {
-    if (!a.key_tiled) return cudaErrorInvalidValue;
+  if (a.hd > kWideFwdMinHd) {
     if (info == nullptr) a.vec = flash_vec_ok<T>(a, kKvScratch);
-    return attn_flash_chunked_run<T, kKvScratch>(a, scale, info, stream);
+    return attn_wide_run<T, kKvScratch>(a, scale, info, stream);
   }
   switch (padded_hd(a.hd)) {
     case 1: return attn_run_hd<T, 1, kKvScratch>(a, scale, info, stream);
@@ -2212,8 +2258,6 @@ cudaError_t attn_run_t(AttnArgs a, float scale, long long* info, cudaStream_t st
     case 64: return attn_run_hd<T, 64, kKvScratch>(a, scale, info, stream);
     case 128: return attn_run_hd<T, 128, kKvScratch>(a, scale, info, stream);
     case 256: return attn_run_hd<T, 256, kKvScratch>(a, scale, info, stream);
-    case 512: return attn_run_hd<T, 512, kKvScratch>(a, scale, info, stream);
-    case 1024: return attn_run_hd<T, 1024, kKvScratch>(a, scale, info, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2241,11 +2285,13 @@ int attn_occupancy(int is_bf16, int m, int n, int c, int heads, int key_tiled, l
 }
 
 // The attention over the k|v scratch that the LN + projection GEMM
-// writes, each window's rows in `tiles` tiles, by the key-tiled kernel
-// (key_tiled 1) or all keys at once (0).
+// writes: above head_dim 256 the wide forward over `scratch`
+// (attn_scratch_floats floats), else each window's rows in `tiles` tiles,
+// by the key-tiled kernel (key_tiled 1) or all keys at once (0).
 template <typename T>
 cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles, int key_tiled,
-                              const float* bias, void* out, float scale, cudaStream_t stream) {
+                              const float* bias, void* out, float* scratch, float scale,
+                              cudaStream_t stream) {
   AttnArgs a{};
   a.b = p.b;
   a.m = p.m;
@@ -2259,6 +2305,7 @@ cudaError_t launch_block_attn(const LnProjArgs& p, int heads, int tiles, int key
   a.v = nullptr;
   a.bias = bias;
   a.out = out;
+  a.scratch = scratch;
   return attn_run_t<T, true>(a, scale, nullptr, stream);
 }
 

@@ -65,6 +65,9 @@ _KEYS_WARPS = 8  # its most warps of 16 rows: a row group of at most 128 rows (k
 _WIDE_SMEM = 4 * 64 * (2 * (64 + 4) + 2 * (32 + 4))
 ATTN_THREADS = 256  # threads of a forward attention block (kAttnThreads in csrc/window_common.cuh)
 FLASH_THREADS = 128  # threads of a key-tiled forward block, four 16-row tiles (kFlashThreads)
+WIDE_THREADS = 128  # threads of a wide forward block (kWideThreads in csrc/device_common.cuh)
+WIDE_FORWARD_HEAD_DIM = 256  # the wide forward takes every head_dim above this (kWideFwdMinHd)
+_WIDE_FWD_KEYS = 32  # keys of the wide forward's scores tile (kWideFwdKeys)
 
 
 class SwinBlockParams(NamedTuple):
@@ -274,22 +277,24 @@ _LL, _LLP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
 # (argtypes, restype) of each library's C functions
 _SIGNATURES = {
     "swin_block": {
-        # 11 ints, the score scale, 25 tensor pointers, 2 mask pointers and the stream
-        "swin_block_forward": ([_CI] * 11 + [_CF] + [_VP] * 28, _CI),
+        # 11 ints, the score scale, 25 tensor pointers, 2 mask pointers, the
+        # attention scratch and the stream
+        "swin_block_forward": ([_CI] * 11 + [_CF] + [_VP] * 29, _CI),
         "swin_block_smem_bytes": ([_CI] * 6 + [_LLP], None),
         "swin_block_attn_occupancy": ([_CI] * 6 + [_LLP], _CI),
     },
     "window_block": {
-        # 9 ints, the score scale, 16 tensor pointers and the stream
-        "window_block_forward": ([_CI] * 9 + [_CF] + [_VP] * 17, _CI),
+        # 9 ints, the score scale, 16 tensor pointers, the attention scratch and the stream
+        "window_block_forward": ([_CI] * 9 + [_CF] + [_VP] * 18, _CI),
         "window_block_smem_bytes": ([_CI] * 6 + [_LLP], None),
         "window_block_attn_occupancy": ([_CI] * 6 + [_LLP], _CI),
     },
     "window_attention": {
-        # 8 ints, the score scale, 5 tensor pointers and the stream
-        "window_attention_forward": ([_CI] * 8 + [_CF] + [_VP] * 6, _CI),
+        # 8 ints, the score scale, 5 tensor pointers, the scratch and the stream
+        "window_attention_forward": ([_CI] * 8 + [_CF] + [_VP] * 7, _CI),
         "window_attention_smem_bytes": ([_CI] * 6, _LL),
         "window_attention_occupancy": ([_CI] * 6 + [_LLP], _CI),
+        "window_attention_scratch_floats": ([_CI] * 5, _LL),
     },
     "attn_core_bwd": {
         # 8 ints, the score scale, 11 tensor pointers and the stream
@@ -331,15 +336,13 @@ def _refuse_grad(name: str, tensors) -> None:
 
 
 def _padded_head_dim(head_dim: int) -> int:
-    """The head_dim the kernels run ``head_dim`` at (``padded_hd`` in
-    csrc/device_common.cuh): the least of 1, 2, 4, ..., 1024 that holds it,
-    and above 1024 ``head_dim`` rounded up to a multiple of 256 (the chunked
-    key-tiled forward takes any of those); the columns past ``head_dim`` are
-    zeros."""
+    """The head_dim the kernels instantiated at powers of two run
+    ``head_dim`` at (``padded_hd`` in csrc/device_common.cuh): the least
+    power of two that holds it, the columns past ``head_dim`` zeros (the
+    forward up to head_dim 256, the backward up to 32; above those the wide
+    kernels take any head_dim as it is)."""
     if head_dim < 1:
         raise ValueError(f"head_dim {head_dim}: the attention kernels take head_dim 1 or more")
-    if head_dim > 1024:
-        return -(-head_dim // 256) * 256
     return 1 << (head_dim - 1).bit_length()
 
 
@@ -363,6 +366,17 @@ def _prepare_params(params, shapes: dict, dt: torch.dtype, device) -> dict:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _attn_scratch(b_: int, heads: int, m: int, n: int, c: int, device) -> Optional[torch.Tensor]:
+    """The forward attention's f32 scratch from the torch allocator
+    (``attn_forward_scratch_floats``), or None where it needs none."""
+    floats = attn_forward_scratch_floats(b_, heads, m, n, c // heads)
+    return torch.empty((floats,), dtype=torch.float32, device=device) if floats else None
 
 
 def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: int,
@@ -413,6 +427,7 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
     q = torch.empty((b_, m, c), dtype=dt, device=x.device)
     acc = torch.empty((b_, m, c), dtype=dt, device=x.device)
     out = torch.empty((b_, m, c), dtype=dt, device=x.device)
+    attn_scratch = _attn_scratch(b_, num_heads, m, n, c, x.device)
     # the MLP's scratch: the residual stream y (f32, as in the Pallas body)
     # and the hidden rows h (rounded to the operand type)
     y = torch.empty((b_, m, c), dtype=torch.float32, device=x.device)
@@ -427,11 +442,11 @@ def _launch_swin_block(x, ctr, params: SwinBlockParams, num_heads: int, q_ind: i
     rc = lib.swin_block_forward(
         int(dt == torch.bfloat16), act, d, b_, m, c, num_heads,
         hidden, q_ind, plan.tiles, int(plan.key_tiled), float((c // num_heads) ** -0.5),
-        *[t.data_ptr() for t in ptrs], *mask_ptrs, _stream(x),
+        *[t.data_ptr() for t in ptrs], *mask_ptrs, _ptr(attn_scratch), _stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"swin_block kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_swin_block_key_tiles" if plan.key_tiled else "fused_swin_block"] += 1
+    launch_counts[fwd_counter("fused_swin_block", plan)] += 1
     return out, acc
 
 
@@ -659,13 +674,36 @@ def attn_smem_bytes(n: int, head_dim: int, bf16: bool = False) -> int:
     return 4 * 2 * n * _key_stride(hd)
 
 
+def attn_wide(head_dim: int) -> bool:
+    """True above head_dim 256, where the wide forward runs
+    (``attn_wide_scores_kernel`` and ``attn_wide_out_kernel`` in
+    csrc/window_common.cuh): its blocks tile the keys, the rows and
+    64-column chunks of head_dim themselves, whatever the shapes."""
+    return head_dim > WIDE_FORWARD_HEAD_DIM
+
+
+def attn_forward_scratch_floats(b_: int, heads: int, m: int, n: int, head_dim: int) -> int:
+    """Floats of f32 scratch a forward attention launch needs
+    (``WideFwdPlanes::floats`` in csrc/window_common.cuh): above head_dim
+    256 the wide forward's score plane (B_ H, M, np), rows padded to np =
+    32-key tiles x 32, and each row's max and sum of exp a key tile, (B_ H,
+    tiles, M) each; else 0."""
+    if not attn_wide(head_dim):
+        return 0
+    tiles = -(-n // _WIDE_FWD_KEYS)
+    return b_ * heads * m * (tiles * _WIDE_FWD_KEYS + 2 * tiles)
+
+
 def attn_key_tiled(m: int, n: int, head_dim: int, bf16: bool = False) -> bool:
     """False where one block stages a window's k and v rows whole (the
-    kernels of ``attn_smem_bytes``, instantiated up to head_dim 32), else
-    True: the key-tiled forward (``attn_flash_kernel`` in
-    csrc/window_common.cuh) runs every row whose k and v do not fit and
-    every head_dim above 32. Its key tile and shared memory are constants of
-    its instantiation, which ``attn_forward_occupancy`` reads back."""
+    kernels of ``attn_smem_bytes``, instantiated up to head_dim 32) and
+    above head_dim 256 (``attn_wide``), else True: the key-tiled forward
+    (``attn_flash_kernel`` in csrc/window_common.cuh) runs every row whose
+    k and v do not fit and every head_dim from 33 to 256. Its key tile and
+    shared memory are constants of its instantiation, which
+    ``attn_forward_occupancy`` reads back."""
+    if attn_wide(head_dim):
+        return False
     return not (_padded_head_dim(head_dim) <= 32 and attn_smem_bytes(n, head_dim, bf16) <= _MAX_SMEM)
 
 
@@ -675,11 +713,20 @@ class AttnPlan(NamedTuple):
     query rows each) tile * warps + w + k * warps * tiles, k = 0, 1, ...;
     with ``key_tiled`` (``attn_key_tiled``), blocks of the key-tiled kernel
     take the window's 64-row groups (four warps of 16 rows) tile, tile +
-    tiles, ...."""
+    tiles, ...; with ``wide`` (``attn_wide``), the wide forward's blocks
+    tile the rows, keys and head_dim themselves (``tiles`` 1)."""
 
     tiles: int
     threads: int  # threads per block
     key_tiled: bool = False
+    wide: bool = False
+
+
+def fwd_counter(name: str, plan: AttnPlan) -> str:
+    """The launch counter of forward library ``name`` (``fused_swin_block``,
+    ``fused_window_block`` or ``fused_window_attention``) at ``plan``:
+    ``_wide`` for the wide forward, ``_key_tiles`` for the key-tiled one."""
+    return name + ("_wide" if plan.wide else "_key_tiles" if plan.key_tiled else "")
 
 
 def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: int,
@@ -690,9 +737,12 @@ def attn_forward_plan(b_: int, heads: int, m: int, n: int, head_dim: int, sms: i
     a card with ``sms`` SMs of which each holds ``blocks_per_sm`` of its
     blocks: the fewest tiles a window for which the blocks fill two waves
     of the card, and no more than leave each warp an item. Rows whose k and
-    v do not fit in one block, and head_dims above 32, take the key-tiled
-    kernel (``attn_key_tiled``), whose tiles are the window's 64-row groups.
-    A function of its arguments alone."""
+    v do not fit in one block, and head_dims from 33 to 256, take the
+    key-tiled kernel (``attn_key_tiled``), whose tiles are the window's
+    64-row groups; head_dims above 256 the wide forward (``attn_wide``). A
+    function of its arguments alone."""
+    if attn_wide(head_dim):
+        return AttnPlan(1, WIDE_THREADS, False, True)
     key_tiled = attn_key_tiled(m, n, head_dim, bf16)
     if key_tiled:
         warps, rows = FLASH_THREADS // 32, 16
@@ -712,7 +762,9 @@ def attn_forward_occupancy(lib_name: str, m: int, n: int, c: int, num_heads: int
     registers and spill bytes per thread (ptxas), dynamic shared memory per
     block, threads per block, resident blocks per SM, J (keys a lane keeps
     of a score row; 0 on the tensor cores), the key tile (0 but for the
-    key-tiled kernel, which ``attn_key_tiled`` picks) and the card's SMs."""
+    key-tiled kernel, which ``attn_key_tiled`` picks, and the wide forward,
+    whose scores tile it names; the wide forward reports the extremes of
+    its two kernels) and the card's SMs."""
     info = (ctypes.c_longlong * 7)()
     fn = {"window_attention": "window_attention_occupancy",
           "swin_block": "swin_block_attn_occupancy",
@@ -763,14 +815,15 @@ def _launch_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
     q, k, v = (t.contiguous() for t in (q, k, v))
     bias32 = bias.float().contiguous()
     out = torch.empty_like(q)
+    scratch = _attn_scratch(b_, num_heads, m, n, c, q.device)
     rc = lib.window_attention_forward(
         int(dt == torch.bfloat16), b_, m, n, c, num_heads, plan.tiles, int(plan.key_tiled),
         float((c // num_heads) ** -0.5),
-        *[t.data_ptr() for t in (q, k, v, bias32, out)], _stream(q),
+        *[t.data_ptr() for t in (q, k, v, bias32, out)], _ptr(scratch), _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"window_attention kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_window_attention_key_tiles" if plan.key_tiled else "fused_window_attention"] += 1
+    launch_counts[fwd_counter("fused_window_attention", plan)] += 1
     return out
 
 
@@ -804,17 +857,18 @@ def _launch_window_block(x, params: WindowBlockParams, num_heads: int, q_ind: in
     q = torch.empty((b_, m, c), dtype=dt, device=x.device)
     acc = torch.empty((b_, m, c), dtype=dt, device=x.device)
     out = torch.empty((b_, m, c), dtype=dt, device=x.device)
+    attn_scratch = _attn_scratch(b_, num_heads, m, d * m, c, x.device)
     ptrs = [
         x, p["norm_q_w"], p["norm_q_b"], p["norm_kv_w"], p["norm_kv_b"], p["q_w"], p["q_b"],
         p["kv_w"], p["kv_b"], p["proj_w"], p["proj_b"], p["bias"], kv, q, acc, out,
     ]
     rc = lib.window_block_forward(
         int(dt == torch.bfloat16), d, b_, m, c, num_heads, q_ind, plan.tiles, int(plan.key_tiled),
-        float((c // num_heads) ** -0.5), *[t.data_ptr() for t in ptrs], _stream(x),
+        float((c // num_heads) ** -0.5), *[t.data_ptr() for t in ptrs], _ptr(attn_scratch), _stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"window_block kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_window_block_key_tiles" if plan.key_tiled else "fused_window_block"] += 1
+    launch_counts[fwd_counter("fused_window_block", plan)] += 1
     return out, acc
 
 

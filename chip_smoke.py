@@ -127,16 +127,18 @@ reference's.
            with exact launch counts of each variant
   head_dims  every head_dim and C (ROADMAP C6-C9): the three forward
            libraries and the backward vs their twins at head_dim 3, 6, 12,
-           24, 48, 64, 96, 128, 256, 384, 512 and 2048, and at C 2048 over 8
-           heads (B_ 20, M 49, N 343), f32 and bf16,
-           repeated bit for bit, with times per launch beside the bound and
-           SDPA; the key-tiled forward at TILED_TIMING with its occupancy,
-           beside SDPA; then the flagship at full width with num_heads 4
-           (head_dim 16 / 64) and 2 (32 / 128), and at base 64 with one
-           head (128 / 512), at 184x240, T=3: eval forward kernel vs
-           unfused path (2e-4), one train step's loss and gradients
-           (1e-3), exact launch counts (the key-tiled forward and the wide
-           backward wherever head_dim is above 32)
+           24, 48, 64, 96, 128, 256, 300, 384, 512, 1024 and 2048, and at C
+           2048 over 8 heads (B_ 20, M 49, N 343), f32 and bf16, repeated
+           bit for bit, exact launches on the counter each plan names (the
+           wide forward above head_dim 256), with times per launch beside
+           the bound and SDPA; the key-tiled forward at TILED_TIMING with
+           its occupancy, beside SDPA; then the flagship at full width with
+           num_heads 4 (head_dim 16 / 64) and 2 (32 / 128), and at base 64
+           with one head (128 / 512), at 184x240, T=3: eval forward kernel
+           vs unfused path (2e-4), one train step's loss and gradients
+           (1e-3), exact launch counts (the key-tiled forward from head_dim
+           33 to 256, the wide forward above it, the wide backward above
+           32)
   lpips    LPIPS (ROADMAP A9) with seeded weights, alex, vgg and squeeze:
            card vs CPU at 180x240 (1e-5 relative), one 32-frame chunk timed
            beside its bound; on seeded alex.pth / lin.pth files the eval CLI
@@ -206,9 +208,10 @@ reference's.
            features: card vs CPU (1e-5), forward and forward+backward ms;
            no hand-written kernel launches
 
-Then the kernel summary line, the card's name and power limit, and
-{"ok": true, "device": {...}} as the last line. TF32 is off for matmuls and
-convolutions, so f32 comparisons are exact-f32 on both sides.
+Then the seconds of each phase, the kernel summary line, the card's name
+and power limit, and {"ok": true, "device": {...}} as the last line. TF32
+is off for matmuls and convolutions, so f32 comparisons are exact-f32 on
+both sides.
 """
 
 from __future__ import annotations
@@ -304,12 +307,13 @@ TILED_BWD_ROWS = ((4, 49, 7197), (16, 49, 1401), (4, 64, 7177), (16, 64, 1385), 
                   (4, 49, 7399))
 # head dims (ROADMAP C6, C7): the kernel cases' head_dims between and above
 # the flagship's 4 and 16 with their heads (C at most 256 up to head_dim
-# 256, one head above it), and the head_dims phase's flagship versions
-# (generator overrides): num_heads 4 (head_dim 16 at level 0, 64 at level
-# 2), 2 (32 and 128), and base 64 with one head (128 and 512, C7's
-# configuration: about 4x the flagship's parameters)
-HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 384: 1, 512: 1,
-                  2048: 1}
+# 256, one head above it, where the wide forward runs: 300 and 2048 are no
+# power of two, 300 no whole 64-column chunks), and the head_dims phase's
+# flagship versions (generator overrides): num_heads 4 (head_dim 16 at
+# level 0, 64 at level 2), 2 (32 and 128), and base 64 with one head (128
+# and 512, C7's configuration: about 4x the flagship's parameters)
+HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 300: 1, 384: 1,
+                  512: 1, 1024: 1, 2048: 1}
 # the kernel cases' (head_dim, heads) pairs: HEAD_DIM_HEADS, then C 2048
 # over 8 heads (ROADMAP C9: B1's and B3's LN GEMMs stream their rows above
 # C 1664 in f32, 1088 in bf16; head_dim 2048 above is C8 and C9 at once)
@@ -1662,13 +1666,13 @@ def fwd_core_case(torch, q, k, v, bias, heads, **labels):
     launch counter of the kernel its plan picks, its time (CUDA events over
     calls, and device_ms), the twin's, torch's SDPA forward and the bound."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
-        attn_plan_for, fused_window_attention, launch_counts, window_attention_reference)
+        attn_plan_for, fused_window_attention, fwd_counter, launch_counts, window_attention_reference)
 
     name = str(q.dtype).split(".")[-1]
     b, m, c = q.shape
     n = k.shape[1]
     plan = attn_plan_for("window_attention", b, m, n, c, heads, q.dtype, 0)
-    counter = "fused_window_attention" + ("_key_tiles" if plan.key_tiled else "")
+    counter = fwd_counter("fused_window_attention", plan)
     before = launch_counts[counter]
     with torch.no_grad():
         got = fused_window_attention(q, k, v, bias, heads)
@@ -1872,14 +1876,16 @@ def phase_kernels_head_dims(torch):
     head_dim and head count (head_dim 3 to 2048, and C 2048 over 8 heads),
     f32 and bf16, at the flagship's level-2 windows over 7 frames (B_ 20, M
     49, N 343), each repeated bit for bit, the launch counted on the
-    variant its plan names (key-tiled forward and wide backward above
-    head_dim 32), with times per launch beside the bound; then the
-    key-tiled forward at TILED_TIMING through attn_tiled_times. Returns
-    the backward cases at the head_dims phase's level-2 shapes (head_dim 64
-    and 128 at C 256), which take the wide kernel."""
+    variant its plan names (the key-tiled forward from head_dim 33 to 256,
+    the wide forward above it, the wide backward above 32), with times per
+    launch beside the bound; then the key-tiled forward at TILED_TIMING
+    through attn_tiled_times. Returns the backward cases at the head_dims
+    phase's level-2 shapes (head_dim 64 and 128 at C 256), which take the
+    wide backward, and the forward cases at head_dim 512 (the base-64,
+    one-head model's level 2), which take the wide forward."""
     from bde2vid_tpu_torch.ops.window_attn_cuda import (
-        WindowBlockParams, attn_core_bwd_plan, attn_key_tiled, bwd_counter, fused_swin_block,
-        fused_window_attention, fused_window_block, launch_counts, swin_block_reference,
+        WindowBlockParams, attn_core_bwd_plan, attn_forward_plan, bwd_counter, fused_swin_block,
+        fused_window_attention, fused_window_block, fwd_counter, launch_counts, swin_block_reference,
         window_block_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -1908,13 +1914,13 @@ def phase_kernels_head_dims(torch):
             fwd.append({**case, "bitwise_repeat": True})
             x, ctr, p = x32.to(dt), c32.to(dt), operand_weights(p32, dt)
             pw = WindowBlockParams(*p[:10], p.bias)
-            tiled = attn_key_tiled(m, n, hd, dt == torch.bfloat16)
+            plan = attn_forward_plan(b, heads, m, n, hd, 132, 1, dt == torch.bfloat16)
             for lib, fn, twin in (
                     ("swin_block", lambda: fused_swin_block(x, ctr, p, heads, d // 2, with_acc=True),
                      lambda: swin_block_reference(x, ctr, p, heads, d // 2, with_acc=True)),
                     ("window_block", lambda: fused_window_block(x, pw, heads, d // 2, with_acc=True),
                      lambda: window_block_reference(x, pw, heads, d // 2, with_acc=True))):
-                counter = f"fused_{lib}" + ("_key_tiles" if tiled else "")
+                counter = fwd_counter(f"fused_{lib}", plan)
                 before = launch_counts[counter]
                 with torch.no_grad():
                     got, again, ref = fn(), fn(), twin()
@@ -1930,7 +1936,7 @@ def phase_kernels_head_dims(torch):
                                  window_block_cost(d, b, m, c, heads, x.element_size(), True))
                 with torch.no_grad():
                     blocks.append({"library": lib, "head_dim": hd, "heads": heads, "dtype": name,
-                                   "key_tiles": tiled, "max_abs_err": max(errs), "bitwise_repeat": True,
+                                   "kernel": counter, "max_abs_err": max(errs), "bitwise_repeat": True,
                                    "kernel_ms": cuda_ms(torch, fn, 10), "plain_ms": cuda_ms(torch, twin, 3, 1),
                                    "bound_ms": 1e3 * max(flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES)})
             counter = bwd_counter(attn_core_bwd_plan(m, n, c, heads), hd)
@@ -1946,7 +1952,10 @@ def phase_kernels_head_dims(torch):
                     "calls queued behind a spin kernel); library = torch SDPA forward (bias as "
                     "attn_mask) / SDPA backward alone; tiled_forward: attn_tiled_times",
           "forward": fwd, "block_stages": blocks, "backward": bwd, "tiled_forward": tiled})
-    return [c for c in bwd if c["head_dim"] in ("64", "128")]
+    wide_fwd = [{**c, "level": "level2"} for c in fwd if c["head_dim"] == 512]
+    if not all(c["plan"]["wide"] for c in wide_fwd):
+        raise AssertionError("head dims: head_dim 512 does not take the wide forward")
+    return [c for c in bwd if c["head_dim"] in ("64", "128")], wide_fwd
 
 
 def phase_head_dims(torch, launch_counts):
@@ -1954,12 +1963,14 @@ def phase_head_dims(torch, launch_counts):
     num_heads 4 (head_dim 16 at level 0, 64 at level 2) and 2 (32 and 128),
     and at base 64 with one head (128 and 512), at 184x240, T=3: the eval
     forward on the kernel path (the key-tiled forward at every level whose
-    head_dim is above 32) vs the unfused path within 2e-4, then one
-    train-mode step (DropPath 0) whose loss and gradients are within 1e-3 of
-    the unfused path's (compare_grads; the wide backward there), with exact
-    launch counts. Returns the wide backward's launches."""
+    head_dim is from 33 to 256, the wide forward above it) vs the unfused
+    path within 2e-4, then one train-mode step (DropPath 0) whose loss and
+    gradients are within 1e-3 of the unfused path's (compare_grads; the wide
+    backward there), with exact launch counts. Returns the launches of the
+    wide backward and of the wide forward (eval forward and train step)."""
     from bde2vid_tpu_torch.models import build_model
     from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
+    from bde2vid_tpu_torch.ops.window_attn_cuda import attn_forward_plan, fwd_counter
     from bde2vid_tpu_torch.train import SequenceLossComputer
 
     T = 3
@@ -1967,7 +1978,7 @@ def phase_head_dims(torch, launch_counts):
     vox = torch.from_numpy(rng.normal(size=(T, 1, 5, 184, 240)).astype(np.float32)).cuda()
     tgt = torch.from_numpy(rng.uniform(size=(T, 1, 1, 184, 240)).astype(np.float32)).cuda()
     comp = SequenceLossComputer([{"type": "L1Loss"}])
-    rows, wide = [], 0
+    rows, wide, wide_fwd = [], 0, 0
     for label, gen_cfg in HEAD_DIM_MODELS.items():
         cfg = model_config(FLAGSHIP_CFG)
         cfg["generator"].update(gen_cfg, drop_path_rate=0.0)
@@ -1981,11 +1992,12 @@ def phase_head_dims(torch, launch_counts):
         launch_counts.clear()
         img_kernel, kernel_ms = timed_forward(torch, model, vox)
         fwd_launches = dict(launch_counts)
-        # launches per level (4 and 6 blocks a frame): key-tiled forward and
-        # wide backward above head_dim 32
+        # launches per level (4 and 6 blocks a frame): the forward its plan
+        # names (key-tiled from head_dim 33 to 256, wide above), the wide
+        # backward above head_dim 32
         per_frame, step_want = {}, {}
         for hd, blocks in zip(head_dims, (4 * T, 6 * T)):
-            fwd_key = "fused_swin_block_key_tiles" if hd > 32 else "fused_swin_block"
+            fwd_key = fwd_counter("fused_swin_block", attn_forward_plan(20, heads, 49, 343, hd, 132, 1))
             bwd_key = "attn_core_backward_wide" if hd > 32 else "attn_core_backward"
             per_frame[fwd_key] = per_frame.get(fwd_key, 0) + blocks
             step_want[bwd_key] = step_want.get(bwd_key, 0) + blocks
@@ -2003,6 +2015,7 @@ def phase_head_dims(torch, launch_counts):
         expect_launches(f"head dims {label} step", step_launches, {**per_frame, **step_want})
         loss_u, grads_u, _ = _loss_and_grads(torch, model, comp, vox, tgt, launch_counts, False)
         wide += step_launches["attn_core_backward_wide"]
+        wide_fwd += sum(launches.get("fused_swin_block_wide", 0) for launches in (fwd_launches, step_launches))
         rows.append({"model": label, "basechannels": base, "num_heads": heads, "head_dims": head_dims,
                      "parameters": sum(p.numel() for p in model.parameters()), "T": T,
                      "hw": [184, 240], "forward_launches": fwd_launches,
@@ -2012,7 +2025,9 @@ def phase_head_dims(torch, launch_counts):
                      **compare_grads(f"head dims {label} step", loss_k, grads_k, loss_u, grads_u)})
         del model
     emit({"phase": "head_dims", "models": rows})
-    return wide
+    if not wide_fwd:
+        raise AssertionError("head dims: no model launched the wide forward")
+    return wide, wide_fwd
 
 
 def phase_kernels_long_rows(torch):
@@ -2340,7 +2355,7 @@ def attn_tiled_times(torch, iters=50):
             def tiled():
                 rc = lib.window_attention_forward(
                     int(bf16), b, m, n, c, heads, tiles, 1, float(hd ** -0.5),
-                    *[t.data_ptr() for t in (q, k, v, bias, out)], wac._stream(q))
+                    *[t.data_ptr() for t in (q, k, v, bias, out)], None, wac._stream(q))
                 if rc:
                     raise RuntimeError(f"window_attention_forward: CUDA error {rc}")
 
@@ -4494,7 +4509,16 @@ def main(argv=None) -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    phase_build()
+    seconds = {}
+
+    def timed(fn, *fn_args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*fn_args)
+        finally:
+            seconds[fn.__name__] = round(time.perf_counter() - t0, 1)
+
+    timed(phase_build)
     if args.only is not None:
         {"scale_out": phase_scale_out, "scale_out_torchrun": phase_scale_out_torchrun,
          "spatial": phase_spatial}[args.only](torch, launch_counts, card)
@@ -4502,30 +4526,31 @@ def main(argv=None) -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
-    cases = phase_kernels(torch)
-    bwd_cases = phase_kernels_training(torch)
-    long_cases = phase_kernels_long_rows(torch)
-    block_cases, attn_cases = phase_kernels_window(torch)
-    attn_launches = phase_attention(torch, launch_counts)
-    phase_model(torch, launch_counts)
-    phase_parallel(torch, launch_counts)
-    eval_launches = phase_eval(torch, launch_counts, card)
-    phase_backends(torch, launch_counts, card)
-    phase_step_models(torch, launch_counts, card)
-    phase_packing(torch, card)
-    phase_grads(torch, launch_counts)
-    phase_variants(torch, launch_counts)
-    bwd_launches, long_launches = phase_train(torch, launch_counts, card)
-    tiled_fwd_cases, tiled_bwd_cases = phase_kernels_key_tiles(torch)
-    tiled_fwd_launches, tiled_bwd_launches = phase_key_tiles(torch, launch_counts)
-    wide_cases = phase_kernels_head_dims(torch)
-    wide_launches = phase_head_dims(torch, launch_counts)
-    phase_lpips(torch, launch_counts, card)
-    phase_serving(torch, launch_counts, card)
-    phase_scale_out(torch, launch_counts, card)
-    phase_spatial(torch, launch_counts, card)
-    phase_events(torch, launch_counts, card)
-    phase_deform(torch, launch_counts, card)
+    cases = timed(phase_kernels, torch)
+    bwd_cases = timed(phase_kernels_training, torch)
+    long_cases = timed(phase_kernels_long_rows, torch)
+    block_cases, attn_cases = timed(phase_kernels_window, torch)
+    attn_launches = timed(phase_attention, torch, launch_counts)
+    timed(phase_model, torch, launch_counts)
+    timed(phase_parallel, torch, launch_counts)
+    eval_launches = timed(phase_eval, torch, launch_counts, card)
+    timed(phase_backends, torch, launch_counts, card)
+    timed(phase_step_models, torch, launch_counts, card)
+    timed(phase_packing, torch, card)
+    timed(phase_grads, torch, launch_counts)
+    timed(phase_variants, torch, launch_counts)
+    bwd_launches, long_launches = timed(phase_train, torch, launch_counts, card)
+    tiled_fwd_cases, tiled_bwd_cases = timed(phase_kernels_key_tiles, torch)
+    tiled_fwd_launches, tiled_bwd_launches = timed(phase_key_tiles, torch, launch_counts)
+    wide_bwd_cases, wide_fwd_cases = timed(phase_kernels_head_dims, torch)
+    wide_bwd_launches, wide_fwd_launches = timed(phase_head_dims, torch, launch_counts)
+    timed(phase_lpips, torch, launch_counts, card)
+    timed(phase_serving, torch, launch_counts, card)
+    timed(phase_scale_out, torch, launch_counts, card)
+    timed(phase_spatial, torch, launch_counts, card)
+    timed(phase_events, torch, launch_counts, card)
+    timed(phase_deform, torch, launch_counts, card)
+    emit({"phase_seconds": seconds})
 
     def per_frame(cases, key, blocks):
         # f32, per frame of the configuration: ``blocks`` launches per level,
@@ -4557,9 +4582,12 @@ def main(argv=None) -> int:
     # 8x8 frame (its 2 + 3 even dilated blocks, without acc), B4 at the same
     # 8x8 shapes, and the two key-tiled variants per frame of the flagship
     # with 31 buffer frames (its 6 level-2 blocks; the forward timed as the
-    # bare core, the kernel B1's attention stage runs there), and the wide
+    # bare core, the kernel B1's attention stage runs there), the wide
     # backward per level-2 frame of the flagship with num_heads 4 and 2 (6
-    # launches, the mean of head_dim 64 and 128 at C 256)
+    # launches, the mean of head_dim 64 and 128 at C 256), and the wide
+    # forward per level-2 frame of the flagship at base 64 with one head (6
+    # launches at head_dim 512, timed as the bare core, B1's attention
+    # stage there)
     no_acc = [c for c in block_cases if not c["with_acc"]]
     attn_8 = [c for c in attn_cases if c["config"] == "8x8"]
     emit({"kernels": [
@@ -4578,7 +4606,9 @@ def main(argv=None) -> int:
         summary("attn_core_backward_key_tiles", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
                 tiled_bwd_cases, tiled_bwd_launches, {"level2": 6}, True),
         summary("attn_core_backward_wide", "bde2vid_tpu_torch/ops/csrc/attn_core_bwd.cu", 271,
-                wide_cases, wide_launches, {"level2": 6}, True),
+                wide_bwd_cases, wide_bwd_launches, {"level2": 6}, True),
+        summary("attn_forward_wide", "bde2vid_tpu_torch/ops/csrc/window_common.cuh", 89,
+                wide_fwd_cases, wide_fwd_launches, {"level2": 6}, True),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,13 +97,13 @@ def test_plan_refuses_keys_that_do_not_fit_one_block():
     """Keys that do not fit one block take the key-tiled kernel (they
     raised before it existed). The one-sweep key-tiled kernel keeps its
     rows' statistics in registers and its tile is a constant of its build,
-    so its shared memory does not grow with M and 1000 query rows plan too;
-    nor does it grow with head_dim, whose scores sum over 256-column chunks
-    above 1024, so no head_dim is refused (ROADMAP C8, repaired; C7 repaired
-    the refusal above 256)."""
+    so its shared memory does not grow with M and 1000 query rows plan too.
+    Above head_dim 256 the wide forward, whose blocks tile the keys, rows
+    and head_dim, takes every shape, so no head_dim is refused (ROADMAP C7
+    and C8, repaired)."""
     plan = attn_forward_plan(1, 1, 4, 2000, 32, SMS, 1)
     assert plan.key_tiled and attn_smem_bytes(2000, 32) > 232448
     assert plan.threads == FLASH_THREADS
     assert attn_forward_plan(1, 1, 1000, 2000, 32, SMS, 1).key_tiled
-    assert attn_forward_plan(1, 1, 4, 2000, 512, SMS, 1).key_tiled
-    assert attn_forward_plan(1, 1, 4, 2000, 2048, SMS, 1).key_tiled
+    assert attn_forward_plan(1, 1, 4, 2000, 512, SMS, 1).wide
+    assert attn_forward_plan(1, 1, 4, 2000, 2048, SMS, 1).wide

@@ -1,11 +1,12 @@
 """Every head_dim from 1 to 256 through the attention kernels' plans and
 twins (ROADMAP C6, repaired): a head_dim between the instantiated ones (1,
-2, 4, ..., 1024) runs at the next one up with zero columns past its own, and
+2, 4, ..., 256) runs at the next one up with zero columns past its own, and
 above 32 the forward takes the key-tiled kernel and the backward the wide
-backward; above 256 both plans take them too (ROADMAP C7, repaired; head
-dims 320 to 1024 in tests/test_torch_attn_wide_backward.py), and above 1024
-as well, the forward by its chunked key-tiled kernel (ROADMAP C8,
-repaired; head_dim 2048 in tests/test_torch_attn_tiled_backward.py).
+backward; above 256 the forward takes the wide forward and the backward
+still the wide backward (ROADMAP C7 and C8, repaired; head dims 320 to
+1024 in tests/test_torch_attn_wide_backward.py, head_dim 2048 in
+tests/test_torch_attn_tiled_backward.py, the wide forward's arithmetic in
+tests/test_torch_attn_wide_forward.py).
 
 On the CPU: the plans at the head dims the flagship's widths give with 1 to
 16 heads (3 to 256) and at the buffers of 7, 9, 31 and 61 frames; the twins
@@ -29,6 +30,8 @@ from bde2vid_tpu.ops.window_attn_pallas import fused_window_attention as jax_att
 from bde2vid_tpu_torch.nn.window_attention import set_attention_kernel
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
     FLASH_THREADS,
+    WIDE_FORWARD_HEAD_DIM,
+    WIDE_THREADS,
     _MAX_SMEM,
     _check_head_dim,
     _heads,
@@ -54,18 +57,22 @@ KEY_TILES = (16, 32, 64)  # the key-tiled forward's tiles (flash_key_tile in csr
 def test_plans_take_every_head_dim_and_the_launch_checks_accept_them(hd, bf16):
     """The forward and backward plans return at every N, in a block that
     fits; the launchers' head_dim check accepts the shapes; above head_dim
-    32 every row takes the key-tiled forward and the wide backward."""
+    32 every row takes the wide backward and the key-tiled forward, above
+    the hand-over (256) the wide forward."""
     heads = HEADS[hd]
     c = heads * hd
     _check_head_dim(c, heads)
     for n in KEYS:
         m = 64 if n == 448 else 49
         fwd = attn_forward_plan(20, heads, m, n, hd, sms=132, blocks_per_sm=1, bf16=bf16)
-        if fwd.key_tiled:
+        if fwd.wide:
+            assert fwd.threads == WIDE_THREADS and not fwd.key_tiled
+        elif fwd.key_tiled:
             assert fwd.threads == FLASH_THREADS
         else:
             assert hd <= 32 and attn_smem_bytes(n, hd, bf16) <= _MAX_SMEM
-        assert fwd.key_tiled or hd <= 32
+        assert fwd.wide == (hd > WIDE_FORWARD_HEAD_DIM)
+        assert fwd.key_tiled or fwd.wide or hd <= 32
         bwd = attn_core_bwd_plan(m, n, c, heads)
         assert bwd.smem_bytes <= _MAX_SMEM
         assert (bwd_counter(bwd, hd) == "attn_core_backward_wide") == (hd > 32)
@@ -83,11 +90,12 @@ def test_head_dim_check_takes_the_flagship_widths_at_any_head_count(c, heads):
 def test_head_dims_above_256_raise_value_error_in_both_plans():
     """ROADMAP C7 and C8, repaired: no head_dim raises any longer. One head
     at base 64 or 128 (head_dim 512 or 1024) and above 1024 (1536, 2048 and
-    2049, which the chunked key-tiled forward runs at a multiple of 256)
-    plans in both plans and passes the launch check: the key-tiled forward
-    and the wide backward."""
-    for hd, padded in ((512, 512), (1024, 1024), (1536, 1536), (2048, 2048), (2049, 2304)):
-        assert attn_forward_plan(20, 1, 49, 343, hd, sms=132, blocks_per_sm=1).key_tiled
+    2049, which the wide forward runs as they are: padded_hd is the power
+    of two of the kernels instantiated at one, none of them above 256)
+    plans in both plans and passes the launch check: the wide forward and
+    the wide backward."""
+    for hd, padded in ((512, 512), (1024, 1024), (1536, 2048), (2048, 2048), (2049, 4096)):
+        assert attn_forward_plan(20, 1, 49, 343, hd, sms=132, blocks_per_sm=1).wide
         plan = attn_core_bwd_plan(49, 343, hd, 1)
         assert plan.smem_bytes <= _MAX_SMEM and bwd_counter(plan, hd) == "attn_core_backward_wide"
         assert _padded_head_dim(hd) == padded

@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 from bde2vid_tpu.ops.window_attn_pallas import fused_window_attention as jax_attention
 from bde2vid_tpu_torch.ops.window_attn_cuda import (
-    FLASH_THREADS,
+    WIDE_THREADS,
     _MAX_SMEM,
     _check_head_dim,
     _heads,
@@ -43,13 +43,13 @@ LOG2E = 1.4426950408889634
 @pytest.mark.parametrize("n", [343, 1519])
 def test_plans_and_launch_checks_take_head_dims_up_to_1024(hd, n):
     """One head of head_dim 320 to 1024 (the flagship at base 64 and 128
-    gives 512 and 1024 at level 2): both plans return, key-tiled forward
-    and wide backward, within one block's shared memory, and the launchers'
+    gives 512 and 1024 at level 2): both plans return, wide forward and
+    wide backward, within one block's shared memory, and the launchers'
     check accepts the width."""
     _check_head_dim(hd, 1)
     for bf16 in (False, True):
         fwd = attn_forward_plan(20, 1, 49, n, hd, sms=132, blocks_per_sm=1, bf16=bf16)
-        assert fwd.key_tiled and fwd.threads == FLASH_THREADS and attn_key_tiled(49, n, hd, bf16)
+        assert fwd.wide and fwd.threads == WIDE_THREADS and not attn_key_tiled(49, n, hd, bf16)
     bwd = attn_core_bwd_plan(49, n, hd, 1)
     assert bwd_counter(bwd, hd) == "attn_core_backward_wide"
     assert bwd.row_share == 0 and not bwd.key_tiles and bwd.smem_bytes <= _MAX_SMEM

@@ -922,7 +922,7 @@ def test_cuda_key_tiled_forward_occupancy_and_smem_are_the_plans(cuda_device, li
 # Head dims between and above the instantiated ones (ROADMAP C6 and C7,
 # repaired): each runs at the next instantiated head_dim with zero columns
 # past its own; above 32 the forward takes the key-tiled kernel (above 256
-# in column chunks) and the backward the wide backward. Heads per head_dim,
+# the wide forward) and the backward the wide backward. Heads per head_dim,
 # so that C stays at most 256 up to head_dim 256 (one head above it).
 _HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256: 1, 384: 1, 512: 1,
                    1024: 1, 1536: 1, 2048: 1}
@@ -932,19 +932,19 @@ _HEAD_DIM_HEADS = {3: 16, 6: 16, 12: 16, 24: 8, 48: 4, 64: 4, 96: 2, 128: 2, 256
 @pytest.mark.parametrize("hd", sorted(_HEAD_DIM_HEADS))
 def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
     """The bare core, the Swin block and the WindowAttention3D body (with
-    acc) at head_dim 3 to 2048 (above 1024 the chunked key-tiled forward,
-    and B1's and B3's LN GEMMs streaming their rows: ROADMAP C8 and C9), M
-    49 and N 147, f32 and bf16: each matches
-    its twin, repeats bit for bit and counts the variant its plan names
-    (key-tiled exactly above head_dim 32)."""
+    acc) at head_dim 3 to 2048 (above 256 the wide forward, and above 1024
+    B1's and B3's LN GEMMs streaming their rows: ROADMAP C8 and C9), M 49
+    and N 147, f32 and bf16: each matches its twin, repeats bit for bit and
+    counts the variant its plan names (key-tiled exactly from head_dim 33 to
+    256, wide above)."""
     heads, m, d, b_ = _HEAD_DIM_HEADS[hd], 49, 3, 5
     c = heads * hd
     q, k, v, bias = _attn_inputs(hd, b_, m, d * m, c, heads, cuda_device)
     x, ctr, p = _flat_inputs(hd, d, b_, m, c, heads, cuda_device)
     pb = _block_params(p)
     for dt in (torch.float32, torch.bfloat16):
-        tiled = wac.attn_key_tiled(m, d * m, hd, dt == torch.bfloat16)
-        assert tiled == (hd > 32)
+        plan = wac.attn_forward_plan(b_, heads, m, d * m, hd, 132, 1, dt == torch.bfloat16)
+        assert plan.key_tiled == (32 < hd <= 256) and plan.wide == (hd > 256)
         ins = [t.to(dt) for t in (q, k, v)]
         xd, cd = x.to(dt), ctr.to(dt)
         cases = (
@@ -959,7 +959,7 @@ def test_cuda_forward_libraries_match_twins_at_each_head_dim(cuda_device, hd):
             before = dict(launch_counts)
             got, again, ref = fn(), fn(), twin()
             torch.cuda.synchronize()
-            assert _launched(before) == {name + ("_key_tiles" if tiled else ""): 2}, (name, dt)
+            assert _launched(before) == {wac.fwd_counter(name, plan): 2}, (name, dt)
             for a, b, r in zip(got, again, ref):
                 assert torch.equal(a, b), (name, dt)
                 assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (name, dt)
@@ -1078,11 +1078,13 @@ def test_cuda_blocks_at_c2048_match_twins(cuda_device, heads):
     """B1 and B3 at C 2048 (head_dim 256 and 128; ROADMAP C9, repaired):
     their LN GEMMs stream the rows that no longer fit resident, f32 and
     bf16 (B1's LN2 -> MLP with its f32 y rows), matching the twins bit for
-    bit on repeat."""
+    bit on repeat; the attention on the key-tiled forward's counter."""
     m, d, b_, c = 49, 3, 4, 2048
     x, ctr, p = _flat_inputs(heads, d, b_, m, c, heads, cuda_device)
     pb = _block_params(p)
     for dt in (torch.float32, torch.bfloat16):
+        plan = wac.attn_forward_plan(b_, heads, m, d * m, c // heads, 132, 1, dt == torch.bfloat16)
+        assert plan.key_tiled
         xd, cd = x.to(dt), ctr.to(dt)
         for name, fn, twin in (
                 ("fused_swin_block", lambda: fused_swin_block(xd, cd, p, heads, 1, with_acc=True),
@@ -1092,7 +1094,7 @@ def test_cuda_blocks_at_c2048_match_twins(cuda_device, heads):
             before = dict(launch_counts)
             got, again, ref = fn(), fn(), twin()
             torch.cuda.synchronize()
-            assert _launched(before) == {name + "_key_tiles": 2}, (name, dt)
+            assert _launched(before) == {wac.fwd_counter(name, plan): 2}, (name, dt)
             for a, b, r in zip(got, again, ref):
                 assert torch.equal(a, b), (name, dt)
                 assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (name, dt)
@@ -1101,9 +1103,9 @@ def test_cuda_blocks_at_c2048_match_twins(cuda_device, heads):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128, 256, 384, 512])
 def test_cuda_key_tiled_forward_at_large_head_dims(cuda_device, hd):
-    """The key-tiled forward at head_dim 64 to 512 over rows of 343,
-    1519 and 2989 keys (7, 31 and 61 frames of 7x7 windows), f32 and bf16,
-    repeated bit for bit."""
+    """The key-tiled forward at head_dim 64 to 256, and the wide forward
+    at 384 and 512, over rows of 343, 1519 and 2989 keys (7, 31 and 61
+    frames of 7x7 windows), two heads, f32 and bf16, repeated bit for bit."""
     heads = 2
     for n in (343, 1519, 2989):
         q, k, v, bias = _attn_inputs(n, 3, 49, n, heads * hd, heads, cuda_device)
@@ -1114,9 +1116,95 @@ def test_cuda_key_tiled_forward_at_large_head_dims(cuda_device, hd):
             again = fused_window_attention(*ins, bias, heads)
             ref = window_attention_reference(*ins, bias, heads)
             torch.cuda.synchronize()
-            assert _launched(before) == {"fused_window_attention_key_tiles": 2}
+            want = "fused_window_attention" + ("_wide" if hd > 256 else "_key_tiles")
+            assert _launched(before) == {want: 2}
             assert torch.equal(got, again)
             assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt), (n, dt)
+
+
+# The wide forward above head_dim 256 (attn_wide_scores_kernel and
+# attn_wide_out_kernel): head dims whose rows are no whole 64-column chunks
+# (257, 300, 2049: no 16-byte copies in bf16, none at all at 257 and 2049)
+# and whole ones (384, 1024), one head.
+_WIDE_HEAD_DIMS = (257, 300, 384, 1024, 2049)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", _WIDE_HEAD_DIMS)
+def test_cuda_wide_forward_matches_twin_and_repeats_exactly(cuda_device, hd):
+    """The bare core on the wide forward at M 49, 64 and 144 (one to five
+    row tiles of its two launches) against N 147, 343 and 1519 (ragged last
+    key tiles), f32 and bf16: within the kernel-vs-twin gates, two runs bit
+    for bit, exactly one launch a call on its own counter."""
+    b_ = 3
+    for m, n in ((49, 147), (64, 343), (144, 1519)):
+        q, k, v, bias = _attn_inputs(hd + m + n, b_, m, n, hd, 1, cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            assert wac.attn_forward_plan(b_, 1, m, n, hd, 132, 1, dt == torch.bfloat16).wide
+            ins = [t.to(dt) for t in (q, k, v)]
+            before = dict(launch_counts)
+            got = fused_window_attention(*ins, bias, 1)
+            again = fused_window_attention(*ins, bias, 1)
+            torch.cuda.synchronize()
+            assert _launched(before) == {"fused_window_attention_wide": 2}, (m, n, dt)
+            ref = window_attention_reference(*ins, bias, 1)
+            assert torch.equal(got, again), (m, n, dt)
+            assert (got.float() - ref.float()).abs().max().item() <= _bound(ref, dt), (m, n, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", _WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("lib", ["swin_block", "window_block"])
+def test_cuda_wide_forward_as_the_block_attention_stage(cuda_device, hd, lib):
+    """B1's and B3's attention stage on the wide forward (k and v in the k|v
+    scratch): windows of 49 rows over 3 and 7 frames (N 147, 343) and of 144
+    rows (12x12) over 3 (N 432), f32 and bf16, with acc: within the gates of
+    the twins, two runs bit for bit, exactly one launch a call on the
+    library's wide counter."""
+    b_ = 2
+    for m, frames in ((49, 3), (49, 7), (144, 3)):
+        x, ctr, p = _flat_inputs(hd + m + frames, frames, b_, m, hd, 1, cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            xd, cd = x.to(dt), ctr.to(dt)
+            before = dict(launch_counts)
+            if lib == "swin_block":
+                fn = lambda: fused_swin_block(xd, cd, p, 1, frames // 2, with_acc=True)
+                ref = swin_block_reference(xd, cd, p, 1, frames // 2, with_acc=True)
+            else:
+                pb = _block_params(p)
+                fn = lambda: fused_window_block(xd, pb, 1, frames // 2, with_acc=True)
+                ref = window_block_reference(xd, pb, 1, frames // 2, with_acc=True)
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            assert _launched(before) == {f"fused_{lib}_wide": 2}, (m, frames, dt)
+            for a, b, r in zip(got, again, ref):
+                assert torch.equal(a, b), (m, frames, dt)
+                assert (a.float() - r.float()).abs().max().item() <= _bound(r, dt), (m, frames, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib", ["window_attention", "swin_block", "window_block"])
+def test_cuda_wide_forward_scratch_and_occupancy(cuda_device, lib):
+    """The wrappers' scratch size (attn_forward_scratch_floats) is the
+    library's own (window_attention_scratch_floats: WideFwdPlanes::floats)
+    above head_dim 256 and 0 at and below it; the occupancy query reports
+    the wide forward's blocks (its threads, the scores tile's 32 keys, the
+    shared memory the library's query gives, which grows with nothing)."""
+    index = torch.cuda.current_device()
+    lib_ = wac._lib("window_attention")
+    for b_, m, n, c, heads in ((20, 49, 343, 384, 1), (3, 144, 1519, 2049, 1), (5, 64, 448, 1024, 2),
+                               (20, 49, 343, 256, 1), (20, 49, 343, 128, 1), (7, 49, 147, 64, 4)):
+        assert lib_.window_attention_scratch_floats(b_, m, n, c, heads) == \
+            wac.attn_forward_scratch_floats(b_, heads, m, n, c // heads)
+    for hd, n in ((300, 343), (2049, 1519)):
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            occ = wac.attn_forward_occupancy(lib, 49, n, hd, 1, dt, index)
+            assert occ["threads"] == wac.WIDE_THREADS and occ["key_tile"] == 32
+            assert occ["blocks_per_sm"] >= 1 and occ["spill_bytes"] == 0
+            smem = lib_.window_attention_smem_bytes(int(bf16), 49, n, hd, 1, 0)
+            assert occ["smem_bytes"] == smem <= wac._MAX_SMEM
+            assert smem == lib_.window_attention_smem_bytes(int(bf16), 144, 2 * n, 2 * hd, 1, 0)
 
 
 @pytest.mark.cuda
